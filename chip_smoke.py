@@ -1,24 +1,33 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the 10,000-atom pairwise-EDM cell-list MD
-step of ``bench.py:bench_pairwise`` (well-tempered, RDF-targeted bias on a
-151-point grid, exact Hermite lookup, kernel_cap 24, overflow_cap 32,
-energy stride 10, the hills / 8 plain / rebuild stride cycle) — through
-its two CUDA kernels, and checks it against the kernels' plain PyTorch
-versions on the same card:
+Drives three paths of the port through their CUDA kernels and checks each
+kernel against its plain PyTorch version on the same card:
 
-  1. the card (nvidia-smi name and power limit) and the software versions;
-  2. the kernel build from ``edm_tpu_torch/csrc`` (nvcc, sm_90a);
-  3. each kernel against its plain version on the 10k bench state's
-     inputs: K1 at k = 24 and 32, energy on and off, and K2;
-  4. the slice: 20 steps at kT = 0 through the kernels, step for step
-     against the same run through the plain versions; then the bench's
-     kT = 0.8 run with the launch counters reset, its rate, host syncs
-     and end-state checks.
+  - the 10,000-atom pairwise-EDM cell-list MD step of
+    ``bench.py:bench_pairwise`` (well-tempered, RDF-targeted bias on a
+    151-point grid, kernel_cap 24, overflow_cap 32, energy stride 10, the
+    hills / 8 plain / rebuild stride cycle) with the exact Hermite lookup:
+    K1 ``cell_force_newton`` and K2 ``overflow_force``;
+  - the same step with the Chebyshev lookup (``pair_lookup="chebyshev"``,
+    4 panels of degree 16, refit after every hill round): K1 and K2 with
+    the Clenshaw chains (K3);
+  - ``bench.py:bench_deposition``: 200 hills per ``GaussGrid.add_value`` on
+    the periodic 1e6-point grid, K4 ``deposit_windowed_1d``; and one round
+    on a grid whose windows are wide, K5 ``deposit_dense_1d_kernel``.
 
-Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  The
-last line is ``{"ok": true, "device": {...}}``; any failed check raises,
-and the script exits non-zero without that line.
+Phases: the card (nvidia-smi name and power limit) and software versions;
+the kernel build from ``edm_tpu_torch/csrc`` (one nvcc per source, sm_90a);
+each kernel against its plain version at the main paths' shapes; per MD
+path 20 steps at kT = 0 through the kernels, each step held to the same
+step through the plain versions, then the bench's kT = 0.8 run with the
+launch counters reset (rate, host syncs, the device-busy share of a
+stride cycle, end-state checks); the deposition run (hills/s, host syncs,
+device-busy share).  It prints one ``kernels`` JSON line (launches,
+errors, times, the card's least time for the work) and, last,
+``{"ok": true, "device": {...}}``.
+
+Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  Any
+failed check raises, and the script exits non-zero without the last line.
 """
 
 from __future__ import annotations
@@ -29,12 +38,27 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 N_ATOMS = 10000  # the bench's 10k cell
 FORCE_REL = 2e-5  # kernel vs plain: |df| <= 2e-5 * max(1, max|f|)
 ENERGY_RTOL = 1e-5
+CHEB = dict(cheb_deg=16, cheb_panels=4)  # the bench's Chebyshev table
+# the H100 SXM's published peaks (NVIDIA data sheet): f32 outside the
+# tensor cores, and HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# operations per evaluated pair, counted from csrc/cellforce.cu: minimum
+# image, r, LJ, the force and its row and credit sums; the Hermite lookup;
+# the Chebyshev set-up and 3 per Clenshaw step (a second chain on energy)
+PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 48, 16, 15, 3
+# operations per grid point and hill, counted from csrc/deposit.cu: the
+# minimum-image distance and support test, then the terms in the support
+DIST_FLOPS, HILL_FLOPS = 9, 10
+# the device functions of csrc/*.cu, as the profiler names them
+PORT_KERNELS = ("k1_", "k2_", "dep_")
 
 
 def card_line() -> str:
@@ -44,7 +68,7 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bench_setup(torch, kT: float, device):
+def bench_setup(torch, kT: float, device, pair_lookup="interp"):
     """The bench_pairwise configuration, built through the port's entry
     points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
     init_cell_state, and the three static phase steps."""
@@ -80,7 +104,8 @@ def bench_setup(torch, kT: float, device):
     lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
     core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32,
                                                         device=device),
-                               PRNGKey(0), n_est=N_ATOMS * 40)
+                               PRNGKey(0), n_est=N_ATOMS * 40, pair_lookup=pair_lookup,
+                               **CHEB)
     spec = CellSpec.create(box, cutoff=3.05, n_atoms=N_ATOMS)
     state = init_cell_state(spec, core, kernel_cap=24, overflow_cap=32)
     kw = dict(hill_capacity=2048, energy_stride=10, kernel_cap=24, overflow_cap=32)
@@ -123,6 +148,40 @@ def cuda_ms(torch, fn, reps=50, warm=5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_time_us(torch, fn, n):
+    """Device time per call of ``fn`` (kernels and copies, µs), from
+    ``torch.profiler`` over n calls after one warm-up, and the three
+    kernels that take most of it, then each of the port's.  0 when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split(" (")[0]
+            name = name.split("(")[0].removeprefix("void ")
+            if "::" in name:  # a PyTorch kernel: its bare name
+                name = name.split("<")[0].split("::")[-1]
+            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / n
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])
+    ours = [kv for kv in ranked if kv[0].startswith(PORT_KERNELS)]
+    return sum(per.values()), "; ".join(
+        ", ".join(f"{k} {v:.1f}" for k, v in kvs) for kvs in (ranked[:3], ours))
+
+
+def busy_line(what, dev_us, wall_us, kernels) -> str:
+    share = f"{dev_us / wall_us:.1%}" if dev_us > 0 else "not measured"
+    return (f"{what}: device busy {dev_us:.1f} us of {wall_us:.1f} us wall ({share}); "
+            f"top kernels; the port's kernels (us): {kernels}")
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -141,55 +200,166 @@ def check_energy(what, e, e_ref):
         raise AssertionError(f"{what}: energy {e!r} vs plain {e_ref!r}")
 
 
-def kernel_phase(torch, device):
-    """Phase 3: K1/K2 against their plain versions on the 10k bench state."""
-    from edm_tpu_torch.ops import cellforce as CF
+def bound(flops: float, nbytes: float):
+    """The card's least time for the work, in ms, and what sets it: the
+    operations over the f32 peak or the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    spec, state, steps = bench_setup(torch, 0.8, device)
+
+def lookup_flops(table, energy: bool) -> int:
+    from edm_tpu_torch.ops.chebyshev import ChebTable
+
+    if isinstance(table, ChebTable):
+        return CHEB_FLOPS + STEP_FLOPS * table.deg * (2 if energy else 1)
+    return HERMITE_FLOPS
+
+
+def table_bytes(table) -> int:
+    from edm_tpu_torch.ops.chebyshev import ChebTable
+
+    if isinstance(table, ChebTable):
+        return 4 * (table.cval.numel() + table.cder.numel())
+    return 4 * table.tab.numel()
+
+
+def k1_work(torch, spec, xs, mc, table, k, energy):
+    """K1's least time: the occupied pairs these slots need (each row
+    against the other occupied slots of its cell and of its 13 half-stencil
+    neighbours, slots < k), and its inputs and outputs read and written
+    once."""
+    from edm_tpu_torch.ops.cellforce import half_neighbors
+
+    C = int(np.prod(spec.ncells))
+    occ = (mc[:C, :k] > 0.5).sum(1).double()
+    nbr = half_neighbors(tuple(spec.ncells), xs.device)
+    cand = occ + occ[nbr].sum(1)
+    pairs = float((occ * (cand - 1)).sum())
+    flops = pairs * (PAIR_FLOPS + lookup_flops(table, energy))
+    Cg, cap = mc.shape
+    nbytes = 4 * (Cg * cap * 4 + Cg * cap * 3 + Cg * k) + table_bytes(table)
+    return bound(flops, nbytes)
+
+
+def k2_work(xo, xp, table, energy):
+    """K2's least time: occupied tail rows against occupied partners, plus
+    the owned tail-tail block."""
+    rows = float((xo[3] > 0.5).sum())
+    own = float((xo[4] > 0.5).sum())
+    pairs = rows * float((xp[3] > 0.5).sum()) + own * (rows - 1)
+    O, N = xo.shape[1], xp.shape[1]
+    nbytes = 4 * (5 * O + 4 * N + 4 * O + 3 * N) + table_bytes(table)
+    return bound(pairs * (PAIR_FLOPS + lookup_flops(table, energy)), nbytes)
+
+
+def kernel_phase(torch, device, pair_lookup="interp"):
+    """K1/K2 against their plain versions on the 10k bench state after one
+    hill step, at k = 24 and 32 (energy off and on) and K2 on the live tail.
+    With the Chebyshev lookup: the carried bench table (4 panels, degree
+    16) and a single-panel degree-64 table fitted to the same grid."""
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
+
+    spec, state, steps = bench_setup(torch, 0.8, device, pair_lookup)
     step = steps[0]
     # a state with real forces and a live bias table: one hill step
     state, _ = step(state)
-    tbl = CF.hermite_pair_table(state.core.bias.bias)
+    if pair_lookup == "interp":
+        tables = {"hermite": CF.hermite_pair_table(state.core.bias.bias)}
+    else:
+        tables = {"cheb P=4 deg=16": state.core.cheb,
+                  "cheb P=1 deg=64": fit_gauss_grid(state.core.bias.bias, 64, 1)}
     xs, mc = state.xs, state.mc
-    rows = {}
-    k1_err = 0.0
-    for k in (24, 32):
-        for energy in (False, True):
-            kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=step.lj, energy=energy)
-            f, eb = CF.cell_force_newton(xs, mc, tbl, **kw)
-            f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tbl, **kw)
-            torch.cuda.synchronize()
-            err = check_forces(f"K1 k={k} energy={energy}", f, f_ref)
-            check_energy(f"K1 k={k} energy={energy}", eb.sum(), eb_ref.sum())
-            k1_err = max(k1_err, err)
-            ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
-            plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw), reps=10)
-            rows[f"cell_force_newton k={k} energy={int(energy)}"] = (err, ms, plain)
     xo, xp = step._overflow_inputs(state, xs)
     n_tail = int((xo[3] > 0.5).sum())
     if n_tail == 0:
         raise AssertionError("K2 check needs a real tail: the bench state has none")
-    k2_err = 0.0
-    for energy in (False, True):
-        kw = dict(box=spec.box, lj=step.lj, energy=energy)
-        fo, fp = CF.overflow_force(xo, xp, tbl, **kw)
-        fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tbl, **kw)
-        torch.cuda.synchronize()
-        err = max(check_forces(f"K2 fo energy={energy}", fo[:3], fo_ref[:3]),
-                  check_forces(f"K2 fp energy={energy}", fp, fp_ref))
-        check_energy(f"K2 energy={energy}", fo[3].sum(), fo_ref[3].sum())
-        k2_err = max(k2_err, err)
-        ms = cuda_ms(torch, lambda: CF.overflow_force(xo, xp, tbl, **kw))
-        plain = cuda_ms(torch, lambda: CF.overflow_force_ref(xo, xp, tbl, **kw), reps=10)
-        rows[f"overflow_force tail={n_tail} energy={int(energy)}"] = (err, ms, plain)
-    print("kernel vs plain version (CUDA events, ms per call):")
-    for name, (err, ms, plain) in rows.items():
-        print(f"  {name:40s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms")
-    return rows, k1_err, k2_err
+    rows = {}
+    for tname, tbl in tables.items():
+        for k in (24, 32):
+            for energy in (False, True):
+                kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=step.lj, energy=energy)
+                f, eb = CF.cell_force_newton(xs, mc, tbl, **kw)
+                f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tbl, **kw)
+                torch.cuda.synchronize()
+                what = f"cell_force_newton {tname} k={k} energy={int(energy)}"
+                err = check_forces(what, f, f_ref)
+                check_energy(what, eb.sum(), eb_ref.sum())
+                ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
+                plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw),
+                                reps=10)
+                rows[what] = (err, ms, plain) + k1_work(torch, spec, xs, mc, tbl, k, energy)
+        for energy in (False, True):
+            kw = dict(box=spec.box, lj=step.lj, energy=energy)
+            fo, fp = CF.overflow_force(xo, xp, tbl, **kw)
+            fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tbl, **kw)
+            torch.cuda.synchronize()
+            what = f"overflow_force {tname} tail={n_tail} energy={int(energy)}"
+            err = max(check_forces(what + " fo", fo[:3], fo_ref[:3]),
+                      check_forces(what + " fp", fp, fp_ref))
+            check_energy(what, fo[3].sum(), fo_ref[3].sum())
+            ms = cuda_ms(torch, lambda: CF.overflow_force(xo, xp, tbl, **kw))
+            plain = cuda_ms(torch, lambda: CF.overflow_force_ref(xo, xp, tbl, **kw), reps=10)
+            rows[what] = (err, ms, plain) + k2_work(xo, xp, tbl, energy)
+    print_rows(rows)
+    return rows
 
 
-def states_match(ks, ps, i):
-    """Step-for-step check of a kernel-run state against the plain run."""
+def print_rows(rows):
+    print("kernel vs plain version (CUDA events, ms per call; bound = the card's least time):")
+    for name, (err, ms, plain, bms, by) in rows.items():
+        print(f"  {name:52s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms"
+              f"  bound {bms:.5f} ms ({by})")
+
+
+def edge_pairs(torch, xs, mc, box, slots, edges):
+    """For each slot, whether one of its pairs lies within 1e-5 of a table
+    edge (distances in float64)."""
+    x = xs.reshape(-1, 3).double()
+    occ = mc.reshape(-1) > 0.5
+    L = torch.tensor(box, dtype=torch.float64, device=xs.device)
+    out = []
+    for s in slots:
+        d = x[occ] - x[s]
+        d = d - torch.round(d / L) * L
+        r = d.norm(dim=1)
+        out.append(bool((r[:, None] - edges[None, :]).abs().min() < 1e-5))
+    return out
+
+
+def check_slot_forces(torch, what, f, f_ref, xs, mc, box, table):
+    """``check_forces``, except that with a Chebyshev table an atom with a
+    pair within 1e-5 of a table edge (lo, hi, a panel joint) may differ by
+    up to the table's largest jump of dV/dr at an edge: its distance, off
+    by an ulp, can fall on either side.  Returns the atoms it let through."""
+    from edm_tpu_torch.ops.chebyshev import ChebTable
+
+    scale = max(1.0, float(f_ref.abs().max()))
+    err = (f.double() - f_ref.double()).abs().amax(-1).reshape(-1)
+    if float(err.max()) <= FORCE_REL * scale or not isinstance(table, ChebTable):
+        return check_forces(what, f, f_ref), 0
+    cd = table.cder.double()
+    P, degp = cd.shape
+    sign = (-1.0) ** torch.arange(degp, device=cd.device, dtype=torch.float64)
+    jumps = [(cd[0] @ sign).abs(), cd[-1].sum().abs()]
+    jumps += [(cd[q - 1].sum() - cd[q] @ sign).abs() for q in range(1, P)]
+    jump = float(torch.stack(jumps).max())
+    pw = (table.hi - table.lo) / P
+    edges = torch.tensor([table.lo + q * pw for q in range(P + 1)], dtype=torch.float64,
+                         device=f.device)
+    slots = torch.nonzero(err > FORCE_REL * scale).reshape(-1).tolist()
+    near = edge_pairs(torch, xs, mc, box, slots, edges)
+    for s, nr in zip(slots, near):
+        if not (nr and float(err[s]) <= FORCE_REL * scale + jump):
+            raise AssertionError(f"{what}: slot {s} off by {float(err[s]):.3e} "
+                                 f"(bound {FORCE_REL * scale:.3e}; near a table edge: {nr})")
+    return float(err.max()), len(slots)
+
+
+def states_match(torch, ks, ps, i, box, table):
+    """Step-for-step check of a kernel-run state against the plain run;
+    returns the number of atoms whose forces needed the table-edge
+    allowance of ``check_slot_forces``."""
     for name in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks", "table_overflow"):
         a, b = getattr(ks, name), getattr(ps, name)
         if not bool((a == b).all()):
@@ -199,8 +369,9 @@ def states_match(ks, ps, i):
             raise AssertionError(f"step {i}: core.{name} differs from the plain run")
     if ks.tail_ovf_host != ps.tail_ovf_host:
         raise AssertionError(f"step {i}: tail_ovf_host differs")
-    for name in ("xs", "vs", "fs"):
+    for name in ("xs", "vs"):
         check_forces(f"step {i} {name}", getattr(ks, name), getattr(ps, name))
+    _, n_edge = check_slot_forces(torch, f"step {i} fs", ks.fs, ps.fs, ks.xs, ks.mc, box, table)
     check_energy(f"step {i} energy", ks.core.energy, ps.core.energy)
     kb, pb = ks.core.bias, ps.core.bias
     if not abs(float(kb.cum_bias) - float(pb.cum_bias)) <= 1e-6 * abs(float(pb.cum_bias)):
@@ -208,32 +379,37 @@ def states_match(ks, ps, i):
     gv, pv = kb.bias.grid.values, pb.bias.grid.values
     if not max_err(gv, pv) <= 1e-5 * max(1.0, float(pv.abs().max())):
         raise AssertionError(f"step {i}: bias grid differs from the plain run")
+    if ks.core.cheb is not None:  # the refit table
+        for name in ("cval", "cder"):
+            a, b = getattr(ks.core.cheb, name), getattr(ps.core.cheb, name)
+            if not max_err(a, b) <= 1e-5 * max(1.0, float(b.abs().max())):
+                raise AssertionError(f"step {i}: cheb.{name} differs from the plain run")
+    return n_edge
 
 
-def slice_zero_temperature(torch, device, n_steps=20):
-    """Phase 4a: 20 steps at kT = 0 through the kernels; each step is also
-    taken through the plain versions from the same input state and the two
+def slice_zero_temperature(torch, device, pair_lookup="interp", n_steps=20):
+    """20 steps at kT = 0 through the kernels; each step is also taken
+    through the plain versions from the same input state and the two
     results are held to each other.  (Two free-running f32 trajectories
     part after ~15 steps at 10k atoms: a 1-ulp position difference can move
-    a pair distance across a Hermite table node, where the derivative
-    jumps by ~1e-4.)"""
-    _, state, steps = bench_setup(torch, 0.0, device)
+    a pair distance across a table node or edge.)"""
+    spec, state, steps = bench_setup(torch, 0.0, device, pair_lookup)
+    n_edge = 0
     for i in range(n_steps):
         step = steps[0 if i % 10 == 0 else 2 if i % 10 == 9 else 1]
+        table = state.core.cheb
         with plain_versions():
             plain, _ = step(state)
         state, _ = step(state)
-        states_match(state, plain, i)
-    print(f"kT=0: {n_steps} steps through the kernels match the plain versions "
-          "step for step (same input state each step)")
+        n_edge += states_match(torch, state, plain, i, spec.box, table)
+    print(f"kT=0 {pair_lookup}: {n_steps} steps through the kernels match the plain versions "
+          f"step for step (same input state each step; {n_edge} atom(s) by a table-edge pair)")
 
 
 def sync_census(torch, steps, state):
     """One stride cycle under PyTorch's CUDA sync-debug mode: the number of
     operations that synchronized the host with the device, per phase
     (explicit flag reads and any implicit ones)."""
-    import warnings
-
     counts = {}
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -248,16 +424,17 @@ def sync_census(torch, steps, state):
     return state, counts
 
 
-def slice_run(torch, device, warm_steps=100, timed_steps=300):
-    """Phase 4b: the bench's kT = 0.8 run through the kernels."""
+def slice_run(torch, device, pair_lookup="interp", warm_steps=100, timed_steps=300):
+    """The bench's kT = 0.8 run through the kernels: the launch counters are
+    set to 0 just before it and read just after."""
     from edm_tpu_torch.models.driver import pattern_segment
     from edm_tpu_torch.ops import cellforce as CF
 
-    spec, state, steps = bench_setup(torch, 0.8, device)
-    CF.cell_force_newton.launches = 0
-    CF.overflow_force.launches = 0
+    spec, state, steps = bench_setup(torch, 0.8, device, pair_lookup)
     for s in steps:
         s.host_syncs = 0
+    CF.cell_force_newton.launches = 0
+    CF.overflow_force.launches = 0
     state, e_warm = pattern_segment(pattern(steps), warm_steps)(state)
     torch.cuda.synchronize()
     syncs0 = sum(s.host_syncs for s in steps)
@@ -268,6 +445,12 @@ def slice_run(torch, device, warm_steps=100, timed_steps=300):
     launches = {"cell_force_newton": CF.cell_force_newton.launches,
                 "overflow_force": CF.overflow_force.launches}
     syncs = sum(s.host_syncs for s in steps) - syncs0
+    # device time of one stride cycle (two cycles from this state), beside
+    # the timed run's wall time per cycle
+    cycle = pattern_segment(pattern(steps), 10)
+    dev_us, top = device_time_us(torch, lambda: cycle(state), 2)
+    print(busy_line(f"kT=0.8 {pair_lookup} stride cycle", dev_us, 10 * dt / timed_steps * 1e6,
+                    top))
     state, census = sync_census(torch, steps, state)
     core = state.core
     finite = all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs, e))
@@ -279,17 +462,169 @@ def slice_run(torch, device, warm_steps=100, timed_steps=300):
         "K1 launched": launches["cell_force_newton"] > 0,
         "K2 launched": launches["overflow_force"] > 0,
         "no sync on plain steps": census["plain"] == 0,
+        "at most 5 syncs on hill steps": census["hills"] <= 5,
     }
-    print(f"host syncs in one stride cycle (CUDA sync-debug mode): {census}")
-    print(f"kT=0.8: {timed_steps} steps after {warm_steps} warm-up: "
+    if pair_lookup == "chebyshev":
+        checks["Chebyshev table carried"] = core.cheb is not None and bool(
+            torch.isfinite(core.cheb.cder).all())
+    print(f"host syncs in one stride cycle, {pair_lookup} (CUDA sync-debug mode): {census}")
+    print(f"kT=0.8 {pair_lookup}: {timed_steps} steps after {warm_steps} warm-up: "
           f"{timed_steps / dt:.2f} steps/s, {syncs / (timed_steps / 10):.2f} host syncs "
           f"per stride cycle, launches {launches}, tail {int(state.tail_count)} "
           f"(fallback periods {int(state.tail_fallbacks)}), cum_bias "
           f"{float(core.bias.cum_bias):.6g}, last energy {float(e[-1]):.6g}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"kT=0.8 run failed: {failed}")
+        raise AssertionError(f"kT=0.8 {pair_lookup} run failed: {failed}")
     return timed_steps / dt, launches, syncs / (timed_steps / 10)
+
+
+def deposit_grids(torch, device):
+    """The two deposition cases: bench_deposition's (G = 1e6 periodic over
+    [0, 10], sigma 0.01, 200 centres from default_rng(3), height 0.1; the
+    K4 route) and G = 32768 over [0, 10] with sigma 0.5 (W = 18,537; the K5
+    route), with the same hills."""
+    from edm_tpu_torch.gauss import GaussGrid
+
+    rng = np.random.default_rng(3)
+    c = torch.tensor(rng.uniform(0, 10, (200, 1)), dtype=torch.float32, device=device)
+    h = torch.full((200,), 0.1, dtype=torch.float32, device=device)
+    k4 = GaussGrid.create([0], [10], [10.0 / 1_000_000], [True], [0.01], device=device)
+    k5 = GaussGrid.create([0], [10], [10.0 / 32768], [True], [0.5], device=device)
+    for gg, narrow in ((k4, True), (k5, False)):
+        W, G = gg.spec.window_shape[0], gg.spec.grid.nbins[0]
+        if (W + 256 < G // 2) != narrow:
+            raise AssertionError(f"G={G}, W={W} does not take the intended route")
+    return k4, k5, c, h
+
+
+def deposit_work(gg, c):
+    """A deposition's least time: every point against every hill for the
+    dense kernel, the support points only for the windowed one; values and
+    derivatives read and written once, centres and heights read,
+    bias_added written."""
+    g = gg.spec.grid
+    G, H = g.nbins[0], c.shape[0]
+    radius = np.sqrt(8.0) * gg.spec.sigma[0]  # p^2 < GAUSS_SUPPORT
+    x = (c.double().cpu().numpy().reshape(-1) - g.min[0]) / g.dx[0]
+    support = float(np.sum(np.floor(x + radius / g.dx[0]) - np.ceil(x - radius / g.dx[0]) + 1))
+    nbytes = 4 * (4 * G + 3 * H)
+    return support, G * H, nbytes
+
+
+def deposit_kernel_phase(torch, device):
+    """K4 and K5 against their plain versions: values and derivatives within
+    1e-4 and 3e-4 of the plain version's max|.|, bias_added within 2e-6,
+    and each bias_added within 1e-3 of its height (a periodic grid keeps
+    every hill whole)."""
+    from edm_tpu_torch.ops import deposit_kernels as DK
+
+    k4, k5, c, h = deposit_grids(torch, device)
+    rows = {}
+    for name, gg, kern, ref in (
+            ("deposit_windowed_1d G=1000000 sigma=0.01", k4, DK.deposit_windowed_1d,
+             DK.deposit_windowed_1d_ref),
+            ("deposit_dense_1d_kernel G=32768 sigma=0.5", k5, DK.deposit_dense_1d_kernel,
+             DK.deposit_dense_1d_kernel_ref)):
+        out, ba = kern(gg, c, h)
+        out_ref, ba_ref = ref(gg, c, h)
+        torch.cuda.synchronize()
+        err = 0.0
+        for what, a, b, rel in (("values", out.grid.values, out_ref.grid.values, 1e-4),
+                                ("derivs", out.grid.derivs, out_ref.grid.derivs, 3e-4)):
+            e = max_err(a, b)
+            if not e <= rel * float(b.abs().max()):
+                raise AssertionError(f"{name} {what}: {e:.3e} > {rel} * {float(b.abs().max()):.3e}")
+            err = max(err, e)
+        e = max_err(ba, ba_ref)
+        if not e <= 2e-6:
+            raise AssertionError(f"{name} bias_added: {e:.3e} > 2e-6")
+        cons = float(((ba.double() - h.double()) / h.double()).abs().max())
+        if not cons <= 1e-3:
+            raise AssertionError(f"{name}: bias_added off its height by {cons:.3e} relative")
+        ms = cuda_ms(torch, lambda: kern(gg, c, h))
+        plain = cuda_ms(torch, lambda: ref(gg, c, h), reps=10)
+        support, dense, nbytes = deposit_work(gg, c)
+        windowed = kern is DK.deposit_windowed_1d
+        flops = (support * (DIST_FLOPS + HILL_FLOPS) if windowed
+                 else dense * DIST_FLOPS + support * HILL_FLOPS)
+        rows[name] = (max(err, e), ms, plain) + bound(flops, nbytes)
+    print_rows(rows)
+    return rows
+
+
+def deposition_run(torch, device, rounds=256):
+    """bench_deposition through ``GaussGrid.add_value``: 256 rounds of the
+    200 hills at c + k * 1e-7 on the 1e6-point grid, timed by the host clock
+    up to a device sync; the K4 counter is set to 0 just before and read
+    just after.  Then one round on the K5 grid, counted the same way; the
+    host syncs of a round on each route (none allowed) and the device-busy
+    share of a round (``torch.profiler``)."""
+    from edm_tpu_torch.ops import deposit_kernels as DK
+
+    k4, k5, c, h = deposit_grids(torch, device)
+    g, _ = k4.add_value(c, h)  # warm-up
+    torch.cuda.synchronize()
+    DK.deposit_windowed_1d.launches = 0
+    g = k4
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    for k in range(rounds):
+        g, added = g.add_value(c + k * 1e-7, h)
+        total = total + added.sum()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n4 = DK.deposit_windowed_1d.launches
+    DK.deposit_dense_1d_kernel.launches = 0
+    g5, added5 = k5.add_value(c, h)
+    torch.cuda.synchronize()
+    n5 = DK.deposit_dense_1d_kernel.launches
+    expected = rounds * float(h.sum())
+    # host syncs of a round on each route (CUDA sync-debug mode)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for gg in (g, g5):
+                gg.add_value(c, h)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    for what, gg, wall in (("K4 round", g, dt / rounds * 1e6), ("K5 round", g5, None)):
+        dev_us, top = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        if wall is None:  # the K5 round's wall time, host clock to a sync
+            t0 = time.perf_counter()
+            for _ in range(20):
+                gg.add_value(c, h)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 20 * 1e6
+        print(busy_line(f"add_value {what}", dev_us, wall, top))
+    checks = {
+        "finite": bool(torch.isfinite(g.grid.values).all()) and bool(
+            torch.isfinite(g5.grid.values).all()),
+        "K4 launched every round": n4 >= rounds,
+        "K5 launched": n5 > 0,
+        "conservation": abs(float(total) - expected) <= 1e-3 * expected,
+        "no host sync in add_value": syncs == 0,
+    }
+    print(f"deposition (GaussGrid.add_value, G=1e6, 200 hills x {rounds} rounds): "
+          f"{200 * rounds / dt:.1f} hills/s, launches K4 {n4} K5 {n5}, "
+          f"bias added {float(total):.6g} of {expected:.6g}, host syncs per round "
+          f"{syncs / 2:g}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"deposition run failed: {failed}")
+    return 200 * rounds / dt, {"deposit_windowed_1d": n4, "deposit_dense_1d_kernel": n5}
+
+
+def kernel_entry(name, source, replaces, launches, rows, prefix):
+    """One ``kernels`` record: the worst error over the prefix's checks,
+    the time and bound of its first row (the main path's shape)."""
+    sel = [v for k, v in rows.items() if k.startswith(prefix)]
+    err, ms, plain, bms, by = sel[0]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(v[0] for v in sel), "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def main() -> int:
@@ -315,23 +650,36 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    rows, k1_err, k2_err = kernel_phase(torch, device)
-    slice_zero_temperature(torch, device)
-    rate, launches, syncs = slice_run(torch, device)
+    t_phase = time.perf_counter()
+    rows = kernel_phase(torch, device, "interp")
+    rows.update(kernel_phase(torch, device, "chebyshev"))
+    rows.update(deposit_kernel_phase(torch, device))
+    print(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for lookup in ("interp", "chebyshev"):
+        t_phase = time.perf_counter()
+        slice_zero_temperature(torch, device, lookup)
+        _, n, _ = slice_run(torch, device, lookup)
+        launches[lookup] = n
+        print(f"{lookup} slice: {time.perf_counter() - t_phase:.1f} s")
+    _, dep = deposition_run(torch, device)
 
-    k1 = rows["cell_force_newton k=24 energy=0"]
-    k2 = [v for k, v in rows.items() if k.startswith("overflow_force") and k.endswith("=0")][0]
+    cf = "edm_tpu_torch/csrc/cellforce.cu"
+    dp = "edm_tpu_torch/csrc/deposit.cu"
+    herm, cheb = launches["interp"], launches["chebyshev"]
     print(json.dumps({"kernels": [
-        {"name": "cell_force_newton", "route": "cuda",
-         "source": "edm_tpu_torch/csrc/cellforce.cu",
-         "replaces": "edm_tpu/ops/cellforce_pallas.py:684",
-         "launches": launches["cell_force_newton"], "max_abs_err": k1_err,
-         "ms": k1[1], "plain_ms": k1[2]},
-        {"name": "overflow_force", "route": "cuda",
-         "source": "edm_tpu_torch/csrc/cellforce.cu",
-         "replaces": "edm_tpu/ops/cellforce_pallas.py:870",
-         "launches": launches["overflow_force"], "max_abs_err": k2_err,
-         "ms": k2[1], "plain_ms": k2[2]},
+        kernel_entry("cell_force_newton", cf, "edm_tpu/ops/cellforce_pallas.py:684",
+                     herm["cell_force_newton"], rows, "cell_force_newton hermite"),
+        kernel_entry("overflow_force", cf, "edm_tpu/ops/cellforce_pallas.py:870",
+                     herm["overflow_force"], rows, "overflow_force hermite"),
+        kernel_entry("cell_force_newton[chebyshev]", cf, "edm_tpu/ops/cellforce_pallas.py:67",
+                     cheb["cell_force_newton"], rows, "cell_force_newton cheb"),
+        kernel_entry("overflow_force[chebyshev]", cf, "edm_tpu/ops/cellforce_pallas.py:67",
+                     cheb["overflow_force"], rows, "overflow_force cheb"),
+        kernel_entry("deposit_windowed_1d", dp, "edm_tpu/ops/deposit_pallas.py:138",
+                     dep["deposit_windowed_1d"], rows, "deposit_windowed_1d"),
+        kernel_entry("deposit_dense_1d_kernel", dp, "edm_tpu/ops/deposit_pallas.py:236",
+                     dep["deposit_dense_1d_kernel"], rows, "deposit_dense_1d_kernel"),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

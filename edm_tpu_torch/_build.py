@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``load_library()`` compiles ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, under ``_build/`` next to this
-file (git-ignored), and loads it with ctypes.  The library's name carries a
+``load_library()`` compiles ``csrc/*.cu`` (the cell-force kernels and the
+deposition kernels) with ``nvcc`` for ``sm_90a``, one process per source
+run at once, and links them into one shared library with a plain C
+interface, under ``_build/`` next to this file (git-ignored); it loads
+the library with ctypes.  The library's name carries a
 hash of the sources and flags, so an unchanged tree reuses its build and
 an edited one rebuilds.  Nothing here runs at import time: CPU-only
 installs never build.
@@ -25,7 +27,7 @@ _OUT = _HERE / "_build"
 # plain PyTorch version's separate elementwise ops round it
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -46,13 +48,21 @@ def _nvcc() -> str:
 
 def _declare(lib):
     vp, i, fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
-    lib.cell_force_newton_launch.argtypes = [vp] * 6 + [i] * 7 + [fp] * 3 + [i, vp]
+    # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
+    table = [i, vp, vp, i, i] + [fp] * 3 + [i, vp]
+    lib.cell_force_newton_launch.argtypes = [vp] * 5 + [i] * 6 + table
     lib.cell_force_newton_launch.restype = i
-    lib.overflow_force_launch.argtypes = [vp] * 6 + [i] * 3 + [fp] * 3 + [i, vp]
+    lib.overflow_force_launch.argtypes = [vp] * 5 + [i] * 2 + table
     lib.overflow_force_launch.restype = i
-    for name in ("edm_max_k", "edm_max_g", "edm_max_o"):
+    # values, derivs, centers, heights, new values, new derivs, bias_added,
+    # partials, H, G, geom, windowed, stream
+    lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, vp]
+    lib.deposit_1d_launch.restype = i
+    for name in ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    lib.edm_deposit_tile.argtypes = [i]
+    lib.edm_deposit_tile.restype = i
     lib.edm_error_string.argtypes = [i]
     lib.edm_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,14 +80,29 @@ def load_library():
     so = _OUT / f"libedm_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         _OUT.mkdir(exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        objs = [_OUT / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(o), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(sources, objs)]
+        logs = [pr.communicate()[0] for pr in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, pr in zip(sources, procs) if pr.returncode != 0]
+        if not failed:
+            tmp = so.with_suffix(f".{tag}")
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed = ["link"]
+        for o in objs:
+            o.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
         os.replace(tmp, so)
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib

@@ -81,7 +81,7 @@ def subdivide(
     target: Optional[Grid] = None,
     initial_bias: Optional[Grid] = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     buffer_size: int = BIAS_BUFFER_SIZE,
     n_replicas: int = 1,
     exact_deposit: bool = False,

@@ -22,6 +22,7 @@ from .bias import BiasParams, BiasState
 from .gauss import GaussGrid, GaussSpec
 from .grid import Grid, GridSpec
 from .models.pair_edm import PairEDMState
+from .ops.chebyshev import ChebTable
 from .models.pair_edm_cells import CellPairState
 from .utils.config import EDMConfig
 
@@ -63,15 +64,18 @@ def _bias_state(d, device) -> BiasState:
                      cv_hist=_grid(d["cv_hist"], device), **t)
 
 
+def _cheb(d, device) -> ChebTable:
+    """A flattened ChebTable; a 1-D coefficient vector is one panel."""
+    cv, cd = (_tensor(np.atleast_2d(d[k]), device) for k in ("cval", "cder"))
+    return ChebTable(cval=cv, cder=cd, lo=float(d["lo"]), hi=float(d["hi"]))
+
+
 def _pair_state(d, device) -> PairEDMState:
-    if d.get("cheb") is not None:
-        raise NotImplementedError(
-            "Chebyshev pair tables are not ported yet (ROADMAP Queue 1, item 7)"
-        )
     t = {k: _tensor(d[k], device) for k in (
         "x", "v", "f", "step", "last_calls", "energy", "hills_truncated")}
+    cheb = None if d.get("cheb") is None else _cheb(d["cheb"], device)
     return PairEDMState(key=np.asarray(d["key"], np.uint32),
-                        bias=_bias_state(d["bias"], device), **t)
+                        bias=_bias_state(d["bias"], device), cheb=cheb, **t)
 
 
 def _cell_state(d, device) -> CellPairState:
@@ -91,9 +95,10 @@ def _cell_state(d, device) -> CellPairState:
     return CellPairState(core=_pair_state(d["core"], device), **t, **tail)
 
 
-def state_from_numpy(tree: dict, device="cpu"):
+def state_from_numpy(tree: dict, device="cuda"):
     """A flattened JAX ``CellPairState``, ``PairEDMState`` or ``BiasState``
-    -> the port's dataclass on ``device``."""
+    -> the port's dataclass on ``device`` (the card unless the caller asks
+    for the CPU)."""
     if "core" in tree:
         return _cell_state(tree, device)
     if "last_calls" in tree:
@@ -103,7 +108,7 @@ def state_from_numpy(tree: dict, device="cpu"):
     raise ValueError(f"not a known state: keys {sorted(tree)}")
 
 
-def params_from_numpy(tree: dict, device="cpu") -> BiasParams:
+def params_from_numpy(tree: dict, device="cuda") -> BiasParams:
     """A flattened JAX ``BiasParams`` -> the port's ``BiasParams``."""
     cfg = {k: tuple(v) if isinstance(v, (list, tuple)) else v
            for k, v in tree["cfg"].items()}

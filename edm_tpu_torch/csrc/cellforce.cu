@@ -38,6 +38,19 @@
 //     partners): latency, like K1.  Measured 0.041 ms per call (NVIDIA H100
 //     80GB HBM3, 700 W).
 //
+// K3  the Chebyshev lookup replaces edm_tpu/ops/cellforce_pallas.py
+//     _cheb_val_der (the pair_lookup="chebyshev" branch of K1 and K2): per
+//     pair a Clenshaw chain of deg steps for dV/dr and, on energy steps, a
+//     second one for V, on the panel's (P, deg+1) series.  Both kernels are
+//     instantiated once per lookup (template parameter LOOK: HERMITE or
+//     CHEB).  The value and derivative coefficients sit in shared memory;
+//     the panel's coefficient is one indexed shared-memory load, which picks
+//     exactly the value the TPU kernel's (P-1)-deep select chain picks.  The
+//     chain is a runtime loop (deg is not a template parameter), so deg 64
+//     costs no registers over deg 16.  Bound: at the bench table (deg 16,
+//     P 4) a pair costs ~4 x 16 flops of Clenshaw against ~40 for the rest;
+//     still latency-bound at 10k like the Hermite kernels.
+//
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and each entry point returns cudaGetLastError().
 
@@ -54,6 +67,11 @@ constexpr int MAX_G = 1024;
 constexpr int K2_THREADS = 256;
 constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int MAX_O = 128;
+constexpr int MAX_DEG = 64;  // Chebyshev degree (the JAX default 64)
+constexpr int MAX_PANELS = 8;  // Chebyshev panels (the bench uses 4)
+static_assert(2 * MAX_PANELS * (MAX_DEG + 1) <= 4 * MAX_G, "cheb table fits the table buffer");
+
+enum Lookup { HERMITE = 0, CHEB = 1 };
 
 // HALF_OFFSETS order: the 13 offsets (dx, dy, dz) > (0, 0, 0) lexicographically
 __constant__ int HALF_OFF[13][3] = {
@@ -64,18 +82,91 @@ __constant__ int HALF_OFF[13][3] = {
 struct PairParams {
   float L[3], iL[3];  // box and its f32 reciprocal (minimum image)
   float four_eps, sig2, rcut;  // LJ
-  int G;  // Hermite table rows
-  float glo, gdx, ghi, blo, bhi;  // lookup geometry (grid dtype, f32)
+  int G;  // Hermite table rows | Chebyshev panels P
+  int degp;  // Chebyshev deg + 1 (0 for Hermite)
+  // Hermite: glo, gdx, ghi, blo, bhi (grid dtype, f32)
+  // Chebyshev: lo, hi, lo + hi, hi - lo, panel width (each rounded once)
+  float g0, g1, g2, g3, g4;
 };
+
+// The lookup table in shared memory: Hermite G x float4 rows, or the
+// Chebyshev value series (P x degp floats) followed by the derivative's.
+__device__ __forceinline__ void load_table(float4* tab, const float* t1, const float* t2,
+                                           const PairParams& p, int look) {
+  if (look == HERMITE) {
+    for (int g = threadIdx.x; g < p.G; g += blockDim.x)
+      tab[g] = reinterpret_cast<const float4*>(t1)[g];
+  } else {
+    float* c = reinterpret_cast<float*>(tab);
+    const int n = p.G * p.degp;
+    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      c[q] = t1[q];
+      c[n + q] = t2[q];
+    }
+  }
+}
 
 __device__ __forceinline__ float mimage(float d, float L, float iL) {
   return d - floorf(d * iL + 0.5f) * L;
 }
 
-// One unmasked pair (row atom a, partner b): g = force on a (the partner
-// gets -g); val only when ENERGY.  Mirrors _kernel_newton_rc:604-654 and
-// _hermite_val_der:224-274.
+// Exact cubic-Hermite value and dV/dr (_hermite_val_der:224-274).
 template <bool ENERGY>
+__device__ __forceinline__ void hermite_val_der(const PairParams& p, const float4* tab,
+                                                float r, float& der, float& val) {
+  der = 0.0f;
+  val = 0.0f;
+  if (r >= p.g3 && r <= p.g4 && r >= p.g0 && r < p.g2) {
+    float idxf = fminf(fmaxf(floorf((r - p.g0) / p.g1), 0.0f), (float)(p.G - 1));
+    float t = (r - p.g0 - idxf * p.g1) / p.g1;
+    float4 c = tab[(int)idxf];
+    der = c.y + t * (c.z + t * c.w);
+    if (ENERGY) {
+      val = c.x + (t * p.g1) * (c.y + t * (0.5f * c.z + (1.0f / 3.0f) * (t * c.w)));
+    }
+  }
+}
+
+// Panelized Chebyshev value and dV/dr (_cheb_val_der:67-105), op for op:
+// the mask is lo <= r <= hi; for P > 1 the panel index is clamped to
+// [0, P-1] and t is not clipped.
+template <bool ENERGY>
+__device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* tab,
+                                             float r, float& der, float& val) {
+  der = 0.0f;
+  val = 0.0f;
+  if (!(r >= p.g0 && r <= p.g1)) return;
+  const float rc = fminf(fmaxf(r, p.g0), p.g1);
+  float t;
+  int base = 0;
+  if (p.G == 1) {
+    t = (2.0f * rc - p.g2) / p.g3;
+  } else {
+    const float pf = fminf(fmaxf(floorf((rc - p.g0) / p.g4), 0.0f), (float)(p.G - 1));
+    t = (2.0f * (rc - p.g0 - pf * p.g4) - p.g4) / p.g4;
+    base = (int)pf * p.degp;
+  }
+  const float* cv = tab + base;
+  const float* cd = tab + p.G * p.degp + base;
+  const float t2 = 2.0f * t;
+  float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f;
+  for (int k = p.degp - 1; k > 0; --k) {
+    if (ENERGY) {
+      const float b0 = cv[k] + t2 * b1 - b2;
+      b2 = b1;
+      b1 = b0;
+    }
+    const float e0 = cd[k] + t2 * d1 - d2;
+    d2 = d1;
+    d1 = e0;
+  }
+  der = cd[0] + t * d1 - d2;
+  if (ENERGY) val = cv[0] + t * b1 - b2;
+}
+
+// One unmasked pair (row atom a, partner b): g = force on a (the partner
+// gets -g); val only when ENERGY.  Mirrors _kernel_newton_rc:604-654.
+template <bool ENERGY, int LOOK>
 __device__ __forceinline__ void pair_force(const PairParams& p, const float4* tab,
                                            float4 a, float4 b, float& gx, float& gy,
                                            float& gz, float& val) {
@@ -93,17 +184,11 @@ __device__ __forceinline__ void pair_force(const PairParams& p, const float4* ta
     float sr6 = sr2 * sr2 * sr2;
     fmag = p.four_eps * (12.0f * sr6 * sr6 - 6.0f * sr6) * inv_r2;
   }
-  float der = 0.0f;
-  val = 0.0f;
-  if (r >= p.blo && r <= p.bhi && r >= p.glo && r < p.ghi) {
-    float idxf = fminf(fmaxf(floorf((r - p.glo) / p.gdx), 0.0f), (float)(p.G - 1));
-    float t = (r - p.glo - idxf * p.gdx) / p.gdx;
-    float4 c = tab[(int)idxf];
-    der = c.y + t * (c.z + t * c.w);
-    if (ENERGY) {
-      val = c.x + (t * p.gdx) * (c.y + t * (0.5f * c.z + (1.0f / 3.0f) * (t * c.w)));
-    }
-  }
+  float der;
+  if (LOOK == CHEB)
+    cheb_val_der<ENERGY>(p, reinterpret_cast<const float*>(tab), r, der, val);
+  else
+    hermite_val_der<ENERGY>(p, tab, r, der, val);
   float f_over_r = fmag - der * inv_r;
   gx = f_over_r * dx;
   gy = f_over_r * dy;
@@ -118,10 +203,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- K1
 
-template <bool ENERGY>
+template <bool ENERGY, int LOOK>
 __global__ void __launch_bounds__(K1_THREADS)
 k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
-        const float* __restrict__ table, float* __restrict__ f,
+        const float* __restrict__ t1, const float* __restrict__ t2, float* __restrict__ f,
         float* __restrict__ eb, float* __restrict__ cred, int cap, int k,
         int nx, int ny, int nz, PairParams p) {
   __shared__ float4 cand[MAX_W];  // x, y, z, mask: self block then 13 neighbours
@@ -134,8 +219,7 @@ k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
   const int W = 14 * k;
   const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
 
-  for (int g = tid; g < p.G; g += K1_THREADS)
-    tab[g] = reinterpret_cast<const float4*>(table)[g];
+  load_table(tab, t1, t2, p, LOOK);
   for (int j = tid; j < W; j += K1_THREADS) {
     int cell = c, s = j;
     if (j >= k) {
@@ -164,7 +248,7 @@ k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
         const float4 b = cand[j];
         if (b.w > 0.5f) {
           float gx, gy, gz, val;
-          pair_force<ENERGY>(p, tab, a, b, gx, gy, gz, val);
+          pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
           rx += gx;
           ry += gy;
           rz += gz;
@@ -242,19 +326,18 @@ __global__ void k1_credits(float* __restrict__ f, const float* __restrict__ cred
 
 // ---------------------------------------------------------------- K2
 
-template <bool ENERGY>
+template <bool ENERGY, int LOOK>
 __global__ void __launch_bounds__(K2_THREADS)
 k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
-            const float* __restrict__ table, float* __restrict__ fp,
-            float* __restrict__ part, int O, int N, PairParams p) {
+            const float* __restrict__ t1, const float* __restrict__ t2,
+            float* __restrict__ fp, float* __restrict__ part, int O, int N, PairParams p) {
   __shared__ float4 rows[MAX_O];
   __shared__ float4 tab[MAX_G];
   __shared__ float red[K2_WARPS][MAX_O][4];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int g = tid; g < p.G; g += K2_THREADS)
-    tab[g] = reinterpret_cast<const float4*>(table)[g];
+  load_table(tab, t1, t2, p, LOOK);
   for (int i = tid; i < O; i += K2_THREADS)
     rows[i] = make_float4(xo[i], xo[O + i], xo[2 * O + i], xo[3 * O + i]);
   __syncthreads();
@@ -268,7 +351,7 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
     if (a.w <= 0.5f) continue;  // uniform: empty tail row
     float gx = 0.0f, gy = 0.0f, gz = 0.0f, val = 0.0f;
     if (b.w > 0.5f) {
-      pair_force<ENERGY>(p, tab, a, b, gx, gy, gz, val);
+      pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
       cx += gx;
       cy += gy;
       cz += gz;
@@ -300,13 +383,12 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
   }
 }
 
-template <bool ENERGY>
-__global__ void k2_finish(const float* __restrict__ xo, const float* __restrict__ table,
-                          const float* __restrict__ part, float* __restrict__ fo,
-                          int O, int n_tiles, PairParams p) {
+template <bool ENERGY, int LOOK>
+__global__ void k2_finish(const float* __restrict__ xo, const float* __restrict__ t1,
+                          const float* __restrict__ t2, const float* __restrict__ part,
+                          float* __restrict__ fo, int O, int n_tiles, PairParams p) {
   __shared__ float4 tab[MAX_G];
-  for (int g = threadIdx.x; g < p.G; g += blockDim.x)
-    tab[g] = reinterpret_cast<const float4*>(table)[g];
+  load_table(tab, t1, t2, p, LOOK);
   __syncthreads();
   const int i = threadIdx.x;
   if (i >= O) return;
@@ -318,7 +400,7 @@ __global__ void k2_finish(const float* __restrict__ xo, const float* __restrict_
       const float4 b = make_float4(xo[j], xo[O + j], xo[2 * O + j], xo[3 * O + j]);
       if (j == i || b.w <= 0.5f) continue;
       float gx, gy, gz, val;
-      pair_force<ENERGY>(p, tab, a, b, gx, gy, gz, val);
+      pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
       s[0] += gx;
       s[1] += gy;
       s[2] += gz;
@@ -331,24 +413,58 @@ __global__ void k2_finish(const float* __restrict__ xo, const float* __restrict_
   for (int q = 0; q < 4; ++q) fo[q * O + i] = (q == 3 && !ENERGY) ? 0.0f : s[q];
 }
 
-PairParams make_params(int G, float glo, float gdx, float ghi, float blo, float bhi,
-                       const float* L, const float* iL, float four_eps, float sig2,
-                       float rcut) {
+PairParams make_params(int rows, int degp, const float* geom, const float* box,
+                       const float* lj) {
   PairParams p;
   for (int d = 0; d < 3; ++d) {
-    p.L[d] = L[d];
-    p.iL[d] = iL[d];
+    p.L[d] = box[d];
+    p.iL[d] = box[3 + d];
   }
-  p.four_eps = four_eps;
-  p.sig2 = sig2;
-  p.rcut = rcut;
-  p.G = G;
-  p.glo = glo;
-  p.gdx = gdx;
-  p.ghi = ghi;
-  p.blo = blo;
-  p.bhi = bhi;
+  p.four_eps = lj[0];
+  p.sig2 = lj[1];
+  p.rcut = lj[2];
+  p.G = rows;
+  p.degp = degp;
+  p.g0 = geom[0];
+  p.g1 = geom[1];
+  p.g2 = geom[2];
+  p.g3 = geom[3];
+  p.g4 = geom[4];
   return p;
+}
+
+template <bool ENERGY, int LOOK>
+cudaError_t k1_launch(const float* xs, const float* mc, const float* t1, const float* t2,
+                      float* f, float* eb, float* cred, int C, int cap, int k, int nx,
+                      int ny, int nz, const PairParams& p, cudaStream_t st) {
+  k1_rows<ENERGY, LOOK><<<C, K1_THREADS, 0, st>>>(xs, mc, t1, t2, f, eb, cred, cap, k, nx,
+                                                  ny, nz, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int n = C * k;
+  k1_credits<<<(n + 255) / 256, 256, 0, st>>>(f, cred, C, cap, k, nx, ny, nz);
+  return cudaGetLastError();
+}
+
+template <bool ENERGY, int LOOK>
+cudaError_t k2_launch(const float* xo, const float* xp, const float* t1, const float* t2,
+                      float* fo, float* fp, float* part, int O, int N, const PairParams& p,
+                      cudaStream_t st) {
+  const int n_tiles = (N + K2_THREADS - 1) / K2_THREADS;
+  if (n_tiles > 0) {
+    k2_partners<ENERGY, LOOK><<<n_tiles, K2_THREADS, 0, st>>>(xo, xp, t1, t2, fp, part, O, N,
+                                                              p);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = ((O + 31) / 32) * 32;
+  k2_finish<ENERGY, LOOK><<<1, threads, 0, st>>>(xo, t1, t2, part, fo, O, n_tiles, p);
+  return cudaGetLastError();
+}
+
+bool table_ok(int look, int rows, int degp) {
+  if (look == HERMITE) return rows >= 1 && rows <= MAX_G;
+  return look == CHEB && rows >= 1 && rows <= MAX_PANELS && degp >= 2 && degp <= MAX_DEG + 1;
 }
 
 }  // namespace
@@ -358,50 +474,49 @@ extern "C" {
 int edm_max_k() { return MAX_K; }
 int edm_max_g() { return MAX_G; }
 int edm_max_o() { return MAX_O; }
+int edm_max_deg() { return MAX_DEG; }
+int edm_max_panels() { return MAX_PANELS; }
 const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// geom = {glo, gdx, ghi, blo, bhi}; lj = {four_eps, sig2, rcut};
+// look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
+// (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
+// (see PairParams); lj = {four_eps, sig2, rcut};
 // box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32)
-int cell_force_newton_launch(const float* xs, const float* mc, const float* table,
-                             float* f, float* eb, float* cred, int C, int cap, int k,
-                             int nx, int ny, int nz, int G, const float* geom,
-                             const float* box, const float* lj, int energy,
-                             void* stream) {
+int cell_force_newton_launch(const float* xs, const float* mc, float* f, float* eb,
+                             float* cred, int C, int cap, int k, int nx, int ny, int nz,
+                             int look, const float* t1, const float* t2, int rows, int degp,
+                             const float* geom, const float* box, const float* lj,
+                             int energy, void* stream) {
+  if (!table_ok(look, rows, degp)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PairParams p = make_params(G, geom[0], geom[1], geom[2], geom[3], geom[4], box, box + 3,
-                             lj[0], lj[1], lj[2]);
-  if (energy)
-    k1_rows<true><<<C, K1_THREADS, 0, st>>>(xs, mc, table, f, eb, cred, cap, k, nx, ny, nz, p);
+  PairParams p = make_params(rows, degp, geom, box, lj);
+  cudaError_t e;
+  if (look == CHEB)
+    e = energy ? k1_launch<true, CHEB>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p, st)
+               : k1_launch<false, CHEB>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p, st);
   else
-    k1_rows<false><<<C, K1_THREADS, 0, st>>>(xs, mc, table, f, eb, cred, cap, k, nx, ny, nz, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n = C * k;
-  k1_credits<<<(n + 255) / 256, 256, 0, st>>>(f, cred, C, cap, k, nx, ny, nz);
-  return (int)cudaGetLastError();
+    e = energy ? k1_launch<true, HERMITE>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p,
+                                          st)
+               : k1_launch<false, HERMITE>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz,
+                                           p, st);
+  return (int)e;
 }
 
-int overflow_force_launch(const float* xo, const float* xp, const float* table, float* fo,
-                          float* fp, float* part, int O, int N, int G, const float* geom,
-                          const float* box, const float* lj, int energy, void* stream) {
+int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part,
+                          int O, int N, int look, const float* t1, const float* t2, int rows,
+                          int degp, const float* geom, const float* box, const float* lj,
+                          int energy, void* stream) {
+  if (!table_ok(look, rows, degp)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  PairParams p = make_params(G, geom[0], geom[1], geom[2], geom[3], geom[4], box, box + 3,
-                             lj[0], lj[1], lj[2]);
-  const int n_tiles = (N + K2_THREADS - 1) / K2_THREADS;
-  if (n_tiles > 0) {
-    if (energy)
-      k2_partners<true><<<n_tiles, K2_THREADS, 0, st>>>(xo, xp, table, fp, part, O, N, p);
-    else
-      k2_partners<false><<<n_tiles, K2_THREADS, 0, st>>>(xo, xp, table, fp, part, O, N, p);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = ((O + 31) / 32) * 32;
-  if (energy)
-    k2_finish<true><<<1, threads, 0, st>>>(xo, table, part, fo, O, n_tiles, p);
+  PairParams p = make_params(rows, degp, geom, box, lj);
+  cudaError_t e;
+  if (look == CHEB)
+    e = energy ? k2_launch<true, CHEB>(xo, xp, t1, t2, fo, fp, part, O, N, p, st)
+               : k2_launch<false, CHEB>(xo, xp, t1, t2, fo, fp, part, O, N, p, st);
   else
-    k2_finish<false><<<1, threads, 0, st>>>(xo, table, part, fo, O, n_tiles, p);
-  return (int)cudaGetLastError();
+    e = energy ? k2_launch<true, HERMITE>(xo, xp, t1, t2, fo, fp, part, O, N, p, st)
+               : k2_launch<false, HERMITE>(xo, xp, t1, t2, fo, fp, part, O, N, p, st);
+  return (int)e;
 }
 
 }  // extern "C"

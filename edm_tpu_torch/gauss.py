@@ -79,7 +79,7 @@ class GaussSpec:
         return v
 
 
-def compute_bc_tables(spec: GaussSpec, dtype=torch.float32, device="cpu"):
+def compute_bc_tables(spec: GaussSpec, dtype=torch.float32, device="cuda"):
     """McGovern–De Pablo denominator and derivative tables
     (gaussian_grid.h:392-433), in float64 numpy, then cast.  Periodic
     boundary dims keep 1/0 (unused)."""
@@ -145,7 +145,7 @@ class GaussGrid:
         boundary_max: Optional[Sequence[float]] = None,
         boundary_periodic: Optional[Sequence[bool]] = None,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
     ) -> "GaussGrid":
         gspec = GridSpec.create(min, max, bin_spacing, periodic)
         spec = GaussSpec(

@@ -119,7 +119,7 @@ class Grid:
     @classmethod
     def zeros(cls, spec: GridSpec, derivatives: bool = False,
               interpolate: bool = False, dtype=torch.float32,
-              device="cpu") -> "Grid":
+              device="cuda") -> "Grid":
         values = torch.zeros(spec.nbins, dtype=dtype, device=device)
         derivs = (
             torch.zeros(spec.nbins + (spec.dim,), dtype=dtype, device=device)

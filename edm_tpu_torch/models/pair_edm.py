@@ -2,11 +2,11 @@
 lammps/fix_edm_pair.cpp): biases the pair-distance CV of an LJ fluid.
 
 Counterpart of ``edm_tpu/models/pair_edm.py``: ``PairEDMState`` and
-``init_state`` with the exact cubic-Hermite lookup (``pair_lookup="interp"``;
-the JAX state's ``cheb`` table has no field here).  The key is a host-side
-Threefry key (``ops/prng``).  Not ported yet: the
-Chebyshev lookup (ROADMAP Queue 1, item 7) and the dense all-pairs
-``make_step`` (item 3).
+``init_state`` with either pair lookup: the exact cubic-Hermite table
+(``pair_lookup="interp"``) or the panelized Chebyshev fit
+(``"chebyshev"``, carried in ``cheb`` and refit after every hill round).
+The key is a host-side Threefry key (``ops/prng``).  Not ported yet: the
+dense all-pairs ``make_step`` (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import bias as B
+from ..ops.chebyshev import ChebTable, fit_gauss_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,18 +32,21 @@ class PairEDMState:
     last_calls: torch.Tensor  # est_hill_count for the next round
     energy: torch.Tensor  # bias energy of the last energy step
     hills_truncated: torch.Tensor  # bool: accepted hills exceeded capacity
+    cheb: Optional[ChebTable] = None  # pair_lookup="chebyshev": the fitted table
 
 
 def init_state(bias_state: B.BiasState, x0: torch.Tensor, key,
-               n_est: Optional[int] = None, pair_lookup: str = "interp"
-               ) -> PairEDMState:
+               n_est: Optional[int] = None, pair_lookup: str = "interp",
+               cheb_deg: int = 64, cheb_panels: int = 1) -> PairEDMState:
     """``n_est``: initial est_hill_count, the reference's conservative
     atom->nmax guess (fix_edm_pair.cpp:105).  ``key``: a (2,) uint32 key
-    (``ops.prng.PRNGKey``)."""
-    if pair_lookup != "interp":
-        raise NotImplementedError(
-            "pair_lookup='chebyshev' is not ported yet (ROADMAP Queue 1, item 7)"
-        )
+    (``ops.prng.PRNGKey``).  ``pair_lookup``: "interp" (the exact Hermite
+    lookup) or "chebyshev" (a (cheb_panels, cheb_deg + 1) fit of the bias
+    grid, refit after every hill round)."""
+    if pair_lookup not in ("interp", "chebyshev"):
+        raise ValueError(f"pair_lookup must be 'interp' or 'chebyshev', got {pair_lookup!r}")
+    cheb = (fit_gauss_grid(bias_state.bias, cheb_deg, cheb_panels)
+            if pair_lookup == "chebyshev" else None)
     n = x0.shape[0] if n_est is None else n_est
     dev = x0.device
     return PairEDMState(
@@ -55,4 +59,5 @@ def init_state(bias_state: B.BiasState, x0: torch.Tensor, key,
         last_calls=torch.tensor(n, dtype=torch.int64, device=dev),
         energy=torch.zeros((), dtype=x0.dtype, device=dev),
         hills_truncated=torch.zeros((), dtype=torch.bool, device=dev),
+        cheb=cheb,
     )

@@ -13,6 +13,9 @@ of 8, ``aid`` of length Cg*cap, exactly the JAX layout):
      list overflowed (never-drop fallback);
   3. on hill steps: two-level hill collection over half-stencil tiles
      (two acceptance draws per unordered pair) and ``bias.add_hills_round``;
+     with ``pair_lookup="chebyshev"`` the carried ``ChebTable`` is refit to
+     the new grid at its degree and panels (the step's own force pass used
+     the table carried in);
   4. on rebuild steps: the incremental slot-to-slot rebin, or the full
      argsort rebuild when the plan is infeasible (or would overflow the
      tail list).
@@ -31,8 +34,8 @@ and the hill pass gathers its mask with its coordinates — and the state
 records ``kernel_cap`` and ``tail_ovf_host``.  The step owns its outputs:
 the force planes that K1 returns are updated in place by the tail pass.
 
-Not ported yet: dynamic stride conds (``static_do_*`` = None), Chebyshev
-lookup (ROADMAP Queue 1, item 7), id masks and the legacy kernels
+Not ported yet: dynamic stride conds (``static_do_*`` = None), id masks
+and the legacy kernels
 (``with_ids``, ``use_pallas`` other than True; item 13), slab/brick
 sharding (item 12), type-filtered CVs (item 5), hill-record collection
 (item 10).
@@ -49,6 +52,7 @@ import torch
 from .. import bias as B
 from ..ops import prng
 from ..grid import device_const
+from ..ops.chebyshev import fit_gauss_grid
 from ..ops.cellforce import (
     CELLS_PER_GROUP,
     cell_force_newton,
@@ -236,8 +240,11 @@ class CellStep:
             )
             self.host_syncs += reads
             last_calls = ncalls
+            # refit at the carried table's degree and panels
+            cheb = (fit_gauss_grid(bias_state.bias, core.cheb.deg, core.cheb.npanels)
+                    if core.cheb is not None else None)
         else:
-            bias_state, last_calls = core.bias, core.last_calls
+            bias_state, last_calls, cheb = core.bias, core.last_calls, core.cheb
             truncated = torch.zeros((), dtype=torch.bool, device=xs.device)
 
         if self.do_rebuild:
@@ -248,7 +255,7 @@ class CellStep:
         new_core = PairEDMState(
             x=x_at, v=v_at, f=f_at, key=key, bias=bias_state,
             step=core.step + 1, last_calls=last_calls, energy=e_bias,
-            hills_truncated=core.hills_truncated | truncated,
+            hills_truncated=core.hills_truncated | truncated, cheb=cheb,
         )
         return dataclasses.replace(state, core=new_core, **upd), e_bias
 
@@ -271,9 +278,12 @@ class CellStep:
 
     def _force(self, state, xs):
         """(bias energy, forces (Cg, cap, 3)) through K1, plus K2 on
-        reduced-cap periods."""
+        reduced-cap periods; the lookup is the carried ChebTable, else the
+        exact Hermite table of the live grid."""
         spec, lj = self.spec, self.lj
-        tbl = hermite_pair_table(state.core.bias.bias)
+        tbl = state.core.cheb
+        if tbl is None:
+            tbl = hermite_pair_table(state.core.bias.bias)
         kw = dict(box=spec.box, lj=lj, energy=self.do_energy)
         if self.kernel_cap is None or state.tail_ovf_host:
             f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells, **kw)

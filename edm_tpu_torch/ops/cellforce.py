@@ -1,5 +1,5 @@
 """Cell-pair force pass of the pairwise-EDM cell host: LJ + the pair-distance
-CV bias through the exact cubic-Hermite table.
+CV bias through the exact cubic-Hermite table or its Chebyshev form.
 
 Two kernels, each a CUDA kernel for Hopper in ``csrc/cellforce.cu`` with a
 plain PyTorch version beside it:
@@ -10,6 +10,11 @@ plain PyTorch version beside it:
   - ``overflow_force`` (K2) replaces ``overflow_forces_pallas``: the dense
     sweep of the compacted tail atoms (slots >= kernel_cap) against every
     placed low slot, on reduced-cap steps.
+
+Both take either bias table: a ``HermiteTable`` (``pair_lookup="interp"``)
+or a ``ChebTable`` (``pair_lookup="chebyshev"``), whose per-pair Clenshaw
+chains replace ``cellforce_pallas._cheb_val_der`` (K3); the kernel is
+instantiated once per lookup.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches on the
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.cells import neighbor_cells
+from .chebyshev import ChebTable
 
 # The 13 lexicographically positive cell offsets: every unordered
 # cross-cell pair (c, c + d) appears exactly once for >= 3 cells per dim.
@@ -97,21 +103,10 @@ def hermite_pair_table(gg) -> HermiteTable:
 # ------------------------------------------------------------ plain versions
 
 
-def _pair_terms(dx, dy, dz, ok, table: HermiteTable, lj, energy: bool):
-    """Per-pair force factors of _kernel_newton_rc:604-654 on broadcast
-    displacement tiles: returns (f_over_r, val or None), masked pairs 0."""
+def _hermite_terms(r, ok, table: HermiteTable, energy: bool):
+    """(der, val or None) of ``_hermite_val_der``, 0 off the table."""
     G, glo, gdx, ghi, blo, bhi = table.geom
-    dtype, dev = dx.dtype, dx.device
-    r2 = dx * dx + dy * dy + dz * dz
-    one = torch.ones((), dtype=dtype, device=dev)
-    r2s = torch.where(ok, torch.clamp(r2, min=1e-12), one)
-    inv_r = torch.rsqrt(r2s)
-    r = r2s * inv_r
-    inv_r2 = inv_r * inv_r
-    sr2 = (lj.sigma * lj.sigma) * inv_r2
-    sr6 = sr2 * sr2 * sr2
-    fmag_r = 4.0 * lj.epsilon * (12.0 * sr6 * sr6 - 6.0 * sr6) * inv_r2
-    fmag_r = torch.where(ok & (r < lj.rcut), fmag_r, torch.zeros_like(fmag_r))
+    dtype, dev = r.dtype, r.device
     cv_on = ok & (r >= blo) & (r <= bhi) & (r >= glo) & (r < ghi)
     gdx_t = torch.full((), gdx, dtype=dtype, device=dev)
     idxf = torch.clamp(torch.floor((r - glo) / gdx_t), 0.0, float(G - 1))
@@ -124,6 +119,71 @@ def _pair_terms(dx, dy, dz, ok, table: HermiteTable, lj, energy: bool):
     if energy:
         val = a0 + (t * gdx) * (b0 + t * (0.5 * c0 + (1.0 / 3.0) * (t * d0)))
         val = torch.where(cv_on, val, zero)
+    return der, val
+
+
+def cheb_geom(table: ChebTable, dtype) -> tuple:
+    """(lo, hi, lo + hi, hi - lo, panel width) as the kernels use them: each
+    computed in float64 and rounded once to ``dtype``, as the Pallas
+    kernel's Python-float constants are."""
+    dt = np.float32 if dtype == torch.float32 else np.float64
+    lo, hi = table.lo, table.hi
+    return tuple(float(dt(v)) for v in (lo, hi, lo + hi, hi - lo, (hi - lo) / table.npanels))
+
+
+def _cheb_terms(r, ok, table: ChebTable, energy: bool):
+    """(der, val or None) of ``_cheb_val_der`` (cellforce_pallas.py:67-105):
+    the mask is lo <= r <= hi; for P > 1 the panel index is clamped to
+    [0, P-1] and the local coordinate t is not clipped."""
+    dtype, dev = r.dtype, r.device
+    lo, hi, csum, cwid, pw = cheb_geom(table, dtype)
+    P, deg = table.npanels, table.deg
+    cv_on = ok & (r >= lo) & (r <= hi)
+    rc = torch.clamp(r, lo, hi)
+    if P == 1:
+        t = (2.0 * rc - csum) / torch.full((), cwid, dtype=dtype, device=dev)
+
+        def coef(c, k):
+            return c[0, k]
+    else:
+        pw_t = torch.full((), pw, dtype=dtype, device=dev)
+        pf = torch.clamp(torch.floor((rc - lo) / pw_t), 0.0, float(P - 1))
+        t = (2.0 * (rc - lo - pf * pw) - pw) / pw_t
+        pi = pf.to(torch.int64)
+
+        def coef(c, k):
+            return c[:, k][pi]
+    t2 = 2.0 * t
+    zero = torch.zeros_like(t)
+    b1 = b2 = d1 = d2 = zero
+    for k in range(deg, 0, -1):
+        if energy:
+            b1, b2 = coef(table.cval, k) + t2 * b1 - b2, b1
+        d1, d2 = coef(table.cder, k) + t2 * d1 - d2, d1
+    z = torch.zeros((), dtype=dtype, device=dev)
+    der = torch.where(cv_on, coef(table.cder, 0) + t * d1 - d2, z)
+    val = torch.where(cv_on, coef(table.cval, 0) + t * b1 - b2, z) if energy else None
+    return der, val
+
+
+def _pair_terms(dx, dy, dz, ok, table, lj, energy: bool):
+    """Per-pair force factors of _kernel_newton_rc:604-654 on broadcast
+    displacement tiles: returns (f_over_r, val or None), masked pairs 0."""
+    dtype, dev = dx.dtype, dx.device
+    r2 = dx * dx + dy * dy + dz * dz
+    one = torch.ones((), dtype=dtype, device=dev)
+    r2s = torch.where(ok, torch.clamp(r2, min=1e-12), one)
+    inv_r = torch.rsqrt(r2s)
+    r = r2s * inv_r
+    inv_r2 = inv_r * inv_r
+    sr2 = (lj.sigma * lj.sigma) * inv_r2
+    sr6 = sr2 * sr2 * sr2
+    fmag_r = 4.0 * lj.epsilon * (12.0 * sr6 * sr6 - 6.0 * sr6) * inv_r2
+    fmag_r = torch.where(ok & (r < lj.rcut), fmag_r, torch.zeros_like(fmag_r))
+    if isinstance(table, ChebTable):
+        der, val = _cheb_terms(r, ok, table, energy)
+    else:
+        der, val = _hermite_terms(r, ok, table, energy)
     return fmag_r - der * inv_r, val
 
 
@@ -138,10 +198,11 @@ def half_neighbors(ncells, device) -> torch.Tensor:
     return torch.as_tensor(neighbor_cells(ncells, HALF_OFFSETS), device=device)
 
 
-def cell_force_newton_ref(xs, mc, table: HermiteTable, *, k: int, ncells, box,
+def cell_force_newton_ref(xs, mc, table, *, k: int, ncells, box,
                           lj, energy: bool):
     """Plain version of K1.  xs (Cg, cap, 3) slot positions, mc (Cg, cap)
-    occupancy (1.0 = atom); only slots < k take part.  Returns
+    occupancy (1.0 = atom); only slots < k take part; ``table`` a
+    HermiteTable or a ChebTable.  Returns
     f (Cg, cap, 3) — row sums plus Newton credits, zero at slots >= k and
     padded cells — and eb (Cg, k), the per-row bias energy (self block at
     weight 0.5; zeros when ``energy`` is False)."""
@@ -173,7 +234,7 @@ def cell_force_newton_ref(xs, mc, table: HermiteTable, *, k: int, ncells, box,
     return f, eb
 
 
-def overflow_force_ref(xo, xp, table: HermiteTable, *, box, lj, energy: bool):
+def overflow_force_ref(xo, xp, table, *, box, lj, energy: bool):
     """Plain version of K2.  xo (5, O) tail rows: x, y, z, mask, own; xp
     (4, N) partners: x, y, z, mask.  Returns fo (4, O) — force components
     and bias energy on the tail atoms — and fp (3, N), the Newton credits
@@ -224,14 +285,33 @@ def _f32(vals):
     return (ctypes.c_float * len(vals))(*[float(np.float32(v)) for v in vals])
 
 
-def _pair_args(table: HermiteTable, box, lj):
-    G, glo, gdx, ghi, blo, bhi = table.geom
-    return (
-        G,
-        _f32([glo, gdx, ghi, blo, bhi]),
-        _f32([box[0], box[1], box[2], 1.0 / box[0], 1.0 / box[1], 1.0 / box[2]]),
-        _f32([4.0 * lj.epsilon, lj.sigma * lj.sigma, lj.rcut]),
-    )
+def _pair_args(table, box, lj, device):
+    """The lookup's launch arguments: (lookup id, t1, t2, rows, degp, geom)
+    — Hermite: id 0, the (G, 4) table, rows G, geom (glo, gdx, ghi, blo,
+    bhi); Chebyshev: id 1, cval and cder (P, deg+1), rows P, degp deg+1,
+    geom ``cheb_geom`` — and the box and LJ constants, all f32."""
+    lib = _library()
+    if isinstance(table, ChebTable):
+        P, degp = table.cval.shape
+        _check(table.cval, "cval", (P, degp), device)
+        _check(table.cder, "cder", (P, degp), device)
+        if not (1 <= P <= lib.edm_max_panels() and 2 <= degp <= lib.edm_max_deg() + 1):
+            raise ValueError(f"Chebyshev table with {P} panels of degree {degp - 1} is beyond "
+                             f"the kernels' limits ({lib.edm_max_panels()} panels, degree "
+                             f"{lib.edm_max_deg()})")
+        look = (1, table.cval, table.cder, P, degp, cheb_geom(table, torch.float32))
+    else:
+        G, glo, gdx, ghi, blo, bhi = table.geom
+        _check(table.tab, "table", (G, 4), device)
+        if G > lib.edm_max_g():
+            raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lib.edm_max_g()}")
+        if table.tab.data_ptr() % 16:
+            raise ValueError("table must be 16-byte aligned")
+        look = (0, table.tab, table.tab, G, 0, (glo, gdx, ghi, blo, bhi))
+    lid, t1, t2, rows, degp, geom = look
+    return (lid, t1.data_ptr(), t2.data_ptr(), rows, degp, _f32(geom),
+            _f32([box[0], box[1], box[2], 1.0 / box[0], 1.0 / box[1], 1.0 / box[2]]),
+            _f32([4.0 * lj.epsilon, lj.sigma * lj.sigma, lj.rcut]))
 
 
 def _raise_on(lib, code: int, what: str):
@@ -239,8 +319,7 @@ def _raise_on(lib, code: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.edm_error_string(code).decode()}")
 
 
-def cell_force_newton(xs, mc, table: HermiteTable, *, k: int, ncells, box, lj,
-                      energy: bool):
+def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool):
     """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
     Newton credits are summed deterministically: a per-offset credit
     scratch (C, 13, k, 3) written by the row pass and added to each slot
@@ -253,24 +332,20 @@ def cell_force_newton(xs, mc, table: HermiteTable, *, k: int, ncells, box, lj,
     lib = _library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
-    G = table.geom[0]
     _check(xs, "xs", (Cg, cap, 3), xs.device)
     _check(mc, "mc", (Cg, cap), xs.device)
-    _check(table.tab, "table", (G, 4), xs.device)
     if not 0 < k <= min(cap, lib.edm_max_k()):
         raise ValueError(f"k={k} outside 1..min(cap={cap}, {lib.edm_max_k()})")
-    if G > lib.edm_max_g() or Cg < C or min(ncells) < 3:
-        raise ValueError(f"unsupported table rows {G} or lattice {ncells} (Cg={Cg})")
-    if table.tab.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    if Cg < C or min(ncells) < 3:
+        raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
+    args = _pair_args(table, box, lj, xs.device)
     f = torch.zeros_like(xs)
     eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((C, 13, k, 3), dtype=xs.dtype, device=xs.device)
-    G, geom, boxa, lja = _pair_args(table, box, lj)
     code = lib.cell_force_newton_launch(
-        xs.data_ptr(), mc.data_ptr(), table.tab.data_ptr(), f.data_ptr(),
-        eb.data_ptr(), cred.data_ptr(), C, cap, k, *ncells, G, geom, boxa, lja,
-        int(energy), torch.cuda.current_stream(xs.device).cuda_stream,
+        xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
+        C, cap, k, *ncells, *args, int(energy),
+        torch.cuda.current_stream(xs.device).cuda_stream,
     )
     _raise_on(lib, code, "cell_force_newton")
     cell_force_newton.launches += 1
@@ -280,7 +355,7 @@ def cell_force_newton(xs, mc, table: HermiteTable, *, k: int, ncells, box, lj,
 cell_force_newton.launches = 0
 
 
-def overflow_force(xo, xp, table: HermiteTable, *, box, lj, energy: bool):
+def overflow_force(xo, xp, table, *, box, lj, energy: bool):
     """K2 (see ``overflow_force_ref`` for the contract).  On the GPU each
     partner's credit is owned by one thread and the per-tile tail-row
     partial sums are reduced in a fixed order by a second pass."""
@@ -291,22 +366,17 @@ def overflow_force(xo, xp, table: HermiteTable, *, box, lj, energy: bool):
     lib = _library()
     O = xo.shape[1]
     N = xp.shape[1]
-    G = table.geom[0]
     _check(xo, "xo", (5, O), xo.device)
     _check(xp, "xp", (4, N), xo.device)
-    _check(table.tab, "table", (G, 4), xo.device)
-    if not 0 < O <= lib.edm_max_o() or G > lib.edm_max_g():
-        raise ValueError(f"unsupported tail rows {O} or table rows {G}")
-    if table.tab.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    if not 0 < O <= lib.edm_max_o():
+        raise ValueError(f"unsupported tail rows {O}")
+    args = _pair_args(table, box, lj, xo.device)
     fo = torch.empty((4, O), dtype=xo.dtype, device=xo.device)
     fp = torch.empty((3, N), dtype=xo.dtype, device=xo.device)
     part = torch.empty(((N + 255) // 256, 4, O), dtype=xo.dtype, device=xo.device)
-    G, geom, boxa, lja = _pair_args(table, box, lj)
     code = lib.overflow_force_launch(
-        xo.data_ptr(), xp.data_ptr(), table.tab.data_ptr(), fo.data_ptr(),
-        fp.data_ptr(), part.data_ptr(), O, N, G, geom, boxa, lja, int(energy),
-        torch.cuda.current_stream(xo.device).cuda_stream,
+        xo.data_ptr(), xp.data_ptr(), fo.data_ptr(), fp.data_ptr(), part.data_ptr(),
+        O, N, *args, int(energy), torch.cuda.current_stream(xo.device).cuda_stream,
     )
     _raise_on(lib, code, "overflow_force")
     overflow_force.launches += 1

@@ -10,11 +10,11 @@ boundary-table index computed host-side in float64 numpy
 
 Ported: ``dense_tables_1d`` + ``deposit_from_tables`` (the engine round's
 deposit, ``bias.add_hills_round``), ``deposit_dense_1d`` and the 1-D
-``deposit`` dispatcher, ``duplicate_boundary`` (static boundary).  Not
-ported yet: the windowed scatter path (``hill_windows``) and the N-D
+``deposit`` dispatcher with its routes to the large-grid kernels of
+``ops/deposit_kernels`` (K4, K5), ``duplicate_boundary`` (static boundary).
+Not ported yet: the windowed scatter path (``hill_windows``) and the N-D
 separable / McGDP tables (ROADMAP Queue 1, item 9), the sharded
-``boundary_offset`` forms (item 12), and the large periodic grids that the
-JAX package sends to its Pallas deposition kernels (item 8).
+``boundary_offset`` forms (item 12).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..gauss import (
     sigmoid,
     sigmoid_dx,
 )
+from . import deposit_kernels
 
 
 def _bc_point_index_np(spec, d: int) -> np.ndarray:
@@ -266,23 +267,25 @@ def deposit_dense_1d(gg: GaussGrid, centers, heights, grid_chunk: int = 131072):
 def deposit(gg: GaussGrid, centers, heights):
     """Deposit hills; returns (new grid, per-hill bias_added (H,)).
 
-    1-D grids narrower than 16384 points, whose support window fits the
-    domain, go to ``deposit_dense_1d`` as in the JAX package.  Wider
-    periodic grids are where the JAX package runs its Pallas deposition
-    kernels, and N-D grids take the windowed scatter: neither is ported
-    yet."""
+    1-D routing as in the JAX package (edm_tpu/ops/deposit.py:1160-1176):
+    grids of 16384+ points that ``deposit_kernels.supported`` takes (1-D,
+    periodic, float32) go to K4 (``deposit_windowed_1d``) when the hill
+    window is narrow (W + 256 < G // 2) and to K5
+    (``deposit_dense_1d_kernel``) otherwise; every other 1-D grid whose
+    window fits the domain goes to ``deposit_dense_1d``.  The JAX package
+    takes the kernel routes on a TPU only; here the wrappers decide by the
+    tensors' device (the plain versions on the CPU).  N-D grids and the
+    windowed scatter are not ported yet (ROADMAP Queue 1, item 9)."""
     spec = gg.spec
     if spec.dim == 1:
         W = spec.window_shape[0]
         G = spec.grid.nbins[0]
         if G <= 512 * W and (not spec.grid.periodic[0] or W < G):
-            if G >= 16384:
-                raise NotImplementedError(
-                    "1-D deposition on grids of 16384+ points (the Pallas "
-                    "deposition kernels) is not ported yet (ROADMAP Queue 1, item 8)"
-                )
+            if G >= 16384 and deposit_kernels.supported(gg):
+                if W + 256 < G // 2:
+                    return deposit_kernels.deposit_windowed_1d(gg, centers, heights)
+                return deposit_kernels.deposit_dense_1d_kernel(gg, centers, heights)
             return deposit_dense_1d(gg, centers, heights)
     raise NotImplementedError(
-        "windowed and N-D deposition are not ported yet (ROADMAP Queue 1, "
-        "items 8 and 9)"
+        "windowed-scatter and N-D deposition are not ported yet (ROADMAP Queue 1, item 9)"
     )

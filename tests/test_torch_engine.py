@@ -63,7 +63,7 @@ def test_grid_lookups(periodic):
         assert_exact(tgr.get_index(_t(x)), jgr.get_index(jnp.asarray(x)))
     # nearest-bin histogram accumulate and targeting's expected bias
     hist = jgrid.Grid.zeros(spec, dtype=jnp.float64)
-    thist = tgrid.Grid.zeros(tspec, dtype=F64)
+    thist = tgrid.Grid.zeros(tspec, dtype=F64, device="cpu")
     w = rng.choice([-1.0, 0.0, 1.0], size=500)
     hist, _ = hist.add_value(jnp.asarray(x), jnp.asarray(w))
     thist, _ = thist.add_value(_t(x), _t(w))
@@ -78,7 +78,8 @@ def test_gauss_grid_geometry(bper):
     rng = np.random.default_rng(1)
     kw = dict(boundary_min=[0.1], boundary_max=[2.9], boundary_periodic=[bper])
     jgg = jg.GaussGrid.create([0.0], [3.0], [0.02], [False], [0.1], dtype=jnp.float64, **kw)
-    tgg = tg.GaussGrid.create([0.0], [3.0], [0.02], [False], [0.1], dtype=F64, **kw)
+    tgg = tg.GaussGrid.create([0.0], [3.0], [0.02], [False], [0.1], dtype=F64,
+                               device="cpu", **kw)
     assert dataclasses.asdict(tgg.spec) == dataclasses.asdict(jgg.spec)
     assert tgg.spec.window_shape == jgg.spec.window_shape
     assert_exact(tgg.bc_denom, jgg.bc_denom)
@@ -105,7 +106,8 @@ def test_dense_deposit_1d(spacing, periodic):
     grid points on lattice-aligned McGDP table quotients."""
     rng = np.random.default_rng(2)
     jgg = jg.GaussGrid.create([0.0], [3.0], [spacing], [periodic], [0.1], dtype=jnp.float64)
-    tgg = tg.GaussGrid.create([0.0], [3.0], [spacing], [periodic], [0.1], dtype=F64)
+    tgg = tg.GaussGrid.create([0.0], [3.0], [spacing], [periodic], [0.1], dtype=F64,
+                               device="cpu")
     centers = rng.uniform(-0.2, 3.2, (64, 1))
     centers[:4, 0] = [0.0, 3.0, 1e-3, 2.999]
     heights = rng.uniform(0.0, 0.3, 64)
@@ -175,7 +177,7 @@ def test_add_hills_round_f64(name):
                                  dtype=jnp.float64, target=target, buffer_size=512)
     tparams, tstate = TB.subdivide(
         t_parse(text), 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0], dtype=F64,
-        buffer_size=512,
+        device="cpu", buffer_size=512,
         target=tgrid.Grid(values=_t(tvals), derivs=None,
                           spec=tgrid.GridSpec.create([0.0], [3.0], [0.02], [False])),
     )
@@ -208,3 +210,15 @@ def test_add_hills_round_f64(name):
                    JB.hill_heights(params, state, jnp.asarray(pos), jnp.asarray(est)))
     assert int(state.buf_right) > 0 or name != "bench"  # the buffer was exercised
     TB.check_state(tstate)
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: their ``device`` parameters default to "cuda"."""
+    import inspect
+
+    from edm_tpu_torch import convert
+
+    for fn in (TB.subdivide, tg.GaussGrid.create, tg.compute_bc_tables, tgrid.Grid.zeros,
+               convert.state_from_numpy, convert.params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -8,8 +8,13 @@ without them, skipping the repository's conftest:
 
 Inputs: a 600-atom LJ fluid with a crowded octant (a real tail above
 kernel_cap), built with the port's own entry points from a numpy seed,
-and a bias grid carrying deposited hills.  Tolerances as in the CPU parity
-tests: forces within 2e-5 * max(1, max|f|), energies 1e-5 relative.
+and a bias grid carrying deposited hills; K1 and K2 run with the Hermite
+table and with two Chebyshev tables (K3: 4 panels of degree 16, 1 panel of
+degree 64).  K4 and K5 deposit on the periodic grids of
+``test_torch_deposit.py``.  Tolerances as in the CPU parity tests: forces
+within 2e-5 * max(1, max|f|), energies 1e-5 relative; deposited values
+and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
+Every kernel repeats bitwise.
 """
 
 import numpy as np
@@ -18,12 +23,15 @@ import torch
 
 from _torch_parity import assert_energy, assert_forces
 from edm_tpu_torch import bias as B
+from edm_tpu_torch import gauss as tg
 from edm_tpu_torch.models import pair_edm
 from edm_tpu_torch.models.cells import CellSpec
 from edm_tpu_torch.models.langevin import LangevinParams
 from edm_tpu_torch.models.lj import LJParams
 from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
 from edm_tpu_torch.ops import cellforce as CF
+from edm_tpu_torch.ops import deposit_kernels as DK
+from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
 from edm_tpu_torch.ops.prng import PRNGKey
 from edm_tpu_torch.utils.config import parse_edm_text
 
@@ -54,14 +62,14 @@ def cuda_state():
                                PRNGKey(0), n_est=n * 40)
     spec = CellSpec.create([6.0] * 3, cutoff=2.0, n_atoms=n, cap=56)
     st = init_cell_state(spec, core, kernel_cap=KCAP, overflow_cap=OCAP)
-    return params, spec, st, CF.hermite_pair_table(gg)
+    return params, spec, st, CF.hermite_pair_table(gg), gg
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [24, 32, 56])
 @pytest.mark.parametrize("energy", [False, True])
 def test_cell_force_newton_kernel(cuda_state, k, energy):
-    _, spec, st, tbl = cuda_state
+    _, spec, st, tbl, _ = cuda_state
     kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy)
     n0 = CF.cell_force_newton.launches
     f, eb = CF.cell_force_newton(st.xs, st.mc, tbl, **kw)
@@ -78,7 +86,7 @@ def test_cell_force_newton_kernel(cuda_state, k, energy):
 @pytest.mark.gpu
 @pytest.mark.parametrize("energy", [False, True])
 def test_overflow_force_kernel(cuda_state, energy):
-    params, spec, st, tbl = cuda_state
+    params, spec, st, tbl, _ = cuda_state
     step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, static_do_hills=False,
                           static_do_energy=energy, static_do_rebuild=False,
                           kernel_cap=KCAP, overflow_cap=OCAP)
@@ -97,7 +105,7 @@ def test_overflow_force_kernel(cuda_state, energy):
 
 @pytest.mark.gpu
 def test_wrappers_check_inputs(cuda_state):
-    _, spec, st, tbl = cuda_state
+    _, spec, st, tbl, _ = cuda_state
     kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ, energy=False)
     with pytest.raises(TypeError, match="float32"):
         CF.cell_force_newton(st.xs.double(), st.mc, tbl, k=24, **kw)
@@ -108,3 +116,104 @@ def test_wrappers_check_inputs(cuda_state):
         CF.cell_force_newton(st.xs, st.mc, tbl, k=st.xs.shape[1] + 8, **kw)
     with pytest.raises(ValueError, match="is on"):
         CF.cell_force_newton(st.xs, st.mc.cpu(), tbl, k=24, **kw)
+
+
+TABLES = [(4, 16), (1, 64)]  # (panels, degree): the bench, the JAX default
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("panels,deg", TABLES)
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_cheb_kernel(cuda_state, panels, deg, k, energy):
+    _, spec, st, _, gg = cuda_state
+    tab = fit_gauss_grid(gg, deg, panels)
+    kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy)
+    n0 = CF.cell_force_newton.launches
+    f, eb = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(st.xs, st.mc, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_newton.launches == n0 + 1
+    assert_forces(f.cpu(), f_ref.cpu(), f"K1 cheb P={panels} k={k}")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K1 cheb P={panels} energy")
+    f2, eb2 = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+    assert torch.equal(f, f2) and torch.equal(eb, eb2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("panels,deg", TABLES)
+@pytest.mark.parametrize("energy", [False, True])
+def test_overflow_force_cheb_kernel(cuda_state, panels, deg, energy):
+    params, spec, st, _, gg = cuda_state
+    tab = fit_gauss_grid(gg, deg, panels)
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec,
+                          static_do_hills=False, static_do_energy=energy,
+                          static_do_rebuild=False, kernel_cap=KCAP, overflow_cap=OCAP)
+    xo, xp = step._overflow_inputs(st, st.xs)
+    kw = dict(box=spec.box, lj=LJ, energy=energy)
+    n0 = CF.overflow_force.launches
+    fo, fp = CF.overflow_force(xo, xp, tab, **kw)
+    fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.overflow_force.launches == n0 + 1
+    assert_forces(fo[:3].cpu(), fo_ref[:3].cpu(), "K2 cheb fo")
+    assert_forces(fp.cpu(), fp_ref.cpu(), "K2 cheb fp")
+    assert_energy(fo[3].sum().cpu(), fo_ref[3].sum().cpu(), "K2 cheb energy")
+    fo2, fp2 = CF.overflow_force(xo, xp, tab, **kw)
+    assert torch.equal(fo, fo2) and torch.equal(fp, fp2)
+
+
+@pytest.mark.gpu
+def test_cheb_table_limits(cuda_state):
+    _, spec, st, _, gg = cuda_state
+    kw = dict(k=24, ncells=spec.ncells, box=spec.box, lj=LJ, energy=False)
+    with pytest.raises(ValueError, match="beyond"):
+        CF.cell_force_newton(st.xs, st.mc, fit_gauss_grid(gg, 80, 1), **kw)
+
+
+def _deposit_case(windowed):
+    """(grid, centres, heights) on the card: test_torch_deposit.py's K4 and
+    K5 grids and hills."""
+    dev = torch.device("cuda", 0)
+    G, sigma = (65536, 0.0293170) if windowed else (16384, 0.45)
+    gg = tg.GaussGrid.create([0], [10], [10.0 / G], [True], [sigma], device=dev)
+    rng = np.random.default_rng(3 if windowed else 9)
+    if windowed:
+        c = np.concatenate([rng.uniform(0, 10, (30,)), [0.001, 9.999, 0.05]])[:, None]
+        h = rng.uniform(0.01, 0.2, (33,))
+    else:
+        c, h = rng.uniform(0, 10, (64, 1)), rng.uniform(0.1, 1.0, (64,))
+    return (gg, torch.tensor(c, dtype=torch.float32, device=dev),
+            torch.tensor(h, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed", [True, False])
+def test_deposit_kernel(cuda_state, windowed):
+    gg, c, h = _deposit_case(windowed)
+    kernel, ref = ((DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref) if windowed else
+                   (DK.deposit_dense_1d_kernel, DK.deposit_dense_1d_kernel_ref))
+    n0 = kernel.launches
+    out, ba = kernel(gg, c, h)
+    out_ref, ba_ref = ref(gg, c, h)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    for a, b, rel in ((out.grid.values, out_ref.grid.values, 1e-4),
+                      (out.grid.derivs, out_ref.grid.derivs, 3e-4)):
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    assert float((ba - ba_ref).abs().max()) <= 2e-6
+    assert float(((ba - h) / h).abs().max()) <= 1e-3  # conservation
+    out2, ba2 = kernel(gg, c, h)
+    assert torch.equal(out.grid.values, out2.grid.values)
+    assert torch.equal(out.grid.derivs, out2.grid.derivs) and torch.equal(ba, ba2)
+
+
+@pytest.mark.gpu
+def test_add_value_routes_through_the_kernels(cuda_state):
+    for windowed, kernel in ((True, DK.deposit_windowed_1d), (False, DK.deposit_dense_1d_kernel)):
+        gg, c, _ = _deposit_case(windowed)
+        n0 = kernel.launches
+        out, ba = gg.add_value(c, 0.1)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1
+        assert bool(torch.isfinite(out.grid.values).all()) and ba.shape == (c.shape[0],)
