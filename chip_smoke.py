@@ -22,12 +22,17 @@ path 20 steps at kT = 0 through the kernels, each step held to the same
 step through the plain versions, then the bench's kT = 0.8 run with the
 launch counters reset (rate, host syncs, the device-busy share of a
 stride cycle, end-state checks); the deposition run (hills/s, host syncs,
-device-busy share).  It prints one ``kernels`` JSON line (launches,
+device-busy share; its final grid held to the same rounds through the
+plain versions).  The deposition kernels are checked on grids that
+already carry hills.  It prints one ``kernels`` JSON line (launches,
 errors, times, the card's least time for the work) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  Any
 failed check raises, and the script exits non-zero without the last line.
+``python3 chip_smoke.py --ab-slice OTHER`` times only the exact-lookup
+kT = 0.8 run, of the checkout OTHER (say, the parent commit unpacked by
+``git archive``) and of this one in turns, to compare the two in one call.
 """
 
 from __future__ import annotations
@@ -312,44 +317,26 @@ def print_rows(rows):
               f"  bound {bms:.5f} ms ({by})")
 
 
-def edge_pairs(torch, xs, mc, box, slots, edges):
-    """For each slot, whether one of its pairs lies within 1e-5 of a table
-    edge (distances in float64)."""
-    x = xs.reshape(-1, 3).double()
-    occ = mc.reshape(-1) > 0.5
-    L = torch.tensor(box, dtype=torch.float64, device=xs.device)
-    out = []
-    for s in slots:
-        d = x[occ] - x[s]
-        d = d - torch.round(d / L) * L
-        r = d.norm(dim=1)
-        out.append(bool((r[:, None] - edges[None, :]).abs().min() < 1e-5))
-    return out
-
-
 def check_slot_forces(torch, what, f, f_ref, xs, mc, box, table):
     """``check_forces``, except that with a Chebyshev table an atom with a
-    pair within 1e-5 of a table edge (lo, hi, a panel joint) may differ by
-    up to the table's largest jump of dV/dr at an edge: its distance, off
-    by an ulp, can fall on either side.  Returns the atoms it let through."""
+    pair near a table edge (``ChebTable.near_edge``) may differ by up to the
+    table's largest jump of dV/dr at an edge (``ChebTable.edge_jump``): its
+    distance, off by an ulp, can fall on either side.  Returns the atoms it
+    let through."""
     from edm_tpu_torch.ops.chebyshev import ChebTable
 
     scale = max(1.0, float(f_ref.abs().max()))
     err = (f.double() - f_ref.double()).abs().amax(-1).reshape(-1)
     if float(err.max()) <= FORCE_REL * scale or not isinstance(table, ChebTable):
         return check_forces(what, f, f_ref), 0
-    cd = table.cder.double()
-    P, degp = cd.shape
-    sign = (-1.0) ** torch.arange(degp, device=cd.device, dtype=torch.float64)
-    jumps = [(cd[0] @ sign).abs(), cd[-1].sum().abs()]
-    jumps += [(cd[q - 1].sum() - cd[q] @ sign).abs() for q in range(1, P)]
-    jump = float(torch.stack(jumps).max())
-    pw = (table.hi - table.lo) / P
-    edges = torch.tensor([table.lo + q * pw for q in range(P + 1)], dtype=torch.float64,
-                         device=f.device)
+    jump = table.edge_jump()
+    x = xs.reshape(-1, 3).double()
+    occ = mc.reshape(-1) > 0.5
+    L = torch.tensor(box, dtype=torch.float64, device=xs.device)
     slots = torch.nonzero(err > FORCE_REL * scale).reshape(-1).tolist()
-    near = edge_pairs(torch, xs, mc, box, slots, edges)
-    for s, nr in zip(slots, near):
+    for s in slots:
+        d = x[occ] - x[s]
+        nr = table.near_edge((d - torch.round(d / L) * L).norm(dim=1))
         if not (nr and float(err[s]) <= FORCE_REL * scale + jump):
             raise AssertionError(f"{what}: slot {s} off by {float(err[s]):.3e} "
                                  f"(bound {FORCE_REL * scale:.3e}; near a table edge: {nr})")
@@ -479,11 +466,28 @@ def slice_run(torch, device, pair_lookup="interp", warm_steps=100, timed_steps=3
     return timed_steps / dt, launches, syncs / (timed_steps / 10)
 
 
-def deposit_grids(torch, device):
+@contextlib.contextmanager
+def plain_deposition():
+    """Route ``ops/deposit.deposit`` through K4's and K5's plain versions."""
+    from edm_tpu_torch.ops import deposit_kernels as DK
+
+    saved = DK.deposit_windowed_1d, DK.deposit_dense_1d_kernel
+    DK.deposit_windowed_1d = DK.deposit_windowed_1d_ref
+    DK.deposit_dense_1d_kernel = DK.deposit_dense_1d_kernel_ref
+    try:
+        yield
+    finally:
+        DK.deposit_windowed_1d, DK.deposit_dense_1d_kernel = saved
+
+
+def deposit_grids(torch, device, carried=False):
     """The two deposition cases: bench_deposition's (G = 1e6 periodic over
     [0, 10], sigma 0.01, 200 centres from default_rng(3), height 0.1; the
     K4 route) and G = 32768 over [0, 10] with sigma 0.5 (W = 18,537; the K5
-    route), with the same hills."""
+    route), with the same hills.  ``carried``: each grid already carries a
+    round of 200 other hills (centres from default_rng(4), heights 0.05 to
+    0.15, deposited by the plain versions), as every round of the main path
+    after the first finds it."""
     from edm_tpu_torch.gauss import GaussGrid
 
     rng = np.random.default_rng(3)
@@ -495,7 +499,34 @@ def deposit_grids(torch, device):
         W, G = gg.spec.window_shape[0], gg.spec.grid.nbins[0]
         if (W + 256 < G // 2) != narrow:
             raise AssertionError(f"G={G}, W={W} does not take the intended route")
+    if carried:
+        rng = np.random.default_rng(4)
+        c0 = torch.tensor(rng.uniform(0, 10, (200, 1)), dtype=torch.float32, device=device)
+        h0 = torch.tensor(rng.uniform(0.05, 0.15, 200), dtype=torch.float32, device=device)
+        with plain_deposition():
+            k4, _ = k4.add_value(c0, h0)
+            k5, _ = k5.add_value(c0, h0)
+        if not (float(k4.grid.values.abs().max()) > 0 and float(k5.grid.derivs.abs().max()) > 0):
+            raise AssertionError("the carried grids are empty")
     return k4, k5, c, h
+
+
+def check_deposit(what, gg, added, gg_ref, added_ref):
+    """A deposition against its plain version, field by field: values and
+    derivatives within 1e-4 and 3e-4 of the plain version's max|.|,
+    bias_added within 2e-6.  Returns {field: (max |diff|, bound)}."""
+    out = {}
+    for name, a, b, bnd in (
+            ("values", gg.grid.values, gg_ref.grid.values, 1e-4),
+            ("derivs", gg.grid.derivs, gg_ref.grid.derivs, 3e-4),
+            ("bias_added", added, added_ref, None)):
+        bnd = 2e-6 if bnd is None else bnd * float(b.abs().max())
+        e = max_err(a, b)
+        if not e <= bnd:
+            raise AssertionError(f"{what} {name}: max |diff| {e:.3e} > bound {bnd:.3e}")
+        out[name] = (e, bnd)
+    print(f"  {what}: " + ", ".join(f"{k} {e:.3e} (bound {b:.3e})" for k, (e, b) in out.items()))
+    return out
 
 
 def deposit_work(gg, c):
@@ -513,14 +544,15 @@ def deposit_work(gg, c):
 
 
 def deposit_kernel_phase(torch, device):
-    """K4 and K5 against their plain versions: values and derivatives within
-    1e-4 and 3e-4 of the plain version's max|.|, bias_added within 2e-6,
-    and each bias_added within 1e-3 of its height (a periodic grid keeps
-    every hill whole)."""
+    """K4 and K5 against their plain versions (``check_deposit``) on grids
+    that already carry hills, so that the kernels' read of the old grid is
+    held to the plain version's; and each bias_added within 1e-3 of its
+    height (a periodic grid keeps every hill whole)."""
     from edm_tpu_torch.ops import deposit_kernels as DK
 
-    k4, k5, c, h = deposit_grids(torch, device)
+    k4, k5, c, h = deposit_grids(torch, device, carried=True)
     rows = {}
+    print("deposition kernels vs plain versions, on carried grids:")
     for name, gg, kern, ref in (
             ("deposit_windowed_1d G=1000000 sigma=0.01", k4, DK.deposit_windowed_1d,
              DK.deposit_windowed_1d_ref),
@@ -529,16 +561,7 @@ def deposit_kernel_phase(torch, device):
         out, ba = kern(gg, c, h)
         out_ref, ba_ref = ref(gg, c, h)
         torch.cuda.synchronize()
-        err = 0.0
-        for what, a, b, rel in (("values", out.grid.values, out_ref.grid.values, 1e-4),
-                                ("derivs", out.grid.derivs, out_ref.grid.derivs, 3e-4)):
-            e = max_err(a, b)
-            if not e <= rel * float(b.abs().max()):
-                raise AssertionError(f"{name} {what}: {e:.3e} > {rel} * {float(b.abs().max()):.3e}")
-            err = max(err, e)
-        e = max_err(ba, ba_ref)
-        if not e <= 2e-6:
-            raise AssertionError(f"{name} bias_added: {e:.3e} > 2e-6")
+        errs = check_deposit(name, out, ba, out_ref, ba_ref)
         cons = float(((ba.double() - h.double()) / h.double()).abs().max())
         if not cons <= 1e-3:
             raise AssertionError(f"{name}: bias_added off its height by {cons:.3e} relative")
@@ -548,7 +571,7 @@ def deposit_kernel_phase(torch, device):
         windowed = kern is DK.deposit_windowed_1d
         flops = (support * (DIST_FLOPS + HILL_FLOPS) if windowed
                  else dense * DIST_FLOPS + support * HILL_FLOPS)
-        rows[name] = (max(err, e), ms, plain) + bound(flops, nbytes)
+        rows[name] = (max(e for e, _ in errs.values()), ms, plain) + bound(flops, nbytes)
     print_rows(rows)
     return rows
 
@@ -557,12 +580,15 @@ def deposition_run(torch, device, rounds=256):
     """bench_deposition through ``GaussGrid.add_value``: 256 rounds of the
     200 hills at c + k * 1e-7 on the 1e6-point grid, timed by the host clock
     up to a device sync; the K4 counter is set to 0 just before and read
-    just after.  Then one round on the K5 grid, counted the same way; the
+    just after.  The grid those rounds leave is held to the same rounds
+    through the plain versions (``check_deposit``).  Then one round on the
+    K5 grid, carrying hills already, counted and held the same way; the
     host syncs of a round on each route (none allowed) and the device-busy
     share of a round (``torch.profiler``)."""
     from edm_tpu_torch.ops import deposit_kernels as DK
 
-    k4, k5, c, h = deposit_grids(torch, device)
+    k4, _, c, h = deposit_grids(torch, device)
+    _, k5, _, _ = deposit_grids(torch, device, carried=True)
     g, _ = k4.add_value(c, h)  # warm-up
     torch.cuda.synchronize()
     DK.deposit_windowed_1d.launches = 0
@@ -579,6 +605,15 @@ def deposition_run(torch, device, rounds=256):
     g5, added5 = k5.add_value(c, h)
     torch.cuda.synchronize()
     n5 = DK.deposit_dense_1d_kernel.launches
+    print("deposition path vs the same rounds through the plain versions:")
+    with plain_deposition():
+        g_ref = k4
+        for k in range(rounds):
+            g_ref, added_ref = g_ref.add_value(c + k * 1e-7, h)
+        g5_ref, added5_ref = k5.add_value(c, h)
+    check_deposit(f"K4, after {rounds} rounds (last round's bias_added)", g, added, g_ref,
+                  added_ref)
+    check_deposit("K5, one round on a carried grid", g5, added5, g5_ref, added5_ref)
     expected = rounds * float(h.sum())
     # host syncs of a round on each route (CUDA sync-debug mode)
     torch.cuda.set_sync_debug_mode("warn")
@@ -627,12 +662,64 @@ def kernel_entry(name, source, replaces, launches, rows, prefix):
             "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
+    """The exact-lookup kT = 0.8 run of the checkout at ``tree``, through
+    that checkout's own ``chip_smoke.bench_setup`` and package: one warm-up
+    of ``warm_steps``, then ``runs`` timed runs of ``timed_steps`` (host
+    clock up to a device sync), each printed as a JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import importlib
+
+    smoke = importlib.import_module("chip_smoke")
+    from edm_tpu_torch.models.driver import pattern_segment
+
+    _, state, steps = smoke.bench_setup(torch, 0.8, torch.device("cuda", 0))
+    state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        state, _ = pattern_segment(smoke.pattern(steps), timed_steps)(state)
+        torch.cuda.synchronize()
+        print(json.dumps({"tree": tree, "steps_per_s": timed_steps / (time.perf_counter() - t0)}))
+
+
+def ab_slice(other, rounds=2):
+    """``time_slice`` of another checkout (e.g. the parent commit, unpacked
+    by ``git archive``) and of this one in turns, one process each:
+    other, this, this, other, ``rounds`` times.  Prints every run and the
+    median of each checkout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    rates = {other: [], here: []}
+    for tree in [other, here, here, other] * rounds:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-slice", tree],
+                             capture_output=True, text=True, timeout=900, cwd=here)
+        if out.returncode != 0:
+            raise RuntimeError(f"time_slice {tree} failed:\n{out.stdout}\n{out.stderr}")
+        for line in out.stdout.splitlines():
+            if line.startswith('{"tree"'):
+                print(line, flush=True)
+                rates[tree].append(json.loads(line)["steps_per_s"])
+    for tree, r in rates.items():
+        print(f"{tree}: median {float(np.median(r))!r} steps/s over {len(r)} runs "
+              f"(min {min(r)!r}, max {max(r)!r})")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] in ("--time-slice", "--ab-slice"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"card: {card_line()}")
+        if sys.argv[1] == "--time-slice":
+            time_slice(torch, sys.argv[2])
+        else:
+            ab_slice(sys.argv[2])
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from edm_tpu_torch import _build
 

@@ -31,6 +31,9 @@ _FLAGS = [
 ]
 
 _lib = None
+# the compiled limits, read once at load: max_k, max_g, max_o, max_deg,
+# max_panels, and the deposition tile per route (tile_dense, tile_windowed)
+limits = {}
 build_log = ""  # nvcc's output (with -Xptxas -v: registers, shared memory, spills)
 build_seconds = 0.0  # 0 when the library was reused
 
@@ -46,6 +49,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LIMITS = ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels")
+
+
 def _declare(lib):
     vp, i, fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
     # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
@@ -58,7 +64,7 @@ def _declare(lib):
     # partials, H, G, geom, windowed, stream
     lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, vp]
     lib.deposit_1d_launch.restype = i
-    for name in ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels"):
+    for name in _LIMITS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.edm_deposit_tile.argtypes = [i]
@@ -104,5 +110,8 @@ def load_library():
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
         os.replace(tmp, so)
-    _lib = _declare(ctypes.CDLL(str(so)))
+    lib = _declare(ctypes.CDLL(str(so)))
+    limits.update({n[4:]: getattr(lib, n)() for n in _LIMITS},
+                  tile_dense=lib.edm_deposit_tile(0), tile_windowed=lib.edm_deposit_tile(1))
+    _lib = lib
     return _lib

@@ -265,9 +265,10 @@ def overflow_force_ref(xo, xp, table, *, box, lj, energy: bool):
 
 
 def _library():
-    from .._build import load_library
+    """The kernel library and its compiled limits (read once at load)."""
+    from .._build import limits, load_library
 
-    return load_library()
+    return load_library(), limits
 
 
 def _check(t: torch.Tensor, name: str, shape, device):
@@ -290,21 +291,21 @@ def _pair_args(table, box, lj, device):
     — Hermite: id 0, the (G, 4) table, rows G, geom (glo, gdx, ghi, blo,
     bhi); Chebyshev: id 1, cval and cder (P, deg+1), rows P, degp deg+1,
     geom ``cheb_geom`` — and the box and LJ constants, all f32."""
-    lib = _library()
+    _, lim = _library()
     if isinstance(table, ChebTable):
         P, degp = table.cval.shape
         _check(table.cval, "cval", (P, degp), device)
         _check(table.cder, "cder", (P, degp), device)
-        if not (1 <= P <= lib.edm_max_panels() and 2 <= degp <= lib.edm_max_deg() + 1):
+        if not (1 <= P <= lim["max_panels"] and 2 <= degp <= lim["max_deg"] + 1):
             raise ValueError(f"Chebyshev table with {P} panels of degree {degp - 1} is beyond "
-                             f"the kernels' limits ({lib.edm_max_panels()} panels, degree "
-                             f"{lib.edm_max_deg()})")
+                             f"the kernels' limits ({lim['max_panels']} panels, degree "
+                             f"{lim['max_deg']})")
         look = (1, table.cval, table.cder, P, degp, cheb_geom(table, torch.float32))
     else:
         G, glo, gdx, ghi, blo, bhi = table.geom
         _check(table.tab, "table", (G, 4), device)
-        if G > lib.edm_max_g():
-            raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lib.edm_max_g()}")
+        if G > lim["max_g"]:
+            raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lim['max_g']}")
         if table.tab.data_ptr() % 16:
             raise ValueError("table must be 16-byte aligned")
         look = (0, table.tab, table.tab, G, 0, (glo, gdx, ghi, blo, bhi))
@@ -329,13 +330,13 @@ def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool):
                                      lj=lj, energy=energy)
     if xs.device.type != "cuda":
         raise ValueError(f"no cell-force kernel for device {xs.device}")
-    lib = _library()
+    lib, lim = _library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     _check(xs, "xs", (Cg, cap, 3), xs.device)
     _check(mc, "mc", (Cg, cap), xs.device)
-    if not 0 < k <= min(cap, lib.edm_max_k()):
-        raise ValueError(f"k={k} outside 1..min(cap={cap}, {lib.edm_max_k()})")
+    if not 0 < k <= min(cap, lim["max_k"]):
+        raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
     args = _pair_args(table, box, lj, xs.device)
@@ -363,12 +364,12 @@ def overflow_force(xo, xp, table, *, box, lj, energy: bool):
         return overflow_force_ref(xo, xp, table, box=box, lj=lj, energy=energy)
     if xo.device.type != "cuda":
         raise ValueError(f"no overflow-force kernel for device {xo.device}")
-    lib = _library()
+    lib, lim = _library()
     O = xo.shape[1]
     N = xp.shape[1]
     _check(xo, "xo", (5, O), xo.device)
     _check(xp, "xp", (4, N), xo.device)
-    if not 0 < O <= lib.edm_max_o():
+    if not 0 < O <= lim["max_o"]:
         raise ValueError(f"unsupported tail rows {O}")
     args = _pair_args(table, box, lj, xo.device)
     fo = torch.empty((4, O), dtype=xo.dtype, device=xo.device)

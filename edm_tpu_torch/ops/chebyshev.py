@@ -124,6 +124,26 @@ class ChebTable:
         zero = torch.zeros((), dtype=v.dtype, device=v.device)
         return torch.where(ok, v, zero), torch.where(ok, d, zero)
 
+    def edges(self) -> list:
+        """lo, the panel joints and hi: where dV/dr may jump."""
+        pw = (self.hi - self.lo) / self.npanels
+        return [self.lo + q * pw for q in range(self.npanels + 1)]
+
+    def near_edge(self, r: torch.Tensor, tol: float = 1e-5) -> bool:
+        """Whether a distance in ``r`` lies within ``tol`` of an edge: two
+        roundings of such a distance can fall on either side of it."""
+        e = torch.tensor(self.edges(), dtype=torch.float64)
+        return bool((r.detach().double().cpu().reshape(-1, 1) - e).abs().min() < tol)
+
+    def edge_jump(self) -> float:
+        """The largest jump of dV/dr at an edge (float64): from 0 to the
+        series at lo and at hi, and between two panels at a joint."""
+        cd = self.cder.detach().double().cpu()
+        sign = (-1.0) ** torch.arange(cd.shape[1], dtype=torch.float64)  # T_k(-1)
+        jumps = [cd[0] @ sign, cd[-1].sum()]
+        jumps += [cd[q - 1].sum() - cd[q] @ sign for q in range(1, self.npanels)]
+        return float(torch.stack(jumps).abs().max())
+
 
 @functools.lru_cache(maxsize=64)
 def _ls_fit_matrix(grid_key, deg: int, panels: int = 1) -> np.ndarray:

@@ -131,12 +131,11 @@ def deposit_dense_1d_kernel_ref(gg: GaussGrid, centers, heights, grid_chunk: int
 
 
 def _launch(gg: GaussGrid, centers, heights, windowed: bool):
-    from .._build import load_library
-    from .cellforce import _check, _f32, _raise_on
+    from .cellforce import _check, _f32, _library, _raise_on
 
     if not supported(gg):
         raise ValueError("the deposition kernels take 1-D periodic float32 grids")
-    lib = load_library()
+    lib, lim = _library()
     G = gg.spec.grid.nbins[0]
     dev = gg.grid.values.device
     x, h = _inputs(gg, centers, heights)
@@ -147,7 +146,7 @@ def _launch(gg: GaussGrid, centers, heights, windowed: bool):
     _check(derivs, "derivs", (G, 1), dev)
     _check(x, "centers", (H,), dev)
     _check(h, "heights", (H,), dev)
-    n_blocks = -(-G // lib.edm_deposit_tile(int(windowed)))
+    n_blocks = -(-G // lim["tile_windowed" if windowed else "tile_dense"])
     out_v = torch.empty_like(values)
     out_d = torch.empty_like(derivs)
     bias_added = torch.empty_like(h)

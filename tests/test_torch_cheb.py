@@ -125,6 +125,30 @@ def test_fit_and_series_match_jax(panels, deg, dtype):
         _assert_coeffs(a, b, 10 * rel, "value_deriv")
 
 
+@pytest.mark.parametrize("panels,deg", TABLES)
+def test_edges_and_edge_jump(panels, deg):
+    """``ChebTable.edge_jump`` against the JAX package's ``clenshaw`` of
+    dV/dr on both sides of each edge (0 outside [lo, hi]), and
+    ``near_edge`` on distances beside an edge and between edges."""
+    _, tgg = _bias_with_hills(jnp.float64)
+    tab = tcheb.fit_gauss_grid(tgg, deg, panels)
+    edges = tab.edges()
+    assert len(edges) == panels + 1 and edges[0] == tab.lo
+    assert abs(edges[-1] - tab.hi) < 1e-12
+    cd = tab.cder.numpy()
+
+    def side(q, x):  # panel q's series of dV/dr at x
+        return float(jcheb.clenshaw(jnp.asarray(cd[q]), jnp.asarray(x), edges[q], edges[q + 1]))
+
+    jumps = [abs(side(0, edges[0])), abs(side(panels - 1, edges[-1]))]
+    jumps += [abs(side(q - 1, edges[q]) - side(q, edges[q])) for q in range(1, panels)]
+    assert abs(tab.edge_jump() - max(jumps)) <= 1e-9 * max(jumps)
+    mid = [0.5 * (a + b) for a, b in zip(edges[:-1], edges[1:])]
+    assert not tab.near_edge(torch.tensor(mid, dtype=torch.float64))
+    for e in edges:
+        assert tab.near_edge(torch.tensor(mid + [e + 5e-6], dtype=torch.float64))
+
+
 @pytest.mark.parametrize("deg", [16, 64])
 def test_nodes_and_interpolation_matrix_match_jax(deg):
     """The float64 numpy helpers are copies: equal to the last bit."""
@@ -278,21 +302,13 @@ def _assert_forces_at_edges(port, ref, xs, mc, box, tab, what):
     err = np.abs(port - ref).max(-1).reshape(-1)
     if err.max() <= tol:
         return
-    cd = np.asarray(np_(tab.cder), np.float64)
-    P, degp = cd.shape
-    sign = (-1.0) ** np.arange(degp)  # T_k(-1)
-    jumps = [abs(cd[0] @ sign), abs(cd[-1].sum())]  # the series at lo and hi
-    jumps += [abs(cd[q - 1].sum() - cd[q] @ sign) for q in range(1, P)]
-    pw = (tab.hi - tab.lo) / P
-    edges = np.array([tab.lo + q * pw for q in range(P + 1)])
     x = np.asarray(np_(xs), np.float64).reshape(-1, 3)
     occ = np.asarray(np_(mc)).reshape(-1) > 0.5
     for s in np.nonzero(err > tol)[0]:
         d = x[occ] - x[s]
         d -= np.round(d / np.asarray(box)) * np.asarray(box)
-        r = np.sqrt((d * d).sum(1))
-        near = np.min(np.abs(r[:, None] - edges[None, :])) < 1e-5
-        assert near and err[s] <= tol + max(jumps), (
+        near = tab.near_edge(torch.as_tensor(np.sqrt((d * d).sum(1))))
+        assert near and err[s] <= tol + tab.edge_jump(), (
             f"{what}: slot {s} off by {err[s]} (tolerance {tol}; near an edge: {near})")
 
 

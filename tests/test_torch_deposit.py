@@ -9,11 +9,14 @@ JAX package.
   - K5's plain version against ``deposit_dense_1d_pallas`` (interpret mode)
     on G = 16384, sigma = 0.45 (W = 8341: the dense route), at
     ``test_pallas_deposit_matches_dense``'s tolerances;
+  - both again on a grid that already carries values and derivatives;
   - the ``deposit`` dispatcher: each route as the JAX package chooses it on
     a TPU (both packages' route functions spied on), and
     ``GaussGrid.add_value`` against the JAX package's on the K4 and K5
     grids.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -55,11 +58,15 @@ def _dense_hills():
             rng.uniform(0.1, 1.0, (64,)).astype(np.float32))
 
 
+def _check_fields(tout, gout):
+    """Values and derivatives within 1e-4 and 3e-4 of the JAX grid's max|.|."""
+    for name, rel in (("values", 1e-4), ("derivs", 3e-4)):
+        ref = np.asarray(getattr(gout.grid, name))
+        assert float(np.abs(getattr(tout.grid, name).numpy() - ref).max()) < rel * np.abs(ref).max()
+
+
 def _check_windowed(tout, tba, gout, ba):
-    vs = float(np.abs(np.asarray(gout.grid.values)).max())
-    ds = float(np.abs(np.asarray(gout.grid.derivs)).max())
-    assert float(np.abs(tout.grid.values.numpy() - np.asarray(gout.grid.values)).max()) < 1e-4 * vs
-    assert float(np.abs(tout.grid.derivs.numpy() - np.asarray(gout.grid.derivs)).max()) < 3e-4 * ds
+    _check_fields(tout, gout)
     np.testing.assert_allclose(tba.numpy(), np.asarray(ba), atol=2e-6)
 
 
@@ -96,6 +103,31 @@ def test_dense_plain_vs_pallas():
     tout, tba = DK.deposit_dense_1d_kernel(tgg, torch.as_tensor(c), torch.as_tensor(h))
     assert DK.deposit_dense_1d_kernel.launches == n0
     _check_dense(tout, tba, gout, ba)
+
+
+@pytest.mark.parametrize("windowed", [True, False])
+def test_plain_vs_pallas_on_a_carried_grid(windowed):
+    """Both routes add onto a grid that already holds values and derivatives
+    (seeded noise, the same in both packages), as every round after the
+    first does."""
+    G, sigma = (65536, 0.0293170) if windowed else (16384, 0.45)
+    jgg, tgg = _grids(G, sigma)
+    rng = np.random.default_rng(11)
+    v0 = rng.normal(0.0, 1.0, G).astype(np.float32)
+    d0 = rng.normal(0.0, 10.0, (G, 1)).astype(np.float32)
+    jgg = dataclasses.replace(jgg, grid=dataclasses.replace(
+        jgg.grid, values=jnp.asarray(v0), derivs=jnp.asarray(d0)))
+    tgg = DK._commit(tgg, torch.as_tensor(v0), torch.as_tensor(d0))
+    c, h = _windowed_hills() if windowed else _dense_hills()
+    jfn, tfn = ((JP.deposit_windowed_1d_pallas, DK.deposit_windowed_1d) if windowed else
+                (JP.deposit_dense_1d_pallas, DK.deposit_dense_1d_kernel))
+    gout, ba = jfn(jgg, jnp.asarray(c), jnp.asarray(h), interpret=True)
+    tout, tba = tfn(tgg, torch.as_tensor(c), torch.as_tensor(h))
+    _check_fields(tout, gout)
+    if windowed:
+        np.testing.assert_allclose(tba.numpy(), np.asarray(ba), atol=2e-6)
+    else:
+        np.testing.assert_allclose(tba.numpy(), np.asarray(ba), rtol=2e-5, atol=1e-7)
 
 
 ROUTES = [

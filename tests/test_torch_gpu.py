@@ -11,8 +11,9 @@ kernel_cap), built with the port's own entry points from a numpy seed,
 and a bias grid carrying deposited hills; K1 and K2 run with the Hermite
 table and with two Chebyshev tables (K3: 4 panels of degree 16, 1 panel of
 degree 64).  K4 and K5 deposit on the periodic grids of
-``test_torch_deposit.py``.  Tolerances as in the CPU parity tests: forces
-within 2e-5 * max(1, max|f|), energies 1e-5 relative; deposited values
+``test_torch_deposit.py``, empty and carrying values.  Tolerances as in
+the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
+relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
 Every kernel repeats bitwise.
 """
@@ -189,8 +190,18 @@ def _deposit_case(windowed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("windowed", [True, False])
-def test_deposit_kernel(cuda_state, windowed):
+@pytest.mark.parametrize("carried", [False, True])
+def test_deposit_kernel(cuda_state, windowed, carried):
+    """``carried``: the grid already holds values and derivatives (seeded
+    noise, so a dropped or shifted read of the old grid shows)."""
     gg, c, h = _deposit_case(windowed)
+    if carried:
+        rng = np.random.default_rng(11)
+        G = gg.spec.grid.nbins[0]
+        gg = DK._commit(gg, torch.tensor(rng.normal(0.0, 1.0, G), dtype=torch.float32,
+                                         device=c.device),
+                        torch.tensor(rng.normal(0.0, 10.0, (G, 1)), dtype=torch.float32,
+                                     device=c.device))
     kernel, ref = ((DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref) if windowed else
                    (DK.deposit_dense_1d_kernel, DK.deposit_dense_1d_kernel_ref))
     n0 = kernel.launches
