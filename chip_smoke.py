@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives three paths of the port through their CUDA kernels and checks each
+Drives six paths of the port through their CUDA kernels and checks each
 kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -11,6 +11,14 @@ kernel against its plain PyTorch version on the same card:
   - the same step with the Chebyshev lookup (``pair_lookup="chebyshev"``,
     4 panels of degree 16, refit after every hill round): K1 and K2 with
     the Clenshaw chains (K3);
+  - the same 10k step without kernel_cap through the other force paths:
+    ``use_pallas="newton"`` (exact Hermite; K6
+    ``cell_force_newton_planar`` and the 13 credit subtractions),
+    ``use_pallas="full"`` (the Chebyshev table, a state with slot ids;
+    K7 ``cell_force_full`` and a full rebuild every 10 steps), and the
+    typed CV (the binary mixture, every other atom type 2, type pair
+    (1, 2); K1 with the type mask at full cap and the 27-stencil hill
+    collection);
   - ``bench.py:bench_deposition``: 200 hills per ``GaussGrid.add_value`` on
     the periodic 1e6-point grid, K4 ``deposit_windowed_1d``; and one round
     on a grid whose windows are wide, K5 ``deposit_dense_1d_kernel``.
@@ -21,7 +29,8 @@ each kernel against its plain version at the main paths' shapes; per MD
 path 20 steps at kT = 0 through the kernels, each step held to the same
 step through the plain versions, then the bench's kT = 0.8 run with the
 launch counters reset (rate, host syncs, the device-busy share of a
-stride cycle, end-state checks); the deposition run (hills/s, host syncs,
+stride cycle, end-state checks; the typed path also holds its first hill
+round's candidates below the untyped round's); the deposition run (hills/s, host syncs,
 device-busy share; its final grid held to the same rounds through the
 plain versions).  The deposition kernels are checked on grids that
 already carry hills.  It prints one ``kernels`` JSON line (launches,
@@ -48,6 +57,17 @@ import warnings
 import numpy as np
 
 N_ATOMS = 10000  # the bench's 10k cell
+# the MD paths: the bench's default force path with each lookup, and the
+# other force paths (no kernel_cap: the JAX host allows it only on the
+# default path, untyped)
+PATHS = {
+    "interp": dict(),
+    "chebyshev": dict(pair_lookup="chebyshev"),
+    "newton": dict(use_pallas="newton"),
+    "full": dict(pair_lookup="chebyshev", use_pallas="full", with_ids=True),
+    "typed": dict(typed=True),
+}
+TYPE_PAIR = (1, 2)
 FORCE_REL = 2e-5  # kernel vs plain: |df| <= 2e-5 * max(1, max|f|)
 ENERGY_RTOL = 1e-5
 CHEB = dict(cheb_deg=16, cheb_panels=4)  # the bench's Chebyshev table
@@ -59,11 +79,12 @@ PEAK_BYTES = 3.35e12
 # image, r, LJ, the force and its row and credit sums; the Hermite lookup;
 # the Chebyshev set-up and 3 per Clenshaw step (a second chain on energy)
 PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 48, 16, 15, 3
+CREDIT_FLOPS = 3  # of PAIR_FLOPS: the credit sums, which K7 does not take
 # operations per grid point and hill, counted from csrc/deposit.cu: the
 # minimum-image distance and support test, then the terms in the support
 DIST_FLOPS, HILL_FLOPS = 9, 10
 # the device functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("k1_", "k2_", "dep_")
+PORT_KERNELS = ("k1_", "k2_", "k7_", "dep_")
 
 
 def card_line() -> str:
@@ -73,10 +94,17 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bench_setup(torch, kT: float, device, pair_lookup="interp"):
+def bench_types():
+    """The binary mixture of tests/test_md.py's type test: every other atom
+    type 2, the rest type 1."""
+    return np.where(np.arange(N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
+
+
+def bench_setup(torch, kT: float, device, path="interp"):
     """The bench_pairwise configuration, built through the port's entry
     points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
-    init_cell_state, and the three static phase steps."""
+    init_cell_state, and the three static phase steps of ``path``
+    (``PATHS``)."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
     from edm_tpu_torch.models import pair_edm
@@ -87,6 +115,7 @@ def bench_setup(torch, kT: float, device, pair_lookup="interp"):
     from edm_tpu_torch.ops.prng import PRNGKey
     from edm_tpu_torch.utils.config import parse_edm_text
 
+    opts = PATHS[path]
     cfg = parse_edm_text(
         "tempering 1\nbias_factor 10\nhill_prefactor 0.1\nbias_per_step 1.0\n"
         "hill_density 250\ndimension 1\nbox_low 0\nbox_high 3.0\n"
@@ -109,11 +138,20 @@ def bench_setup(torch, kT: float, device, pair_lookup="interp"):
     lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
     core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32,
                                                         device=device),
-                               PRNGKey(0), n_est=N_ATOMS * 40, pair_lookup=pair_lookup,
-                               **CHEB)
+                               PRNGKey(0), n_est=N_ATOMS * 40,
+                               pair_lookup=opts.get("pair_lookup", "interp"), **CHEB)
     spec = CellSpec.create(box, cutoff=3.05, n_atoms=N_ATOMS)
-    state = init_cell_state(spec, core, kernel_cap=24, overflow_cap=32)
-    kw = dict(hill_capacity=2048, energy_stride=10, kernel_cap=24, overflow_cap=32)
+    kw = dict(hill_capacity=2048, energy_stride=10)
+    st_kw = dict(with_ids=opts.get("with_ids", False))
+    if "use_pallas" in opts:
+        kw["use_pallas"] = opts["use_pallas"]
+    elif opts.get("typed"):
+        kw.update(types=bench_types(), type_pair=TYPE_PAIR)
+        st_kw["types"] = bench_types()
+    else:
+        kw.update(kernel_cap=24, overflow_cap=32)
+        st_kw.update(kernel_cap=24, overflow_cap=32)
+    state = init_cell_state(spec, core, **st_kw)
     steps = [
         make_cell_step(params, lp, lj, spec, static_do_hills=h, static_do_energy=e,
                        static_do_rebuild=r, **kw)
@@ -126,18 +164,24 @@ def pattern(steps):
     return [(steps[0], 1), (steps[1], 8), (steps[2], 1)]
 
 
+FORCE_KERNELS = ("cell_force_newton", "overflow_force", "cell_force_newton_planar",
+                 "cell_force_full")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the host's force pass through the kernels' plain versions."""
     from edm_tpu_torch.models import pair_edm_cells as PC
     from edm_tpu_torch.ops import cellforce as CF
 
-    saved = PC.cell_force_newton, PC.overflow_force
-    PC.cell_force_newton, PC.overflow_force = CF.cell_force_newton_ref, CF.overflow_force_ref
+    saved = {name: getattr(PC, name) for name in FORCE_KERNELS}
+    for name in FORCE_KERNELS:
+        setattr(PC, name, getattr(CF, name + "_ref"))
     try:
         yield
     finally:
-        PC.cell_force_newton, PC.overflow_force = saved
+        for name, fn in saved.items():
+            setattr(PC, name, fn)
 
 
 def cuda_ms(torch, fn, reps=50, warm=5) -> float:
@@ -228,22 +272,48 @@ def table_bytes(table) -> int:
     return 4 * table.tab.numel()
 
 
-def k1_work(torch, spec, xs, mc, table, k, energy):
-    """K1's least time: the occupied pairs these slots need (each row
-    against the other occupied slots of its cell and of its 13 half-stencil
-    neighbours, slots < k), and its inputs and outputs read and written
-    once."""
+def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
+    """K1's least time (K6's with ``credits_out``): the occupied pairs these
+    slots need (each row against the other occupied slots of its cell and
+    of its 13 half-stencil neighbours, slots < k) — with types ``ts``, the
+    lookup only on the CV's type pairs — and the inputs and outputs read
+    and written once."""
     from edm_tpu_torch.ops.cellforce import half_neighbors
 
     C = int(np.prod(spec.ncells))
-    occ = (mc[:C, :k] > 0.5).sum(1).double()
-    nbr = half_neighbors(tuple(spec.ncells), xs.device)
-    cand = occ + occ[nbr].sum(1)
+    nbr = half_neighbors(tuple(spec.ncells), mc.device)
+    occ_m = mc[:C, :k] > 0.5
+
+    def counts(m):  # per cell: occupied rows, and candidates (own + 13)
+        per = m.sum(1).double()
+        return per, per + per[nbr].sum(1)
+
+    occ, cand = counts(occ_m)
     pairs = float((occ * (cand - 1)).sum())
-    flops = pairs * (PAIR_FLOPS + lookup_flops(table, energy))
+    cv_pairs = pairs
+    if ts is not None:
+        (o1, c1), (o2, c2) = (counts(occ_m & (ts[:C, :k] == t)) for t in TYPE_PAIR)
+        cv_pairs = float((o1 * c2 + o2 * c1).sum())
+    flops = pairs * PAIR_FLOPS + cv_pairs * lookup_flops(table, energy)
     Cg, cap = mc.shape
-    nbytes = 4 * (Cg * cap * 4 + Cg * cap * 3 + Cg * k) + table_bytes(table)
-    return bound(flops, nbytes)
+    outs = Cg * cap * 3 + Cg * k + (Cg * 13 * k * 3 if credits_out else 0)
+    ins = Cg * cap * (5 if ts is not None else 4)
+    return bound(flops, 4 * (ins + outs) + table_bytes(table))
+
+
+def full_work(spec, mc, table):
+    """K7's least time: every occupied slot against the other occupied slots
+    of its 27 stencil cells, with the value chain; xs, mc and sid read,
+    forces and eb written once."""
+    from edm_tpu_torch.ops.cellforce import stencil_neighbors
+
+    C = int(np.prod(spec.ncells))
+    occ = (mc[:C] > 0.5).sum(1).double()
+    cand = occ[stencil_neighbors(tuple(spec.ncells), mc.device)].sum(1)
+    pairs = float((occ * (cand - 1)).sum())
+    flops = pairs * (PAIR_FLOPS - CREDIT_FLOPS + lookup_flops(table, True))
+    Cg, cap = mc.shape
+    return bound(flops, 4 * (Cg * cap * 5 + Cg * cap * 4) + table_bytes(table))
 
 
 def k2_work(xo, xp, table, energy):
@@ -293,7 +363,7 @@ def kernel_phase(torch, device, pair_lookup="interp"):
                 ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
                 plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw),
                                 reps=10)
-                rows[what] = (err, ms, plain) + k1_work(torch, spec, xs, mc, tbl, k, energy)
+                rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, k, energy)
         for energy in (False, True):
             kw = dict(box=spec.box, lj=step.lj, energy=energy)
             fo, fp = CF.overflow_force(xo, xp, tbl, **kw)
@@ -310,10 +380,95 @@ def kernel_phase(torch, device, pair_lookup="interp"):
     return rows
 
 
+def check_forces_f64(what, f, f_ref, f64):
+    """``check_forces``, or within twice the plain version's own distance
+    from its float64 evaluation where that is larger: the single-panel
+    degree-64 table is ill-conditioned in float32."""
+    scale = max(1.0, float(f_ref.abs().max()))
+    err = max_err(f, f_ref)
+    tol = max(FORCE_REL * scale, 2 * max_err(f_ref, f64))
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |df| {err:.3e} > {tol:.3e}")
+    return err
+
+
+def legacy_kernel_phase(torch, device):
+    """K6 (both lookups, typed and untyped), typed K1 at full cap and K7
+    (the bench table, and one panel of degree 64) against their plain
+    versions, on the 10k bench state after one hill step rebuilt with slot
+    ids and the binary types."""
+    import dataclasses
+
+    from edm_tpu_torch.models.pair_edm_cells import atom_positions, init_cell_state
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
+
+    spec, state, steps = bench_setup(torch, 0.8, device)
+    state, _ = steps[0](state)
+    core = dataclasses.replace(state.core, x=atom_positions(spec, state))
+    st = init_cell_state(spec, core, with_ids=True,
+                         types=torch.as_tensor(bench_types(), device=device))
+    grid = state.core.bias.bias
+    tables = {"hermite": CF.hermite_pair_table(grid), "cheb P=4 deg=16": fit_gauss_grid(grid, 16, 4)}
+    xs, mc, ts, lj, cap = st.xs, st.mc, st.ts, steps[0].lj, spec.cap
+    geo = dict(ncells=spec.ncells, box=spec.box, lj=lj)
+    rows = {}
+    for tname, tbl in tables.items():
+        for typed in (False, True):
+            for energy in (False, True):
+                kw = dict(geo, energy=energy, ts=ts if typed else None,
+                          type_pair=TYPE_PAIR if typed else None)
+                f, cred, eb = CF.cell_force_newton_planar(xs, mc, tbl, **kw)
+                f_ref, cred_ref, eb_ref = CF.cell_force_newton_planar_ref(xs, mc, tbl, **kw)
+                torch.cuda.synchronize()
+                what = f"cell_force_newton_planar {tname} typed={int(typed)} energy={int(energy)}"
+                err = max(check_forces(what, f, f_ref),
+                          check_forces(what + " credits", cred, cred_ref))
+                check_energy(what, eb.sum(), eb_ref.sum())
+                ms = cuda_ms(torch, lambda: CF.cell_force_newton_planar(xs, mc, tbl, **kw))
+                plain = cuda_ms(torch, lambda: CF.cell_force_newton_planar_ref(xs, mc, tbl, **kw),
+                                reps=10)
+                rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, cap, energy, kw["ts"],
+                                                          credits_out=True)
+    for tname, tbl in tables.items():
+        for energy in (False, True):
+            kw = dict(geo, k=cap, energy=energy, ts=ts, type_pair=TYPE_PAIR)
+            f, eb = CF.cell_force_newton(xs, mc, tbl, **kw)
+            f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tbl, **kw)
+            f0, _ = CF.cell_force_newton(xs, mc, tbl, **dict(kw, ts=None, type_pair=None))
+            torch.cuda.synchronize()
+            what = f"cell_force_newton[typed] {tname} k={cap} energy={int(energy)}"
+            err = check_forces(what, f, f_ref)
+            check_energy(what, eb.sum(), eb_ref.sum())
+            if not max_err(f, f0) > 1e-3 * float(f0.abs().max()):
+                raise AssertionError(f"{what}: the type mask changed no force")
+            ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
+            plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw), reps=10)
+            rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, cap, energy, ts)
+    for tname, tbl in (("P=4 deg=16", tables["cheb P=4 deg=16"]),
+                       ("P=1 deg=64", fit_gauss_grid(grid, 64, 1))):
+        f, eb = CF.cell_force_full(xs, mc, st.sid, tbl, **geo)
+        f_ref, eb_ref = CF.cell_force_full_ref(xs, mc, st.sid, tbl, **geo)
+        t64 = dataclasses.replace(tbl, cval=tbl.cval.double(), cder=tbl.cder.double())
+        f64, eb64 = CF.cell_force_full_ref(xs.double(), mc.double(), st.sid.double(), t64, **geo)
+        torch.cuda.synchronize()
+        what = f"cell_force_full cheb {tname} cap={cap}"
+        err = check_forces_f64(what, f, f_ref, f64)
+        e_tol = max(ENERGY_RTOL * max(1.0, float(eb_ref.sum().abs())),
+                    2 * abs(float(eb_ref.sum()) - float(eb64.sum())))
+        if not abs(float(eb.sum()) - float(eb_ref.sum())) <= e_tol:
+            raise AssertionError(f"{what}: energy {float(eb.sum())!r} vs {float(eb_ref.sum())!r}")
+        ms = cuda_ms(torch, lambda: CF.cell_force_full(xs, mc, st.sid, tbl, **geo))
+        plain = cuda_ms(torch, lambda: CF.cell_force_full_ref(xs, mc, st.sid, tbl, **geo), reps=10)
+        rows[what] = (err, ms, plain) + full_work(spec, mc, tbl)
+    print_rows(rows)
+    return rows
+
+
 def print_rows(rows):
     print("kernel vs plain version (CUDA events, ms per call; bound = the card's least time):")
     for name, (err, ms, plain, bms, by) in rows.items():
-        print(f"  {name:52s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms"
+        print(f"  {name:60s} max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms"
               f"  bound {bms:.5f} ms ({by})")
 
 
@@ -347,9 +502,12 @@ def states_match(torch, ks, ps, i, box, table):
     """Step-for-step check of a kernel-run state against the plain run;
     returns the number of atoms whose forces needed the table-edge
     allowance of ``check_slot_forces``."""
-    for name in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks", "table_overflow"):
+    for name in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks", "table_overflow",
+                 "ts", "sid"):
         a, b = getattr(ks, name), getattr(ps, name)
-        if not bool((a == b).all()):
+        if a is None and b is None:  # a field this path does not carry
+            continue
+        if a is None or b is None or not bool((a == b).all()):
             raise AssertionError(f"step {i}: {name} differs from the plain run")
     for name in ("step", "last_calls", "hills_truncated"):
         if not bool((getattr(ks.core, name) == getattr(ps.core, name)).all()):
@@ -374,13 +532,13 @@ def states_match(torch, ks, ps, i, box, table):
     return n_edge
 
 
-def slice_zero_temperature(torch, device, pair_lookup="interp", n_steps=20):
+def slice_zero_temperature(torch, device, path="interp", n_steps=20):
     """20 steps at kT = 0 through the kernels; each step is also taken
     through the plain versions from the same input state and the two
     results are held to each other.  (Two free-running f32 trajectories
     part after ~15 steps at 10k atoms: a 1-ulp position difference can move
     a pair distance across a table node or edge.)"""
-    spec, state, steps = bench_setup(torch, 0.0, device, pair_lookup)
+    spec, state, steps = bench_setup(torch, 0.0, device, path)
     n_edge = 0
     for i in range(n_steps):
         step = steps[0 if i % 10 == 0 else 2 if i % 10 == 9 else 1]
@@ -389,7 +547,7 @@ def slice_zero_temperature(torch, device, pair_lookup="interp", n_steps=20):
             plain, _ = step(state)
         state, _ = step(state)
         n_edge += states_match(torch, state, plain, i, spec.box, table)
-    print(f"kT=0 {pair_lookup}: {n_steps} steps through the kernels match the plain versions "
+    print(f"kT=0 {path}: {n_steps} steps through the kernels match the plain versions "
           f"step for step (same input state each step; {n_edge} atom(s) by a table-edge pair)")
 
 
@@ -411,17 +569,22 @@ def sync_census(torch, steps, state):
     return state, counts
 
 
-def slice_run(torch, device, pair_lookup="interp", warm_steps=100, timed_steps=300):
-    """The bench's kT = 0.8 run through the kernels: the launch counters are
-    set to 0 just before it and read just after."""
+def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
+    """The bench's kT = 0.8 run of ``path`` through the kernels: the launch
+    counters are set to 0 just before it and read just after."""
     from edm_tpu_torch.models.driver import pattern_segment
     from edm_tpu_torch.ops import cellforce as CF
 
-    spec, state, steps = bench_setup(torch, 0.8, device, pair_lookup)
+    spec, state, steps = bench_setup(torch, 0.8, device, path)
+    calls = {}
+    if path == "typed":  # one hill round, typed and untyped, from this state
+        _, st_u, steps_u = bench_setup(torch, 0.8, device)
+        calls = {"typed": int(steps[0](state)[0].core.last_calls),
+                 "untyped": int(steps_u[0](st_u)[0].core.last_calls)}
     for s in steps:
         s.host_syncs = 0
-    CF.cell_force_newton.launches = 0
-    CF.overflow_force.launches = 0
+    for name in FORCE_KERNELS:
+        getattr(CF, name).launches = 0
     state, e_warm = pattern_segment(pattern(steps), warm_steps)(state)
     torch.cuda.synchronize()
     syncs0 = sum(s.host_syncs for s in steps)
@@ -429,40 +592,50 @@ def slice_run(torch, device, pair_lookup="interp", warm_steps=100, timed_steps=3
     state, e = pattern_segment(pattern(steps), timed_steps)(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"cell_force_newton": CF.cell_force_newton.launches,
-                "overflow_force": CF.overflow_force.launches}
+    launches = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
     syncs = sum(s.host_syncs for s in steps) - syncs0
     # device time of one stride cycle (two cycles from this state), beside
     # the timed run's wall time per cycle
     cycle = pattern_segment(pattern(steps), 10)
     dev_us, top = device_time_us(torch, lambda: cycle(state), 2)
-    print(busy_line(f"kT=0.8 {pair_lookup} stride cycle", dev_us, 10 * dt / timed_steps * 1e6,
-                    top))
+    print(busy_line(f"kT=0.8 {path} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
     state, census = sync_census(torch, steps, state)
     core = state.core
+    n_steps = warm_steps + timed_steps
     finite = all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs, e))
     checks = {
         "finite": finite,
         "no table_overflow": not bool(state.table_overflow),
         "no hills_truncated": not bool(core.hills_truncated),
         "cum_bias > 0": float(core.bias.cum_bias) > 0,
-        "K1 launched": launches["cell_force_newton"] > 0,
-        "K2 launched": launches["overflow_force"] > 0,
         "no sync on plain steps": census["plain"] == 0,
         "at most 5 syncs on hill steps": census["hills"] <= 5,
     }
-    if pair_lookup == "chebyshev":
-        checks["Chebyshev table carried"] = core.cheb is not None and bool(
-            torch.isfinite(core.cheb.cder).all())
-    print(f"host syncs in one stride cycle, {pair_lookup} (CUDA sync-debug mode): {census}")
-    print(f"kT=0.8 {pair_lookup}: {timed_steps} steps after {warm_steps} warm-up: "
+    if path in ("interp", "chebyshev"):
+        checks["K1 launched"] = launches["cell_force_newton"] > 0
+        checks["K2 launched"] = launches["overflow_force"] > 0
+    elif path == "newton":
+        checks["K6 on every step, K1 never"] = (
+            launches["cell_force_newton_planar"] == n_steps and launches["cell_force_newton"] == 0)
+    elif path == "full":
+        checks["K7 on every step"] = launches["cell_force_full"] == n_steps
+        checks["slot ids carried"] = state.sid is not None
+    else:
+        checks["typed K1 on every step"] = launches["cell_force_newton"] == n_steps
+        checks["typed round collects fewer candidates"] = 0 < calls["typed"] < calls["untyped"]
+    if core.cheb is not None:
+        checks["Chebyshev table carried"] = bool(torch.isfinite(core.cheb.cder).all())
+    print(f"host syncs in one stride cycle, {path} (CUDA sync-debug mode): {census}")
+    tail = (f"tail {int(state.tail_count)} (fallback periods {int(state.tail_fallbacks)}), "
+            if state.tail_count is not None else "")
+    print(f"kT=0.8 {path}: {timed_steps} steps after {warm_steps} warm-up: "
           f"{timed_steps / dt:.2f} steps/s, {syncs / (timed_steps / 10):.2f} host syncs "
-          f"per stride cycle, launches {launches}, tail {int(state.tail_count)} "
-          f"(fallback periods {int(state.tail_fallbacks)}), cum_bias "
-          f"{float(core.bias.cum_bias):.6g}, last energy {float(e[-1]):.6g}")
+          f"per stride cycle, launches {launches}, {tail}cum_bias "
+          f"{float(core.bias.cum_bias):.6g}, last energy {float(e[-1]):.6g}"
+          + (f", first-round candidates {calls}" if calls else ""))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"kT=0.8 {pair_lookup} run failed: {failed}")
+        raise AssertionError(f"kT=0.8 {path} run failed: {failed}")
     return timed_steps / dt, launches, syncs / (timed_steps / 10)
 
 
@@ -737,19 +910,24 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    t_phase = time.perf_counter()
-    rows = kernel_phase(torch, device, "interp")
-    rows.update(kernel_phase(torch, device, "chebyshev"))
-    rows.update(deposit_kernel_phase(torch, device))
-    print(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
-    launches = {}
-    for lookup in ("interp", "chebyshev"):
+    rows = {}
+    for what, phase in (("K1/K2 Hermite", lambda: kernel_phase(torch, device, "interp")),
+                        ("K1/K2 Chebyshev", lambda: kernel_phase(torch, device, "chebyshev")),
+                        ("K6, typed K1, K7", lambda: legacy_kernel_phase(torch, device)),
+                        ("K4/K5", lambda: deposit_kernel_phase(torch, device))):
         t_phase = time.perf_counter()
-        slice_zero_temperature(torch, device, lookup)
-        _, n, _ = slice_run(torch, device, lookup)
-        launches[lookup] = n
-        print(f"{lookup} slice: {time.perf_counter() - t_phase:.1f} s")
+        rows.update(phase())
+        print(f"kernel checks, {what}: {time.perf_counter() - t_phase:.1f} s")
+    launches = {}
+    for path in PATHS:
+        t_phase = time.perf_counter()
+        slice_zero_temperature(torch, device, path)
+        _, n, _ = slice_run(torch, device, path)
+        launches[path] = n
+        print(f"{path} slice: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     _, dep = deposition_run(torch, device)
+    print(f"deposition: {time.perf_counter() - t_phase:.1f} s")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
@@ -767,6 +945,13 @@ def main() -> int:
                      dep["deposit_windowed_1d"], rows, "deposit_windowed_1d"),
         kernel_entry("deposit_dense_1d_kernel", dp, "edm_tpu/ops/deposit_pallas.py:236",
                      dep["deposit_dense_1d_kernel"], rows, "deposit_dense_1d_kernel"),
+        kernel_entry("cell_force_newton_planar", cf, "edm_tpu/ops/cellforce_pallas.py:933",
+                     launches["newton"]["cell_force_newton_planar"], rows,
+                     "cell_force_newton_planar"),
+        kernel_entry("cell_force_full", cf, "edm_tpu/ops/cellforce_pallas.py:1002",
+                     launches["full"]["cell_force_full"], rows, "cell_force_full"),
+        kernel_entry("cell_force_newton[typed]", cf, "edm_tpu/ops/cellforce_pallas.py:291",
+                     launches["typed"]["cell_force_newton"], rows, "cell_force_newton[typed]"),
     ]}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ them as the port's dataclasses on ``device``.  Flattening the JAX objects is
 the caller's step, so the port never imports jax.
 
 Float arrays keep their dtype, integer arrays become int64, the Threefry key
-stays a host-side uint32 array.  The JAX cell state's cached mask planes
-(``mnf``, ``mkf``) are dropped: the port derives them from ``mc``.
+stays a host-side uint32 array.  The JAX cell state's slot types ``ts`` and
+slot ids ``sid`` are carried; its rolled stencil planes are dropped, because
+the port derives each from a per-slot plane and the lattice: ``mnf``,
+``mkf`` and ``mn`` from ``mc``, ``tnf`` from ``ts``, ``nid`` from ``sid``
+and ``mc``.
 """
 
 from __future__ import annotations
@@ -79,13 +82,10 @@ def _pair_state(d, device) -> PairEDMState:
 
 
 def _cell_state(d, device) -> CellPairState:
-    for k in ("mn", "sid", "nid", "ts", "tnf"):
-        if d.get(k) is not None:
-            raise NotImplementedError(
-                f"cell states with {k} (id masks or types) are not ported yet "
-                "(ROADMAP Queue 1, items 5 and 13)"
-            )
     t = {k: _tensor(d[k], device) for k in ("aid", "xs", "vs", "fs", "mc", "table_overflow")}
+    for k in ("ts", "sid"):
+        if d.get(k) is not None:
+            t[k] = _tensor(d[k], device)
     tail = {}
     if d.get("ovl") is not None:
         tail = {k: _tensor(d[k], device) for k in (

@@ -51,6 +51,36 @@
 //     P 4) a pair costs ~4 x 16 flops of Clenshaw against ~40 for the rest;
 //     still latency-bound at 10k like the Hermite kernels.
 //
+// The rdf type-pair mask of K1 and K6 replaces cellforce_pallas.py
+//     _cv_type_mask: with a slot type plane ts (Cg, cap) and a type pair
+//     (ti, tj), the CV term of a pair is kept only for the unordered type
+//     pair {ti, tj}; LJ sees every pair.  The candidate gather carries each
+//     slot's type beside its mask (template parameter TYPED; the untyped
+//     instantiations are unchanged).  Types are floats compared with ==.
+//
+// K6  cell_force_newton_planar  replaces cellforce_pallas.py
+//     cell_forces_pallas_newton_planar (_kernel_newton): K1's row pass
+//     launched on its own.  It returns the row sums (self block included),
+//     the per-offset credit column sums (+, C x 13 x k x 3) and eb; the
+//     caller subtracts the credits after 13 lattice rolls
+//     (use_pallas="newton").  Same bound and design as K1's first pass;
+//     device time ~0.036 ms per call at 10k, k = 32, energy off
+//     (chip_smoke.py's profile of a stride cycle; NVIDIA H100 80GB HBM3,
+//     700 W).
+//
+// K7  cell_force_full  replaces cellforce_pallas.py cell_forces_pallas
+//     (_kernel): the legacy 27-stencil ordered-pair pass.  One block per
+//     cell gathers the 27 neighbour cells' slots (x, y, z, mask) and slot
+//     ids into shared memory (27 x cap <= 1728 entries: cap <= MAX_K);
+//     each of the cell's rows is paired with every occupied candidate whose
+//     slot id differs (the self pair), with the Chebyshev lookup, energy
+//     always.  Row sums only: every pair is seen from both sides, so there
+//     are no credits and eb is not halved (the caller takes 0.5 sum(eb)).
+//     Bound: ~2x K1's pairs at the same per-pair cost, 0.0085 ms at 10k
+//     with the bench table; the kernel takes ~0.097 ms of device time per
+//     call there (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): like K1 it
+//     is latency-bound, one wave of 729 blocks of serial row loops.
+//
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and each entry point returns cudaGetLastError().
 
@@ -70,6 +100,8 @@ constexpr int MAX_O = 128;
 constexpr int MAX_DEG = 64;  // Chebyshev degree (the JAX default 64)
 constexpr int MAX_PANELS = 8;  // Chebyshev panels (the bench uses 4)
 static_assert(2 * MAX_PANELS * (MAX_DEG + 1) <= 4 * MAX_G, "cheb table fits the table buffer");
+constexpr int CHEB_F4 = (2 * MAX_PANELS * (MAX_DEG + 1) + 3) / 4;  // K7's table, in float4
+constexpr int MAX_W27 = 27 * MAX_K;  // K7's candidate row
 
 enum Lookup { HERMITE = 0, CHEB = 1 };
 
@@ -165,11 +197,12 @@ __device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* t
 }
 
 // One unmasked pair (row atom a, partner b): g = force on a (the partner
-// gets -g); val only when ENERGY.  Mirrors _kernel_newton_rc:604-654.
+// gets -g); val only when ENERGY.  cv false (a type pair other than the
+// CV's) drops the bias term, not LJ.  Mirrors _kernel_newton_rc:604-654.
 template <bool ENERGY, int LOOK>
 __device__ __forceinline__ void pair_force(const PairParams& p, const float4* tab,
-                                           float4 a, float4 b, float& gx, float& gy,
-                                           float& gz, float& val) {
+                                           float4 a, float4 b, bool cv, float& gx,
+                                           float& gy, float& gz, float& val) {
   float dx = mimage(a.x - b.x, p.L[0], p.iL[0]);
   float dy = mimage(a.y - b.y, p.L[1], p.iL[1]);
   float dz = mimage(a.z - b.z, p.L[2], p.iL[2]);
@@ -184,11 +217,14 @@ __device__ __forceinline__ void pair_force(const PairParams& p, const float4* ta
     float sr6 = sr2 * sr2 * sr2;
     fmag = p.four_eps * (12.0f * sr6 * sr6 - 6.0f * sr6) * inv_r2;
   }
-  float der;
-  if (LOOK == CHEB)
-    cheb_val_der<ENERGY>(p, reinterpret_cast<const float*>(tab), r, der, val);
-  else
-    hermite_val_der<ENERGY>(p, tab, r, der, val);
+  float der = 0.0f;
+  val = 0.0f;
+  if (cv) {
+    if (LOOK == CHEB)
+      cheb_val_der<ENERGY>(p, reinterpret_cast<const float*>(tab), r, der, val);
+    else
+      hermite_val_der<ENERGY>(p, tab, r, der, val);
+  }
   float f_over_r = fmag - der * inv_r;
   gx = f_over_r * dx;
   gy = f_over_r * dy;
@@ -203,13 +239,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- K1
 
-template <bool ENERGY, int LOOK>
+// types of a pair: the CV's unordered pair {ti, tj}
+__device__ __forceinline__ bool type_pair_ok(float a, float b, float ti, float tj) {
+  return (a == ti && b == tj) || (a == tj && b == ti);
+}
+
+template <bool ENERGY, int LOOK, bool TYPED>
 __global__ void __launch_bounds__(K1_THREADS)
 k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
+        const float* __restrict__ ts, float ti, float tj,
         const float* __restrict__ t1, const float* __restrict__ t2, float* __restrict__ f,
         float* __restrict__ eb, float* __restrict__ cred, int cap, int k,
         int nx, int ny, int nz, PairParams p) {
   __shared__ float4 cand[MAX_W];  // x, y, z, mask: self block then 13 neighbours
+  __shared__ float ctype[TYPED ? MAX_W : 1];  // slot types (TYPED)
   __shared__ float4 tab[MAX_G];
   __shared__ float red[K1_WARPS][MAX_K][4];
 
@@ -230,6 +273,7 @@ k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
     }
     const long slot = (long)cell * cap + s;
     cand[j] = make_float4(xs[3 * slot], xs[3 * slot + 1], xs[3 * slot + 2], mc[slot]);
+    if (TYPED) ctype[j] = ts[slot];
   }
   __syncthreads();
 
@@ -247,8 +291,9 @@ k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
       if (j < W && j != i) {
         const float4 b = cand[j];
         if (b.w > 0.5f) {
+          const bool cv = !TYPED || type_pair_ok(ctype[i], ctype[j], ti, tj);
           float gx, gy, gz, val;
-          pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
+          pair_force<ENERGY, LOOK>(p, tab, a, b, cv, gx, gy, gz, val);
           rx += gx;
           ry += gy;
           rz += gz;
@@ -351,7 +396,7 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
     if (a.w <= 0.5f) continue;  // uniform: empty tail row
     float gx = 0.0f, gy = 0.0f, gz = 0.0f, val = 0.0f;
     if (b.w > 0.5f) {
-      pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
+      pair_force<ENERGY, LOOK>(p, tab, a, b, true, gx, gy, gz, val);
       cx += gx;
       cy += gy;
       cz += gz;
@@ -400,7 +445,7 @@ __global__ void k2_finish(const float* __restrict__ xo, const float* __restrict_
       const float4 b = make_float4(xo[j], xo[O + j], xo[2 * O + j], xo[3 * O + j]);
       if (j == i || b.w <= 0.5f) continue;
       float gx, gy, gz, val;
-      pair_force<ENERGY, LOOK>(p, tab, a, b, gx, gy, gz, val);
+      pair_force<ENERGY, LOOK>(p, tab, a, b, true, gx, gy, gz, val);
       s[0] += gx;
       s[1] += gy;
       s[2] += gz;
@@ -411,6 +456,88 @@ __global__ void k2_finish(const float* __restrict__ xo, const float* __restrict_
   for (int t = 0; t < n_tiles; ++t)
     for (int q = 0; q < 4; ++q) s[q] += part[((long)t * 4 + q) * O + i];
   for (int q = 0; q < 4; ++q) fo[q * O + i] = (q == 3 && !ENERGY) ? 0.0f : s[q];
+}
+
+// ---------------------------------------------------------------- K7
+
+// Ordered pairs over the whole 27-stencil: candidate o * cap + s is slot s
+// of the cell at offset (o / 9 - 1, o / 3 % 3 - 1, o % 3 - 1), the
+// CellSpec.stencil() order; the cell's own slots are offset 13.
+__global__ void __launch_bounds__(K1_THREADS)
+k7_rows(const float* __restrict__ xs, const float* __restrict__ mc,
+        const float* __restrict__ sid, const float* __restrict__ t1,
+        const float* __restrict__ t2, float* __restrict__ f, float* __restrict__ eb, int cap,
+        int nx, int ny, int nz, PairParams p) {
+  __shared__ float4 cand[MAX_W27];  // x, y, z, mask
+  __shared__ float cid[MAX_W27];  // slot id of an occupied candidate, else -1
+  __shared__ float4 tab[CHEB_F4];
+  __shared__ float red[K1_WARPS][MAX_K][4];
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int W = 27 * cap;
+  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
+
+  load_table(tab, t1, t2, p, CHEB);
+  for (int j = tid; j < W; j += K1_THREADS) {
+    const int o = j / cap, s = j - (j / cap) * cap;
+    const int cell = ((ix + o / 9 - 1 + nx) % nx) * (ny * nz) +
+                     ((iy + (o / 3) % 3 - 1 + ny) % ny) * nz + ((iz + o % 3 - 1 + nz) % nz);
+    const long slot = (long)cell * cap + s;
+    const float m = mc[slot];
+    cand[j] = make_float4(xs[3 * slot], xs[3 * slot + 1], xs[3 * slot + 2], m);
+    cid[j] = m > 0.5f ? sid[slot] : -1.0f;
+  }
+  __syncthreads();
+
+  for (int i = 0; i < cap; ++i) {
+    const float4 a = cand[13 * cap + i];
+    if (a.w <= 0.5f) continue;  // uniform across the block: empty row
+    const float ai = cid[13 * cap + i];
+    float rx = 0.0f, ry = 0.0f, rz = 0.0f, re = 0.0f;
+    for (int j = tid; j < W; j += K1_THREADS) {
+      const float4 b = cand[j];
+      if (b.w > 0.5f && fabsf(ai - cid[j]) >= 0.5f) {
+        float gx, gy, gz, val;
+        pair_force<true, CHEB>(p, tab, a, b, true, gx, gy, gz, val);
+        rx += gx;
+        ry += gy;
+        rz += gz;
+        re += val;
+      }
+    }
+    rx = warp_sum(rx);
+    ry = warp_sum(ry);
+    rz = warp_sum(rz);
+    re = warp_sum(re);
+    if (lane == 0) {
+      red[warp][i][0] = rx;
+      red[warp][i][1] = ry;
+      red[warp][i][2] = rz;
+      red[warp][i][3] = re;
+    }
+  }
+  __syncthreads();
+
+  if (tid < cap) {
+    const int i = tid;
+    const long row = (long)c * cap + i;
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+    if (cand[13 * cap + i].w > 0.5f) {
+#pragma unroll
+      for (int w = 0; w < K1_WARPS; ++w) {
+        s0 += red[w][i][0];
+        s1 += red[w][i][1];
+        s2 += red[w][i][2];
+        s3 += red[w][i][3];
+      }
+    }
+    f[3 * row] = s0;
+    f[3 * row + 1] = s1;
+    f[3 * row + 2] = s2;
+    eb[row] = s3;
+  }
 }
 
 PairParams make_params(int rows, int degp, const float* geom, const float* box,
@@ -433,17 +560,41 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
   return p;
 }
 
-template <bool ENERGY, int LOOK>
-cudaError_t k1_launch(const float* xs, const float* mc, const float* t1, const float* t2,
-                      float* f, float* eb, float* cred, int C, int cap, int k, int nx,
-                      int ny, int nz, const PairParams& p, cudaStream_t st) {
-  k1_rows<ENERGY, LOOK><<<C, K1_THREADS, 0, st>>>(xs, mc, t1, t2, f, eb, cred, cap, k, nx,
-                                                  ny, nz, p);
+struct K1Args {
+  const float *xs, *mc, *ts, *t1, *t2;
+  float ti, tj;
+  float *f, *eb, *cred;
+  int C, cap, k, nx, ny, nz;
+};
+
+// K1 (credits applied by the second pass) or K6 (the row pass alone)
+template <bool ENERGY, int LOOK, bool TYPED>
+cudaError_t k1_launch(const K1Args& a, bool credits, const PairParams& p, cudaStream_t st) {
+  k1_rows<ENERGY, LOOK, TYPED><<<a.C, K1_THREADS, 0, st>>>(
+      a.xs, a.mc, a.ts, a.ti, a.tj, a.t1, a.t2, a.f, a.eb, a.cred, a.cap, a.k, a.nx, a.ny, a.nz,
+      p);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int n = C * k;
-  k1_credits<<<(n + 255) / 256, 256, 0, st>>>(f, cred, C, cap, k, nx, ny, nz);
+  if (e != cudaSuccess || !credits) return e;
+  const int n = a.C * a.k;
+  k1_credits<<<(n + 255) / 256, 256, 0, st>>>(a.f, a.cred, a.C, a.cap, a.k, a.nx, a.ny, a.nz);
   return cudaGetLastError();
+}
+
+template <int LOOK, bool TYPED>
+cudaError_t k1_energy(const K1Args& a, int energy, bool credits, const PairParams& p,
+                      cudaStream_t st) {
+  return energy ? k1_launch<true, LOOK, TYPED>(a, credits, p, st)
+                : k1_launch<false, LOOK, TYPED>(a, credits, p, st);
+}
+
+cudaError_t k1_dispatch(const K1Args& a, int look, int energy, bool credits,
+                        const PairParams& p, cudaStream_t st) {
+  const bool typed = a.ts != nullptr;
+  if (look == CHEB)
+    return typed ? k1_energy<CHEB, true>(a, energy, credits, p, st)
+                 : k1_energy<CHEB, false>(a, energy, credits, p, st);
+  return typed ? k1_energy<HERMITE, true>(a, energy, credits, p, st)
+               : k1_energy<HERMITE, false>(a, energy, credits, p, st);
 }
 
 template <bool ENERGY, int LOOK>
@@ -467,6 +618,23 @@ bool table_ok(int look, int rows, int degp) {
   return look == CHEB && rows >= 1 && rows <= MAX_PANELS && degp >= 2 && degp <= MAX_DEG + 1;
 }
 
+// look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
+// (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
+// (see PairParams); lj = {four_eps, sig2, rcut};
+// box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
+// types and tpair = {ti, tj} for the typed CV, or null for none
+int newton_launch(const float* xs, const float* mc, float* f, float* eb, float* cred, int C,
+                  int cap, int k, int nx, int ny, int nz, const float* ts, const float* tpair,
+                  int look, const float* t1, const float* t2, int rows, int degp,
+                  const float* geom, const float* box, const float* lj, int energy,
+                  bool credits, void* stream) {
+  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  K1Args a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
+           f, eb, cred, C, cap, k, nx, ny, nz};
+  return (int)k1_dispatch(a, look, energy, credits, make_params(rows, degp, geom, box, lj),
+                          (cudaStream_t)stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -478,28 +646,37 @@ int edm_max_deg() { return MAX_DEG; }
 int edm_max_panels() { return MAX_PANELS; }
 const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
-// (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
-// (see PairParams); lj = {four_eps, sig2, rcut};
-// box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32)
+// K1; arguments as newton_launch
 int cell_force_newton_launch(const float* xs, const float* mc, float* f, float* eb,
                              float* cred, int C, int cap, int k, int nx, int ny, int nz,
-                             int look, const float* t1, const float* t2, int rows, int degp,
-                             const float* geom, const float* box, const float* lj,
-                             int energy, void* stream) {
-  if (!table_ok(look, rows, degp)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  PairParams p = make_params(rows, degp, geom, box, lj);
-  cudaError_t e;
-  if (look == CHEB)
-    e = energy ? k1_launch<true, CHEB>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p, st)
-               : k1_launch<false, CHEB>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p, st);
-  else
-    e = energy ? k1_launch<true, HERMITE>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz, p,
-                                          st)
-               : k1_launch<false, HERMITE>(xs, mc, t1, t2, f, eb, cred, C, cap, k, nx, ny, nz,
-                                           p, st);
-  return (int)e;
+                             const float* ts, const float* tpair, int look, const float* t1,
+                             const float* t2, int rows, int degp, const float* geom,
+                             const float* box, const float* lj, int energy, void* stream) {
+  return newton_launch(xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, ts, tpair, look, t1, t2,
+                       rows, degp, geom, box, lj, energy, true, stream);
+}
+
+// K6: K1's row pass alone; cred is returned to the caller
+int cell_force_newton_planar_launch(const float* xs, const float* mc, float* f, float* eb,
+                                    float* cred, int C, int cap, int k, int nx, int ny, int nz,
+                                    const float* ts, const float* tpair, int look,
+                                    const float* t1, const float* t2, int rows, int degp,
+                                    const float* geom, const float* box, const float* lj,
+                                    int energy, void* stream) {
+  return newton_launch(xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, ts, tpair, look, t1, t2,
+                       rows, degp, geom, box, lj, energy, false, stream);
+}
+
+// K7: Chebyshev only (look must be 1), energy always
+int cell_force_full_launch(const float* xs, const float* mc, const float* sid, float* f,
+                           float* eb, int C, int cap, int nx, int ny, int nz, int look,
+                           const float* t1, const float* t2, int rows, int degp,
+                           const float* geom, const float* box, const float* lj, void* stream) {
+  if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  k7_rows<<<C, K1_THREADS, 0, (cudaStream_t)stream>>>(
+      xs, mc, sid, t1, t2, f, eb, cap, nx, ny, nz, make_params(rows, degp, geom, box, lj));
+  return (int)cudaGetLastError();
 }
 
 int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part,

@@ -1,24 +1,35 @@
 """Cell-list pairwise EDM — the production large-N host — in PyTorch.
 
-Counterpart of ``edm_tpu/models/pair_edm_cells.py``, single device,
-untyped, light states.  The MD state lives in cell-slot order
-``(Cg, cap, 3)`` between table rebuilds (Cg = cells padded to a multiple
-of 8, ``aid`` of length Cg*cap, exactly the JAX layout):
+Counterpart of ``edm_tpu/models/pair_edm_cells.py``, single device.  The
+MD state lives in cell-slot order ``(Cg, cap, 3)`` between table rebuilds
+(Cg = cells padded to a multiple of 8, ``aid`` of length Cg*cap, exactly
+the JAX layout):
 
   1. BAOAB pre-force stages on the slot arrays; thermostat noise from the
      counter hash keyed by global slot row (``ops/hashrng``);
-  2. the force pass through K1 (``ops/cellforce.cell_force_newton``) —
-     at ``kernel_cap`` rows/candidates plus K2 (``overflow_force``) over
-     the compacted tail list, or at full cap when the rebuild period's tail
-     list overflowed (never-drop fallback);
-  3. on hill steps: two-level hill collection over half-stencil tiles
-     (two acceptance draws per unordered pair) and ``bias.add_hills_round``;
-     with ``pair_lookup="chebyshev"`` the carried ``ChebTable`` is refit to
-     the new grid at its degree and panels (the step's own force pass used
-     the table carried in);
-  4. on rebuild steps: the incremental slot-to-slot rebin, or the full
-     argsort rebuild when the plan is infeasible (or would overflow the
-     tail list).
+  2. the force pass, by ``use_pallas``:
+       - True (default): K1 (``ops/cellforce.cell_force_newton``), credits
+         applied in the kernel — at ``kernel_cap`` rows/candidates plus K2
+         (``overflow_force``) over the compacted tail list, or at full cap
+         when the rebuild period's tail list overflowed (never-drop
+         fallback), or untyped runs without ``kernel_cap``;
+       - "newton": K6 (``cell_force_newton_planar``), the 13 credits
+         subtracted afterwards (``newton_lattice_force``);
+       - "full": K7 (``cell_force_full``), the 27-stencil ordered pairs of
+         a state built with ``with_ids=True``; Chebyshev only, untyped;
+     with ``types``/``type_pair`` (K1 at full cap or K6) the CV term is
+     kept only for the rdf type pair (fix_edm_pair.cpp:39-44,177-202);
+  3. on hill steps: two-level hill collection and
+     ``bias.add_hills_round``; untyped runs collect over half-stencil tiles
+     (two acceptance draws per unordered pair), typed runs over the
+     27-stencil (one draw per ordered candidate, {ti, tj} pairs only); with
+     ``pair_lookup="chebyshev"`` the carried ``ChebTable`` is refit to the
+     new grid at its degree and panels (the step's own force pass used the
+     table carried in);
+  4. on rebuild steps: the incremental slot-to-slot rebin (carrying the
+     slot types), or the full argsort rebuild when the plan is infeasible
+     (or would overflow the tail list); states with slot ids always take
+     the full rebuild.
 
 Each JAX ``lax.cond`` on a traced flag becomes a read of that flag on the
 host.  Only rebuild and hill steps read: the rebin's feasibility (and,
@@ -28,17 +39,17 @@ carries its host copy (``tail_ovf_host``) through the period; a feasible
 rebin keeps the tail within ``overflow_cap`` by construction and needs no
 read.  Each step counts its reads in ``step.host_syncs``.
 
-Differences from the JAX state: the cached half-stencil mask planes
-(``mnf``, ``mkf``) are gone — K1 reads the neighbours' occupancy itself
-and the hill pass gathers its mask with its coordinates — and the state
-records ``kernel_cap`` and ``tail_ovf_host``.  The step owns its outputs:
-the force planes that K1 returns are updated in place by the tail pass.
+Differences from the JAX state: the cached stencil planes (``mnf``,
+``mkf``, ``tnf``, and the with-ids ``mn``/``nid``) are gone — the kernels
+read the neighbours' occupancy, types and slot ids from the slot lattice
+themselves, and the hill passes gather them with the coordinates; the
+state keeps ``ts`` and ``sid`` and records ``kernel_cap`` and
+``tail_ovf_host``.  The step owns its outputs: the force planes that K1
+returns are updated in place by the tail pass.
 
-Not ported yet: dynamic stride conds (``static_do_*`` = None), id masks
-and the legacy kernels
-(``with_ids``, ``use_pallas`` other than True; item 13), slab/brick
-sharding (item 12), type-filtered CVs (item 5), hill-record collection
-(item 10).
+Not ported yet: dynamic stride conds (``static_do_*`` = None), the XLA
+force path (``use_pallas=False``), slab/brick sharding, ``row_box``,
+``cell_diag`` and hill-record collection (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -55,10 +66,15 @@ from ..grid import device_const
 from ..ops.chebyshev import fit_gauss_grid
 from ..ops.cellforce import (
     CELLS_PER_GROUP,
+    cell_force_full,
     cell_force_newton,
+    cell_force_newton_planar,
     half_neighbors,
     hermite_pair_table,
     overflow_force,
+    stencil_neighbors,
+    subtract_credits,
+    type_pair_mask,
 )
 from ..ops.hashrng import normal_rows_cols, seeds_from_key, uniform_rows_cols
 from .cells import (
@@ -90,6 +106,10 @@ class CellPairState:
     # -> this rebuild period runs the full-cap kernel (never-drop)
     tail_fallbacks: Optional[torch.Tensor] = None  # periods run at full cap
     tail_ovf_host: Optional[bool] = None  # host copy of tail_ovf
+    ts: Optional[torch.Tensor] = None  # (Cg, cap) slot atom types (float, 0 =
+    # empty): init_cell_state(types=...), for typed kernel runs
+    sid: Optional[torch.Tensor] = None  # (Cg, cap) slot ids (the slot's atom
+    # id as a float): init_cell_state(with_ids=True), for use_pallas="full"
 
 
 def _padded_cells(spec: CellSpec) -> int:
@@ -111,22 +131,37 @@ def _tail_list(aid2, n: int, cap: int, kcap: int, ocap: int):
     return ovl, torch.sum(occ.to(torch.int64))
 
 
-def _slots_from_atoms(spec: CellSpec, Cg: int, x, v, f, aid_g,
-                      kernel_cap=None, overflow_cap: int = 128):
-    """Gather atom arrays into slot layout; empty slots hold zeros."""
+def _types_tensor(types, n: int, device) -> torch.Tensor:
+    """(N,) per-atom types on ``device``; integer types become int64."""
+    t = types.to(device) if isinstance(types, torch.Tensor) else torch.as_tensor(
+        np.asarray(types), device=device)
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"types must have one entry per atom ({n}), got shape {tuple(t.shape)}")
+    return t.long() if not t.is_floating_point() else t
+
+
+def _slots_from_atoms(spec: CellSpec, Cg: int, x, v, f, aid_g, kernel_cap=None,
+                      overflow_cap: int = 128, types=None, with_ids: bool = False) -> dict:
+    """Gather atom arrays into slot layout; empty slots hold zeros.  Returns
+    the state fields xs, vs, fs, mc, ts (from ``types``, 0 = empty), sid
+    (the slot's atom id as a float, with ``with_ids``) and, with
+    ``kernel_cap``, ovl and tail_count."""
     n = spec.n_atoms
     cap = spec.cap
     aid_c = torch.clamp(aid_g, 0, n - 1)
     aid2 = aid_g.reshape(Cg, cap)
     mc = (aid2 < n).to(x.dtype)
-    xs = x[aid_c].reshape(Cg, cap, 3) * mc[..., None]
-    vs = v[aid_c].reshape(Cg, cap, 3) * mc[..., None]
-    fs = f[aid_c].reshape(Cg, cap, 3) * mc[..., None]
+    out = dict(mc=mc, ts=None, sid=None)
+    for name, a in (("xs", x), ("vs", v), ("fs", f)):
+        out[name] = a[aid_c].reshape(Cg, cap, 3) * mc[..., None]
+    if types is not None:
+        t = types[aid_c].reshape(Cg, cap)
+        out["ts"] = torch.where(aid2 < n, t, torch.zeros_like(t)).to(x.dtype)
+    if with_ids:
+        out["sid"] = aid2.to(x.dtype)
     if kernel_cap is not None:
-        ovl, tail_count = _tail_list(aid2, n, cap, kernel_cap, overflow_cap)
-    else:
-        ovl = tail_count = None
-    return xs, vs, fs, mc, ovl, tail_count
+        out["ovl"], out["tail_count"] = _tail_list(aid2, n, cap, kernel_cap, overflow_cap)
+    return out
 
 
 def _atoms_from_slots(spec: CellSpec, aid_g, xs, vs, fs):
@@ -155,36 +190,51 @@ def _half_concat(plane, ncells, cap: int):
 def init_cell_state(spec: CellSpec, core: PairEDMState, with_ids: bool = False,
                     types=None, kernel_cap=None, overflow_cap: int = 128
                     ) -> CellPairState:
-    """Bin the atoms and build the slot state.  ``kernel_cap`` /
-    ``overflow_cap`` build the tail list for reduced-cap force passes (pass
-    the same values to ``make_cell_step``); a tail beyond ``overflow_cap``
-    sets ``tail_ovf`` and the period runs at full cap.  Reads ``tail_ovf``
-    once to the host."""
-    if with_ids:
-        raise NotImplementedError(
-            "stencil id masks (with_ids) serve only the legacy kernels, not "
-            "ported yet (ROADMAP Queue 1, item 13)"
-        )
-    if types is not None:
-        raise NotImplementedError(
-            "type-filtered CVs are not ported yet (ROADMAP Queue 1, item 5)"
-        )
+    """Bin the atoms and build the slot state.  ``with_ids`` keeps the slot
+    ids that ``use_pallas="full"`` masks self pairs with; ``types`` (N,)
+    keeps the slot type plane of typed runs (pass the same array to
+    ``make_cell_step``).  ``kernel_cap`` / ``overflow_cap`` build the tail
+    list for reduced-cap force passes (pass the same values to
+    ``make_cell_step``); a tail beyond ``overflow_cap`` sets ``tail_ovf``
+    and the period runs at full cap.  Reads ``tail_ovf`` once to the
+    host."""
     Cg = _padded_cells(spec)
-    table = build_table(spec, core.x)
     n = spec.n_atoms
+    dev = core.x.device
+    if types is not None:
+        types = _types_tensor(types, n, dev)
+    table = build_table(spec, core.x)
     aid_g = torch.cat([table.aid, torch.full((Cg * spec.cap - spec.n_slots,), n,
-                                             dtype=torch.int64, device=core.x.device)])
-    xs, vs, fs, mc, ovl, tail_count = _slots_from_atoms(
-        spec, Cg, core.x, core.v, core.f, aid_g, kernel_cap, overflow_cap
-    )
-    tail = {}
+                                             dtype=torch.int64, device=dev)])
+    slots = _slots_from_atoms(spec, Cg, core.x, core.v, core.f, aid_g, kernel_cap,
+                              overflow_cap, types, with_ids)
     if kernel_cap is not None:
-        tail_ovf = tail_count > overflow_cap
-        tail = dict(kernel_cap=kernel_cap, ovl=ovl, tail_count=tail_count,
-                    tail_ovf=tail_ovf, tail_fallbacks=tail_ovf.to(torch.int64),
-                    tail_ovf_host=bool(tail_ovf))
-    return CellPairState(core=core, aid=aid_g, xs=xs, vs=vs, fs=fs, mc=mc,
-                         table_overflow=table.overflow, **tail)
+        tail_ovf = slots["tail_count"] > overflow_cap
+        slots.update(kernel_cap=kernel_cap, tail_ovf=tail_ovf,
+                     tail_fallbacks=tail_ovf.to(torch.int64), tail_ovf_host=bool(tail_ovf))
+    return CellPairState(core=core, aid=aid_g, table_overflow=table.overflow, **slots)
+
+
+def newton_lattice_force(xs, mc, ncells, box, lj, table, energy: bool = True, ts=None,
+                         type_pair=None, rescredit: bool = False):
+    """Half-stencil Newton force pass over the (nx, ny, nz) slot lattice at
+    full cap, single device: the JAX ``newton_lattice_force`` with
+    ``mc_rows is mc_cand`` and no ``row_box``.  ``table`` a HermiteTable or
+    a ChebTable; ``ts`` (Cg, cap) slot types with ``type_pair`` for the
+    typed CV.  ``rescredit=True`` runs K1 (credits applied in the kernel);
+    False runs K6 and subtracts its 13 credits afterwards, offset by offset
+    in HALF_OFFSETS order, as the JAX host's lattice rolls do.  Returns
+    (energy, f_rows (Cg, cap, 3)); padded cells are zeros."""
+    if ts is None or type_pair is None:
+        ts = type_pair = None
+    kw = dict(ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
+    if rescredit:
+        f, eb = cell_force_newton(xs, mc, table, k=xs.shape[1], **kw)
+        return eb.sum(), f
+    f, cred, eb = cell_force_newton_planar(xs, mc, table, **kw)
+    C = int(np.prod(ncells))
+    f[:C] = subtract_credits(f[:C], cred[:C], ncells)
+    return eb.sum(), f
 
 
 class CellStep:
@@ -195,12 +245,19 @@ class CellStep:
     def __init__(self, params: B.BiasParams, lp: LangevinParams, lj: LJParams,
                  spec: CellSpec, *, do_hills: bool, do_energy: bool,
                  do_rebuild: bool, hill_capacity: int, row_cap: int,
-                 m_per_row: int, mover_cap: int, kernel_cap, overflow_cap: int):
+                 m_per_row: int, mover_cap: int, kernel_cap, overflow_cap: int,
+                 use_pallas, types, type_pair):
         self.params, self.lp, self.lj, self.spec = params, lp, lj, spec
         self.do_hills, self.do_energy, self.do_rebuild = do_hills, do_energy, do_rebuild
         self.hill_capacity, self.row_cap, self.m_per_row = hill_capacity, row_cap, m_per_row
         self.mover_cap = mover_cap
         self.kernel_cap, self.overflow_cap = kernel_cap, overflow_cap
+        self.use_pallas = use_pallas
+        # the rdf type pair of the CV (both given, else untyped), as the
+        # JAX host casts them; the per-atom types go to the card at first use
+        self.types = None if types is None or type_pair is None else types
+        self.type_pair = None if self.types is None else tuple(int(t) for t in type_pair)
+        self._types_dev = None
         self.Cg = _padded_cells(spec)
         c1 = float(np.exp(-lp.friction * lp.dt))
         self._c1 = c1
@@ -276,17 +333,42 @@ class CellStep:
 
     # ----------------------------------------------------------- forces
 
+    def _types_on(self, device) -> torch.Tensor:
+        """The per-atom types (int64) on ``device``, copied once."""
+        if self._types_dev is None or self._types_dev.device != device:
+            self._types_dev = _types_tensor(self.types, self.spec.n_atoms, device).long()
+        return self._types_dev
+
+    def _kernel_types(self, state):
+        """(ts, type_pair) for the kernels: (None, None) when untyped."""
+        if self.types is None:
+            return None, None
+        if state.ts is None:
+            raise ValueError(
+                "type-filtered kernel runs need the cached slot types: build "
+                "the state with init_cell_state(..., types=types)"
+            )
+        return state.ts, self.type_pair
+
     def _force(self, state, xs):
-        """(bias energy, forces (Cg, cap, 3)) through K1, plus K2 on
-        reduced-cap periods; the lookup is the carried ChebTable, else the
-        exact Hermite table of the live grid."""
+        """(bias energy, forces (Cg, cap, 3)) by ``use_pallas``: K7 on
+        "full", K6 and the credit subtraction on "newton", else K1 — plus
+        K2 on reduced-cap periods.  The lookup is the carried ChebTable,
+        else the exact Hermite table of the live grid."""
         spec, lj = self.spec, self.lj
+        if self.use_pallas == "full":
+            return self._full_force(state, xs)
         tbl = state.core.cheb
         if tbl is None:
             tbl = hermite_pair_table(state.core.bias.bias)
+        ts, tp = self._kernel_types(state)
+        if self.use_pallas == "newton":
+            return newton_lattice_force(xs, state.mc, spec.ncells, spec.box, lj, tbl,
+                                        self.do_energy, ts=ts, type_pair=tp)
         kw = dict(box=spec.box, lj=lj, energy=self.do_energy)
         if self.kernel_cap is None or state.tail_ovf_host:
-            f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells, **kw)
+            f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells,
+                                      ts=ts, type_pair=tp, **kw)
             return eb.sum(), f
         kcap = self.kernel_cap
         f, eb = cell_force_newton(xs, state.mc, tbl, k=kcap, ncells=spec.ncells, **kw)
@@ -300,6 +382,24 @@ class CellStep:
         f_pad = torch.cat([f.reshape(S, 3), f.new_zeros(1, 3)])
         f_pad.index_add_(0, state.ovl, fo[:3].T)
         return eb.sum() + fo[3].sum(), f_pad[:S].reshape(Cg, cap, 3)
+
+    def _full_force(self, state, xs):
+        """``use_pallas="full"``: K7 over the 27-stencil ordered pairs, the
+        energy always evaluated and halved here (each pair seen twice)."""
+        if state.sid is None:
+            raise ValueError(
+                'use_pallas="full" needs the stencil id masks: build the state '
+                "with init_cell_state(..., with_ids=True)"
+            )
+        if state.core.cheb is None or self.types is not None:
+            raise ValueError(
+                'use_pallas="full" is Chebyshev-only and untyped; use the '
+                "default Newton kernel"
+            )
+        spec = self.spec
+        f, eb = cell_force_full(xs, state.mc, state.sid, state.core.cheb, ncells=spec.ncells,
+                                box=spec.box, lj=self.lj)
+        return 0.5 * eb.sum(), f
 
     def _overflow_inputs(self, state, xs):
         """K2's planes: the tail rows (x, y, z, mask, own) and every low
@@ -317,22 +417,63 @@ class CellStep:
     # ----------------------------------------------------------- hills
 
     def _collect_hills(self, state, xs, key, last_calls, dtype):
+        """The hill round's candidates: the 27-stencil collection on typed
+        runs, else the half-stencil one.  Returns (hills (H,), runifs (H,),
+        active (H,), ncalls, truncated)."""
+        if self.types is not None:
+            return self._collect_hills_typed(state, xs, key, last_calls, dtype)
+        return self._collect_hills_half(state, xs, key, last_calls, dtype)
+
+    def _accept_threshold(self, last_calls, dtype):
+        hd = self.params.cfg.hill_density
+        return None if hd < 0 else B._rdiv(hd, last_calls.to(dtype))
+
+    def _select_rows(self, row_counts):
+        """Pass 1 -> pass 2: the first ``row_cap`` slot rows with an accepted
+        candidate, in row order (sentinel = the row count), and how many
+        rows had one."""
+        rc = self.row_cap
+        has = row_counts > 0
+        rranks = torch.cumsum(has.to(torch.int64), 0) - 1
+        sent = row_counts.shape[0]
+        rows = torch.arange(sent, device=row_counts.device)
+        tgt = torch.where(has & (rranks < rc), rranks, torch.full_like(rranks, rc))
+        return _scatter_drop(rc, sent, tgt, rows), torch.sum(has.to(torch.int64))
+
+    def _compact(self, acc, rvals, uvals, row_counts, n_rows):
+        """The first ``m_per_row`` accepted columns of each selected row, in
+        row-major order, compacted into ``hill_capacity`` slots (the JAX
+        ``_extract_first_m`` and its compaction).  ``acc``, ``rvals`` and
+        ``uvals`` are (rows, columns).  Returns (hills, runifs, active,
+        truncated)."""
+        hc, m_per_row = self.hill_capacity, self.m_per_row
+        sel = acc & (torch.cumsum(acc.to(torch.int64), 1) <= m_per_row)
+        vflat = sel.reshape(-1)
+        ranks = torch.cumsum(vflat.to(torch.int64), 0) - 1
+        tgt = torch.where(vflat & (ranks < hc), ranks, torch.full_like(ranks, hc))
+        hills = _scatter_drop(hc, 0.0, tgt, rvals.reshape(-1))
+        runifs = _scatter_drop(hc, 1.0, tgt, uvals.reshape(-1))
+        count = torch.sum(vflat.to(torch.int64))
+        active = torch.arange(hc, device=acc.device) < count
+        truncated = ((count > hc) | (n_rows > self.row_cap)
+                     | torch.any(row_counts > m_per_row))
+        return hills, runifs, active, truncated
+
+    def _collect_hills_half(self, state, xs, key, last_calls, dtype):
         """Two-level hill collection over half-stencil tiles: each unordered
         pair once (self block strictly upper, 13 positive neighbours) with
         two acceptance uniforms (the reference's two ordered candidates,
         fix_edm_pair.cpp:229-237).  Pass 1 counts accepted candidates per
         slot row; pass 2 re-derives the same draws on the selected rows and
-        extracts the first ``m_per_row`` per row in column order.  Returns
-        (hills (H,), runifs (H,), active (H,), ncalls, truncated)."""
+        extracts the first ``m_per_row`` per row in column order."""
         spec, params = self.spec, self.params
         cap = spec.cap
         C = spec.n_cells
         W = 14 * cap
-        rc, hc, m_per_row = self.row_cap, self.hill_capacity, self.m_per_row
+        rc = self.row_cap
         dev = xs.device
         seeds = seeds_from_key(key)
-        hd = params.cfg.hill_density
-        thresh = None if hd < 0 else B._rdiv(hd, last_calls.to(dtype))
+        thresh = self._accept_threshold(last_calls, dtype)
         bmax2 = params.cfg.box_high[0] * params.cfg.box_high[0]
         box = device_const(spec.box, dev, dtype)
         cand = [_half_concat(xs[..., c], spec.ncells, cap) for c in range(3)]
@@ -358,16 +499,10 @@ class CellStep:
         u = uniform_rows_cols(seeds, rows, 2 * W, dtype).reshape(C, cap, W, 2)
         row_counts = accepted(ok, u).sum((2, 3)).reshape(-1)
         ncalls = 2 * torch.sum(ok.to(torch.int64))
-
-        has = row_counts > 0
-        rranks = torch.cumsum(has.to(torch.int64), 0) - 1
-        sent = C * cap
-        rows_sel = _scatter_drop(
-            rc, sent, torch.where(has & (rranks < rc), rranks, torch.full_like(rranks, rc)), rows
-        )
-        n_rows = torch.sum(has.to(torch.int64))
+        rows_sel, n_rows = self._select_rows(row_counts)
 
         # pass 2 on the selected slot rows
+        sent = C * cap
         rows_c = torch.clamp(rows_sel, 0, sent - 1)
         cells_c = rows_c // cap
         slot_c = (rows_c % cap)[:, None]
@@ -383,17 +518,69 @@ class CellStep:
         r = torch.sqrt(torch.where(ok, r2, torch.full_like(r2, float("inf"))))
         u = uniform_rows_cols(seeds, rows_c, 2 * W, dtype).reshape(rc, W, 2)
         acc = accepted(ok, u).reshape(rc, 2 * W)
-        # the first m_per_row accepted columns of each row, row-major order
-        sel = acc & (torch.cumsum(acc.to(torch.int64), 1) <= m_per_row)
-        vflat = sel.reshape(-1)
-        ranks = torch.cumsum(vflat.to(torch.int64), 0) - 1
-        tgt = torch.where(vflat & (ranks < hc), ranks, torch.full_like(ranks, hc))
-        r21 = r[:, :, None].expand(rc, W, 2).reshape(-1)  # r[w] at columns 2w, 2w+1
-        hills = _scatter_drop(hc, 0.0, tgt, r21)
-        runifs = _scatter_drop(hc, 1.0, tgt, u.reshape(-1))
-        count = torch.sum(vflat.to(torch.int64))
-        active = torch.arange(hc, device=dev) < count
-        truncated = (count > hc) | (n_rows > rc) | torch.any(row_counts > m_per_row)
+        r21 = r[:, :, None].expand(rc, W, 2)  # r[w] at columns 2w, 2w+1
+        hills, runifs, active, truncated = self._compact(acc, r21, u, row_counts, n_rows)
+        return hills, runifs, active, ncalls, truncated
+
+    def _collect_hills_typed(self, state, xs, key, last_calls, dtype):
+        """The typed runs' 27-stencil collection (the JAX ``collect_hills``
+        with ``chunk_pairs``' typed branch): every ordered candidate of a
+        slot row (27 * cap, CellSpec.stencil() order) with one acceptance
+        uniform, self pairs masked by atom id, candidates only within the
+        CV's type pair.  Pass 1 counts per slot row, all cells at once;
+        pass 2 redraws on the selected rows and extracts as the half-stencil
+        collection does."""
+        spec, params = self.spec, self.params
+        n, cap, C = spec.n_atoms, spec.cap, spec.n_cells
+        W = 27 * cap
+        dev = xs.device
+        seeds = seeds_from_key(key)
+        thresh = self._accept_threshold(last_calls, dtype)
+        bmax = params.cfg.box_high[0]
+        box = device_const(spec.box, dev, dtype)
+        nbr = stencil_neighbors(tuple(spec.ncells), dev)  # (C, 27)
+        aid2 = state.aid.reshape(-1, cap)
+        types = self._types_on(dev)
+        t = types[torch.clamp(aid2, max=n - 1)]
+        tslot = torch.where(aid2 < n, t, torch.zeros_like(t))
+
+        def tile(xi, ai, ti, cells):
+            """r2, the validity and the CV type mask of rows (xi, ai, ti)
+            against the stencil candidates of ``cells``."""
+            xw = xs[nbr[cells]].reshape(cells.shape + (W, 3))
+            aw = aid2[nbr[cells]].reshape(cells.shape + (W,))
+            tw = tslot[nbr[cells]].reshape(cells.shape + (W,))
+            r2 = 0.0
+            for c in range(3):
+                dd = xi[..., c, None] - xw[..., c]
+                dd = dd - torch.round(dd / box[c]) * box[c]
+                r2 = r2 + dd * dd
+            valid = (ai[..., None] < n) & (aw < n) & (ai[..., None] != aw)
+            return r2, valid, type_pair_mask(ti[..., None], tw, self.type_pair)
+
+        # pass 1: ordered candidates and accepted draws per slot row
+        r2, valid, cv = tile(xs[:C], aid2[:C], tslot[:C], torch.arange(C, device=dev)[:, None])
+        cand = valid & cv & (r2 < bmax * bmax)
+        rows = torch.arange(C * cap, device=dev)
+        u = uniform_rows_cols(seeds, rows, W, dtype).reshape(C, cap, W)
+        acc = cand if thresh is None else cand & (u < thresh)
+        row_counts = acc.sum(2).reshape(-1)
+        ncalls = torch.sum(cand.to(torch.int64))
+        rows_sel, n_rows = self._select_rows(row_counts)
+
+        # pass 2 on the selected slot rows
+        sent = C * cap
+        rows_c = torch.clamp(rows_sel, 0, sent - 1)
+        flat_aid, flat_t = aid2.reshape(-1), tslot.reshape(-1)
+        r2, valid, cv = tile(xs.reshape(-1, 3)[rows_c], flat_aid[rows_c], flat_t[rows_c],
+                             rows_c // cap)
+        valid = (rows_sel < sent)[:, None] & valid
+        inf = torch.full_like(r2, float("inf"))
+        r = torch.where(cv, torch.sqrt(torch.where(valid, r2, inf)), inf)
+        u = uniform_rows_cols(seeds, rows_c, W, dtype)
+        acc = torch.isfinite(r) & (r < bmax)
+        acc = acc if thresh is None else acc & (u < thresh)
+        hills, runifs, active, truncated = self._compact(acc, r, u, row_counts, n_rows)
         return hills, runifs, active, ncalls, truncated
 
     # ----------------------------------------------------------- rebuilds
@@ -406,50 +593,62 @@ class CellStep:
     def _rebuild(self, state, xs, vs, fs):
         """Incremental rebin when feasible (and, with ``kernel_cap``, when
         it keeps the tail within ``overflow_cap``), else the full argsort
-        rebuild, which also refreshes core.x/v/f.  Returns the updated
-        state fields."""
+        rebuild, which also refreshes core.x/v/f.  States with slot ids
+        always rebuild fully (only the full rebuild makes the ids).  Returns
+        the updated state fields."""
         spec = self.spec
         n, cap, Cg = spec.n_atoms, spec.cap, self.Cg
         S = Cg * cap
         kcap = self.kernel_cap
-        plan = plan_incremental_rebin(spec, Cg, state.aid, xs, self.mover_cap)
-        feasible = plan.feasible
-        if kcap is not None:
-            # a mover whose source AND destination are tail slots cancels
-            leave = torch.sum((plan.m_src < S) & (plan.m_src % cap >= kcap))
-            arrive = torch.sum((plan.m_dest < S) & (plan.m_dest % cap >= kcap))
-            feasible = feasible & (state.tail_count - leave + arrive <= self.overflow_cap)
-        self.host_syncs += 1
-        if bool(feasible):
-            aid_new, outs = apply_incremental_rebin(
-                spec, plan, state.aid, [a.reshape(S, 3) for a in (xs, vs, fs)]
-            )
-            mc = (aid_new.reshape(Cg, cap) < n).to(xs.dtype)
-            upd = dict(aid=aid_new, mc=mc)
-            for name, a in zip(("xs", "vs", "fs"), outs):
-                upd[name] = a.reshape(Cg, cap, 3) * mc[..., None]
+        if state.sid is None:
+            plan = plan_incremental_rebin(spec, Cg, state.aid, xs, self.mover_cap)
+            feasible = plan.feasible
             if kcap is not None:
-                ovl, tail_count = _tail_list(aid_new.reshape(Cg, cap), n, cap, kcap,
-                                             self.overflow_cap)
-                # the feasibility test bounded the new tail by overflow_cap
-                upd.update(ovl=ovl, tail_ovf_host=False,
-                           **self._tail_fields(state, tail_count))
-            return upd
+                # a mover whose source AND destination are tail slots cancels
+                leave = torch.sum((plan.m_src < S) & (plan.m_src % cap >= kcap))
+                arrive = torch.sum((plan.m_dest < S) & (plan.m_dest % cap >= kcap))
+                feasible = feasible & (state.tail_count - leave + arrive <= self.overflow_cap)
+            self.host_syncs += 1
+            if bool(feasible):
+                return self._rebin(state, plan, xs, vs, fs)
 
         x_at, v_at, f_at = _atoms_from_slots(spec, state.aid, xs, vs, fs)
         t = build_table(spec, x_at)
         aid_g = torch.cat([t.aid, torch.full((S - spec.n_slots,), n, dtype=torch.int64,
                                              device=xs.device)])
-        nxs, nvs, nfs, mc, ovl, tail_count = _slots_from_atoms(
-            spec, Cg, x_at, v_at, f_at, aid_g, kcap, self.overflow_cap
-        )
-        upd = dict(aid=aid_g, xs=nxs, vs=nvs, fs=nfs, mc=mc,
-                   table_overflow=state.table_overflow | t.overflow,
+        types = (self._types_on(xs.device)
+                 if state.ts is not None and self.types is not None else None)
+        upd = _slots_from_atoms(spec, Cg, x_at, v_at, f_at, aid_g, kcap, self.overflow_cap,
+                                types, state.sid is not None)
+        upd.update(aid=aid_g, table_overflow=state.table_overflow | t.overflow,
                    atoms=(x_at, v_at, f_at))
         if kcap is not None:
-            upd.update(ovl=ovl, **self._tail_fields(state, tail_count))
+            upd.update(self._tail_fields(state, upd["tail_count"]))
             self.host_syncs += 1
             upd["tail_ovf_host"] = bool(upd["tail_ovf"])
+        return upd
+
+    def _rebin(self, state, plan, xs, vs, fs):
+        """The incremental rebin's state fields: the slot arrays (and the
+        slot types) moved with the plan."""
+        spec = self.spec
+        n, cap, Cg = spec.n_atoms, spec.cap, self.Cg
+        S = Cg * cap
+        arrays = [a.reshape(S, 3) for a in (xs, vs, fs)]
+        if state.ts is not None:
+            arrays.append(state.ts.reshape(S))
+        aid_new, outs = apply_incremental_rebin(spec, plan, state.aid, arrays)
+        mc = (aid_new.reshape(Cg, cap) < n).to(xs.dtype)
+        upd = dict(aid=aid_new, mc=mc)
+        for name, a in zip(("xs", "vs", "fs"), outs):
+            upd[name] = a.reshape(Cg, cap, 3) * mc[..., None]
+        if state.ts is not None:
+            upd["ts"] = outs[3].reshape(Cg, cap) * mc
+        if self.kernel_cap is not None:
+            ovl, tail_count = _tail_list(aid_new.reshape(Cg, cap), n, cap, self.kernel_cap,
+                                         self.overflow_cap)
+            # the feasibility test bounded the new tail by overflow_cap
+            upd.update(ovl=ovl, tail_ovf_host=False, **self._tail_fields(state, tail_count))
         return upd
 
 
@@ -484,21 +683,23 @@ def make_cell_step(
     step rebins whatever ``state.step`` is.  ``energy_stride == 1``
     evaluates the bias energy on every step; otherwise only on
     ``static_do_energy`` steps (forces are identical either way).
-    ``use_pallas=True`` names the JAX package's kernel path: here the force
-    pass always runs through K1/K2.  ``kernel_cap``/``overflow_cap`` as in
-    the JAX host."""
+    ``use_pallas``: True (K1, with K2 under ``kernel_cap``), "newton"
+    (K6 and the credit subtraction) or "full" (K7; a state built with
+    ``with_ids=True`` and a Chebyshev table).  ``types`` (N,) and
+    ``type_pair`` (ti, tj), both given, restrict the CV to that rdf type
+    pair; the state must carry the slot types
+    (``init_cell_state(..., types=types)``).  ``kernel_cap``/``overflow_cap``
+    as in the JAX host (default path, untyped)."""
     if None in (static_do_hills, static_do_energy, static_do_rebuild):
         raise NotImplementedError(
             "dynamic stride conds are not ported: build one step per phase "
             "with static_do_* and drive them with driver.pattern_segment"
         )
-    if use_pallas is not True:
+    if use_pallas not in (True, "newton", "full"):
         raise NotImplementedError(
-            f"use_pallas={use_pallas!r} (the XLA and legacy kernel paths) is "
-            "not ported yet (ROADMAP Queue 1, item 13)"
+            f"use_pallas={use_pallas!r} (the XLA force path) is not ported yet "
+            "(ROADMAP Queue 1, item 14)"
         )
-    if types is not None or type_pair is not None:
-        raise NotImplementedError("type-filtered CVs are not ported yet (ROADMAP Queue 1, item 5)")
     if collect_records:
         raise NotImplementedError("hill-record collection is not ported yet (ROADMAP Queue 1, item 10)")
     if slab_axis is not None or brick_axes is not None:
@@ -509,6 +710,10 @@ def make_cell_step(
             "range); use the dense/blocked host for small boxes"
         )
     if kernel_cap is not None:
+        if use_pallas is not True:
+            raise ValueError("kernel_cap requires the default Newton kernel path (use_pallas=True)")
+        if types is not None and type_pair is not None:
+            raise ValueError("kernel_cap does not support type-filtered runs")
         if kernel_cap % 8 or not 0 < kernel_cap < spec.cap:
             raise ValueError("kernel_cap must be a positive multiple of 8 below spec.cap")
         if overflow_cap % 8:
@@ -534,4 +739,5 @@ def make_cell_step(
         do_rebuild=bool(static_do_rebuild),
         hill_capacity=hill_capacity, row_cap=row_cap, m_per_row=m_per_row,
         mover_cap=mover_cap, kernel_cap=kernel_cap, overflow_cap=overflow_cap,
+        use_pallas=use_pallas, types=types, type_pair=type_pair,
     )

@@ -1,20 +1,29 @@
 """Cell-pair force pass of the pairwise-EDM cell host: LJ + the pair-distance
 CV bias through the exact cubic-Hermite table or its Chebyshev form.
 
-Two kernels, each a CUDA kernel for Hopper in ``csrc/cellforce.cu`` with a
-plain PyTorch version beside it:
+Four kernels, each a CUDA kernel for Hopper in ``csrc/cellforce.cu`` with
+a plain PyTorch version beside it:
 
   - ``cell_force_newton`` (K1) replaces ``edm_tpu/ops/cellforce_pallas.py``
     ``cell_forces_pallas_newton_rescredit``: the half-stencil Newton pass
-    over the slot lattice, every step;
+    over the slot lattice, every step of the default path;
   - ``overflow_force`` (K2) replaces ``overflow_forces_pallas``: the dense
     sweep of the compacted tail atoms (slots >= kernel_cap) against every
-    placed low slot, on reduced-cap steps.
+    placed low slot, on reduced-cap steps;
+  - ``cell_force_newton_planar`` (K6) replaces
+    ``cell_forces_pallas_newton_planar``: K1's row pass alone, returning
+    the Newton credits for the caller to apply (``use_pallas="newton"``);
+  - ``cell_force_full`` (K7) replaces ``cell_forces_pallas``: the legacy
+    27-stencil ordered-pair pass with slot-id self masks, Chebyshev only
+    (``use_pallas="full"``).
 
-Both take either bias table: a ``HermiteTable`` (``pair_lookup="interp"``)
-or a ``ChebTable`` (``pair_lookup="chebyshev"``), whose per-pair Clenshaw
-chains replace ``cellforce_pallas._cheb_val_der`` (K3); the kernel is
-instantiated once per lookup.
+K1, K2 and K6 take either bias table: a ``HermiteTable``
+(``pair_lookup="interp"``) or a ``ChebTable`` (``pair_lookup="chebyshev"``),
+whose per-pair Clenshaw chains replace ``cellforce_pallas._cheb_val_der``
+(K3); the kernels are instantiated once per lookup.  K1 and K6 take an
+optional slot type plane ``ts`` and ``type_pair`` (ti, tj): the rdf
+type-pair CV of ``cellforce_pallas._cv_type_mask``, which keeps the bias
+term only for unordered {ti, tj} pairs and never touches LJ.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches on the
@@ -44,6 +53,12 @@ HALF_OFFSETS = tuple(
     for dy in (-1, 0, 1)
     for dz in (-1, 0, 1)
     if (dx, dy, dz) > (0, 0, 0)
+)
+
+# The 27 stencil offsets in CellSpec.stencil() order (the JAX host's roll
+# order); the cell itself is offset 13.
+STENCIL_OFFSETS = tuple(
+    (dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
 )
 
 # cells are padded to a multiple of this (the JAX kernels' program size);
@@ -166,9 +181,10 @@ def _cheb_terms(r, ok, table: ChebTable, energy: bool):
     return der, val
 
 
-def _pair_terms(dx, dy, dz, ok, table, lj, energy: bool):
+def _pair_terms(dx, dy, dz, ok, table, lj, energy: bool, ok_cv=None):
     """Per-pair force factors of _kernel_newton_rc:604-654 on broadcast
-    displacement tiles: returns (f_over_r, val or None), masked pairs 0."""
+    displacement tiles: returns (f_over_r, val or None), masked pairs 0.
+    ``ok_cv`` (default ``ok``) masks the bias term alone: the typed CV."""
     dtype, dev = dx.dtype, dx.device
     r2 = dx * dx + dy * dy + dz * dz
     one = torch.ones((), dtype=dtype, device=dev)
@@ -180,10 +196,11 @@ def _pair_terms(dx, dy, dz, ok, table, lj, energy: bool):
     sr6 = sr2 * sr2 * sr2
     fmag_r = 4.0 * lj.epsilon * (12.0 * sr6 * sr6 - 6.0 * sr6) * inv_r2
     fmag_r = torch.where(ok & (r < lj.rcut), fmag_r, torch.zeros_like(fmag_r))
+    ok_cv = ok if ok_cv is None else ok_cv
     if isinstance(table, ChebTable):
-        der, val = _cheb_terms(r, ok, table, energy)
+        der, val = _cheb_terms(r, ok_cv, table, energy)
     else:
-        der, val = _hermite_terms(r, ok, table, energy)
+        der, val = _hermite_terms(r, ok_cv, table, energy)
     return fmag_r - der * inv_r, val
 
 
@@ -198,15 +215,51 @@ def half_neighbors(ncells, device) -> torch.Tensor:
     return torch.as_tensor(neighbor_cells(ncells, HALF_OFFSETS), device=device)
 
 
-def cell_force_newton_ref(xs, mc, table, *, k: int, ncells, box,
-                          lj, energy: bool):
-    """Plain version of K1.  xs (Cg, cap, 3) slot positions, mc (Cg, cap)
-    occupancy (1.0 = atom); only slots < k take part; ``table`` a
-    HermiteTable or a ChebTable.  Returns
-    f (Cg, cap, 3) — row sums plus Newton credits, zero at slots >= k and
-    padded cells — and eb (Cg, k), the per-row bias energy (self block at
-    weight 0.5; zeros when ``energy`` is False)."""
-    Cg, cap, _ = xs.shape
+@functools.lru_cache(maxsize=8)
+def credit_sources(ncells, device) -> torch.Tensor:
+    """(C, 13): for each cell c and offset o, the cell whose HALF_OFFSETS[o]
+    neighbour is c (the JAX host's lattice roll by +offset)."""
+    return torch.as_tensor(neighbor_cells(ncells, [tuple(-d for d in o) for o in HALF_OFFSETS]),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def stencil_neighbors(ncells, device) -> torch.Tensor:
+    """(C, 27) flat ids of each cell's STENCIL_OFFSETS neighbours."""
+    return torch.as_tensor(neighbor_cells(ncells, STENCIL_OFFSETS), device=device)
+
+
+def stencil_planes(plane, ncells):
+    """(Cg, cap) per-slot plane -> (C, 27cap): each cell's candidates in
+    STENCIL_OFFSETS order (the JAX host's 27 lattice rolls, as a gather)."""
+    C = int(np.prod(ncells))
+    return plane[stencil_neighbors(tuple(ncells), plane.device)].reshape(C, -1)
+
+
+def subtract_credits(f_own, cred, ncells):
+    """f_own (C, k, 3) minus the 13 incoming Newton credits, one offset after
+    another in HALF_OFFSETS order: cred[c, o] (C, 13, k, 3) belongs to cell
+    c + HALF_OFFSETS[o] (``newton_lattice_force``'s rolls, as a gather)."""
+    src = credit_sources(tuple(ncells), f_own.device)
+    inc = cred[src, torch.arange(13, device=f_own.device)]  # (C, 13, k, 3)
+    for o in range(13):
+        f_own = f_own - inc[:, o]
+    return f_own
+
+
+def type_pair_mask(t_rows, t_cols, type_pair):
+    """Broadcast mask of the rdf type-pair CV (``_cv_type_mask``): the
+    unordered pair {ti, tj}, types compared as floats."""
+    ti, tj = (float(t) for t in type_pair)
+    return ((t_rows == ti) & (t_cols == tj)) | ((t_rows == tj) & (t_cols == ti))
+
+
+def _newton_rows(xs, mc, table, *, k, ncells, box, lj, energy, ts, type_pair):
+    """The row pass of K1 and K6 (plain): each occupied slot < k against
+    its own cell's other slots and the 13 half-stencil neighbours' slots.
+    Returns the row sums f (C, k, 3), self block included; the credits
+    cred (C, 13, k, 3), each offset's column sums (+); and eb (C, k), the
+    row's bias energy with the self block at weight 0.5."""
     C = int(np.prod(ncells))
     nbr = half_neighbors(tuple(ncells), xs.device)  # (C, 13)
     xl = xs[:C, :k]
@@ -217,20 +270,83 @@ def cell_force_newton_ref(xs, mc, table, *, k: int, ncells, box,
     d = [_mimage(xl[:, :, None, c] - xw[:, None, :, c], box[c]) for c in range(3)]
     ok = ml[:, :, None] & mw[:, None, :]
     ok = ok & ~torch.eye(k, W, dtype=torch.bool, device=xs.device)[None]
-    f_over_r, val = _pair_terms(*d, ok, table, lj, energy)
+    ok_cv = None
+    if ts is not None:
+        tl = ts[:C, :k]
+        tw = torch.cat([tl, ts[nbr][:, :, :k].reshape(C, 13 * k)], 1)
+        ok_cv = ok & type_pair_mask(tl[:, :, None], tw[:, None, :], type_pair)
+    f_over_r, val = _pair_terms(*d, ok, table, lj, energy, ok_cv)
     g = torch.stack([f_over_r * dc for dc in d], dim=-1)  # (C, k, W, 3)
-    f = torch.zeros((Cg, cap, 3), dtype=xs.dtype, device=xs.device)
-    f_own = g.sum(2)
     cred = g[:, :, k:].sum(1).reshape(C, 13, k, 3)
-    for o in range(13):
-        # nbr[:, o] is a permutation of the cells: no index repeats
-        f_own = f_own.index_add(0, nbr[:, o], -cred[:, o])
-    f[:C, :k] = f_own
-    eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
+    eb = torch.zeros((C, k), dtype=xs.dtype, device=xs.device)
     if energy:
         w = torch.ones(W, dtype=xs.dtype, device=xs.device)
         w[:k] = 0.5
-        eb[:C] = (val * w).sum(2)
+        eb = (val * w).sum(2)
+    return g.sum(2), cred, eb
+
+
+def cell_force_newton_ref(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
+                          ts=None, type_pair=None):
+    """Plain version of K1.  xs (Cg, cap, 3) slot positions, mc (Cg, cap)
+    occupancy (1.0 = atom); only slots < k take part; ``table`` a
+    HermiteTable or a ChebTable; ``ts`` (Cg, cap) slot types (0 = empty)
+    with ``type_pair`` for the typed CV.  Returns
+    f (Cg, cap, 3) — row sums plus Newton credits, zero at slots >= k and
+    padded cells — and eb (Cg, k), the per-row bias energy (self block at
+    weight 0.5; zeros when ``energy`` is False)."""
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    f_own, cred, eb_c = _newton_rows(xs, mc, table, k=k, ncells=ncells, box=box, lj=lj,
+                                     energy=energy, ts=ts, type_pair=type_pair)
+    f = torch.zeros((Cg, cap, 3), dtype=xs.dtype, device=xs.device)
+    f[:C, :k] = subtract_credits(f_own, cred, ncells)
+    eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
+    eb[:C] = eb_c
+    return f, eb
+
+
+def cell_force_newton_planar_ref(xs, mc, table, *, ncells, box, lj, energy: bool,
+                                 ts=None, type_pair=None):
+    """Plain version of K6: K1's row pass at full cap, credits not applied.
+    Returns f (Cg, cap, 3), the row sums with the self block; cred
+    (Cg, 13, cap, 3), the column sums (+) that cell c + HALF_OFFSETS[o]
+    must subtract (``subtract_credits``); eb (Cg, cap), self block at
+    weight 0.5 (zeros when ``energy`` is False).  Padded cells are zeros."""
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    f_own, cred_c, eb_c = _newton_rows(xs, mc, table, k=cap, ncells=ncells, box=box, lj=lj,
+                                       energy=energy, ts=ts, type_pair=type_pair)
+    f = torch.zeros_like(xs)
+    f[:C] = f_own
+    cred = torch.zeros((Cg, 13, cap, 3), dtype=xs.dtype, device=xs.device)
+    cred[:C] = cred_c
+    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    eb[:C] = eb_c
+    return f, cred, eb
+
+
+def cell_force_full_ref(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
+    """Plain version of K7.  xs (Cg, cap, 3), mc (Cg, cap), sid (Cg, cap)
+    slot ids as floats (the slot's atom id); each occupied slot against
+    every occupied slot of the 27 stencil cells (STENCIL_OFFSETS order)
+    whose id differs, with the Chebyshev lookup and the energy.  Returns
+    f (Cg, cap, 3), the row sums, and eb (Cg, cap), each row's bias energy
+    over ordered pairs (the caller takes 0.5 * sum(eb))."""
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    xl = xs[:C]
+    ml = mc[:C] > 0.5
+    xw = stencil_planes(xs, ncells).reshape(C, 27 * cap, 3)
+    mw = stencil_planes(mc, ncells) > 0.5  # the JAX state's mn
+    nid = torch.where(mw, stencil_planes(sid, ncells), -1.0)  # and its nid
+    d = [_mimage(xl[:, :, None, c] - xw[:, None, :, c], box[c]) for c in range(3)]
+    ok = ml[:, :, None] & mw[:, None, :] & ((sid[:C, :, None] - nid[:, None, :]).abs() >= 0.5)
+    f_over_r, val = _pair_terms(*d, ok, table, lj, True)
+    f = torch.zeros_like(xs)
+    f[:C] = torch.stack([(f_over_r * dc).sum(2) for dc in d], dim=-1)
+    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    eb[:C] = val.sum(2)
     return f, eb
 
 
@@ -320,16 +436,9 @@ def _raise_on(lib, code: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.edm_error_string(code).decode()}")
 
 
-def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool):
-    """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
-    Newton credits are summed deterministically: a per-offset credit
-    scratch (C, 13, k, 3) written by the row pass and added to each slot
-    in a fixed offset order by a second pass — no atomics."""
-    if xs.device.type == "cpu":
-        return cell_force_newton_ref(xs, mc, table, k=k, ncells=ncells, box=box,
-                                     lj=lj, energy=energy)
-    if xs.device.type != "cuda":
-        raise ValueError(f"no cell-force kernel for device {xs.device}")
+def _newton_launch(entry, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
+                   ts, type_pair):
+    """Checks and launches K1 or K6 (``entry``) on CUDA tensors."""
     lib, lim = _library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
@@ -339,16 +448,40 @@ def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool):
         raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
+    types = (None, None)
+    if ts is not None:
+        _check(ts, "ts", (Cg, cap), xs.device)
+        types = (ts.data_ptr(), _f32(type_pair))
     args = _pair_args(table, box, lj, xs.device)
+    code = getattr(lib, entry)(
+        xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
+        C, cap, k, *ncells, *types, *args, int(energy),
+        torch.cuda.current_stream(xs.device).cuda_stream,
+    )
+    _raise_on(lib, code, entry.removesuffix("_launch"))
+
+
+def _device_of(t, what):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return t.device.type
+
+
+def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
+                      ts=None, type_pair=None):
+    """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
+    Newton credits are summed deterministically: a per-offset credit
+    scratch (C, 13, k, 3) written by the row pass and added to each slot
+    in a fixed offset order by a second pass — no atomics."""
+    kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
+    if _device_of(xs, "cell-force") == "cpu":
+        return cell_force_newton_ref(xs, mc, table, **kw)
+    Cg = xs.shape[0]
+    C = int(np.prod(ncells))
     f = torch.zeros_like(xs)
     eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((C, 13, k, 3), dtype=xs.dtype, device=xs.device)
-    code = lib.cell_force_newton_launch(
-        xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
-        C, cap, k, *ncells, *args, int(energy),
-        torch.cuda.current_stream(xs.device).cuda_stream,
-    )
-    _raise_on(lib, code, "cell_force_newton")
+    _newton_launch("cell_force_newton_launch", xs, mc, f, eb, cred, table, **kw)
     cell_force_newton.launches += 1
     return f, eb
 
@@ -356,14 +489,68 @@ def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool):
 cell_force_newton.launches = 0
 
 
+def cell_force_newton_planar(xs, mc, table, *, ncells, box, lj, energy: bool,
+                             ts=None, type_pair=None):
+    """K6 (see ``cell_force_newton_planar_ref`` for the contract): K1's row
+    pass at full cap, launched alone; the credit scratch is the returned
+    ``cred``."""
+    kw = dict(ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
+    if _device_of(xs, "cell-force") == "cpu":
+        return cell_force_newton_planar_ref(xs, mc, table, **kw)
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    f = torch.zeros_like(xs)
+    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    cred = torch.empty((Cg, 13, cap, 3), dtype=xs.dtype, device=xs.device)
+    cred[C:] = 0.0
+    _newton_launch("cell_force_newton_planar_launch", xs, mc, f, eb, cred, table, k=cap, **kw)
+    cell_force_newton_planar.launches += 1
+    return f, cred, eb
+
+
+cell_force_newton_planar.launches = 0
+
+
+def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
+    """K7 (see ``cell_force_full_ref`` for the contract).  One block per
+    cell holds its 27 x cap candidates in shared memory, so cap is at most
+    the library's ``max_k`` (64)."""
+    if not isinstance(table, ChebTable):
+        raise ValueError("cell_force_full evaluates a ChebTable only (the TPU kernel's contract)")
+    kw = dict(ncells=ncells, box=box, lj=lj)
+    if _device_of(xs, "cell-force") == "cpu":
+        return cell_force_full_ref(xs, mc, sid, table, **kw)
+    lib, lim = _library()
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    for t, name, shape in ((xs, "xs", (Cg, cap, 3)), (mc, "mc", (Cg, cap)),
+                           (sid, "sid", (Cg, cap))):
+        _check(t, name, shape, xs.device)
+    if cap > lim["max_k"]:
+        raise ValueError(f"cell_force_full takes cap <= {lim['max_k']}, got {cap}")
+    if Cg < C or min(ncells) < 3:
+        raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
+    f = torch.zeros_like(xs)
+    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    args = _pair_args(table, box, lj, xs.device)
+    code = lib.cell_force_full_launch(
+        xs.data_ptr(), mc.data_ptr(), sid.data_ptr(), f.data_ptr(), eb.data_ptr(),
+        C, cap, *ncells, *args, torch.cuda.current_stream(xs.device).cuda_stream,
+    )
+    _raise_on(lib, code, "cell_force_full")
+    cell_force_full.launches += 1
+    return f, eb
+
+
+cell_force_full.launches = 0
+
+
 def overflow_force(xo, xp, table, *, box, lj, energy: bool):
     """K2 (see ``overflow_force_ref`` for the contract).  On the GPU each
     partner's credit is owned by one thread and the per-tile tail-row
     partial sums are reduced in a fixed order by a second pass."""
-    if xo.device.type == "cpu":
+    if _device_of(xo, "overflow-force") == "cpu":
         return overflow_force_ref(xo, xp, table, box=box, lj=lj, energy=energy)
-    if xo.device.type != "cuda":
-        raise ValueError(f"no overflow-force kernel for device {xo.device}")
     lib, lim = _library()
     O = xo.shape[1]
     N = xp.shape[1]

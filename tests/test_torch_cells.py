@@ -96,9 +96,21 @@ def test_init_cell_state_and_tail_list(kcap, ocap):
 
 
 def test_unported_options_raise():
+    """The slot ids (``with_ids``) and slot types (``types``) are ported:
+    the port builds them exactly as the JAX host does; a types array that
+    is not one entry per atom raises."""
     n = 100
-    _, ts = _spec_pair((6.0, 6.0, 6.0), 2.0, n, 16)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpc.init_cell_state(ts, None, with_ids=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpc.init_cell_state(ts, None, types=np.zeros(n))
+    js, ts = _spec_pair((6.0, 6.0, 6.0), 2.0, n, 16)
+    cfg = parse_edm_text("tempering 0\nhill_prefactor 0.1\ndimension 1\nbox_low 0\n"
+                         "box_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+    _, bs = JB.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                         dtype=jnp.float32)
+    x = np.random.default_rng(2).uniform(0.0, 6.0, (n, 3)).astype(np.float32)
+    core = jpe.init_state(bs, jnp.asarray(x), jax.random.PRNGKey(3), n_est=n * 40)
+    types = (np.arange(n) % 3 + 1).astype(np.int32)
+    ref = jpc.init_cell_state(js, core, with_ids=True, types=types)
+    out = tpc.init_cell_state(ts, to_port(core), with_ids=True, types=types)
+    for f in ("aid", "xs", "mc", "sid", "ts"):
+        assert_exact(getattr(out, f), getattr(ref, f), f)
+    with pytest.raises(ValueError, match="one entry per atom"):
+        tpc.init_cell_state(ts, to_port(core), types=types[:-1])

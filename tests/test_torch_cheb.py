@@ -9,12 +9,12 @@
     kernels with the same coefficients (interpret mode), forces within
     2e-5 * max(1, max|f|), energies within 1e-5 relative, or within twice
     the Pallas kernel's own float32 error where that is larger (the
-    degree-64 table, ``_near_jax``);
+    degree-64 table, ``near_jax``);
   - the Chebyshev slice end to end: ``test_torch_slice.py``'s 600-atom,
     20-step kT = 0 run with ``pair_lookup="chebyshev", cheb_deg=16,
     cheb_panels=4``, step for step at that test's tolerances, the refit
     table included; a pair within an ulp of the table's edge may add the
-    table's jump there to its atoms' forces (``_assert_forces_at_edges``).
+    table's jump there to its atoms' forces (``assert_forces_at_edges``).
 """
 
 import dataclasses
@@ -31,6 +31,8 @@ from _torch_parity import (
     assert_energy,
     assert_exact,
     assert_forces,
+    assert_forces_at_edges,
+    near_jax,
     np_,
     to_port,
 )
@@ -196,18 +198,6 @@ def _f64(tab):
     return dataclasses.replace(tab, cval=tab.cval.double(), cder=tab.cder.double())
 
 
-def _near_jax(port, ref, exact, rel):
-    """|port - ref| within rel * max(1, max|ref|), or within twice the JAX
-    kernel's own distance from the float64 evaluation of the same
-    coefficients, whichever is larger.  The single-panel degree-64 series
-    is ill-conditioned in float32 (its derivative coefficients sum to
-    ~4e3): both packages then sit ~0.3 off the float64 forces, whose max
-    is ~4.4e3.  For the bench table the first bound is the larger."""
-    port, ref, exact = (np.asarray(np_(a), np.float64) for a in (port, ref, exact))
-    atol = max(rel * max(1.0, float(np.abs(ref).max())), 2 * float(np.abs(ref - exact).max()))
-    return float(np.abs(port - ref).max()), atol
-
-
 def _tables(panels, deg):
     """The same Chebyshev coefficients for both packages."""
     ref = jcheb.fit_gauss_grid(_ctx()["gg"], deg, panels)
@@ -234,10 +224,10 @@ def test_cell_force_newton_cheb_vs_pallas(panels, deg, k, energy):
     kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=TLJ_, energy=energy)
     f, teb = CF.cell_force_newton(tst.xs, tst.mc, tab, **kw)
     f64, eb64 = CF.cell_force_newton_ref(tst.xs.double(), tst.mc.double(), _f64(tab), **kw)
-    err, tol = _near_jax(f[:, :k], np.stack([fx, fy, fz], -1), f64[:, :k], FORCE_REL)
+    err, tol = near_jax(f[:, :k], np.stack([fx, fy, fz], -1), f64[:, :k], FORCE_REL)
     assert err <= tol, f"K1 cheb P={panels} k={k}: {err} > {tol}"
     assert not bool(f[:, k:].any())
-    err, tol = _near_jax(teb.sum(), np.asarray(eb).sum(), eb64.sum(), ENERGY_RTOL)
+    err, tol = near_jax(teb.sum(), np.asarray(eb).sum(), eb64.sum(), ENERGY_RTOL)
     assert err <= tol, f"K1 cheb P={panels} energy: {err} > {tol}"
     if energy:
         assert float(np.abs(np.asarray(eb)).sum()) > 0
@@ -274,7 +264,7 @@ def test_overflow_force_cheb_vs_pallas(panels, deg, energy):
     for what, a, b, e, rel in (("fo", tfo[:3], fo[:3], fo64[:3], FORCE_REL),
                                ("fp", tfp, fp[:3, :N], fp64, FORCE_REL),
                                ("energy", tfo[3].sum(), fo[3].sum(), fo64[3].sum(), ENERGY_RTOL)):
-        err, tol = _near_jax(a, b, e, rel)
+        err, tol = near_jax(a, b, e, rel)
         assert err <= tol, f"K2 cheb P={panels} {what}: {err} > {tol}"
 
 
@@ -289,27 +279,6 @@ PHASES = [dict(static_do_hills=True, static_do_energy=True, static_do_rebuild=Fa
 
 def _phase(i):
     return 0 if i % 10 == 0 else 2 if i % 10 == 9 else 1
-
-
-def _assert_forces_at_edges(port, ref, xs, mc, box, tab, what):
-    """Forces within 2e-5 * max(1, max|f|), except on atoms with a pair
-    within 1e-5 of an edge of the table (lo, hi, a panel joint): there the
-    two packages' pair distances, which differ by an ulp (their rsqrt
-    rounds differently), can fall on two sides of the edge, and the force
-    may differ by the table's jump of dV/dr at that edge."""
-    port, ref = np.asarray(np_(port), np.float64), np.asarray(np_(ref), np.float64)
-    tol = FORCE_REL * max(1.0, float(np.abs(ref).max()))
-    err = np.abs(port - ref).max(-1).reshape(-1)
-    if err.max() <= tol:
-        return
-    x = np.asarray(np_(xs), np.float64).reshape(-1, 3)
-    occ = np.asarray(np_(mc)).reshape(-1) > 0.5
-    for s in np.nonzero(err > tol)[0]:
-        d = x[occ] - x[s]
-        d -= np.round(d / np.asarray(box)) * np.asarray(box)
-        near = tab.near_edge(torch.as_tensor(np.sqrt((d * d).sum(1))))
-        assert near and err[s] <= tol + tab.edge_jump(), (
-            f"{what}: slot {s} off by {err[s]} (tolerance {tol}; near an edge: {near})")
 
 
 def test_cheb_slice_matches_jax_step_for_step():
@@ -353,7 +322,7 @@ def test_cheb_slice_matches_jax_step_for_step():
             assert_exact(getattr(ts.core, f), getattr(st.core, f), f"step {i} core.{f}")
         for f in ("xs", "vs"):
             assert_forces(getattr(ts, f), getattr(st, f), f"step {i} {f}")
-        _assert_forces_at_edges(ts.fs, st.fs, st.xs, st.mc, spec.box, tab, f"step {i} fs")
+        assert_forces_at_edges(ts.fs, st.fs, st.xs, st.mc, spec.box, tab, f"step {i} fs")
         assert_energy(te, e, f"step {i} energy")
         np.testing.assert_allclose(np_(ts.core.bias.cum_bias), np.asarray(st.core.bias.cum_bias),
                                    rtol=1e-6)

@@ -10,13 +10,17 @@ Inputs: a 600-atom LJ fluid with a crowded octant (a real tail above
 kernel_cap), built with the port's own entry points from a numpy seed,
 and a bias grid carrying deposited hills; K1 and K2 run with the Hermite
 table and with two Chebyshev tables (K3: 4 panels of degree 16, 1 panel of
-degree 64).  K4 and K5 deposit on the periodic grids of
+degree 64); K6 (typed and not) and typed K1 on the same atoms with the
+binary types of ``test_torch_typed.py``; K7 on states with slot ids at cap
+56 and cap 32.  K4 and K5 deposit on the periodic grids of
 ``test_torch_deposit.py``, empty and carrying values.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
 Every kernel repeats bitwise.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -228,3 +232,101 @@ def test_add_value_routes_through_the_kernels(cuda_state):
         torch.cuda.synchronize()
         assert kernel.launches == n0 + 1
         assert bool(torch.isfinite(out.grid.values).all()) and ba.shape == (c.shape[0],)
+
+
+TYPES = np.where(np.arange(600) % 2 == 0, 2, 1).astype(np.int32)  # test_torch_typed.py's
+
+
+@pytest.fixture(scope="module")
+def cuda_ids_types(cuda_state):
+    """The same atoms in a state with slot ids and types, at cap 56 (3^3
+    cells) and at cap 32 (4^3 cells)."""
+    _, spec, st, _, gg = cuda_state
+    spec32 = CellSpec.create([6.0] * 3, cutoff=1.5, n_atoms=600, cap=32)
+    states = {spec.cap: (spec, init_cell_state(spec, st.core, with_ids=True, types=TYPES)),
+              32: (spec32, init_cell_state(spec32, st.core, with_ids=True, types=TYPES))}
+    assert not any(bool(s.table_overflow) for _, s in states.values())
+    return states, gg
+
+
+def _table(gg, kind):
+    return CF.hermite_pair_table(gg) if kind == "hermite" else fit_gauss_grid(gg, 16, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_planar_kernel(cuda_ids_types, kind, typed, energy):
+    """K6: row sums, credits and energy against its plain version."""
+    states, gg = cuda_ids_types
+    spec, st = states[56]
+    tab = _table(gg, kind)
+    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy,
+              ts=st.ts if typed else None, type_pair=(1, 2) if typed else None)
+    n0 = CF.cell_force_newton_planar.launches
+    f, cred, eb = CF.cell_force_newton_planar(st.xs, st.mc, tab, **kw)
+    f_ref, cred_ref, eb_ref = CF.cell_force_newton_planar_ref(st.xs, st.mc, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_newton_planar.launches == n0 + 1
+    assert_forces(f.cpu(), f_ref.cpu(), f"K6 {kind} typed={typed}")
+    assert_forces(cred.cpu(), cred_ref.cpu(), f"K6 {kind} credits")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K6 {kind} energy")
+    f2, cred2, eb2 = CF.cell_force_newton_planar(st.xs, st.mc, tab, **kw)
+    assert torch.equal(f, f2) and torch.equal(cred, cred2) and torch.equal(eb, eb2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("k", [24, 56])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_typed_kernel(cuda_ids_types, kind, k, energy):
+    """K1 with the type mask: against its plain version, repeats bitwise,
+    and differs from the untyped kernel."""
+    states, gg = cuda_ids_types
+    spec, st = states[56]
+    tab = _table(gg, kind)
+    kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy)
+    f, eb = CF.cell_force_newton(st.xs, st.mc, tab, ts=st.ts, type_pair=(1, 2), **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(st.xs, st.mc, tab, ts=st.ts, type_pair=(1, 2), **kw)
+    torch.cuda.synchronize()
+    assert_forces(f.cpu(), f_ref.cpu(), f"typed K1 {kind} k={k}")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"typed K1 {kind} energy")
+    f2, eb2 = CF.cell_force_newton(st.xs, st.mc, tab, ts=st.ts, type_pair=(1, 2), **kw)
+    assert torch.equal(f, f2) and torch.equal(eb, eb2)
+    f0, _ = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+    assert float((f - f0).abs().max()) > 1e-3 * float(f0.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [32, 56])
+@pytest.mark.parametrize("panels,deg", TABLES)
+def test_cell_force_full_kernel(cuda_ids_types, cap, panels, deg):
+    """K7 against its plain version (the degree-64 table within twice the
+    plain version's own distance from float64, as on the CPU), bitwise
+    repeats, and the cap limit."""
+    states, gg = cuda_ids_types
+    spec, st = states[cap]
+    tab = fit_gauss_grid(gg, deg, panels)
+    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ)
+    n0 = CF.cell_force_full.launches
+    f, eb = CF.cell_force_full(st.xs, st.mc, st.sid, tab, **kw)
+    f_ref, eb_ref = CF.cell_force_full_ref(st.xs, st.mc, st.sid, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_full.launches == n0 + 1
+    if deg == 16:
+        assert_forces(f.cpu(), f_ref.cpu(), f"K7 cap={cap}")
+        assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K7 cap={cap} energy")
+    else:
+        t64 = dataclasses.replace(tab, cval=tab.cval.double(), cder=tab.cder.double())
+        f64, _ = CF.cell_force_full_ref(st.xs.double(), st.mc.double(), st.sid.double(), t64,
+                                        **kw)
+        err = float((f - f_ref).abs().max())
+        assert err <= max(2e-5 * float(f_ref.abs().max()),
+                          2 * float((f_ref.double() - f64).abs().max())), err
+    f2, eb2 = CF.cell_force_full(st.xs, st.mc, st.sid, tab, **kw)
+    assert torch.equal(f, f2) and torch.equal(eb, eb2)
+    big = torch.zeros((st.xs.shape[0], 72, 3), device=st.xs.device)
+    m = torch.zeros(big.shape[:2], device=st.xs.device)
+    with pytest.raises(ValueError, match="cap <="):
+        CF.cell_force_full(big, m, m, tab, **kw)

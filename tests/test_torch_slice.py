@@ -129,12 +129,18 @@ def test_make_cell_step_rejects_unported_options():
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec)
     with pytest.raises(NotImplementedError, match="static_do"):
         tpc.make_cell_step(*args)
-    for kw, item in ((dict(use_pallas="newton"), "item 13"), (dict(types=[0]), "item 5"),
-                     (dict(collect_records=True), "item 10"), (dict(slab_axis="x"), "item 12")):
+    for kw, item in ((dict(use_pallas=False), "item 14"), (dict(collect_records=True), "item 10"),
+                     (dict(slab_axis="x"), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             tpc.make_cell_step(*args, **PHASES[1], **kw)
     with pytest.raises(ValueError, match="multiple of 8"):
         tpc.make_cell_step(*args, **PHASES[1], kernel_cap=20)
+    # kernel_cap only on the default path, untyped (as the JAX host)
+    with pytest.raises(ValueError, match="type-filtered"):
+        tpc.make_cell_step(*args, **PHASES[1], kernel_cap=24, types=np.ones(N, np.int32),
+                           type_pair=(1, 2))
+    with pytest.raises(ValueError, match="use_pallas=True"):
+        tpc.make_cell_step(*args, **PHASES[1], kernel_cap=24, use_pallas="newton")
 
 
 def test_port_imports_without_jax():
