@@ -79,7 +79,6 @@ PEAK_BYTES = 3.35e12
 # image, r, LJ, the force and its row and credit sums; the Hermite lookup;
 # the Chebyshev set-up and 3 per Clenshaw step (a second chain on energy)
 PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 48, 16, 15, 3
-CREDIT_FLOPS = 3  # of PAIR_FLOPS: the credit sums, which K7 does not take
 # operations per grid point and hill, counted from csrc/deposit.cu: the
 # minimum-image distance and support test, then the terms in the support
 DIST_FLOPS, HILL_FLOPS = 9, 10
@@ -272,28 +271,35 @@ def table_bytes(table) -> int:
     return 4 * table.tab.numel()
 
 
-def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
-    """K1's least time (K6's with ``credits_out``): the occupied pairs these
-    slots need (each row against the other occupied slots of its cell and
-    of its 13 half-stencil neighbours, slots < k) — with types ``ts``, the
-    lookup only on the CV's type pairs — and the inputs and outputs read
-    and written once."""
+def pair_counts(spec, mc, k, ts=None):
+    """The occupied pairs of slots < k that a force pass must evaluate, each
+    unordered pair once (forces are antisymmetric, the value symmetric):
+    the pairs within a cell and those with its 13 half-stencil neighbours,
+    which with 3 or more cells per dimension are the 27-stencil's pairs.
+    Returns (pairs, the pairs on the CV's type pair; all with ``ts`` None)."""
     from edm_tpu_torch.ops.cellforce import half_neighbors
 
     C = int(np.prod(spec.ncells))
     nbr = half_neighbors(tuple(spec.ncells), mc.device)
     occ_m = mc[:C, :k] > 0.5
 
-    def counts(m):  # per cell: occupied rows, and candidates (own + 13)
+    def counts(m):  # per cell: occupied rows, and those of its 13 neighbours
         per = m.sum(1).double()
-        return per, per + per[nbr].sum(1)
+        return per, per[nbr].sum(1)
 
-    occ, cand = counts(occ_m)
-    pairs = float((occ * (cand - 1)).sum())
-    cv_pairs = pairs
-    if ts is not None:
-        (o1, c1), (o2, c2) = (counts(occ_m & (ts[:C, :k] == t)) for t in TYPE_PAIR)
-        cv_pairs = float((o1 * c2 + o2 * c1).sum())
+    o, nb = counts(occ_m)
+    pairs = float((o * (o - 1) / 2 + o * nb).sum())
+    if ts is None:
+        return pairs, pairs
+    (o1, n1), (o2, n2) = (counts(occ_m & (ts[:C, :k] == t)) for t in TYPE_PAIR)
+    return pairs, float((o1 * o2 + o1 * n2 + o2 * n1).sum())
+
+
+def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
+    """K1's least time (K6's with ``credits_out``): ``pair_counts`` — with
+    types ``ts``, the lookup only on the CV's type pairs — and the inputs
+    and outputs read and written once."""
+    pairs, cv_pairs = pair_counts(spec, mc, k, ts)
     flops = pairs * PAIR_FLOPS + cv_pairs * lookup_flops(table, energy)
     Cg, cap = mc.shape
     outs = Cg * cap * 3 + Cg * k + (Cg * 13 * k * 3 if credits_out else 0)
@@ -302,16 +308,11 @@ def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
 
 
 def full_work(spec, mc, table):
-    """K7's least time: every occupied slot against the other occupied slots
-    of its 27 stencil cells, with the value chain; xs, mc and sid read,
-    forces and eb written once."""
-    from edm_tpu_torch.ops.cellforce import stencil_neighbors
-
-    C = int(np.prod(spec.ncells))
-    occ = (mc[:C] > 0.5).sum(1).double()
-    cand = occ[stencil_neighbors(tuple(spec.ncells), mc.device)].sum(1)
-    pairs = float((occ * (cand - 1)).sum())
-    flops = pairs * (PAIR_FLOPS - CREDIT_FLOPS + lookup_flops(table, True))
+    """K7's least time: the pairs of K1 at full cap (K7 evaluates each one
+    from both sides, its function needs it once) with the value chain; xs,
+    mc and sid read, forces and eb written once."""
+    pairs, _ = pair_counts(spec, mc, mc.shape[1])
+    flops = pairs * (PAIR_FLOPS + lookup_flops(table, True))
     Cg, cap = mc.shape
     return bound(flops, 4 * (Cg * cap * 5 + Cg * cap * 4) + table_bytes(table))
 
@@ -380,15 +381,15 @@ def kernel_phase(torch, device, pair_lookup="interp"):
     return rows
 
 
-def check_forces_f64(what, f, f_ref, f64):
-    """``check_forces``, or within twice the plain version's own distance
-    from its float64 evaluation where that is larger: the single-panel
-    degree-64 table is ill-conditioned in float32."""
-    scale = max(1.0, float(f_ref.abs().max()))
-    err = max_err(f, f_ref)
-    tol = max(FORCE_REL * scale, 2 * max_err(f_ref, f64))
+def check_near_f64(what, a, a_ref, a64, rel):
+    """|a - a_ref| within ``f32_error_bound(a_ref, a64, rel)``, the plain
+    version's result held against its float64 evaluation ``a64``: the
+    single-panel degree-64 table is ill-conditioned in float32."""
+    from edm_tpu_torch.ops.chebyshev import f32_error_bound
+
+    err, tol = max_err(a, a_ref), f32_error_bound(a_ref, a64, rel)
     if not err <= tol:
-        raise AssertionError(f"{what}: max |df| {err:.3e} > {tol:.3e}")
+        raise AssertionError(f"{what}: max |diff| {err:.3e} > {tol:.3e}")
     return err
 
 
@@ -453,11 +454,8 @@ def legacy_kernel_phase(torch, device):
         f64, eb64 = CF.cell_force_full_ref(xs.double(), mc.double(), st.sid.double(), t64, **geo)
         torch.cuda.synchronize()
         what = f"cell_force_full cheb {tname} cap={cap}"
-        err = check_forces_f64(what, f, f_ref, f64)
-        e_tol = max(ENERGY_RTOL * max(1.0, float(eb_ref.sum().abs())),
-                    2 * abs(float(eb_ref.sum()) - float(eb64.sum())))
-        if not abs(float(eb.sum()) - float(eb_ref.sum())) <= e_tol:
-            raise AssertionError(f"{what}: energy {float(eb.sum())!r} vs {float(eb_ref.sum())!r}")
+        err = check_near_f64(what, f, f_ref, f64, FORCE_REL)
+        check_near_f64(what + " energy", eb.sum(), eb_ref.sum(), eb64.sum(), ENERGY_RTOL)
         ms = cuda_ms(torch, lambda: CF.cell_force_full(xs, mc, st.sid, tbl, **geo))
         plain = cuda_ms(torch, lambda: CF.cell_force_full_ref(xs, mc, st.sid, tbl, **geo), reps=10)
         rows[what] = (err, ms, plain) + full_work(spec, mc, tbl)

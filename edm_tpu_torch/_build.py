@@ -56,10 +56,10 @@ def _declare(lib):
     vp, i, fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
     # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
     table = [i, vp, vp, i, i] + [fp] * 3 + [i, vp]
-    # xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, ts (or None), tpair, table
-    for name in ("cell_force_newton_launch", "cell_force_newton_planar_launch"):
-        getattr(lib, name).argtypes = [vp] * 5 + [i] * 6 + [vp, fp] + table
-        getattr(lib, name).restype = i
+    # xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, credits, ts (or None), tpair,
+    # table
+    lib.cell_force_newton_launch.argtypes = [vp] * 5 + [i] * 7 + [vp, fp] + table
+    lib.cell_force_newton_launch.restype = i
     # xs, mc, sid, f, eb, C, cap, nx, ny, nz, look, t1, t2, rows, degp, geom,
     # box, lj, stream
     lib.cell_force_full_launch.argtypes = [vp] * 5 + [i] * 5 + [i, vp, vp, i, i] + [fp] * 3 + [vp]

@@ -76,10 +76,12 @@
 //     slot id differs (the self pair), with the Chebyshev lookup, energy
 //     always.  Row sums only: every pair is seen from both sides, so there
 //     are no credits and eb is not halved (the caller takes 0.5 sum(eb)).
-//     Bound: ~2x K1's pairs at the same per-pair cost, 0.0085 ms at 10k
-//     with the bench table; the kernel takes ~0.097 ms of device time per
-//     call there (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): like K1 it
-//     is latency-bound, one wave of 729 blocks of serial row loops.
+//     Bound: the function needs each unordered pair once, so its least
+//     work is K1's at full cap with the value chain, 0.0043 ms at 10k with
+//     the bench table; the kernel evaluates every pair twice and takes
+//     ~0.100 ms of device time per call there (chip_smoke.py; NVIDIA H100
+//     80GB HBM3, 700 W): like K1 it is latency-bound, one wave of 729
+//     blocks of serial row loops.
 //
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and each entry point returns cudaGetLastError().
@@ -618,23 +620,6 @@ bool table_ok(int look, int rows, int degp) {
   return look == CHEB && rows >= 1 && rows <= MAX_PANELS && degp >= 2 && degp <= MAX_DEG + 1;
 }
 
-// look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
-// (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
-// (see PairParams); lj = {four_eps, sig2, rcut};
-// box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
-// types and tpair = {ti, tj} for the typed CV, or null for none
-int newton_launch(const float* xs, const float* mc, float* f, float* eb, float* cred, int C,
-                  int cap, int k, int nx, int ny, int nz, const float* ts, const float* tpair,
-                  int look, const float* t1, const float* t2, int rows, int degp,
-                  const float* geom, const float* box, const float* lj, int energy,
-                  bool credits, void* stream) {
-  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
-  K1Args a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
-           f, eb, cred, C, cap, k, nx, ny, nz};
-  return (int)k1_dispatch(a, look, energy, credits, make_params(rows, degp, geom, box, lj),
-                          (cudaStream_t)stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -646,25 +631,24 @@ int edm_max_deg() { return MAX_DEG; }
 int edm_max_panels() { return MAX_PANELS; }
 const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// K1; arguments as newton_launch
+// K1 (credits = 1: the credits applied by the second pass) or K6
+// (credits = 0: the row pass alone; cred is returned to the caller).
+// look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
+// (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
+// (see PairParams); lj = {four_eps, sig2, rcut};
+// box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
+// types and tpair = {ti, tj} for the typed CV, or null for none
 int cell_force_newton_launch(const float* xs, const float* mc, float* f, float* eb,
                              float* cred, int C, int cap, int k, int nx, int ny, int nz,
-                             const float* ts, const float* tpair, int look, const float* t1,
-                             const float* t2, int rows, int degp, const float* geom,
-                             const float* box, const float* lj, int energy, void* stream) {
-  return newton_launch(xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, ts, tpair, look, t1, t2,
-                       rows, degp, geom, box, lj, energy, true, stream);
-}
-
-// K6: K1's row pass alone; cred is returned to the caller
-int cell_force_newton_planar_launch(const float* xs, const float* mc, float* f, float* eb,
-                                    float* cred, int C, int cap, int k, int nx, int ny, int nz,
-                                    const float* ts, const float* tpair, int look,
-                                    const float* t1, const float* t2, int rows, int degp,
-                                    const float* geom, const float* box, const float* lj,
-                                    int energy, void* stream) {
-  return newton_launch(xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, ts, tpair, look, t1, t2,
-                       rows, degp, geom, box, lj, energy, false, stream);
+                             int credits, const float* ts, const float* tpair, int look,
+                             const float* t1, const float* t2, int rows, int degp,
+                             const float* geom, const float* box, const float* lj, int energy,
+                             void* stream) {
+  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  K1Args a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
+           f, eb, cred, C, cap, k, nx, ny, nz};
+  return (int)k1_dispatch(a, look, energy, credits != 0,
+                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
 // K7: Chebyshev only (look must be 1), energy always

@@ -540,9 +540,7 @@ class CellStep:
         box = device_const(spec.box, dev, dtype)
         nbr = stencil_neighbors(tuple(spec.ncells), dev)  # (C, 27)
         aid2 = state.aid.reshape(-1, cap)
-        types = self._types_on(dev)
-        t = types[torch.clamp(aid2, max=n - 1)]
-        tslot = torch.where(aid2 < n, t, torch.zeros_like(t))
+        tslot = state.ts  # the slot types, 0 = empty
 
         def tile(xi, ai, ti, cells):
             """r2, the validity and the CV type mask of rows (xi, ai, ti)

@@ -436,9 +436,10 @@ def _raise_on(lib, code: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.edm_error_string(code).decode()}")
 
 
-def _newton_launch(entry, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
+def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
                    ts, type_pair):
-    """Checks and launches K1 or K6 (``entry``) on CUDA tensors."""
+    """Checks and launches K1 (``credits``: applied in the kernel) or K6 on
+    CUDA tensors."""
     lib, lim = _library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
@@ -453,12 +454,12 @@ def _newton_launch(entry, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, ene
         _check(ts, "ts", (Cg, cap), xs.device)
         types = (ts.data_ptr(), _f32(type_pair))
     args = _pair_args(table, box, lj, xs.device)
-    code = getattr(lib, entry)(
+    code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
-        C, cap, k, *ncells, *types, *args, int(energy),
+        C, cap, k, *ncells, int(credits), *types, *args, int(energy),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    _raise_on(lib, code, entry.removesuffix("_launch"))
+    _raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
 
 
 def _device_of(t, what):
@@ -481,7 +482,7 @@ def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
     f = torch.zeros_like(xs)
     eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((C, 13, k, 3), dtype=xs.dtype, device=xs.device)
-    _newton_launch("cell_force_newton_launch", xs, mc, f, eb, cred, table, **kw)
+    _newton_launch(True, xs, mc, f, eb, cred, table, **kw)
     cell_force_newton.launches += 1
     return f, eb
 
@@ -503,7 +504,7 @@ def cell_force_newton_planar(xs, mc, table, *, ncells, box, lj, energy: bool,
     eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((Cg, 13, cap, 3), dtype=xs.dtype, device=xs.device)
     cred[C:] = 0.0
-    _newton_launch("cell_force_newton_planar_launch", xs, mc, f, eb, cred, table, k=cap, **kw)
+    _newton_launch(False, xs, mc, f, eb, cred, table, k=cap, **kw)
     cell_force_newton_planar.launches += 1
     return f, cred, eb
 

@@ -145,6 +145,19 @@ class ChebTable:
         return float(torch.stack(jumps).abs().max())
 
 
+def f32_error_bound(ref, exact, rel: float) -> float:
+    """How far a float32 evaluation may sit from another one, ``ref``, of
+    the same table: rel * max(1, max|ref|), or twice ``ref``'s own distance
+    from its float64 evaluation ``exact``, whichever is larger.  The
+    single-panel degree-64 series is ill-conditioned in float32 (its
+    derivative coefficients sum to ~4e3), so two float32 orders of its sums
+    part by more than the relative bound; for the bench table (4 panels of
+    degree 16) the relative bound is the larger."""
+    ref = torch.as_tensor(ref).detach().double()
+    exact = torch.as_tensor(exact).detach().double().to(ref.device)
+    return max(rel * max(1.0, float(ref.abs().max())), 2 * float((ref - exact).abs().max()))
+
+
 @functools.lru_cache(maxsize=64)
 def _ls_fit_matrix(grid_key, deg: int, panels: int = 1) -> np.ndarray:
     """Least-squares fit matrix M (P, deg+1, G), ``coeffs[p] = M[p] @

@@ -155,13 +155,17 @@ def test_port_imports_without_jax():
         "assert 'edm_tpu' not in sys.modules\n"
         "print(len(names))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
     import pathlib
 
     import edm_tpu_torch
+
+    # from the repository root: another test may have left the process
+    # in a temporary directory
+    root = pathlib.Path(edm_tpu_torch.__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
 
     for path in pathlib.Path(edm_tpu_torch.__file__).parent.rglob("*.py"):
         for line in path.read_text().splitlines():
