@@ -34,7 +34,9 @@ round's candidates below the untyped round's); the deposition run (hills/s, host
 device-busy share; its final grid held to the same rounds through the
 plain versions).  The deposition kernels are checked on grids that
 already carry hills.  It prints one ``kernels`` JSON line (launches,
-errors, times, the card's least time for the work) and, last,
+errors, times, the card's least time for the work; ``ms`` is the wrapper's
+time per call by CUDA events, which the host bounds, ``device_ms`` the
+device time per launch in the path's profile) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  Any
@@ -42,6 +44,12 @@ failed check raises, and the script exits non-zero without the last line.
 ``python3 chip_smoke.py --ab-slice OTHER`` times only the exact-lookup
 kT = 0.8 run, of the checkout OTHER (say, the parent commit unpacked by
 ``git archive``) and of this one in turns, to compare the two in one call.
+``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
+way: the device time per launch of every entry of the ``kernels`` line,
+from the profile of a stride cycle of each MD path and of a deposition
+round on each route, one process per run, medians and ranges printed.
+``python3 chip_smoke.py --time-graph TREE`` prints the back-to-back device
+time of the row-pass wrappers of one checkout, by CUDA-graph replay.
 """
 
 from __future__ import annotations
@@ -82,8 +90,11 @@ PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 48, 16, 15, 3
 # operations per grid point and hill, counted from csrc/deposit.cu: the
 # minimum-image distance and support test, then the terms in the support
 DIST_FLOPS, HILL_FLOPS = 9, 10
-# the device functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("k1_", "k2_", "k7_", "dep_")
+# the device functions of csrc/*.cu, as the profiler names them, by wrapper:
+# the row pass and its credit pass (K1, K6, K7; "k7_" in checkouts whose K7
+# has a kernel of its own), K2's two passes, the deposition's
+ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS = ("k1_", "k7_"), ("k2_",), ("dep_",)
+PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS
 
 
 def card_line() -> str:
@@ -198,9 +209,9 @@ def cuda_ms(torch, fn, reps=50, warm=5) -> float:
 
 def device_time_us(torch, fn, n):
     """Device time per call of ``fn`` (kernels and copies, µs), from
-    ``torch.profiler`` over n calls after one warm-up, and the three
-    kernels that take most of it, then each of the port's.  0 when the
-    profiler saw no device activity."""
+    ``torch.profiler`` over n calls after one warm-up; the same per kernel
+    name; and, as text, the three kernels that take most of it, then each
+    of the port's.  0 when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,8 +231,31 @@ def device_time_us(torch, fn, n):
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / n
     ranked = sorted(per.items(), key=lambda kv: -kv[1])
     ours = [kv for kv in ranked if kv[0].startswith(PORT_KERNELS)]
-    return sum(per.values()), "; ".join(
+    return sum(per.values()), per, "; ".join(
         ", ".join(f"{k} {v:.1f}" for k, v in kvs) for kvs in (ranked[:3], ours))
+
+
+def funcs_ms(per_us, funcs, launches=1.0) -> float:
+    """Device ms per launch of a wrapper: the profile's time per call of its
+    device functions (every pass), over its launches per call."""
+    return sum(v for k, v in per_us.items() if k.startswith(funcs)) / launches / 1e3
+
+
+def cycle_device_ms(torch, cycle, state):
+    """Profile of one stride cycle (two, after a warm-up one) from ``state``:
+    (device µs per cycle, the text of ``device_time_us``, {wrapper: device
+    ms per launch} for each force wrapper the cycle launched).  A path runs
+    one of the row-pass wrappers, so the row pass's functions are its."""
+    from edm_tpu_torch.ops import cellforce as CF
+
+    n0 = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
+    dev_us, per, top = device_time_us(torch, lambda: cycle(state), 2)
+    ms = {}
+    for name in FORCE_KERNELS:
+        n = (getattr(CF, name).launches - n0[name]) / 3  # the warm-up cycle launched too
+        if n > 0:
+            ms[name] = funcs_ms(per, K2_FUNCS if name == "overflow_force" else ROW_FUNCS, n)
+    return dev_us, top, ms
 
 
 def busy_line(what, dev_us, wall_us, kernels) -> str:
@@ -308,9 +342,9 @@ def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
 
 
 def full_work(spec, mc, table):
-    """K7's least time: the pairs of K1 at full cap (K7 evaluates each one
-    from both sides, its function needs it once) with the value chain; xs,
-    mc and sid read, forces and eb written once."""
+    """K7's least time: the pairs of K1 at full cap, each unordered pair
+    once as K7's function needs it, with the value chain; xs, mc and sid
+    read, forces and eb written once."""
     pairs, _ = pair_counts(spec, mc, mc.shape[1])
     flops = pairs * (PAIR_FLOPS + lookup_flops(table, True))
     Cg, cap = mc.shape
@@ -594,8 +628,7 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
     syncs = sum(s.host_syncs for s in steps) - syncs0
     # device time of one stride cycle (two cycles from this state), beside
     # the timed run's wall time per cycle
-    cycle = pattern_segment(pattern(steps), 10)
-    dev_us, top = device_time_us(torch, lambda: cycle(state), 2)
+    dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
     print(busy_line(f"kT=0.8 {path} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
     state, census = sync_census(torch, steps, state)
     core = state.core
@@ -634,7 +667,7 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"kT=0.8 {path} run failed: {failed}")
-    return timed_steps / dt, launches, syncs / (timed_steps / 10)
+    return timed_steps / dt, launches, device_ms
 
 
 @contextlib.contextmanager
@@ -796,8 +829,10 @@ def deposition_run(torch, device, rounds=256):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
+    device_ms = {}
     for what, gg, wall in (("K4 round", g, dt / rounds * 1e6), ("K5 round", g5, None)):
-        dev_us, top = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        dev_us, per, top = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        device_ms[what[:2]] = funcs_ms(per, DEPOSIT_FUNCS)
         if wall is None:  # the K5 round's wall time, host clock to a sync
             t0 = time.perf_counter()
             for _ in range(20):
@@ -820,17 +855,20 @@ def deposition_run(torch, device, rounds=256):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"deposition run failed: {failed}")
-    return 200 * rounds / dt, {"deposit_windowed_1d": n4, "deposit_dense_1d_kernel": n5}
+    return (200 * rounds / dt, {"deposit_windowed_1d": n4, "deposit_dense_1d_kernel": n5},
+            device_ms)
 
 
-def kernel_entry(name, source, replaces, launches, rows, prefix):
+def kernel_entry(name, source, replaces, launches, device_ms, rows, prefix):
     """One ``kernels`` record: the worst error over the prefix's checks,
-    the time and bound of its first row (the main path's shape)."""
+    the time and bound of its first row (the main path's shape), and the
+    device time per launch in the main path's profile."""
     sel = [v for k, v in rows.items() if k.startswith(prefix)]
     err, ms, plain, bms, by = sel[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(v[0] for v in sel), "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "device_ms": device_ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
@@ -855,26 +893,126 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
         print(json.dumps({"tree": tree, "steps_per_s": timed_steps / (time.perf_counter() - t0)}))
 
 
-def ab_slice(other, rounds=2):
-    """``time_slice`` of another checkout (e.g. the parent commit, unpacked
-    by ``git archive``) and of this one in turns, one process each:
-    other, this, this, other, ``rounds`` times.  Prints every run and the
-    median of each checkout."""
+def time_kernels(torch, tree, warm_steps=200):
+    """Device time per launch of every kernel entry of the checkout at
+    ``tree``, through that checkout's own ``chip_smoke.bench_setup`` and
+    package: per MD path the profile of a stride cycle after ``warm_steps``
+    (the exact path has left its full-cap fallback by then), and of a
+    deposition round on each route.  Prints one JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import importlib
+
+    smoke = importlib.import_module("chip_smoke")
+    from edm_tpu_torch.models.driver import pattern_segment
+
+    device = torch.device("cuda", 0)
+    out = {}
+    for path in smoke.PATHS:
+        _, state, steps = smoke.bench_setup(torch, 0.8, device, path)
+        state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
+        _, _, ms = cycle_device_ms(torch, pattern_segment(smoke.pattern(steps), 10), state)
+        out.update({f"{path} {name}": v for name, v in ms.items()})
+    k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
+    for what, gg in (("K4 round", k4), ("K5 round", k5)):
+        _, per, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        out[what] = funcs_ms(per, DEPOSIT_FUNCS)
+    print(json.dumps({"tree": tree, "device_ms": out}))
+
+
+def time_graph(torch, tree, warm_steps=200, calls=20, replays=20):
+    """Back-to-back device time per call of the row-pass entries of the
+    checkout at ``tree``, at the 10k shapes: ``calls`` wrapper calls captured
+    in a CUDA graph, the best of 5 timings of ``replays`` replays (CUDA
+    events).  No host time, but every device operation of the wrapper: its
+    fills, both passes and the gaps between them.  The state is the exact
+    path's after ``warm_steps``, rebuilt with slot ids and the binary
+    types.  Prints one JSON line."""
+    import dataclasses
+    import importlib
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    smoke = importlib.import_module("chip_smoke")
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.models.pair_edm_cells import atom_positions, init_cell_state
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
+
+    device = torch.device("cuda", 0)
+    spec, state, steps = smoke.bench_setup(torch, 0.8, device)
+    state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
+    core = dataclasses.replace(state.core, x=atom_positions(spec, state))
+    st = init_cell_state(spec, core, with_ids=True,
+                         types=torch.as_tensor(smoke.bench_types(), device=device))
+    grid = state.core.bias.bias
+    herm = CF.hermite_pair_table(grid)
+    cheb = fit_gauss_grid(grid, CHEB["cheb_deg"], CHEB["cheb_panels"])
+    geo = dict(ncells=spec.ncells, box=spec.box, lj=steps[0].lj)
+    typed = dict(ts=st.ts, type_pair=TYPE_PAIR)
+    cases = {
+        "K1 hermite k=24": lambda: CF.cell_force_newton(state.xs, state.mc, herm, k=24,
+                                                        energy=False, **geo),
+        "K1 chebyshev k=24": lambda: CF.cell_force_newton(state.xs, state.mc, cheb, k=24,
+                                                          energy=False, **geo),
+        "typed K1 hermite k=32": lambda: CF.cell_force_newton(st.xs, st.mc, herm, k=spec.cap,
+                                                              energy=False, **typed, **geo),
+        "K6 hermite": lambda: CF.cell_force_newton_planar(st.xs, st.mc, herm, energy=False,
+                                                          **geo),
+        "K7": lambda: CF.cell_force_full(st.xs, st.mc, st.sid, cheb, **geo),
+    }
+    out = {}
+    for name, fn in cases.items():
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        out[name] = min(cuda_ms(torch, graph.replay, reps=replays, warm=1)
+                        for _ in range(5)) / calls
+    print(json.dumps({"tree": tree, "graph_ms": out}))
+
+
+def ab_runs(flag, other, rounds=2):
+    """``python3 chip_smoke.py FLAG TREE`` for another checkout (e.g. the
+    parent commit, unpacked by ``git archive``) and this one in turns, one
+    process each: other, this, this, other, ``rounds`` times.  Prints every
+    run's JSON lines and returns them parsed, {tree: [line, ...]}."""
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
-    rates = {other: [], here: []}
+    lines = {other: [], here: []}
     for tree in [other, here, here, other] * rounds:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-slice", tree],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
                              capture_output=True, text=True, timeout=900, cwd=here)
         if out.returncode != 0:
-            raise RuntimeError(f"time_slice {tree} failed:\n{out.stdout}\n{out.stderr}")
+            raise RuntimeError(f"{flag} {tree} failed:\n{out.stdout}\n{out.stderr}")
         for line in out.stdout.splitlines():
             if line.startswith('{"tree"'):
                 print(line, flush=True)
-                rates[tree].append(json.loads(line)["steps_per_s"])
-    for tree, r in rates.items():
-        print(f"{tree}: median {float(np.median(r))!r} steps/s over {len(r)} runs "
-              f"(min {min(r)!r}, max {max(r)!r})")
+                lines[tree].append(json.loads(line))
+    return lines
+
+
+def spread(vals) -> str:
+    return (f"median {float(np.median(vals))!r} over {len(vals)} runs "
+            f"(min {min(vals)!r}, max {max(vals)!r})")
+
+
+def ab_slice(other):
+    """``time_slice`` of both checkouts in turns; the median steps/s of each."""
+    for tree, runs in ab_runs("--time-slice", other).items():
+        print(f"{tree}: steps/s {spread([r['steps_per_s'] for r in runs])}")
+
+
+def ab_kernels(other):
+    """``time_kernels`` of both checkouts in turns; per entry the median
+    device ms per launch of each."""
+    for tree, runs in ab_runs("--time-kernels", other).items():
+        for key in runs[0]["device_ms"]:
+            print(f"{tree}: {key}: device ms {spread([r['device_ms'][key] for r in runs])}")
 
 
 def main() -> int:
@@ -883,13 +1021,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] in ("--time-slice", "--ab-slice"):
+    modes = {"--time-slice": lambda tree: time_slice(torch, tree), "--ab-slice": ab_slice,
+             "--time-kernels": lambda tree: time_kernels(torch, tree), "--ab-kernels": ab_kernels,
+             "--time-graph": lambda tree: time_graph(torch, tree)}
+    if len(sys.argv) == 3 and sys.argv[1] in modes:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"card: {card_line()}")
-        if sys.argv[1] == "--time-slice":
-            time_slice(torch, sys.argv[2])
-        else:
-            ab_slice(sys.argv[2])
+        modes[sys.argv[1]](sys.argv[2])
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from edm_tpu_torch import _build
@@ -916,41 +1054,44 @@ def main() -> int:
         t_phase = time.perf_counter()
         rows.update(phase())
         print(f"kernel checks, {what}: {time.perf_counter() - t_phase:.1f} s")
-    launches = {}
+    launches, device_ms = {}, {}
     for path in PATHS:
         t_phase = time.perf_counter()
         slice_zero_temperature(torch, device, path)
-        _, n, _ = slice_run(torch, device, path)
-        launches[path] = n
+        _, launches[path], device_ms[path] = slice_run(torch, device, path)
         print(f"{path} slice: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    _, dep = deposition_run(torch, device)
+    _, dep, dep_ms = deposition_run(torch, device)
     print(f"deposition: {time.perf_counter() - t_phase:.1f} s")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
-    herm, cheb = launches["interp"], launches["chebyshev"]
-    print(json.dumps({"kernels": [
-        kernel_entry("cell_force_newton", cf, "edm_tpu/ops/cellforce_pallas.py:684",
-                     herm["cell_force_newton"], rows, "cell_force_newton hermite"),
-        kernel_entry("overflow_force", cf, "edm_tpu/ops/cellforce_pallas.py:870",
-                     herm["overflow_force"], rows, "overflow_force hermite"),
-        kernel_entry("cell_force_newton[chebyshev]", cf, "edm_tpu/ops/cellforce_pallas.py:67",
-                     cheb["cell_force_newton"], rows, "cell_force_newton cheb"),
-        kernel_entry("overflow_force[chebyshev]", cf, "edm_tpu/ops/cellforce_pallas.py:67",
-                     cheb["overflow_force"], rows, "overflow_force cheb"),
-        kernel_entry("deposit_windowed_1d", dp, "edm_tpu/ops/deposit_pallas.py:138",
-                     dep["deposit_windowed_1d"], rows, "deposit_windowed_1d"),
-        kernel_entry("deposit_dense_1d_kernel", dp, "edm_tpu/ops/deposit_pallas.py:236",
-                     dep["deposit_dense_1d_kernel"], rows, "deposit_dense_1d_kernel"),
-        kernel_entry("cell_force_newton_planar", cf, "edm_tpu/ops/cellforce_pallas.py:933",
-                     launches["newton"]["cell_force_newton_planar"], rows,
-                     "cell_force_newton_planar"),
-        kernel_entry("cell_force_full", cf, "edm_tpu/ops/cellforce_pallas.py:1002",
-                     launches["full"]["cell_force_full"], rows, "cell_force_full"),
-        kernel_entry("cell_force_newton[typed]", cf, "edm_tpu/ops/cellforce_pallas.py:291",
-                     launches["typed"]["cell_force_newton"], rows, "cell_force_newton[typed]"),
-    ]}))
+    k1, k2, k6, k7 = FORCE_KERNELS
+    entries = [  # name, source, the TPU kernel, (path, wrapper) or deposition route, rows' prefix
+        ("cell_force_newton", cf, "cellforce_pallas.py:684", ("interp", k1),
+         "cell_force_newton hermite"),
+        ("overflow_force", cf, "cellforce_pallas.py:870", ("interp", k2), "overflow_force hermite"),
+        ("cell_force_newton[chebyshev]", cf, "cellforce_pallas.py:67", ("chebyshev", k1),
+         "cell_force_newton cheb"),
+        ("overflow_force[chebyshev]", cf, "cellforce_pallas.py:67", ("chebyshev", k2),
+         "overflow_force cheb"),
+        ("deposit_windowed_1d", dp, "deposit_pallas.py:138", "K4", "deposit_windowed_1d"),
+        ("deposit_dense_1d_kernel", dp, "deposit_pallas.py:236", "K5", "deposit_dense_1d_kernel"),
+        ("cell_force_newton_planar", cf, "cellforce_pallas.py:933", ("newton", k6),
+         "cell_force_newton_planar"),
+        ("cell_force_full", cf, "cellforce_pallas.py:1002", ("full", k7), "cell_force_full"),
+        ("cell_force_newton[typed]", cf, "cellforce_pallas.py:291", ("typed", k1),
+         "cell_force_newton[typed]"),
+    ]
+    records = []
+    for name, source, replaces, where, prefix in entries:
+        if isinstance(where, tuple):
+            path, wrapper = where
+            n, dev = launches[path][wrapper], device_ms[path][wrapper]
+        else:
+            n, dev = dep[prefix], dep_ms[where]
+        records.append(kernel_entry(name, source, "edm_tpu/ops/" + replaces, n, dev, rows, prefix))
+    print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,13 +56,13 @@ def _declare(lib):
     vp, i, fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
     # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
     table = [i, vp, vp, i, i] + [fp] * 3 + [i, vp]
-    # xs, mc, f, eb, cred, C, cap, k, nx, ny, nz, credits, ts (or None), tpair,
-    # table
-    lib.cell_force_newton_launch.argtypes = [vp] * 5 + [i] * 7 + [vp, fp] + table
+    # xs, mc, f, eb, cred, C, Cg, cap, k, nx, ny, nz, credits, ts (or None),
+    # tpair, table
+    lib.cell_force_newton_launch.argtypes = [vp] * 5 + [i] * 8 + [vp, fp] + table
     lib.cell_force_newton_launch.restype = i
-    # xs, mc, sid, f, eb, C, cap, nx, ny, nz, look, t1, t2, rows, degp, geom,
-    # box, lj, stream
-    lib.cell_force_full_launch.argtypes = [vp] * 5 + [i] * 5 + [i, vp, vp, i, i] + [fp] * 3 + [vp]
+    # xs, mc, f, eb, cred, C, Cg, cap, nx, ny, nz, look, t1, t2, rows, degp,
+    # geom, box, lj, stream
+    lib.cell_force_full_launch.argtypes = [vp] * 5 + [i] * 6 + [i, vp, vp, i, i] + [fp] * 3 + [vp]
     lib.cell_force_full_launch.restype = i
     lib.overflow_force_launch.argtypes = [vp] * 5 + [i] * 2 + table
     lib.overflow_force_launch.restype = i

@@ -1,5 +1,10 @@
 // Cell-pair force kernels of the pairwise-EDM cell host, for Hopper (sm_90a).
 //
+// Times below: device time per launch in the profile of a stride cycle of
+// the 10,000-atom bench (729 cells of cap 32, 13.7 atoms per cell on
+// average), chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W.  Bounds: the
+// card's least time for the same work, each unordered pair once.
+//
 // K1  cell_force_newton  replaces edm_tpu/ops/cellforce_pallas.py
 //     cell_forces_pallas_newton_rescredit (_kernel_newton_rc with the
 //     _hermite_val_der fetch).  Half-stencil Newton pass: each cell's k
@@ -11,20 +16,35 @@
 //
 //     Credits are DETERMINISTIC: the TPU kernel read-modify-writes its
 //     neighbours' rows in place, which is race-free only because a Pallas
-//     grid runs in order.  Here pass 1 (one block per cell) writes its own
-//     row sums into f and its column sums into a per-offset credit scratch
-//     (C, 13, k, 3); pass 2 (one thread per slot) subtracts the 13 incoming
-//     credits in a fixed offset order.  No atomics: a run repeats bitwise.
+//     grid runs in order.  Here the row pass k1_rows (one block per cell)
+//     writes its own row sums into f and its column sums into a per-offset
+//     credit scratch (Cg, 13, k, 3); the credit pass k1_credits (one thread
+//     per slot) subtracts the 13 incoming credits in a fixed offset order.
+//     No atomics: a run repeats bitwise.
 //
-//     Bound: at the 10k bench shape (729 cells x k = 24 rows x 14k = 336
-//     candidates: 5.9 M pair evaluations, ~60 flops each) the pass is far
-//     from the card's compute and memory limits; its cost is latency (one
-//     wave of 729 small blocks, per-row reductions).  Measured 0.067 ms per
-//     call at k = 24 (NVIDIA H100 80GB HBM3, 700 W).  The design keeps all
-//     pair work in registers and shared memory: candidates are gathered
-//     straight from the slot lattice (no (Cg, 39k) planar view in device
-//     memory), the G x 4 Hermite table sits in shared memory and the fetch
-//     is one indexed float4 load.
+//     What bounds it: not the card's arithmetic or memory rate (bound
+//     0.0017 ms at k = 24) but warp operations executed per useful pair and the
+//     fixed cost of a short kernel.  At 10k a cell meets 14k = 336 candidate
+//     slots of which ~192 hold an atom, and only ~27 of those lie within
+//     reach of a given row (the cells' edge is the cutoff, so most of the 14
+//     cells' volume is beyond it); 729 blocks are one or two waves.  The
+//     design (see k1_rows): gather by whole ballot words straight from the
+//     slot lattice into registers (no staging, no index division); compact
+//     the occupied candidates; a warp per occupied row, which first lists
+//     the partners within reach (a distance test per candidate, 6.5 warp
+//     iterations a row) and runs the full pair arithmetic only over that
+//     list (1-2 iterations); one 6-shuffle reduction per row; credits by
+//     plain adds into per-warp accumulators in shared memory, summed in
+//     warp order; a credit pass with a thread per slot and component, its
+//     13 loads independent; shared memory sized by k and the table (44 KB at k = 24
+//     with the bench's 151-row table); the kernels write every output
+//     element, so the wrappers fill nothing.  0.0204 ms, row pass 0.0175 +
+//     credit pass 0.0032 (0.0371 before the redesign, when every lane
+//     looped over all 336 slots row by row and four warps reduced each row).
+//     Of the row pass at k = 32 (0.0190 ms), by cutting it short: launch
+//     0.002, gather 0.0035, compaction 0.002, rows 0.0115, credit sums 0.002
+//     (before the register gather); 4 to 16 warps a block and a register
+//     cap for 5 blocks per SM all read the same within 10%.
 //
 // K2  overflow_force  replaces edm_tpu/ops/cellforce_pallas.py
 //     overflow_forces_pallas (_kernel_overflow).  Dense sweep of the
@@ -35,66 +55,67 @@
 //     sums.  Pass 2: one block sums the tiles in a fixed order and adds the
 //     tail-tail block (diagonal masked, `own` rows, energy halved).
 //     Bound: 0.57 M pair evaluations at 10k (32 tail rows x 17,664
-//     partners): latency, like K1.  Measured 0.041 ms per call (NVIDIA H100
-//     80GB HBM3, 700 W).
+//     partners): latency.  0.0150 ms (bound 0.0003).
 //
 // K3  the Chebyshev lookup replaces edm_tpu/ops/cellforce_pallas.py
 //     _cheb_val_der (the pair_lookup="chebyshev" branch of K1 and K2): per
 //     pair a Clenshaw chain of deg steps for dV/dr and, on energy steps, a
-//     second one for V, on the panel's (P, deg+1) series.  Both kernels are
+//     second one for V, on the panel's (P, deg+1) series.  The kernels are
 //     instantiated once per lookup (template parameter LOOK: HERMITE or
 //     CHEB).  The value and derivative coefficients sit in shared memory;
 //     the panel's coefficient is one indexed shared-memory load, which picks
 //     exactly the value the TPU kernel's (P-1)-deep select chain picks.  The
 //     chain is a runtime loop (deg is not a template parameter), so deg 64
-//     costs no registers over deg 16.  Bound: at the bench table (deg 16,
-//     P 4) a pair costs ~4 x 16 flops of Clenshaw against ~40 for the rest;
-//     still latency-bound at 10k like the Hermite kernels.
+//     costs no registers over deg 16.  In K1 the chains run only over the
+//     partners within reach: 0.0242 ms at the bench table (deg 16, P 4),
+//     0.0038 over the Hermite form (0.0470 before the redesign; bound
+//     0.0029).
 //
 // The rdf type-pair mask of K1 and K6 replaces cellforce_pallas.py
 //     _cv_type_mask: with a slot type plane ts (Cg, cap) and a type pair
 //     (ti, tj), the CV term of a pair is kept only for the unordered type
-//     pair {ti, tj}; LJ sees every pair.  The candidate gather carries each
-//     slot's type beside its mask (template parameter TYPED; the untyped
-//     instantiations are unchanged).  Types are floats compared with ==.
+//     pair {ti, tj}; LJ sees every pair, so no candidate is dropped.  The
+//     compacted candidates carry their types (template parameter TYPED).
+//     Types are floats compared with ==.  0.0231 ms at k = 32 (0.0474
+//     before; bound 0.0015).
 //
 // K6  cell_force_newton_planar  replaces cellforce_pallas.py
 //     cell_forces_pallas_newton_planar (_kernel_newton): K1's row pass
 //     launched on its own.  It returns the row sums (self block included),
-//     the per-offset credit column sums (+, C x 13 x k x 3) and eb; the
-//     caller subtracts the credits after 13 lattice rolls
-//     (use_pallas="newton").  Same bound and design as K1's first pass;
-//     device time ~0.036 ms per call at 10k, k = 32, energy off
-//     (chip_smoke.py's profile of a stride cycle; NVIDIA H100 80GB HBM3,
-//     700 W).
+//     the per-offset credit column sums (+, Cg x 13 x k x 3, zeros at empty
+//     slots and pad cells) and eb; the caller subtracts the credits after
+//     13 lattice rolls (use_pallas="newton").  0.0190 ms at k = 32, energy
+//     off (0.0372 before; bound 0.0017).
 //
 // K7  cell_force_full  replaces cellforce_pallas.py cell_forces_pallas
-//     (_kernel): the legacy 27-stencil ordered-pair pass.  One block per
-//     cell gathers the 27 neighbour cells' slots (x, y, z, mask) and slot
-//     ids into shared memory (27 x cap <= 1728 entries: cap <= MAX_K);
-//     each of the cell's rows is paired with every occupied candidate whose
-//     slot id differs (the self pair), with the Chebyshev lookup, energy
-//     always.  Row sums only: every pair is seen from both sides, so there
-//     are no credits and eb is not halved (the caller takes 0.5 sum(eb)).
-//     Bound: the function needs each unordered pair once, so its least
-//     work is K1's at full cap with the value chain, 0.0043 ms at 10k with
-//     the bench table; the kernel evaluates every pair twice and takes
-//     ~0.100 ms of device time per call there (chip_smoke.py; NVIDIA H100
-//     80GB HBM3, 700 W): like K1 it is latency-bound, one wave of 729
-//     blocks of serial row loops.
+//     (_kernel): the legacy 27-stencil ordered-pair pass, each row's force
+//     and eb summed over all its partners, the self pair masked by slot id.
+//     With 3 or more cells per dimension the 27 cells are distinct, so the
+//     only candidate with a row's id is the row itself and every unordered
+//     pair appears once in the half-stencil.  K7 is therefore the shared
+//     row pass at full cap with the Chebyshev value chain and a fourth
+//     credit component (VCRED: each partner is credited the pair's value
+//     beside its force; the self block takes the value whole), then the
+//     credit pass, which subtracts the force credits and adds the value
+//     credits in HALF_OFF order: each pair is evaluated once, where the
+//     27-stencil body it replaces evaluated it from both sides.  0.0280 ms
+//     (0.0952 before; bound 0.0043).
 //
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
-// stream and each entry point returns cudaGetLastError().
+// stream and each entry point returns the first launch error.
 
 #include <cuda_runtime.h>
+#include <cmath>
 
 namespace {
 
-constexpr int K1_THREADS = 128;
-constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr int ROW_WARPS = 8;  // the row pass: each warp one live row at a time
+constexpr int ROW_THREADS = 32 * ROW_WARPS;
+constexpr int CREDIT_THREADS = 128;
 constexpr int MAX_K = 64;
 constexpr int MAX_W = 14 * MAX_K;
-constexpr int MAX_COLS = (MAX_W + K1_THREADS - 1) / K1_THREADS;
+constexpr int MAX_SEG = MAX_W / 32;  // ballot words of a candidate row: 14 cells x 64 slots
+static_assert(MAX_K == 64 && MAX_SEG % 4 == 0, "slot_pitch() is 32 or 64");
 constexpr int MAX_G = 1024;
 constexpr int K2_THREADS = 256;
 constexpr int K2_WARPS = K2_THREADS / 32;
@@ -102,8 +123,7 @@ constexpr int MAX_O = 128;
 constexpr int MAX_DEG = 64;  // Chebyshev degree (the JAX default 64)
 constexpr int MAX_PANELS = 8;  // Chebyshev panels (the bench uses 4)
 static_assert(2 * MAX_PANELS * (MAX_DEG + 1) <= 4 * MAX_G, "cheb table fits the table buffer");
-constexpr int CHEB_F4 = (2 * MAX_PANELS * (MAX_DEG + 1) + 3) / 4;  // K7's table, in float4
-constexpr int MAX_W27 = 27 * MAX_K;  // K7's candidate row
+static_assert(MAX_W < 32768, "compacted indices are int16");
 
 enum Lookup { HERMITE = 0, CHEB = 1 };
 
@@ -121,6 +141,9 @@ struct PairParams {
   // Hermite: glo, gdx, ghi, blo, bhi (grid dtype, f32)
   // Chebyshev: lo, hi, lo + hi, hi - lo, panel width (each rounded once)
   float g0, g1, g2, g3, g4;
+  // a pair with r^2 above this lies beyond rcut and beyond the table, with a
+  // margin over rsqrtf's rounding: LJ and the bias term are exact zeros
+  float r2_far;
 };
 
 // The lookup table in shared memory: Hermite G x float4 rows, or the
@@ -201,6 +224,14 @@ __device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* t
 // One unmasked pair (row atom a, partner b): g = force on a (the partner
 // gets -g); val only when ENERGY.  cv false (a type pair other than the
 // CV's) drops the bias term, not LJ.  Mirrors _kernel_newton_rc:604-654.
+// r^2 of a pair, as pair_force computes it
+__device__ __forceinline__ float pair_r2(const PairParams& p, float4 a, float4 b) {
+  float dx = mimage(a.x - b.x, p.L[0], p.iL[0]);
+  float dy = mimage(a.y - b.y, p.L[1], p.iL[1]);
+  float dz = mimage(a.z - b.z, p.L[2], p.iL[2]);
+  return dx * dx + dy * dy + dz * dz;
+}
+
 template <bool ENERGY, int LOOK>
 __device__ __forceinline__ void pair_force(const PairParams& p, const float4* tab,
                                            float4 a, float4 b, bool cv, float& gx,
@@ -239,136 +270,276 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---------------------------------------------------------------- K1
+// ---------------------------------------------------------------- row pass
 
 // types of a pair: the CV's unordered pair {ti, tj}
 __device__ __forceinline__ bool type_pair_ok(float a, float b, float ti, float tj) {
   return (a == ti && b == tj) || (a == tj && b == ti);
 }
 
-template <bool ENERGY, int LOOK, bool TYPED>
-__global__ void __launch_bounds__(K1_THREADS)
-k1_rows(const float* __restrict__ xs, const float* __restrict__ mc,
-        const float* __restrict__ ts, float ti, float tj,
-        const float* __restrict__ t1, const float* __restrict__ t2, float* __restrict__ f,
-        float* __restrict__ eb, float* __restrict__ cred, int cap, int k,
-        int nx, int ny, int nz, PairParams p) {
-  __shared__ float4 cand[MAX_W];  // x, y, z, mask: self block then 13 neighbours
-  __shared__ float ctype[TYPED ? MAX_W : 1];  // slot types (TYPED)
-  __shared__ float4 tab[MAX_G];
-  __shared__ float red[K1_WARPS][MAX_K][4];
+// Sums of four values over the warp in 6 shuffles (a butterfly that halves
+// the values it carries at its first two steps), in a fixed order: the
+// totals of a, b, c and d end in lanes 0, 8, 16 and 24.
+__device__ __forceinline__ float warp_sum4(float a, float b, float c, float d, int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8;
+  float k0 = h16 ? c : a, k1 = h16 ? d : b;
+  k0 += __shfl_xor_sync(0xffffffffu, h16 ? a : c, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, h16 ? b : d, 16);
+  float v = h8 ? k1 : k0;
+  v += __shfl_xor_sync(0xffffffffu, h8 ? k0 : k1, 8);
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
+struct RowArgs {
+  const float *xs, *mc, *ts, *t1, *t2;
+  float ti, tj;
+  float *f, *eb, *cred;
+  int C, cap, k, nx, ny, nz;
+};
+
+// The row pass's dynamic shared memory, in float4 units: the lookup table,
+// the compacted candidates, the warps' credit accumulators, the compacted
+// types, the ballot words with each slot's compacted index, and the warps'
+// lists of partners in reach.
+struct RowLayout {
+  int tab4, cand4, acc4, type4, index4, near4;
+  __host__ __device__ int total4() const {
+    return tab4 + cand4 + acc4 + type4 + index4 + near4;
+  }
+};
+
+// slots of a cell in the candidate row: k rounded up to whole ballot words
+__host__ __device__ inline int slot_pitch(int k) { return k <= 32 ? 32 : 64; }
+
+__host__ __device__ inline RowLayout row_layout(int k, int nc, bool typed, int look, int rows,
+                                                int degp) {
+  const int W = 14 * k;  // the most candidates a cell can meet
+  RowLayout l;
+  l.tab4 = look == HERMITE ? rows : (2 * rows * degp + 3) / 4;
+  l.cand4 = W;
+  l.acc4 = (ROW_WARPS * nc * 13 * k + 3) / 4;
+  l.type4 = typed ? (W + 3) / 4 : 0;
+  l.index4 = MAX_SEG / 4 + 14 * slot_pitch(k) / 8;  // uint32 ballots, int16 indices
+  l.near4 = ROW_WARPS * ((W + 7) / 8);  // int16
+  return l;
+}
+
+__device__ __forceinline__ int wrap(int v, int n) { return v < 0 ? v + n : (v >= n ? v - n : v); }
+
+// The row pass of K1, K6 and K7: one block of ROW_WARPS warps per cell, pad
+// cells included.
+//
+// Gather: the cell's k slots and the k slots of its 13 half-stencil
+// neighbours, in HALF_OFF order.  Candidate j = o * pitch + slot (o = 0 the
+// cell itself; pitch = 32 or 64, so that a ballot word never spans two
+// cells and no index needs a division).  Each warp loads whole words of 32
+// slots into registers and ballots their occupancy; after one barrier the
+// occupied candidates are written, compacted in slot order (prefix counts
+// over the ballot words), each with its index j.  The cell's own atoms
+// come first and are the live rows.
+//
+// Pairs: warp w takes live rows w, w + ROW_WARPS, ...  For a row it first
+// lists, in candidate order, the partners within reach (r^2 <= r2_far: most
+// candidates of the 14 cells lie beyond both cutoffs, where LJ and the bias
+// term are exact zeros), then its lanes stride over that list with the
+// row's partial sums in registers and one warp_sum4 per row.  Newton
+// credits go with plain adds into the warp's own accumulator
+// [component][candidate]: within a row every partner belongs to one lane,
+// and rows follow one another.  Afterwards the warps' accumulators are
+// summed in warp order and written at the candidates' slot positions
+// (empty slots 0) as cred[c][o][s][NC].  Nothing is atomic; the order is
+// fixed.
+//
+// VCRED (K7): the value is credited too (NC = 4: each partner's column sum
+// of V) and the self block takes V whole instead of halved.
+//
+// Writes every row of f and eb of its cell (zeros at empty slots and at
+// rows >= k) and, on a pad cell, zeros throughout.
+template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
+__global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) {
+  extern __shared__ float4 smem[];
+  constexpr int NC = VCRED ? 4 : 3;
+  constexpr int ROUNDS = (MAX_SEG + ROW_WARPS - 1) / ROW_WARPS;
+  const int k = a.k, cap = a.cap, W = 14 * k, NB = 13 * k;
+  const int c = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int W = 14 * k;
-  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
+  float* f_cell = a.f + (long)c * cap * 3;
+  float* eb_cell = a.eb + (long)c * k;
+  float* cred_cell = a.cred + (long)c * NB * NC;
+  if (c >= a.C) {  // a pad cell
+    for (int i = tid; i < cap * 3; i += ROW_THREADS) f_cell[i] = 0.0f;
+    for (int i = tid; i < k; i += ROW_THREADS) eb_cell[i] = 0.0f;
+    for (int i = tid; i < NB * NC; i += ROW_THREADS) cred_cell[i] = 0.0f;
+    return;
+  }
 
-  load_table(tab, t1, t2, p, LOOK);
-  for (int j = tid; j < W; j += K1_THREADS) {
-    int cell = c, s = j;
-    if (j >= k) {
-      int o = (j - k) / k;
-      s = (j - k) - o * k;
-      cell = ((ix + HALF_OFF[o][0] + nx) % nx) * (ny * nz) +
-             ((iy + HALF_OFF[o][1] + ny) % ny) * nz + ((iz + HALF_OFF[o][2] + nz) % nz);
+  const RowLayout lay = row_layout(k, NC, TYPED, LOOK, p.G, p.degp);
+  float4* tab = smem;
+  float4* cand = tab + lay.tab4;  // x, y, z, candidate index (as bits)
+  float* acc = reinterpret_cast<float*>(cand + lay.cand4);  // [warp][component][NB]
+  float* ctype = acc + 4 * lay.acc4;
+  unsigned* bal = reinterpret_cast<unsigned*>(ctype + 4 * lay.type4);
+  short* qof = reinterpret_cast<short*>(bal + MAX_SEG);
+  short* near = reinterpret_cast<short*>(bal + 4 * lay.index4) + warp * 8 * ((W + 7) / 8);
+
+  // gather whole ballot words of candidate slots into registers
+  load_table(tab, a.t1, a.t2, p, LOOK);
+  const int pitch = slot_pitch(k), wsh = pitch >> 6, words = 1 << wsh;  // 1 or 2 words per cell
+  const int n_seg = 14 * words;
+  const int ix = c / (a.ny * a.nz), iy = (c / a.nz) % a.ny, iz = c % a.nz;
+  float4 got[ROUNDS];  // x, y, z, type
+#pragma unroll
+  for (int i = 0; i < ROUNDS; ++i) {
+    const int s = warp + i * ROW_WARPS;
+    if (s < n_seg) {
+      const int o = s >> wsh, sl = 32 * (s & (words - 1)) + lane;
+      int cell = c;
+      if (o > 0)
+        cell = wrap(ix + HALF_OFF[o - 1][0], a.nx) * (a.ny * a.nz) +
+               wrap(iy + HALF_OFF[o - 1][1], a.ny) * a.nz + wrap(iz + HALF_OFF[o - 1][2], a.nz);
+      const long slot = (long)cell * cap + sl;
+      bool live = false;
+      if (sl < k) {
+        live = a.mc[slot] > 0.5f;
+        got[i] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
+                             TYPED ? a.ts[slot] : 0.0f);
+      }
+      const unsigned b = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) bal[s] = b;
     }
-    const long slot = (long)cell * cap + s;
-    cand[j] = make_float4(xs[3 * slot], xs[3 * slot + 1], xs[3 * slot + 2], mc[slot]);
-    if (TYPED) ctype[j] = ts[slot];
   }
   __syncthreads();
 
-  float cr[MAX_COLS][3];
+  // compact: candidate j goes to the count of occupied slots before it
+  int n_live = 0, s0 = 0;
 #pragma unroll
-  for (int q = 0; q < MAX_COLS; ++q) cr[q][0] = cr[q][1] = cr[q][2] = 0.0f;
+  for (int i = 0; i < ROUNDS; ++i) {
+    const int s = warp + i * ROW_WARPS;
+    if (s < n_seg) {
+      for (; s0 < s; ++s0) n_live += __popc(bal[s0]);
+      const unsigned b = bal[s];
+      const int j = 32 * s + lane;
+      int q = -1;
+      if ((b >> lane) & 1u) {
+        q = n_live + __popc(b & ((1u << lane) - 1u));
+        if (TYPED) ctype[q] = got[i].w;
+        cand[q] = make_float4(got[i].x, got[i].y, got[i].z, __int_as_float(j));
+      }
+      qof[j] = (short)q;
+    }
+  }
+  for (; s0 < n_seg; ++s0) n_live += __popc(bal[s0]);
+  int n_rows = __popc(bal[0]);  // the cell's own atoms: the compacted self block
+  if (words == 2) n_rows += __popc(bal[1]);
+  const int n_nb = n_live - n_rows;
+  float* wacc = acc + warp * NC * NB;
+  if (warp < n_rows) {
+    for (int q = lane; q < n_nb; q += 32) {
+#pragma unroll
+      for (int d = 0; d < NC; ++d) wacc[d * NB + q] = 0.0f;
+    }
+  }
+  __syncthreads();
 
-  for (int i = 0; i < k; ++i) {
-    const float4 a = cand[i];
-    if (a.w <= 0.5f) continue;  // uniform across the block: empty row
+  for (int r = warp; r < n_rows; r += ROW_WARPS) {
+    const float4 ra = cand[r];
+    int n_near = 0;  // the row's partners in reach, in candidate order
+    for (int base = 0; base < n_live; base += 32) {
+      const int q = base + lane;
+      const bool in = q < n_live && q != r && pair_r2(p, ra, cand[q]) <= p.r2_far;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) near[n_near + __popc(m & ((1u << lane) - 1u))] = (short)q;
+      n_near += __popc(m);
+    }
+    __syncwarp();
     float rx = 0.0f, ry = 0.0f, rz = 0.0f, re = 0.0f;
-#pragma unroll
-    for (int q = 0; q < MAX_COLS; ++q) {
-      const int j = tid + q * K1_THREADS;
-      if (j < W && j != i) {
-        const float4 b = cand[j];
-        if (b.w > 0.5f) {
-          const bool cv = !TYPED || type_pair_ok(ctype[i], ctype[j], ti, tj);
-          float gx, gy, gz, val;
-          pair_force<ENERGY, LOOK>(p, tab, a, b, cv, gx, gy, gz, val);
-          rx += gx;
-          ry += gy;
-          rz += gz;
-          if (ENERGY) re += (j < k) ? 0.5f * val : val;
-          cr[q][0] += gx;
-          cr[q][1] += gy;
-          cr[q][2] += gz;
-        }
+    for (int t = lane; t < n_near; t += 32) {
+      const int q = near[t];
+      const float4 b = cand[q];
+      const bool cv = !TYPED || type_pair_ok(ctype[r], ctype[q], a.ti, a.tj);
+      float gx, gy, gz, val;
+      pair_force<ENERGY, LOOK>(p, tab, ra, b, cv, gx, gy, gz, val);
+      rx += gx;
+      ry += gy;
+      rz += gz;
+      if (q >= n_rows) {
+        float* dst = wacc + (q - n_rows);
+        dst[0] += gx;
+        dst[NB] += gy;
+        dst[2 * NB] += gz;
+        if (VCRED) dst[3 * NB] += val;
+        if (ENERGY) re += val;
+      } else if (ENERGY) {
+        re += VCRED ? val : 0.5f * val;
       }
     }
-    rx = warp_sum(rx);
-    ry = warp_sum(ry);
-    rz = warp_sum(rz);
-    if (ENERGY) re = warp_sum(re);
-    if (lane == 0) {
-      red[warp][i][0] = rx;
-      red[warp][i][1] = ry;
-      red[warp][i][2] = rz;
-      red[warp][i][3] = re;
+    // the next row rewrites the list, and another lane may credit a partner
+    __syncwarp();
+    const float tot = warp_sum4(rx, ry, rz, re, lane);
+    const int i = __float_as_int(ra.w);  // the row's slot
+    if (lane == 24) {
+      eb_cell[i] = ENERGY ? tot : 0.0f;
+    } else if ((lane & 7) == 0) {
+      f_cell[3 * i + (lane >> 3)] = tot;
     }
   }
   __syncthreads();
 
-  if (tid < k) {
-    const int i = tid;
-    const long row = (long)c * cap + i;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-    if (cand[i].w > 0.5f) {
+  // credits at the candidates' slots: the warps' accumulators in warp order
+  const int n_used = n_rows < ROW_WARPS ? n_rows : ROW_WARPS;
+  for (int j = pitch + tid; j < 14 * pitch; j += ROW_THREADS) {
+    const int sl = j & (pitch - 1);
+    if (sl >= k) continue;
+    const int q = qof[j];
+    float s[NC];
 #pragma unroll
-      for (int w = 0; w < K1_WARPS; ++w) {
-        s0 += red[w][i][0];
-        s1 += red[w][i][1];
-        s2 += red[w][i][2];
-        s3 += red[w][i][3];
+    for (int d = 0; d < NC; ++d) s[d] = 0.0f;
+    if (q >= 0) {
+      for (int w = 0; w < n_used; ++w) {
+#pragma unroll
+        for (int d = 0; d < NC; ++d) s[d] += acc[(w * NC + d) * NB + q - n_rows];
       }
     }
-    f[3 * row] = s0;
-    f[3 * row + 1] = s1;
-    f[3 * row + 2] = s2;
-    eb[(long)c * k + i] = ENERGY ? s3 : 0.0f;
-  }
+    float* dst = cred_cell + (((j >> (5 + wsh)) - 1) * k + sl) * NC;
 #pragma unroll
-  for (int q = 0; q < MAX_COLS; ++q) {
-    const int j = tid + q * K1_THREADS;
-    if (j >= k && j < W) {
-      float* dst = cred + ((long)c * 13 * k + (j - k)) * 3;  // [c][o][s][3]
-      dst[0] = cr[q][0];
-      dst[1] = cr[q][1];
-      dst[2] = cr[q][2];
+    for (int d = 0; d < NC; ++d) dst[d] = s[d];
+  }
+  for (int i = tid; i < cap; i += ROW_THREADS) {  // empty slots and rows >= k
+    if (i >= k || qof[i] < 0) {
+      f_cell[3 * i] = f_cell[3 * i + 1] = f_cell[3 * i + 2] = 0.0f;
+      if (i < k) eb_cell[i] = 0.0f;
     }
   }
 }
 
-__global__ void k1_credits(float* __restrict__ f, const float* __restrict__ cred,
-                           int C, int cap, int k, int nx, int ny, int nz) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= C * k) return;
-  const int c = t / k, s = t - (t / k) * k;
+// The second pass of K1 and K7, one thread per slot < k and component:
+// subtracts the slot's 13 incoming force credits in HALF_OFF order and, with
+// VCRED (component 3), adds the value credits onto eb.  A thread's 13 loads
+// are independent, and neighbouring threads read neighbouring words.
+template <bool VCRED>
+__global__ void __launch_bounds__(CREDIT_THREADS)
+k1_credits(float* __restrict__ f, float* __restrict__ eb, const float* __restrict__ cred, int C,
+           int cap, int k, int nx, int ny, int nz) {
+  constexpr int NC = VCRED ? 4 : 3;
+  const int t = blockIdx.x * CREDIT_THREADS + threadIdx.x;
+  if (t >= C * k * NC) return;
+  const int d = t % NC, slot = t / NC;
+  const int c = slot / k, s = slot - c * k;
   const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
-  const long row = (long)c * cap + s;
-  float fx = f[3 * row], fy = f[3 * row + 1], fz = f[3 * row + 2];
+  float inc[13];
+#pragma unroll
   for (int o = 0; o < 13; ++o) {
     // the cell whose offset-o neighbour is c
-    const int src = ((ix - HALF_OFF[o][0] + nx) % nx) * (ny * nz) +
-                    ((iy - HALF_OFF[o][1] + ny) % ny) * nz + ((iz - HALF_OFF[o][2] + nz) % nz);
-    const float* cv = cred + (((long)src * 13 + o) * k + s) * 3;
-    fx -= cv[0];
-    fy -= cv[1];
-    fz -= cv[2];
+    const int src = wrap(ix - HALF_OFF[o][0], nx) * (ny * nz) + wrap(iy - HALF_OFF[o][1], ny) * nz +
+                    wrap(iz - HALF_OFF[o][2], nz);
+    inc[o] = cred[(((long)src * 13 + o) * k + s) * NC + d];
   }
-  f[3 * row] = fx;
-  f[3 * row + 1] = fy;
-  f[3 * row + 2] = fz;
+  float* dst = d < 3 ? f + ((long)c * cap + s) * 3 + d : eb + slot;
+  float v = *dst;
+#pragma unroll
+  for (int o = 0; o < 13; ++o) v = d < 3 ? v - inc[o] : v + inc[o];
+  *dst = v;
 }
 
 // ---------------------------------------------------------------- K2
@@ -460,88 +631,6 @@ __global__ void k2_finish(const float* __restrict__ xo, const float* __restrict_
   for (int q = 0; q < 4; ++q) fo[q * O + i] = (q == 3 && !ENERGY) ? 0.0f : s[q];
 }
 
-// ---------------------------------------------------------------- K7
-
-// Ordered pairs over the whole 27-stencil: candidate o * cap + s is slot s
-// of the cell at offset (o / 9 - 1, o / 3 % 3 - 1, o % 3 - 1), the
-// CellSpec.stencil() order; the cell's own slots are offset 13.
-__global__ void __launch_bounds__(K1_THREADS)
-k7_rows(const float* __restrict__ xs, const float* __restrict__ mc,
-        const float* __restrict__ sid, const float* __restrict__ t1,
-        const float* __restrict__ t2, float* __restrict__ f, float* __restrict__ eb, int cap,
-        int nx, int ny, int nz, PairParams p) {
-  __shared__ float4 cand[MAX_W27];  // x, y, z, mask
-  __shared__ float cid[MAX_W27];  // slot id of an occupied candidate, else -1
-  __shared__ float4 tab[CHEB_F4];
-  __shared__ float red[K1_WARPS][MAX_K][4];
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int W = 27 * cap;
-  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
-
-  load_table(tab, t1, t2, p, CHEB);
-  for (int j = tid; j < W; j += K1_THREADS) {
-    const int o = j / cap, s = j - (j / cap) * cap;
-    const int cell = ((ix + o / 9 - 1 + nx) % nx) * (ny * nz) +
-                     ((iy + (o / 3) % 3 - 1 + ny) % ny) * nz + ((iz + o % 3 - 1 + nz) % nz);
-    const long slot = (long)cell * cap + s;
-    const float m = mc[slot];
-    cand[j] = make_float4(xs[3 * slot], xs[3 * slot + 1], xs[3 * slot + 2], m);
-    cid[j] = m > 0.5f ? sid[slot] : -1.0f;
-  }
-  __syncthreads();
-
-  for (int i = 0; i < cap; ++i) {
-    const float4 a = cand[13 * cap + i];
-    if (a.w <= 0.5f) continue;  // uniform across the block: empty row
-    const float ai = cid[13 * cap + i];
-    float rx = 0.0f, ry = 0.0f, rz = 0.0f, re = 0.0f;
-    for (int j = tid; j < W; j += K1_THREADS) {
-      const float4 b = cand[j];
-      if (b.w > 0.5f && fabsf(ai - cid[j]) >= 0.5f) {
-        float gx, gy, gz, val;
-        pair_force<true, CHEB>(p, tab, a, b, true, gx, gy, gz, val);
-        rx += gx;
-        ry += gy;
-        rz += gz;
-        re += val;
-      }
-    }
-    rx = warp_sum(rx);
-    ry = warp_sum(ry);
-    rz = warp_sum(rz);
-    re = warp_sum(re);
-    if (lane == 0) {
-      red[warp][i][0] = rx;
-      red[warp][i][1] = ry;
-      red[warp][i][2] = rz;
-      red[warp][i][3] = re;
-    }
-  }
-  __syncthreads();
-
-  if (tid < cap) {
-    const int i = tid;
-    const long row = (long)c * cap + i;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-    if (cand[13 * cap + i].w > 0.5f) {
-#pragma unroll
-      for (int w = 0; w < K1_WARPS; ++w) {
-        s0 += red[w][i][0];
-        s1 += red[w][i][1];
-        s2 += red[w][i][2];
-        s3 += red[w][i][3];
-      }
-    }
-    f[3 * row] = s0;
-    f[3 * row + 1] = s1;
-    f[3 * row + 2] = s2;
-    eb[row] = s3;
-  }
-}
-
 PairParams make_params(int rows, int degp, const float* geom, const float* box,
                        const float* lj) {
   PairParams p;
@@ -559,44 +648,48 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
   p.g2 = geom[2];
   p.g3 = geom[3];
   p.g4 = geom[4];
+  const double hi = degp > 0 ? p.g1 : fmin(p.g2, p.g4);  // Chebyshev hi | Hermite ghi, bhi
+  const double far = fmax((double)p.rcut, hi);
+  p.r2_far = (float)(far * far * (1.0 + 1e-5));
   return p;
 }
 
-struct K1Args {
-  const float *xs, *mc, *ts, *t1, *t2;
-  float ti, tj;
-  float *f, *eb, *cred;
-  int C, cap, k, nx, ny, nz;
-};
-
-// K1 (credits applied by the second pass) or K6 (the row pass alone)
-template <bool ENERGY, int LOOK, bool TYPED>
-cudaError_t k1_launch(const K1Args& a, bool credits, const PairParams& p, cudaStream_t st) {
-  k1_rows<ENERGY, LOOK, TYPED><<<a.C, K1_THREADS, 0, st>>>(
-      a.xs, a.mc, a.ts, a.ti, a.tj, a.t1, a.t2, a.f, a.eb, a.cred, a.cap, a.k, a.nx, a.ny, a.nz,
-      p);
+// The row pass on every cell of the padded lattice, then (credits) the
+// second pass.  Shared memory is sized by k and the table; above the 48 KB
+// default the kernel's limit is raised first.
+template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
+cudaError_t row_launch(const RowArgs& a, int Cg, bool credits, const PairParams& p,
+                       cudaStream_t st) {
+  auto kern = k1_rows<ENERGY, LOOK, TYPED, VCRED>;
+  const int bytes = 16 * row_layout(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp).total4();
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<Cg, ROW_THREADS, bytes, st>>>(a, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !credits) return e;
-  const int n = a.C * a.k;
-  k1_credits<<<(n + 255) / 256, 256, 0, st>>>(a.f, a.cred, a.C, a.cap, a.k, a.nx, a.ny, a.nz);
+  const int n = a.C * a.k * (VCRED ? 4 : 3);
+  k1_credits<VCRED><<<(n + CREDIT_THREADS - 1) / CREDIT_THREADS, CREDIT_THREADS, 0, st>>>(
+      a.f, a.eb, a.cred, a.C, a.cap, a.k, a.nx, a.ny, a.nz);
   return cudaGetLastError();
 }
 
 template <int LOOK, bool TYPED>
-cudaError_t k1_energy(const K1Args& a, int energy, bool credits, const PairParams& p,
+cudaError_t k1_energy(const RowArgs& a, int Cg, int energy, bool credits, const PairParams& p,
                       cudaStream_t st) {
-  return energy ? k1_launch<true, LOOK, TYPED>(a, credits, p, st)
-                : k1_launch<false, LOOK, TYPED>(a, credits, p, st);
+  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, credits, p, st)
+                : row_launch<false, LOOK, TYPED, false>(a, Cg, credits, p, st);
 }
 
-cudaError_t k1_dispatch(const K1Args& a, int look, int energy, bool credits,
+cudaError_t k1_dispatch(const RowArgs& a, int Cg, int look, int energy, bool credits,
                         const PairParams& p, cudaStream_t st) {
   const bool typed = a.ts != nullptr;
   if (look == CHEB)
-    return typed ? k1_energy<CHEB, true>(a, energy, credits, p, st)
-                 : k1_energy<CHEB, false>(a, energy, credits, p, st);
-  return typed ? k1_energy<HERMITE, true>(a, energy, credits, p, st)
-               : k1_energy<HERMITE, false>(a, energy, credits, p, st);
+    return typed ? k1_energy<CHEB, true>(a, Cg, energy, credits, p, st)
+                 : k1_energy<CHEB, false>(a, Cg, energy, credits, p, st);
+  return typed ? k1_energy<HERMITE, true>(a, Cg, energy, credits, p, st)
+               : k1_energy<HERMITE, false>(a, Cg, energy, credits, p, st);
 }
 
 template <bool ENERGY, int LOOK>
@@ -633,34 +726,39 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 
 // K1 (credits = 1: the credits applied by the second pass) or K6
 // (credits = 0: the row pass alone; cred is returned to the caller).
+// f (Cg, cap, 3), eb (Cg, k) and cred (Cg, 13, k, 3) are written whole: no
+// fill is needed beforehand.
 // look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
 // (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
 // (see PairParams); lj = {four_eps, sig2, rcut};
 // box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
 // types and tpair = {ti, tj} for the typed CV, or null for none
 int cell_force_newton_launch(const float* xs, const float* mc, float* f, float* eb,
-                             float* cred, int C, int cap, int k, int nx, int ny, int nz,
-                             int credits, const float* ts, const float* tpair, int look,
-                             const float* t1, const float* t2, int rows, int degp,
+                             float* cred, int C, int Cg, int cap, int k, int nx, int ny,
+                             int nz, int credits, const float* ts, const float* tpair,
+                             int look, const float* t1, const float* t2, int rows, int degp,
                              const float* geom, const float* box, const float* lj, int energy,
                              void* stream) {
-  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
-  K1Args a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
-           f, eb, cred, C, cap, k, nx, ny, nz};
-  return (int)k1_dispatch(a, look, energy, credits != 0,
+  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K || k > cap || Cg < C)
+    return (int)cudaErrorInvalidValue;
+  RowArgs a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
+            f, eb, cred, C, cap, k, nx, ny, nz};
+  return (int)k1_dispatch(a, Cg, look, energy, credits != 0,
                           make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
-// K7: Chebyshev only (look must be 1), energy always
-int cell_force_full_launch(const float* xs, const float* mc, const float* sid, float* f,
-                           float* eb, int C, int cap, int nx, int ny, int nz, int look,
+// K7: the row pass at full cap with the value credited too, then the second
+// pass; Chebyshev only (look must be 1), energy always.  f (Cg, cap, 3),
+// eb (Cg, cap) and the scratch cred (Cg, 13, cap, 4) are written whole.
+int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb, float* cred,
+                           int C, int Cg, int cap, int nx, int ny, int nz, int look,
                            const float* t1, const float* t2, int rows, int degp,
                            const float* geom, const float* box, const float* lj, void* stream) {
-  if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K)
+  if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K || Cg < C)
     return (int)cudaErrorInvalidValue;
-  k7_rows<<<C, K1_THREADS, 0, (cudaStream_t)stream>>>(
-      xs, mc, sid, t1, t2, f, eb, cap, nx, ny, nz, make_params(rows, degp, geom, box, lj));
-  return (int)cudaGetLastError();
+  RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz};
+  return (int)row_launch<true, CHEB, false, true>(
+      a, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
 int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part,

@@ -15,7 +15,14 @@ a plain PyTorch version beside it:
     the Newton credits for the caller to apply (``use_pallas="newton"``);
   - ``cell_force_full`` (K7) replaces ``cell_forces_pallas``: the legacy
     27-stencil ordered-pair pass with slot-id self masks, Chebyshev only
-    (``use_pallas="full"``).
+    (``use_pallas="full"``).  Its plain version walks the 27-stencil; its
+    kernel evaluates each unordered pair once over the half-stencil.
+
+K1, K6 and K7 share one CUDA row pass (``k1_rows``: a block per cell, the
+occupied candidates compacted, a warp per occupied row over the partners
+within reach of the cutoffs) and, K1 and K7, one credit pass
+(``k1_credits``).  Together they write every element of their outputs, so
+the wrappers allocate with ``torch.empty``.
 
 K1, K2 and K6 take either bias table: a ``HermiteTable``
 (``pair_lookup="interp"``) or a ``ChebTable`` (``pair_lookup="chebyshev"``),
@@ -456,7 +463,7 @@ def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box,
     args = _pair_args(table, box, lj, xs.device)
     code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
-        C, cap, k, *ncells, int(credits), *types, *args, int(energy),
+        C, Cg, cap, k, *ncells, int(credits), *types, *args, int(energy),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     _raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
@@ -471,17 +478,20 @@ def _device_of(t, what):
 def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
                       ts=None, type_pair=None):
     """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
-    Newton credits are summed deterministically: a per-offset credit
-    scratch (C, 13, k, 3) written by the row pass and added to each slot
-    in a fixed offset order by a second pass — no atomics."""
+    Newton credits are summed deterministically: the row pass (one block
+    per cell, a warp per occupied row, the occupied candidates compacted)
+    writes the row sums and a per-offset credit scratch (Cg, 13, k, 3),
+    and a second pass subtracts each slot's 13 credits in a fixed offset
+    order — no atomics.  The two passes write every element of ``f`` and
+    ``eb``, so nothing is filled beforehand; k is at most the library's
+    ``max_k`` (64)."""
     kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
     if _device_of(xs, "cell-force") == "cpu":
         return cell_force_newton_ref(xs, mc, table, **kw)
     Cg = xs.shape[0]
-    C = int(np.prod(ncells))
-    f = torch.zeros_like(xs)
-    eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
-    cred = torch.empty((C, 13, k, 3), dtype=xs.dtype, device=xs.device)
+    f = torch.empty_like(xs)
+    eb = torch.empty((Cg, k), dtype=xs.dtype, device=xs.device)
+    cred = torch.empty((Cg, 13, k, 3), dtype=xs.dtype, device=xs.device)
     _newton_launch(True, xs, mc, f, eb, cred, table, **kw)
     cell_force_newton.launches += 1
     return f, eb
@@ -494,16 +504,16 @@ def cell_force_newton_planar(xs, mc, table, *, ncells, box, lj, energy: bool,
                              ts=None, type_pair=None):
     """K6 (see ``cell_force_newton_planar_ref`` for the contract): K1's row
     pass at full cap, launched alone; the credit scratch is the returned
-    ``cred``."""
+    ``cred``.  The pass writes every element of the three outputs, zeros
+    at empty slots and pad cells included; cap is at most the library's
+    ``max_k`` (64)."""
     kw = dict(ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
     if _device_of(xs, "cell-force") == "cpu":
         return cell_force_newton_planar_ref(xs, mc, table, **kw)
     Cg, cap, _ = xs.shape
-    C = int(np.prod(ncells))
-    f = torch.zeros_like(xs)
-    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    f = torch.empty_like(xs)
+    eb = torch.empty((Cg, cap), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((Cg, 13, cap, 3), dtype=xs.dtype, device=xs.device)
-    cred[C:] = 0.0
     _newton_launch(False, xs, mc, f, eb, cred, table, k=cap, **kw)
     cell_force_newton_planar.launches += 1
     return f, cred, eb
@@ -513,9 +523,16 @@ cell_force_newton_planar.launches = 0
 
 
 def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
-    """K7 (see ``cell_force_full_ref`` for the contract).  One block per
-    cell holds its 27 x cap candidates in shared memory, so cap is at most
-    the library's ``max_k`` (64)."""
+    """K7 (see ``cell_force_full_ref`` for the contract).  On the GPU each
+    unordered pair is evaluated once: K1's row pass at full cap over the
+    half-stencil (14 x cap candidates, the Chebyshev lookup with its
+    value), which also credits each partner the pair's force and value
+    into a scratch (Cg, 13, cap, 4); a second pass subtracts the force
+    credits and adds the value credits in a fixed offset order.  With 3 or
+    more cells per dimension the 27 stencil cells are distinct, so the only
+    candidate carrying a row's slot id is the row itself: the kernel masks
+    the self pair by position and ``sid`` is only checked.  The cap <= 64
+    limit (the library's ``max_k``) stays: it is the row pass's."""
     if not isinstance(table, ChebTable):
         raise ValueError("cell_force_full evaluates a ChebTable only (the TPU kernel's contract)")
     kw = dict(ncells=ncells, box=box, lj=lj)
@@ -531,12 +548,13 @@ def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
         raise ValueError(f"cell_force_full takes cap <= {lim['max_k']}, got {cap}")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
-    f = torch.zeros_like(xs)
-    eb = torch.zeros((Cg, cap), dtype=xs.dtype, device=xs.device)
+    f = torch.empty_like(xs)
+    eb = torch.empty((Cg, cap), dtype=xs.dtype, device=xs.device)
+    cred = torch.empty((Cg, 13, cap, 4), dtype=xs.dtype, device=xs.device)
     args = _pair_args(table, box, lj, xs.device)
     code = lib.cell_force_full_launch(
-        xs.data_ptr(), mc.data_ptr(), sid.data_ptr(), f.data_ptr(), eb.data_ptr(),
-        C, cap, *ncells, *args, torch.cuda.current_stream(xs.device).cuda_stream,
+        xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
+        C, Cg, cap, *ncells, *args, torch.cuda.current_stream(xs.device).cuda_stream,
     )
     _raise_on(lib, code, "cell_force_full")
     cell_force_full.launches += 1

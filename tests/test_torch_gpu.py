@@ -12,7 +12,11 @@ and a bias grid carrying deposited hills; K1 and K2 run with the Hermite
 table and with two Chebyshev tables (K3: 4 panels of degree 16, 1 panel of
 degree 64); K6 (typed and not) and typed K1 on the same atoms with the
 binary types of ``test_torch_typed.py``; K7 on states with slot ids at cap
-56 and cap 32.  K4 and K5 deposit on the periodic grids of
+56 and cap 32.  The row pass that K1, K6 and K7 share is also run on the
+slot states of ``test_torch_rowpass.py`` (clustered atoms with empty cells
+and holes, a cell full to cap, 3^3 cells) at k = 1, 24, 32 and 64, with
+``torch.empty`` poisoned, since the kernels must write every element of
+their outputs.  K4 and K5 deposit on the periodic grids of
 ``test_torch_deposit.py``, empty and carrying values.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
@@ -36,9 +40,10 @@ from edm_tpu_torch.models.lj import LJParams
 from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
 from edm_tpu_torch.ops import cellforce as CF
 from edm_tpu_torch.ops import deposit_kernels as DK
-from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
+from edm_tpu_torch.ops.chebyshev import f32_error_bound, fit_gauss_grid
 from edm_tpu_torch.ops.prng import PRNGKey
 from edm_tpu_torch.utils.config import parse_edm_text
+from test_torch_rowpass import CASES, slot_state
 
 KCAP, OCAP = 24, 128
 LJ = LJParams(epsilon=1.0, sigma=0.3, rcut=0.75)
@@ -330,3 +335,114 @@ def test_cell_force_full_kernel(cuda_ids_types, cap, panels, deg):
     m = torch.zeros(big.shape[:2], device=st.xs.device)
     with pytest.raises(ValueError, match="cap <="):
         CF.cell_force_full(big, m, m, tab, **kw)
+
+
+# ------------------------------------------------ the shared row pass (K1, K6, K7)
+
+
+@pytest.fixture(scope="module")
+def row_states(cuda_state):
+    """``test_torch_rowpass.slot_state`` in float32 on the card, at cap 64
+    and cap 32: {(case, cap): (spec, xs, mc, sid, ts)}."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for case in CASES:
+        for cap, n in ((64, 900), (32, 500)):
+            spec, *planes = slot_state(case, cap=cap, n=n, dtype=torch.float32)
+            out[case, cap] = (spec, *(t.to(dev).contiguous() for t in planes))
+    return out
+
+
+@pytest.fixture
+def poisoned_empty(monkeypatch):
+    """``torch.empty`` and ``torch.empty_like`` hand out NaNs: an output
+    element that its kernel leaves unwritten shows."""
+    real = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: real(*a, **kw).fill_(float("nan")))
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t, **kw: torch.full_like(t, float("nan"), **kw))
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("k", [1, 24, 32, 64])
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("energy", [False, True])
+def test_row_pass_k1(cuda_state, row_states, poisoned_empty, case, k, kind, typed, energy):
+    """K1 on poisoned outputs: the plain version's forces and energy, zeros
+    in rows >= k and pad cells, and a bitwise repeat."""
+    spec, xs, mc, _, ts = row_states[case, 64]
+    tab = _table(cuda_state[4], kind)
+    kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy,
+              ts=ts if typed else None, type_pair=(1, 2) if typed else None)
+    out = CF.cell_force_newton(xs, mc, tab, **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tab, **kw)
+    torch.cuda.synchronize()
+    f, eb = out
+    assert_forces(f.cpu(), f_ref.cpu(), f"K1 {case} k={k}")
+    assert_forces(eb.cpu(), eb_ref.cpu(), f"K1 {case} k={k} eb rows")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K1 {case} k={k} energy")
+    assert not bool(f[:, k:].any() or f[spec.n_cells:].any() or eb[spec.n_cells:].any())
+    assert not bool(f[mc < 0.5].any())
+    assert energy == bool(eb.abs().sum() > 0) or k == 1
+    assert _same(out, CF.cell_force_newton(xs, mc, tab, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("cap", [32, 64])
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("energy", [False, True])
+def test_row_pass_k6(cuda_state, row_states, poisoned_empty, case, cap, kind, typed, energy):
+    """K6 on poisoned outputs: rows, credits and energy of the plain
+    version; credits zero at the neighbours' empty slots and in pad cells."""
+    spec, xs, mc, _, ts = row_states[case, cap]
+    C = spec.n_cells
+    tab = _table(cuda_state[4], kind)
+    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy,
+              ts=ts if typed else None, type_pair=(1, 2) if typed else None)
+    out = CF.cell_force_newton_planar(xs, mc, tab, **kw)
+    f_ref, cred_ref, eb_ref = CF.cell_force_newton_planar_ref(xs, mc, tab, **kw)
+    torch.cuda.synchronize()
+    f, cred, eb = out
+    assert_forces(f.cpu(), f_ref.cpu(), f"K6 {case} rows")
+    assert_forces(cred.cpu(), cred_ref.cpu(), f"K6 {case} credits")
+    assert_forces(eb.cpu(), eb_ref.cpu(), f"K6 {case} eb rows")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K6 {case} energy")
+    nbr = CF.half_neighbors(tuple(spec.ncells), xs.device)
+    assert not bool(cred[C:].any() or cred[:C][mc[nbr] < 0.5].any())
+    assert not bool(f[C:].any() or eb[C:].any() or f[mc < 0.5].any())
+    assert _same(out, CF.cell_force_newton_planar(xs, mc, tab, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("cap", [32, 64])
+@pytest.mark.parametrize("panels,deg", TABLES)
+def test_row_pass_k7(cuda_state, row_states, poisoned_empty, case, cap, panels, deg):
+    """K7 through the half-stencil row pass on poisoned outputs: the
+    27-stencil plain version's forces and per-row energies (the degree-64
+    table within ``f32_error_bound``), zeros at empty slots and pad cells."""
+    spec, xs, mc, sid, _ = row_states[case, cap]
+    C = spec.n_cells
+    tab = fit_gauss_grid(cuda_state[4], deg, panels)
+    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ)
+    out = CF.cell_force_full(xs, mc, sid, tab, **kw)
+    f_ref, eb_ref = CF.cell_force_full_ref(xs, mc, sid, tab, **kw)
+    torch.cuda.synchronize()
+    f, eb = out
+    t64 = dataclasses.replace(tab, cval=tab.cval.double(), cder=tab.cder.double())
+    f64, eb64 = CF.cell_force_full_ref(xs.double(), mc.double(), sid.double(), t64, **kw)
+    for a, ref, exact, rel in ((f, f_ref, f64, 2e-5), (eb, eb_ref, eb64, 2e-5),
+                               (eb.sum(), eb_ref.sum(), eb64.sum(), 1e-5)):
+        err = float((a - ref).abs().max())
+        assert err <= f32_error_bound(ref, exact, rel), (case, cap, err)
+    assert float(eb.abs().sum()) > 0
+    assert not bool(f[C:].any() or eb[C:].any() or f[mc < 0.5].any() or eb[mc < 0.5].any())
+    assert _same(out, CF.cell_force_full(xs, mc, sid, tab, **kw))
