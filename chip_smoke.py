@@ -47,9 +47,8 @@ kT = 0.8 run, of the checkout OTHER (say, the parent commit unpacked by
 ``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
 way: the device time per launch of every entry of the ``kernels`` line,
 from the profile of a stride cycle of each MD path and of a deposition
-round on each route, one process per run, medians and ranges printed.
-``python3 chip_smoke.py --time-graph TREE`` prints the back-to-back device
-time of the row-pass wrappers of one checkout, by CUDA-graph replay.
+round on each route, one process per run, medians and ranges printed; both
+checkouts must name their device functions as ``PORT_KERNELS`` does.
 """
 
 from __future__ import annotations
@@ -83,17 +82,19 @@ CHEB = dict(cheb_deg=16, cheb_panels=4)  # the bench's Chebyshev table
 # tensor cores, and HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-# operations per evaluated pair, counted from csrc/cellforce.cu: minimum
-# image, r, LJ, the force and its row and credit sums; the Hermite lookup;
-# the Chebyshev set-up and 3 per Clenshaw step (a second chain on energy)
-PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 48, 16, 15, 3
+# operations per pair, counted from csrc/cellforce.cu.  Every occupied pair:
+# the minimum-image r^2.  A pair within reach of the LJ cutoff or the table
+# (beyond it the terms are exact zeros): r^2, r, LJ, the force and its row
+# and credit sums; the Hermite lookup; the Chebyshev set-up and 3 per
+# Clenshaw step (a second chain on energy)
+R2_FLOPS, PAIR_FLOPS, HERMITE_FLOPS, CHEB_FLOPS, STEP_FLOPS = 23, 48, 16, 15, 3
 # operations per grid point and hill, counted from csrc/deposit.cu: the
 # minimum-image distance and support test, then the terms in the support
 DIST_FLOPS, HILL_FLOPS = 9, 10
 # the device functions of csrc/*.cu, as the profiler names them, by wrapper:
-# the row pass and its credit pass (K1, K6, K7; "k7_" in checkouts whose K7
-# has a kernel of its own), K2's two passes, the deposition's
-ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS = ("k1_", "k7_"), ("k2_",), ("dep_",)
+# the row pass and its credit pass (K1, K6, K7), K2's two passes, the
+# deposition's
+ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS = ("k1_",), ("k2_",), ("dep_",)
 PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS
 
 
@@ -305,61 +306,97 @@ def table_bytes(table) -> int:
     return 4 * table.tab.numel()
 
 
-def pair_counts(spec, mc, k, ts=None):
-    """The occupied pairs of slots < k that a force pass must evaluate, each
-    unordered pair once (forces are antisymmetric, the value symmetric):
-    the pairs within a cell and those with its 13 half-stencil neighbours,
-    which with 3 or more cells per dimension are the 27-stencil's pairs.
-    Returns (pairs, the pairs on the CV's type pair; all with ``ts`` None)."""
-    from edm_tpu_torch.ops.cellforce import half_neighbors
+def reach(table, lj) -> float:
+    """The distance beyond which a pair contributes exact zeros: past the LJ
+    cutoff and past the table's upper edge (Chebyshev hi; Hermite the lower
+    of the grid's and the boundary's)."""
+    from edm_tpu_torch.ops.chebyshev import ChebTable
+
+    hi = table.hi if isinstance(table, ChebTable) else min(table.geom[3], table.geom[5])
+    return max(float(lj.rcut), float(hi))
+
+
+def pair_counts(spec, xs, mc, k, far, ts=None):
+    """The work a force pass over slots < k needs on this state, each
+    unordered pair once (forces are antisymmetric, the value symmetric): the
+    pairs within a cell and those with its 13 half-stencil neighbours, which
+    with 3 or more cells per dimension are the 27-stencil's pairs.  Returns
+    (occupied pairs: each needs its minimum-image r^2; those with r <= far:
+    the only ones that need the pair arithmetic; those of them on the CV's
+    type pair: the only ones that need the lookup, all of them with ``ts``
+    None)."""
+    import torch
+
+    from edm_tpu_torch.ops.cellforce import half_neighbors, type_pair_mask
 
     C = int(np.prod(spec.ncells))
     nbr = half_neighbors(tuple(spec.ncells), mc.device)
-    occ_m = mc[:C, :k] > 0.5
 
-    def counts(m):  # per cell: occupied rows, and those of its 13 neighbours
-        per = m.sum(1).double()
-        return per, per[nbr].sum(1)
+    def window(plane):  # (Cg, cap, ...) -> each cell's 14k candidates, its own first
+        return torch.cat([plane[:C, :k], plane[nbr][:, :, :k].flatten(1, 2)], 1)
 
-    o, nb = counts(occ_m)
-    pairs = float((o * (o - 1) / 2 + o * nb).sum())
-    if ts is None:
-        return pairs, pairs
-    (o1, n1), (o2, n2) = (counts(occ_m & (ts[:C, :k] == t)) for t in TYPE_PAIR)
-    return pairs, float((o1 * o2 + o1 * n2 + o2 * n1).sum())
+    occ_w = window(mc) > 0.5
+    ok = occ_w[:, :k, None] & occ_w[:, None, :]
+    ok[:, :, :k] &= torch.ones(k, k, dtype=torch.bool, device=mc.device).triu(1)
+    xw = window(xs).double()
+    d = xw[:, :k, None] - xw[:, None, :]
+    L = torch.tensor(spec.box, dtype=torch.float64, device=xs.device)
+    d = d - torch.round(d / L) * L
+    near = ok & ((d * d).sum(-1) <= far * far)
+    cv = near
+    if ts is not None:
+        tw = window(ts)
+        cv = near & type_pair_mask(tw[:, :k, None], tw[:, None, :], TYPE_PAIR)
+    return float(ok.sum()), float(near.sum()), float(cv.sum())
 
 
-def half_work(spec, mc, table, k, energy, ts=None, credits_out=False):
-    """K1's least time (K6's with ``credits_out``): ``pair_counts`` — with
-    types ``ts``, the lookup only on the CV's type pairs — and the inputs
-    and outputs read and written once."""
-    pairs, cv_pairs = pair_counts(spec, mc, k, ts)
-    flops = pairs * PAIR_FLOPS + cv_pairs * lookup_flops(table, energy)
+def pair_flops(counts, table, energy: bool) -> float:
+    pairs, near, cv = counts
+    return pairs * R2_FLOPS + near * (PAIR_FLOPS - R2_FLOPS) + cv * lookup_flops(table, energy)
+
+
+def half_work(spec, xs, mc, table, lj, k, energy, ts=None, credits_out=False):
+    """K1's least time (K6's with ``credits_out``): ``pair_counts`` of this
+    state and the inputs and outputs read and written once."""
+    flops = pair_flops(pair_counts(spec, xs, mc, k, reach(table, lj), ts), table, energy)
     Cg, cap = mc.shape
     outs = Cg * cap * 3 + Cg * k + (Cg * 13 * k * 3 if credits_out else 0)
     ins = Cg * cap * (5 if ts is not None else 4)
     return bound(flops, 4 * (ins + outs) + table_bytes(table))
 
 
-def full_work(spec, mc, table):
+def full_work(spec, xs, mc, table, lj):
     """K7's least time: the pairs of K1 at full cap, each unordered pair
     once as K7's function needs it, with the value chain; xs, mc and sid
     read, forces and eb written once."""
-    pairs, _ = pair_counts(spec, mc, mc.shape[1])
-    flops = pairs * (PAIR_FLOPS + lookup_flops(table, True))
+    counts = pair_counts(spec, xs, mc, mc.shape[1], reach(table, lj))
     Cg, cap = mc.shape
-    return bound(flops, 4 * (Cg * cap * 5 + Cg * cap * 4) + table_bytes(table))
+    return bound(pair_flops(counts, table, True),
+                 4 * (Cg * cap * 5 + Cg * cap * 4) + table_bytes(table))
 
 
-def k2_work(xo, xp, table, energy):
+def k2_work(xo, xp, table, lj, box, energy):
     """K2's least time: occupied tail rows against occupied partners, plus
-    the owned tail-tail block."""
-    rows = float((xo[3] > 0.5).sum())
-    own = float((xo[4] > 0.5).sum())
-    pairs = rows * float((xp[3] > 0.5).sum()) + own * (rows - 1)
+    the owned tail-tail block; the pair arithmetic and the lookup only for
+    the pairs within ``reach``."""
+    import torch
+
+    far = reach(table, lj)
+    L = torch.tensor(box, dtype=torch.float64, device=xo.device)
+    rows_ok = xo[3] > 0.5
+
+    def counts(cols, ok):  # (pairs, those within reach) of the tail rows with ``cols``
+        d = xo[:3].T.double()[:, None] - cols[:3].T.double()[None]
+        d = d - torch.round(d / L) * L
+        return float(ok.sum()), float((ok & ((d * d).sum(-1) <= far * far)).sum())
+
     O, N = xo.shape[1], xp.shape[1]
+    p_low, n_low = counts(xp, rows_ok[:, None] & (xp[3] > 0.5)[None])
+    not_self = ~torch.eye(O, dtype=torch.bool, device=xo.device)
+    p_tail, n_tail = counts(xo, (xo[4] > 0.5)[:, None] & rows_ok[None] & not_self)
+    near = n_low + n_tail
     nbytes = 4 * (5 * O + 4 * N + 4 * O + 3 * N) + table_bytes(table)
-    return bound(pairs * (PAIR_FLOPS + lookup_flops(table, energy)), nbytes)
+    return bound(pair_flops((p_low + p_tail, near, near), table, energy), nbytes)
 
 
 def kernel_phase(torch, device, pair_lookup="interp"):
@@ -398,7 +435,7 @@ def kernel_phase(torch, device, pair_lookup="interp"):
                 ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
                 plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw),
                                 reps=10)
-                rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, k, energy)
+                rows[what] = (err, ms, plain) + half_work(spec, xs, mc, tbl, step.lj, k, energy)
         for energy in (False, True):
             kw = dict(box=spec.box, lj=step.lj, energy=energy)
             fo, fp = CF.overflow_force(xo, xp, tbl, **kw)
@@ -410,7 +447,7 @@ def kernel_phase(torch, device, pair_lookup="interp"):
             check_energy(what, fo[3].sum(), fo_ref[3].sum())
             ms = cuda_ms(torch, lambda: CF.overflow_force(xo, xp, tbl, **kw))
             plain = cuda_ms(torch, lambda: CF.overflow_force_ref(xo, xp, tbl, **kw), reps=10)
-            rows[what] = (err, ms, plain) + k2_work(xo, xp, tbl, energy)
+            rows[what] = (err, ms, plain) + k2_work(xo, xp, tbl, step.lj, spec.box, energy)
     print_rows(rows)
     return rows
 
@@ -463,8 +500,8 @@ def legacy_kernel_phase(torch, device):
                 ms = cuda_ms(torch, lambda: CF.cell_force_newton_planar(xs, mc, tbl, **kw))
                 plain = cuda_ms(torch, lambda: CF.cell_force_newton_planar_ref(xs, mc, tbl, **kw),
                                 reps=10)
-                rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, cap, energy, kw["ts"],
-                                                          credits_out=True)
+                rows[what] = (err, ms, plain) + half_work(spec, xs, mc, tbl, lj, cap, energy,
+                                                          kw["ts"], credits_out=True)
     for tname, tbl in tables.items():
         for energy in (False, True):
             kw = dict(geo, k=cap, energy=energy, ts=ts, type_pair=TYPE_PAIR)
@@ -479,7 +516,7 @@ def legacy_kernel_phase(torch, device):
                 raise AssertionError(f"{what}: the type mask changed no force")
             ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
             plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(xs, mc, tbl, **kw), reps=10)
-            rows[what] = (err, ms, plain) + half_work(spec, mc, tbl, cap, energy, ts)
+            rows[what] = (err, ms, plain) + half_work(spec, xs, mc, tbl, lj, cap, energy, ts)
     for tname, tbl in (("P=4 deg=16", tables["cheb P=4 deg=16"]),
                        ("P=1 deg=64", fit_gauss_grid(grid, 64, 1))):
         f, eb = CF.cell_force_full(xs, mc, st.sid, tbl, **geo)
@@ -492,7 +529,7 @@ def legacy_kernel_phase(torch, device):
         check_near_f64(what + " energy", eb.sum(), eb_ref.sum(), eb64.sum(), ENERGY_RTOL)
         ms = cuda_ms(torch, lambda: CF.cell_force_full(xs, mc, st.sid, tbl, **geo))
         plain = cuda_ms(torch, lambda: CF.cell_force_full_ref(xs, mc, st.sid, tbl, **geo), reps=10)
-        rows[what] = (err, ms, plain) + full_work(spec, mc, tbl)
+        rows[what] = (err, ms, plain) + full_work(spec, xs, mc, tbl, lj)
     print_rows(rows)
     return rows
 
@@ -920,62 +957,6 @@ def time_kernels(torch, tree, warm_steps=200):
     print(json.dumps({"tree": tree, "device_ms": out}))
 
 
-def time_graph(torch, tree, warm_steps=200, calls=20, replays=20):
-    """Back-to-back device time per call of the row-pass entries of the
-    checkout at ``tree``, at the 10k shapes: ``calls`` wrapper calls captured
-    in a CUDA graph, the best of 5 timings of ``replays`` replays (CUDA
-    events).  No host time, but every device operation of the wrapper: its
-    fills, both passes and the gaps between them.  The state is the exact
-    path's after ``warm_steps``, rebuilt with slot ids and the binary
-    types.  Prints one JSON line."""
-    import dataclasses
-    import importlib
-
-    tree = os.path.abspath(tree)
-    sys.path.insert(0, tree)
-    smoke = importlib.import_module("chip_smoke")
-    from edm_tpu_torch.models.driver import pattern_segment
-    from edm_tpu_torch.models.pair_edm_cells import atom_positions, init_cell_state
-    from edm_tpu_torch.ops import cellforce as CF
-    from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
-
-    device = torch.device("cuda", 0)
-    spec, state, steps = smoke.bench_setup(torch, 0.8, device)
-    state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
-    core = dataclasses.replace(state.core, x=atom_positions(spec, state))
-    st = init_cell_state(spec, core, with_ids=True,
-                         types=torch.as_tensor(smoke.bench_types(), device=device))
-    grid = state.core.bias.bias
-    herm = CF.hermite_pair_table(grid)
-    cheb = fit_gauss_grid(grid, CHEB["cheb_deg"], CHEB["cheb_panels"])
-    geo = dict(ncells=spec.ncells, box=spec.box, lj=steps[0].lj)
-    typed = dict(ts=st.ts, type_pair=TYPE_PAIR)
-    cases = {
-        "K1 hermite k=24": lambda: CF.cell_force_newton(state.xs, state.mc, herm, k=24,
-                                                        energy=False, **geo),
-        "K1 chebyshev k=24": lambda: CF.cell_force_newton(state.xs, state.mc, cheb, k=24,
-                                                          energy=False, **geo),
-        "typed K1 hermite k=32": lambda: CF.cell_force_newton(st.xs, st.mc, herm, k=spec.cap,
-                                                              energy=False, **typed, **geo),
-        "K6 hermite": lambda: CF.cell_force_newton_planar(st.xs, st.mc, herm, energy=False,
-                                                          **geo),
-        "K7": lambda: CF.cell_force_full(st.xs, st.mc, st.sid, cheb, **geo),
-    }
-    out = {}
-    for name, fn in cases.items():
-        side = torch.cuda.Stream()
-        with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
-            fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
-        out[name] = min(cuda_ms(torch, graph.replay, reps=replays, warm=1)
-                        for _ in range(5)) / calls
-    print(json.dumps({"tree": tree, "graph_ms": out}))
-
-
 def ab_runs(flag, other, rounds=2):
     """``python3 chip_smoke.py FLAG TREE`` for another checkout (e.g. the
     parent commit, unpacked by ``git archive``) and this one in turns, one
@@ -1022,8 +1003,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     modes = {"--time-slice": lambda tree: time_slice(torch, tree), "--ab-slice": ab_slice,
-             "--time-kernels": lambda tree: time_kernels(torch, tree), "--ab-kernels": ab_kernels,
-             "--time-graph": lambda tree: time_graph(torch, tree)}
+             "--time-kernels": lambda tree: time_kernels(torch, tree), "--ab-kernels": ab_kernels}
     if len(sys.argv) == 3 and sys.argv[1] in modes:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"card: {card_line()}")

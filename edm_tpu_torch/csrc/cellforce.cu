@@ -3,7 +3,9 @@
 // Times below: device time per launch in the profile of a stride cycle of
 // the 10,000-atom bench (729 cells of cap 32, 13.7 atoms per cell on
 // average), chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W.  Bounds: the
-// card's least time for the same work, each unordered pair once.
+// card's least time for the same work, each unordered pair once: r^2 for
+// every occupied pair, the pair arithmetic and the lookup only for the
+// pairs within reach of the cutoffs (chip_smoke.py:pair_counts).
 //
 // K1  cell_force_newton  replaces edm_tpu/ops/cellforce_pallas.py
 //     cell_forces_pallas_newton_rescredit (_kernel_newton_rc with the
@@ -23,7 +25,7 @@
 //     No atomics: a run repeats bitwise.
 //
 //     What bounds it: not the card's arithmetic or memory rate (bound
-//     0.0017 ms at k = 24) but warp operations executed per useful pair and the
+//     0.0008 ms at k = 24) but warp operations executed per useful pair and the
 //     fixed cost of a short kernel.  At 10k a cell meets 14k = 336 candidate
 //     slots of which ~192 hold an atom, and only ~27 of those lie within
 //     reach of a given row (the cells' edge is the cutoff, so most of the 14
@@ -55,7 +57,7 @@
 //     sums.  Pass 2: one block sums the tiles in a fixed order and adds the
 //     tail-tail block (diagonal masked, `own` rows, energy halved).
 //     Bound: 0.57 M pair evaluations at 10k (32 tail rows x 17,664
-//     partners): latency.  0.0150 ms (bound 0.0003).
+//     partners): latency.  0.0141 ms (bound 0.00015, by bytes).
 //
 // K3  the Chebyshev lookup replaces edm_tpu/ops/cellforce_pallas.py
 //     _cheb_val_der (the pair_lookup="chebyshev" branch of K1 and K2): per
@@ -69,7 +71,7 @@
 //     costs no registers over deg 16.  In K1 the chains run only over the
 //     partners within reach: 0.0242 ms at the bench table (deg 16, P 4),
 //     0.0038 over the Hermite form (0.0470 before the redesign; bound
-//     0.0029).
+//     0.0009).
 //
 // The rdf type-pair mask of K1 and K6 replaces cellforce_pallas.py
 //     _cv_type_mask: with a slot type plane ts (Cg, cap) and a type pair
@@ -77,7 +79,7 @@
 //     pair {ti, tj}; LJ sees every pair, so no candidate is dropped.  The
 //     compacted candidates carry their types (template parameter TYPED).
 //     Types are floats compared with ==.  0.0231 ms at k = 32 (0.0474
-//     before; bound 0.0015).
+//     before; bound 0.0008).
 //
 // K6  cell_force_newton_planar  replaces cellforce_pallas.py
 //     cell_forces_pallas_newton_planar (_kernel_newton): K1's row pass
@@ -85,7 +87,7 @@
 //     the per-offset credit column sums (+, Cg x 13 x k x 3, zeros at empty
 //     slots and pad cells) and eb; the caller subtracts the credits after
 //     13 lattice rolls (use_pallas="newton").  0.0190 ms at k = 32, energy
-//     off (0.0372 before; bound 0.0017).
+//     off (0.0372 before; bound 0.0013, by bytes).
 //
 // K7  cell_force_full  replaces cellforce_pallas.py cell_forces_pallas
 //     (_kernel): the legacy 27-stencil ordered-pair pass, each row's force
@@ -99,7 +101,7 @@
 //     credit pass, which subtracts the force credits and adds the value
 //     credits in HALF_OFF order: each pair is evaluated once, where the
 //     27-stencil body it replaces evaluated it from both sides.  0.0280 ms
-//     (0.0952 before; bound 0.0043).
+//     (0.0952 before; bound 0.0012).
 //
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and each entry point returns the first launch error.
@@ -221,25 +223,25 @@ __device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* t
   if (ENERGY) val = cv[0] + t * b1 - b2;
 }
 
-// One unmasked pair (row atom a, partner b): g = force on a (the partner
-// gets -g); val only when ENERGY.  cv false (a type pair other than the
-// CV's) drops the bias term, not LJ.  Mirrors _kernel_newton_rc:604-654.
-// r^2 of a pair, as pair_force computes it
-__device__ __forceinline__ float pair_r2(const PairParams& p, float4 a, float4 b) {
-  float dx = mimage(a.x - b.x, p.L[0], p.iL[0]);
-  float dy = mimage(a.y - b.y, p.L[1], p.iL[1]);
-  float dz = mimage(a.z - b.z, p.L[2], p.iL[2]);
+// Minimum-image displacement a - b and its r^2: the one place a pair's r^2
+// is computed, so the row pass's reach test sees what pair_force sees.
+__device__ __forceinline__ float pair_r2(const PairParams& p, float4 a, float4 b, float& dx,
+                                         float& dy, float& dz) {
+  dx = mimage(a.x - b.x, p.L[0], p.iL[0]);
+  dy = mimage(a.y - b.y, p.L[1], p.iL[1]);
+  dz = mimage(a.z - b.z, p.L[2], p.iL[2]);
   return dx * dx + dy * dy + dz * dz;
 }
 
+// One unmasked pair (row atom a, partner b): g = force on a (the partner
+// gets -g); val only when ENERGY.  cv false (a type pair other than the
+// CV's) drops the bias term, not LJ.  Mirrors _kernel_newton_rc:604-654.
 template <bool ENERGY, int LOOK>
 __device__ __forceinline__ void pair_force(const PairParams& p, const float4* tab,
                                            float4 a, float4 b, bool cv, float& gx,
                                            float& gy, float& gz, float& val) {
-  float dx = mimage(a.x - b.x, p.L[0], p.iL[0]);
-  float dy = mimage(a.y - b.y, p.L[1], p.iL[1]);
-  float dz = mimage(a.z - b.z, p.L[2], p.iL[2]);
-  float r2 = dx * dx + dy * dy + dz * dz;
+  float dx, dy, dz;
+  float r2 = pair_r2(p, a, b, dx, dy, dz);
   float r2s = fmaxf(r2, 1e-12f);
   float inv_r = rsqrtf(r2s);
   float r = r2s * inv_r;
@@ -447,7 +449,11 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
     int n_near = 0;  // the row's partners in reach, in candidate order
     for (int base = 0; base < n_live; base += 32) {
       const int q = base + lane;
-      const bool in = q < n_live && q != r && pair_r2(p, ra, cand[q]) <= p.r2_far;
+      bool in = false;
+      if (q < n_live && q != r) {
+        float dx, dy, dz;
+        in = pair_r2(p, ra, cand[q], dx, dy, dz) <= p.r2_far;
+      }
       const unsigned m = __ballot_sync(0xffffffffu, in);
       if (in) near[n_near + __popc(m & ((1u << lane) - 1u))] = (short)q;
       n_near += __popc(m);

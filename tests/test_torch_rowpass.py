@@ -1,21 +1,19 @@
 """PyTorch port: what the CUDA row pass of K1, K6 and K7 rests on, on the CPU.
 
 The CUDA kernel (``csrc/cellforce.cu`` ``k1_rows`` / ``k1_credits``) runs
-only on a card; here its two ideas are held to the plain versions in
-float64, to 1e-12 of max|.|:
+only on a card; here what its design rests on is held to the plain
+versions:
 
   - K7's identity: ``cell_force_full_ref`` (every ordered pair of the
     27-stencil, self pair masked by slot id) equals the half-stencil pass at
     full cap whose credits carry the pair's value beside its force, the
     force credits subtracted and the value credits added in HALF_OFFSETS
-    order, the self block's value taken whole;
-  - the row pass's algorithm, modelled cell by cell in plain PyTorch
-    (``row_pass_model``): candidates compacted in slot order through
-    32-slot ballot words (each cell's slots padded to whole words) and
-    prefix counts, a warp per live row over the partners within reach, a
-    credit accumulator per warp summed in warp order, credits written back at
-    the candidates' slot positions, zeros at empty slots, rows >= k and
-    pad cells.  Its outputs are the plain versions' of K1, K6 and K7.
+    order, the self block's value taken whole (float64, to 1e-12 of max|.|);
+  - the reach test: a pair beyond the larger of the LJ cutoff and the
+    table's upper edge contributes exact zeros, so the row pass may skip it.
+
+The kernel itself is held to the plain versions on the card
+(``test_torch_gpu.py``), on the slot states made here.
 
 Inputs, from numpy seeds: a jittered lattice sampled in clusters, so that
 some cells stay empty and slots have holes, on 3x4x5 cells; the same with
@@ -159,168 +157,45 @@ def test_full_stencil_is_the_half_stencil_with_value_credits(case):
     close(eb, eb_ref[:C], "eb")
 
 
-# ----------------------------------------------------- the kernel's algorithm
-
-
-def compact(live):
-    """The kernel's compaction of one candidate row: a ballot word per 32
-    slots, each slot's index the popcount of the words before it plus that
-    of the lower bits of its own.  Returns (index of each slot or -1, the
-    number of live slots)."""
-    W = len(live)
-    words = [sum(int(live[32 * s + b]) << b for b in range(32) if 32 * s + b < W)
-             for s in range(-(-W // 32))]
-    qof = np.full(W, -1)
-    for j in range(W):
-        s, lane = divmod(j, 32)
-        if (words[s] >> lane) & 1:
-            qof[j] = (sum(bin(w).count("1") for w in words[:s])
-                      + bin(words[s] & ((1 << lane) - 1)).count("1"))
-    return qof, sum(bin(w).count("1") for w in words)
-
-
-@pytest.mark.parametrize("W", [1, 31, 32, 33, 448, 896])
-def test_compaction_index_map(W):
-    rng = np.random.default_rng(W)
-    for live in (rng.uniform(size=W) < 0.57, np.zeros(W, bool), np.ones(W, bool)):
-        qof, n_live = compact(live)
-        assert n_live == live.sum()
-        # slot order is kept: the live slots' indices count up from 0
-        np.testing.assert_array_equal(qof[live], np.arange(n_live))
-        assert (qof[~live] == -1).all()
-
-
 def reach2(table, lj):
-    """The kernel's r^2 bound of a pair that can contribute (``r2_far``):
-    beyond rcut and beyond the table (Chebyshev hi; Hermite the lower of
-    the grid's and the boundary's upper edges) LJ and the bias term are
-    exact zeros."""
+    """The row pass's r^2 bound of a pair that can contribute (``r2_far`` of
+    ``csrc/cellforce.cu:make_params``): the larger of rcut and the table's
+    upper edge (Chebyshev hi; Hermite the lower of the grid's and the
+    boundary's), squared, with a 1e-5 margin."""
     hi = table.hi if isinstance(table, ChebTable) else min(table.geom[3], table.geom[5])
     far = max(lj.rcut, hi)
     return far * far * (1.0 + 1e-5)
 
 
-def row_pass_model(xs, mc, table, *, k, ncells, box, lj, energy, vcred, ts=None,
-                   type_pair=None, n_warps=8, poison=float("nan")):
-    """``k1_rows`` in plain PyTorch, one cell ("block") after another.
-    Returns f (Cg, cap, 3), eb (Cg, k) and cred (Cg, 13, k, NC), allocated
-    poisoned: the pass must write every element."""
-    Cg, cap, _ = xs.shape
-    C = int(np.prod(ncells))
-    nc = 4 if vcred else 3
-    pitch = 32 if k <= 32 else 64  # a cell's slots in the candidate row: whole ballot words
-    nbr = CF.half_neighbors(tuple(ncells), xs.device)
-    f = torch.full((Cg, cap, 3), poison, dtype=xs.dtype)
-    eb = torch.full((Cg, k), poison, dtype=xs.dtype)
-    cred = torch.full((Cg, 13, k, nc), poison, dtype=xs.dtype)
-    f[C:], eb[C:], cred[C:] = 0.0, 0.0, 0.0  # the pad cells' blocks
-    r2_far = reach2(table, lj)
-    for c in range(C):
-        cells = torch.cat([torch.tensor([c]), nbr[c]])
-        live = np.zeros((14, pitch), bool)
-        live[:, :k] = (mc[cells, :k] > 0.5).numpy()
-        qof, n_live = compact(live.reshape(-1))
-        n_rows = int(live[0].sum())
-        o_of, s_of = np.nonzero(live)  # compacted candidate -> (cell of the stencil, slot)
-        cand = xs[cells[o_of], s_of]
-        ctype = ts[cells[o_of], s_of] if ts is not None else None
-        acc = torch.zeros((n_warps, nc, n_live - n_rows), dtype=xs.dtype)
-        for r in range(n_rows):
-            w = r % n_warps
-            d = [CF._mimage(cand[r, a] - cand[:, a], box[a]) for a in range(3)]
-            ok = (torch.arange(n_live) != r) & (d[0] * d[0] + d[1] * d[1] + d[2] * d[2] <= r2_far)
-            ok_cv = None
-            if ts is not None:
-                ok_cv = ok & CF.type_pair_mask(ctype[r], ctype, type_pair)
-            f_over_r, val = CF._pair_terms(*d, ok, table, lj, energy, ok_cv)
-            g = torch.stack([f_over_r * dc for dc in d])  # (3, n_live)
-            i = int(s_of[r])
-            f[c, i] = g.sum(1)
-            acc[w, :3] += g[:, n_rows:]
-            if vcred:
-                acc[w, 3] += val[n_rows:]
-            if energy:
-                wgt = torch.ones(n_live, dtype=xs.dtype)
-                if not vcred:
-                    wgt[:n_rows] = 0.5
-                eb[c, i] = (val * wgt).sum()
-            else:
-                eb[c, i] = 0.0
-        n_used = min(n_warps, n_rows)
-        for j in range(pitch, 14 * pitch):
-            o, sl = divmod(j, pitch)
-            if sl < k:
-                q = qof[j]
-                cred[c, o - 1, sl] = acc[:n_used, :, q - n_rows].sum(0) if q >= 0 else 0.0
-        for i in range(cap):
-            if i >= k or qof[i] < 0:
-                f[c, i] = 0.0
-                if i < k:
-                    eb[c, i] = 0.0
-    return f, eb, cred
-
-
-def credit_pass_model(f, eb, cred, *, k, ncells, vcred):
-    """``k1_credits``: each slot < k takes its 13 incoming credits in
-    HALF_OFFSETS order."""
-    C = int(np.prod(ncells))
-    src = CF.credit_sources(tuple(ncells), f.device)
-    inc = cred[src, torch.arange(13)]
-    f, eb = f.clone(), eb.clone()
-    for o in range(13):
-        f[:C, :k] -= inc[:, o, :, :3]
-        if vcred:
-            eb[:C] += inc[:, o, :, 3]
-    return f, eb
-
-
-@pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("kind,typed,energy", [
-    ("hermite", False, False), ("hermite", True, True), ("cheb", False, True),
-    ("cheb", True, False)])
-def test_row_pass_model_is_k1_and_k6(case, kind, typed, energy):
-    """The modelled row pass against K6's plain version (row sums, credits
-    at their slots, eb), then with the credit pass against K1's, at a
-    reduced k and at full cap."""
-    spec, xs, mc, _, ts = slot_state(case)
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rcut", [0.75, 2.2])
+def test_pairs_beyond_reach_are_exact_zeros(kind, dtype, rcut):
+    """The row pass evaluates only the pairs with r^2 <= r2_far.  That is
+    exact because the plain pair terms of every pair beyond it are zeros,
+    not small numbers: from the first float above r2_far outwards, with the
+    LJ cutoff below the table's edge and above it."""
+    lj = LJParams(epsilon=1.0, sigma=0.3, rcut=rcut)
     tab = tables()[kind]
-    cap = xs.shape[1]
-    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy,
-              ts=ts if typed else None, type_pair=TYPE_PAIR if typed else None)
-    f, eb, cred = row_pass_model(xs, mc, tab, k=cap, vcred=False, **kw)
-    f_ref, cred_ref, eb_ref = CF.cell_force_newton_planar_ref(xs, mc, tab, **kw)
-    close(f, f_ref, "K6 rows")
-    close(cred, cred_ref, "K6 credits")
-    close(eb, eb_ref, "K6 eb")
-    # zeros, not leftovers, at empty slots and pad cells
-    empty = mc < 0.5
-    assert not bool(f[empty].any() or eb[empty].any() or cred[spec.n_cells:].any())
-    nbr = CF.half_neighbors(tuple(spec.ncells), xs.device)
-    assert not bool(cred[:spec.n_cells][mc[nbr] < 0.5].any())  # the neighbours' empty slots
-    for k in (cap - 3, cap):
-        f, eb, cred = row_pass_model(xs, mc, tab, k=k, vcred=False, **kw)
-        f, eb = credit_pass_model(f, eb, cred, k=k, ncells=spec.ncells, vcred=False)
-        f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tab, k=k, **kw)
-        close(f, f_ref, f"K1 k={k} forces")
-        close(eb, eb_ref, f"K1 k={k} eb")
-        assert not bool(f[:, k:].any())
-    if typed:  # the mask takes the lookup from some pairs, and only that
-        f0, _ = CF.cell_force_newton_ref(xs, mc, tab, k=cap, **dict(kw, ts=None, type_pair=None))
-        assert float((f_ref - f0).abs().max()) > 0
-
-
-@pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("n_warps", [4, 8])
-def test_row_pass_model_is_k7(case, n_warps):
-    """The modelled row pass with value credits and its credit pass against
-    K7's plain version; the warps' accumulators may be 4 or 8."""
-    spec, xs, mc, sid, _ = slot_state(case)
-    tab = tables()["cheb"]
-    cap = xs.shape[1]
-    kw = dict(ncells=spec.ncells, box=spec.box, lj=LJ)
-    f, eb, cred = row_pass_model(xs, mc, tab, k=cap, energy=True, vcred=True, n_warps=n_warps,
-                                 **kw)
-    f, eb = credit_pass_model(f, eb, cred, k=cap, ncells=spec.ncells, vcred=True)
-    f_ref, eb_ref = CF.cell_force_full_ref(xs, mc, sid, tab, **kw)
-    close(f, f_ref, "K7 forces")
-    close(eb, eb_ref, "K7 eb")
+    if dtype == torch.float32 and kind == "cheb":
+        tab = ChebTable(cval=tab.cval.float(), cder=tab.cder.float(), lo=tab.lo, hi=tab.hi)
+    elif dtype == torch.float32:
+        tab = CF.HermiteTable(tab=tab.tab.float(), geom=tab.geom)
+    r2_far = torch.tensor(reach2(tab, lj), dtype=dtype)
+    first = torch.nextafter(r2_far, torch.tensor(float("inf"), dtype=dtype))
+    rng = np.random.default_rng(5)
+    r2 = torch.cat([first[None], r2_far * torch.tensor(1.0 + rng.uniform(0, 3, 4000) ** 4,
+                                                       dtype=dtype)])
+    r2 = r2[r2 > r2_far]
+    # directions on the sphere: dx, dy, dz with dx^2 + dy^2 + dz^2 = r2 up to rounding
+    u = torch.tensor(rng.normal(size=(len(r2), 3)), dtype=dtype)
+    d = u / u.norm(dim=1, keepdim=True) * torch.sqrt(r2)[:, None]
+    d = d[(d * d).sum(1) > r2_far]
+    ok = torch.ones(len(d), dtype=torch.bool)
+    f_over_r, val = CF._pair_terms(d[:, 0], d[:, 1], d[:, 2], ok, tab, lj, True)
+    assert len(d) > 3000
+    assert not bool(f_over_r.any()) and not bool(val.any())
+    # and the bound is not vacuous: just inside it some pair term is non-zero
+    inside = d * (0.97 * torch.sqrt(r2_far) / d.norm(dim=1, keepdim=True))
+    f_in, v_in = CF._pair_terms(inside[:, 0], inside[:, 1], inside[:, 2], ok, tab, lj, True)
+    assert bool(f_in.any()) or bool(v_in.any())
