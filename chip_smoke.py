@@ -30,20 +30,21 @@ path 20 steps at kT = 0 through the kernels, each step held to the same
 step through the plain versions, then the bench's kT = 0.8 run with the
 launch counters reset (rate, host syncs, the device-busy share of a
 stride cycle, end-state checks; the typed path also holds its first hill
-round's candidates below the untyped round's); the deposition run (hills/s, host syncs,
-device-busy share; its final grid held to the same rounds through the
-plain versions).  The deposition kernels are checked on grids that
-already carry hills.  It prints one ``kernels`` JSON line (launches,
-errors, times, the card's least time for the work; ``ms`` is the wrapper's
-time per call by CUDA events, which the host bounds, ``device_ms`` the
-device time per launch in the path's profile) and, last,
-``{"ok": true, "device": {...}}``.
+round's candidates below the untyped round's); the deposition run (hills/s,
+host syncs, device-busy share and device launches of a round; its final
+grid held to the same rounds through the plain versions).  The deposition
+kernels are checked on grids that already carry hills.  It prints one
+``kernels`` JSON line (launches, errors, times, the card's least time for
+the work; ``ms`` is the wrapper's time per call by CUDA events, which the
+host bounds, ``device_ms`` the device time per launch in the path's
+profile) and, last, ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  Any
 failed check raises, and the script exits non-zero without the last line.
 ``python3 chip_smoke.py --ab-slice OTHER`` times only the exact-lookup
-kT = 0.8 run, of the checkout OTHER (say, the parent commit unpacked by
-``git archive``) and of this one in turns, to compare the two in one call.
+kT = 0.8 run and the 256-round deposition, of the checkout OTHER (say, the
+parent commit unpacked by ``git archive``) and of this one in turns, to
+compare the two in one call (steps/s and hills/s, medians and ranges).
 ``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
 way: the device time per launch of every entry of the ``kernels`` line,
 from the profile of a stride cycle of each MD path and of a deposition
@@ -211,8 +212,9 @@ def cuda_ms(torch, fn, reps=50, warm=5) -> float:
 def device_time_us(torch, fn, n):
     """Device time per call of ``fn`` (kernels and copies, µs), from
     ``torch.profiler`` over n calls after one warm-up; the same per kernel
-    name; and, as text, the three kernels that take most of it, then each
-    of the port's.  0 when the profiler saw no device activity."""
+    name; as text, the three kernels that take most of it, then each of the
+    port's; and the device launches (kernels and copies) per call.  0 when
+    the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -222,9 +224,10 @@ def device_time_us(torch, fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, count = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            count += 1
             name = e.name.replace("(anonymous namespace)::", "").split(" (")[0]
             name = name.split("(")[0].removeprefix("void ")
             if "::" in name:  # a PyTorch kernel: its bare name
@@ -233,7 +236,7 @@ def device_time_us(torch, fn, n):
     ranked = sorted(per.items(), key=lambda kv: -kv[1])
     ours = [kv for kv in ranked if kv[0].startswith(PORT_KERNELS)]
     return sum(per.values()), per, "; ".join(
-        ", ".join(f"{k} {v:.1f}" for k, v in kvs) for kvs in (ranked[:3], ours))
+        ", ".join(f"{k} {v:.1f}" for k, v in kvs) for kvs in (ranked[:3], ours)), count / n
 
 
 def funcs_ms(per_us, funcs, launches=1.0) -> float:
@@ -250,7 +253,7 @@ def cycle_device_ms(torch, cycle, state):
     from edm_tpu_torch.ops import cellforce as CF
 
     n0 = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
-    dev_us, per, top = device_time_us(torch, lambda: cycle(state), 2)
+    dev_us, per, top, _ = device_time_us(torch, lambda: cycle(state), 2)
     ms = {}
     for name in FORCE_KERNELS:
         n = (getattr(CF, name).launches - n0[name]) / 3  # the warm-up cycle launched too
@@ -377,8 +380,10 @@ def full_work(spec, xs, mc, table, lj):
 
 def k2_work(xo, xp, table, lj, box, energy):
     """K2's least time: occupied tail rows against occupied partners, plus
-    the owned tail-tail block; the pair arithmetic and the lookup only for
-    the pairs within ``reach``."""
+    the tail-tail block as the function defines it (rows with ``own``
+    against occupied rows, both orders, the diagonal out); every such pair
+    its r^2, the pair arithmetic and the lookup only for those within
+    ``reach``."""
     import torch
 
     far = reach(table, lj)
@@ -824,8 +829,9 @@ def deposition_run(torch, device, rounds=256):
     just after.  The grid those rounds leave is held to the same rounds
     through the plain versions (``check_deposit``).  Then one round on the
     K5 grid, carrying hills already, counted and held the same way; the
-    host syncs of a round on each route (none allowed) and the device-busy
-    share of a round (``torch.profiler``)."""
+    host syncs of a round on each route (none allowed), and the device-busy
+    share and the device launches of a round (``torch.profiler``; at most
+    12 launches on the K4 route)."""
     from edm_tpu_torch.ops import deposit_kernels as DK
 
     k4, _, c, h = deposit_grids(torch, device)
@@ -866,9 +872,10 @@ def deposition_run(torch, device, rounds=256):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    device_ms = {}
+    device_ms, round_launches = {}, {}
     for what, gg, wall in (("K4 round", g, dt / rounds * 1e6), ("K5 round", g5, None)):
-        dev_us, per, top = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        dev_us, per, top, round_launches[what[:2]] = device_time_us(
+            torch, lambda: gg.add_value(c, h), 20)
         device_ms[what[:2]] = funcs_ms(per, DEPOSIT_FUNCS)
         if wall is None:  # the K5 round's wall time, host clock to a sync
             t0 = time.perf_counter()
@@ -884,11 +891,12 @@ def deposition_run(torch, device, rounds=256):
         "K5 launched": n5 > 0,
         "conservation": abs(float(total) - expected) <= 1e-3 * expected,
         "no host sync in add_value": syncs == 0,
+        "at most 12 device launches in a K4 round": 0 < round_launches["K4"] <= 12,
     }
     print(f"deposition (GaussGrid.add_value, G=1e6, 200 hills x {rounds} rounds): "
           f"{200 * rounds / dt:.1f} hills/s, launches K4 {n4} K5 {n5}, "
           f"bias added {float(total):.6g} of {expected:.6g}, host syncs per round "
-          f"{syncs / 2:g}")
+          f"{syncs / 2:g}, device launches per add_value round {round_launches}")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"deposition run failed: {failed}")
@@ -912,7 +920,9 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
     """The exact-lookup kT = 0.8 run of the checkout at ``tree``, through
     that checkout's own ``chip_smoke.bench_setup`` and package: one warm-up
     of ``warm_steps``, then ``runs`` timed runs of ``timed_steps`` (host
-    clock up to a device sync), each printed as a JSON line."""
+    clock up to a device sync), each printed as a JSON line.  Then the
+    deposition the same way: ``runs`` timed runs of 256 ``add_value``
+    rounds of 200 hills on that checkout's 1e6-point grid."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import importlib
@@ -928,6 +938,17 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
         state, _ = pattern_segment(smoke.pattern(steps), timed_steps)(state)
         torch.cuda.synchronize()
         print(json.dumps({"tree": tree, "steps_per_s": timed_steps / (time.perf_counter() - t0)}))
+    k4, _, c, h = smoke.deposit_grids(torch, torch.device("cuda", 0))
+    for i in range(runs + 1):  # the first run warms up
+        g = k4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(256):
+            g, _ = g.add_value(c + k * 1e-7, h)
+        torch.cuda.synchronize()
+        if i > 0:
+            print(json.dumps({"tree": tree,
+                              "hills_per_s": 200 * 256 / (time.perf_counter() - t0)}))
 
 
 def time_kernels(torch, tree, warm_steps=200):
@@ -952,7 +973,7 @@ def time_kernels(torch, tree, warm_steps=200):
         out.update({f"{path} {name}": v for name, v in ms.items()})
     k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
     for what, gg in (("K4 round", k4), ("K5 round", k5)):
-        _, per, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+        _, per, _, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
         out[what] = funcs_ms(per, DEPOSIT_FUNCS)
     print(json.dumps({"tree": tree, "device_ms": out}))
 
@@ -983,9 +1004,11 @@ def spread(vals) -> str:
 
 
 def ab_slice(other):
-    """``time_slice`` of both checkouts in turns; the median steps/s of each."""
+    """``time_slice`` of both checkouts in turns; the median steps/s and
+    hills/s of each."""
     for tree, runs in ab_runs("--time-slice", other).items():
-        print(f"{tree}: steps/s {spread([r['steps_per_s'] for r in runs])}")
+        for key, unit in (("steps_per_s", "steps/s"), ("hills_per_s", "hills/s")):
+            print(f"{tree}: {unit} {spread([r[key] for r in runs if key in r])}")
 
 
 def ab_kernels(other):

@@ -32,7 +32,8 @@ _FLAGS = [
 
 _lib = None
 # the compiled limits, read once at load: max_k, max_g, max_o, max_deg,
-# max_panels, and the deposition tile per route (tile_dense, tile_windowed)
+# max_panels, K2's tile of partners (k2_tile) and the deposition tile per
+# route (tile_dense, tile_windowed)
 limits = {}
 build_log = ""  # nvcc's output (with -Xptxas -v: registers, shared memory, spills)
 build_seconds = 0.0  # 0 when the library was reused
@@ -49,7 +50,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-_LIMITS = ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels")
+_LIMITS = ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels",
+           "edm_k2_tile")
 
 
 def _declare(lib):
@@ -67,8 +69,8 @@ def _declare(lib):
     lib.overflow_force_launch.argtypes = [vp] * 5 + [i] * 2 + table
     lib.overflow_force_launch.restype = i
     # values, derivs, centers, heights, new values, new derivs, bias_added,
-    # partials, H, G, geom, windowed, stream
-    lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, vp]
+    # partials, H, G, geom, reach, T, windowed, stream
+    lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, i, i, vp]
     lib.deposit_1d_launch.restype = i
     for name in _LIMITS:
         getattr(lib, name).argtypes = []

@@ -49,15 +49,43 @@
 //     cap for 5 blocks per SM all read the same within 10%.
 //
 // K2  overflow_force  replaces edm_tpu/ops/cellforce_pallas.py
-//     overflow_forces_pallas (_kernel_overflow).  Dense sweep of the
-//     compacted tail atoms (slots >= kernel_cap) against every placed low
-//     slot with K1's pair math.  Pass 1: one block per tile of 256
-//     partners, one thread per partner; each thread owns its partner's
-//     credit (no atomics) and the block writes per-tile partial tail-row
-//     sums.  Pass 2: one block sums the tiles in a fixed order and adds the
-//     tail-tail block (diagonal masked, `own` rows, energy halved).
-//     Bound: 0.57 M pair evaluations at 10k (32 tail rows x 17,664
-//     partners): latency.  0.0141 ms (bound 0.00015, by bytes).
+//     overflow_forces_pallas (_kernel_overflow).  Sweep of the compacted
+//     tail atoms (slots >= kernel_cap) against every placed low slot with
+//     K1's pair math.
+//
+//     What bounds it: not the card's rates (bound 0.00015 ms, the 0.5 MB of
+//     partners and credits) but latency, the fixed cost of two short
+//     kernels (~0.85 us each in the profile), and work on pairs that
+//     contribute nothing: of the 32 x 17,664 (tail row, partner) pairs at
+//     10k usually 8 rows or fewer are live, and a tail atom has ~30 partners
+//     within reach of the cutoffs.  The design: k2_partners, one block of
+//     128 threads per tile of 128 partners (138 blocks at 10k, one wave of
+//     the 132 SMs), compacts the live tail rows once; a thread holds its
+//     partner and takes only the r^2 against each live row, keeping the rows
+//     within reach as a bit mask; the pair arithmetic and the lookup run
+//     only for rows that some lane of the warp reaches (r^2 <= r2_far:
+//     beyond it both terms are exact zeros), two rows at a time so that
+//     their dependent chains overlap, each summed over the lanes by one
+//     fixed shuffle tree.  Rows no lane reaches cost nothing.  Each thread
+//     owns its partner's credit (no atomics); the block writes its rows'
+//     partial sums, warps in order.  The tail-tail block (rows with `own`
+//     against the live rows, both orders, diagonal masked, energy halved) is
+//     one more block of the same sweep, with the tail rows as its partners,
+//     so k2_finish needs no table and no pair arithmetic: a warp per tail
+//     row, lanes striding over the blocks' partials, one fixed shuffle tree.
+//     Shared memory is dynamic, sized by O and the Chebyshev series (2.5 KB
+//     at O = 32; the Hermite table is read in place, on a hit only).  fo and
+//     fp are written whole.  0.0066 ms with the Hermite table (sweep 0.0046 +
+//     finish 0.0020), 0.0069 with the Chebyshev one (0.0149 and 0.0179 before
+//     the redesign, when every pair ran the whole pair arithmetic and every
+//     row a shuffle reduction per warp).  Of the sweep, by cutting it short
+//     on a 7-row tail (us, before the redesign's last steps): an empty
+//     kernel 0.9, loads and compaction 1.0, the pair arithmetic on hits 1.3,
+//     their sums 0.9.  Tried and dropped: the lanes with a hit adding into
+//     the accumulator one after another (0.9 us against 0.3 for the tree);
+//     four rows at a time (slower than two); the finish inside the sweep, by
+//     the block that arrives last (a ticket: its fences and the serial finish
+//     cost 3 us more than the second launch); one block for the finish.
 //
 // K3  the Chebyshev lookup replaces edm_tpu/ops/cellforce_pallas.py
 //     _cheb_val_der (the pair_lookup="chebyshev" branch of K1 and K2): per
@@ -119,12 +147,13 @@ constexpr int MAX_W = 14 * MAX_K;
 constexpr int MAX_SEG = MAX_W / 32;  // ballot words of a candidate row: 14 cells x 64 slots
 static_assert(MAX_K == 64 && MAX_SEG % 4 == 0, "slot_pitch() is 32 or 64");
 constexpr int MAX_G = 1024;
-constexpr int K2_THREADS = 256;
+constexpr int K2_THREADS = 128;  // k2_partners' tile of partners
 constexpr int K2_WARPS = K2_THREADS / 32;
+constexpr int K2_BATCH = 2;  // tail rows a warp evaluates together
 constexpr int MAX_O = 128;
+static_assert(MAX_O <= K2_THREADS, "k2_partners compacts the tail rows a thread per row");
 constexpr int MAX_DEG = 64;  // Chebyshev degree (the JAX default 64)
 constexpr int MAX_PANELS = 8;  // Chebyshev panels (the bench uses 4)
-static_assert(2 * MAX_PANELS * (MAX_DEG + 1) <= 4 * MAX_G, "cheb table fits the table buffer");
 static_assert(MAX_W < 32768, "compacted indices are int16");
 
 enum Lookup { HERMITE = 0, CHEB = 1 };
@@ -150,6 +179,10 @@ struct PairParams {
 
 // The lookup table in shared memory: Hermite G x float4 rows, or the
 // Chebyshev value series (P x degp floats) followed by the derivative's.
+__host__ __device__ inline int table4(int look, int rows, int degp) {  // its float4 units
+  return look == HERMITE ? rows : (2 * rows * degp + 3) / 4;
+}
+
 __device__ __forceinline__ void load_table(float4* tab, const float* t1, const float* t2,
                                            const PairParams& p, int look) {
   if (look == HERMITE) {
@@ -266,12 +299,6 @@ __device__ __forceinline__ void pair_force(const PairParams& p, const float4* ta
   gz = f_over_r * dz;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  // butterfly: every lane ends with the same sum, in a fixed order
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // ---------------------------------------------------------------- row pass
 
 // types of a pair: the CV's unordered pair {ti, tj}
@@ -318,7 +345,7 @@ __host__ __device__ inline RowLayout row_layout(int k, int nc, bool typed, int l
                                                 int degp) {
   const int W = 14 * k;  // the most candidates a cell can meet
   RowLayout l;
-  l.tab4 = look == HERMITE ? rows : (2 * rows * degp + 3) / 4;
+  l.tab4 = table4(look, rows, degp);
   l.cand4 = W;
   l.acc4 = (ROW_WARPS * nc * 13 * k + 3) / 4;
   l.type4 = typed ? (W + 3) / 4 : 0;
@@ -550,91 +577,163 @@ k1_credits(float* __restrict__ f, float* __restrict__ eb, const float* __restric
 
 // ---------------------------------------------------------------- K2
 
+// K2's dynamic shared memory, in float4 units: the Chebyshev series (a
+// Hermite table stays in global memory: a row of it is read only for a pair
+// within reach, through the cache), the tail rows a block works on,
+// compacted, and the warps' accumulators [warp][row].
+struct K2Layout {
+  int tab4, rows4, acc4;
+  __host__ __device__ int total4() const { return tab4 + rows4 + acc4; }
+};
+
+__host__ __device__ inline K2Layout k2_layout(int O, int look, int rows, int degp) {
+  return K2Layout{look == HERMITE ? 0 : table4(look, rows, degp), O, K2_WARPS * O};
+}
+
+// K2's sweep.  Block t < gridDim.x - 1 takes the tile t of K2_THREADS low
+// slots as its partners, a thread per partner, against the live tail rows;
+// it writes its partners' fp (a masked partner's credit is 0).  The last
+// block is the tail-tail block: its partners are the O tail rows themselves
+// (the live ones count), its rows those with `own`, a row never paired with
+// itself, the energy halved, no credit written (both orders are present).
+// Either way a block writes, for each of its rows, the block's partial
+// (gx, gy, gz, val) at part[block][row]; other rows' partials stay unwritten.
 template <bool ENERGY, int LOOK>
 __global__ void __launch_bounds__(K2_THREADS)
 k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
             const float* __restrict__ t1, const float* __restrict__ t2,
-            float* __restrict__ fp, float* __restrict__ part, int O, int N, PairParams p) {
-  __shared__ float4 rows[MAX_O];
-  __shared__ float4 tab[MAX_G];
-  __shared__ float red[K2_WARPS][MAX_O][4];
+            float* __restrict__ fp, float4* __restrict__ part, int O, int N, PairParams p) {
+  extern __shared__ float4 smem[];
+  __shared__ int wcount[K2_WARPS];
+  const K2Layout lay = k2_layout(O, LOOK, p.G, p.degp);
+  const float4* tab = LOOK == HERMITE ? reinterpret_cast<const float4*>(t1) : smem;
+  float4* rows = smem + lay.tab4;  // the block's rows in row order: x, y, z, row (as bits)
+  float4* acc = rows + lay.rows4;  // [warp][row]: gx, gy, gz, val
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  load_table(tab, t1, t2, p, LOOK);
-  for (int i = tid; i < O; i += K2_THREADS)
-    rows[i] = make_float4(xo[i], xo[O + i], xo[2 * O + i], xo[3 * O + i]);
-  __syncthreads();
-
+  const bool tail = blockIdx.x == gridDim.x - 1;
   const int n = blockIdx.x * K2_THREADS + tid;
   float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (n < N) b = make_float4(xp[n], xp[N + n], xp[2 * N + n], xp[3 * N + n]);
+  if (tail) {
+    if (tid < O) b = make_float4(xo[tid], xo[O + tid], xo[2 * O + tid], xo[3 * O + tid]);
+  } else if (n < N) {
+    b = make_float4(xp[n], xp[N + n], xp[2 * N + n], xp[3 * N + n]);
+  }
+  if (LOOK == CHEB) load_table(smem, t1, t2, p, LOOK);
+
+  // compact the block's tail rows, a thread per row (O <= K2_THREADS)
+  bool mine_row = false;
+  float4 a = b;
+  if (tid < O) {
+    mine_row = xo[(tail ? 4 : 3) * O + tid] > 0.5f;
+    a = make_float4(xo[tid], xo[O + tid], xo[2 * O + tid], __int_as_float(tid));
+  }
+  const unsigned bal = __ballot_sync(0xffffffffu, mine_row);
+  if (lane == 0) wcount[warp] = __popc(bal);
+  __syncthreads();
+  int off = 0, n_rows = 0;
+#pragma unroll
+  for (int w = 0; w < K2_WARPS; ++w) {
+    off += (w < warp) ? wcount[w] : 0;
+    n_rows += wcount[w];
+  }
+  if (mine_row) rows[off + __popc(bal & ((1u << lane) - 1u))] = a;
+  float4* wacc = acc + warp * O;
+  for (int q = lane; q < n_rows; q += 32) wacc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+
+  const bool placed = b.w > 0.5f;
+  const int self = tail ? tid : -1;  // the row this partner is, in the tail-tail block
   float cx = 0.0f, cy = 0.0f, cz = 0.0f;
-  for (int i = 0; i < O; ++i) {
-    const float4 a = rows[i];
-    if (a.w <= 0.5f) continue;  // uniform: empty tail row
-    float gx = 0.0f, gy = 0.0f, gz = 0.0f, val = 0.0f;
-    if (b.w > 0.5f) {
-      pair_force<ENERGY, LOOK>(p, tab, a, b, true, gx, gy, gz, val);
-      cx += gx;
-      cy += gy;
-      cz += gz;
+  for (int q0 = 0; q0 < n_rows; q0 += 32) {
+    // the rows within reach of this partner, 32 rows at a time
+    const int nq = min(32, n_rows - q0);
+    unsigned mine = 0;
+    if (placed) {
+#pragma unroll 4
+      for (int q = 0; q < nq; ++q) {
+        a = rows[q0 + q];
+        float dx, dy, dz;
+        if (pair_r2(p, a, b, dx, dy, dz) <= p.r2_far && __float_as_int(a.w) != self)
+          mine |= 1u << q;
+      }
     }
-    gx = warp_sum(gx);
-    gy = warp_sum(gy);
-    gz = warp_sum(gz);
-    if (ENERGY) val = warp_sum(val);
-    if (lane == 0) {
-      red[warp][i][0] = gx;
-      red[warp][i][1] = gy;
-      red[warp][i][2] = gz;
-      red[warp][i][3] = val;
+    // the rows some lane of the warp reaches, K2_BATCH at a time: their pair
+    // terms are independent, so the batch's arithmetic overlaps
+    unsigned any = __reduce_or_sync(0xffffffffu, mine);
+    while (any) {
+      int qs[K2_BATCH];
+      float g[K2_BATCH][4];
+#pragma unroll
+      for (int u = 0; u < K2_BATCH; ++u) {
+        qs[u] = any ? __ffs(any) - 1 : -1;
+        any &= any - 1;
+      }
+#pragma unroll
+      for (int u = 0; u < K2_BATCH; ++u) {
+        const int q = max(qs[u], 0);
+        pair_force<ENERGY, LOOK>(p, tab, rows[q0 + q], b, true, g[u][0], g[u][1], g[u][2],
+                                 g[u][3]);
+        if (qs[u] < 0 || !((mine >> q) & 1u)) g[u][0] = g[u][1] = g[u][2] = g[u][3] = 0.0f;
+        if (tail) g[u][3] *= 0.5f;
+      }
+#pragma unroll
+      for (int u = 0; u < K2_BATCH; ++u) {
+        cx += g[u][0];
+        cy += g[u][1];
+        cz += g[u][2];
+        // a warp meets a row once: its sum over the lanes, one fixed tree
+        const float tot = warp_sum4(g[u][0], g[u][1], g[u][2], g[u][3], lane);
+        if (qs[u] >= 0 && (lane & 7) == 0)
+          reinterpret_cast<float*>(wacc + q0 + qs[u])[lane >> 3] = tot;
+      }
     }
   }
-  if (n < N) {
+  if (!tail && n < N) {
     fp[n] = -cx;
     fp[N + n] = -cy;
     fp[2 * N + n] = -cz;
   }
   __syncthreads();
-  for (int i = tid; i < O; i += K2_THREADS) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (rows[i].w > 0.5f) {
-      for (int w = 0; w < K2_WARPS; ++w)
-        for (int q = 0; q < 4; ++q) s[q] += red[w][i][q];
+  for (int q = tid; q < n_rows; q += K2_THREADS) {  // the block's partials, warps in order
+    float4 s = acc[q];
+    for (int w = 1; w < K2_WARPS; ++w) {
+      const float4 t = acc[w * O + q];
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
     }
-    for (int q = 0; q < 4; ++q) part[((long)blockIdx.x * 4 + q) * O + i] = s[q];
+    part[(long)blockIdx.x * O + __float_as_int(rows[q].w)] = s;
   }
 }
 
-template <bool ENERGY, int LOOK>
-__global__ void k2_finish(const float* __restrict__ xo, const float* __restrict__ t1,
-                          const float* __restrict__ t2, const float* __restrict__ part,
-                          float* __restrict__ fo, int O, int n_tiles, PairParams p) {
-  __shared__ float4 tab[MAX_G];
-  load_table(tab, t1, t2, p, LOOK);
-  __syncthreads();
-  const int i = threadIdx.x;
+// fo of tail row i, a warp per row, lanes striding over the blocks'
+// partials: those of the n_tiles low tiles count for a live row, the
+// tail-tail block's (the last) for a row with `own`; then one shuffle tree.
+// A partial that does not count may be unwritten: it is read and dropped.
+// Writes fo whole: zeros at rows that are neither live nor owned, and in
+// the energy row when the sweep took no energy (its partials carry 0 there).
+__global__ void __launch_bounds__(K2_THREADS)
+k2_finish(const float* __restrict__ xo, const float4* __restrict__ part,
+          float* __restrict__ fo, int O, int n_tiles) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * K2_WARPS + (threadIdx.x >> 5);
   if (i >= O) return;
-  const float4 a = make_float4(xo[i], xo[O + i], xo[2 * O + i], xo[3 * O + i]);
-  const float own = xo[4 * O + i];
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (own > 0.5f) {  // tail-tail block: rows this device owns, both orders
-    for (int j = 0; j < O; ++j) {
-      const float4 b = make_float4(xo[j], xo[O + j], xo[2 * O + j], xo[3 * O + j]);
-      if (j == i || b.w <= 0.5f) continue;
-      float gx, gy, gz, val;
-      pair_force<ENERGY, LOOK>(p, tab, a, b, true, gx, gy, gz, val);
-      s[0] += gx;
-      s[1] += gy;
-      s[2] += gz;
-      s[3] += val;
+  const bool live = xo[3 * O + i] > 0.5f, own = xo[4 * O + i] > 0.5f;
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f, sv = 0.0f;
+  for (int t = lane; t <= n_tiles; t += 32) {
+    const float4 v = part[(long)t * O + i];
+    if (t < n_tiles ? live : own) {
+      sx += v.x;
+      sy += v.y;
+      sz += v.z;
+      sv += v.w;
     }
   }
-  s[3] *= 0.5f;
-  for (int t = 0; t < n_tiles; ++t)
-    for (int q = 0; q < 4; ++q) s[q] += part[((long)t * 4 + q) * O + i];
-  for (int q = 0; q < 4; ++q) fo[q * O + i] = (q == 3 && !ENERGY) ? 0.0f : s[q];
+  const float tot = warp_sum4(sx, sy, sz, sv, lane);
+  if ((lane & 7) == 0) fo[(lane >> 3) * O + i] = tot;
 }
 
 PairParams make_params(int rows, int degp, const float* geom, const float* box,
@@ -698,19 +797,19 @@ cudaError_t k1_dispatch(const RowArgs& a, int Cg, int look, int energy, bool cre
                : k1_energy<HERMITE, false>(a, Cg, energy, credits, p, st);
 }
 
+// The sweep over the tiles of low slots and the tail-tail block, then the
+// finish.
 template <bool ENERGY, int LOOK>
 cudaError_t k2_launch(const float* xo, const float* xp, const float* t1, const float* t2,
-                      float* fo, float* fp, float* part, int O, int N, const PairParams& p,
+                      float* fo, float* fp, float4* part, int O, int N, const PairParams& p,
                       cudaStream_t st) {
   const int n_tiles = (N + K2_THREADS - 1) / K2_THREADS;
-  if (n_tiles > 0) {
-    k2_partners<ENERGY, LOOK><<<n_tiles, K2_THREADS, 0, st>>>(xo, xp, t1, t2, fp, part, O, N,
-                                                              p);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = ((O + 31) / 32) * 32;
-  k2_finish<ENERGY, LOOK><<<1, threads, 0, st>>>(xo, t1, t2, part, fo, O, n_tiles, p);
+  const int bytes = 16 * k2_layout(O, LOOK, p.G, p.degp).total4();  // under 48 KB at the limits
+  k2_partners<ENERGY, LOOK><<<n_tiles + 1, K2_THREADS, bytes, st>>>(xo, xp, t1, t2, fp, part, O,
+                                                                    N, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k2_finish<<<(O + K2_WARPS - 1) / K2_WARPS, K2_THREADS, 0, st>>>(xo, part, fo, O, n_tiles);
   return cudaGetLastError();
 }
 
@@ -726,6 +825,7 @@ extern "C" {
 int edm_max_k() { return MAX_K; }
 int edm_max_g() { return MAX_G; }
 int edm_max_o() { return MAX_O; }
+int edm_k2_tile() { return K2_THREADS; }  // partners per block: sizes K2's partials
 int edm_max_deg() { return MAX_DEG; }
 int edm_max_panels() { return MAX_PANELS; }
 const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -767,13 +867,18 @@ int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb
       a, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
-int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part,
+// K2.  xo (5, O): x, y, z, mask, own; xp (4, N): x, y, z, mask; fo (4, O) and
+// fp (3, N) are written whole; part: the (ceil(N / edm_k2_tile()) + 1, O, 4)
+// scratch, 16-byte aligned
+int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part_,
                           int O, int N, int look, const float* t1, const float* t2, int rows,
                           int degp, const float* geom, const float* box, const float* lj,
                           int energy, void* stream) {
-  if (!table_ok(look, rows, degp)) return (int)cudaErrorInvalidValue;
+  if (!table_ok(look, rows, degp) || O < 1 || O > MAX_O || N < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   PairParams p = make_params(rows, degp, geom, box, lj);
+  float4* part = reinterpret_cast<float4*>(part_);
   cudaError_t e;
   if (look == CHEB)
     e = energy ? k2_launch<true, CHEB>(xo, xp, t1, t2, fo, fp, part, O, N, p, st)

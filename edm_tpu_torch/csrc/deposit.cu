@@ -8,10 +8,10 @@
 //     every grid point against every hill, the route when the windows are
 //     wide (W + 256 >= G/2).
 //
-// Both compute, for remapped hill centres c_j and heights h_j on the grid
-// x_i = gmin + dx * i (i < G), with the periodic minimum image
-// d = (x_i - c_j) - floor((x_i - c_j) / L + 1/2) L, p = d / sigma and the
-// support mask p^2 < GAUSS_SUPPORT:
+// Both take the raw hill centres x_j and heights h_j and compute, on the
+// grid x_i = gmin + dx * i (i < G), with the centres remapped into the grid
+// (c_j = GaussGrid.remap(x_j), see dep_remap), the periodic minimum image d
+// of x_i - c_j, p = d / sigma and the support mask p^2 < GAUSS_SUPPORT:
 //   values[i] += sum_j h_j e_ij,  derivs[i] += sum_j h_j (-(2/sigma) p e_ij),
 //   e_ij = exp(-p^2) / (sqrt(pi) sigma),
 //   bias_added[j] = h_j * (dx * sum_i e_ij).
@@ -24,23 +24,44 @@
 // Pallas grid runs in order.  Here each block OWNS a tile of grid points
 // and writes values + dv and derivs + dd into fresh outputs, so every point
 // is read once and written once.  K4's block first compacts, per chunk of
-// 256 hills and in hill order, the hills whose support can reach its tile
-// (a conservative test in index units; the per-point support mask decides),
-// so a point costs the ~2 hills that cover it, not H.  K5 lists every hill.
-// The per-hill unit integrals of a block go to a (blocks, H) scratch (0 for
-// hills that miss the tile), summed over blocks in block order by a second
-// pass.  Repeated launches are bitwise equal.
+// 256 hills and in hill order, the hills whose reach (support radius plus
+// slack, in whole points around the centre's point) meets its tile, so a
+// point costs the ~2 hills that cover it, not H; the per-point support mask
+// decides.  K5 lists every hill.  A listed hill's unit integral over the
+// block goes to a compact scratch (H, T): K4's row holds only the T tiles a
+// hill can reach, at column (tile - the hill's first tile) mod blocks; K5's
+// holds every block.  A second pass (a warp per hill, lanes striding over
+// the hill's columns, one fixed shuffle tree) sums them.  Both passes derive
+// a hill's tiles from the same integer arithmetic (dep_hill_tiles), so the
+// second reads exactly the columns the first wrote.  Repeated launches are
+// bitwise equal.
 //
 // The TPU K4's 128-lane windows, margins and periodic fold-back are layout
 // workarounds and are gone: positions come from the wrapped point index, so
 // K4 differs from the TPU kernel's unwrapped-index positions by rounding
-// only.  The route guarantees W + 256 < G/2, so one image per point
-// suffices.
+// only.  The routes guarantee a support radius under G/2 points, so one
+// image per point suffices and the minimum image is two comparisons: where
+// they could differ from floor(d / L + 1/2) the point is out of support.
 //
-// Bound: K4 at the bench shape (G = 1e6, H = 200, ~8,000 support points per
-// hill) moves 16 MB (values and derivs read and written once): ~5 us at
-// 3.35 TB/s, against ~0.05 GFLOP of hill terms.  K5 at G = 32,768 and
-// H = 200 does G x H = 6.6 M point-hill distances: bound by operations.
+// What bounds them (times: device time per launch in a round's profile,
+// chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).  K4 at the bench shape
+// (G = 1e6, H = 200, ~8,000 support points per hill) moves 16 MB (values and
+// derivs read and written once): 0.0048 ms at 3.35 TB/s, against ~0.04
+// GFLOP of hill terms.  A thread owns 4 neighbouring points and moves them
+// as 16 bytes per plane; the old grid's loads are started before the hills
+// are listed, so they are in flight during the hill arithmetic; a hill
+// writes 8 or 9 partial integrals, not one per block, and a warp sums them;
+// the wrapper passes the raw centres, so a round is two launches and no
+// other PyTorch call.  0.0110 ms: the tile pass 0.0090 (1.8 TB/s), the
+// integrals 0.0019 (0.0301 before the redesign: tile pass 0.0104, and
+// 0.0196 for a thread per hill adding 977 per-block partials one after
+// another).  Forcing 6 or 8 blocks per SM with __launch_bounds__ spills
+// and reads 0.0115-0.0118 for the tile pass; the 64 registers it takes
+// unforced (4 blocks per SM) are the fastest tried.
+// K5 at G = 32,768 and H = 200 does G x H = 6.6 M point-hill distances:
+// bound by operations (0.0013 ms); it keeps one point per thread (128
+// blocks).  0.0402 ms (0.0509 before: the division by L and the zero
+// writes went).
 //
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and the entry point returns cudaGetLastError().
@@ -52,13 +73,14 @@ namespace {
 constexpr int DEP_THREADS = 256;
 constexpr int DEP_WARPS = DEP_THREADS / 32;
 constexpr int DEP_CHUNK = DEP_THREADS;  // hills listed per round
-constexpr int K4_PPT = 4;  // grid points per thread, windowed
+constexpr int K4_PPT = 4;  // neighbouring grid points per thread, windowed: 16-byte accesses
 constexpr int K5_PPT = 1;  // grid points per thread, dense
 constexpr float SUPPORT = 8.0f;  // GAUSS_SUPPORT + 1e-12 rounded to f32
 
 struct DepParams {
-  float gmin, dx, L, sigma, inv_denom, k2;  // k2 = -(2 / sigma)
-  float reach;  // support radius in grid points plus slack (K4's list test)
+  float gmin, gmax, dx, L, sigma, inv_denom, k2;  // k2 = -(2 / sigma)
+  int reach;  // support radius in whole grid points plus slack (K4's lists)
+  int T;  // columns of a hill's row of partial integrals
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -66,6 +88,69 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// GaussGrid.remap for a 1-D periodic grid and boundary, the same float32
+// operations in the same order: x inside [gmin, gmax] stays, any other is
+// wrapped by whole periods.
+__device__ __forceinline__ float dep_remap(float x, const DepParams& p) {
+  if (x < p.gmin || x > p.gmax) {
+    const float Lg = p.gmax - p.gmin;
+    x = x - Lg * floorf((x - p.gmin) / Lg);
+  }
+  return x;
+}
+
+// The tiles of `tile` points that the reach of a hill at the remapped
+// centre c meets, as (first tile, count): the points ic - reach ..
+// ic + 1 + reach around the centre's point ic, wrapped into [0, G).  The
+// wrapper guarantees 2 reach + 2 + tile <= G (the range never meets itself)
+// and count <= T.
+__device__ __forceinline__ int2 dep_hill_tiles(float c, const DepParams& p, int G, int tile,
+                                               int n_blocks) {
+  int ic = (int)floorf((c - p.gmin) / p.dx) % G;
+  if (ic < 0) ic += G;
+  int lo = ic - p.reach, hi = ic + 1 + p.reach;
+  if (lo < 0) lo += G;
+  if (hi >= G) hi -= G;
+  const int first = lo / tile;
+  int count = hi / tile - first;
+  if (count < 0) count += n_blocks;
+  return make_int2(first, min(count + 1, p.T));
+}
+
+// A thread's PPT neighbouring points from i0 of a plane: 16 bytes at once
+// when PPT is 4 and all four are on the grid (i0 is a multiple of 4 and the
+// plane 16-byte aligned), else one by one, masked at the ragged end.
+template <int PPT>
+__device__ __forceinline__ void dep_load(const float* __restrict__ src, int i0, int G,
+                                         float (&v)[PPT]) {
+  if constexpr (PPT == 4) {
+    if (i0 + 4 <= G) {
+      const float4 w = *reinterpret_cast<const float4*>(src + i0);
+      v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) v[q] = i0 + q < G ? src[i0 + q] : 0.0f;
+}
+
+template <int PPT>
+__device__ __forceinline__ void dep_store(float* __restrict__ dst, int i0, int G,
+                                          const float (&v)[PPT]) {
+  if constexpr (PPT == 4) {
+    if (i0 + 4 <= G) {
+      *reinterpret_cast<float4*>(dst + i0) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PPT; ++q) {
+    if (i0 + q < G) dst[i0 + q] = v[q];
+  }
+}
+
+// One block per tile of PPT * DEP_THREADS points; thread t owns the PPT
+// neighbouring points from tile start + PPT * t.
 template <bool WINDOWED, int PPT>
 __global__ void __launch_bounds__(DEP_THREADS)
 dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
@@ -73,38 +158,41 @@ dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
           float* __restrict__ out_v, float* __restrict__ out_d, float* __restrict__ part,
           int H, int G, DepParams p) {
   __shared__ float sc[DEP_CHUNK], sh[DEP_CHUNK];
-  __shared__ int sid[DEP_CHUNK];
+  __shared__ int sat[DEP_CHUNK];  // where in `part` a listed hill's integral goes
   __shared__ float red[DEP_WARPS][DEP_CHUNK];
   __shared__ int wcount[DEP_WARPS];
 
   constexpr int TILE = PPT * DEP_THREADS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.x * TILE;
+  const int i0 = blockIdx.x * TILE + PPT * tid;
+  // the old grid first: these loads are in flight while the hills are
+  // listed and evaluated
+  float ov[PPT], od[PPT];
+  dep_load<PPT>(values, i0, G, ov);
+  dep_load<PPT>(derivs, i0, G, od);
   float xx[PPT], dv[PPT], dd[PPT];
-  bool in[PPT];
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    const int i = i0 + q * DEP_THREADS + tid;
-    in[q] = i < G;
-    xx[q] = p.gmin + p.dx * (float)i;
+    xx[q] = p.gmin + p.dx * (float)(i0 + q);
     dv[q] = 0.0f;
     dd[q] = 0.0f;
   }
-  const float half_tile = 0.5f * (float)(TILE - 1);
-  const float mid = (float)i0 + half_tile;
+  const float half_L = 0.5f * p.L;
 
   for (int h0 = 0; h0 < H; h0 += DEP_CHUNK) {
-    // 1. list this chunk's hills that may touch the tile, in hill order
+    // 1. list this chunk's hills that reach the tile, in hill order
     const int j = h0 + tid;
     bool take = j < H;
     float c = 0.0f, h = 0.0f;
+    int col = blockIdx.x;
     if (take) {
-      c = centers[j];
+      c = dep_remap(centers[j], p);
       h = heights[j];
       if (WINDOWED) {
-        float d = (c - p.gmin) / p.dx - mid;  // centre to tile middle, points
-        d -= (float)G * floorf(d / (float)G + 0.5f);
-        take = fabsf(d) <= half_tile + p.reach;
+        const int2 t = dep_hill_tiles(c, p, G, TILE, gridDim.x);
+        col -= t.x;
+        if (col < 0) col += gridDim.x;
+        take = col < t.y;
       }
     }
     const unsigned bal = __ballot_sync(0xffffffffu, take);
@@ -120,9 +208,7 @@ dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
       const int slot = off + __popc(bal & ((1u << lane) - 1u));
       sc[slot] = c;
       sh[slot] = h;
-      sid[slot] = j;
-    } else if (j < H) {
-      part[(long)blockIdx.x * H + j] = 0.0f;  // misses the tile
+      sat[slot] = j * p.T + col;
     }
     __syncthreads();
 
@@ -132,9 +218,9 @@ dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
       float s = 0.0f;
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
-        if (!in[q]) continue;
+        if (i0 + q >= G) continue;
         float dpd = xx[q] - cl;
-        dpd = dpd - floorf(dpd / p.L + 0.5f) * p.L;
+        dpd = dpd >= half_L ? dpd - p.L : (dpd < -half_L ? dpd + p.L : dpd);
         const float dp = dpd / p.sigma;
         const float dp2 = dp * dp;
         if (dp2 < SUPPORT) {
@@ -154,41 +240,54 @@ dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
       float s = 0.0f;
 #pragma unroll
       for (int w = 0; w < DEP_WARPS; ++w) s += red[w][l];
-      part[(long)blockIdx.x * H + sid[l]] = s;
+      part[sat[l]] = s;
     }
     __syncthreads();  // the lists are rebuilt by the next chunk
   }
 
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    if (!in[q]) continue;
-    const int i = i0 + q * DEP_THREADS + tid;
-    out_v[i] = values[i] + dv[q];
-    out_d[i] = derivs[i] + dd[q];
+    ov[q] += dv[q];
+    od[q] += dd[q];
   }
+  dep_store<PPT>(out_v, i0, G, ov);
+  dep_store<PPT>(out_d, i0, G, od);
 }
 
-// bias_added[j] = h_j * (dx * sum over blocks of part[b][j]), blocks in order
-__global__ void dep_bias_added(const float* __restrict__ heights,
-                               const float* __restrict__ part, float* __restrict__ bias_added,
-                               int H, int n_blocks, float dx) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+// bias_added[j] = h_j * (dx * the sum of hill j's partial integrals): a warp
+// per hill, lane l adds columns l, l + 32, ... of the hill's row in order,
+// then one fixed shuffle tree.
+template <bool WINDOWED>
+__global__ void __launch_bounds__(DEP_THREADS)
+dep_bias_added(const float* __restrict__ centers, const float* __restrict__ heights,
+               const float* __restrict__ part, float* __restrict__ bias_added, int H, int G,
+               int tile, int n_blocks, DepParams p) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * DEP_WARPS + (threadIdx.x >> 5);
   if (j >= H) return;
+  int count = n_blocks;
+  if (WINDOWED) count = dep_hill_tiles(dep_remap(centers[j], p), p, G, tile, n_blocks).y;
+  const float* row = part + (long)j * p.T;
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += part[(long)b * H + j];
-  bias_added[j] = heights[j] * (s * dx);
+  for (int t = lane; t < count; t += 32) s += row[t];
+  s = warp_sum(s);
+  if (lane == 0) bias_added[j] = heights[j] * (s * p.dx);
 }
 
 template <bool WINDOWED, int PPT>
 cudaError_t dep_launch(const float* values, const float* derivs, const float* centers,
                        const float* heights, float* out_v, float* out_d, float* bias_added,
                        float* part, int H, int G, const DepParams& p, cudaStream_t st) {
-  const int n_blocks = (G + PPT * DEP_THREADS - 1) / (PPT * DEP_THREADS);
+  constexpr int TILE = PPT * DEP_THREADS;
+  const int n_blocks = (G + TILE - 1) / TILE;
+  if (WINDOWED ? 2 * p.reach + 2 + TILE > G || p.T < 1 : p.T != n_blocks)
+    return cudaErrorInvalidValue;
   dep_tiles<WINDOWED, PPT><<<n_blocks, DEP_THREADS, 0, st>>>(values, derivs, centers, heights,
                                                              out_v, out_d, part, H, G, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || H == 0) return e;
-  dep_bias_added<<<(H + 255) / 256, 256, 0, st>>>(heights, part, bias_added, H, n_blocks, p.dx);
+  dep_bias_added<WINDOWED><<<(H + DEP_WARPS - 1) / DEP_WARPS, DEP_THREADS, 0, st>>>(
+      centers, heights, part, bias_added, H, G, TILE, n_blocks, p);
   return cudaGetLastError();
 }
 
@@ -196,20 +295,23 @@ cudaError_t dep_launch(const float* values, const float* derivs, const float* ce
 
 extern "C" {
 
-// grid points per block: the wrapper sizes the (blocks, H) partials with it
+// grid points per block: the wrapper sizes a hill's row of partials with it
 int edm_deposit_tile(int windowed) {
   return (windowed ? K4_PPT : K5_PPT) * DEP_THREADS;
 }
 
-// geom = {gmin, dx, L, sigma, 1/(sqrt(pi) sigma), -(2/sigma), reach} (f32);
-// part: (ceil(G / tile), H) scratch
+// centers, heights: the raw hills (H,); geom = {gmin, gmax, dx, L, sigma,
+// 1/(sqrt(pi) sigma), -(2/sigma)} (f32); reach: the support radius in whole
+// points plus slack; part: the (H, T) scratch, T the tiles a hill's reach
+// can meet (windowed) or every block (dense); values and derivs, old and
+// new, 16-byte aligned
 int deposit_1d_launch(const float* values, const float* derivs, const float* centers,
                       const float* heights, float* out_v, float* out_d, float* bias_added,
-                      float* part, int H, int G, const float* geom, int windowed,
-                      void* stream) {
-  if (G <= 0 || H < 0) return (int)cudaErrorInvalidValue;
+                      float* part, int H, int G, const float* geom, int reach, int T,
+                      int windowed, void* stream) {
+  if (G <= 0 || H < 0 || reach < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  DepParams p{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6]};
+  DepParams p{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], reach, T};
   cudaError_t e =
       windowed ? dep_launch<true, K4_PPT>(values, derivs, centers, heights, out_v, out_d,
                                           bias_added, part, H, G, p, st)

@@ -42,7 +42,6 @@ gathers each cell's 13 half-stencil neighbours itself.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -51,6 +50,7 @@ import torch
 
 from ..models.cells import neighbor_cells
 from .chebyshev import ChebTable
+from .kernel_args import check, f32, library, raise_on
 
 # The 13 lexicographically positive cell offsets: every unordered
 # cross-cell pair (c, c + d) appears exactly once for >= 3 cells per dim.
@@ -387,38 +387,16 @@ def overflow_force_ref(xo, xp, table, *, box, lj, energy: bool):
 # ------------------------------------------------------------ CUDA wrappers
 
 
-def _library():
-    """The kernel library and its compiled limits (read once at load)."""
-    from .._build import limits, load_library
-
-    return load_library(), limits
-
-
-def _check(t: torch.Tensor, name: str, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _f32(vals):
-    return (ctypes.c_float * len(vals))(*[float(np.float32(v)) for v in vals])
-
-
 def _pair_args(table, box, lj, device):
     """The lookup's launch arguments: (lookup id, t1, t2, rows, degp, geom)
     — Hermite: id 0, the (G, 4) table, rows G, geom (glo, gdx, ghi, blo,
     bhi); Chebyshev: id 1, cval and cder (P, deg+1), rows P, degp deg+1,
     geom ``cheb_geom`` — and the box and LJ constants, all f32."""
-    _, lim = _library()
+    _, lim = library()
     if isinstance(table, ChebTable):
         P, degp = table.cval.shape
-        _check(table.cval, "cval", (P, degp), device)
-        _check(table.cder, "cder", (P, degp), device)
+        check(table.cval, "cval", (P, degp), device)
+        check(table.cder, "cder", (P, degp), device)
         if not (1 <= P <= lim["max_panels"] and 2 <= degp <= lim["max_deg"] + 1):
             raise ValueError(f"Chebyshev table with {P} panels of degree {degp - 1} is beyond "
                              f"the kernels' limits ({lim['max_panels']} panels, degree "
@@ -426,47 +404,42 @@ def _pair_args(table, box, lj, device):
         look = (1, table.cval, table.cder, P, degp, cheb_geom(table, torch.float32))
     else:
         G, glo, gdx, ghi, blo, bhi = table.geom
-        _check(table.tab, "table", (G, 4), device)
+        check(table.tab, "table", (G, 4), device)
         if G > lim["max_g"]:
             raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lim['max_g']}")
         if table.tab.data_ptr() % 16:
             raise ValueError("table must be 16-byte aligned")
         look = (0, table.tab, table.tab, G, 0, (glo, gdx, ghi, blo, bhi))
     lid, t1, t2, rows, degp, geom = look
-    return (lid, t1.data_ptr(), t2.data_ptr(), rows, degp, _f32(geom),
-            _f32([box[0], box[1], box[2], 1.0 / box[0], 1.0 / box[1], 1.0 / box[2]]),
-            _f32([4.0 * lj.epsilon, lj.sigma * lj.sigma, lj.rcut]))
-
-
-def _raise_on(lib, code: int, what: str):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.edm_error_string(code).decode()}")
+    return (lid, t1.data_ptr(), t2.data_ptr(), rows, degp, f32(geom),
+            f32([box[0], box[1], box[2], 1.0 / box[0], 1.0 / box[1], 1.0 / box[2]]),
+            f32([4.0 * lj.epsilon, lj.sigma * lj.sigma, lj.rcut]))
 
 
 def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
                    ts, type_pair):
     """Checks and launches K1 (``credits``: applied in the kernel) or K6 on
     CUDA tensors."""
-    lib, lim = _library()
+    lib, lim = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
-    _check(xs, "xs", (Cg, cap, 3), xs.device)
-    _check(mc, "mc", (Cg, cap), xs.device)
+    check(xs, "xs", (Cg, cap, 3), xs.device)
+    check(mc, "mc", (Cg, cap), xs.device)
     if not 0 < k <= min(cap, lim["max_k"]):
         raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
     types = (None, None)
     if ts is not None:
-        _check(ts, "ts", (Cg, cap), xs.device)
-        types = (ts.data_ptr(), _f32(type_pair))
+        check(ts, "ts", (Cg, cap), xs.device)
+        types = (ts.data_ptr(), f32(type_pair))
     args = _pair_args(table, box, lj, xs.device)
     code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
         C, Cg, cap, k, *ncells, int(credits), *types, *args, int(energy),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    _raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
+    raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
 
 
 def _device_of(t, what):
@@ -538,12 +511,12 @@ def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
     kw = dict(ncells=ncells, box=box, lj=lj)
     if _device_of(xs, "cell-force") == "cpu":
         return cell_force_full_ref(xs, mc, sid, table, **kw)
-    lib, lim = _library()
+    lib, lim = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     for t, name, shape in ((xs, "xs", (Cg, cap, 3)), (mc, "mc", (Cg, cap)),
                            (sid, "sid", (Cg, cap))):
-        _check(t, name, shape, xs.device)
+        check(t, name, shape, xs.device)
     if cap > lim["max_k"]:
         raise ValueError(f"cell_force_full takes cap <= {lim['max_k']}, got {cap}")
     if Cg < C or min(ncells) < 3:
@@ -556,7 +529,7 @@ def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
         C, Cg, cap, *ncells, *args, torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    _raise_on(lib, code, "cell_force_full")
+    raise_on(lib, code, "cell_force_full")
     cell_force_full.launches += 1
     return f, eb
 
@@ -565,27 +538,32 @@ cell_force_full.launches = 0
 
 
 def overflow_force(xo, xp, table, *, box, lj, energy: bool):
-    """K2 (see ``overflow_force_ref`` for the contract).  On the GPU each
-    partner's credit is owned by one thread and the per-tile tail-row
-    partial sums are reduced in a fixed order by a second pass."""
+    """K2 (see ``overflow_force_ref`` for the contract).  On the GPU a
+    thread per partner takes the distance to each live tail row and the
+    pair arithmetic only within reach of the cutoffs (beyond it the plain
+    version's terms are exact zeros); each partner's credit is owned by one
+    thread; the tail-tail block is one more block of the same sweep, and
+    the per-block partial sums of the tail rows are reduced in a fixed order
+    by a second pass.  The two passes write ``fo`` and ``fp`` whole; at most
+    the library's ``max_o`` (128) tail rows."""
     if _device_of(xo, "overflow-force") == "cpu":
         return overflow_force_ref(xo, xp, table, box=box, lj=lj, energy=energy)
-    lib, lim = _library()
+    lib, lim = library()
     O = xo.shape[1]
     N = xp.shape[1]
-    _check(xo, "xo", (5, O), xo.device)
-    _check(xp, "xp", (4, N), xo.device)
+    check(xo, "xo", (5, O), xo.device)
+    check(xp, "xp", (4, N), xo.device)
     if not 0 < O <= lim["max_o"]:
         raise ValueError(f"unsupported tail rows {O}")
     args = _pair_args(table, box, lj, xo.device)
     fo = torch.empty((4, O), dtype=xo.dtype, device=xo.device)
     fp = torch.empty((3, N), dtype=xo.dtype, device=xo.device)
-    part = torch.empty(((N + 255) // 256, 4, O), dtype=xo.dtype, device=xo.device)
+    part = torch.empty((-(-N // lim["k2_tile"]) + 1, O, 4), dtype=xo.dtype, device=xo.device)
     code = lib.overflow_force_launch(
         xo.data_ptr(), xp.data_ptr(), fo.data_ptr(), fp.data_ptr(), part.data_ptr(),
         O, N, *args, int(energy), torch.cuda.current_stream(xo.device).cuda_stream,
     )
-    _raise_on(lib, code, "overflow_force")
+    raise_on(lib, code, "overflow_force")
     overflow_force.launches += 1
     return fo, fp
 

@@ -17,8 +17,11 @@ per-hill ``bias_added = heights * dx * sum of unit contributions``).
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches on the
 wrapper function.  On the card each block owns a tile of grid points and
-writes values and derivatives once; the per-hill integrals are summed over
-blocks in a fixed order (no atomics, see ``csrc/deposit.cu``).
+writes values and derivatives once; a hill's integrals over the tiles it
+reaches are summed in a fixed order (no atomics, see ``csrc/deposit.cu``).
+The kernels take the raw centres and remap them themselves
+(``remap_periodic_1d`` states their formula), so a launch costs no PyTorch
+call beside its four allocations.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import math
 import torch
 
 from ..gauss import GAUSS_SUPPORT, GaussGrid
+from .kernel_args import check, f32, library, raise_on
 
 
 def supported(gg: GaussGrid) -> bool:
@@ -57,11 +61,56 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
+def _flat(gg: GaussGrid, centers, heights):
+    """Centres (H,) and heights (H,) in the grid dtype, as given."""
+    return centers.to(gg.dtype).reshape(-1), heights.to(gg.dtype).reshape(-1)
+
+
 def _inputs(gg: GaussGrid, centers, heights):
     """Remapped centres (H,) and heights (H,) in the grid dtype."""
-    dtype = gg.dtype
-    x = gg.remap(centers.to(dtype).reshape(-1, 1))[:, 0]
-    return x, heights.to(dtype).reshape(-1)
+    x, h = _flat(gg, centers, heights)
+    return gg.remap(x[:, None])[:, 0], h
+
+
+def remap_periodic_1d(gg: GaussGrid, x):
+    """``GaussGrid.remap`` on the grids ``supported`` admits, as the kernels
+    compute it per hill: x inside [gmin, gmax] stays, any other is wrapped
+    by whole periods, x - Lg floor((x - gmin) / Lg) with Lg = gmax - gmin,
+    every operation in float32."""
+    g = gg.spec.grid
+    gmin, gmax = _scalar(g.min[0], x), _scalar(g.max[0], x)
+    Lg = gmax - gmin
+    return torch.where((x < gmin) | (x > gmax), x - Lg * torch.floor((x - gmin) / Lg), x)
+
+
+def hill_reach(gg: GaussGrid) -> int:
+    """The support radius sqrt(GAUSS_SUPPORT) sigma in whole grid points,
+    plus 4 of slack over the float32 rounding of positions: K4 lists a hill
+    on the tiles that the points ic - reach .. ic + 1 + reach meet, ic the
+    point at or below its centre."""
+    return math.ceil(math.sqrt(GAUSS_SUPPORT) * gg.spec.sigma[0] / gg.spec.grid.dx[0]) + 4
+
+
+def tiles_per_hill(gg: GaussGrid, tile: int) -> int:
+    """The most tiles of ``tile`` points that a hill's reach can meet: the
+    columns T of K4's (H, T) scratch of partial integrals.  2 reach + 2
+    points in a row meet at most (2 reach + 1) // tile + 2 whole tiles, and
+    one more across the wrap seam when the last tile is short."""
+    n_blocks = -(-gg.spec.grid.nbins[0] // tile)
+    return min(n_blocks, (2 * hill_reach(gg) + 1) // tile + 3)
+
+
+def hill_tiles(gg: GaussGrid, x, tile: int):
+    """(first tile, count) of each hill at the remapped centres x (H,), as
+    K4 derives them (``dep_hill_tiles``): tile b holds the hill's partial
+    integral at column (b - first) mod blocks when that is below count."""
+    g = gg.spec.grid
+    G, reach = g.nbins[0], hill_reach(gg)
+    ic = torch.floor((x - _scalar(g.min[0], x)) / _scalar(g.dx[0], x)).to(torch.int64) % G
+    lo, hi = (ic - reach) % G, (ic + 1 + reach) % G
+    first = lo // tile
+    count = (hi // tile - first) % (-(-G // tile)) + 1
+    return first, torch.clamp(count, max=tiles_per_hill(gg, tile))
 
 
 def _commit(gg: GaussGrid, values, derivs) -> GaussGrid:
@@ -131,33 +180,40 @@ def deposit_dense_1d_kernel_ref(gg: GaussGrid, centers, heights, grid_chunk: int
 
 
 def _launch(gg: GaussGrid, centers, heights, windowed: bool):
-    from .cellforce import _check, _f32, _library, _raise_on
-
     if not supported(gg):
         raise ValueError("the deposition kernels take 1-D periodic float32 grids")
-    lib, lim = _library()
-    G = gg.spec.grid.nbins[0]
+    lib, lim = library()
+    g = gg.spec.grid
+    G = g.nbins[0]
     dev = gg.grid.values.device
-    x, h = _inputs(gg, centers, heights)
+    x, h = _flat(gg, centers, heights)
     x, h = x.contiguous(), h.contiguous()
     H = x.shape[0]
     values, derivs = gg.grid.values, gg.grid.derivs
-    _check(values, "values", (G,), dev)
-    _check(derivs, "derivs", (G, 1), dev)
-    _check(x, "centers", (H,), dev)
-    _check(h, "heights", (H,), dev)
-    n_blocks = -(-G // lim["tile_windowed" if windowed else "tile_dense"])
+    check(values, "values", (G,), dev)
+    check(derivs, "derivs", (G, 1), dev)
+    check(x, "centers", (H,), dev)
+    check(h, "heights", (H,), dev)
+    if values.data_ptr() % 16 or derivs.data_ptr() % 16:
+        raise ValueError("values and derivs must be 16-byte aligned")
+    tile = lim["tile_windowed" if windowed else "tile_dense"]
+    reach = hill_reach(gg)
+    if windowed and 2 * reach + 2 + tile > G:
+        raise ValueError(f"hill windows of {2 * reach + 2} points are too wide for the "
+                         f"windowed kernel on {G} points")
+    T = tiles_per_hill(gg, tile) if windowed else -(-G // tile)
     out_v = torch.empty_like(values)
     out_d = torch.empty_like(derivs)
     bias_added = torch.empty_like(h)
-    part = torch.empty((n_blocks, H), dtype=values.dtype, device=dev)
-    reach = math.sqrt(GAUSS_SUPPORT) * gg.spec.sigma[0] / gg.spec.grid.dx[0] + 4.0
+    part = torch.empty((H, T), dtype=values.dtype, device=dev)
+    gmin, dx, L, sigma, inv_denom, k2 = _consts(gg)
     code = lib.deposit_1d_launch(
         values.data_ptr(), derivs.data_ptr(), x.data_ptr(), h.data_ptr(), out_v.data_ptr(),
         out_d.data_ptr(), bias_added.data_ptr(), part.data_ptr(), H, G,
-        _f32(_consts(gg) + (reach,)), int(windowed), torch.cuda.current_stream(dev).cuda_stream,
+        f32((gmin, g.max[0], dx, L, sigma, inv_denom, k2)), reach, T, int(windowed),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, code, "deposit_windowed_1d" if windowed else "deposit_dense_1d_kernel")
+    raise_on(lib, code, "deposit_windowed_1d" if windowed else "deposit_dense_1d_kernel")
     return _commit(gg, out_v, out_d), bias_added
 
 

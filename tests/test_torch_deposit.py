@@ -13,7 +13,10 @@ JAX package.
   - the ``deposit`` dispatcher: each route as the JAX package chooses it on
     a TPU (both packages' route functions spied on), and
     ``GaussGrid.add_value`` against the JAX package's on the K4 and K5
-    grids.
+    grids;
+  - ``deposit_kernels.remap_periodic_1d``, the remap as the CUDA kernels
+    compute it per hill, against ``GaussGrid.remap`` of both packages:
+    float32, exact.
 """
 
 import dataclasses
@@ -192,3 +195,33 @@ def test_wrappers_reject_other_devices():
     for fn in (DK.deposit_windowed_1d, DK.deposit_dense_1d_kernel):
         with pytest.raises(ValueError, match="no deposition kernel"):
             fn(meta, c, torch.ones(2, device="meta"))
+
+
+@pytest.mark.parametrize("lo,hi,G", [(0.0, 10.0, 65536), (-3.3, 7.1, 16384), (2.5, 2.9, 1_000_000)])
+def test_kernel_remap_formula(lo, hi, G):
+    """Centres inside the grid, outside on both sides, several periods away,
+    on the edges and one float beyond them: the formula that K4 and K5 apply
+    to the raw centres gives ``GaussGrid.remap``'s float32 results, bit for
+    bit, in both packages."""
+    dx = (hi - lo) / G
+    kw = dict(periodic=[True], sigma=[30 * dx])
+    jgg = jg.GaussGrid.create([lo], [hi], [dx], dtype=jnp.float32, **kw)
+    tgg = tg.GaussGrid.create([lo], [hi], [dx], dtype=torch.float32, device="cpu", **kw)
+    assert DK.supported(tgg)
+    L = hi - lo
+    rng = np.random.default_rng(21)
+    e = np.float32([lo, hi])
+    edges = np.concatenate([e, np.nextafter(e, np.float32(-np.inf)),
+                            np.nextafter(e, np.float32(np.inf)), e + np.float32(L),
+                            e - np.float32(L)])
+    x = np.concatenate([rng.uniform(lo, hi, 200), rng.uniform(lo - L, lo, 200),
+                        rng.uniform(hi, hi + L, 200), rng.uniform(lo - 40 * L, hi + 40 * L, 400),
+                        edges]).astype(np.float32)
+    got = DK.remap_periodic_1d(tgg, torch.as_tensor(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, tgg.remap(torch.as_tensor(x)[:, None])[:, 0].numpy())
+    np.testing.assert_array_equal(got, np.asarray(jgg.remap(jnp.asarray(x)[:, None]))[:, 0])
+    inside = (x >= np.float32(lo)) & (x <= np.float32(hi))
+    np.testing.assert_array_equal(got[inside], x[inside])
+    assert (got[~inside] != x[~inside]).sum() > 700 and inside.sum() > 200
+    assert got.min() >= np.float32(lo) - 1e-5 * L and got.max() <= np.float32(hi) + 1e-5 * L

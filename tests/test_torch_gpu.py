@@ -16,8 +16,13 @@ binary types of ``test_torch_typed.py``; K7 on states with slot ids at cap
 slot states of ``test_torch_rowpass.py`` (clustered atoms with empty cells
 and holes, a cell full to cap, 3^3 cells) at k = 1, 24, 32 and 64, with
 ``torch.empty`` poisoned, since the kernels must write every element of
-their outputs.  K4 and K5 deposit on the periodic grids of
-``test_torch_deposit.py``, empty and carrying values.  Tolerances as in
+their outputs.  K2 is also run on ``test_torch_k2k4.overflow_case`` (1, 32
+and 128 tail rows of which none, one, 8 or all are live, ``own`` partly
+cleared, 1,000 partners, which is no multiple of the kernel's tile) on
+poisoned outputs.  K4 and K5 deposit on the periodic grids of
+``test_torch_deposit.py``, empty and carrying values, and on grids whose
+size is no multiple of 4 with 1, 200 and 300 raw centres up to three
+periods outside the grid and on its wrap seam.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -43,6 +48,7 @@ from edm_tpu_torch.ops import deposit_kernels as DK
 from edm_tpu_torch.ops.chebyshev import f32_error_bound, fit_gauss_grid
 from edm_tpu_torch.ops.prng import PRNGKey
 from edm_tpu_torch.utils.config import parse_edm_text
+from test_torch_k2k4 import BOX, overflow_case
 from test_torch_rowpass import CASES, slot_state
 
 KCAP, OCAP = 24, 128
@@ -239,6 +245,55 @@ def test_add_value_routes_through_the_kernels(cuda_state):
         assert bool(torch.isfinite(out.grid.values).all()) and ba.shape == (c.shape[0],)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed", [True, False])
+@pytest.mark.parametrize("H", [1, 200, 300])
+@pytest.mark.parametrize("carried", [False, True])
+def test_deposit_kernel_raw_centres(cuda_state, poisoned_empty, windowed, H, carried):
+    """K4 and K5 remap the centres themselves: raw centres up to three
+    periods outside the grid, on the wrap seam and on the edges; one hill,
+    200, and 300 (two list chunks); a grid size that is no multiple of 4 or
+    of the tile; outputs over poisoned memory; bitwise repeats."""
+    dev = torch.device("cuda", 0)
+    G, sigma = (65538, 0.0293170) if windowed else (16386, 0.45)
+    gg = tg.GaussGrid.create([0], [10], [10.0 / G], [True], [sigma], device=dev)
+    W = gg.spec.window_shape[0]
+    assert (W + 256 < G // 2) == windowed and G % 4
+    rng = np.random.default_rng(17)
+    seam = [10.0, 0.0, 9.9999, 1e-4, -1e-4, 10.0001, 20.0, -10.0]
+    c = np.concatenate([seam, rng.uniform(-30, 40, 300)])[:H, None]
+    h = rng.uniform(0.05, 0.2, H)
+    c, h = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (c, h))
+    if carried:
+        gg = DK._commit(gg, torch.tensor(rng.normal(0.0, 1.0, G), dtype=torch.float32, device=dev),
+                        torch.tensor(rng.normal(0.0, 10.0, (G, 1)), dtype=torch.float32,
+                                     device=dev))
+    kernel, ref = ((DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref) if windowed else
+                   (DK.deposit_dense_1d_kernel, DK.deposit_dense_1d_kernel_ref))
+    out, ba = kernel(gg, c, h)
+    out_ref, ba_ref = ref(gg, c, h)
+    torch.cuda.synchronize()
+    for a, b, rel in ((out.grid.values, out_ref.grid.values, 1e-4),
+                      (out.grid.derivs, out_ref.grid.derivs, 3e-4)):
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    assert float((ba - ba_ref).abs().max()) <= 2e-6
+    assert float(((ba - h) / h).abs().max()) <= 1e-3  # conservation
+    out2, ba2 = kernel(gg, c, h)
+    assert torch.equal(out.grid.values, out2.grid.values)
+    assert torch.equal(out.grid.derivs, out2.grid.derivs) and torch.equal(ba, ba2)
+
+
+@pytest.mark.gpu
+def test_windowed_kernel_rejects_wide_windows(cuda_state):
+    """Called directly on a grid of the dense route, K4 raises: a hill's
+    reach would meet itself around the period."""
+    gg = tg.GaussGrid.create([0], [10], [10.0 / 16384], [True], [1.2],
+                             device=torch.device("cuda", 0))
+    c = torch.zeros((2, 1), device=gg.grid.values.device)
+    with pytest.raises(ValueError, match="too wide"):
+        DK.deposit_windowed_1d(gg, c, torch.ones(2, device=c.device))
+
+
 TYPES = np.where(np.arange(600) % 2 == 0, 2, 1).astype(np.int32)  # test_torch_typed.py's
 
 
@@ -365,6 +420,39 @@ def poisoned_empty(monkeypatch):
 
 def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+LIVE = {"none": 0, "one": 1, "eight": 8, "all": 128}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("O", [1, 32, 128])
+@pytest.mark.parametrize("live", list(LIVE))
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("energy", [False, True])
+def test_overflow_force_rows(cuda_state, poisoned_empty, O, live, kind, energy):
+    """K2 on poisoned outputs: O tail rows of which none, one, 8 or all are
+    live, ``own`` cleared on every third live row, against 1,000 partners
+    (8 tiles, the last one ragged), one in eight masked: the plain version's
+    forces, credits and energies, zeros at dead rows and masked partners,
+    and a bitwise repeat."""
+    dev = torch.device("cuda", 0)
+    n_live = min(LIVE[live], O)
+    xo, xp = (t.to(dev) for t in overflow_case(O, n_live, 1000, seed=O + n_live))
+    tab = _table(cuda_state[4], kind)
+    kw = dict(box=BOX, lj=LJ, energy=energy)
+    out = CF.overflow_force(xo, xp, tab, **kw)
+    fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tab, **kw)
+    torch.cuda.synchronize()
+    fo, fp = out
+    assert_forces(fo[:3].cpu(), fo_ref[:3].cpu(), f"K2 O={O} live={n_live} fo")
+    assert_forces(fp.cpu(), fp_ref.cpu(), f"K2 O={O} live={n_live} fp")
+    assert_forces(fo[3].cpu(), fo_ref[3].cpu(), f"K2 O={O} live={n_live} energy rows")
+    assert_energy(fo[3].sum().cpu(), fo_ref[3].sum().cpu(), f"K2 O={O} live={n_live} energy")
+    assert not bool(fo[:, xo[3] < 0.5].any() or fp[:, xp[3] < 0.5].any())
+    assert bool(fp.any()) == (n_live > 0)
+    assert bool(fo[3].any()) == (energy and n_live > 0)
+    assert _same(out, CF.overflow_force(xo, xp, tab, **kw))
 
 
 @pytest.mark.gpu
