@@ -153,7 +153,8 @@ def bench_setup(torch, kT: float, device, path="interp"):
                                PRNGKey(0), n_est=N_ATOMS * 40,
                                pair_lookup=opts.get("pair_lookup", "interp"), **CHEB)
     spec = CellSpec.create(box, cutoff=3.05, n_atoms=N_ATOMS)
-    kw = dict(hill_capacity=2048, energy_stride=10)
+    kw = dict(hill_stride=10, rebuild_stride=10, hill_capacity=2048, cell_chunk=81,
+              use_pallas=True, energy_stride=10)
     st_kw = dict(with_ids=opts.get("with_ids", False))
     if "use_pallas" in opts:
         kw["use_pallas"] = opts["use_pallas"]

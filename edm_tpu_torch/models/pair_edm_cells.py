@@ -246,8 +246,9 @@ class CellStep:
                  spec: CellSpec, *, do_hills: bool, do_energy: bool,
                  do_rebuild: bool, hill_capacity: int, row_cap: int,
                  m_per_row: int, mover_cap: int, kernel_cap, overflow_cap: int,
-                 use_pallas, types, type_pair):
+                 use_pallas, types, type_pair, strides=(1, 1, 1)):
         self.params, self.lp, self.lj, self.spec = params, lp, lj, spec
+        self.strides = strides  # the JAX host's (hill, rebuild, energy) strides
         self.do_hills, self.do_energy, self.do_rebuild = do_hills, do_energy, do_rebuild
         self.hill_capacity, self.row_cap, self.m_per_row = hill_capacity, row_cap, m_per_row
         self.mover_cap = mover_cap
@@ -263,6 +264,23 @@ class CellStep:
         self._c1 = c1
         self._c2 = float(np.sqrt(max(0.0, (1.0 - c1 * c1)) * lp.kT / lp.mass))
         self.host_syncs = 0
+
+    def check_phase(self, pos: int, cycle: int):
+        """Raise unless this static phase is what the JAX host's dynamic
+        step runs at step ``pos`` of a cycle of ``cycle`` steps: hills when
+        ``step % hill_stride == 0``, a rebuild when ``(step + 1) %
+        rebuild_stride == 0``, the energy when ``step % energy_stride ==
+        0``, every stride dividing the cycle (``driver.pattern_segment``)."""
+        hs, rs, es = self.strides
+        if cycle % hs or cycle % rs or cycle % es:
+            raise ValueError(f"a {cycle}-step cycle is not a whole number of the "
+                             f"strides (hill {hs}, rebuild {rs}, energy {es})")
+        want = (pos % hs == 0, (pos + 1) % rs == 0, es == 1 or pos % es == 0)
+        have = (self.do_hills, self.do_rebuild, self.do_energy)
+        if want != have:
+            raise ValueError(
+                f"step {pos} of the cycle runs (hills, rebuild, energy) = {have}, but "
+                f"the strides (hill {hs}, rebuild {rs}, energy {es}) put {want} there")
 
     def __call__(self, state: CellPairState, _=None):
         core = state.core
@@ -655,58 +673,73 @@ def make_cell_step(
     lp: LangevinParams,
     lj: LJParams,
     spec: CellSpec,
-    *,
+    hill_stride: int,
+    rebuild_stride: int = 10,
+    hill_capacity: int = 2048,
+    cell_chunk: int = 32,
+    row_cap: int = 2048,
+    m_per_row: int = 16,
+    axis_name: Optional[str] = None,
+    cheb_deg: int = 64,
+    types=None,
+    type_pair=None,
+    use_pallas=False,
+    collect_records: bool = False,
+    energy_stride: int = 1,
+    slab_axis: Optional[str] = None,
+    slab_ndev: int = 1,
+    mover_cap: Optional[int] = None,
+    slab_collect: bool = True,
+    brick_axes=None,
+    brick_ndev=(1, 1),
+    shard_floor: bool = True,
+    row_cap_local: Optional[int] = None,
     static_do_hills: Optional[bool] = None,
     static_do_energy: Optional[bool] = None,
     static_do_rebuild: Optional[bool] = None,
-    hill_capacity: int = 2048,
-    row_cap: int = 2048,
-    m_per_row: int = 16,
-    use_pallas=True,
-    energy_stride: int = 1,
-    mover_cap: Optional[int] = None,
     kernel_cap: Optional[int] = None,
     overflow_cap: int = 128,
-    types=None,
-    type_pair=None,
-    collect_records: bool = False,
-    slab_axis=None,
-    brick_axes=None,
 ) -> CellStep:
-    """Build one static stride phase of the cell host.
+    """Build one static stride phase of the cell host, with the JAX
+    signature and defaults.
 
-    The caller owns the phase pattern (``driver.pattern_segment``), so the
-    JAX step's ``hill_stride``/``rebuild_stride`` have no counterpart: a
-    ``static_do_hills=True`` step deposits and a ``static_do_rebuild=True``
-    step rebins whatever ``state.step`` is.  ``energy_stride == 1``
-    evaluates the bias energy on every step; otherwise only on
-    ``static_do_energy`` steps (forces are identical either way).
-    ``use_pallas``: True (K1, with K2 under ``kernel_cap``), "newton"
-    (K6 and the credit subtraction) or "full" (K7; a state built with
-    ``with_ids=True`` and a Chebyshev table).  ``types`` (N,) and
-    ``type_pair`` (ti, tj), both given, restrict the CV to that rdf type
-    pair; the state must carry the slot types
+    The caller drives the phases in their cycle (``driver.pattern_segment``),
+    so a ``static_do_hills=True`` step deposits and a
+    ``static_do_rebuild=True`` step rebins whatever ``state.step`` is;
+    ``pattern_segment`` checks that each step sits where the JAX host's
+    ``hill_stride``, ``rebuild_stride`` and ``energy_stride`` would run the
+    same phase (``CellStep.check_phase``).  ``energy_stride == 1`` evaluates
+    the bias energy on every step; otherwise only on ``static_do_energy``
+    steps (forces are identical either way).  ``use_pallas``: True (K1,
+    with K2 under ``kernel_cap``), "newton" (K6 and the credit subtraction)
+    or "full" (K7; a state built with ``with_ids=True`` and a Chebyshev
+    table); the JAX default False (the XLA force path) is not ported.
+    ``types`` (N,) and ``type_pair`` (ti, tj), both given, restrict the CV
+    to that rdf type pair; the state must carry the slot types
     (``init_cell_state(..., types=types)``).  ``kernel_cap``/``overflow_cap``
-    as in the JAX host (default path, untyped)."""
+    as in the JAX host (default path, untyped).  ``cell_chunk`` and
+    ``cheb_deg`` change nothing here: the JAX host reads ``cell_chunk`` to
+    chunk its hill collection and the XLA force path, which computes the
+    same values (the port collects all cells at once), and refits at the
+    carried table's degree, not ``cheb_deg``."""
+    if hill_stride < 1 or rebuild_stride < 1 or energy_stride < 1:
+        raise ValueError("hill_stride, rebuild_stride and energy_stride must be >= 1")
     if None in (static_do_hills, static_do_energy, static_do_rebuild):
         raise NotImplementedError(
-            "dynamic stride conds are not ported: build one step per phase "
-            "with static_do_* and drive them with driver.pattern_segment"
+            "dynamic stride conds are not ported (ROADMAP Queue 1, item 4): build one "
+            "step per phase with static_do_* and drive them with driver.pattern_segment"
         )
     if use_pallas not in (True, "newton", "full"):
         raise NotImplementedError(
             f"use_pallas={use_pallas!r} (the XLA force path) is not ported yet "
-            "(ROADMAP Queue 1, item 14)"
+            "(ROADMAP Queue 1, item 4)"
         )
     if collect_records:
-        raise NotImplementedError("hill-record collection is not ported yet (ROADMAP Queue 1, item 10)")
-    if slab_axis is not None or brick_axes is not None:
-        raise NotImplementedError("slab/brick sharding is not ported yet (ROADMAP Queue 1, item 12)")
-    if min(spec.ncells) < 3:
-        raise ValueError(
-            "cell list needs >= 3 cells per dim (box >= 3x interaction "
-            "range); use the dense/blocked host for small boxes"
-        )
+        raise NotImplementedError("hill-record collection is not ported yet (ROADMAP Queue 1, item 5)")
+    if (axis_name is not None or slab_axis is not None or brick_axes is not None
+            or slab_ndev != 1 or tuple(brick_ndev) not in ((1, 1), (1, 1, 1))):
+        raise NotImplementedError(
+            "axis_name and slab/brick sharding are not ported yet (ROADMAP Queue 1, item 7)")
     if kernel_cap is not None:
         if use_pallas is not True:
             raise ValueError("kernel_cap requires the default Newton kernel path (use_pallas=True)")
@@ -728,6 +761,11 @@ def make_cell_step(
                     f"is below the interaction range {rng:.4f}; build the "
                     "CellSpec with cutoff >= that range"
                 )
+    if min(spec.ncells) < 3:
+        raise ValueError(
+            "cell list needs >= 3 cells per dim (box >= 3x interaction "
+            "range); use the dense/blocked host for small boxes"
+        )
     if mover_cap is None:
         mover_cap = max(256, -(-spec.n_atoms // 32))
     return CellStep(
@@ -738,4 +776,5 @@ def make_cell_step(
         hill_capacity=hill_capacity, row_cap=row_cap, m_per_row=m_per_row,
         mover_cap=mover_cap, kernel_cap=kernel_cap, overflow_cap=overflow_cap,
         use_pallas=use_pallas, types=types, type_pair=type_pair,
+        strides=(hill_stride, rebuild_stride, energy_stride),
     )

@@ -307,7 +307,8 @@ def test_cheb_slice_matches_jax_step_for_step():
     jsteps = [jax.jit(make_cell_step(params, lp, LJ, spec, hill_stride=10, rebuild_stride=10,
                                      use_pallas=True, **kw, **ph)) for ph in PHASES]
     tsteps = [tpc.make_cell_step(to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ_,
-                                 tcells.CellSpec(**dataclasses.asdict(spec)), **kw, **ph)
+                                 tcells.CellSpec(**dataclasses.asdict(spec)), 10,
+                                 use_pallas=True, **kw, **ph)
               for ph in PHASES]
     ts = to_port(st, device="cpu")
     assert ts.core.cheb is not None and ts.core.cheb.npanels == 4 and ts.core.cheb.deg == 16

@@ -103,7 +103,8 @@ def test_cell_force_newton_kernel(cuda_state, k, energy):
 @pytest.mark.parametrize("energy", [False, True])
 def test_overflow_force_kernel(cuda_state, energy):
     params, spec, st, tbl, _ = cuda_state
-    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, static_do_hills=False,
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, 10,
+                          use_pallas=True, static_do_hills=False,
                           static_do_energy=energy, static_do_rebuild=False,
                           kernel_cap=KCAP, overflow_cap=OCAP)
     xo, xp = step._overflow_inputs(st, st.xs)
@@ -162,8 +163,8 @@ def test_cell_force_newton_cheb_kernel(cuda_state, panels, deg, k, energy):
 def test_overflow_force_cheb_kernel(cuda_state, panels, deg, energy):
     params, spec, st, _, gg = cuda_state
     tab = fit_gauss_grid(gg, deg, panels)
-    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec,
-                          static_do_hills=False, static_do_energy=energy,
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, 10,
+                          use_pallas=True, static_do_hills=False, static_do_energy=energy,
                           static_do_rebuild=False, kernel_cap=KCAP, overflow_cap=OCAP)
     xo, xp = step._overflow_inputs(st, st.xs)
     kw = dict(box=spec.box, lj=LJ, energy=energy)

@@ -240,7 +240,7 @@ def test_legacy_step_matches_jax_step_for_step(use_pallas):
     jsteps = [jax.jit(make_cell_step(params, lp, LJ, spec, hill_stride=10, rebuild_stride=10,
                                      **kw, **ph)) for ph in PHASES]
     tsteps = [tpc.make_cell_step(to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ_,
-                                 tcells.CellSpec(**dataclasses.asdict(spec)), **kw, **ph)
+                                 tcells.CellSpec(**dataclasses.asdict(spec)), 10, **kw, **ph)
               for ph in PHASES]
     ts = to_port(st)
     for i in range(20):

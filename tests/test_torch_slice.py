@@ -82,7 +82,8 @@ def test_slice_matches_jax_step_for_step():
     tspec = tcells.CellSpec(**dataclasses.asdict(spec))
     tparams, ts = to_port(params), to_port(st)
     tsteps = [tpc.make_cell_step(tparams, TLP(dt=0.002, friction=1.0, kT=0.0),
-                                 TLJ(epsilon=1.0, sigma=0.3, rcut=0.75), tspec, **kw, **ph)
+                                 TLJ(epsilon=1.0, sigma=0.3, rcut=0.75), tspec, 10,
+                                 use_pallas=True, **kw, **ph)
               for ph in PHASES]
     ts0 = ts
     assert bool(st.tail_ovf) and ts.tail_ovf_host  # the first period falls back
@@ -126,21 +127,30 @@ def test_slice_matches_jax_step_for_step():
 def test_make_cell_step_rejects_unported_options():
     params, spec, _ = _jax_setup()
     tspec = tcells.CellSpec(**dataclasses.asdict(spec))
-    args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec)
+    args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec, 10)
     with pytest.raises(NotImplementedError, match="static_do"):
-        tpc.make_cell_step(*args)
-    for kw, item in ((dict(use_pallas=False), "item 14"), (dict(collect_records=True), "item 10"),
-                     (dict(slab_axis="x"), "item 12")):
+        tpc.make_cell_step(*args, use_pallas=True)
+    for kw, item in ((dict(use_pallas=False), "item 4"),
+                     (dict(use_pallas=True, collect_records=True), "item 5"),
+                     (dict(use_pallas=True, slab_axis="x"), "item 7"),
+                     (dict(use_pallas=True, axis_name="i"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tpc.make_cell_step(*args, **PHASES[1], **kw)
+    ok = dict(use_pallas=True, **PHASES[1])
     with pytest.raises(ValueError, match="multiple of 8"):
-        tpc.make_cell_step(*args, **PHASES[1], kernel_cap=20)
+        tpc.make_cell_step(*args, **ok, kernel_cap=20)
     # kernel_cap only on the default path, untyped (as the JAX host)
     with pytest.raises(ValueError, match="type-filtered"):
-        tpc.make_cell_step(*args, **PHASES[1], kernel_cap=24, types=np.ones(N, np.int32),
+        tpc.make_cell_step(*args, **ok, kernel_cap=24, types=np.ones(N, np.int32),
                            type_pair=(1, 2))
     with pytest.raises(ValueError, match="use_pallas=True"):
         tpc.make_cell_step(*args, **PHASES[1], kernel_cap=24, use_pallas="newton")
+    # a phase where its strides do not put it
+    steps = [tpc.make_cell_step(*args, use_pallas=True, **ph) for ph in PHASES]
+    with pytest.raises(ValueError, match="strides"):
+        pattern_segment([(steps[0], 1), (steps[1], 9)], 10)
+    with pytest.raises(ValueError, match="whole number"):
+        pattern_segment([(steps[0], 1), (steps[1], 3)], 8)
 
 
 def test_port_imports_without_jax():

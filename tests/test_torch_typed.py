@@ -179,7 +179,8 @@ def test_typed_step_matches_jax_step_for_step():
                                      use_pallas=True, **kw, **ph)) for ph in PHASES]
     tparams, tspec = to_port(params), tcells.CellSpec(**dataclasses.asdict(spec))
     tlp = TLP(dt=0.002, friction=1.0, kT=0.0)
-    tsteps = [tpc.make_cell_step(tparams, tlp, TLJ_, tspec, **kw, **ph) for ph in PHASES]
+    tsteps = [tpc.make_cell_step(tparams, tlp, TLJ_, tspec, 10, use_pallas=True, **kw, **ph)
+              for ph in PHASES]
     ts = ts0 = to_port(st)
     for i in range(20):
         st, e = jsteps[_phase(i)](st, None)
@@ -198,7 +199,8 @@ def test_typed_step_matches_jax_step_for_step():
                                    atol=1e-5 * max(1.0, np.abs(grid).max()))
     assert float(st.core.bias.cum_bias) > 0 and not bool(st.core.hills_truncated)
     # the typed round's candidates are a strict subset of the untyped one's
-    untyped = tpc.make_cell_step(tparams, tlp, TLJ_, tspec, hill_capacity=512, energy_stride=10,
+    untyped = tpc.make_cell_step(tparams, tlp, TLJ_, tspec, 10, use_pallas=True,
+                                 hill_capacity=512, energy_stride=10,
                                  **PHASES[0])
     typed_calls = int(tsteps[0](ts0)[0].core.last_calls)
     assert 0 < typed_calls < int(untyped(ts0)[0].core.last_calls)
