@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives six paths of the port through their CUDA kernels and checks each
+Drives seven paths of the port through their CUDA kernels and checks each
 kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -21,7 +21,12 @@ kernel against its plain PyTorch version on the same card:
     collection);
   - ``bench.py:bench_deposition``: 200 hills per ``GaussGrid.add_value`` on
     the periodic 1e6-point grid, K4 ``deposit_windowed_1d``; and one round
-    on a grid whose windows are wide, K5 ``deposit_dense_1d_kernel``.
+    on a grid whose windows are wide, K5 ``deposit_dense_1d_kernel``;
+  - ``bench.py:bench_coord2d``: the 2-D coordinate host
+    (``models/coord_edm``, 10,000 free particles, a periodic 1000 x 1000
+    grid, hill_density 250, hill_capacity 2048, the cached corner table,
+    ``driver.strided_segment`` with hill_stride 10): every draw through
+    the Threefry kernel ``prng.threefry_bits``.
 
 Phases: the card (nvidia-smi name and power limit) and software versions;
 the kernel build from ``edm_tpu_torch/csrc`` (one nvcc per source, sm_90a);
@@ -32,8 +37,15 @@ launch counters reset (rate, host syncs, the device-busy share of a
 stride cycle, end-state checks; the typed path also holds its first hill
 round's candidates below the untyped round's); the deposition run (hills/s,
 host syncs, device-busy share and device launches of a round; its final
-grid held to the same rounds through the plain versions).  The deposition
-kernels are checked on grids that already carry hills.  It prints one
+grid held to the same rounds through the plain versions); the Threefry
+kernel against the numpy chain, bitwise; the 2-D slice, 20 kT = 0 steps
+each taken from the same input state on the card and on the CPU (integer
+leaves exactly, the rest within ``COORD_*``; the worst difference of each
+leaf printed), then the bench's kT = 1.0 run (100 warm-up steps, each hill
+round's growth of the grid's integral held to its round_bias; 1,000 timed
+steps: steps/s, the device-busy share of a cycle, device launches per
+step, the top device operations, host syncs per hill and plain step).  The
+deposition kernels are checked on grids that already carry hills.  It prints one
 ``kernels`` JSON line (launches, errors, times, the card's least time for
 the work; ``ms`` is the wrapper's time per call by CUDA events, which the
 host bounds, ``device_ms`` the device time per launch in the path's
@@ -95,8 +107,8 @@ DIST_FLOPS, HILL_FLOPS = 9, 10
 # the device functions of csrc/*.cu, as the profiler names them, by wrapper:
 # the row pass and its credit pass (K1, K6, K7), K2's two passes, the
 # deposition's
-ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS = ("k1_",), ("k2_",), ("dep_",)
-PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS
+ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS, TF_FUNCS = ("k1_",), ("k2_",), ("dep_",), ("tf_",)
+PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS
 
 
 def card_line() -> str:
@@ -905,6 +917,230 @@ def deposition_run(torch, device, rounds=256):
             device_ms)
 
 
+COORD_N = 10000  # bench.py:bench_coord2d
+COORD_CFG = ("tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 250\n"
+             "dimension 2\nbox_low 0 0\nbox_high 10 10\nbias_spacing 0.01 0.01\n"
+             "bias_sigma 0.05 0.05\n")
+# card vs CPU, each step from the same input state: positions, velocities
+# and forces take the same IEEE operations on both (no transcendental in the
+# lookup) and are held to 4 float32 ulps of their max; the bias grid,
+# its corner table and the buffered heights sum 2048 hills in another order
+# (cuBLAS against the CPU's BLAS) from exp() an ulp apart: 1e-5 of max|.|;
+# cum_bias and the energy (sums of the same) 1e-5 relative
+COORD_ULPS, COORD_GRID_REL = 4, 1e-5
+# each hill round's growth of the grid's integral against its round_bias:
+# float32 grids add terms of ~1e-4 at ~3e5 points a round (6.7e-8 seen on
+# the CPU at full width)
+COORD_INTEGRAL_REL = 1e-5
+
+
+def coord_setup(torch, kT: float, device):
+    """bench.py:bench_coord2d's configuration through the port's entry
+    points: bias.subdivide (periodic [0, 10]^2, 1000 x 1000 points) ->
+    coord_edm.init_state (10,000 free particles from default_rng(77),
+    PRNGKey(0), the cached corner table) -> make_step(hill_stride=10,
+    static_do_hills=True / False), hill_capacity at its default 2048."""
+    from edm_tpu_torch import bias as B
+    from edm_tpu_torch.models import coord_edm
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.ops.prng import PRNGKey
+    from edm_tpu_torch.utils.config import parse_edm_text
+
+    cfg = parse_edm_text(COORD_CFG)
+    params, bs = B.subdivide(cfg, 1.0, 1.0, [0, 0], [10, 10], [0, 0], [10, 10], [True, True],
+                             [0, 0], dtype=torch.float32, device=device)
+    rng = np.random.default_rng(77)
+    x0 = torch.tensor(rng.uniform(0, 10, (COORD_N, 2)), dtype=torch.float32, device=device)
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
+    steps = [coord_edm.make_step(params, lp, hill_stride=10, static_do_hills=h)
+             for h in (True, False)]
+    state = coord_edm.init_state(params, bs, x0, PRNGKey(0), lp)
+    if state.ptab is None or steps[0].hill_capacity != 2048:
+        raise AssertionError("the 2-D bench state lacks its corner table or hill capacity")
+    return state, steps
+
+
+def tree_to(obj, device):
+    """A state's tensors on ``device`` (dataclasses rebuilt field by field)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: tree_to(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def coord_compare(i, ks, ps, worst):
+    """One step of the card's 2-D run against the CPU's from the same
+    input: integer leaves exactly, the rest as ``COORD_*`` states; the
+    worst difference of each leaf goes to ``worst``."""
+
+    def exact(name, a, b):
+        if not bool((a.cpu() == b.cpu()).all()):
+            raise AssertionError(f"2-D step {i}: {name} differs between the card and the CPU")
+
+    def near(name, a, b, rel, ulps=None):
+        a, b = a.cpu().double(), b.cpu().double()
+        scale = max(1.0, float(b.abs().max()))
+        bnd = ulps * float(np.spacing(np.float32(scale))) if ulps else rel * scale
+        e = float((a - b).abs().max())
+        worst[name] = max(worst.get(name, 0.0), e)
+        if not e <= bnd:
+            raise AssertionError(f"2-D step {i}: {name} differs by {e:.3e} > {bnd:.3e}")
+
+    if not np.array_equal(ks.key, ps.key):
+        raise AssertionError(f"2-D step {i}: key differs")
+    exact("step", ks.step, ps.step)
+    exact("hills_truncated", ks.hills_truncated, ps.hills_truncated)
+    kb, pb = ks.bias, ps.bias
+    for name in ("buf_left", "buf_right", "overflow_error", "steps"):
+        exact(name, getattr(kb, name), getattr(pb, name))
+    exact("cv_hist", kb.cv_hist.values, pb.cv_hist.values)
+    for name in ("x", "v", "f"):
+        near(name, getattr(ks, name), getattr(ps, name), None, COORD_ULPS)
+    for name, a, b in (("grid values", kb.bias.grid.values, pb.bias.grid.values),
+                       ("grid derivs", kb.bias.grid.derivs, pb.bias.grid.derivs),
+                       ("ptab", ks.ptab, ps.ptab), ("buf_h", kb.buf_h, pb.buf_h),
+                       ("buf_pos", kb.buf_pos, pb.buf_pos)):
+        near(name, a, b, COORD_GRID_REL)
+    for name, a, b in (("cum_bias", kb.cum_bias, pb.cum_bias), ("energy", ks.energy, ps.energy)):
+        a, b = float(a), float(b)
+        worst[name] = max(worst.get(name, 0.0), abs(a - b))
+        if not abs(a - b) <= COORD_GRID_REL * max(1.0, abs(b)):
+            raise AssertionError(f"2-D step {i}: {name} {a!r} on the card, {b!r} on the CPU")
+
+
+def coord_zero_temperature(torch, device, n_steps=20):
+    """The 2-D slice at full width, 20 steps at kT = 0 (the thermostat's
+    normals drop out): each step taken from the same input state by the
+    port on the card and by the port on the CPU (float32), held to each
+    other by ``coord_compare``; two of them are hill steps."""
+    cpu = torch.device("cpu")
+    state, steps = coord_setup(torch, 0.0, device)
+    _, steps_cpu = coord_setup(torch, 0.0, cpu)
+    worst, hills = {}, 0
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 1
+        ref, _ = steps_cpu[k](tree_to(state, cpu))
+        state, _ = steps[k](state)
+        coord_compare(i, state, ref, worst)
+        hills += k == 0
+    if hills < 2 or not float(state.bias.cum_bias) > 0:
+        raise AssertionError("the kT = 0 2-D run deposited no hills")
+    print(f"kT=0 2-D: {n_steps} steps ({hills} hill steps) on the card match the port on the "
+          f"CPU step for step; worst |diff|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def coord_run(torch, device, warm_steps=100, timed_steps=1000):
+    """The bench's kT = 1.0 2-D run: ``warm_steps`` step by step, each hill
+    round's growth of the grid's integral (values.sum() dx dy, in float64)
+    held to its round_bias; then ``timed_steps`` in whole stride cycles
+    through ``driver.strided_segment`` (host clock up to a device sync),
+    with the Threefry counter set to 0 just before and read just after.
+    Then one cycle's profile (device-busy share, launches per step, top
+    device operations) and the host syncs of a hill step and a plain step
+    (CUDA sync-debug mode)."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.ops import prng
+
+    state, steps = coord_setup(torch, 1.0, device)
+    g = state.bias.bias.spec.grid
+    vol = g.dx[0] * g.dx[1]
+    worst_int = 0.0
+    for i in range(warm_steps):
+        hill = i % 10 == 0
+        if hill:
+            before = float(state.bias.bias.grid.values.double().sum()) * vol
+            cum0 = float(state.bias.cum_bias)
+        state, _ = steps[0 if hill else 1](state)
+        if hill:
+            grown = float(state.bias.bias.grid.values.double().sum()) * vol - before
+            rb = float(state.bias.cum_bias) - cum0
+            worst_int = max(worst_int, abs(grown - rb) / max(rb, 1e-30))
+            if not (rb > 0 and abs(grown - rb) <= COORD_INTEGRAL_REL * rb):
+                raise AssertionError(f"2-D hill round at step {i}: the grid's integral grew "
+                                     f"by {grown!r}, its round_bias is {rb!r}")
+    for s in steps:
+        s.host_syncs = 0
+    seg = strided_segment(steps[0], steps[1], 10, timed_steps)
+    torch.cuda.synchronize()
+    prng.threefry_bits.launches = 0
+    t0 = time.perf_counter()
+    state, e = seg(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tf = prng.threefry_bits.launches
+    syncs = sum(s.host_syncs for s in steps)
+    cycle = strided_segment(steps[0], steps[1], 10, 10)
+    dev_us, per, top, per_cycle = device_time_us(torch, lambda: cycle(state), 2)
+    print(busy_line("kT=1.0 2-D stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    census = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for name, step in (("hill step", steps[0]), ("plain step", steps[1])):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(state)
+            census[name] = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b = state.bias
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.f, e,
+                                                               b.bias.grid.values)),
+        "no overflow_error": not bool(b.overflow_error),
+        "no hills_truncated": not bool(state.hills_truncated),
+        "cum_bias > 0": float(b.cum_bias) > 0,
+        "Threefry kernel: two launches a step": n_tf == 2 * timed_steps,
+        "no sync on plain steps": census["plain step"] == 0,
+    }
+    print(f"host syncs (CUDA sync-debug mode): {census}; counted by the steps: "
+          f"{syncs / (timed_steps / 10):.2f} per stride cycle")
+    print(f"kT=1.0 2-D (N={COORD_N}, 1000 x 1000 grid, hill_capacity 2048): {timed_steps} steps "
+          f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, device launches per step "
+          f"{per_cycle / 10:.1f}, Threefry launches {n_tf}, cum_bias {float(b.cum_bias):.6g}, "
+          f"hill rounds {int(b.steps)}, buffered {int(b.buf_right)}, worst integral vs "
+          f"round_bias {worst_int:.3e} relative")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=1.0 2-D run failed: {failed}")
+    return timed_steps / dt, n_tf, funcs_ms(per, TF_FUNCS, 20.0)
+
+
+def threefry_kernel_phase(torch, device):
+    """The Threefry kernel against ``ops/prng``'s numpy chain, bitwise, for
+    n = 10,000 and 20,000 (the 2-D step's draws) and two keys, both
+    outputs; its time at n = 20,000 (the step's normals) beside the plain
+    version's (the numpy chain and its copy to the card)."""
+    from edm_tpu_torch.ops import prng
+
+    rows = {}
+    for n in (20000, 10000):
+        for seed in (0, 2**33 + 5):
+            key = prng.PRNGKey(seed)
+            for wide in (False, True):
+                out = prng.threefry_bits(key, n, device, wide=wide)
+                ref = prng._bits_ref(key, n, wide)
+                torch.cuda.synchronize()
+                bad = int((out.cpu() != ref).sum())
+                if bad:
+                    raise AssertionError(f"threefry_bits n={n} seed={seed} wide={wide}: "
+                                         f"{bad} words differ from the numpy chain")
+        key = prng.PRNGKey(0)
+        ms = cuda_ms(torch, lambda: prng.threefry_bits(key, n, device))
+        plain = cuda_ms(torch, lambda: prng._bits_ref(key, n, False).to(device), reps=10)
+        rows[f"threefry_bits n={n}"] = (0.0, ms, plain) + bound(0.0, 4 * n)
+    print("Threefry kernel: bitwise equal to the numpy chain (n = 10000, 20000; 2 keys; "
+          "both outputs)")
+    print_rows(rows)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, device_ms, rows, prefix):
     """One ``kernels`` record: the worst error over the prefix's checks,
     the time and bound of its first row (the main path's shape), and the
@@ -1067,6 +1303,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     _, dep, dep_ms = deposition_run(torch, device)
     print(f"deposition: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    rows.update(threefry_kernel_phase(torch, device))
+    coord_zero_temperature(torch, device)
+    _, n_tf, tf_ms = coord_run(torch, device)
+    print(f"2-D slice: {time.perf_counter() - t_phase:.1f} s")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
@@ -1086,15 +1327,21 @@ def main() -> int:
         ("cell_force_full", cf, "cellforce_pallas.py:1002", ("full", k7), "cell_force_full"),
         ("cell_force_newton[typed]", cf, "cellforce_pallas.py:291", ("typed", k1),
          "cell_force_newton[typed]"),
+        # no Pallas kernel: the jax.random Threefry draws that XLA computes
+        ("threefry_bits", "edm_tpu_torch/csrc/threefry.cu", "../models/langevin.py:51",
+         "2-D", "threefry_bits"),
     ]
     records = []
     for name, source, replaces, where, prefix in entries:
         if isinstance(where, tuple):
             path, wrapper = where
             n, dev = launches[path][wrapper], device_ms[path][wrapper]
+        elif where == "2-D":
+            n, dev = n_tf, tf_ms
         else:
             n, dev = dep[prefix], dep_ms[where]
-        records.append(kernel_entry(name, source, "edm_tpu/ops/" + replaces, n, dev, rows, prefix))
+        records.append(kernel_entry(name, source, os.path.normpath("edm_tpu/ops/" + replaces),
+                                    n, dev, rows, prefix))
     print(json.dumps({"kernels": records}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``load_library()`` compiles ``csrc/*.cu`` (the cell-force kernels and the
-deposition kernels) with ``nvcc`` for ``sm_90a``, one process per source
+``load_library()`` compiles ``csrc/*.cu`` (the cell-force kernels, the
+deposition kernels and the Threefry bits) with ``nvcc`` for ``sm_90a``, one process per source
 run at once, and links them into one shared library with a plain C
 interface, under ``_build/`` next to this file (git-ignored); it loads
 the library with ctypes.  The library's name carries a
@@ -69,14 +69,20 @@ def _declare(lib):
     lib.overflow_force_launch.argtypes = [vp] * 5 + [i] * 2 + table
     lib.overflow_force_launch.restype = i
     # values, derivs, centers, heights, new values, new derivs, bias_added,
-    # partials, H, G, geom, reach, T, windowed, stream
+    # scratch, H, G, geom, reach, T, windowed, stream
     lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, i, i, vp]
     lib.deposit_1d_launch.restype = i
+    # k0, k1, n, wide, out, stream
+    lib.threefry_bits_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, i,
+                                         vp, vp]
+    lib.threefry_bits_launch.restype = i
     for name in _LIMITS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.edm_deposit_tile.argtypes = [i]
     lib.edm_deposit_tile.restype = i
+    lib.edm_deposit_scratch.argtypes = [i, i, i, i]
+    lib.edm_deposit_scratch.restype = ctypes.c_longlong
     lib.edm_error_string.argtypes = [i]
     lib.edm_error_string.restype = ctypes.c_char_p
     return lib

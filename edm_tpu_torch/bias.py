@@ -16,11 +16,13 @@ explicit ``BiasState``.  ``add_hills_round`` is one pre/add/post hill cycle
 The JAX package's deliberate fixes vs the reference carry over (proper
 FIFO overflow buffer; out-of-bounds replicas add 0 to cum_bias).
 
-Ported for the 1-D pairwise slice: one hill pass (``n_passes=1``) with the
-dense 1-D deposit tables.  Not ported yet: ``update_forces`` and multi-pass
-rounds (ROADMAP Queue 1, item 2), N-D and windowed deposition (items 8 and
-9), replay heights and sharded offsets (item 12), initial-bias files
-(item 10).
+Ported: ``update_forces`` and one hill pass (``n_passes=1``) with each
+deposit route of the JAX round but one: the dense 1-D tables, the
+separable tables of fully periodic 2-D/3-D grids, and the windowed
+scatter.  Not ported yet: the McGovern–De Pablo separable tables of
+non-periodic 2-D/3-D grids (ROADMAP Queue 1, item 3), multi-pass rounds
+and replay heights (item 4), initial-bias files (item 5), sharded offsets
+and ``axis_name`` (item 7).  Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,9 +32,18 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+import numpy as np
+
 from .gauss import GaussGrid
-from .grid import Grid, GridSpec
-from .ops.deposit import deposit_from_tables, dense_tables_1d
+from .grid import Grid, GridSpec, device_const
+from .ops.deposit import (
+    deposit_from_tables,
+    deposit_from_tables_sep,
+    deposit_precomputed,
+    dense_tables_1d,
+    dense_tables_sep,
+    hill_windows,
+)
 from .ops.prefix_cap import cap_scan, drain_scan
 from .utils.config import EDMConfig
 from .utils.errors import edm_error
@@ -89,7 +100,7 @@ def subdivide(
     """Build the local bias grid for this domain (edm_bias.cpp:98-222)."""
     if initial_bias is not None:
         raise NotImplementedError(
-            "initial bias grids are not ported yet (ROADMAP Queue 1, item 10)"
+            "initial bias grids are not ported yet (ROADMAP Queue 1, item 5)"
         )
     D = cfg.dim
     if temperature < 0:
@@ -150,6 +161,26 @@ def subdivide(
     return params, state
 
 
+def update_forces(params: BiasParams, state: BiasState, positions, mask=None, packed=None):
+    """Batched bias energy and derivative lookup (edm_bias.cpp:276-311).
+    ``positions`` (N, >= D): the first D components are the CV.  Returns
+    (total energy, der (N, D)); the host applies ``forces[:, :D] -= der``.
+    ``mask`` (N,) bool zeroes the unmasked rows; ``packed``: the bias
+    grid's ``ops/interp.packed_corner_table``, if the host keeps one."""
+    D = params.cfg.dim
+    dtype = state.bias.dtype
+    x = positions[..., :D]
+    if params.b_outofbounds:
+        return (torch.zeros((), dtype=dtype, device=x.device),
+                torch.zeros(x.shape, dtype=dtype, device=x.device))
+    v, der = state.bias.get_value_deriv(x, packed=packed)
+    if mask is not None:
+        zero = torch.zeros((), dtype=dtype, device=x.device)
+        v = torch.where(mask, v, zero)
+        der = torch.where(mask[..., None], der, zero)
+    return torch.sum(v), der
+
+
 class RoundRecords(NamedTuple):
     """What the hills log, the histogram and the tests need about one round
     (field for field the JAX package's ``RoundRecords``)."""
@@ -207,7 +238,7 @@ def _hill_heights(params, bias_grid, positions, est_hill_count, pref):
         # strict `< 0` as in edm_bias.cpp:547 (the code wins over the README)
         h = h * torch.exp(-bias_grid.get_value(positions) / ((cfg.bias_factor - 1) * kT))
     if cfg.hill_density < 0:
-        h = h / est_hill_count
+        h = h / device_const(est_hill_count, h.device, h.dtype)
     else:
         h = h / cfg.hill_density
     return torch.clamp(h, max=BIAS_CLAMP * cfg.bias_per_step)
@@ -222,12 +253,23 @@ def hill_heights(params: BiasParams, state: BiasState, positions, est_hill_count
 
 
 def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
-                    est_hill_count, active=None):
+                    est_hill_count, active=None, axis_name=None, override_heights=None,
+                    boundary_offset=None, n_passes: int = 1):
     """One pre_add_hill / add_hill* / post_add_hill cycle.
 
     Returns ``(new_state, records, host_reads)``: ``host_reads`` counts the
     flags the capping loop read back to the host (``ops/prefix_cap``).
-    Only the single-pass dense 1-D deposit is ported."""
+    ``est_hill_count``: a number or a 0-d tensor.  The deposit route is the
+    JAX round's: dense 1-D tables for small 1-D grids, separable tables for
+    fully periodic 2-D/3-D grids (``exact_deposit`` off), else the windowed
+    scatter; one route serves the drain and the hill pass."""
+    if n_passes != 1 or override_heights is not None:
+        raise NotImplementedError(
+            "multi-pass rounds and replay heights are not ported yet (ROADMAP Queue 1, item 4)")
+    if axis_name is not None or boundary_offset is not None:
+        raise NotImplementedError(
+            "axis_name and boundary_offset (the sharded hosts) are not ported yet "
+            "(ROADMAP Queue 1, item 7)")
     cfg = params.cfg
     D = cfg.dim
     dtype = state.bias.dtype
@@ -237,6 +279,7 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     H = positions.shape[0]
     CAP = state.buf_h.shape[0]
     cap_bias = cfg.bias_per_step
+    vol = float(np.prod(state.bias.spec.grid.dx))
     zero = torch.zeros((), dtype=dtype, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     if active is None:
@@ -261,13 +304,37 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
         )
         return new_state, rec, 0
 
-    g1 = state.bias.spec
-    if not (D == 1 and g1.grid.nbins[0] <= 1024
-            and (not g1.grid.periodic[0] or g1.window_shape[0] < g1.grid.nbins[0])):
+    # the deposit route (edm_tpu/bias.py add_hills_round, use_dense*)
+    gs = state.bias.spec
+    windows_fit = all(w < n for w, n in zip(gs.window_shape, gs.grid.nbins))
+    use_dense = (D == 1 and gs.grid.nbins[0] <= 1024
+                 and (not gs.grid.periodic[0] or gs.window_shape[0] < gs.grid.nbins[0]))
+    use_dense2 = (D in (2, 3) and not params.exact_deposit and all(gs.grid.periodic)
+                  and all(gs.boundary_periodic) and windows_fit)
+    if (D in (2, 3) and not params.exact_deposit and not all(gs.boundary_periodic)
+            and windows_fit):
         raise NotImplementedError(
-            "add_hills_round is ported for the dense 1-D deposit only "
-            "(ROADMAP Queue 1, items 8 and 9)"
-        )
+            "the McGovern-De Pablo separable deposit (dense_tables_mcgdp) of a non-periodic "
+            "2-D/3-D grid is not ported yet (ROADMAP Queue 1, item 3); exact_deposit=True "
+            "takes the windowed scatter")
+
+    def _tables(bias_g, pos):
+        """(deposit tables, unit integrals s) from the grid's geometry."""
+        if use_dense:
+            Mval, Mder, s = dense_tables_1d(bias_g, pos)
+            return (Mval, Mder), s
+        if use_dense2:
+            tabs, s = dense_tables_sep(bias_g, pos)
+            return tabs, s
+        hw = hill_windows(bias_g, pos)
+        return hw, torch.sum(hw.value_w, dim=-1) * vol
+
+    def _deposit(bias_g, tabs, dep_h):
+        if use_dense:
+            return deposit_from_tables(bias_g, tabs[0], tabs[1], dep_h)
+        if use_dense2:
+            return deposit_from_tables_sep(bias_g, tabs, dep_h)
+        return deposit_precomputed(bias_g, tabs, dep_h)[0]
 
     # 1. global tempering (edm_bias.cpp:422-426)
     pref = round_prefactor(params, state)
@@ -280,9 +347,9 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     win_h = state.buf_h[widx]
     n_buf = state.buf_right - state.buf_left
     win_active = torch.arange(DRAIN, device=dev) < n_buf
-    bMval, bMder, s_buf = dense_tables_1d(state.bias, win_pos)
+    btabs, s_buf = _tables(state.bias, win_pos)
     dr = drain_scan(win_h, s_buf, win_active, cap_bias)
-    bias1 = deposit_from_tables(state.bias, bMval, bMder, dr.dep_heights)
+    bias1 = _deposit(state.bias, btabs, dr.dep_heights)
     full_buf_h = state.buf_h.index_copy(0, widx, dr.new_heights)
 
     remaining_w = win_active & ~dr.consumed
@@ -298,8 +365,10 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     # 3. acceptance (edm_bias.cpp:528-543), batch-wide
     if cfg.hill_density < 0:
         accept = active
-    else:
+    elif isinstance(est_hill_count, torch.Tensor):
         accept = active & (runiform < _rdiv(cfg.hill_density, est_hill_count))
+    else:  # a Python number, as the JAX package divides it (in float64)
+        accept = active & (runiform < cfg.hill_density / est_hill_count)
     called = accept & ~skip
 
     # drained-buffer compaction: surviving slots left1..right1 shift to 0
@@ -316,9 +385,9 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
 
     # 4/5. heights + sequential cap + deposit commit + FIFO overflow append
     h_p = _hill_heights(params, bias1, positions, est_hill_count, pref)
-    Mval, Mder, s_p = dense_tables_1d(bias1, positions)
+    tabs_p, s_p = _tables(bias1, positions)
     cr, reads = cap_scan(h_p, s_p, called, cap_bias, dr.bias_added)
-    bias2 = deposit_from_tables(bias1, Mval, Mder, cr.dep_heights)
+    bias2 = _deposit(bias1, tabs_p, cr.dep_heights)
     to_defer = called & (cr.defer_heights > 0)
     rank = torch.cumsum(to_defer.to(torch.int64), 0) - 1
     tgt = torch.where(to_defer, size2 + rank, torch.full((), CAP, **i64))

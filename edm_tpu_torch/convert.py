@@ -1,7 +1,7 @@
 """Convert JAX-package states and parameters into the port's.
 
-The JAX package's ``BiasParams``, ``BiasState``, ``PairEDMState`` and
-``CellPairState`` are dataclass pytrees.  Flattened to nested dicts of
+The JAX package's ``BiasParams``, ``BiasState``, ``PairEDMState``,
+``CellPairState`` and ``CoordEDMState`` are dataclass pytrees.  Flattened to nested dicts of
 numpy arrays and plain values (every dataclass a dict of its fields, every
 array a ``numpy.ndarray``), they are the data this system carries from one
 run to the next; ``state_from_numpy`` and ``params_from_numpy`` rebuild
@@ -24,6 +24,7 @@ import torch
 from .bias import BiasParams, BiasState
 from .gauss import GaussGrid, GaussSpec
 from .grid import Grid, GridSpec
+from .models.coord_edm import CoordEDMState
 from .models.pair_edm import PairEDMState
 from .ops.chebyshev import ChebTable
 from .models.pair_edm_cells import CellPairState
@@ -95,14 +96,24 @@ def _cell_state(d, device) -> CellPairState:
     return CellPairState(core=_pair_state(d["core"], device), **t, **tail)
 
 
+def _coord_state(d, device) -> CoordEDMState:
+    t = {k: _tensor(d[k], device) for k in ("x", "v", "f", "step", "energy")}
+    opt = {k: None if d.get(k) is None else _tensor(d[k], device)
+           for k in ("ptab", "hills_truncated")}
+    return CoordEDMState(key=np.asarray(d["key"], np.uint32),
+                         bias=_bias_state(d["bias"], device), **t, **opt)
+
+
 def state_from_numpy(tree: dict, device="cuda"):
-    """A flattened JAX ``CellPairState``, ``PairEDMState`` or ``BiasState``
-    -> the port's dataclass on ``device`` (the card unless the caller asks
-    for the CPU)."""
+    """A flattened JAX ``CellPairState``, ``PairEDMState``,
+    ``CoordEDMState`` or ``BiasState`` -> the port's dataclass on
+    ``device`` (the card unless the caller asks for the CPU)."""
     if "core" in tree:
         return _cell_state(tree, device)
     if "last_calls" in tree:
         return _pair_state(tree, device)
+    if "ptab" in tree:
+        return _coord_state(tree, device)
     if "cv_hist" in tree:
         return _bias_state(tree, device)
     raise ValueError(f"not a known state: keys {sorted(tree)}")

@@ -6,16 +6,16 @@ return new grids, as in the JAX package; the layout is
 ``values[i0, ..., i_{D-1}]`` with dim 0 the fastest-running index for file
 I/O (Fortran-order flattening reproduces the reference's ``multi2one``).
 
-Ported for the 1-D pairwise slice: ``GridSpec`` in full, ``Grid`` lookups
-(nearest-bin for any D, interpolating for D = 1), nearest-bin
-accumulation (the CV histogram) and ``expected_bias`` (targeting).
-Grid files, ``Grid.add_grid`` (initial bias) and histogram resets are not
-ported yet (ROADMAP Queue 1, item 10).
+Ported: ``GridSpec`` in full, ``Grid`` lookups (nearest-bin and
+interpolating, any D), nearest-bin accumulation (the CV histogram) and
+``expected_bias`` (targeting).  Grid files, ``Grid.add_grid`` (initial
+bias) and histogram resets are not ported yet (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -28,10 +28,20 @@ from .utils.errors import edm_error
 def device_const(vals, device, dtype) -> torch.Tensor:
     """A host scalar or short sequence as a tensor on ``device``, filled on
     the device: a copy from pageable host memory would synchronize the
-    stream, and the hot path makes many such constants."""
+    stream.  The hot path asks for the same constants on every step, so
+    each is made once per (values, device, dtype) and shared: callers must
+    not write into it."""
     if isinstance(vals, torch.Tensor):
         return vals.to(device=device, dtype=dtype)
-    if np.ndim(vals) == 0:
+    key = vals.item() if isinstance(vals, np.generic) else (
+        vals if np.ndim(vals) == 0 else tuple(v.item() if isinstance(v, np.generic) else v
+                                              for v in vals))
+    return _shared_const(key, torch.device(device), dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _shared_const(vals, device, dtype) -> torch.Tensor:
+    if not isinstance(vals, tuple):
         return torch.full((), vals, dtype=dtype, device=device)
     return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in vals])
 
@@ -182,10 +192,10 @@ class Grid:
         vals = self.values[tuple(idx.unbind(-1))]
         return torch.where(self.in_grid(x), vals, torch.zeros_like(vals))
 
-    def get_value_deriv(self, x: torch.Tensor):
+    def get_value_deriv(self, x: torch.Tensor, packed=None):
         from .ops.interp import grid_value_deriv
 
-        return grid_value_deriv(self, x.to(self.dtype))
+        return grid_value_deriv(self, x.to(self.dtype), packed=packed)
 
     # -------------------------------------------------------------- mutation
 

@@ -3,7 +3,7 @@ pair_lj_cut).
 
 Counterpart of ``edm_tpu/models/lj.py``.  The cell host evaluates LJ inside
 the pair kernels (``ops/cellforce``); the dense all-pairs helpers are not
-ported yet (ROADMAP Queue 1, item 3).
+ported yet (ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations

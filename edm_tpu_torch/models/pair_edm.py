@@ -6,7 +6,7 @@ Counterpart of ``edm_tpu/models/pair_edm.py``: ``PairEDMState`` and
 (``pair_lookup="interp"``) or the panelized Chebyshev fit
 (``"chebyshev"``, carried in ``cheb`` and refit after every hill round).
 The key is a host-side Threefry key (``ops/prng``).  Not ported yet: the
-dense all-pairs ``make_step`` (ROADMAP Queue 1, item 3).
+dense all-pairs ``make_step`` (ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -48,8 +48,9 @@ state keeps ``ts`` and ``sid`` and records ``kernel_cap`` and
 returns are updated in place by the tail pass.
 
 Not ported yet: dynamic stride conds (``static_do_*`` = None), the XLA
-force path (``use_pallas=False``), slab/brick sharding, ``row_box``,
-``cell_diag`` and hill-record collection (ROADMAP Queue 1).
+force path (``use_pallas=False``) and ``cell_diag`` (ROADMAP Queue 1, item
+4), hill-record collection (item 5), slab/brick sharding and ``row_box``
+(item 7).
 """
 
 from __future__ import annotations

@@ -16,9 +16,12 @@ per-hill ``bias_added = heights * dx * sum of unit contributions``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches on the
-wrapper function.  On the card each block owns a tile of grid points and
-writes values and derivatives once; a hill's integrals over the tiles it
-reaches are summed in a fixed order (no atomics, see ``csrc/deposit.cu``).
+wrapper function.  On the card K4's blocks own a tile of grid points and
+write values and derivatives once; K5's own a tile and a chunk of 32
+hills, and a second pass adds their partial planes in chunk order; a
+hill's integrals over the tiles it reaches are summed in a fixed order (no
+atomics, see ``csrc/deposit.cu``).  Both list a hill on the tiles its
+reach meets (``hill_tiles``).
 The kernels take the raw centres and remap them themselves
 (``remap_periodic_1d`` states their formula), so a launch costs no PyTorch
 call beside its four allocations.
@@ -85,15 +88,15 @@ def remap_periodic_1d(gg: GaussGrid, x):
 
 def hill_reach(gg: GaussGrid) -> int:
     """The support radius sqrt(GAUSS_SUPPORT) sigma in whole grid points,
-    plus 4 of slack over the float32 rounding of positions: K4 lists a hill
-    on the tiles that the points ic - reach .. ic + 1 + reach meet, ic the
+    plus 4 of slack over the float32 rounding of positions: K4 and K5 list a
+    hill on the tiles that the points ic - reach .. ic + 1 + reach meet, ic the
     point at or below its centre."""
     return math.ceil(math.sqrt(GAUSS_SUPPORT) * gg.spec.sigma[0] / gg.spec.grid.dx[0]) + 4
 
 
 def tiles_per_hill(gg: GaussGrid, tile: int) -> int:
     """The most tiles of ``tile`` points that a hill's reach can meet: the
-    columns T of K4's (H, T) scratch of partial integrals.  2 reach + 2
+    columns T of the kernels' (H, T) scratch of partial integrals.  2 reach + 2
     points in a row meet at most (2 reach + 1) // tile + 2 whole tiles, and
     one more across the wrap seam when the last tile is short."""
     n_blocks = -(-gg.spec.grid.nbins[0] // tile)
@@ -102,8 +105,9 @@ def tiles_per_hill(gg: GaussGrid, tile: int) -> int:
 
 def hill_tiles(gg: GaussGrid, x, tile: int):
     """(first tile, count) of each hill at the remapped centres x (H,), as
-    K4 derives them (``dep_hill_tiles``): tile b holds the hill's partial
-    integral at column (b - first) mod blocks when that is below count."""
+    the kernels derive them (``dep_hill_tiles``): tile b holds the hill's
+    partial integral at column (b - first) mod blocks when that is below
+    count."""
     g = gg.spec.grid
     G, reach = g.nbins[0], hill_reach(gg)
     ic = torch.floor((x - _scalar(g.min[0], x)) / _scalar(g.dx[0], x)).to(torch.int64) % G
@@ -198,14 +202,15 @@ def _launch(gg: GaussGrid, centers, heights, windowed: bool):
         raise ValueError("values and derivs must be 16-byte aligned")
     tile = lim["tile_windowed" if windowed else "tile_dense"]
     reach = hill_reach(gg)
-    if windowed and 2 * reach + 2 + tile > G:
-        raise ValueError(f"hill windows of {2 * reach + 2} points are too wide for the "
-                         f"windowed kernel on {G} points")
-    T = tiles_per_hill(gg, tile) if windowed else -(-G // tile)
+    if 2 * reach + 2 + tile > G:  # the dense route's windows (W < G) keep under it
+        raise ValueError(f"hill reaches of {2 * reach + 2} points are too wide for the "
+                         f"deposition kernels' tiles of {tile} on {G} points")
+    T = tiles_per_hill(gg, tile)
     out_v = torch.empty_like(values)
     out_d = torch.empty_like(derivs)
     bias_added = torch.empty_like(h)
-    part = torch.empty((H, T), dtype=values.dtype, device=dev)
+    part = torch.empty(lib.edm_deposit_scratch(int(windowed), H, G, T), dtype=values.dtype,
+                       device=dev)
     gmin, dx, L, sigma, inv_denom, k2 = _consts(gg)
     code = lib.deposit_1d_launch(
         values.data_ptr(), derivs.data_ptr(), x.data_ptr(), h.data_ptr(), out_v.data_ptr(),

@@ -1,4 +1,5 @@
-"""Threefry-2x32 keys on the host, as JAX 0.9 computes them.
+"""Threefry-2x32 keys on the host, and ``jax.random`` draws on the card,
+as JAX 0.9 computes them.
 
 The JAX hosts thread a ``jax.random`` key through the step: one split per
 step for the thermostat, one per hill round for acceptance, and each
@@ -12,12 +13,25 @@ costs no device sync.
 JAX 0.9 defaults to ``jax_threefry_partitionable``: ``split(key, n)[i]``
 and ``bits(key, (n,))[i]`` both hash the 64-bit counter ``i`` (high word,
 low word) under ``key``; ``split`` keeps both output words, 32-bit
-``bits`` returns their xor.
+``bits`` returns their xor, 64-bit bits the first word over the second.
+
+``uniform`` and ``normal`` draw as ``jax.random.uniform`` and
+``jax.random.normal`` do for float32 and float64: the bits of every element
+come from ``threefry_bits``, a CUDA kernel (``csrc/threefry.cu``) on a CUDA
+device and this module's numpy chain (its plain version) on the CPU; only
+the key's two words reach the kernel, as arguments, so a draw costs no copy
+and no sync.  A uniform is the mantissa trick, ``bits >> 9`` (float32) or
+``>> 12`` (float64) under the exponent of 1.0, minus 1: bitwise JAX's.  A
+normal is ``sqrt(2) erfinv(u)`` with ``u`` uniform on
+``[nextafter(-1, 0), 1)``: ``u`` is bitwise JAX's, and ``erfinv`` is
+PyTorch's, not XLA's polynomial, so the normals differ from JAX's by a few
+ulps (``tests/test_torch_coord.py`` holds the bound).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -63,3 +77,70 @@ def random_bits(key, n: int) -> np.ndarray:
     """(n,) uint32 random bits (``jax.random.bits(key, (n,), uint32)``)."""
     b0, b1 = threefry2x32(key, *_counters(n))
     return b0 ^ b1
+
+
+def _bits_ref(key, n: int, wide: bool) -> torch.Tensor:
+    """Plain version of ``threefry_bits``: the numpy chain, as int32 bit
+    patterns (wide: (n, 2), the first word, then the second)."""
+    b0, b1 = threefry2x32(key, *_counters(n))
+    out = np.stack([b0, b1], axis=1) if wide else b0 ^ b1
+    return torch.from_numpy(np.ascontiguousarray(out).view(np.int32))
+
+
+def threefry_bits(key, n: int, device, wide: bool = False) -> torch.Tensor:
+    """The Threefry-2x32 blocks of counters 0..n-1 under ``key`` on
+    ``device``, as int32 bit patterns: their xor (n,) (``random_bits``) or,
+    ``wide``, both words (n, 2).  The CUDA kernel on a CUDA device, the
+    numpy chain on the CPU.  ``launches`` counts kernel launches."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _bits_ref(key, n, wide)
+    if device.type != "cuda":
+        raise ValueError(f"no Threefry kernel for device {device}")
+    from .kernel_args import library, raise_on
+
+    lib, _ = library()
+    out = torch.empty((n, 2) if wide else (n,), dtype=torch.int32, device=device)
+    code = lib.threefry_bits_launch(int(key[0]), int(key[1]), n, int(wide), out.data_ptr(),
+                                    torch.cuda.current_stream(device).cuda_stream)
+    raise_on(lib, code, "threefry_bits")
+    threefry_bits.launches += 1
+    return out
+
+
+threefry_bits.launches = 0
+
+
+def _unit(key, shape, dtype, device) -> torch.Tensor:
+    """Floats on [0, 1) from the mantissa trick (``jax.random.uniform``'s
+    bits before its scale and shift)."""
+    n = int(np.prod(shape))
+    if dtype == torch.float32:
+        b = threefry_bits(key, n, device).to(device)
+        m = torch.bitwise_and(torch.bitwise_right_shift(b, 9), 0x7FFFFF)
+        f = torch.bitwise_or(m, 0x3F800000).view(torch.float32) - 1.0
+    elif dtype == torch.float64:
+        w = threefry_bits(key, n, device, wide=True).to(device).to(torch.int64)
+        hi, lo = w[:, 0] & 0xFFFFFFFF, w[:, 1] & 0xFFFFFFFF
+        m = torch.bitwise_or(torch.bitwise_left_shift(hi, 20), torch.bitwise_right_shift(lo, 12))
+        f = torch.bitwise_or(m, 0x3FF0000000000000).view(torch.float64) - 1.0
+    else:
+        raise TypeError(f"uniform draws float32 or float64, not {dtype}")
+    return f.reshape(shape)
+
+
+def uniform(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1), bitwise."""
+    return _unit(key, tuple(shape), dtype, device)
+
+
+def normal(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: sqrt(2) erfinv(u), u on
+    [nextafter(-1, 0), 1) from the same bits (JAX's ``_normal_real``)."""
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    lo = float(np.nextafter(npd(-1.0), npd(0.0)))
+    f = _unit(key, tuple(shape), dtype, device)
+    lo_t = torch.full((), lo, dtype=dtype, device=f.device)
+    span = torch.full((), 1.0, dtype=dtype, device=f.device) - lo_t
+    u = torch.maximum(lo_t, f * span + lo_t)
+    return float(npd(np.sqrt(2))) * torch.erfinv(u)

@@ -535,3 +535,155 @@ def test_row_pass_k7(cuda_state, row_states, poisoned_empty, case, cap, panels, 
     assert float(eb.abs().sum()) > 0
     assert not bool(f[C:].any() or eb[C:].any() or f[mc < 0.5].any() or eb[mc < 0.5].any())
     assert _same(out, CF.cell_force_full(xs, mc, sid, tab, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 257, 10000, 20001])
+@pytest.mark.parametrize("wide", [False, True])
+def test_threefry_kernel(cuda_state, n, wide):
+    """The Threefry kernel against ``ops/prng``'s numpy chain, bitwise (so
+    every word was written), for ragged n and n = 1; the draws built on
+    it."""
+    from edm_tpu_torch.ops import prng
+
+    dev = torch.device("cuda", 0)
+    for seed in (0, 123456789, 2**33 + 5):
+        key = prng.PRNGKey(seed)
+        n0 = prng.threefry_bits.launches
+        out = prng.threefry_bits(key, n, dev, wide=wide)
+        torch.cuda.synchronize()
+        assert prng.threefry_bits.launches == n0 + 1
+        assert torch.equal(out.cpu(), prng._bits_ref(key, n, wide))
+    for dtype in (torch.float32, torch.float64):
+        u = prng.uniform(key, (n,), dtype, dev)
+        assert torch.equal(u.cpu(), prng.uniform(key, (n,), dtype, "cpu"))
+        z = prng.normal(key, (n,), dtype, dev).cpu()
+        z_ref = prng.normal(key, (n,), dtype, "cpu")
+        assert float((z - z_ref).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-12) * \
+            max(1.0, float(z_ref.abs().max()))
+
+
+def _dense_grid(G, m, dev):
+    """A periodic [0, 10] grid of G points whose window half-width is m
+    points (W = 2 m + 1): sigma puts 4 sigma' / dx mid-way between m and
+    m + 1."""
+    dx = 10.0 / G
+    sigma = (m + 0.5) * dx / 4 / np.sqrt(2.0)
+    gg = tg.GaussGrid.create([0], [10], [dx], [True], [sigma], device=dev)
+    assert gg.spec.minisize[0] == m
+    return gg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [16384, 32768, 65536])
+@pytest.mark.parametrize("H", [1, 31, 200, 1000])
+def test_dense_kernel_chunks(cuda_state, poisoned_empty, G, H):
+    """K5's (tile, chunk) layout: 1, 31 (one short chunk), 200 and 1,000
+    hills (many chunks) on carried grids of the dense route, outputs over
+    poisoned memory, against the plain version; bitwise repeats."""
+    dev = torch.device("cuda", 0)
+    gg = _dense_grid(G, int(0.3 * G), dev)
+    W = gg.spec.window_shape[0]
+    assert W + 256 >= G // 2 and W < G
+    rng = np.random.default_rng(G + H)
+    gg = DK._commit(gg, torch.tensor(rng.normal(0.0, 1.0, G), dtype=torch.float32, device=dev),
+                    torch.tensor(rng.normal(0.0, 10.0, (G, 1)), dtype=torch.float32, device=dev))
+    c = torch.tensor(rng.uniform(-5, 15, (H, 1)), dtype=torch.float32, device=dev)
+    h = torch.tensor(rng.uniform(0.05, 0.2, H), dtype=torch.float32, device=dev)
+    out, ba = DK.deposit_dense_1d_kernel(gg, c, h)
+    out_ref, ba_ref = DK.deposit_dense_1d_kernel_ref(gg, c, h)
+    torch.cuda.synchronize()
+    for a, b, rel in ((out.grid.values, out_ref.grid.values, 1e-4),
+                      (out.grid.derivs, out_ref.grid.derivs, 3e-4)):
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    assert float((ba - ba_ref).abs().max()) <= 2e-6
+    out2, ba2 = DK.deposit_dense_1d_kernel(gg, c, h)
+    assert torch.equal(out.grid.values, out2.grid.values)
+    assert torch.equal(out.grid.derivs, out2.grid.derivs) and torch.equal(ba, ba2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_route_boundary(cuda_state, wide):
+    """At W + 256 = G / 2 ``deposit`` takes K5, one window point narrower
+    (W + 256 = G / 2 - 2) K4; both against their plain versions."""
+    from edm_tpu_torch.ops.deposit import deposit
+
+    dev = torch.device("cuda", 0)
+    G = 16386  # G // 2 odd, as the odd W + 256 needs
+    m = (G // 2 - 257) // 2 - (0 if wide else 1)
+    gg = _dense_grid(G, m, dev)
+    W = gg.spec.window_shape[0]
+    assert (W + 256 == G // 2) == wide and (W + 256 < G // 2) != wide
+    rng = np.random.default_rng(3)
+    c = torch.tensor(rng.uniform(0, 10, (64, 1)), dtype=torch.float32, device=dev)
+    h = torch.tensor(rng.uniform(0.05, 0.2, 64), dtype=torch.float32, device=dev)
+    kernel, ref = ((DK.deposit_dense_1d_kernel, DK.deposit_dense_1d_kernel_ref) if wide else
+                   (DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref))
+    n0 = kernel.launches
+    out, ba = deposit(gg, c, h)
+    out_ref, ba_ref = ref(gg, c, h)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    assert float((out.grid.values - out_ref.grid.values).abs().max()) <= \
+        1e-4 * float(out_ref.grid.values.abs().max())
+    assert float((ba - ba_ref).abs().max()) <= 2e-6
+
+
+@pytest.mark.gpu
+def test_coord_step_card_vs_cpu(cuda_state):
+    """The 2-D coordinate host at the CPU parity test's size (512 particles,
+    a periodic 64 x 64 grid, hill_stride 2, compaction to 64 rows, the
+    cached corner table), 20 steps at kT = 0 on the card, each also taken
+    on the CPU from the same input state: integer leaves exactly, positions,
+    velocities and forces within 4 float32 ulps of their max, the grid and
+    its table within 1e-5 of max|.|, cum_bias 1e-5 relative."""
+    from edm_tpu_torch.models import coord_edm
+    from edm_tpu_torch.ops import prng
+
+    cfg = parse_edm_text(
+        "tempering 1\nbias_factor 10\nglobal_tempering -1\nhill_prefactor 1.0\n"
+        "bias_per_step 0.5\nhill_density 40\ndimension 2\nbox_low 0 0\nbox_high 10 10\n"
+        "bias_spacing 0.15625 0.15625\nbias_sigma 0.3 0.3\n")
+    rng = np.random.default_rng(21)
+    x0, v0 = rng.uniform(0, 10, (512, 2)), rng.normal(size=(512, 2))
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=0.0)
+    hosts = {}
+    for name in ("cuda", "cpu"):
+        params, bs = B.subdivide(cfg, 1.0, 1.0, [0, 0], [10, 10], [0, 0], [10, 10],
+                                 [True, True], [0, 0], dtype=torch.float32, device=name)
+        steps = [coord_edm.make_step(params, lp, 2, hill_capacity=64, static_do_hills=h)
+                 for h in (True, False)]
+        st = coord_edm.init_state(params, bs, torch.tensor(x0, dtype=torch.float32, device=name),
+                                  prng.PRNGKey(0), lp, cache_lookup_table=True)
+        hosts[name] = (dataclasses.replace(st, v=torch.tensor(v0, dtype=torch.float32,
+                                                              device=name)), steps)
+    st, steps = hosts["cuda"]
+    steps_cpu = hosts["cpu"][1]
+
+    def to_cpu(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.cpu()
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            return dataclasses.replace(obj, **{f.name: to_cpu(getattr(obj, f.name))
+                                               for f in dataclasses.fields(obj)})
+        return obj
+
+    for i in range(20):
+        ref, e_ref = steps_cpu[i % 2](to_cpu(st))
+        st, e = steps[i % 2](st)
+        np.testing.assert_array_equal(st.key, ref.key)
+        for a, b in ((st.step, ref.step), (st.hills_truncated, ref.hills_truncated),
+                     (st.bias.buf_right, ref.bias.buf_right), (st.bias.steps, ref.bias.steps),
+                     (st.bias.cv_hist.values, ref.bias.cv_hist.values)):
+            assert torch.equal(a.cpu(), b), i
+        for a, b in ((st.x, ref.x), (st.v, ref.v), (st.f, ref.f)):
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a.cpu() - b).abs().max()) <= 4 * np.spacing(np.float32(scale)), i
+        for a, b in ((st.bias.bias.grid.values, ref.bias.bias.grid.values),
+                     (st.bias.bias.grid.derivs, ref.bias.bias.grid.derivs), (st.ptab, ref.ptab)):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max())), i
+        assert abs(float(st.bias.cum_bias) - float(ref.bias.cum_bias)) <= \
+            1e-5 * max(1.0, float(ref.bias.cum_bias))
+        assert abs(float(e) - float(e_ref)) <= 1e-5 * max(1.0, abs(float(e_ref)))
+    assert float(st.bias.cum_bias) > 0
