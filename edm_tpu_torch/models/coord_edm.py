@@ -53,14 +53,6 @@ class CoordEDMState:
     hills_truncated: Optional[torch.Tensor] = None
 
 
-def default_hill_capacity(hill_density: float) -> int:
-    """~8x the expected acceptances per round, at least 512, rounded up to
-    512 (0: no compaction, for ``hill_density < 0``)."""
-    if hill_density < 0:
-        return 0
-    return max(512, int(-(-8.0 * max(hill_density, 64.0) // 512)) * 512)
-
-
 class CoordStep:
     """One static stride phase of the coordinate host (``make_step``):
     ``step(state) -> (new_state, bias_energy)``."""
@@ -172,8 +164,8 @@ def make_step(
     ``group_mask`` (N,) bool: only those atoms feel the bias and deposit
     hills (the LAMMPS group, fix_edm.cpp:104,140,153).  ``hill_capacity``:
     the rows accepted hills are compacted into before the round (default
-    ``default_hill_capacity``; 0 turns compaction off); an overflow drops
-    the round's tail and sets ``state.hills_truncated``."""
+    ~8x the expected acceptances, at least 512; 0 turns compaction off); an
+    overflow drops the round's tail and sets ``state.hills_truncated``."""
     if static_do_hills is None:
         raise NotImplementedError(
             "the dynamic hill cond is not ported (ROADMAP Queue 1, item 4): build a "
@@ -188,8 +180,9 @@ def make_step(
                                   "(ROADMAP Queue 1, item 7)")
     if hill_stride < 1:
         raise ValueError("hill_stride must be >= 1")
-    if hill_capacity is None:
-        hill_capacity = default_hill_capacity(float(params.cfg.hill_density))
+    density = float(params.cfg.hill_density)
+    if hill_capacity is None:  # ~8x the expected acceptances, in steps of 512
+        hill_capacity = 0 if density < 0 else max(512, int(-(-8.0 * max(density, 64.0) // 512)) * 512)
     gmask = None if group_mask is None else np.asarray(group_mask, bool)
     return CoordStep(params, lp, hill_stride, external_force, gmask, hill_capacity,
                      bool(static_do_hills))

@@ -33,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..grid import device_const
+
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -111,36 +113,31 @@ def threefry_bits(key, n: int, device, wide: bool = False) -> torch.Tensor:
 threefry_bits.launches = 0
 
 
-def _unit(key, shape, dtype, device) -> torch.Tensor:
-    """Floats on [0, 1) from the mantissa trick (``jax.random.uniform``'s
-    bits before its scale and shift)."""
+def uniform(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1), bitwise: the
+    mantissa trick on each element's bits."""
     n = int(np.prod(shape))
     if dtype == torch.float32:
-        b = threefry_bits(key, n, device).to(device)
+        b = threefry_bits(key, n, device)
         m = torch.bitwise_and(torch.bitwise_right_shift(b, 9), 0x7FFFFF)
         f = torch.bitwise_or(m, 0x3F800000).view(torch.float32) - 1.0
     elif dtype == torch.float64:
-        w = threefry_bits(key, n, device, wide=True).to(device).to(torch.int64)
+        w = threefry_bits(key, n, device, wide=True).to(torch.int64)
         hi, lo = w[:, 0] & 0xFFFFFFFF, w[:, 1] & 0xFFFFFFFF
         m = torch.bitwise_or(torch.bitwise_left_shift(hi, 20), torch.bitwise_right_shift(lo, 12))
         f = torch.bitwise_or(m, 0x3FF0000000000000).view(torch.float64) - 1.0
     else:
         raise TypeError(f"uniform draws float32 or float64, not {dtype}")
-    return f.reshape(shape)
-
-
-def uniform(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, dtype)`` on [0, 1), bitwise."""
-    return _unit(key, tuple(shape), dtype, device)
+    return f.reshape(tuple(shape))
 
 
 def normal(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``: sqrt(2) erfinv(u), u on
     [nextafter(-1, 0), 1) from the same bits (JAX's ``_normal_real``)."""
     npd = np.float32 if dtype == torch.float32 else np.float64
-    lo = float(np.nextafter(npd(-1.0), npd(0.0)))
-    f = _unit(key, tuple(shape), dtype, device)
-    lo_t = torch.full((), lo, dtype=dtype, device=f.device)
-    span = torch.full((), 1.0, dtype=dtype, device=f.device) - lo_t
+    lo = np.nextafter(npd(-1.0), npd(0.0))
+    f = uniform(key, shape, dtype, device)
+    lo_t = device_const(float(lo), f.device, dtype)
+    span = device_const(float(npd(1.0) - lo), f.device, dtype)  # rounded in dtype, as JAX
     u = torch.maximum(lo_t, f * span + lo_t)
     return float(npd(np.sqrt(2))) * torch.erfinv(u)

@@ -687,3 +687,35 @@ def test_coord_step_card_vs_cpu(cuda_state):
             1e-5 * max(1.0, float(ref.bias.cum_bias))
         assert abs(float(e) - float(e_ref)) <= 1e-5 * max(1.0, abs(float(e_ref)))
     assert float(st.bias.cum_bias) > 0
+
+
+@pytest.mark.gpu
+def test_windowed_scatter_card_vs_cpu(cuda_state):
+    """The N-D windowed scatter (``hill_windows`` + ``deposit_precomputed``)
+    on a non-periodic 2-D grid with McGovern-De Pablo terms: the card's
+    ``index_put_(accumulate=True)`` adds in no fixed order, so values and
+    derivatives are held to the CPU's within 1e-5 of max|.| and bias_added
+    within 1e-6 relative; a histogram's integer-valued counts are exact."""
+    from edm_tpu_torch.grid import Grid, GridSpec
+    from edm_tpu_torch.ops import deposit as D
+
+    rng = np.random.default_rng(31)
+    c = rng.uniform(-0.2, 3.2, (150, 2))
+    h = rng.uniform(0.05, 0.2, 150)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gg = tg.GaussGrid.create([0.0, -1.0], [3.0, 2.0], [0.037, 0.041], [False, False],
+                                 [0.21, 0.17], boundary_min=[0.4, -0.6],
+                                 boundary_max=[2.6, 1.6], device=dev)
+        ct = torch.tensor(c, dtype=torch.float32, device=dev)
+        ht = torch.tensor(h, dtype=torch.float32, device=dev)
+        o, ba = D.deposit_precomputed(gg, D.hill_windows(gg, ct), ht)
+        hist = Grid.zeros(GridSpec.create([0.0, -1.0], [3.0, 2.0], [0.1, 0.1], [False, False]),
+                          device=dev)
+        hist, _ = hist.add_value(ct, 1.0)
+        out[dev] = [t.cpu() for t in (o.grid.values, o.grid.derivs, ba, hist.values)]
+    (v, d, ba, hist), (v0, d0, ba0, hist0) = out["cuda"], out["cpu"]
+    for a, b in ((v, v0), (d, d0)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert float(((ba - ba0) / ba0.abs().clamp(min=1e-30)).abs().max()) <= 1e-6
+    assert torch.equal(hist, hist0) and float(hist.sum()) > 0
