@@ -1031,9 +1031,12 @@ def coord_zero_temperature(torch, device, n_steps=20):
         hills += k == 0
     if hills < 2 or not float(state.bias.cum_bias) > 0:
         raise AssertionError("the kT = 0 2-D run deposited no hills")
+    b = state.bias
     print(f"kT=0 2-D: {n_steps} steps ({hills} hill steps) on the card match the port on the "
-          f"CPU step for step; worst |diff|: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+          f"CPU step for step; integer leaves equal (last: step {int(state.step)}, hill rounds "
+          f"{int(b.steps)}, buf_left {int(b.buf_left)}, buf_right {int(b.buf_right)}, "
+          f"overflow {bool(b.overflow_error)}, truncated {bool(state.hills_truncated)}); "
+          f"worst |diff|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def coord_run(torch, device, warm_steps=100, timed_steps=1000):

@@ -30,9 +30,8 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
-import torch
-
 import numpy as np
+import torch
 
 from .gauss import GaussGrid
 from .grid import Grid, GridSpec, device_const
@@ -324,8 +323,7 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
             Mval, Mder, s = dense_tables_1d(bias_g, pos)
             return (Mval, Mder), s
         if use_dense2:
-            tabs, s = dense_tables_sep(bias_g, pos)
-            return tabs, s
+            return dense_tables_sep(bias_g, pos)
         hw = hill_windows(bias_g, pos)
         return hw, torch.sum(hw.value_w, dim=-1) * vol
 

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_exact, assert_f64, np_, to_numpy_tree, to_port
+from _torch_parity import assert_exact, assert_f64, to_numpy_tree, to_port
 from edm_tpu import bias as JB
 from edm_tpu.models import coord_edm as jce
 from edm_tpu.models import langevin as jlang
@@ -164,7 +164,7 @@ CASES = {  # hill_capacity, group mask, cached corner table
 }
 
 
-def _run_both(dtype, case, n_steps=20):
+def _run_both(dtype, case):
     cap, masked, cache = CASES[case]
     jparams, st = _host_setup(dtype, cache)
     mask = np.arange(N) % 2 == 0 if masked else None
@@ -222,7 +222,7 @@ def test_coord_step_for_step(dtype, case):
 def test_strided_segment_and_run_segment():
     """The strided runner replays the step-by-step run bitwise; a phase
     pattern against hill_stride is refused."""
-    jsteps, tsteps, st, ts, ts0 = _run_both(jnp.float64, "compacted", n_steps=8)
+    jsteps, tsteps, st, ts, ts0 = _run_both(jnp.float64, "compacted")
     seg = strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 8)
     ts_seg, energies = seg(ts0)
     ts_loop = ts0
