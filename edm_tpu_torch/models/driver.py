@@ -14,11 +14,13 @@ from __future__ import annotations
 import torch
 
 
-def pattern_segment(pattern, length: int):
+def pattern_segment(pattern, length: int, unroll: int = 2):
     """``pattern``: a list of ``(step_fn, count)`` entries, one cycle of
     static phase steps in order; ``length`` a whole number of cycles.
     Returns ``seg(state) -> (final_state, energies (length,))``.  The
-    state's step counter must sit at the start of the cycle on entry."""
+    state's step counter must sit at the start of the cycle on entry.
+    ``unroll`` is accepted for the JAX signature and has no effect: an
+    eager loop has no scan to unroll."""
     round_len = sum(c for _, c in pattern)
     rounds, rem = divmod(length, round_len)
     if rem:
@@ -47,11 +49,13 @@ def pattern_segment(pattern, length: int):
     return seg
 
 
-def strided_segment(step_hill, step_plain, hill_stride: int, length: int):
+def strided_segment(step_hill, step_plain, hill_stride: int, length: int,
+                    unroll: int = 2):
     """``pattern_segment`` for the hills-only cycle: one
-    ``static_do_hills=True`` step, then ``hill_stride - 1`` plain steps."""
+    ``static_do_hills=True`` step, then ``hill_stride - 1`` plain steps
+    (``unroll``: as in ``pattern_segment``)."""
     if hill_stride > 1:
         pattern = [(step_hill, 1), (step_plain, hill_stride - 1)]
     else:
         pattern = [(step_hill, 1)]
-    return pattern_segment(pattern, length)
+    return pattern_segment(pattern, length, unroll=unroll)

@@ -32,7 +32,7 @@ from edm_tpu.utils.config import parse_edm_text
 from edm_tpu_torch import bias as TB
 from edm_tpu_torch.models import coord_edm as tce
 from edm_tpu_torch.models import langevin as tlang
-from edm_tpu_torch.models.driver import strided_segment
+from edm_tpu_torch.models.driver import pattern_segment, strided_segment
 from edm_tpu_torch.ops import prng
 
 N, HILL_STRIDE = 512, 2
@@ -243,6 +243,25 @@ def test_strided_segment_and_run_segment():
         strided_segment(tsteps[1], tsteps[0], HILL_STRIDE, 8)
     with pytest.raises(ValueError, match="whole number"):
         strided_segment(tsteps[0], tsteps[1], 3, 9)
+
+
+def test_segment_unroll_keyword():
+    """``unroll`` (the JAX runners' keyword, by name and by position) is
+    accepted and changes nothing: each runner reaches the state it reaches
+    without it, bitwise."""
+    _, tsteps, _, _, ts0 = _run_both(jnp.float64, "compacted")
+    pattern = [(tsteps[0], 1), (tsteps[1], HILL_STRIDE - 1)]
+    ref = strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 4)(ts0)
+    ref_p = pattern_segment(pattern, 4)(ts0)
+    for unroll in (2, 1):
+        for got in (strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 4, unroll=unroll)(ts0),
+                    strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 4, unroll)(ts0)):
+            _assert_tree(got[0], ref[0], 0.0, f"strided_segment unroll={unroll}")
+            assert_exact(got[1], ref[1])
+        for got in (pattern_segment(pattern, 4, unroll=unroll)(ts0),
+                    pattern_segment(pattern, 4, unroll)(ts0)):
+            _assert_tree(got[0], ref_p[0], 0.0, f"pattern_segment unroll={unroll}")
+            assert_exact(got[1], ref_p[1])
 
 
 def test_convert_round_trip():
