@@ -16,12 +16,11 @@ explicit ``BiasState``.  ``add_hills_round`` is one pre/add/post hill cycle
 The JAX package's deliberate fixes vs the reference carry over (proper
 FIFO overflow buffer; out-of-bounds replicas add 0 to cum_bias).
 
-Ported: ``update_forces`` and one hill pass (``n_passes=1``) with each
-deposit route of the JAX round but one: the dense 1-D tables, the
-separable tables of fully periodic 2-D/3-D grids, and the windowed
-scatter.  Not ported yet: the McGovern–De Pablo separable tables of
-non-periodic 2-D/3-D grids (ROADMAP Queue 1, item 3), multi-pass rounds
-and replay heights (item 4), initial-bias files (item 5), sharded offsets
+Ported: ``update_forces`` and ``add_hills_round`` with every deposit
+route of the JAX round (the dense 1-D tables, the separable tables of fully
+periodic 2-D/3-D grids, the McGovern–De Pablo tables of the other 2-D/3-D
+grids, the windowed scatter), multi-pass rounds and replay heights.  Not
+ported yet: initial-bias files (ROADMAP Queue 1, item 5), sharded offsets
 and ``axis_name`` (item 7).  Each raises ``NotImplementedError``.
 """
 
@@ -36,11 +35,13 @@ import torch
 from .gauss import GaussGrid
 from .grid import Grid, GridSpec, device_const
 from .ops.deposit import (
+    dense_tables_1d,
+    dense_tables_mcgdp,
+    dense_tables_sep,
+    deposit_from_mcgdp,
     deposit_from_tables,
     deposit_from_tables_sep,
     deposit_precomputed,
-    dense_tables_1d,
-    dense_tables_sep,
     hill_windows,
 )
 from .ops.prefix_cap import cap_scan, drain_scan
@@ -257,14 +258,26 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     """One pre_add_hill / add_hill* / post_add_hill cycle.
 
     Returns ``(new_state, records, host_reads)``: ``host_reads`` counts the
-    flags the capping loop read back to the host (``ops/prefix_cap``).
-    ``est_hill_count``: a number or a 0-d tensor.  The deposit route is the
-    JAX round's: dense 1-D tables for small 1-D grids, separable tables for
-    fully periodic 2-D/3-D grids (``exact_deposit`` off), else the windowed
-    scatter; one route serves the drain and the hill pass."""
-    if n_passes != 1 or override_heights is not None:
-        raise NotImplementedError(
-            "multi-pass rounds and replay heights are not ported yet (ROADMAP Queue 1, item 4)")
+    values the round read back to the host (the capping loop's flags,
+    ``ops/prefix_cap``; the McGDP deposit's strip counts; the gate of each
+    extra pass).  ``est_hill_count``: a number or a 0-d tensor.  The deposit
+    route is the JAX round's: dense 1-D tables for small 1-D grids, with
+    ``exact_deposit`` off separable tables for fully periodic 2-D/3-D grids
+    and the McGovern–De Pablo tables for the other 2-D/3-D grids, else the
+    windowed scatter; one route serves the drain and every hill pass.
+
+    ``override_heights`` (H,): replay, as the JAX round: these heights are
+    deposited for the ``active`` hills, with no acceptance draw and no
+    tempering (do_add_hill with communicate=0, edm_bias.cpp:444).
+
+    ``n_passes``: the new hills run as ``n_passes`` sequential sub-batches
+    of H / n_passes (H must divide evenly), each evaluating its heights
+    against the grid that holds the earlier passes' deposits, the cap
+    carried across them.  A pass after the first runs only if it has a
+    called hill: the JAX round gates it with a ``lax.cond`` on the device,
+    this one with one host read per extra pass (counted in
+    ``host_reads``); a skipped pass leaves the state as it was and records
+    zeros and False, exactly as the JAX round's skip branch."""
     if axis_name is not None or boundary_offset is not None:
         raise NotImplementedError(
             "axis_name and boundary_offset (the sharded hosts) are not ported yet "
@@ -302,6 +315,8 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
             prefactor=torch.full((), cfg.hill_prefactor, dtype=dtype, device=dev),
         )
         return new_state, rec, 0
+    if H % n_passes:
+        raise ValueError("n_passes must divide the hill batch size")
 
     # the deposit route (edm_tpu/bias.py add_hills_round, use_dense*)
     gs = state.bias.spec
@@ -310,12 +325,8 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
                  and (not gs.grid.periodic[0] or gs.window_shape[0] < gs.grid.nbins[0]))
     use_dense2 = (D in (2, 3) and not params.exact_deposit and all(gs.grid.periodic)
                   and all(gs.boundary_periodic) and windows_fit)
-    if (D in (2, 3) and not params.exact_deposit and not all(gs.boundary_periodic)
-            and windows_fit):
-        raise NotImplementedError(
-            "the McGovern-De Pablo separable deposit (dense_tables_mcgdp) of a non-periodic "
-            "2-D/3-D grid is not ported yet (ROADMAP Queue 1, item 3); exact_deposit=True "
-            "takes the windowed scatter")
+    use_dense2m = (D in (2, 3) and not params.exact_deposit and not all(gs.boundary_periodic)
+                   and windows_fit)
 
     def _tables(bias_g, pos):
         """(deposit tables, unit integrals s) from the grid's geometry."""
@@ -324,15 +335,21 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
             return (Mval, Mder), s
         if use_dense2:
             return dense_tables_sep(bias_g, pos)
+        if use_dense2m:
+            tabs = dense_tables_mcgdp(bias_g, pos)
+            return tabs, tabs.s
         hw = hill_windows(bias_g, pos)
         return hw, torch.sum(hw.value_w, dim=-1) * vol
 
     def _deposit(bias_g, tabs, dep_h):
+        """(new grid, host reads)."""
         if use_dense:
-            return deposit_from_tables(bias_g, tabs[0], tabs[1], dep_h)
+            return deposit_from_tables(bias_g, tabs[0], tabs[1], dep_h), 0
         if use_dense2:
-            return deposit_from_tables_sep(bias_g, tabs, dep_h)
-        return deposit_precomputed(bias_g, tabs, dep_h)[0]
+            return deposit_from_tables_sep(bias_g, tabs, dep_h), 0
+        if use_dense2m:
+            return deposit_from_mcgdp(bias_g, tabs, dep_h)
+        return deposit_precomputed(bias_g, tabs, dep_h)[0], 0
 
     # 1. global tempering (edm_bias.cpp:422-426)
     pref = round_prefactor(params, state)
@@ -347,7 +364,7 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     win_active = torch.arange(DRAIN, device=dev) < n_buf
     btabs, s_buf = _tables(state.bias, win_pos)
     dr = drain_scan(win_h, s_buf, win_active, cap_bias)
-    bias1 = _deposit(state.bias, btabs, dr.dep_heights)
+    bias1, reads = _deposit(state.bias, btabs, dr.dep_heights)
     full_buf_h = state.buf_h.index_copy(0, widx, dr.new_heights)
 
     remaining_w = win_active & ~dr.consumed
@@ -361,13 +378,20 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     skip = any_rem  # b_skip_hill_add_ (edm_bias.cpp:436-439)
 
     # 3. acceptance (edm_bias.cpp:528-543), batch-wide
-    if cfg.hill_density < 0:
+    if override_heights is not None:
+        # replay: acceptance, tempering and clamping happened where the
+        # heights were made; the (position, height) pairs are used as given
         accept = active
-    elif isinstance(est_hill_count, torch.Tensor):
-        accept = active & (runiform < _rdiv(cfg.hill_density, est_hill_count))
-    else:  # a Python number, as the JAX package divides it (in float64)
-        accept = active & (runiform < cfg.hill_density / est_hill_count)
-    called = accept & ~skip
+        override_h = override_heights.to(dtype)
+    else:
+        override_h = None
+        if cfg.hill_density < 0:
+            accept = active
+        elif isinstance(est_hill_count, torch.Tensor):
+            accept = active & (runiform < _rdiv(cfg.hill_density, est_hill_count))
+        else:  # a Python number, as the JAX package divides it (in float64)
+            accept = active & (runiform < cfg.hill_density / est_hill_count)
+    called_all = accept & ~skip
 
     # drained-buffer compaction: surviving slots left1..right1 shift to 0
     src = torch.arange(CAP, device=dev) + left1
@@ -381,41 +405,63 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     drain_delta = dr.processed.to(dtype) - dr.straddled.to(dtype)
     hist, _ = state.cv_hist.add_value(win_pos, drain_delta)
 
-    # 4/5. heights + sequential cap + deposit commit + FIFO overflow append
-    h_p = _hill_heights(params, bias1, positions, est_hill_count, pref)
-    tabs_p, s_p = _tables(bias1, positions)
-    cr, reads = cap_scan(h_p, s_p, called, cap_bias, dr.bias_added)
-    bias2 = _deposit(bias1, tabs_p, cr.dep_heights)
-    to_defer = called & (cr.defer_heights > 0)
-    rank = torch.cumsum(to_defer.to(torch.int64), 0) - 1
-    tgt = torch.where(to_defer, size2 + rank, torch.full((), CAP, **i64))
-    tgt = torch.where(tgt < CAP, tgt, torch.full((), CAP, **i64))  # CAP = dropped
-    buf_pos3 = torch.cat([buf_pos2, buf_pos2[:1]]).index_put((tgt,), positions)[:CAP]
-    buf_h3 = torch.cat([buf_h2, buf_h2[:1]]).index_put((tgt,), cr.defer_heights)[:CAP]
-    size_f = size2 + torch.sum(to_defer.to(torch.int64))
-    hill_delta = called.to(dtype) - cr.straddled.to(dtype)
-    hist, _ = hist.add_value(positions, hill_delta)
+    # 4/5. per pass: heights (against the grid holding the earlier passes),
+    # sequential cap + deposit commit + FIFO overflow append
+    Hc = H // n_passes
+    bias_c, bufp, bufh, size_c, cum = bias1, buf_pos2, buf_h2, size2, dr.bias_added
+    recs = []
+    for p in range(n_passes):
+        sl = slice(p * Hc, (p + 1) * Hc)
+        called_p = called_all[sl]
+        if p > 0:
+            reads += 1
+            if not bool(torch.any(called_p)):  # the JAX round's skip branch
+                zf = torch.zeros(Hc, dtype=dtype, device=dev)
+                zb = torch.zeros(Hc, dtype=torch.bool, device=dev)
+                recs.append((zf, zf, zf, zf, zb, zb, zb))
+                continue
+        pos_p = positions[sl]
+        if override_h is not None:
+            h_p = override_h[sl]
+        else:
+            h_p = _hill_heights(params, bias_c, pos_p, est_hill_count, pref)
+        tabs_p, s_p = _tables(bias_c, pos_p)
+        cr, n_reads = cap_scan(h_p, s_p, called_p, cap_bias, cum)
+        bias_c, n_dep = _deposit(bias_c, tabs_p, cr.dep_heights)
+        reads += n_reads + n_dep
+        to_defer = called_p & (cr.defer_heights > 0)
+        rank = torch.cumsum(to_defer.to(torch.int64), 0) - 1
+        tgt = torch.where(to_defer, size_c + rank, torch.full((), CAP, **i64))
+        tgt = torch.where(tgt < CAP, tgt, torch.full((), CAP, **i64))  # CAP = dropped
+        bufp = torch.cat([bufp, bufp[:1]]).index_put((tgt,), pos_p)[:CAP]
+        bufh = torch.cat([bufh, bufh[:1]]).index_put((tgt,), cr.defer_heights)[:CAP]
+        size_c = size_c + torch.sum(to_defer.to(torch.int64))
+        hill_delta = called_p.to(dtype) - cr.straddled.to(dtype)
+        hist, _ = hist.add_value(pos_p, hill_delta)
+        cum = cr.cum
+        recs.append((h_p, cr.dep_heights, cr.defer_heights, s_p, called_p, cr.deposited,
+                     cr.straddled))
+    rec_h = [r[0] if n_passes == 1 else torch.cat(r) for r in zip(*recs)]
 
     # 7. cum_bias (update_height, edm_bias.cpp:922-931)
     new_state = BiasState(
-        bias=bias2,
+        bias=bias_c,
         cv_hist=hist,
-        cum_bias=state.cum_bias + cr.cum,
-        buf_pos=buf_pos3,
-        buf_h=buf_h3,
+        cum_bias=state.cum_bias + cum,
+        buf_pos=bufp,
+        buf_h=bufh,
         buf_left=torch.zeros((), **i64),
-        buf_right=torch.clamp(size_f, max=CAP),
-        overflow_error=state.overflow_error | (size_f > CAP),
+        buf_right=torch.clamp(size_c, max=CAP),
+        overflow_error=state.overflow_error | (size_c > CAP),
         steps=state.steps + 1,
     )
     rec = RoundRecords(
         drain_pos=win_pos, drain_h=win_h, drain_dep_h=dr.dep_heights,
         drain_s=s_buf, drain_processed=dr.processed,
         drain_straddled=dr.straddled,
-        hill_h=h_p, hill_dep_h=cr.dep_heights, hill_defer_h=cr.defer_heights,
-        hill_s=s_p, hill_called=called, hill_deposited=cr.deposited,
-        hill_straddled=cr.straddled, skipped=skip, round_bias=cr.cum,
-        prefactor=pref,
+        hill_h=rec_h[0], hill_dep_h=rec_h[1], hill_defer_h=rec_h[2], hill_s=rec_h[3],
+        hill_called=rec_h[4], hill_deposited=rec_h[5], hill_straddled=rec_h[6],
+        skipped=skip, round_bias=cum, prefactor=pref,
     )
     return new_state, rec, reads
 

@@ -74,6 +74,22 @@ def assert_f64(port, ref, what="", rtol=F64_RTOL):
                                rtol=rtol, atol=rtol * scale, err_msg=what)
 
 
+def assert_tree(port, ref, rtol, what=""):
+    """Every leaf of two state / record trees: floats to ``rtol`` (as
+    ``assert_f64``), other leaves exactly; static specs are skipped."""
+    tt, jt = to_numpy_tree(port), to_numpy_tree(ref)
+    if isinstance(jt, dict):
+        for k in jt:
+            if k in ("spec", "interpolate") or jt[k] is None:
+                continue
+            assert_tree(tt[k], jt[k], rtol, f"{what}.{k}")
+        return
+    if isinstance(jt, np.ndarray) and jt.dtype.kind == "f":
+        assert_f64(tt, jt, what, rtol=rtol)
+    else:
+        assert_exact(tt, jt, what)
+
+
 def assert_forces(port, ref, what=""):
     """f32 force planes: within 2e-5 * max(1, max|f|)."""
     ref = np.asarray(np_(ref), np.float64)

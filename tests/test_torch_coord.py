@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_exact, assert_f64, to_numpy_tree, to_port
+from _torch_parity import assert_exact, assert_f64, assert_tree, to_numpy_tree, to_port
 from edm_tpu import bias as JB
 from edm_tpu.models import coord_edm as jce
 from edm_tpu.models import langevin as jlang
@@ -104,28 +104,13 @@ def _round_setup(periodic, exact, dtype=jnp.float64):
     return jparams, jbs, to_port(jparams), to_port(jbs)
 
 
-def _assert_tree(t, j, rtol, what):
-    """Every leaf of two state / record trees: floats to ``rtol``, others
-    exactly."""
-    tt, jt = to_numpy_tree(t), to_numpy_tree(j)
-    if isinstance(jt, dict):
-        for k in jt:
-            if k in ("spec", "interpolate") or jt[k] is None:
-                continue
-            _assert_tree(tt[k], jt[k], rtol, f"{what}.{k}")
-        return
-    if isinstance(jt, np.ndarray) and jt.dtype.kind == "f":
-        assert_f64(tt, jt, what, rtol=rtol)
-    else:
-        assert_exact(tt, jt, what)
-
-
-@pytest.mark.parametrize("periodic,exact", [(True, False), (False, True)])
+@pytest.mark.parametrize("periodic,exact", [(True, False), (False, True), (False, False)])
 def test_add_hills_round_2d(periodic, exact):
     """Two rounds on a fresh 2-D grid: the periodic grid takes the separable
     tables, the non-periodic one with exact_deposit the windowed scatter
-    with the McGovern-De Pablo terms; the first round defers hills past
-    bias_per_step, the second drains them and skips."""
+    with the McGovern-De Pablo terms, and without it the McGovern-De Pablo
+    separable tables; the first round defers hills past bias_per_step, the
+    second drains them and skips."""
     jparams, jbs, tparams, tbs = _round_setup(periodic, exact)
     rng = np.random.default_rng(12 + periodic)
     for r in range(2):
@@ -136,8 +121,8 @@ def test_add_hills_round_2d(periodic, exact):
                                        active=jnp.asarray(active))
         tbs, trec, _ = TB.add_hills_round(tparams, tbs, torch.tensor(pos), torch.tensor(run), 60,
                                           active=torch.tensor(active))
-        _assert_tree(trec, jrec, 1e-12, f"round {r} records")
-        _assert_tree(tbs, jbs, 1e-12, f"round {r} state")
+        assert_tree(trec, jrec, 1e-12, f"round {r} records")
+        assert_tree(tbs, jbs, 1e-12, f"round {r} state")
     assert int(jbs.buf_right) > 0 or bool(jrec.skipped)
     assert float(jbs.cum_bias) > 0
 
@@ -145,11 +130,18 @@ def test_add_hills_round_2d(periodic, exact):
 # -------------------------------------------------------------- the host
 
 
-def _host_setup(dtype, cache=None):
-    jparams, jbs, _, _ = _round_setup(True, False, dtype)
+def _host_setup(dtype, cache=None, periodic=True):
+    """The host's start; on the non-periodic grid some particles start
+    outside the box and some within a strip width (BC_MAR sigma' = 0.85)
+    of the walls."""
+    jparams, jbs, _, _ = _round_setup(periodic, False, dtype)
     rng = np.random.default_rng(21)
     x0 = rng.uniform(0, 10, (N, 2))
     v0 = rng.normal(size=(N, 2))
+    if not periodic:
+        x0[:40] = rng.uniform(-0.4, 10.4, (40, 2))
+        x0[40:80, 0] = rng.uniform(-0.2, 0.8, 40)
+        x0[80:120, 1] = rng.uniform(9.2, 10.2, 40)
     lp = jlang.LangevinParams(dt=0.002, friction=1.0, kT=0.0)
     st = jce.init_state(jparams, jbs, jnp.asarray(x0, dtype), jax.random.PRNGKey(0), lp,
                         cache_lookup_table=cache)
@@ -157,19 +149,23 @@ def _host_setup(dtype, cache=None):
     return jparams, st
 
 
-CASES = {  # hill_capacity, group mask, cached corner table
-    "compacted": (64, False, True),
-    "full batch": (0, False, None),
-    "masked, truncated": (16, True, None),
+CASES = {  # hill_capacity, group mask, cached corner table, periodic grid, hill_passes
+    "compacted": (64, False, True, True, 1),
+    "full batch": (0, False, None, True, 1),
+    "masked, truncated": (16, True, None, True, 1),
+    "McGDP": (64, False, True, False, 1),
+    # ~40 hills a round: 32 rows spill into the second pass; 64 leave it empty
+    "two passes, spilling": (32, False, True, True, 2),
+    "two passes, one used": (64, False, True, True, 2),
 }
 
 
 def _run_both(dtype, case):
-    cap, masked, cache = CASES[case]
-    jparams, st = _host_setup(dtype, cache)
+    cap, masked, cache, periodic, passes = CASES[case]
+    jparams, st = _host_setup(dtype, cache, periodic)
     mask = np.arange(N) % 2 == 0 if masked else None
     lp = dict(dt=0.002, friction=1.0, kT=0.0)
-    kw = dict(hill_stride=HILL_STRIDE, hill_capacity=cap)
+    kw = dict(hill_stride=HILL_STRIDE, hill_capacity=cap, hill_passes=passes)
     jsteps = [jax.jit(jce.make_step(jparams, jlang.LangevinParams(**lp), **kw,
                                     group_mask=None if mask is None else jnp.asarray(mask),
                                     static_do_hills=h)) for h in (True, False)]
@@ -181,9 +177,16 @@ def _run_both(dtype, case):
 
 
 @pytest.mark.parametrize("dtype,case", [(jnp.float64, c) for c in CASES]
-                         + [(jnp.float32, "compacted")])
+                         + [(jnp.float32, "compacted"), (jnp.float32, "McGDP")])
 def test_coord_step_for_step(dtype, case):
     jsteps, tsteps, st, ts, ts0 = _run_both(dtype, case)
+    if case == "two passes, spilling":
+        # the first round accepts more hills than one pass holds: one pass
+        # of the same capacity drops the tail
+        one = tce.make_step(tsteps[0].params, tsteps[0].lp, HILL_STRIDE, hill_capacity=32,
+                            static_do_hills=True)
+        assert bool(one(ts0)[0].hills_truncated) and not bool(tsteps[0](ts0)[0].hills_truncated)
+        tsteps[0].host_syncs = 0
     f64 = dtype == jnp.float64
     tol = 1e-12 if f64 else 2e-5
     deferred = 0
@@ -217,6 +220,8 @@ def test_coord_step_for_step(dtype, case):
     assert (deferred > 0) == (case != "masked, truncated")
     assert bool(st.hills_truncated) == (case == "masked, truncated")
     assert tsteps[0].host_syncs > 0 and tsteps[1].host_syncs == 0
+    if case == "McGDP":  # the box's walls stopped no hill from counting
+        assert not bool(np.asarray(st.bias.overflow_error))
 
 
 def test_strided_segment_and_run_segment():
@@ -256,11 +261,11 @@ def test_segment_unroll_keyword():
     for unroll in (2, 1):
         for got in (strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 4, unroll=unroll)(ts0),
                     strided_segment(tsteps[0], tsteps[1], HILL_STRIDE, 4, unroll)(ts0)):
-            _assert_tree(got[0], ref[0], 0.0, f"strided_segment unroll={unroll}")
+            assert_tree(got[0], ref[0], 0.0, f"strided_segment unroll={unroll}")
             assert_exact(got[1], ref[1])
         for got in (pattern_segment(pattern, 4, unroll=unroll)(ts0),
                     pattern_segment(pattern, 4, unroll)(ts0)):
-            _assert_tree(got[0], ref_p[0], 0.0, f"pattern_segment unroll={unroll}")
+            assert_tree(got[0], ref_p[0], 0.0, f"pattern_segment unroll={unroll}")
             assert_exact(got[1], ref_p[1])
 
 
@@ -272,7 +277,7 @@ def test_convert_round_trip():
     back, ref = to_numpy_tree(ts), to_numpy_tree(st)
     for k in ("x", "v", "f", "key", "step", "energy", "ptab", "hills_truncated"):
         np.testing.assert_array_equal(back[k], ref[k], err_msg=k)
-    _assert_tree(ts.bias, st.bias, 0.0, "bias")
+    assert_tree(ts.bias, st.bias, 0.0, "bias")
     # and the port's init_state builds the same state from the same inputs
     tparams, tbs = to_port(_round_setup(True, False, jnp.float32)[0]), to_port(st.bias)
     ti = tce.init_state(tparams, tbs, ts.x, prng.PRNGKey(0),
@@ -281,23 +286,47 @@ def test_convert_round_trip():
     assert_exact(ti.ptab, st.ptab)
 
 
+def test_dynamic_hill_step():
+    """``static_do_hills=None``: one step that decides from the step counter
+    (read back once a call) through ``run_segment``, against the JAX host's
+    jitted ``run_segment`` (its ``lax.cond`` in a scan), and bitwise against
+    the static pair through ``strided_segment``; its host reads are the
+    counter reads plus the hill rounds' reads."""
+    jparams, st = _host_setup(jnp.float64, True)
+    lp = dict(dt=0.002, friction=1.0, kT=0.0)
+    kw = dict(hill_stride=HILL_STRIDE, hill_capacity=64)
+    jstep = jce.make_step(jparams, jlang.LangevinParams(**lp), **kw)
+    tparams, ts0 = to_port(jparams), to_port(st)
+    tstep = tce.make_step(tparams, tlang.LangevinParams(**lp), **kw)
+    pair = [tce.make_step(tparams, tlang.LangevinParams(**lp), **kw, static_do_hills=h)
+            for h in (True, False)]
+    n = 6
+    st_j, e_j = jax.jit(lambda s: jce.run_segment(jstep, s, n))(st)
+    ts_d, e_d = tce.run_segment(tstep, ts0, n)
+    assert_tree(ts_d, st_j, 1e-12, "dynamic step vs JAX")
+    assert_f64(e_d, e_j, "energies")
+    ts_s, e_s = strided_segment(pair[0], pair[1], HILL_STRIDE, n)(ts0)
+    assert_tree(ts_d, ts_s, 0.0, "dynamic step vs the static pair")
+    assert_exact(e_d, e_s)
+    assert int(ts_d.bias.steps) == n // HILL_STRIDE and float(ts_d.bias.cum_bias) > 0
+    assert pair[1].host_syncs == 0
+    assert tstep.host_syncs == n + pair[0].host_syncs
+    # a dynamic step fits every place of a cycle
+    pattern_segment([(tstep, 3)], 6)
+
+
 def test_unported_options_raise():
+    """What stays unported raises with its ROADMAP item: record collection,
+    the sharded options."""
     jparams, jbs, tparams, tbs = _round_setup(True, False)
     lp = tlang.LangevinParams(dt=0.002, friction=1.0, kT=0.0)
-    for kw, item in ((dict(static_do_hills=None), "item 4"),
-                     (dict(static_do_hills=True, hill_passes=2), "item 4"),
-                     (dict(static_do_hills=True, collect_records=True), "item 5"),
+    for kw, item in ((dict(static_do_hills=True, collect_records=True), "item 5"),
+                     (dict(collect_records=True), "item 5"),
                      (dict(static_do_hills=True, axis_name="i"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tce.make_step(tparams, lp, 2, **kw)
     pos, run = torch.zeros(4, 2, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
-    for kw, item in ((dict(n_passes=2), "item 4"), (dict(override_heights=run), "item 4"),
-                     (dict(axis_name="i"), "item 7"),
+    for kw, item in ((dict(axis_name="i"), "item 7"),
                      (dict(boundary_offset=torch.zeros(2)), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             TB.add_hills_round(tparams, tbs, pos, run, 4, **kw)
-    # a non-periodic 2-D grid without exact_deposit needs the McGDP tables:
-    # it raises, and does not fall back to the windowed scatter
-    _, _, tparams_np, tbs_np = _round_setup(False, False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TB.add_hills_round(tparams_np, tbs_np, pos, run, 4)
