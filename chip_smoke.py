@@ -26,7 +26,10 @@ kernel against its plain PyTorch version on the same card:
     (``models/coord_edm``, 10,000 free particles, a periodic 1000 x 1000
     grid, hill_density 250, hill_capacity 2048, the cached corner table,
     ``driver.strided_segment`` with hill_stride 10): every draw through
-    the Threefry kernel ``prng.threefry_bits``.
+    the Threefry kernel ``prng.threefry_bits``; and its ``mcgdp=True``
+    form, a non-periodic 1001 x 1001 grid with McGovern-De Pablo walls on
+    both dims, whose hill rounds deposit through ``dense_tables_mcgdp`` +
+    ``deposit_from_mcgdp``.
 
 Phases: the card (nvidia-smi name and power limit) and software versions;
 the kernel build from ``edm_tpu_torch/csrc`` (one nvcc per source, sm_90a);
@@ -44,7 +47,11 @@ leaves exactly, the rest within ``COORD_*``; the worst difference of each
 leaf printed), then the bench's kT = 1.0 run (100 warm-up steps, each hill
 round's growth of the grid's integral held to its round_bias; 1,000 timed
 steps: steps/s, the device-busy share of a cycle, device launches per
-step, the top device operations, host syncs per hill and plain step).  The
+step, the top device operations, host syncs per hill and plain step, each
+named by its line and all of them counted by the steps' ``host_syncs``);
+then the same two phases on the McGDP grid, with its
+first hill round deposited through the McGDP tables and through the
+windowed route and the two held to each other (the e^-8 corner class).  The
 deposition kernels are checked on grids that already carry hills.  It prints one
 ``kernels`` JSON line (launches, errors, times, the card's least time for
 the work; ``ms`` is the wrapper's time per call by CUDA events, which the
@@ -934,9 +941,11 @@ COORD_ULPS, COORD_GRID_REL = 4, 1e-5
 COORD_INTEGRAL_REL = 1e-5
 
 
-def coord_setup(torch, kT: float, device):
+def coord_setup(torch, kT: float, device, periodic=True):
     """bench.py:bench_coord2d's configuration through the port's entry
-    points: bias.subdivide (periodic [0, 10]^2, 1000 x 1000 points) ->
+    points: bias.subdivide ([0, 10]^2; periodic, 1000 x 1000 points, or
+    with ``periodic=False`` the bench's ``mcgdp=True`` box, 1001 x 1001
+    points with McGovern-De Pablo walls on both dims) ->
     coord_edm.init_state (10,000 free particles from default_rng(77),
     PRNGKey(0), the cached corner table) -> make_step(hill_stride=10,
     static_do_hills=True / False), hill_capacity at its default 2048."""
@@ -947,8 +956,8 @@ def coord_setup(torch, kT: float, device):
     from edm_tpu_torch.utils.config import parse_edm_text
 
     cfg = parse_edm_text(COORD_CFG)
-    params, bs = B.subdivide(cfg, 1.0, 1.0, [0, 0], [10, 10], [0, 0], [10, 10], [True, True],
-                             [0, 0], dtype=torch.float32, device=device)
+    params, bs = B.subdivide(cfg, 1.0, 1.0, [0, 0], [10, 10], [0, 0], [10, 10],
+                             [periodic] * 2, [0, 0], dtype=torch.float32, device=device)
     rng = np.random.default_rng(77)
     x0 = torch.tensor(rng.uniform(0, 10, (COORD_N, 2)), dtype=torch.float32, device=device)
     lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
@@ -974,14 +983,14 @@ def tree_to(obj, device):
     return obj
 
 
-def coord_compare(i, ks, ps, worst):
+def coord_compare(i, ks, ps, worst, label="2-D"):
     """One step of the card's 2-D run against the CPU's from the same
     input: integer leaves exactly, the rest as ``COORD_*`` states; the
     worst difference of each leaf goes to ``worst``."""
 
     def exact(name, a, b):
         if not bool((a.cpu() == b.cpu()).all()):
-            raise AssertionError(f"2-D step {i}: {name} differs between the card and the CPU")
+            raise AssertionError(f"{label} step {i}: {name} differs between the card and the CPU")
 
     def near(name, a, b, rel, ulps=None):
         a, b = a.cpu().double(), b.cpu().double()
@@ -990,10 +999,10 @@ def coord_compare(i, ks, ps, worst):
         e = float((a - b).abs().max())
         worst[name] = max(worst.get(name, 0.0), e)
         if not e <= bnd:
-            raise AssertionError(f"2-D step {i}: {name} differs by {e:.3e} > {bnd:.3e}")
+            raise AssertionError(f"{label} step {i}: {name} differs by {e:.3e} > {bnd:.3e}")
 
     if not np.array_equal(ks.key, ps.key):
-        raise AssertionError(f"2-D step {i}: key differs")
+        raise AssertionError(f"{label} step {i}: key differs")
     exact("step", ks.step, ps.step)
     exact("hills_truncated", ks.hills_truncated, ps.hills_truncated)
     kb, pb = ks.bias, ps.bias
@@ -1011,35 +1020,66 @@ def coord_compare(i, ks, ps, worst):
         a, b = float(a), float(b)
         worst[name] = max(worst.get(name, 0.0), abs(a - b))
         if not abs(a - b) <= COORD_GRID_REL * max(1.0, abs(b)):
-            raise AssertionError(f"2-D step {i}: {name} {a!r} on the card, {b!r} on the CPU")
+            raise AssertionError(f"{label} step {i}: {name} {a!r} on the card, {b!r} on the CPU")
 
 
-def coord_zero_temperature(torch, device, n_steps=20):
+def coord_label(periodic) -> str:
+    return "2-D" if periodic else "McGDP"
+
+
+def require_full_f32(torch):
+    """The 2-D deposits run their products in full float32 (the JAX
+    package's Precision.HIGHEST)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the 2-D phases need full float32")
+
+
+def coord_zero_temperature(torch, device, n_steps=20, periodic=True):
     """The 2-D slice at full width, 20 steps at kT = 0 (the thermostat's
     normals drop out): each step taken from the same input state by the
     port on the card and by the port on the CPU (float32), held to each
     other by ``coord_compare``; two of them are hill steps."""
+    require_full_f32(torch)
     cpu = torch.device("cpu")
-    state, steps = coord_setup(torch, 0.0, device)
-    _, steps_cpu = coord_setup(torch, 0.0, cpu)
+    state, steps = coord_setup(torch, 0.0, device, periodic)
+    _, steps_cpu = coord_setup(torch, 0.0, cpu, periodic)
     worst, hills = {}, 0
     for i in range(n_steps):
         k = 0 if i % 10 == 0 else 1
         ref, _ = steps_cpu[k](tree_to(state, cpu))
         state, _ = steps[k](state)
-        coord_compare(i, state, ref, worst)
+        coord_compare(i, state, ref, worst, coord_label(periodic))
         hills += k == 0
     if hills < 2 or not float(state.bias.cum_bias) > 0:
-        raise AssertionError("the kT = 0 2-D run deposited no hills")
+        raise AssertionError(f"the kT = 0 {coord_label(periodic)} run deposited no hills")
     b = state.bias
-    print(f"kT=0 2-D: {n_steps} steps ({hills} hill steps) on the card match the port on the "
+    print(f"kT=0 {coord_label(periodic)}: {n_steps} steps ({hills} hill steps) on the card match the port on the "
           f"CPU step for step; integer leaves equal (last: step {int(state.step)}, hill rounds "
           f"{int(b.steps)}, buf_left {int(b.buf_left)}, buf_right {int(b.buf_right)}, "
           f"overflow {bool(b.overflow_error)}, truncated {bool(state.hills_truncated)}); "
           f"worst |diff|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
-def coord_run(torch, device, warm_steps=100, timed_steps=1000):
+def sync_sites(torch, fn):
+    """Run ``fn`` under CUDA sync-debug mode: {"file:line": count} of the
+    Python lines whose calls synchronized with the card."""
+    sites = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def coord_run(torch, device, warm_steps=100, timed_steps=1000, periodic=True):
     """The bench's kT = 1.0 2-D run: ``warm_steps`` step by step, each hill
     round's growth of the grid's integral (values.sum() dx dy, in float64)
     held to its round_bias; then ``timed_steps`` in whole stride cycles
@@ -1047,11 +1087,13 @@ def coord_run(torch, device, warm_steps=100, timed_steps=1000):
     with the Threefry counter set to 0 just before and read just after.
     Then one cycle's profile (device-busy share, launches per step, top
     device operations) and the host syncs of a hill step and a plain step
-    (CUDA sync-debug mode)."""
+    (CUDA sync-debug mode), each named by the line that made it."""
     from edm_tpu_torch.models.driver import strided_segment
     from edm_tpu_torch.ops import prng
 
-    state, steps = coord_setup(torch, 1.0, device)
+    require_full_f32(torch)
+    label = coord_label(periodic)
+    state, steps = coord_setup(torch, 1.0, device, periodic)
     g = state.bias.bias.spec.grid
     vol = g.dx[0] * g.dx[1]
     worst_int = 0.0
@@ -1066,8 +1108,8 @@ def coord_run(torch, device, warm_steps=100, timed_steps=1000):
             rb = float(state.bias.cum_bias) - cum0
             worst_int = max(worst_int, abs(grown - rb) / max(rb, 1e-30))
             if not (rb > 0 and abs(grown - rb) <= COORD_INTEGRAL_REL * rb):
-                raise AssertionError(f"2-D hill round at step {i}: the grid's integral grew "
-                                     f"by {grown!r}, its round_bias is {rb!r}")
+                raise AssertionError(f"{label} hill round at step {i}: the grid's integral "
+                                     f"grew by {grown!r}, its round_bias is {rb!r}")
     for s in steps:
         s.host_syncs = 0
     seg = strided_segment(steps[0], steps[1], 10, timed_steps)
@@ -1081,17 +1123,12 @@ def coord_run(torch, device, warm_steps=100, timed_steps=1000):
     syncs = sum(s.host_syncs for s in steps)
     cycle = strided_segment(steps[0], steps[1], 10, 10)
     dev_us, per, top, per_cycle = device_time_us(torch, lambda: cycle(state), 2)
-    print(busy_line("kT=1.0 2-D stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
-    census = {}
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        for name, step in (("hill step", steps[0]), ("plain step", steps[1])):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                step(state)
-            census[name] = sum("synchroniz" in str(w.message) for w in caught)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    print(busy_line(f"kT=1.0 {label} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    census, counted = {}, {}
+    for name, step in (("hill step", steps[0]), ("plain step", steps[1])):
+        before = step.host_syncs
+        census[name] = sync_sites(torch, lambda: step(state))
+        counted[name] = step.host_syncs - before
     b = state.bias
     checks = {
         "finite": all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.f, e,
@@ -1100,19 +1137,91 @@ def coord_run(torch, device, warm_steps=100, timed_steps=1000):
         "no hills_truncated": not bool(state.hills_truncated),
         "cum_bias > 0": float(b.cum_bias) > 0,
         "Threefry kernel: two launches a step": n_tf == 2 * timed_steps,
-        "no sync on plain steps": census["plain step"] == 0,
+        "no sync on plain steps": not census["plain step"],
+        "every sync counted by the steps": all(
+            sum(census[k].values()) == counted[k] for k in census),
     }
-    print(f"host syncs (CUDA sync-debug mode): {census}; counted by the steps: "
-          f"{syncs / (timed_steps / 10):.2f} per stride cycle")
-    print(f"kT=1.0 2-D (N={COORD_N}, 1000 x 1000 grid, hill_capacity 2048): {timed_steps} steps "
+    for name, sites in census.items():
+        print(f"host syncs of a {label} {name} (CUDA sync-debug mode): {sum(sites.values())}"
+              + "".join(f"; {site} x{n}" for site, n in sites.items())
+              + f" (counted by the step: {counted[name]})")
+    print(f"host syncs counted by the {label} steps: {syncs / (timed_steps / 10):.2f} per "
+          f"stride cycle")
+    shape = "x".join(map(str, g.nbins))
+    print(f"kT=1.0 {label} (N={COORD_N}, {shape} grid, hill_capacity 2048): {timed_steps} steps "
           f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, device launches per step "
           f"{per_cycle / 10:.1f}, Threefry launches {n_tf}, cum_bias {float(b.cum_bias):.6g}, "
           f"hill rounds {int(b.steps)}, buffered {int(b.buf_right)}, worst integral vs "
           f"round_bias {worst_int:.3e} relative")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"kT=1.0 2-D run failed: {failed}")
+        raise AssertionError(f"kT=1.0 {label} run failed: {failed}")
     return timed_steps / dt, n_tf, funcs_ms(per, TF_FUNCS, 20.0)
+
+
+# the McGDP deposit against the windowed one: the e^-8 corner class of
+# tests/test_deposit_mcgdp2d.py (3 B on values, 40 B on derivatives, B =
+# sum(h) e^-8 / (pi sigma'_0 sigma'_1)), plus float32 rounding: 1e-5 of
+# max|.| (COORD_GRID_REL)
+MCGDP_CORNER = (3.0, 40.0)
+
+
+def mcgdp_deposit_phase(torch, device):
+    """The first hill round of the McGDP run at full width: its compacted
+    centres and effective heights deposited on its round-start grid through
+    ``dense_tables_mcgdp`` + ``deposit_from_mcgdp`` and through
+    ``hill_windows`` + ``deposit_precomputed`` (the reference-exact route of
+    ``exact_deposit=True``), on the card; the two held to each other within
+    the corner class, and h s to the windowed bias_added."""
+    import math
+
+    from edm_tpu_torch import bias as B
+    from edm_tpu_torch.ops import deposit as D
+
+    require_full_f32(torch)
+    state, steps = coord_setup(torch, 1.0, device, periodic=False)
+    rounds = []
+    add_hills_round = B.add_hills_round
+
+    def spy(params, bs, pos, *args, **kw):
+        out = add_hills_round(params, bs, pos, *args, **kw)
+        rounds.append((bs.bias, pos, out[1].hill_dep_h))
+        return out
+
+    B.add_hills_round = spy
+    try:
+        steps[0](state)
+    finally:
+        B.add_hills_round = add_hills_round
+    gg, pos, dep_h = rounds[0]
+    tabs = D.dense_tables_mcgdp(gg, pos)
+    gm, reads = D.deposit_from_mcgdp(gg, tabs, dep_h)
+    gw, added = D.deposit_precomputed(gg, D.hill_windows(gg, pos), dep_h)
+    sig = gg.spec.sigma
+    B_ = float(dep_h.double().sum()) * math.exp(-8.0) / (math.pi * sig[0] * sig[1])
+    errs = {}
+    for name, a, b, k in (("values", gm.grid.values, gw.grid.values, MCGDP_CORNER[0]),
+                          ("derivs", gm.grid.derivs, gw.grid.derivs, MCGDP_CORNER[1])):
+        lim = k * B_ + COORD_GRID_REL * float(b.abs().max())
+        errs[name] = (max_err(a, b), lim)
+    vol = float(np.prod(gg.spec.grid.dx))
+    hs = float((dep_h.double() * tabs.s.double()).sum())
+    errs["h s vs bias_added"] = (abs(hs - float(added.double().sum())),
+                                 5.0 * B_ * vol * gm.grid.values.numel()
+                                 + COORD_GRID_REL * abs(hs))
+    n_hills = int((dep_h != 0).sum())
+    ms_m = cuda_ms(torch, lambda: D.deposit_from_mcgdp(gg, D.dense_tables_mcgdp(gg, pos), dep_h),
+                   reps=5, warm=1)
+    ms_w = cuda_ms(torch, lambda: D.deposit_precomputed(gg, D.hill_windows(gg, pos), dep_h),
+                   reps=5, warm=1)
+    print(f"McGDP deposit vs windowed (first hill round, {n_hills} of {pos.shape[0]} rows "
+          f"deposit, {'x'.join(map(str, gg.spec.grid.nbins))} grid, strip-count reads {reads}): "
+          + ", ".join(f"{k} {e:.3e} (bound {b:.3e})" for k, (e, b) in errs.items())
+          + f"; B = {B_:.3e}; {ms_m:.2f} ms tables + deposit, {ms_w:.2f} ms windowed "
+          "(CUDA events)")
+    bad = [k for k, (e, b) in errs.items() if not e <= b]
+    if bad or n_hills == 0:
+        raise AssertionError(f"McGDP deposit vs windowed failed: {bad or 'no hill deposited'}")
 
 
 def threefry_kernel_phase(torch, device):
@@ -1311,6 +1420,12 @@ def main() -> int:
     coord_zero_temperature(torch, device)
     _, n_tf, tf_ms = coord_run(torch, device)
     print(f"2-D slice: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    coord_zero_temperature(torch, device, periodic=False)
+    mcgdp_deposit_phase(torch, device)
+    _, n_tf_m, _ = coord_run(torch, device, periodic=False)
+    n_tf += n_tf_m
+    print(f"McGDP slice: {time.perf_counter() - t_phase:.1f} s")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"

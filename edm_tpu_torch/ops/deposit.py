@@ -471,7 +471,7 @@ def _mcgdp_base(gg: GaussGrid, centers: torch.Tensor):
         dp2 = dp * dp
         m = (dp2 < GAUSS_SUPPORT + 1e-12).to(dtype)
         e = torch.exp(-dp2)
-        ent = dict(m=m, e=e, dp=dp, dp2=dp2, G=G, gxs=gxs)
+        ent = dict(m=m, e=e, dp=dp, dp2=dp2)
         if spec.boundary_periodic[d]:
             ent["inv_fac"] = 1.0 / (math.sqrt(math.pi) * spec.sigma[d])
             ent["strip"] = None
@@ -482,9 +482,9 @@ def _mcgdp_base(gg: GaussGrid, centers: torch.Tensor):
             ent["m"] = m * pm[None, :]
             ent["pm"] = pm
             bc_idx = _bc_point_index(spec, d, dev)
-            ent["den"] = gg.bc_denom[d][bc_idx]  # (G,)
-            ent["dden"] = gg.bc_denom_deriv[d][bc_idx]
-            ent["inv_fac"] = torch.div(torch.ones((), dtype=dtype, device=dev), ent["den"])
+            ent["dden"] = gg.bc_denom_deriv[d][bc_idx]  # (G,)
+            ent["inv_fac"] = torch.div(torch.ones((), dtype=dtype, device=dev),
+                                       gg.bc_denom[d][bc_idx])
             u_lo = _div(gxs - bmin, sig * BC_MAR)
             u_hi = _div(bmax - gxs, sig * BC_MAR)
             ent["s2"] = sigmoid(u_lo)
@@ -578,9 +578,9 @@ def _take(a: torch.Tensor, rows) -> torch.Tensor:
 
 def _strip_chunk_fields(gg, per, d_strip, rows):
     """Dense spherical-mask ingredients on dim ``d_strip``'s boundary strip
-    for the hills ``rows``: (others, strip rows, valid, e), the fields of
-    shape (h, G_others..., S): hill, the other dims in ascending order,
-    then the strip rows (the caller restores the grid's dim order)."""
+    for the hills ``rows``: (valid, e), fields of shape (h, G_others...,
+    S): hill, the other dims in ascending order, then the strip rows (the
+    caller restores the grid's dim order)."""
     D = len(per)
     others = [d for d in range(D) if d != d_strip]
     es = per[d_strip]
@@ -600,8 +600,7 @@ def _strip_chunk_fields(gg, per, d_strip, rows):
             shape[1 + i] = -1
             valid = valid * per[o]["pm"].reshape(shape)
     valid = valid * es["pm"].index_select(0, strip).reshape((1,) * D + (-1,))
-    e = torch.exp(-dp2)
-    return others, strip, valid, e
+    return valid, torch.exp(-dp2)
 
 
 def _running_inv_den(per, upto, others, d_strip, strip, power=1):
@@ -708,7 +707,7 @@ def _mcgdp_strip_value(gg, per, dstar, hill_okf, heights):
     hsh = (-1,) + (1,) * D
 
     def corr_of(rows):
-        _, _, valid, e = _strip_chunk_fields(gg, per, dstar, rows)
+        valid, e = _strip_chunk_fields(gg, per, dstar, rows)
         t1 = _take(es["t1"], rows).reshape(hsh)
         t3 = _take(es["t3"], rows).reshape(hsh)
         corr = ((t1 - e) * s2 + (t3 - e) * s4) * valid
@@ -738,7 +737,7 @@ def _mcgdp_strip_grad(gg, per, gdim, hill_okf, heights):
     t5sh = (-1,) + (1,) * (D - 1) + (int(strip.numel()),)
 
     def field_of(rows):
-        _, _, valid, e = _strip_chunk_fields(gg, per, gdim, rows)
+        valid, e = _strip_chunk_fields(gg, per, gdim, rows)
         t1 = _take(es["t1"], rows).reshape(hsh)
         t3 = _take(es["t3"], rows).reshape(hsh)
         t5 = _div(-2.0 * _take(es["dp"], rows).index_select(1, strip), sig).reshape(t5sh)

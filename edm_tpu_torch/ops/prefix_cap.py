@@ -64,9 +64,10 @@ def cap_scan(heights, weights, active, cap, cum0) -> CapResult:
         dep = torch.where(full, heights, dep)
         deposited = deposited | full
 
-        h_k = heights[k_star]
-        s_k = weights[k_star]
-        pre_k = prefix[k_star]
+        # index_select, not t[k_star]: indexing with a 0-d tensor reads it
+        # back to the host
+        k1 = k_star.reshape(1)
+        h_k, s_k, pre_k = (t.index_select(0, k1)[0] for t in (heights, weights, prefix))
         h_undo = torch.maximum(cap - pre_k, -h_k)
         is_k = any_cross & (idxs == k_star)
         dep = torch.where(is_k, h_k + h_undo, dep)

@@ -719,3 +719,84 @@ def test_windowed_scatter_card_vs_cpu(cuda_state):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     assert float(((ba - ba0) / ba0.abs().clamp(min=1e-30)).abs().max()) <= 1e-6
     assert torch.equal(hist, hist0) and float(hist.sum()) > 0
+
+
+def _near_card(a, b, rel=1e-5):
+    """Card against CPU in float32: within ``rel`` of max(1, max|.|)."""
+    a, b = a.cpu().double(), b.cpu().double()
+    return float((a - b).abs().max()) <= rel * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["compacted", "dense"])
+def test_mcgdp_deposit_card_vs_cpu(cuda_state, monkeypatch, branch):
+    """The McGovern-De Pablo tables and deposit on a non-periodic 201 x 201
+    grid with 512 hills (some outside the box, some on the strips), on the
+    card against the CPU: the strip passes' compacted branch (the near-wall
+    hills fit the capacity of 256) and the dense one (capacity 16, so
+    max(16, 512 // 8) = 64 < the near-wall count).  The tables, s and the
+    grid within 1e-5 of max|.|; one strip-count read on each device."""
+    from edm_tpu_torch.ops import deposit as D
+
+    rng = np.random.default_rng(41)
+    H = 512
+    c = rng.uniform(-0.1, 4.1, (H, 2))
+    h = rng.uniform(0.0, 0.01, H)
+    h[::13] = 0.0
+    reach = (2.0 + np.sqrt(8.0)) * 0.05 * np.sqrt(2.0) + 0.02
+    near = [int((((np.abs(c[:, d]) < reach) | (np.abs(c[:, d] - 4.0) < reach)) & (h != 0)).sum())
+            for d in range(2)]
+    assert 64 < min(near) and max(near) <= 256, near
+    if branch == "dense":
+        monkeypatch.setattr(D, "_STRIP_COMPACT_CAP", 16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gg = tg.GaussGrid.create([0.0, 0.0], [4.0, 4.0], [0.02, 0.02], [False, False],
+                                 [0.05, 0.05], device=dev)
+        tabs = D.dense_tables_mcgdp(gg, torch.tensor(c, dtype=torch.float32, device=dev))
+        o, reads = D.deposit_from_mcgdp(gg, tabs, torch.tensor(h, dtype=torch.float32, device=dev))
+        assert reads == 1
+        out[dev] = [t.cpu() for t in (tabs.s, *tabs.sep_value, o.grid.values, o.grid.derivs)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _near_card(a, b)
+    assert float(out["cpu"][-2].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_mcgdp_round_two_passes_card_vs_cpu(cuda_state):
+    """One well-tempered McGDP engine round in two passes (the first pass
+    over bias_per_step, so hills defer), on the card against the CPU:
+    integer and bool records and state exactly, floats within 1e-5 of
+    max(1, max|.|)."""
+    cfg = parse_edm_text(
+        "tempering 1\nbias_factor 10\nglobal_tempering -1\nhill_prefactor 0.6\n"
+        "bias_per_step 0.5\nhill_density 40\ndimension 2\nbox_low 0 0\nbox_high 4 3\n"
+        "bias_spacing 0.05 0.06\nbias_sigma 0.2 0.15\n")
+    rng = np.random.default_rng(43)
+    H = 64
+    pos = rng.uniform(-0.1, 4.1, (H, 2)) * [1.0, 0.75]
+    run = rng.uniform(0, 1, H)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params, bs = B.subdivide(cfg, 1.0, 1.0, [0, 0], [4, 3], [0, 0], [4, 3], [False, False],
+                                 [0, 0], dtype=torch.float32, device=dev)
+        bs, rec, reads = B.add_hills_round(
+            params, bs, torch.tensor(pos, dtype=torch.float32, device=dev),
+            torch.tensor(run, dtype=torch.float32, device=dev), 100.0, n_passes=2)
+        out[dev] = (bs, rec, reads)
+    (bs, rec, reads), (bs0, rec0, reads0) = out["cuda"], out["cpu"]
+    assert reads == reads0 and bool(rec0.hill_called[H // 2:].any())
+    assert float(rec0.hill_defer_h.sum()) > 0
+    for name in rec._fields:
+        a, b = getattr(rec, name), getattr(rec0, name)
+        if b.dtype.is_floating_point:
+            assert _near_card(a, b), name
+        else:
+            assert torch.equal(a.cpu(), b), name
+    for a, b in ((bs.buf_right, bs0.buf_right), (bs.steps, bs0.steps),
+                 (bs.overflow_error, bs0.overflow_error), (bs.cv_hist.values, bs0.cv_hist.values)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in ((bs.bias.grid.values, bs0.bias.grid.values),
+                 (bs.bias.grid.derivs, bs0.bias.grid.derivs), (bs.buf_h, bs0.buf_h),
+                 (bs.buf_pos, bs0.buf_pos), (bs.cum_bias, bs0.cum_bias)):
+        assert _near_card(a, b)

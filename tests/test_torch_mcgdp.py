@@ -218,7 +218,7 @@ def test_strip_hill_chunking(monkeypatch, budget):
     _, _, tt, to, _ = _both(jg, tgg, c, h)
     per = tt.strip_cache["per"]
     elems = 1 << 12 if budget == "1 << 12" else 4 * int(
-        per[2]["strip"].numel() * per[0]["G"] * per[1]["G"])
+        per[2]["strip"].numel() * per[0]["dp2"].shape[1] * per[1]["dp2"].shape[1])
     monkeypatch.setattr(TD, "_STRIP_CHUNK_ELEMS", elems)
     monkeypatch.setattr(JD, "_STRIP_CHUNK_ELEMS", elems)
     ch, Hp = TD._strip_hill_chunks(per, 2, 6)
