@@ -6,10 +6,11 @@ return new grids, as in the JAX package; the layout is
 ``values[i0, ..., i_{D-1}]`` with dim 0 the fastest-running index for file
 I/O (Fortran-order flattening reproduces the reference's ``multi2one``).
 
-Ported: ``GridSpec`` in full, ``Grid`` lookups (nearest-bin and
-interpolating, any D), nearest-bin accumulation (the CV histogram) and
-``expected_bias`` (targeting).  Grid files, ``Grid.add_grid`` (initial
-bias) and histogram resets are not ported yet (ROADMAP Queue 1, item 5).
+All of it: ``GridSpec`` (with ``from_deflated`` for file headers),
+``Grid`` lookups (nearest-bin and interpolating, any D), nearest-bin
+accumulation (the CV histogram), ``clear``, ``add_grid`` (an initial bias
+read from a file), the reductions and ``grid_points``.  File I/O is
+``utils/gridio``.
 """
 
 from __future__ import annotations
@@ -78,6 +79,31 @@ class GridSpec:
             if not p:
                 n += 1
                 hi += dx
+            mins.append(lo)
+            maxs.append(hi)
+            dxs.append(dx)
+            ns.append(n)
+            ps.append(bool(p))
+        return cls(tuple(mins), tuple(maxs), tuple(dxs), tuple(ns), tuple(ps))
+
+    @classmethod
+    def from_deflated(
+        cls,
+        min: Sequence[float],
+        max: Sequence[float],
+        nbins: Sequence[int],
+        periodic: Sequence[bool],
+    ) -> "GridSpec":
+        """Build from a file header's (deflated) values: non-periodic dims
+        are stored with BIN = n-1 and MAX = max-dx and are re-inflated on
+        read (reference lib/grid.h:800-806)."""
+        mins, maxs, dxs, ns, ps = [], [], [], [], []
+        for lo, hi, n, p in zip(min, max, nbins, periodic):
+            lo, hi, n = float(lo), float(hi), int(n)
+            dx = (hi - lo) / n
+            if not p:
+                hi += dx
+                n += 1
             mins.append(lo)
             maxs.append(hi)
             dxs.append(dx)
@@ -214,7 +240,27 @@ class Grid:
         )
         return dataclasses.replace(self, values=new_values), contrib
 
+    def clear(self) -> "Grid":
+        """The same grid with zero values (and derivatives): the histogram
+        reset at every write."""
+        nd = None if self.derivs is None else torch.zeros_like(self.derivs)
+        return dataclasses.replace(self, values=torch.zeros_like(self.values), derivs=nd)
+
+    def add_grid(self, other: "Grid", scale, offset) -> "Grid":
+        """Accumulate ``other`` evaluated at this grid's points (reference
+        grid.h:275-290); this grid must carry derivatives."""
+        pts = grid_points(self.spec, self.dtype, self.device)
+        val, der = other.get_value_deriv(pts)
+        return dataclasses.replace(self, values=self.values + scale * val + offset,
+                                   derivs=self.derivs + scale * der)
+
     # ------------------------------------------------------------- reductions
+
+    def max_value(self) -> torch.Tensor:
+        return torch.max(self.values)
+
+    def min_value(self) -> torch.Tensor:
+        return torch.min(self.values)
 
     def expected_bias(self) -> torch.Tensor:
         """E[g] under exp(-g), the grid read as an unnormalized -ln(p)
@@ -224,3 +270,10 @@ class Grid:
         w = torch.exp(-g - offset)
         return torch.sum(g * w) / torch.sum(w)
 
+
+
+def grid_points(spec: GridSpec, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """All grid point coordinates, shape ``spec.nbins + (D,)``."""
+    axes = [torch.as_tensor(spec.axis_points(d), dtype=dtype, device=device)
+            for d in range(spec.dim)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)

@@ -23,8 +23,11 @@ path.  ``static_do_hills=None`` (the JAX default) gives one step that
 decides on each call, as the JAX host's ``lax.cond``, from the step
 counter, which it reads back (one host sync per step, counted).
 ``hill_passes`` runs the round in passes over ``hill_passes *
-hill_capacity`` compacted rows.  Not ported: ``collect_records`` (ROADMAP
-Queue 1, item 5) and ``axis_name`` (item 7).
+hill_capacity`` compacted rows.  ``collect_records=True`` makes every step
+return ``(energy, bias.HillRoundLog)`` for the HILLS log
+(``driver.run_simulation``): the round's records on a hill step, zeros of
+the same shapes on the others.  Not ported: ``axis_name`` (ROADMAP Queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -65,13 +68,14 @@ class CoordStep:
 
     def __init__(self, params: B.BiasParams, lp: LangevinParams, hill_stride: int,
                  external_force, group_mask, hill_capacity: int, do_hills: Optional[bool],
-                 hill_passes: int = 1):
+                 hill_passes: int = 1, collect_records: bool = False):
         self.params, self.lp, self.hill_stride = params, lp, hill_stride
         self.external_force = external_force
         self.group_mask = group_mask  # (N,) bool numpy array or None
         self._gmask = None  # its copy on the state's device, made at first use
         self.hill_capacity, self.do_hills = hill_capacity, do_hills
         self.hill_passes = hill_passes
+        self.collect_records = collect_records
         self.host_syncs = 0
 
     def check_phase(self, pos: int, cycle: int):
@@ -128,6 +132,7 @@ class CoordStep:
 
         bias_state, ptab = state.bias, state.ptab
         trunc = torch.zeros((), dtype=torch.bool, device=dev)
+        log = None
         if do_hills:
             if compact:
                 # the engine's acceptance predicate, then an order-preserving
@@ -148,19 +153,28 @@ class CoordStep:
                 count = torch.sum(acc.to(torch.int64))
                 active = torch.arange(Hc, device=dev) < count
                 trunc = count > Hc
-                bias_state, _, reads = B.add_hills_round(params, bias_state, pos_c, run_c, N,
-                                                         active=active,
-                                                         n_passes=self.hill_passes)
+                bias_state, rec, reads = B.add_hills_round(params, bias_state, pos_c, run_c, N,
+                                                           active=active,
+                                                           n_passes=self.hill_passes)
+                log_pos = pos_c
             else:
-                bias_state, _, reads = B.add_hills_round(params, bias_state, x[..., :D],
-                                                         runiform, N, active=gmask)
+                bias_state, rec, reads = B.add_hills_round(params, bias_state, x[..., :D],
+                                                           runiform, N, active=gmask)
+                log_pos = x[..., :D]
+            if self.collect_records:
+                log = B.HillRoundLog(torch.ones((), dtype=torch.bool, device=dev), log_pos, rec)
             self.host_syncs += reads
             if ptab is not None:
                 ptab = packed_corner_table(bias_state.bias.grid)
         new_trunc = None if state.hills_truncated is None else state.hills_truncated | trunc
         new_state = CoordEDMState(x=x, v=v, f=f, key=key, bias=bias_state, step=state.step + 1,
                                   energy=energy, ptab=ptab, hills_truncated=new_trunc)
-        return new_state, energy
+        if not self.collect_records:
+            return new_state, energy
+        if log is None:
+            log = B.round_log_zeros(params, state.bias,
+                                    self.hill_passes * self.hill_capacity if compact else N)
+        return new_state, (energy, log)
 
 
 def make_step(
@@ -189,9 +203,8 @@ def make_step(
     ``static_do_hills``: True or False builds one static stride phase (the
     fast path, driven by ``driver.strided_segment``), None a step that
     decides from ``state.step % hill_stride`` on each call and reads the
-    counter back to do so."""
-    if collect_records:
-        raise NotImplementedError("hill-record collection is not ported yet (ROADMAP Queue 1, item 5)")
+    counter back to do so.  ``collect_records``: each step returns
+    ``(energy, bias.HillRoundLog)``."""
     if axis_name is not None:
         raise NotImplementedError("axis_name (the sharded host) is not ported yet "
                                   "(ROADMAP Queue 1, item 7)")
@@ -203,7 +216,7 @@ def make_step(
     gmask = None if group_mask is None else np.asarray(group_mask, bool)
     do_hills = None if static_do_hills is None else bool(static_do_hills)
     return CoordStep(params, lp, hill_stride, external_force, gmask, hill_capacity, do_hills,
-                     hill_passes)
+                     hill_passes, collect_records)
 
 
 def init_state(params: B.BiasParams, bias_state: B.BiasState, x0: torch.Tensor, key,
@@ -229,10 +242,13 @@ def init_state(params: B.BiasParams, bias_state: B.BiasState, x0: torch.Tensor, 
 
 
 def run_segment(step_fn, state: CoordEDMState, n_steps: int):
-    """``n_steps`` steps; returns the final state and the per-step bias
-    energies (n_steps,)."""
-    energies = []
+    """``n_steps`` steps; returns the final state and the per-step outputs
+    stacked: the bias energies (n_steps,), with ``collect_records`` also
+    the records (``driver.stack_outputs``)."""
+    from .driver import stack_outputs
+
+    ys = []
     for _ in range(n_steps):
-        state, e = step_fn(state)
-        energies.append(e)
-    return state, torch.stack(energies)
+        state, y = step_fn(state)
+        ys.append(y)
+    return state, stack_outputs(ys)

@@ -32,12 +32,18 @@ the JAX layout):
      the full rebuild.
 
 Each JAX ``lax.cond`` on a traced flag becomes a read of that flag on the
-host.  Only rebuild and hill steps read: the rebin's feasibility (and,
-after a full rebuild, ``tail_ovf``), and the capping loop's exit flag in
-``add_hills_round``.  ``tail_ovf`` changes only at rebuilds, so the state
-carries its host copy (``tail_ovf_host``) through the period; a feasible
-rebin keeps the tail within ``overflow_cap`` by construction and needs no
-read.  Each step counts its reads in ``step.host_syncs``.
+host.  A static phase step (``static_do_*`` True or False) reads only on
+rebuild and hill steps: the rebin's feasibility (and, after a full
+rebuild, ``tail_ovf``), and the capping loop's exit flag in
+``add_hills_round``.  A dynamic step (any ``static_do_*`` None, the JAX
+default) also reads the step counter once a call and picks its phase from
+``step % stride`` as the JAX host's conds do; it then runs exactly what the
+static phase of that step runs.  ``tail_ovf`` changes only at rebuilds, so
+the state carries its host copy (``tail_ovf_host``) through the period; a
+feasible rebin keeps the tail within ``overflow_cap`` by construction and
+needs no read.  Each step counts its reads in ``step.host_syncs``.
+``collect_records=True`` makes every step return ``(energy,
+bias.HillRoundLog)`` for the HILLS log (``driver.run_simulation``).
 
 Differences from the JAX state: the cached stencil planes (``mnf``,
 ``mkf``, ``tnf``, and the with-ids ``mn``/``nid``) are gone — the kernels
@@ -47,10 +53,9 @@ state keeps ``ts`` and ``sid`` and records ``kernel_cap`` and
 ``tail_ovf_host``.  The step owns its outputs: the force planes that K1
 returns are updated in place by the tail pass.
 
-Not ported yet: dynamic stride conds (``static_do_*`` = None), the XLA
-force path (``use_pallas=False``) and ``cell_diag`` (ROADMAP Queue 1, item
-4), hill-record collection (item 5), slab/brick sharding and ``row_box``
-(item 7).
+Not ported yet: the XLA force path (``use_pallas=False``) and
+``cell_diag`` (ROADMAP Queue 1, item 4), slab/brick sharding and
+``row_box`` (item 7).
 """
 
 from __future__ import annotations
@@ -106,7 +111,9 @@ class CellPairState:
     tail_ovf: Optional[torch.Tensor] = None  # bool: tail_count > overflow_cap
     # -> this rebuild period runs the full-cap kernel (never-drop)
     tail_fallbacks: Optional[torch.Tensor] = None  # periods run at full cap
-    tail_ovf_host: Optional[bool] = None  # host copy of tail_ovf
+    # host copy of tail_ovf (utils/checkpoint restores it from tail_ovf)
+    tail_ovf_host: Optional[bool] = dataclasses.field(
+        default=None, metadata={"host_copy_of": "tail_ovf"})
     ts: Optional[torch.Tensor] = None  # (Cg, cap) slot atom types (float, 0 =
     # empty): init_cell_state(types=...), for typed kernel runs
     sid: Optional[torch.Tensor] = None  # (Cg, cap) slot ids (the slot's atom
@@ -239,18 +246,23 @@ def newton_lattice_force(xs, mc, ncells, box, lj, table, energy: bool = True, ts
 
 
 class CellStep:
-    """One static stride phase of the cell host (``make_cell_step``):
-    ``step(state) -> (new_state, bias_energy)``.  ``host_syncs`` counts the
-    flags this step object has read back to the host."""
+    """One step of the cell host (``make_cell_step``): ``step(state) ->
+    (new_state, bias_energy)``, or ``(new_state, (bias_energy,
+    HillRoundLog))`` with ``collect_records``.  ``do_hills``, ``do_energy``
+    and ``do_rebuild`` are True or False for a static stride phase, None to
+    decide from ``state.core.step`` on each call.  ``host_syncs`` counts
+    the values this step object has read back to the host."""
 
     def __init__(self, params: B.BiasParams, lp: LangevinParams, lj: LJParams,
-                 spec: CellSpec, *, do_hills: bool, do_energy: bool,
-                 do_rebuild: bool, hill_capacity: int, row_cap: int,
+                 spec: CellSpec, *, do_hills: Optional[bool], do_energy: Optional[bool],
+                 do_rebuild: Optional[bool], hill_capacity: int, row_cap: int,
                  m_per_row: int, mover_cap: int, kernel_cap, overflow_cap: int,
-                 use_pallas, types, type_pair, strides=(1, 1, 1)):
+                 use_pallas, types, type_pair, strides=(1, 1, 1),
+                 collect_records: bool = False):
         self.params, self.lp, self.lj, self.spec = params, lp, lj, spec
         self.strides = strides  # the JAX host's (hill, rebuild, energy) strides
         self.do_hills, self.do_energy, self.do_rebuild = do_hills, do_energy, do_rebuild
+        self.collect_records = collect_records
         self.hill_capacity, self.row_cap, self.m_per_row = hill_capacity, row_cap, m_per_row
         self.mover_cap = mover_cap
         self.kernel_cap, self.overflow_cap = kernel_cap, overflow_cap
@@ -266,19 +278,23 @@ class CellStep:
         self._c2 = float(np.sqrt(max(0.0, (1.0 - c1 * c1)) * lp.kT / lp.mass))
         self.host_syncs = 0
 
-    def check_phase(self, pos: int, cycle: int):
-        """Raise unless this static phase is what the JAX host's dynamic
-        step runs at step ``pos`` of a cycle of ``cycle`` steps: hills when
-        ``step % hill_stride == 0``, a rebuild when ``(step + 1) %
-        rebuild_stride == 0``, the energy when ``step % energy_stride ==
-        0``, every stride dividing the cycle (``driver.pattern_segment``)."""
+    def phases(self, step: int):
+        """(hills, rebuild, energy): what the JAX host runs at ``step``."""
         hs, rs, es = self.strides
-        if cycle % hs or cycle % rs or cycle % es:
+        return step % hs == 0, (step + 1) % rs == 0, es == 1 or step % es == 0
+
+    def check_phase(self, pos: int, cycle: int):
+        """Raise unless each static phase of this step is what the JAX
+        host's dynamic step runs at step ``pos`` of a cycle of ``cycle``
+        steps (``phases``), each such phase's stride dividing the cycle
+        (``driver.pattern_segment``); a dynamic phase fits every place."""
+        hs, rs, es = self.strides
+        have = (self.do_hills, self.do_rebuild, self.do_energy)
+        if any(h is not None and cycle % st for h, st in zip(have, (hs, rs, es))):
             raise ValueError(f"a {cycle}-step cycle is not a whole number of the "
                              f"strides (hill {hs}, rebuild {rs}, energy {es})")
-        want = (pos % hs == 0, (pos + 1) % rs == 0, es == 1 or pos % es == 0)
-        have = (self.do_hills, self.do_rebuild, self.do_energy)
-        if want != have:
+        want = self.phases(pos)
+        if any(h is not None and h != w for h, w in zip(have, want)):
             raise ValueError(
                 f"step {pos} of the cycle runs (hills, rebuild, energy) = {have}, but "
                 f"the strides (hill {hs}, rebuild {rs}, energy {es}) put {want} there")
@@ -298,19 +314,27 @@ class CellStep:
                 f"state was built with overflow_cap={state.ovl.shape[0]} but "
                 f"the step expects overflow_cap={self.overflow_cap}"
             )
+        do_hills, do_energy, do_rebuild = self.do_hills, self.do_energy, self.do_rebuild
+        if None in (do_hills, do_energy, do_rebuild):
+            # the JAX host's lax.conds on step % stride, decided on the host
+            want = self.phases(int(core.step))
+            self.host_syncs += 1
+            do_hills, do_rebuild, do_energy = (w if h is None else h for h, w in zip(
+                (do_hills, do_rebuild, do_energy), want))
         key, sub_noise = prng.split(core.key)
         xs, vh = self._phase1(state, seeds_from_key(sub_noise))
-        e_bias, fs = self._force(state, xs)
+        e_bias, fs = self._force(state, xs, do_energy)
         vs = (vh + (0.5 * lp.dt / lp.mass) * fs) * state.mc[..., None]
-        if not self.do_energy:
+        if not do_energy:  # carry the last computed bias energy
             e_bias = core.energy
 
-        if self.do_hills:
+        log = None
+        if do_hills:
             key, sub = prng.split(key)
             hills, runifs, active, ncalls, truncated = self._collect_hills(
                 state, xs, sub, core.last_calls, dtype
             )
-            bias_state, _, reads = B.add_hills_round(
+            bias_state, rec, reads = B.add_hills_round(
                 self.params, core.bias, hills[:, None], runifs,
                 core.last_calls.to(dtype), active=active,
             )
@@ -319,11 +343,14 @@ class CellStep:
             # refit at the carried table's degree and panels
             cheb = (fit_gauss_grid(bias_state.bias, core.cheb.deg, core.cheb.npanels)
                     if core.cheb is not None else None)
+            if self.collect_records:
+                log = B.HillRoundLog(torch.ones((), dtype=torch.bool, device=xs.device),
+                                     hills[:, None], rec)
         else:
             bias_state, last_calls, cheb = core.bias, core.last_calls, core.cheb
             truncated = torch.zeros((), dtype=torch.bool, device=xs.device)
 
-        if self.do_rebuild:
+        if do_rebuild:
             upd = self._rebuild(state, xs, vs, fs)
         else:
             upd = dict(xs=xs, vs=vs, fs=fs)
@@ -333,7 +360,12 @@ class CellStep:
             step=core.step + 1, last_calls=last_calls, energy=e_bias,
             hills_truncated=core.hills_truncated | truncated, cheb=cheb,
         )
-        return dataclasses.replace(state, core=new_core, **upd), e_bias
+        new_state = dataclasses.replace(state, core=new_core, **upd)
+        if not self.collect_records:
+            return new_state, e_bias
+        if log is None:
+            log = B.round_log_zeros(self.params, core.bias, self.hill_capacity)
+        return new_state, (e_bias, log)
 
     # ----------------------------------------------------------- BAOAB
 
@@ -369,7 +401,7 @@ class CellStep:
             )
         return state.ts, self.type_pair
 
-    def _force(self, state, xs):
+    def _force(self, state, xs, energy: bool):
         """(bias energy, forces (Cg, cap, 3)) by ``use_pallas``: K7 on
         "full", K6 and the credit subtraction on "newton", else K1 — plus
         K2 on reduced-cap periods.  The lookup is the carried ChebTable,
@@ -383,8 +415,8 @@ class CellStep:
         ts, tp = self._kernel_types(state)
         if self.use_pallas == "newton":
             return newton_lattice_force(xs, state.mc, spec.ncells, spec.box, lj, tbl,
-                                        self.do_energy, ts=ts, type_pair=tp)
-        kw = dict(box=spec.box, lj=lj, energy=self.do_energy)
+                                        energy, ts=ts, type_pair=tp)
+        kw = dict(box=spec.box, lj=lj, energy=energy)
         if self.kernel_cap is None or state.tail_ovf_host:
             f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells,
                                       ts=ts, type_pair=tp, **kw)
@@ -701,17 +733,22 @@ def make_cell_step(
     kernel_cap: Optional[int] = None,
     overflow_cap: int = 128,
 ) -> CellStep:
-    """Build one static stride phase of the cell host, with the JAX
-    signature and defaults.
+    """Build a step of the cell host, with the JAX signature and defaults.
 
-    The caller drives the phases in their cycle (``driver.pattern_segment``),
-    so a ``static_do_hills=True`` step deposits and a
-    ``static_do_rebuild=True`` step rebins whatever ``state.step`` is;
-    ``pattern_segment`` checks that each step sits where the JAX host's
-    ``hill_stride``, ``rebuild_stride`` and ``energy_stride`` would run the
-    same phase (``CellStep.check_phase``).  ``energy_stride == 1`` evaluates
-    the bias energy on every step; otherwise only on ``static_do_energy``
-    steps (forces are identical either way).  ``use_pallas``: True (K1,
+    ``static_do_hills`` / ``static_do_energy`` / ``static_do_rebuild``: True
+    or False build a static stride phase, the fast path.  The caller drives
+    the phases in their cycle (``driver.pattern_segment``), so a
+    ``static_do_hills=True`` step deposits and a ``static_do_rebuild=True``
+    step rebins whatever ``state.step`` is; ``pattern_segment`` checks that
+    each step sits where the JAX host's ``hill_stride``, ``rebuild_stride``
+    and ``energy_stride`` would run the same phase
+    (``CellStep.check_phase``).  None (the default) decides that phase on
+    each call from ``state.core.step``, which the step reads back once a
+    call, and runs what the static phase would.  ``energy_stride == 1``
+    evaluates the bias energy on every step; otherwise only on energy steps,
+    the last value carried through the others (forces are identical either
+    way).  ``collect_records``: each step returns ``(energy,
+    bias.HillRoundLog)``, zeros on steps without a round.  ``use_pallas``: True (K1,
     with K2 under ``kernel_cap``), "newton" (K6 and the credit subtraction)
     or "full" (K7; a state built with ``with_ids=True`` and a Chebyshev
     table); the JAX default False (the XLA force path) is not ported.
@@ -725,18 +762,11 @@ def make_cell_step(
     carried table's degree, not ``cheb_deg``."""
     if hill_stride < 1 or rebuild_stride < 1 or energy_stride < 1:
         raise ValueError("hill_stride, rebuild_stride and energy_stride must be >= 1")
-    if None in (static_do_hills, static_do_energy, static_do_rebuild):
-        raise NotImplementedError(
-            "dynamic stride conds are not ported (ROADMAP Queue 1, item 4): build one "
-            "step per phase with static_do_* and drive them with driver.pattern_segment"
-        )
     if use_pallas not in (True, "newton", "full"):
         raise NotImplementedError(
             f"use_pallas={use_pallas!r} (the XLA force path) is not ported yet "
             "(ROADMAP Queue 1, item 4)"
         )
-    if collect_records:
-        raise NotImplementedError("hill-record collection is not ported yet (ROADMAP Queue 1, item 5)")
     if (axis_name is not None or slab_axis is not None or brick_axes is not None
             or slab_ndev != 1 or tuple(brick_ndev) not in ((1, 1), (1, 1, 1))):
         raise NotImplementedError(
@@ -771,11 +801,13 @@ def make_cell_step(
         mover_cap = max(256, -(-spec.n_atoms // 32))
     return CellStep(
         params, lp, lj, spec,
-        do_hills=bool(static_do_hills),
-        do_energy=True if energy_stride == 1 else bool(static_do_energy),
-        do_rebuild=bool(static_do_rebuild),
+        do_hills=None if static_do_hills is None else bool(static_do_hills),
+        do_energy=(True if energy_stride == 1 else
+                   None if static_do_energy is None else bool(static_do_energy)),
+        do_rebuild=None if static_do_rebuild is None else bool(static_do_rebuild),
         hill_capacity=hill_capacity, row_cap=row_cap, m_per_row=m_per_row,
         mover_cap=mover_cap, kernel_cap=kernel_cap, overflow_cap=overflow_cap,
         use_pallas=use_pallas, types=types, type_pair=type_pair,
         strides=(hill_stride, rebuild_stride, energy_stride),
+        collect_records=collect_records,
     )

@@ -316,13 +316,15 @@ def test_dynamic_hill_step():
 
 
 def test_unported_options_raise():
-    """What stays unported raises with its ROADMAP item: record collection,
-    the sharded options."""
+    """What stays unported raises with its ROADMAP item: the sharded
+    options (``axis_name``, ``boundary_offset``).  Record collection is
+    ported: it builds, static and dynamic."""
     jparams, jbs, tparams, tbs = _round_setup(True, False)
     lp = tlang.LangevinParams(dt=0.002, friction=1.0, kT=0.0)
-    for kw, item in ((dict(static_do_hills=True, collect_records=True), "item 5"),
-                     (dict(collect_records=True), "item 5"),
-                     (dict(static_do_hills=True, axis_name="i"), "item 7")):
+    for kw in (dict(static_do_hills=True, collect_records=True), dict(collect_records=True)):
+        assert tce.make_step(tparams, lp, 2, **kw).collect_records
+    for kw, item in ((dict(static_do_hills=True, axis_name="i"), "item 7"),
+                     (dict(axis_name="i"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tce.make_step(tparams, lp, 2, **kw)
     pos, run = torch.zeros(4, 2, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)

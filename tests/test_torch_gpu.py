@@ -22,7 +22,10 @@ cleared, 1,000 partners, which is no multiple of the kernel's tile) on
 poisoned outputs.  K4 and K5 deposit on the periodic grids of
 ``test_torch_deposit.py``, empty and carrying values, and on grids whose
 size is no multiple of 4 with 1, 200 and 300 raw centres up to three
-periods outside the grid and on its wrap seam.  Tolerances as in
+periods outside the grid and on its wrap seam.  The user's entry points
+run on the card against the CPU: ``EDMBias(device="cuda")`` in float64
+(1-D and 2-D), ``run_simulation`` of a small cell host with records and
+every output, and a checkpoint resumed bitwise.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -800,3 +803,155 @@ def test_mcgdp_round_two_passes_card_vs_cpu(cuda_state):
                  (bs.bias.grid.derivs, bs0.bias.grid.derivs), (bs.buf_h, bs0.buf_h),
                  (bs.buf_pos, bs0.buf_pos), (bs.cum_bias, bs0.cum_bias)):
         assert _near_card(a, b)
+
+
+# ------------------------------------------- the user's entry points on the card
+
+
+def _tree_cpu(obj):
+    """A state's tensors on the CPU (dataclasses and tuples rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _tree_cpu(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        vals = [_tree_cpu(v) for v in obj]
+        return type(obj)(*vals) if hasattr(obj, "_fields") else type(obj)(vals)
+    return obj
+
+
+def _assert_states_close(card, cpu, rel, what):
+    """Every leaf of a card state against a CPU state: float leaves within
+    ``rel`` of max(1, max|.|), the others exactly."""
+    from _torch_parity import assert_tree
+
+    assert_tree(_tree_cpu(card), cpu, rel, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["1d", "2d"])
+def test_api_card_vs_cpu(cuda_state, tmp_path, case):
+    """``EDMBias(device="cuda")`` against ``device="cpu"`` in float64 over
+    the same capped, masked rounds: the state within 1e-10 of max|.|
+    (deposits add in another order on the card), integer leaves exactly,
+    forces and the HILLS files' step, type and counter columns equal."""
+    from edm_tpu_torch.api import EDMBias
+
+    text = {"1d": "tempering 1\nbias_factor 8\nhill_prefactor 0.8\nbias_per_step 1.2\n"
+                  "hill_density 6\ndimension 1\nbox_low 0\nbox_high 10\n"
+                  "bias_spacing 0.0097\nbias_sigma 0.25\n",
+            "2d": "tempering 0\nhill_prefactor 0.5\nbias_per_step 0.3\nhill_density -1\n"
+                  "dimension 2\nbox_low 0 0\nbox_high 4 4\nbias_spacing 0.09 0.11\n"
+                  "bias_sigma 0.3 0.25\n"}[case]
+    bs = {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / f"{dev}.edm").write_text(text + f"hills_filename {tmp_path}/{dev}_H\n")
+        b = EDMBias(str(tmp_path / f"{dev}.edm"), 1.0, 1.0, device=dev)
+        b.set_box([0.0] * b.dim, [10.0 if b.dim == 1 else 4.0] * b.dim, [case == "2d"] * b.dim)
+        b.set_mask(np.arange(40) % 3)
+        bs[dev] = b
+    rng = np.random.default_rng(3)
+    D = bs["cpu"].dim
+    for r in range(5):
+        pos = rng.uniform(0, 10.0 if D == 1 else 4.0, (40, D))
+        uni = rng.uniform(0, 1, 40)
+        for b in bs.values():
+            b.add_hills(pos, uni, apply_mask=1 if r % 2 else None)
+        _assert_states_close(bs["cuda"].state, bs["cpu"].state, 1e-10, f"round {r}")
+    assert bs["cuda"].state.bias.grid.values.is_cuda and bs["cpu"].cum_bias > 0
+    q = rng.uniform(0, 4.0, (40, D + 1))
+    fc, fp = np.zeros((40, D + 1)), np.zeros((40, D + 1))
+    ec, ep = (bs[d].update_forces(q, f, apply_mask=2) for d, f in (("cuda", fc), ("cpu", fp)))
+    assert abs(ec - ep) <= 1e-10 * max(1.0, abs(ep))
+    np.testing.assert_allclose(fc, fp, rtol=0, atol=1e-10 * max(1.0, np.abs(fp).max()))
+    for b in bs.values():
+        b.hills_log.close()
+    lines = {d: (tmp_path / f"{d}_H_0").read_text().splitlines() for d in bs}
+    assert [ln.split()[:3] for ln in lines["cuda"]] == [ln.split()[:3] for ln in lines["cpu"]]
+
+
+def _small_cell(dev):
+    """The 600-atom clustered fluid of ``test_torch_slice.py`` at kT = 0 with
+    kernel_cap (its first rebuild period at full cap): the dynamic cell
+    step with records and a fresh state, on ``dev``."""
+    from _torch_parity import clustered_points
+
+    cfg = parse_edm_text("tempering 1\nbias_factor 10\nhill_prefactor 0.1\nbias_per_step 1.0\n"
+                         "hill_density 250\ndimension 1\nbox_low 0\nbox_high 3.0\n"
+                         "bias_spacing 0.02\nbias_sigma 0.1\n")
+    params, bs = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                             dtype=torch.float32, device=dev)
+    core = pair_edm.init_state(bs, torch.tensor(clustered_points(600), device=dev),
+                               PRNGKey(0), n_est=600 * 300)
+    # a drift along y takes the crowd across a cell face: the step-9
+    # rebuild leaves the full-cap period and the next one runs K2
+    core = dataclasses.replace(core, v=torch.zeros_like(core.x).index_fill_(
+        1, torch.tensor([1], device=dev), 5.0))
+    spec = CellSpec.create([6.0] * 3, cutoff=2.0, n_atoms=600, cap=56)
+    st = init_cell_state(spec, core, kernel_cap=KCAP, overflow_cap=48)
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, 10,
+                          rebuild_stride=10, hill_capacity=512, energy_stride=10,
+                          use_pallas=True, kernel_cap=KCAP, overflow_cap=48,
+                          collect_records=True)
+    return params, step, st
+
+
+def _small_cell_run(dev, tmp_path, n_steps=20):
+    """``run_simulation`` of ``_small_cell`` with every output, a write every
+    10 steps; returns (state, energies, HILLS lines)."""
+    from edm_tpu_torch.models.driver import run_simulation
+    from edm_tpu_torch.utils.hills_log import HillsLog
+
+    params, step, st = _small_cell(dev)
+    log = HillsLog(str(tmp_path / f"{dev}_HILLS"), 1, params.total_volume)
+    st, e = run_simulation(step, st, n_steps, 10, bias_file=str(tmp_path / f"{dev}_B"),
+                           histogram_file=str(tmp_path / f"{dev}_H"),
+                           lammps_table=str(tmp_path / f"{dev}.ltab"), box_low=[0.0],
+                           box_high=[3.0], hills_log=log)
+    log.close()
+    return st, e, (tmp_path / f"{dev}_HILLS").read_text().splitlines()
+
+
+@pytest.mark.gpu
+def test_run_simulation_card_vs_cpu(cuda_state, tmp_path):
+    """``run_simulation`` on a small cell host (the dynamic step with
+    records, every output) on the card and on the CPU: the same hill
+    rounds logged line for line (step, type, counter exactly, numbers
+    within 1e-5), the slot arrays within 2e-5 * max(1, max|f|), integer
+    leaves exactly; K1 and K2 launched on the card."""
+    n1, n2 = CF.cell_force_newton.launches, CF.overflow_force.launches
+    card, e_card, h_card = _small_cell_run("cuda", tmp_path)
+    assert CF.cell_force_newton.launches > n1 and CF.overflow_force.launches > n2
+    cpu, e_cpu, h_cpu = _small_cell_run("cpu", tmp_path)
+    for f in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert card.tail_ovf_host == cpu.tail_ovf_host
+    for f in ("xs", "vs", "fs"):
+        assert_forces(getattr(card, f).cpu(), getattr(cpu, f), f)
+    assert_energy(e_card[-1].cpu(), e_cpu[-1], "energy")
+    assert len(h_card) == len(h_cpu) > 0
+    assert [ln.split()[:3] for ln in h_card] == [ln.split()[:3] for ln in h_cpu]
+    a = np.array([[float(v) for v in ln.split()[3:]] for ln in h_card])
+    b = np.array([[float(v) for v in ln.split()[3:]] for ln in h_cpu])
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.gpu
+def test_checkpoint_resume_on_card(cuda_state, tmp_path):
+    """10 steps, ``save_state``, ``load_state`` into a freshly built card
+    template, 10 more: bitwise the 20 uninterrupted steps on the card."""
+    from _torch_parity import assert_tree
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.utils.checkpoint import load_state, save_state
+
+    _, step, st = _small_cell(torch.device("cuda", 0))
+    seg = pattern_segment([(step, 1)], 10)
+    mid = seg(st)[0]
+    full = seg(mid)[0]
+    save_state(mid, str(tmp_path / "c.npz"))
+    _, step2, fresh = _small_cell(torch.device("cuda", 0))
+    resumed = load_state(fresh, str(tmp_path / "c.npz"))
+    assert resumed.xs.is_cuda and resumed.tail_ovf_host == mid.tail_ovf_host
+    cont = pattern_segment([(step2, 1)], 10)(resumed)[0]
+    assert_tree(_tree_cpu(cont), _tree_cpu(full), 0.0, "resumed vs uninterrupted")

@@ -128,11 +128,14 @@ def test_make_cell_step_rejects_unported_options():
     params, spec, _ = _jax_setup()
     tspec = tcells.CellSpec(**dataclasses.asdict(spec))
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec, 10)
-    with pytest.raises(NotImplementedError, match="static_do"):
-        tpc.make_cell_step(*args, use_pallas=True)
+    # ported since: the dynamic stride conds and record collection
+    dyn = tpc.make_cell_step(*args, use_pallas=True, collect_records=True)
+    assert (dyn.do_hills, dyn.do_rebuild, dyn.collect_records) == (None, None, True)
+    # still unported: the XLA force path (item 4), the sharded hosts (item 7)
     for kw, item in ((dict(use_pallas=False), "item 4"),
-                     (dict(use_pallas=True, collect_records=True), "item 5"),
+                     (dict(), "item 4"),
                      (dict(use_pallas=True, slab_axis="x"), "item 7"),
+                     (dict(use_pallas=True, brick_axes=("x", "y")), "item 7"),
                      (dict(use_pallas=True, axis_name="i"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tpc.make_cell_step(*args, **PHASES[1], **kw)
@@ -155,14 +158,37 @@ def test_make_cell_step_rejects_unported_options():
 
 def test_port_imports_without_jax():
     """Every module of the port imports with jax blocked, and no source line
-    of the package imports jax."""
+    of the package imports jax or the JAX package; the port's file I/O and
+    native builds (grid and HILLS files, the C++ formatters) open and build
+    nothing under ``edm_tpu/`` (an audit hook records every file opened and
+    every process started)."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, os, pkgutil, importlib, tempfile\n"
         "sys.modules['jax'] = None\n"
+        "opened, spawned = [], []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], str):\n"
+        "        opened.append(os.path.abspath(args[0]))\n"
+        "    elif event == 'subprocess.Popen':\n"
+        "        spawned.append(' '.join(map(str, args[1])))\n"
+        "sys.addaudithook(hook)\n"
         "import edm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(edm_tpu_torch.__path__, 'edm_tpu_torch.')]\n"
         "[importlib.import_module(n) for n in names]\n"
         "assert 'edm_tpu' not in sys.modules\n"
+        "import numpy as np, torch\n"
+        "from edm_tpu_torch import GaussGrid, native\n"
+        "from edm_tpu_torch.utils import gridio, hills_log\n"
+        "assert native.load() is not None and native.load_hillslog() is not None, native.errors\n"
+        "g = GaussGrid.create([0], [3], [0.1], [False], [0.2], dtype=torch.float64, device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "gridio.write_grid(g.grid, os.path.join(d, 'g'))\n"
+        "gridio.read_grid_file(os.path.join(d, 'g'), device='cpu')\n"
+        "gridio.write_lammps_table(g.grid, os.path.join(d, 'g.ltab'), [0], [3])\n"
+        "root = os.path.join(os.getcwd(), 'edm_tpu') + os.sep\n"
+        "bad = [p for p in opened if p.startswith(root)] + [c for c in spawned if root in c\n"
+        "       or 'edm_tpu/native' in c]\n"
+        "assert not bad, bad\n"
         "print(len(names))\n"
     )
     import pathlib
@@ -173,11 +199,13 @@ def test_port_imports_without_jax():
     # in a temporary directory
     root = pathlib.Path(edm_tpu_torch.__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120, cwd=root)
+                         timeout=180, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 27
 
     for path in pathlib.Path(edm_tpu_torch.__file__).parent.rglob("*.py"):
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")), path
+            assert not (s.startswith("import edm_tpu ") or s.startswith("from edm_tpu.")
+                        or s.startswith("from edm_tpu import")), path
