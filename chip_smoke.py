@@ -29,7 +29,14 @@ kernel against its plain PyTorch version on the same card:
     the Threefry kernel ``prng.threefry_bits``; and its ``mcgdp=True``
     form, a non-periodic 1001 x 1001 grid with McGovern-De Pablo walls on
     both dims, whose hill rounds deposit through ``dense_tables_mcgdp`` +
-    ``deposit_from_mcgdp``.
+    ``deposit_from_mcgdp``;
+  - the user's entry points: ``EDMBias`` on the card replaying the
+    compiled reference's ``tests/oracles/workload.txt`` and writing its
+    ``.ltab`` fixtures; the 10k exact cell through ``driver.run_simulation``
+    with the dynamic step (every ``static_do_*`` None), hill records, a
+    ``HillsLog`` and bias, histogram and .ltab files (K1 and K2 again);
+    ``utils/checkpoint`` save and resume; the C++ text formatters of
+    ``native/``.
 
 Phases: the card (nvidia-smi name and power limit) and software versions;
 the kernel build from ``edm_tpu_torch/csrc`` (one nvcc per source, sm_90a);
@@ -51,7 +58,17 @@ step, the top device operations, host syncs per hill and plain step, each
 named by its line and all of them counted by the steps' ``host_syncs``);
 then the same two phases on the McGDP grid, with its
 first hill round deposited through the McGDP tables and through the
-windowed route and the two held to each other (the e^-8 corner class).  The
+windowed route and the two held to each other (the e^-8 corner class);
+then the entry points: the workload replay within 1e-9 of the compiled
+reference (cum_bias each round, 31 probes; rounds/s and the syncs of a
+round named by line) and the two .ltab fixtures; ``run_simulation`` at
+kT = 0 for 20 steps bitwise against ``pattern_segment``'s static phases,
+its HILLS file against the plain versions' run line for line and against
+cum_bias; at kT = 0.8 its steps/s against ``pattern_segment``'s in turns,
+the wall time of a write and the syncs of a write period named by line; a
+checkpoint after 50 steps resumed into a fresh template, bitwise the 100
+uninterrupted steps; the native formatters loaded and the 1001 x 1001 grid
+written and read back.  The
 deposition kernels are checked on grids that already carry hills.  It prints one
 ``kernels`` JSON line (launches, errors, times, the card's least time for
 the work; ``ms`` is the wrapper's time per call by CUDA events, which the
@@ -131,11 +148,13 @@ def bench_types():
     return np.where(np.arange(N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
 
 
-def bench_setup(torch, kT: float, device, path="interp"):
+def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
     """The bench_pairwise configuration, built through the port's entry
     points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
     init_cell_state, and the three static phase steps of ``path``
-    (``PATHS``)."""
+    (``PATHS``); with ``dynamic``, a fourth step: the same host with every
+    ``static_do_*`` None (the JAX default, which ``run_simulation`` drives)
+    and ``collect_records=True``."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
     from edm_tpu_torch.models import pair_edm
@@ -189,6 +208,8 @@ def bench_setup(torch, kT: float, device, path="interp"):
                        static_do_rebuild=r, **kw)
         for h, e, r in ((True, True, False), (False, False, False), (False, False, True))
     ]
+    if dynamic:
+        steps.append(make_cell_step(params, lp, lj, spec, collect_records=True, **kw))
     return spec, state, steps
 
 
@@ -1253,6 +1274,476 @@ def threefry_kernel_phase(torch, device):
     return rows
 
 
+# ------------------------------------------------ the user's entry points
+
+ORACLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "oracles")
+API_TOL = 1e-9  # the compiled reference's fixtures (float64)
+WORKLOAD_EDM = ("tempering 0\nhill_prefactor 10.0\nbias_per_step 1.0\nhill_density 250\n"
+                "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+# the .ltab fixtures: (file, grid min, hills (x, h)) on [gmin, 3], spacing
+# 0.0097, sigma 0.1 (tests/oracles/oracle_ltab.cpp)
+LTAB_CASES = [("oracle.ltab", 0.0, [(0.05, 0.7), (1.50, 1.0), (2.37, 0.3), (2.98, 0.5)]),
+              ("oracle2.ltab", 0.5, [(1.0, 1.0), (2.9, 0.4)])]
+LTAB_TOL = 5e-7  # the table's values are written with 8 decimals
+
+
+def read_workload():
+    """tests/oracles/workload.txt: the 500 pair distances, each round's 1000
+    acceptance uniforms and the reference's cum_bias after it, and the 31
+    probe values at the end."""
+    lines = open(os.path.join(ORACLES, "workload.txt")).read().strip().splitlines()
+    r = np.array([float(v) for v in lines[0].split()[1:]])
+    rounds, probes, i = [], None, 1
+    while i < len(lines):
+        tok = lines[i].split()
+        if tok[0] == "U":
+            rounds.append((np.array([float(v) for v in tok[1:]]),
+                           float(lines[i + 1].split()[1])))
+            i += 2
+        else:
+            if tok[0] == "PROBES":
+                probes = np.array([float(v) for v in tok[1:]])
+            i += 1
+    return r, rounds, probes
+
+
+def parse_ltab(text):
+    """An .ltab file as (header lines, zero rows, grid rows split)."""
+    header, zero_rows, grid_rows = [], [], []
+    for ln in text.splitlines():
+        parts = ln.split()
+        if len(parts) == 4 and not ln.startswith("#"):
+            if parts[2] == "0.0" and parts[3] == "0.0" and "." not in parts[0]:
+                zero_rows.append(ln)
+            else:
+                grid_rows.append(parts)
+        else:
+            header.append(ln)
+    return header, zero_rows, grid_rows
+
+
+def check_ltab(text, fixture) -> float:
+    """tests/test_ltab_oracle.py's comparison with the compiled reference's
+    table: header and zero rows byte-identical, each grid row's index and x
+    identical, values and forces within ``LTAB_TOL``.  Returns the largest
+    value difference."""
+    want = parse_ltab(open(os.path.join(ORACLES, fixture)).read())
+    got = parse_ltab(text)
+    if got[0] != want[0] or got[1] != want[1] or len(got[2]) != len(want[2]):
+        raise AssertionError(f"{fixture}: header, zero rows or row count differ")
+    if any(g[:2] != w[:2] for g, w in zip(got[2], want[2])):
+        raise AssertionError(f"{fixture}: a row's index or x differs")
+    gv = np.array([[float(v) for v in r[2:]] for r in got[2]])
+    wv = np.array([[float(v) for v in r[2:]] for r in want[2]])
+    err = float(np.abs(gv - wv).max())
+    if not err <= LTAB_TOL:
+        raise AssertionError(f"{fixture}: values differ by {err:.3e} > {LTAB_TOL}")
+    return err
+
+
+def api_phase(torch, device):
+    """The binding surface on the card: ``EDMBias(device="cuda")`` in
+    float64 replays tests/oracles/workload.txt (500 pairs x 2 hills x 6
+    rounds, heavy capping) through pre_add_hill / add_hill_r /
+    post_add_hill as an MD engine drives it; cum_bias after each round and
+    the 31 probes within 1e-9 of the compiled reference, deferred hills
+    left at the end.  Hill rounds per second (host clock, each round with
+    its 1,000 add_hill_r calls and the cum_bias read), the host syncs a
+    round counts, and a seventh round's syncs under CUDA sync-debug mode,
+    named by line.  Then the two .ltab fixtures from grids deposited on the
+    card (``write_lammps_table``)."""
+    import tempfile
+
+    from edm_tpu_torch.api import EDMBias
+    from edm_tpu_torch.gauss import GaussGrid
+    from edm_tpu_torch.utils.gridio import write_lammps_table
+
+    r, rounds, probes = read_workload()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "wl.edm")
+        with open(path, "w") as f:
+            f.write(WORKLOAD_EDM)
+        b = EDMBias(path, 1.0, 1.0, log_hills=False, device=device)
+        b.set_box([0], [3.0], [False])
+        if b.state.bias.grid.values.device != torch.device(device) or b.dtype != torch.float64:
+            raise AssertionError("EDMBias did not build a float64 bias on the card")
+
+        def one_round(us):
+            b.pre_add_hill(len(r) * 2)
+            for k, rk in enumerate(r):
+                b.add_hill_r([rk], us[2 * k])
+                b.add_hill_r([rk], us[2 * k + 1])
+            b.post_add_hill()
+
+        worst, t_rounds = 0.0, 0.0
+        for us, want in rounds:
+            t0 = time.perf_counter()
+            one_round(us)
+            got = b.cum_bias
+            t_rounds += time.perf_counter() - t0
+            worst = max(worst, abs(got - want))
+            if not abs(got - want) < API_TOL:
+                raise AssertionError(f"workload round: cum_bias {got!r}, reference {want!r}")
+        got = np.array([b.bias_value([0.05 + k * 0.095]) for k in range(31)])
+        probe_err = float(np.abs(got - probes).max())
+        deferred = int(b.state.buf_right) - int(b.state.buf_left)
+        counted = b.host_syncs / len(rounds)
+        before = b.host_syncs
+        sites = sync_sites(torch, lambda: one_round(rounds[0][0]))
+        counted7 = b.host_syncs - before
+        errs = {}
+        for fixture, gmin, hills in LTAB_CASES:
+            g = GaussGrid.create([gmin], [3.0], [0.0097], [False], [0.1], boundary_min=[gmin],
+                                 boundary_max=[3.0], boundary_periodic=[False],
+                                 dtype=torch.float64, device=device)
+            for x, h in hills:
+                g, _ = g.add_value(torch.tensor([[x]], dtype=torch.float64, device=device),
+                                   torch.tensor([h], dtype=torch.float64, device=device))
+            out = os.path.join(d, fixture)
+            write_lammps_table(g.grid, out, [gmin], [3.0])
+            errs[fixture] = check_ltab(open(out).read(), fixture)
+    if not probe_err < API_TOL or deferred <= 0:
+        raise AssertionError(f"workload: probes off by {probe_err:.3e} or no deferred hills "
+                             f"({deferred})")
+    if sum(sites.values()) > counted7:
+        raise AssertionError(f"an API round synchronized {sites}, more than the "
+                             f"{counted7} it counts")
+    print(f"API on the card (EDMBias float64, tests/oracles/workload.txt): 6 rounds of 1,000 "
+          f"hills match the compiled reference, worst cum_bias |diff| {worst:.3e}, 31 probes "
+          f"{probe_err:.3e} (bound {API_TOL}); {deferred} hills deferred at the end; "
+          f"{len(rounds) / t_rounds:.2f} hill rounds/s (each with its 1,000 add_hill_r calls); "
+          f"{counted:.2f} host syncs counted per round; a round under sync-debug mode: "
+          f"{sum(sites.values())}" + "".join(f"; {s} x{n}" for s, n in sites.items())
+          + f" (counted {counted7})")
+    print("  .ltab from grids on the card vs the compiled reference: "
+          + ", ".join(f"{k} max |diff| {v:.3e}" for k, v in errs.items())
+          + f" (bound {LTAB_TOL}; header and zero rows byte-identical)")
+    return len(rounds) / t_rounds
+
+
+def leaf_paths(obj, path=""):
+    """(path, value) of every tensor, numpy array and plain value of a
+    state (dataclasses, NamedTuples, tuples)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, (torch.Tensor, np.ndarray)) or obj is None or isinstance(
+            obj, (bool, int, float, str)):
+        return [(path, obj)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [lv for f in dataclasses.fields(obj)
+                for lv in leaf_paths(getattr(obj, f.name), f"{path}.{f.name}")]
+    if isinstance(obj, tuple):
+        return [lv for i, v in enumerate(obj) for lv in leaf_paths(v, f"{path}[{i}]")]
+    return [(path, obj)]  # static structure (specs): compared by ==
+
+
+def bitwise_diffs(a, b):
+    """The leaves where two states differ, with the largest difference:
+    every tensor bitwise (NaN-aware), everything else by ==."""
+    import torch
+
+    la, lb = leaf_paths(a), leaf_paths(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError("the two states have different structures")
+    out = {}
+    for (p, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+                out[p] = float((x.double() - y.double()).abs().max()) if x.shape == y.shape \
+                    else float("inf")
+        elif isinstance(x, np.ndarray):
+            if not np.array_equal(x, y):
+                out[p] = float("inf")
+        elif x != y:
+            out[p] = float("inf")
+    return out
+
+
+def cleared_hist(state):
+    """``state`` with its CV histogram zeroed, as ``run_simulation`` leaves it
+    after a write."""
+    import dataclasses
+
+    core = state.core
+    bias = dataclasses.replace(core.bias, cv_hist=core.bias.cv_hist.clear())
+    return dataclasses.replace(state, core=dataclasses.replace(core, bias=bias))
+
+
+def production_outputs(d, tag):
+    return dict(bias_file=os.path.join(d, f"{tag}_BIAS"),
+                histogram_file=os.path.join(d, f"{tag}_HIST"),
+                lammps_table=os.path.join(d, f"{tag}_BIAS.ltab"), box_low=[0.0],
+                box_high=[3.0])
+
+
+def hills_rows(lines):
+    """HILLS lines as (step/type/counter columns, the numbers)."""
+    return ([ln.split()[:3] for ln in lines],
+            np.array([[float(v) for v in ln.split()[3:]] for ln in lines]))
+
+
+def production_zero_temperature(torch, device, n_steps=20, write_stride=10):
+    """The production run as users drive it: the 10k exact configuration
+    of ``bench_setup`` through ``driver.run_simulation`` with the dynamic
+    step (every ``static_do_*`` None) and ``collect_records=True``, a
+    ``HillsLog``, and bias, histogram and .ltab files, at kT = 0 for 20
+    steps (a write every 10), with the launch counters set to 0 just before
+    and read just after (K1 on every step; these two periods run at full
+    cap).  Held: bitwise against the same 20 steps through
+    ``pattern_segment``'s static phases from the same state (the histogram
+    cleared at the same writes); the HILLS file's bias_added column against
+    the growth of cum_bias (1e-6 relative, plus half a unit of the 8th
+    decimal for each line's rounding); the HILLS file line for line
+    against the same run through the kernels' plain versions (step, type and
+    counter exactly, the numbers within FORCE_REL of each column's max)."""
+    import tempfile
+
+    from edm_tpu_torch.models.driver import pattern_segment, run_simulation
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.utils.hills_log import HillsLog
+
+    spec, state0, steps = bench_setup(torch, 0.0, device, dynamic=True)
+    dyn = steps[3]
+    with tempfile.TemporaryDirectory() as d:
+        def run(tag):
+            log = HillsLog(os.path.join(d, f"{tag}_HILLS_0"), 1, dyn.params.total_volume)
+            st, e = run_simulation(dyn, state0, n_steps, write_stride, hills_log=log,
+                                   **production_outputs(d, tag))
+            log.close()
+            return st, e, open(os.path.join(d, f"{tag}_HILLS_0")).read().splitlines()
+
+        for name in FORCE_KERNELS:
+            getattr(CF, name).launches = 0
+        dyn.host_syncs = 0
+        st, e, hills = run("card")
+        torch.cuda.synchronize()
+        launches = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
+        step_reads = dyn.host_syncs
+        ref, e_ref = state0, []
+        for _ in range(n_steps // write_stride):
+            ref, e_seg = pattern_segment(pattern(steps[:3]), write_stride)(ref)
+            ref = cleared_hist(ref)
+            e_ref.append(e_seg)
+        diffs = bitwise_diffs(st, ref)
+        if not torch.equal(e, e_ref[-1]):
+            diffs["energies"] = max_err(e, e_ref[-1])
+        with plain_versions():
+            _, _, hills_plain = run("plain")
+        files = {k: os.path.getsize(os.path.join(d, f"card_{k}"))
+                 for k in ("BIAS", "HIST", "BIAS.ltab")}
+        ltab_rows = parse_ltab(open(os.path.join(d, "card_BIAS.ltab")).read())[2]
+    if diffs:
+        raise AssertionError(f"run_simulation vs pattern_segment: leaves differ {diffs}")
+    cols, nums = hills_rows(hills)
+    cols_p, nums_p = hills_rows(hills_plain)
+    if cols != cols_p:
+        raise AssertionError("the HILLS file through the kernels and through the plain versions "
+                             "differ in their lines, types or counters")
+    col_err = np.abs(nums - nums_p).max(0)
+    col_bnd = FORCE_REL * np.maximum(1.0, np.abs(nums_p).max(0))
+    cum = float(st.core.bias.cum_bias)
+    added = float(nums[:, 2].sum())
+    checks = {
+        # the bench state's tail (192 atoms above kernel_cap) outgrows
+        # overflow_cap: these periods run K1 at full cap; the kT = 0.8 run
+        # reaches the reduced-cap periods and K2
+        "K1 on every step": launches["cell_force_newton"] == n_steps,
+        "two hill rounds logged": sorted({c[0] for c in cols}) == ["0", "1"],
+        "HILLS numbers within the kT=0 tolerance": bool((col_err <= col_bnd).all()),
+        "bias_added sums to cum_bias": abs(added - cum) <= 1e-6 * cum + 5e-9 * len(hills),
+        "outputs written": all(v > 0 for v in files.values()) and len(ltab_rows) > 0,
+        "finite": all(bool(torch.isfinite(t).all()) for t in (st.xs, st.vs, st.fs, e)),
+    }
+    print(f"kT=0 run_simulation (10k exact, dynamic step with records, a write every "
+          f"{write_stride}): {n_steps} steps bitwise equal to pattern_segment's static phases "
+          f"(every leaf of the state and the energies); launches {launches}; counter and flag "
+          f"reads counted by the step {step_reads}; HILLS {len(hills)} lines (types "
+          f"{sorted({c[1] for c in cols})}), equal to the plain versions' run line for line, "
+          f"worst column |diff| {col_err.max():.3e}; bias_added sum {added!r} vs cum_bias "
+          f"{cum!r} ({abs(added - cum) / cum:.3e} relative); files {files}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0 run_simulation failed: {failed}")
+    return launches
+
+
+@contextlib.contextmanager
+def timed_writes(torch, log):
+    """Wall time spent in each part of ``run_simulation``'s writes: the
+    records' copy to the host, the HILLS replay, the grid and .ltab files.
+    Each timed call starts after a device sync, so it holds only its own
+    work.  Yields the dict of seconds."""
+    from edm_tpu_torch.models import driver as D
+
+    spent = {"records to host": 0.0, "HILLS replay": 0.0, "grid files": 0.0}
+    saved = D.to_host, D.write_grid, D.write_lammps_table, log.log_round
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    D.to_host = timed(saved[0], "records to host")
+    D.write_grid = timed(saved[1], "grid files")
+    D.write_lammps_table = timed(saved[2], "grid files")
+    log.log_round = timed(saved[3], "HILLS replay")
+    try:
+        yield spent
+    finally:
+        D.to_host, D.write_grid, D.write_lammps_table = saved[:3]
+        del log.log_round
+
+
+def production_run(torch, device, warm_steps=100, timed_steps=300, write_stride=100):
+    """The production run at kT = 0.8: ``run_simulation`` (the dynamic
+    step with records, a write every 100 steps with every output) and
+    ``pattern_segment``'s static phases (no output), in turns from the same
+    warmed state, host clock up to a device sync; the K1 / K2 counters set
+    to 0 just before each run_simulation run and summed just after.  Then
+    one write period with its writers timed (``timed_writes``), and one
+    under CUDA sync-debug mode, its syncs named by line."""
+    import tempfile
+
+    from edm_tpu_torch.models.driver import pattern_segment, run_simulation
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.utils.hills_log import HillsLog
+
+    spec, state, steps = bench_setup(torch, 0.8, device, dynamic=True)
+    dyn = steps[3]
+    state, _ = pattern_segment(pattern(steps[:3]), warm_steps)(state)
+    rates = {"pattern_segment": [], "run_simulation": []}
+    launches = {name: 0 for name in FORCE_KERNELS}
+    with tempfile.TemporaryDirectory() as d:
+        log = HillsLog(os.path.join(d, "HILLS_0"), 1, dyn.params.total_volume)
+        out = production_outputs(d, "run")
+        seg = pattern_segment(pattern(steps[:3]), timed_steps)
+
+        def rs(s):
+            return run_simulation(dyn, s, timed_steps, write_stride, hills_log=log, **out)
+
+        for name in ("pattern_segment", "run_simulation", "run_simulation", "pattern_segment"):
+            if name == "run_simulation":
+                for k in FORCE_KERNELS:
+                    getattr(CF, k).launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, e = (rs if name == "run_simulation" else seg)(state)
+            torch.cuda.synchronize()
+            rates[name].append(timed_steps / (time.perf_counter() - t0))
+            if name == "run_simulation":
+                for k in FORCE_KERNELS:
+                    launches[k] += getattr(CF, k).launches
+        with timed_writes(torch, log) as spent:
+            state, _ = run_simulation(dyn, state, write_stride, write_stride, hills_log=log, **out)
+        n0 = dyn.host_syncs
+        holder = {}
+        sites = sync_sites(torch, lambda: holder.update(out=run_simulation(
+            dyn, state, write_stride, write_stride, hills_log=log, **out)))
+        counted = dyn.host_syncs - n0
+        state = holder["out"][0]
+        log.close()
+        n_lines = sum(1 for _ in open(os.path.join(d, "HILLS_0")))
+    core = state.core
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs)),
+        "no table_overflow": not bool(state.table_overflow),
+        "no hills_truncated": not bool(core.hills_truncated),
+        "K1 and K2 launched": launches["cell_force_newton"] > 0 and launches[
+            "overflow_force"] > 0,
+        "HILLS lines written": n_lines > 0,
+    }
+    total = sum(sites.values())
+    print(f"kT=0.8 run_simulation vs pattern_segment (10k exact, {timed_steps} steps a run, in "
+          f"turns after {warm_steps} warm-up): run_simulation "
+          + ", ".join(f"{v:.2f}" for v in rates["run_simulation"]) + " steps/s; pattern_segment "
+          + ", ".join(f"{v:.2f}" for v in rates["pattern_segment"]) + " steps/s; "
+          f"run_simulation launches {launches}; HILLS lines {n_lines}")
+    print(f"  a write every {write_stride} steps: wall time per write "
+          f"{1e3 * sum(spent.values()):.2f} ms (" + ", ".join(
+              f"{k} {1e3 * v:.2f} ms" for k, v in spent.items()) + ")")
+    print(f"  host syncs of one write period (CUDA sync-debug mode): {total} in {write_stride} "
+          f"steps, {total / write_stride:.2f} per step" + "".join(
+              f"; {s} x{n}" for s, n in sorted(sites.items(), key=lambda kv: -kv[1]))
+          + f" (counted by the step: {counted})")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0.8 run_simulation failed: {failed}")
+    return rates, launches
+
+
+def checkpoint_phase(torch, device, n=50):
+    """``save_state`` after 50 steps of the 10k exact run at kT = 0.8,
+    ``load_state`` into a freshly built template on the card, 50 more
+    steps: every leaf bitwise the 100 uninterrupted steps (``tail_ovf_host``
+    and ``kernel_cap`` included, which pick K1's cap)."""
+    import tempfile
+
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.utils.checkpoint import load_state, save_state
+
+    _, state0, steps = bench_setup(torch, 0.8, device)
+    full, _ = pattern_segment(pattern(steps), 2 * n)(state0)
+    mid, _ = pattern_segment(pattern(steps), n)(state0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt.npz")
+        save_state(mid, path)
+        size = os.path.getsize(path)
+        _, fresh, steps2 = bench_setup(torch, 0.8, device)
+        resumed = load_state(fresh, path)
+    if resumed.xs.device != torch.device(device):
+        raise AssertionError("load_state did not restore onto the card")
+    cont, _ = pattern_segment(pattern(steps2), n)(resumed)
+    diffs = bitwise_diffs(cont, full)
+    buffered = int(mid.core.bias.buf_right) - int(mid.core.bias.buf_left)
+    if diffs:
+        raise AssertionError(f"checkpoint resume: leaves differ from the uninterrupted run {diffs}")
+    print(f"checkpoint on the card: {n} steps, save_state ({size} bytes), load_state into a fresh "
+          f"template, {n} more: bitwise the {2 * n} uninterrupted steps (every leaf; "
+          f"{buffered} deferred hills and tail_ovf_host {mid.tail_ovf_host} at the checkpoint)")
+
+
+def native_io_phase(torch, device):
+    """The port's C++ formatters loaded on this machine (no Python
+    fallback here), and ``write_grid`` of the McGDP cell's 1001 x 1001 bias
+    grid after one hill round (values and two derivatives a point), timed
+    by the host clock from a device sync; read back by
+    ``read_grid_file`` within the text's 8 decimals."""
+    import tempfile
+
+    from edm_tpu_torch import native
+    from edm_tpu_torch.utils.gridio import read_grid_file, write_grid
+
+    if native.load() is None or native.load_hillslog() is None:
+        raise AssertionError(f"the native formatters did not load: {native.errors}")
+    state, steps = coord_setup(torch, 1.0, device, periodic=False)
+    state, _ = steps[0](state)
+    grid = state.bias.bias.grid
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "BIAS")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_grid(grid, path)
+        dt = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = read_grid_file(path, dim=2, interpolate=True, dtype=torch.float64, device=device)
+        dt_read = time.perf_counter() - t0
+    err = max(max_err(back.values, grid.values), max_err(back.derivs, grid.derivs))
+    if not err <= 1e-8 + 1e-7 * float(grid.derivs.abs().max()):
+        raise AssertionError(f"the 1001 x 1001 grid read back off by {err:.3e}")
+    print(f"native I/O: gridio and hillslog loaded; write_grid of the "
+          f"{'x'.join(map(str, grid.spec.nbins))} McGDP grid (values and derivatives): "
+          f"{1e3 * dt:.1f} ms, {size} bytes; read_grid_file {1e3 * dt_read:.1f} ms, "
+          f"max |diff| {err:.3e}")
+    return dt
+
+
 def kernel_entry(name, source, replaces, launches, device_ms, rows, prefix):
     """One ``kernels`` record: the worst error over the prefix's checks,
     the time and bound of its first row (the main path's shape), and the
@@ -1426,6 +1917,16 @@ def main() -> int:
     _, n_tf_m, _ = coord_run(torch, device, periodic=False)
     n_tf += n_tf_m
     print(f"McGDP slice: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    api_phase(torch, device)
+    rs_launches = production_zero_temperature(torch, device)
+    _, rs_launches_warm = production_run(torch, device)
+    checkpoint_phase(torch, device)
+    native_io_phase(torch, device)
+    print(f"entry points (API, run_simulation, checkpoint, native I/O): "
+          f"{time.perf_counter() - t_phase:.1f} s; K1 / K2 launches on the run_simulation path: "
+          f"kT=0 {rs_launches['cell_force_newton']} / {rs_launches['overflow_force']}, kT=0.8 "
+          f"{rs_launches_warm['cell_force_newton']} / {rs_launches_warm['overflow_force']}")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
