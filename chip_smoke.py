@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives seven paths of the port through their CUDA kernels and checks each
+Drives ten paths of the port through their CUDA kernels and checks each
 kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -30,6 +30,15 @@ kernel against its plain PyTorch version on the same card:
     form, a non-periodic 1001 x 1001 grid with McGovern-De Pablo walls on
     both dims, whose hill rounds deposit through ``dense_tables_mcgdp`` +
     ``deposit_from_mcgdp``;
+  - the single-device pair hosts of the JAX package that run no Pallas
+    kernel: the blocked all-pairs host (``models/pair_edm_blocked``) on
+    bench_pairwise's 10,000-atom fluid and bias with block_size 500, its
+    per-row acceptance streams through the Threefry kernel
+    ``prng.threefry_rows``; the cell host's XLA force pass
+    (``use_pallas=False``, the JAX default, cell_chunk 81) on the 10k exact
+    cell at full cap, held to K1; and the dense all-pairs host
+    (``models/pair_edm``) at bench.py --quick's 1,000 atoms, its N^2
+    acceptance uniforms through ``threefry_bits``;
   - the user's entry points: ``EDMBias`` on the card replaying the
     compiled reference's ``tests/oracles/workload.txt`` and writing its
     ``.ltab`` fixtures; the 10k exact cell through ``driver.run_simulation``
@@ -59,6 +68,17 @@ named by its line and all of them counted by the steps' ``host_syncs``);
 then the same two phases on the McGDP grid, with its
 first hill round deposited through the McGDP tables and through the
 windowed route and the two held to each other (the e^-8 corner class);
+``threefry_rows`` against the numpy chain, bitwise, at the blocked host's
+pass-1 and pass-2 shapes; the blocked host's 20 kT = 0 steps through the
+kernel and through its plain version, bitwise, then its kT = 0.8 run
+(100 warm-up and 300 timed steps through ``driver.strided_segment``:
+steps/s, device launches per step, the cycle's busy share and top device
+operations, host syncs per hill and plain step named by line, the Threefry
+launches, end-state checks); the XLA pass's 20 kT = 0 steps from a
+thermalized state, each state's forces held to K1 at full cap, then its
+kT = 0.8 run as the other cell paths'; the dense host's 20 kT = 0 steps
+from a thermalized state, each on the card and on the CPU from the same
+input, then its kT = 0.8 run as the blocked host's;
 then the entry points: the workload replay within 1e-9 of the compiled
 reference (cum_bias each round, 31 probes; rounds/s and the syncs of a
 round named by line) and the two .ltab fixtures; ``run_simulation`` at
@@ -148,24 +168,14 @@ def bench_types():
     return np.where(np.arange(N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
 
 
-def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
-    """The bench_pairwise configuration, built through the port's entry
-    points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
-    init_cell_state, and the three static phase steps of ``path``
-    (``PATHS``); with ``dynamic``, a fourth step: the same host with every
-    ``static_do_*`` None (the JAX default, which ``run_simulation`` drives)
-    and ``collect_records=True``."""
+def bench_bias(torch, device):
+    """bench_pairwise's well-tempered, RDF-targeted pair bias on its
+    151-point grid: ``bias.subdivide`` with the target ``-2 ln max(r,
+    0.5)``; returns (params, bias_state)."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
-    from edm_tpu_torch.models import pair_edm
-    from edm_tpu_torch.models.cells import CellSpec
-    from edm_tpu_torch.models.langevin import LangevinParams
-    from edm_tpu_torch.models.lj import LJParams
-    from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
-    from edm_tpu_torch.ops.prng import PRNGKey
     from edm_tpu_torch.utils.config import parse_edm_text
 
-    opts = PATHS[path]
     cfg = parse_edm_text(
         "tempering 1\nbias_factor 10\nhill_prefactor 0.1\nbias_per_step 1.0\n"
         "hill_density 250\ndimension 1\nbox_low 0\nbox_high 3.0\n"
@@ -176,14 +186,38 @@ def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
     target = Grid(values=torch.tensor(-2.0 * np.log(np.maximum(r_pts, 0.5)),
                                       dtype=torch.float32, device=device),
                   derivs=None, spec=tspec, interpolate=False)
-    params, bias_state = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False],
-                                     [0], dtype=torch.float32, device=device,
-                                     target=target)
-    side = int(np.ceil(N_ATOMS ** (1 / 3)))
+    return B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                       dtype=torch.float32, device=device, target=target)
+
+
+def bench_lattice(n_atoms):
+    """bench_pairwise's LJ fluid at density ~0.5: the first ``n_atoms``
+    sites of a cubic lattice (a = 1.26) and its periodic box."""
+    side = int(np.ceil(n_atoms ** (1 / 3)))
     a = 1.26
     pts = (np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
-           .reshape(-1, 3)[:N_ATOMS] * a + 0.5 * a)
-    box = [side * a] * 3
+           .reshape(-1, 3)[:n_atoms] * a + 0.5 * a)
+    return pts, [side * a] * 3
+
+
+def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
+    """The bench_pairwise configuration, built through the port's entry
+    points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
+    init_cell_state, and the three static phase steps of ``path``
+    (``PATHS``, or "xla": the XLA force pass, ``use_pallas=False``, at full
+    cap); with ``dynamic``, a fourth step: the same host with every
+    ``static_do_*`` None (the JAX default, which ``run_simulation`` drives)
+    and ``collect_records=True``."""
+    from edm_tpu_torch.models import pair_edm
+    from edm_tpu_torch.models.cells import CellSpec
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.models.lj import LJParams
+    from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    opts = dict(use_pallas=False) if path == "xla" else PATHS[path]
+    params, bias_state = bench_bias(torch, device)
+    pts, box = bench_lattice(N_ATOMS)
     lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
     lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
     core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32,
@@ -734,6 +768,8 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
     elif path == "full":
         checks["K7 on every step"] = launches["cell_force_full"] == n_steps
         checks["slot ids carried"] = state.sid is not None
+    elif path == "xla":
+        checks["no force kernel launched (the XLA pass)"] = not any(launches.values())
     else:
         checks["typed K1 on every step"] = launches["cell_force_newton"] == n_steps
         checks["typed round collects fewer candidates"] = 0 < calls["typed"] < calls["untyped"]
@@ -1272,6 +1308,277 @@ def threefry_kernel_phase(torch, device):
           "both outputs)")
     print_rows(rows)
     return rows
+
+
+# ---------------------------- the dense and blocked pair hosts, the XLA pass
+
+PAIR_N = {"blocked": 10000, "dense": 1000}  # bench_pairwise; its --quick size
+PAIR_BLOCK = 500  # bench_pairwise's block=500
+# card vs CPU, each dense step from the same input state: forces sum 1,000
+# pairs a row in another order (2e-5 * max(1, max|.|), as the kernels);
+# positions and velocities follow them; the grid, its buffer and cum_bias
+# as the 2-D cell's
+PAIR_REL = FORCE_REL
+
+
+def pair_setup(torch, kT: float, device, host):
+    """bench_pairwise's LJ fluid and bias on the dense or the blocked host
+    (``PAIR_N`` atoms; box 27.72^3 at 10,000, 12.6^3 at 1,000; kT, dt
+    0.002, hill_stride 10, hill_capacity 2048, the exact lookup; the
+    blocked host with block_size 500): pair_edm.init_state and the static
+    hill and plain steps."""
+    from edm_tpu_torch.models import pair_edm
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.models.lj import LJParams
+    from edm_tpu_torch.models.pair_edm_blocked import make_step_blocked
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    n = PAIR_N[host]
+    params, bias_state = bench_bias(torch, device)
+    pts, box = bench_lattice(n)
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
+    lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
+    state = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32,
+                                                         device=device),
+                                PRNGKey(0), n_est=n * 40)
+    kw = dict(hill_stride=10, hill_capacity=2048)
+    if host == "blocked":
+        steps = [make_step_blocked(params, lp, lj, box, block_size=PAIR_BLOCK,
+                                   static_do_hills=h, **kw) for h in (True, False)]
+    else:
+        steps = [pair_edm.make_step(params, lp, lj, box, static_do_hills=h, **kw)
+                 for h in (True, False)]
+    return state, steps
+
+
+@contextlib.contextmanager
+def plain_rows():
+    """Route ``prng.threefry_rows`` through its plain version (the numpy
+    chain), its draws copied to the card."""
+    from edm_tpu_torch.ops import prng
+
+    kernel = prng.threefry_rows
+    prng.threefry_rows = lambda key, rows, n, dtype: (
+        prng._rows_ref(key, rows, n, dtype).to(rows.device))
+    try:
+        yield
+    finally:
+        prng.threefry_rows = kernel
+
+
+def threefry_rows_phase(torch, device):
+    """``threefry_rows`` against its plain version, bitwise, at the blocked
+    host's shapes: pass 1's 500 rows (float32 and float64) and pass 2's 2048
+    (unsorted, with the clamped padding rows' repeats; float32, the host's
+    type) of 10,000 uniforms; the kernel's time at each shape beside the
+    plain version's (the numpy chain and its copy to the card, one call)."""
+    from edm_tpu_torch.ops import prng
+
+    n = PAIR_N["blocked"]
+    key = prng.fold_in(prng.PRNGKey(0), 1)
+    pass2 = np.random.default_rng(9).permutation(n)[:2048].astype(np.int32)
+    pass2[1500:] = n - 1  # padding rows draw row n-1's stream
+    rows = {}
+    for label, ids in (("pass 1", np.arange(PAIR_BLOCK, 2 * PAIR_BLOCK, dtype=np.int32)),
+                       ("pass 2", pass2)):
+        r = torch.tensor(ids, device=device)
+        for dtype in (torch.float32, torch.float64)[:2 if label == "pass 1" else 1]:
+            out = prng.threefry_rows(key, r, n, dtype)
+            ref = prng._rows_ref(key, ids, n, dtype)
+            torch.cuda.synchronize()
+            bad = int((out.cpu() != ref).sum())
+            if bad:
+                raise AssertionError(f"threefry_rows {label} {dtype}: {bad} of {ref.numel()} "
+                                     "uniforms differ from the numpy chain")
+        ms = cuda_ms(torch, lambda: prng.threefry_rows(key, r, n))
+        plain = cuda_ms(torch, lambda: prng._rows_ref(key, ids, n, torch.float32).to(device),
+                        reps=1, warm=0)
+        rows[f"threefry_rows {label} {len(ids)}x{n}"] = (0.0, ms, plain) + bound(
+            0.0, 4 * len(ids) * (n + 1))
+    print("threefry_rows: bitwise equal to the numpy chain (500 rows x 10000 in float32 and "
+          "float64, 2048 rows x 10000 in float32)")
+    print_rows(rows)
+    return rows
+
+
+def pair_zero_temperature(torch, device, host, n_steps=20):
+    """20 steps at kT = 0 of the dense or the blocked host at full width,
+    each from the same input state through two routes, two of them hill
+    steps.  Blocked: the card with ``threefry_rows`` and the card with its
+    plain version, held bitwise (every leaf).  Dense: the card and the CPU,
+    integer leaves exactly, x, v and f within ``PAIR_REL`` of max(1,
+    max|.|), the grid, cum_bias and the energy within ``COORD_GRID_REL``."""
+    state, steps = pair_setup(torch, 0.0, device, host)
+    if host == "dense":
+        _, steps_cpu = pair_setup(torch, 0.0, torch.device("cpu"), host)
+        state = thermalized(torch, device, host)
+    worst = {}
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 1
+        if host == "blocked":
+            with plain_rows():
+                ref, _ = steps[k](state)
+        else:
+            ref, _ = steps_cpu[k](tree_to(state, torch.device("cpu")))
+        state, _ = steps[k](state)
+        if host == "blocked":
+            diffs = bitwise_diffs(state, ref)
+            if diffs:
+                raise AssertionError(f"blocked step {i}: threefry_rows against its plain "
+                                     f"version changed {diffs}")
+        else:
+            pair_compare(i, state, ref, worst)
+    b = state.bias
+    if int(b.steps) < 2 or not float(b.cum_bias) > 0 or bool(state.hills_truncated):
+        raise AssertionError(f"the kT = 0 {host} run: {int(b.steps)} hill rounds, cum_bias "
+                             f"{float(b.cum_bias)}, truncated {bool(state.hills_truncated)}")
+    how = ("with threefry_rows bitwise equal to the run with its plain version"
+           if host == "blocked" else "match the port on the CPU step for step; worst |diff|: "
+           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    print(f"kT=0 {host} (N={PAIR_N[host]}): {n_steps} steps on the card {how} (hill rounds "
+          f"{int(b.steps)}, last_calls {int(state.last_calls)}, cum_bias {float(b.cum_bias):.6g})")
+
+
+def thermalized(torch, device, host, n_steps=100):
+    """The start state of a kT = 0 check with real forces: ``n_steps``
+    steps at kT = 0.8 from the lattice (on the lattice the net forces are
+    sums of terms that cancel to ~1e-4, below float32 rounding of the
+    terms)."""
+    from edm_tpu_torch.models.driver import pattern_segment, strided_segment
+
+    if host == "xla":
+        _, state, hot = bench_setup(torch, 0.8, device, "xla")
+        return pattern_segment(pattern(hot), n_steps)(state)[0]
+    state, hot = pair_setup(torch, 0.8, device, host)
+    return strided_segment(hot[0], hot[1], 10, n_steps)(state)[0]
+
+
+def pair_compare(i, ks, ps, worst):
+    """A dense step on the card against the CPU's from the same input."""
+    def exact(name, a, b):
+        if not bool((a.cpu() == b.cpu()).all()):
+            raise AssertionError(f"dense step {i}: {name} differs between the card and the CPU")
+
+    def near(name, a, b, rel):
+        a, b = a.cpu().double(), b.cpu().double()
+        e = float((a - b).abs().max())
+        worst[name] = max(worst.get(name, 0.0), e)
+        if not e <= rel * max(1.0, float(b.abs().max())):
+            raise AssertionError(f"dense step {i}: {name} differs by {e:.3e}")
+
+    if not np.array_equal(ks.key, ps.key):
+        raise AssertionError(f"dense step {i}: key differs")
+    for name in ("step", "last_calls", "hills_truncated"):
+        exact(name, getattr(ks, name), getattr(ps, name))
+    kb, pb = ks.bias, ps.bias
+    for name in ("buf_left", "buf_right", "overflow_error", "steps"):
+        exact(name, getattr(kb, name), getattr(pb, name))
+    for name in ("x", "v", "f"):
+        near(name, getattr(ks, name), getattr(ps, name), PAIR_REL)
+    for name, a, b in (("grid values", kb.bias.grid.values, pb.bias.grid.values),
+                       ("buf_h", kb.buf_h, pb.buf_h), ("cum_bias", kb.cum_bias, pb.cum_bias),
+                       ("energy", ks.energy, ps.energy)):
+        near(name, a, b, COORD_GRID_REL)
+
+
+def pair_run(torch, device, host, warm_steps=100, timed_steps=300):
+    """The kT = 0.8 run of the dense or the blocked host: ``warm_steps``,
+    then ``timed_steps`` through ``driver.strided_segment`` (host clock up
+    to a device sync) with the Threefry counters set to 0 just before and
+    read just after; one stride cycle's profile (busy share, launches per
+    step, top device operations) and the host syncs of a hill step and a
+    plain step, each named by its line and all of them counted by the
+    steps' ``host_syncs``."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.ops import prng
+
+    state, steps = pair_setup(torch, 0.8, device, host)
+    state, _ = strided_segment(steps[0], steps[1], 10, warm_steps)(state)
+    for s in steps:
+        s.host_syncs = 0
+    seg = strided_segment(steps[0], steps[1], 10, timed_steps)
+    torch.cuda.synchronize()
+    prng.threefry_bits.launches = prng.threefry_rows.launches = 0
+    t0 = time.perf_counter()
+    state, e = seg(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_bits, n_rows = prng.threefry_bits.launches, prng.threefry_rows.launches
+    syncs = sum(s.host_syncs for s in steps)
+    cycle = strided_segment(steps[0], steps[1], 10, 10)
+    dev_us, per, top, per_cycle = device_time_us(torch, lambda: cycle(state), 2)
+    print(busy_line(f"kT=0.8 {host} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    census, counted = {}, {}
+    for name, step in (("hill step", steps[0]), ("plain step", steps[1])):
+        before = step.host_syncs
+        census[name] = sync_sites(torch, lambda: step(state))
+        counted[name] = step.host_syncs - before
+    for name, sites in census.items():
+        print(f"host syncs of a {host} {name} (CUDA sync-debug mode): {sum(sites.values())}"
+              + "".join(f"; {site} x{n}" for site, n in sites.items())
+              + f" (counted by the step: {counted[name]})")
+    cycles = timed_steps // 10
+    blocks = PAIR_N[host] // PAIR_BLOCK
+    b = state.bias
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.f, e,
+                                                               b.bias.grid.values)),
+        "no overflow_error": not bool(b.overflow_error),
+        "no hills_truncated": not bool(state.hills_truncated),
+        "cum_bias > 0": float(b.cum_bias) > 0,
+        "no sync on plain steps": not census["plain step"],
+        "every sync counted by the steps": all(
+            sum(census[k].values()) == counted[k] for k in census),
+    }
+    if host == "blocked":
+        checks["threefry_rows: a launch a block in pass 1 and one in pass 2, each hill step"] = (
+            n_rows == cycles * (blocks + 1))
+        checks["threefry_bits: the thermostat's draw each step"] = n_bits == timed_steps
+    else:
+        checks["threefry_bits: one a step and the N^2 draw a hill step"] = (
+            n_bits == timed_steps + cycles and n_rows == 0)
+    print(f"kT=0.8 {host} (N={PAIR_N[host]}): {timed_steps} steps after {warm_steps} warm-up: "
+          f"{timed_steps / dt:.2f} steps/s, device launches per step {per_cycle / 10:.1f}, "
+          f"host syncs {syncs / cycles:.2f} per stride cycle, threefry_bits launches {n_bits}, "
+          f"threefry_rows launches {n_rows}, last_calls {int(state.last_calls)}, cum_bias "
+          f"{float(b.cum_bias):.6g}, hill rounds {int(b.steps)}, buffered {int(b.buf_right)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0.8 {host} run failed: {failed}")
+    return timed_steps / dt, {"threefry_bits": n_bits, "threefry_rows": n_rows}, {
+        "threefry_rows": funcs_ms(per, ("tf_rows",), blocks + 1),
+        "threefry_bits": funcs_ms(per, ("tf_bits",), 11)}
+
+
+def xla_zero_temperature(torch, device, n_steps=20):
+    """20 kT = 0 steps of the 10k exact cell through the XLA force pass
+    (``use_pallas=False``, ``cell_chunk=81``, full cap), from the state of
+    100 kT = 0.8 steps (``thermalized``): before each step,
+    the pass's forces and bias energy on the step's input state against
+    K1's at full cap on the same state (the Hermite table of the live
+    grid), within ``FORCE_REL``; K1 is the reference here, not on the
+    path."""
+    from edm_tpu_torch.ops import cellforce as CF
+
+    spec, _, steps = bench_setup(torch, 0.0, device, "xla")
+    state = thermalized(torch, device, "xla")
+    worst = 0.0
+    for i in range(n_steps):
+        step = steps[0 if i % 10 == 0 else 2 if i % 10 == 9 else 1]
+        e, f = step._xla_force(state, state.xs, True)
+        f_k1, eb = CF.cell_force_newton(state.xs, state.mc,
+                                        CF.hermite_pair_table(state.core.bias.bias),
+                                        k=spec.cap, ncells=spec.ncells, box=spec.box,
+                                        lj=step.lj, energy=True)
+        worst = max(worst, check_forces(f"XLA pass step {i}", f, f_k1))
+        check_energy(f"XLA pass step {i}", e, eb.sum())
+        state, _ = step(state)
+    b = state.core.bias
+    if int(b.steps) < 2 or not float(b.cum_bias) > 0:
+        raise AssertionError("the kT = 0 XLA run deposited no hills")
+    print(f"kT=0 xla: {n_steps} steps of the XLA force pass, each state's forces against K1 "
+          f"at full cap: worst |df| {worst:.3e} (bound {FORCE_REL} * max(1, max|f|)); hill "
+          f"rounds {int(b.steps)}, cum_bias {float(b.cum_bias):.6g}")
 
 
 # ------------------------------------------------ the user's entry points
@@ -1918,6 +2225,20 @@ def main() -> int:
     n_tf += n_tf_m
     print(f"McGDP slice: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
+    rows.update(threefry_rows_phase(torch, device))
+    pair_zero_temperature(torch, device, "blocked")
+    _, blk_launches, blk_ms = pair_run(torch, device, "blocked")
+    print(f"blocked host: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    xla_zero_temperature(torch, device)
+    slice_run(torch, device, "xla")
+    print(f"xla slice: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    pair_zero_temperature(torch, device, "dense")
+    _, dense_launches, _ = pair_run(torch, device, "dense")
+    n_tf += blk_launches["threefry_bits"] + dense_launches["threefry_bits"]
+    print(f"dense host: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     api_phase(torch, device)
     rs_launches = production_zero_temperature(torch, device)
     _, rs_launches_warm = production_run(torch, device)
@@ -1949,6 +2270,9 @@ def main() -> int:
         # no Pallas kernel: the jax.random Threefry draws that XLA computes
         ("threefry_bits", "edm_tpu_torch/csrc/threefry.cu", "../models/langevin.py:51",
          "2-D", "threefry_bits"),
+        # no Pallas kernel: the per-row fold_in + uniform draws XLA computes
+        ("threefry_rows", "edm_tpu_torch/csrc/threefry.cu", "../models/pair_edm_blocked.py:115",
+         "blocked", "threefry_rows"),
     ]
     records = []
     for name, source, replaces, where, prefix in entries:
@@ -1957,6 +2281,8 @@ def main() -> int:
             n, dev = launches[path][wrapper], device_ms[path][wrapper]
         elif where == "2-D":
             n, dev = n_tf, tf_ms
+        elif where == "blocked":
+            n, dev = blk_launches["threefry_rows"], blk_ms["threefry_rows"]
         else:
             n, dev = dep[prefix], dep_ms[where]
         records.append(kernel_entry(name, source, os.path.normpath("edm_tpu/ops/" + replaces),

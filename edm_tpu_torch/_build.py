@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 ``load_library()`` compiles ``csrc/*.cu`` (the cell-force kernels, the
-deposition kernels and the Threefry bits) with ``nvcc`` for ``sm_90a``, one process per source
+deposition kernels and the Threefry draws) with ``nvcc`` for ``sm_90a``, one process per source
 run at once, and links them into one shared library with a plain C
 interface, under ``_build/`` next to this file (git-ignored); it loads
 the library with ctypes.  The library's name carries a
@@ -76,6 +76,9 @@ def _declare(lib):
     lib.threefry_bits_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, i,
                                          vp, vp]
     lib.threefry_bits_launch.restype = i
+    # k0, k1, rows, R, n, f64, out, stream
+    lib.threefry_rows_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, i, i, i, vp, vp]
+    lib.threefry_rows_launch.restype = i
     for name in _LIMITS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i

@@ -41,6 +41,7 @@ import torch
 from .. import bias as B
 from ..ops import prng
 from ..ops.interp import packed_corner_table
+from .driver import check_hill_phase
 from .langevin import LangevinParams, baoab_step
 
 
@@ -82,14 +83,7 @@ class CoordStep:
         """Raise unless the JAX host runs this phase at step ``pos`` of a
         ``cycle``-step cycle (hills when ``step % hill_stride == 0``); a
         dynamic step fits every place."""
-        if self.do_hills is None:
-            return
-        if cycle % self.hill_stride:
-            raise ValueError(f"a {cycle}-step cycle is not a whole number of "
-                             f"hill_stride {self.hill_stride}")
-        if (pos % self.hill_stride == 0) != self.do_hills:
-            raise ValueError(f"step {pos} of the cycle is {'not ' * self.do_hills}a hill "
-                             f"step under hill_stride {self.hill_stride}")
+        check_hill_phase(self.do_hills, self.hill_stride, pos, cycle)
 
     def _mask(self, device):
         if self.group_mask is None:

@@ -73,6 +73,22 @@ def pattern_segment(pattern, length: int, unroll: int = 2):
     return seg
 
 
+def check_hill_phase(do_hills, hill_stride: int, pos: int, cycle: int):
+    """Raise unless a step whose static hill phase is ``do_hills`` sits at
+    step ``pos`` of a ``cycle``-step cycle where the JAX host's
+    ``step % hill_stride == 0`` puts that phase (the ``check_phase`` of the
+    coordinate and the all-pairs hosts); a dynamic step (None) fits every
+    place."""
+    if do_hills is None:
+        return
+    if cycle % hill_stride:
+        raise ValueError(f"a {cycle}-step cycle is not a whole number of "
+                         f"hill_stride {hill_stride}")
+    if (pos % hill_stride == 0) != do_hills:
+        raise ValueError(f"step {pos} of the cycle is {'not ' * do_hills}a hill "
+                         f"step under hill_stride {hill_stride}")
+
+
 def strided_segment(step_hill, step_plain, hill_stride: int, length: int,
                     unroll: int = 2):
     """``pattern_segment`` for the hills-only cycle: one
@@ -114,8 +130,9 @@ def run_simulation(
     """Drive ``step_fn`` (``(state, None) -> (state, energy)``, any host's
     step) for ``n_steps`` in segments of ``write_stride`` steps, writing the
     outputs after each; returns the final state and the last segment's
-    per-step energies.  Works on ``CoordEDMState`` and ``CellPairState``
-    (the bias state is found through ``.core`` where there is one).
+    per-step energies.  Works on ``CoordEDMState``, ``PairEDMState`` (the
+    dense and the blocked pair hosts) and ``CellPairState`` (the bias state
+    is found through ``.core`` where there is one).
 
     ``hills_log`` (``utils.hills_log.HillsLog``): ``step_fn`` must have been
     built with ``collect_records=True``.  A segment's records stay on the

@@ -15,6 +15,13 @@ and ``bits(key, (n,))[i]`` both hash the 64-bit counter ``i`` (high word,
 low word) under ``key``; ``split`` keeps both output words, 32-bit
 ``bits`` returns their xor, 64-bit bits the first word over the second.
 
+``fold_in(key, i)`` hashes the counter (0, i) under ``key`` and keeps both
+words, as ``jax.random.fold_in`` does for a 32-bit ``i``.  ``threefry_rows``
+draws one ``uniform(fold_in(key, row), (n,))`` per entry of a device tensor
+of row ids, in one launch of a CUDA kernel (``csrc/threefry.cu``) that folds
+each row in itself: the blocked pair host's per-row acceptance streams
+(``models/pair_edm_blocked``), whose pass-2 rows are computed on the card.
+
 ``uniform`` and ``normal`` draw as ``jax.random.uniform`` and
 ``jax.random.normal`` do for float32 and float64: the bits of every element
 come from ``threefry_bits``, a CUDA kernel (``csrc/threefry.cu``) on a CUDA
@@ -43,9 +50,10 @@ def _rotl(v, r):
 
 
 def threefry2x32(key, x0, x1):
-    """The Threefry-2x32 block function (20 rounds) on uint32 arrays."""
+    """The Threefry-2x32 block function (20 rounds) on uint32 arrays; the
+    key's two words may be arrays that broadcast against the counters."""
     with np.errstate(over="ignore"):
-        k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+        k0, k1 = (np.asarray(k, np.uint32) for k in (key[0], key[1]))
         ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
         x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
         for i in range(5):
@@ -73,6 +81,13 @@ def split(key, num: int = 2) -> np.ndarray:
     """(num, 2) uint32 subkeys (``jax.random.split``)."""
     b0, b1 = threefry2x32(key, *_counters(num))
     return np.stack([b0, b1], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """(2,) uint32 key of ``jax.random.fold_in(key, data)`` for a 32-bit
+    ``data``: the block of the counter (0, data) under ``key``."""
+    b0, b1 = threefry2x32(key, np.uint32(0), np.uint32(int(data) & 0xFFFFFFFF))
+    return np.array([b0, b1], np.uint32)
 
 
 def random_bits(key, n: int) -> np.ndarray:
@@ -111,6 +126,59 @@ def threefry_bits(key, n: int, device, wide: bool = False) -> torch.Tensor:
 
 
 threefry_bits.launches = 0
+
+
+def _mantissa_uniform(b0, b1, f64: bool) -> np.ndarray:
+    """The uniforms of Threefry blocks (b0, b1), the mantissa trick in
+    numpy: the xor's top 23 bits (float32) or the 64-bit word's top 52
+    (float64) under the exponent of 1.0, minus 1."""
+    if f64:
+        w = (b0.astype(np.uint64) << np.uint64(32)) | b1.astype(np.uint64)
+        m = (w >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
+        return m.view(np.float64) - 1.0
+    m = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return m.view(np.float32) - np.float32(1.0)
+
+
+def _rows_ref(key, row_ids, n: int, dtype) -> torch.Tensor:
+    """Plain version of ``threefry_rows``: the numpy chain, on the CPU."""
+    rows = np.asarray(row_ids.cpu() if isinstance(row_ids, torch.Tensor) else row_ids,
+                      np.int64).astype(np.uint32)
+    rk0, rk1 = threefry2x32(key, np.zeros_like(rows), rows)  # fold_in, per row
+    hi, lo = _counters(n)
+    b0, b1 = threefry2x32((rk0[:, None], rk1[:, None]), hi[None, :], lo[None, :])
+    return torch.from_numpy(_mantissa_uniform(b0, b1, dtype == torch.float64))
+
+
+def threefry_rows(key, row_ids: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """(R, n) uniforms: row ``r`` is ``jax.random.uniform(fold_in(key,
+    row_ids[r]), (n,), dtype)``, bitwise, in float32 or float64, on
+    ``row_ids``' device.  ``row_ids`` (R,) int32 or int64 row ids (0 <= id <
+    2**32).  The CUDA kernel on a CUDA device, in one launch; the numpy
+    chain on the CPU.  ``launches`` counts kernel launches."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"threefry_rows draws float32 or float64, not {dtype}")
+    device = row_ids.device
+    if device.type == "cpu":
+        return _rows_ref(key, row_ids, n, dtype)
+    if device.type != "cuda":
+        raise ValueError(f"no Threefry kernel for device {device}")
+    from .kernel_args import library, raise_on
+
+    if row_ids.dim() != 1:
+        raise ValueError(f"row_ids must be 1-D, got shape {tuple(row_ids.shape)}")
+    lib, _ = library()
+    rows = row_ids.to(torch.int32).contiguous()
+    out = torch.empty((rows.shape[0], n), dtype=dtype, device=device)
+    code = lib.threefry_rows_launch(int(key[0]), int(key[1]), rows.data_ptr(), rows.shape[0], n,
+                                    int(dtype == torch.float64), out.data_ptr(),
+                                    torch.cuda.current_stream(device).cuda_stream)
+    raise_on(lib, code, "threefry_rows")
+    threefry_rows.launches += 1
+    return out
+
+
+threefry_rows.launches = 0
 
 
 def uniform(key, shape, dtype=torch.float32, device="cuda") -> torch.Tensor:

@@ -4,8 +4,9 @@ Counterpart of ``edm_tpu/utils/checkpoint.py``.  The reference can resume
 only through grid files (``initial_bias_filename``, edm_bias.cpp:1066-1072,
 166-167) and loses the deferred-hill buffer, cum_bias and the tempering
 state, and the step counter.  ``save_state`` writes every array leaf of a
-state (``BiasState``, ``CoordEDMState``, ``CellPairState``: dataclasses,
-NamedTuples and tuples of tensors and numpy arrays) to one ``.npz``;
+state (``BiasState``, ``CoordEDMState``, ``PairEDMState``,
+``CellPairState``: dataclasses, NamedTuples and tuples of tensors and
+numpy arrays) to one ``.npz``;
 ``load_state`` restores them into a freshly built template of the same
 configuration, on the template's devices and in its dtypes, so that a
 continued run is bitwise the uninterrupted one.

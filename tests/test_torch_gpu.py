@@ -25,7 +25,10 @@ size is no multiple of 4 with 1, 200 and 300 raw centres up to three
 periods outside the grid and on its wrap seam.  The user's entry points
 run on the card against the CPU: ``EDMBias(device="cuda")`` in float64
 (1-D and 2-D), ``run_simulation`` of a small cell host with records and
-every output, and a checkpoint resumed bitwise.  Tolerances as in
+every output, and a checkpoint resumed bitwise.  The dense and blocked
+pair hosts: ``threefry_rows`` bitwise against its numpy chain at the
+blocked host's widths, and one hill step of each host on the card against
+the CPU.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -955,3 +958,88 @@ def test_checkpoint_resume_on_card(cuda_state, tmp_path):
     assert resumed.xs.is_cuda and resumed.tail_ovf_host == mid.tail_ovf_host
     cont = pattern_segment([(step2, 1)], 10)(resumed)[0]
     assert_tree(_tree_cpu(cont), _tree_cpu(full), 0.0, "resumed vs uninterrupted")
+
+
+# ------------------------------------------- the dense and blocked pair hosts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 500, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_threefry_rows_kernel(cuda_state, R, dtype):
+    """``threefry_rows`` against its plain version (the numpy chain),
+    bitwise, at the blocked host's widths (n = 10,000; 500 rows of pass 1,
+    2048 of pass 2) for unsorted row ids with repeats (pass 2's clamped
+    padding rows)."""
+    from edm_tpu_torch.ops import prng
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(R)
+    rows = rng.integers(0, 10000, R).astype(np.int32)
+    rows[-R // 4:] = 9999
+    key = prng.fold_in(prng.PRNGKey(5), 3)
+    n0 = prng.threefry_rows.launches
+    out = prng.threefry_rows(key, torch.as_tensor(rows, device=dev), 10000, dtype)
+    torch.cuda.synchronize()
+    assert prng.threefry_rows.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (R, 10000)
+    assert torch.equal(out.cpu(), prng._rows_ref(key, rows, 10000, dtype))
+
+
+def _pair_host(dev, blocked, kT=0.0):
+    """test_torch_dense's jittered 64-atom lattice in float32 on ``dev``
+    with the static hill step of the dense or the blocked host (block 16)
+    and hill records."""
+    from edm_tpu_torch.models import pair_edm_blocked
+
+    cfg = parse_edm_text("tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 20\n"
+                         "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\n"
+                         "bias_sigma 0.1\n")
+    params, bs = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                             dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    a = 1.26
+    pts = (np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"), -1).reshape(-1, 3) * a
+           + 0.5 * a + rng.uniform(-0.08, 0.08, (64, 3)))
+    st = pair_edm.init_state(bs, torch.tensor(pts, dtype=torch.float32, device=dev),
+                             PRNGKey(0))
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
+    kw = dict(hill_stride=5, hill_capacity=2048, static_do_hills=True, collect_records=True)
+    if blocked:
+        step = pair_edm_blocked.make_step_blocked(params, lp, LJParams(), [4 * a] * 3,
+                                                  block_size=16, **kw)
+    else:
+        step = pair_edm.make_step(params, lp, LJParams(), [4 * a] * 3, **kw)
+    return st, step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocked", [False, True])
+def test_pair_hill_round_card_vs_cpu(cuda_state, blocked):
+    """One hill step of the dense (N^2 uniforms through ``threefry_bits``)
+    or the blocked host (per-row streams through ``threefry_rows``) on the
+    card and on the CPU from the same state: the same hill list (bitwise
+    draws; distances within 1e-6 relative), counts and flags equal, the
+    grid within 1e-5 of max|.|, forces within 2e-5 * max(1, max|f|)."""
+    from edm_tpu_torch.ops import prng
+
+    st_c, step_c = _pair_host(torch.device("cuda", 0), blocked)
+    st_h, step_h = _pair_host("cpu", blocked)
+    counter = prng.threefry_rows if blocked else prng.threefry_bits
+    n0 = counter.launches
+    card, (e_c, log_c) = step_c(st_c)
+    torch.cuda.synchronize()
+    assert counter.launches > n0
+    cpu, (e_h, log_h) = step_h(st_h)
+    for a, b in ((card.last_calls, cpu.last_calls), (card.hills_truncated, cpu.hills_truncated),
+                 (card.bias.steps, cpu.bias.steps), (card.bias.buf_right, cpu.bias.buf_right),
+                 (log_c.rec.hill_called, log_h.rec.hill_called)):
+        assert torch.equal(a.cpu(), b)
+    np.testing.assert_allclose(log_c.positions.cpu().numpy(), log_h.positions.numpy(),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(card.key, cpu.key)
+    assert int(log_h.rec.hill_called.sum()) > 0
+    g_c, g_h = card.bias.bias.grid.values.cpu(), cpu.bias.bias.grid.values
+    assert float((g_c - g_h).abs().max()) <= 1e-5 * max(1.0, float(g_h.abs().max()))
+    assert_forces(card.f.cpu(), cpu.f, "forces")
+    assert_energy(e_c.cpu(), e_h, "energy")

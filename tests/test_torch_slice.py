@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import assert_energy, assert_exact, assert_forces, np_, to_port
 from edm_tpu import bias as JB
@@ -125,16 +126,21 @@ def test_slice_matches_jax_step_for_step():
 
 
 def test_make_cell_step_rejects_unported_options():
-    params, spec, _ = _jax_setup()
+    params, spec, st = _jax_setup()
     tspec = tcells.CellSpec(**dataclasses.asdict(spec))
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec, 10)
     # ported since: the dynamic stride conds and record collection
     dyn = tpc.make_cell_step(*args, use_pallas=True, collect_records=True)
     assert (dyn.do_hills, dyn.do_rebuild, dyn.collect_records) == (None, None, True)
-    # still unported: the XLA force path (item 4), the sharded hosts (item 7)
-    for kw, item in ((dict(use_pallas=False), "item 4"),
-                     (dict(), "item 4"),
-                     (dict(use_pallas=True, slab_axis="x"), "item 7"),
+    # ported since: the XLA force path, the default (use_pallas=False)
+    ts = to_port(st)
+    for kw in (dict(use_pallas=False), dict()):
+        step = tpc.make_cell_step(*args, **PHASES[1], **kw)
+        assert step.use_pallas is False
+        ts1, e = step(ts)
+        assert int(ts1.core.step) == 1 and bool(torch.isfinite(ts1.fs).all())
+    # still unported: the sharded hosts (item 7)
+    for kw, item in ((dict(use_pallas=True, slab_axis="x"), "item 7"),
                      (dict(use_pallas=True, brick_axes=("x", "y")), "item 7"),
                      (dict(use_pallas=True, axis_name="i"), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
