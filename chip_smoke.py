@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ten paths of the port through their CUDA kernels and checks each
+Drives twelve paths of the port through their CUDA kernels and checks each
 kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -39,6 +39,13 @@ kernel against its plain PyTorch version on the same card:
     cell at full cap, held to K1; and the dense all-pairs host
     (``models/pair_edm``) at bench.py --quick's 1,000 atoms, its N^2
     acceptance uniforms through ``threefry_bits``;
+  - the multi-device layer (``parallel``), its ranks spawned by
+    ``parallel.launch`` (NCCL with a card per rank, else gloo with the ranks
+    sharing the card): the slab-sharded cell host
+    (``parallel.make_slab_cell_step``) on the 10k exact cell at 2 and 4
+    ranks, K1's owned-row form (``row_box``) on every step; and the
+    sharded dense host (``parallel.make_sharded_pair_step``) at 1,000
+    atoms on 2 ranks;
   - the user's entry points: ``EDMBias`` on the card replaying the
     compiled reference's ``tests/oracles/workload.txt`` and writing its
     ``.ltab`` fixtures; the 10k exact cell through ``driver.run_simulation``
@@ -79,7 +86,19 @@ thermalized state, each state's forces held to K1 at full cap, then its
 kT = 0.8 run as the other cell paths'; the dense host's 20 kT = 0 steps
 from a thermalized state, each on the card and on the CPU from the same
 input, then its kT = 0.8 run as the blocked host's;
-then the entry points: the workload replay within 1e-9 of the compiled
+the multi-device phases, the kernels built in this process before the
+ranks are spawned (the backend, the rank count and the ranks per card
+printed first): on each rank's window of the 10k state K1's owned-row form
+against its plain version and bitwise against the full-window kernel with
+the halo rows masked, at k = 24 and 32 (the ranks take turns on the card
+to time it); 20 kT = 0 steps through the slab host and the single-device
+host from the same input state (forces within FORCE_REL, integers and the
+hill rounds' grids exactly, every rank bitwise rank 0, a hill round with
+``slab_collect=False`` bitwise the default); the kT = 0.8 run (rate,
+launches and collectives a step, host stagings, rank 0's busy share, the
+syncs of a hill, a plain and a rebuild step named by line, end checks); on
+2 ranks also the sharded dense host's 20 kT = 0 steps against the dense
+host on the card; then the entry points: the workload replay within 1e-9 of the compiled
 reference (cum_bias each round, 31 probes; rounds/s and the syncs of a
 round named by line) and the two .ltab fixtures; ``run_simulation`` at
 kT = 0 for 20 steps bitwise against ``pattern_segment``'s static phases,
@@ -200,21 +219,26 @@ def bench_lattice(n_atoms):
     return pts, [side * a] * 3
 
 
-def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
+def bench_setup(torch, kT: float, device, path="interp", dynamic=False, mesh=None, **extra):
     """The bench_pairwise configuration, built through the port's entry
     points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
     init_cell_state, and the three static phase steps of ``path``
     (``PATHS``, or "xla": the XLA force pass, ``use_pallas=False``, at full
     cap); with ``dynamic``, a fourth step: the same host with every
     ``static_do_*`` None (the JAX default, which ``run_simulation`` drives)
-    and ``collect_records=True``."""
+    and ``collect_records=True``.  With a ``mesh``, the steps are this
+    rank's of the slab host (``parallel.make_slab_cell_step``, ``extra``
+    its options)."""
     from edm_tpu_torch.models import pair_edm
     from edm_tpu_torch.models.cells import CellSpec
     from edm_tpu_torch.models.langevin import LangevinParams
     from edm_tpu_torch.models.lj import LJParams
     from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu_torch.ops.prng import PRNGKey
+    from edm_tpu_torch.parallel import make_slab_cell_step
 
+    build = make_cell_step if mesh is None else (
+        lambda *a, **kw: make_slab_cell_step(*a, mesh=mesh, **kw, **extra))
     opts = dict(use_pallas=False) if path == "xla" else PATHS[path]
     params, bias_state = bench_bias(torch, device)
     pts, box = bench_lattice(N_ATOMS)
@@ -238,12 +262,12 @@ def bench_setup(torch, kT: float, device, path="interp", dynamic=False):
         st_kw.update(kernel_cap=24, overflow_cap=32)
     state = init_cell_state(spec, core, **st_kw)
     steps = [
-        make_cell_step(params, lp, lj, spec, static_do_hills=h, static_do_energy=e,
-                       static_do_rebuild=r, **kw)
+        build(params, lp, lj, spec, static_do_hills=h, static_do_energy=e,
+              static_do_rebuild=r, **kw)
         for h, e, r in ((True, True, False), (False, False, False), (False, False, True))
     ]
     if dynamic:
-        steps.append(make_cell_step(params, lp, lj, spec, collect_records=True, **kw))
+        steps.append(build(params, lp, lj, spec, collect_records=True, **kw))
     return spec, state, steps
 
 
@@ -394,7 +418,7 @@ def reach(table, lj) -> float:
     return max(float(lj.rcut), float(hi))
 
 
-def pair_counts(spec, xs, mc, k, far, ts=None):
+def pair_counts(spec, xs, mc, k, far, ts=None, rows=None, mc_rows=None):
     """The work a force pass over slots < k needs on this state, each
     unordered pair once (forces are antisymmetric, the value symmetric): the
     pairs within a cell and those with its 13 half-stencil neighbours, which
@@ -402,28 +426,33 @@ def pair_counts(spec, xs, mc, k, far, ts=None):
     (occupied pairs: each needs its minimum-image r^2; those with r <= far:
     the only ones that need the pair arithmetic; those of them on the CV's
     type pair: the only ones that need the lookup, all of them with ``ts``
-    None)."""
+    None).  ``rows`` (R,): K1's owned-row form, only those cells are rows,
+    their own slots masked by ``mc_rows`` (R, cap) and the neighbours' by
+    ``mc``."""
     import torch
 
     from edm_tpu_torch.ops.cellforce import half_neighbors, type_pair_mask
 
     C = int(np.prod(spec.ncells))
     nbr = half_neighbors(tuple(spec.ncells), mc.device)
+    if rows is None:
+        rows, mc_rows = torch.arange(C, device=mc.device), mc[:C]
+    nb = nbr[rows]
 
-    def window(plane):  # (Cg, cap, ...) -> each cell's 14k candidates, its own first
-        return torch.cat([plane[:C, :k], plane[nbr][:, :, :k].flatten(1, 2)], 1)
+    def window(plane, own):  # (Cg, cap, ...) -> each row cell's 14k candidates, its own first
+        return torch.cat([own[:, :k], plane[nb][:, :, :k].flatten(1, 2)], 1)
 
-    occ_w = window(mc) > 0.5
+    occ_w = window(mc, mc_rows) > 0.5
     ok = occ_w[:, :k, None] & occ_w[:, None, :]
     ok[:, :, :k] &= torch.ones(k, k, dtype=torch.bool, device=mc.device).triu(1)
-    xw = window(xs).double()
+    xw = window(xs, xs[rows]).double()
     d = xw[:, :k, None] - xw[:, None, :]
     L = torch.tensor(spec.box, dtype=torch.float64, device=xs.device)
     d = d - torch.round(d / L) * L
     near = ok & ((d * d).sum(-1) <= far * far)
     cv = near
     if ts is not None:
-        tw = window(ts)
+        tw = window(ts, ts[rows])
         cv = near & type_pair_mask(tw[:, :k, None], tw[:, None, :], TYPE_PAIR)
     return float(ok.sum()), float(near.sum()), float(cv.sum())
 
@@ -1446,8 +1475,8 @@ def thermalized(torch, device, host, n_steps=100):
     terms)."""
     from edm_tpu_torch.models.driver import pattern_segment, strided_segment
 
-    if host == "xla":
-        _, state, hot = bench_setup(torch, 0.8, device, "xla")
+    if host not in PAIR_N:  # a cell path
+        _, state, hot = bench_setup(torch, 0.8, device, host)
         return pattern_segment(pattern(hot), n_steps)(state)[0]
     state, hot = pair_setup(torch, 0.8, device, host)
     return strided_segment(hot[0], hot[1], 10, n_steps)(state)[0]
@@ -1579,6 +1608,301 @@ def xla_zero_temperature(torch, device, n_steps=20):
     print(f"kT=0 xla: {n_steps} steps of the XLA force pass, each state's forces against K1 "
           f"at full cap: worst |df| {worst:.3e} (bound {FORCE_REL} * max(1, max|f|)); hill "
           f"rounds {int(b.steps)}, cum_bias {float(b.cum_bias):.6g}")
+
+
+# ------------------------------------------------ the multi-device layer
+
+SLAB_RANKS = (2, 4)  # the slab host's rank counts at 10k: 9 columns as 5 + 4, and 3 + 2 + 2 + 2
+
+
+def multi_rank_line(n) -> str:
+    """How ``parallel.launch`` places ``n`` ranks on this machine."""
+    import torch
+
+    from edm_tpu_torch.parallel.mesh import pick_backend
+
+    backend = pick_backend(n, "cuda")
+    cards = n if backend == "nccl" else 1
+    return (f"{n} ranks, backend {backend}, {cards} card(s) of {torch.cuda.device_count()}, "
+            f"{n // cards} rank(s) per card")
+
+
+def rank_print(mesh, text):
+    """A line from rank 0 only (the ranks' replicas print alike)."""
+    if mesh.rank == 0:
+        print(text, flush=True)
+
+
+def all_ranks_equal(torch, mesh, what, tensors):
+    """Every rank's tensors bitwise equal to rank 0's (gathered in rank
+    order, compared as their bits)."""
+    from edm_tpu_torch.parallel import all_gather
+
+    for name, t in tensors.items():
+        bits = t.reshape(-1)
+        bits = bits.view(torch.int32) if bits.dtype == torch.float32 else bits.to(torch.int64)
+        g = all_gather(bits[None], mesh)
+        if not bool((g == g[0]).all()):
+            raise AssertionError(f"{what}: {name} differs between the ranks")
+
+
+def row_box_kernel_phase(torch, mesh, state, step):
+    """K1's owned-row form on this rank's window of the 10k bench state:
+    the kernel against its plain version (FORCE_REL, energies ENERGY_RTOL)
+    and against the full-window kernel with the rows outside the box
+    masked, bitwise; at k = 24 and 32, energy off and on.  The ranks take
+    turns (a barrier between), so that each times the card alone; returns
+    rank 0's rows (its first: the main path's k = 24, energy off)."""
+    import types
+
+    import torch.distributed as dist
+
+    from edm_tpu_torch.ops import cellforce as CF
+
+    tbl = CF.hermite_pair_table(state.core.bias.bias)
+    window = step._slab_window(state.xs, state.mc)
+    if window is None:
+        raise AssertionError(f"{mesh.size} ranks over {step.spec.ncells[0]} columns take no "
+                             "window")
+    sub, rows_full, subm, _, ncells, rb = window
+    cells = CF.box_cells(ncells, rb, sub.device)
+    mrows = rows_full[cells].contiguous()
+    wspec = types.SimpleNamespace(ncells=ncells, box=step.spec.box)
+    out = {}
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            for k in (24, 32):
+                for energy in (False, True):
+                    kw = dict(k=k, ncells=ncells, box=step.spec.box, lj=step.lj, energy=energy,
+                              mc_cand=subm)
+                    box = dict(row_box=rb, out_cells=sub.shape[0])
+                    f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
+                    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw, **box)
+                    f_full, _ = CF.cell_force_newton(sub, rows_full, tbl, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"cell_force_newton[row_box] rank {r}/{mesh.size} window "
+                            f"{'x'.join(map(str, ncells))} R={cells.numel()} k={k} "
+                            f"energy={int(energy)}")
+                    err = check_forces(what, f, f_ref)
+                    check_energy(what, eb.sum(), eb_ref.sum())
+                    if not torch.equal(f, f_full):
+                        raise AssertionError(f"{what}: not bitwise the masked full window")
+                    ms = cuda_ms(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, **kw, **box))
+                    plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(sub, mrows, tbl, **kw,
+                                                                            **box), reps=10)
+                    counts = pair_counts(wspec, sub, subm, k, reach(tbl, step.lj), rows=cells,
+                                         mc_rows=mrows)
+                    cap = sub.shape[1]
+                    nbytes = 4 * (sub.numel() + subm.numel() + mrows.numel()
+                                  + sub.shape[0] * cap * 3 + cells.numel() * k)
+                    out[what] = (err, ms, plain) + bound(pair_flops(counts, tbl, energy),
+                                                         nbytes + table_bytes(tbl))
+        dist.barrier()
+    return out
+
+
+def slab_zero_temperature(torch, mesh, n_steps=20):
+    """20 kT = 0 steps of the 10k exact cell, each from the single-device
+    trajectory's state (100 kT = 0.8 steps from the lattice first: on the
+    lattice the forces cancel below their terms' rounding) through the
+    single-device host and through the slab host on the card: forces,
+    positions and velocities within FORCE_REL of max(1, max|.|) (the slab's
+    psum adds the owned and halo contributions in another order), integers
+    and flags exactly, the hill rounds' grids bitwise (the slab collection
+    replays the round), every rank's state bitwise rank 0's; at the first
+    hill step ``slab_collect=False`` bitwise the default."""
+    device = mesh.device
+    _, _, steps1 = bench_setup(torch, 0.0, device)
+    _, _, stepsN = bench_setup(torch, 0.0, device, mesh=mesh)
+    _, _, steps_rep = bench_setup(torch, 0.0, device, mesh=mesh, slab_collect=False)
+    state = thermalized(torch, device, "interp")
+    worst = {}
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 2 if i % 10 == 9 else 1
+        ref, _ = steps1[k](state)
+        got, _ = stepsN[k](state)
+        for name in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks",
+                     "table_overflow", "mc"):
+            if not bool((getattr(got, name) == getattr(ref, name)).all()):
+                raise AssertionError(f"slab step {i}: {name} differs from one device")
+        for name in ("step", "last_calls", "hills_truncated"):
+            if not bool((getattr(got.core, name) == getattr(ref.core, name)).all()):
+                raise AssertionError(f"slab step {i}: core.{name} differs from one device")
+        for name in ("xs", "vs", "fs"):
+            worst[name] = max(worst.get(name, 0.0),
+                              check_forces(f"slab step {i} {name}", getattr(got, name),
+                                           getattr(ref, name)))
+        check_energy(f"slab step {i}", got.core.energy, ref.core.energy)
+        if k == 0:
+            if not torch.equal(got.core.bias.bias.grid.values, ref.core.bias.bias.grid.values):
+                raise AssertionError(f"slab step {i}: the hill round is not one device's")
+            if i == 0:
+                rep, _ = steps_rep[0](state)
+                if bitwise_diffs(rep, got):
+                    raise AssertionError("slab_collect=False differs from the default: "
+                                         f"{bitwise_diffs(rep, got)}")
+        all_ranks_equal(torch, mesh, f"slab step {i}", {
+            "xs": got.xs, "vs": got.vs, "fs": got.fs, "aid": got.aid,
+            "grid": got.core.bias.bias.grid.values})
+        state = ref
+    rank_print(mesh, f"kT=0 slab ({mesh.size} ranks): {n_steps} steps of the 10k exact cell, "
+               "each from the single-device trajectory's state, match one device (worst "
+               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+               + "); hill rounds bitwise; every rank bitwise rank 0; slab_collect=False "
+               "bitwise the default")
+
+
+def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
+    """The bench's kT = 0.8 run on the slab host: ``warm_steps``, then
+    ``timed_steps`` through ``pattern_segment`` with the launch counters,
+    the collectives' counters and the steps' host syncs set to 0 just
+    before and read just after; one stride cycle's profile (rank 0's busy
+    share; its K1 device time per launch); the host syncs of a hill, a
+    plain and a rebuild step named by line; ``slice_run``'s end checks."""
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.parallel import collectives
+
+    _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
+    state, _ = pattern_segment(pattern(steps), warm_steps)(state)
+    for s in steps:
+        s.host_syncs = 0
+    for name in FORCE_KERNELS:
+        getattr(CF, name).launches = 0
+    CF.cell_force_newton.row_box_launches = 0
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, e = pattern_segment(pattern(steps), timed_steps)(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
+    launches["row_box"] = CF.cell_force_newton.row_box_launches
+    coll = dict(collectives.stats)
+    syncs = sum(s.host_syncs for s in steps)
+    dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
+    rank_print(mesh, busy_line(f"kT=0.8 slab ({mesh.size} ranks) stride cycle, rank 0",
+                               dev_us, 10 * dt / timed_steps * 1e6, top))
+    census, counted = {}, {}
+    for name, step in zip(("hill", "plain", "rebuild"), steps):
+        before = step.host_syncs
+        census[name] = sync_sites(torch, lambda: step(state))
+        counted[name] = step.host_syncs - before
+    for name, sites in census.items():
+        rank_print(mesh, f"host syncs of a slab {name} step, rank 0 (CUDA sync-debug mode): "
+                   f"{sum(sites.values())}" + "".join(f"; {k} x{n}" for k, n in sites.items())
+                   + f" (counted by the step: {counted[name]})")
+    core = state.core
+    x0, wd = steps[0]._slab_part()
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs, e)),
+        "no table_overflow": not bool(state.table_overflow),
+        "no hills_truncated": not bool(core.hills_truncated),
+        "cum_bias > 0": float(core.bias.cum_bias) > 0,
+        "K1 owned rows on every step": launches["row_box"] == (timed_steps if wd else 0),
+        "K2 launched": launches["overflow_force"] > 0 or wd == 0,
+        "every K1 launch owned-row": launches["row_box"] == launches["cell_force_newton"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0.8 slab run on rank {mesh.rank} failed: {failed}")
+    rank_print(mesh, f"kT=0.8 slab ({mesh.size} ranks): {timed_steps} steps after {warm_steps} "
+               f"warm-up: {timed_steps / dt:.2f} steps/s, rank 0 launches {launches} "
+               f"({launches['row_box'] / timed_steps:.2f} K1 owned-row a step), "
+               f"collectives {coll['calls'] / timed_steps:.2f} a step moving "
+               f"{coll['bytes'] / timed_steps / 1e3:.1f} kB a step, "
+               f"{coll['host_syncs'] / timed_steps:.2f} host stagings a step, host syncs "
+               f"counted by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, tail "
+               f"{int(state.tail_count)} (fallback periods {int(state.tail_fallbacks)}), "
+               f"cum_bias {float(core.bias.cum_bias):.6g}")
+    all_ranks_equal(torch, mesh, "the kT = 0.8 slab run", {
+        "xs": state.xs, "vs": state.vs, "aid": state.aid,
+        "grid": core.bias.bias.grid.values})
+    return {"steps_per_s": timed_steps / dt, "launches": launches, "device_ms": device_ms,
+            "collectives": coll}
+
+
+def sharded_pair_zero_temperature(torch, mesh, n_steps=20):
+    """The sharded dense host at bench.py --quick's 1,000 atoms: 20 kT = 0
+    steps, each from the single-device dense trajectory's state (100 kT =
+    0.8 steps from the lattice first) through the single-device dense host
+    and through the sharded host on the card; this rank's rows of x, v and
+    f within PAIR_REL of max(1, max|.|), step, last_calls and
+    hills_truncated exactly (the acceptance draws differ by design: each
+    rank draws from its own stream, so the grids are not compared), the
+    grid replicas bitwise the same on every rank."""
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.models.lj import LJParams
+    from edm_tpu_torch.parallel import make_sharded_pair_step, shard_pair_state
+
+    device = mesh.device
+    _, steps1 = pair_setup(torch, 0.0, device, "dense")
+    params, _ = bench_bias(torch, device)
+    _, box = bench_lattice(PAIR_N["dense"])
+    stepsN = [make_sharded_pair_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0),
+                                     LJParams(epsilon=1.0, sigma=1.0, rcut=2.5), box, 10, mesh,
+                                     hill_capacity=2048, static_do_hills=h) for h in (True, False)]
+    state = thermalized(torch, device, "dense")
+    nl = PAIR_N["dense"] // mesh.size
+    mine = slice(mesh.rank * nl, (mesh.rank + 1) * nl)
+    worst = {}
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 1
+        ref, _ = steps1[k](state)
+        got, _ = stepsN[k](shard_pair_state(state, mesh))
+        for name in ("step", "last_calls", "hills_truncated"):
+            if not bool((getattr(got, name) == getattr(ref, name)).all()):
+                raise AssertionError(f"sharded pair step {i}: {name} differs from one device")
+        for name in ("x", "v", "f"):
+            worst[name] = max(worst.get(name, 0.0), check_forces(
+                f"sharded pair step {i} {name}", getattr(got, name), getattr(ref, name)[mine]))
+        all_ranks_equal(torch, mesh, f"sharded pair step {i}",
+                        {"grid": got.bias.bias.grid.values, "cum_bias": got.bias.cum_bias})
+        state = ref
+    rank_print(mesh, f"kT=0 sharded pair ({mesh.size} ranks, N={PAIR_N['dense']}): {n_steps} "
+               "steps on the card, each from the dense host's state, match it (worst "
+               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+               + "); last_calls exact; grid replicas bitwise")
+
+
+def multi_rank_phase(with_pair: bool):
+    """One rank's share of the multi-device phases (run by
+    ``parallel.launch``): K1's owned-row form on the rank's window, the
+    slab host's kT = 0 steps and kT = 0.8 run, and with ``with_pair`` the
+    sharded dense host.  Returns rank 0's kernel rows and run numbers."""
+    import torch
+
+    from edm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
+    state, _ = steps[0](state)  # a state with a live bias: one hill step
+    rows = row_box_kernel_phase(torch, mesh, state, steps[0])
+    if mesh.rank == 0:
+        print_rows(rows)
+    slab_zero_temperature(torch, mesh)
+    run = slab_run(torch, mesh)
+    if with_pair:
+        sharded_pair_zero_temperature(torch, mesh)
+    return {"rows": rows, "run": run} if mesh.rank == 0 else None
+
+
+def multi_rank_phases():
+    """The multi-device phases on ``SLAB_RANKS`` ranks through
+    ``parallel.launch`` (the kernels are built already, in this process);
+    a failing or hung rank raises.  Returns the 2-rank run's rank 0
+    results."""
+    from edm_tpu_torch.parallel import launch
+
+    out = {}
+    for n in SLAB_RANKS:
+        t_phase = time.perf_counter()
+        print(f"multi-device: {multi_rank_line(n)}", flush=True)
+        out[n] = launch(multi_rank_phase, n, n == SLAB_RANKS[0], timeout=300)[0]
+        print(f"slab host on {n} ranks{' and the sharded pair host' if n == 2 else ''}: "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out[SLAB_RANKS[0]]
 
 
 # ------------------------------------------------ the user's entry points
@@ -2239,6 +2563,10 @@ def main() -> int:
     n_tf += blk_launches["threefry_bits"] + dense_launches["threefry_bits"]
     print(f"dense host: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
+    multi = multi_rank_phases()
+    rows.update(multi["rows"])
+    print(f"multi-device phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     api_phase(torch, device)
     rs_launches = production_zero_temperature(torch, device)
     _, rs_launches_warm = production_run(torch, device)
@@ -2267,6 +2595,9 @@ def main() -> int:
         ("cell_force_full", cf, "cellforce_pallas.py:1002", ("full", k7), "cell_force_full"),
         ("cell_force_newton[typed]", cf, "cellforce_pallas.py:291", ("typed", k1),
          "cell_force_newton[typed]"),
+        # K1's owned-row form (row_box / out_cells), the slab host's force pass
+        ("cell_force_newton[row_box]", cf, "cellforce_pallas.py:684", "slab",
+         "cell_force_newton[row_box]"),
         # no Pallas kernel: the jax.random Threefry draws that XLA computes
         ("threefry_bits", "edm_tpu_torch/csrc/threefry.cu", "../models/langevin.py:51",
          "2-D", "threefry_bits"),
@@ -2283,6 +2614,9 @@ def main() -> int:
             n, dev = n_tf, tf_ms
         elif where == "blocked":
             n, dev = blk_launches["threefry_rows"], blk_ms["threefry_rows"]
+        elif where == "slab":
+            run = multi["run"]
+            n, dev = run["launches"]["row_box"], run["device_ms"].get("cell_force_newton")
         else:
             n, dev = dep[prefix], dep_ms[where]
         records.append(kernel_entry(name, source, os.path.normpath("edm_tpu/ops/" + replaces),

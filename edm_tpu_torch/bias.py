@@ -22,8 +22,10 @@ JAX round (the dense 1-D tables, the separable tables of fully periodic
 2-D/3-D grids, the McGovern–De Pablo tables of the other 2-D/3-D grids,
 the windowed scatter), multi-pass rounds and replay heights, and the
 per-step record a host emits for the HILLS log (``HillRoundLog``,
-``round_log_zeros``).  Not ported yet: sharded offsets and ``axis_name``
-(ROADMAP Queue 1, item 7), which raise ``NotImplementedError``.
+``round_log_zeros``), and ``axis_name``: the round's bias psummed over the
+ranks of a mesh (``parallel.collectives``).  Not ported yet:
+``boundary_offset``, the spatial host's local-to-global shift (ROADMAP
+Queue 1, item 7c), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -317,11 +319,15 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     called hill: the JAX round gates it with a ``lax.cond`` on the device,
     this one with one host read per extra pass (counted in
     ``host_reads``); a skipped pass leaves the state as it was and records
-    zeros and False, exactly as the JAX round's skip branch."""
-    if axis_name is not None or boundary_offset is not None:
+    zeros and False, exactly as the JAX round's skip branch.
+
+    ``axis_name``: the mesh axis (``parallel.make_mesh``) over which the
+    round's bias is summed into ``cum_bias`` (update_height's Allreduce,
+    edm_bias.cpp:922-931); every rank of the mesh must call the round.  The
+    record keeps this rank's own ``round_bias``, as the JAX round's does."""
+    if boundary_offset is not None:
         raise NotImplementedError(
-            "axis_name and boundary_offset (the sharded hosts) are not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+            "boundary_offset (the spatial host) is not ported yet (ROADMAP Queue 1, item 7c)")
     cfg = params.cfg
     D = cfg.dim
     dtype = state.bias.dtype
@@ -342,6 +348,9 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
         zf = torch.zeros(H, dtype=dtype, device=dev)
         zb = torch.zeros(H, dtype=torch.bool, device=dev)
         new_state = dataclasses.replace(state, steps=state.steps + 1)
+        if axis_name is not None:  # a passive replica still enters the sum, adding 0
+            new_state = dataclasses.replace(
+                new_state, cum_bias=state.cum_bias + _psum_axis(zero, axis_name))
         rec = RoundRecords(
             drain_pos=state.buf_pos[:DRAIN0], drain_h=state.buf_h[:DRAIN0],
             drain_dep_h=torch.zeros(DRAIN0, dtype=dtype, device=dev),
@@ -487,7 +496,7 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     new_state = BiasState(
         bias=bias_c,
         cv_hist=hist,
-        cum_bias=state.cum_bias + cum,
+        cum_bias=state.cum_bias + (cum if axis_name is None else _psum_axis(cum, axis_name)),
         buf_pos=bufp,
         buf_h=bufh,
         buf_left=torch.zeros((), **i64),
@@ -504,6 +513,12 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
         skipped=skip, round_bias=cum, prefactor=pref,
     )
     return new_state, rec, reads
+
+
+def _psum_axis(t, axis_name: str):
+    from .parallel.collectives import psum
+
+    return psum(t, axis_name)
 
 
 def check_state(state: BiasState) -> None:

@@ -325,6 +325,12 @@ struct RowArgs {
   float ti, tj;
   float *f, *eb, *cred;
   int C, cap, k, nx, ny, nz;
+  // the neighbour cells' candidate mask (mc for K6 and K7: one mask)
+  const float* mcand;
+  // owned rows (boxed): block b is the row cell b of the sub-box at (ox, oy,
+  // oz) of ry x rz cells across; mc, eb and cred are indexed by row, f by
+  // window cell.  Not boxed: block b is cell b, pad cells included.
+  int boxed, ox, oy, oz, ry, rz;
 };
 
 // The row pass's dynamic shared memory, in float4 units: the lookup table,
@@ -383,6 +389,13 @@ __device__ __forceinline__ int wrap(int v, int n) { return v < 0 ? v + n : (v >=
 // VCRED (K7): the value is credited too (NC = 4: each partner's column sum
 // of V) and the self block takes V whole instead of halved.
 //
+// Masks: the own slots (the live rows and the self block) come from the
+// row mask mc, the 13 neighbour cells' candidates from mcand.  With a row
+// box (K1's owned-row pass, cellforce_pallas.py:577-595) the blocks are the
+// box's cells only: block b maps to its window cell with the wrap taken per
+// axis of the window lattice (nx, ny, nz), while the minimum image still
+// uses the real box.
+//
 // Writes every row of f and eb of its cell (zeros at empty slots and at
 // rows >= k) and, on a pad cell, zeros throughout.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
@@ -391,11 +404,16 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
   constexpr int NC = VCRED ? 4 : 3;
   constexpr int ROUNDS = (MAX_SEG + ROW_WARPS - 1) / ROW_WARPS;
   const int k = a.k, cap = a.cap, W = 14 * k, NB = 13 * k;
-  const int c = blockIdx.x, tid = threadIdx.x;
+  const int row = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  int c = row;
+  if (a.boxed) {
+    const int bz = row % a.rz, by = (row / a.rz) % a.ry, bx = row / (a.ry * a.rz);
+    c = ((a.ox + bx) % a.nx) * (a.ny * a.nz) + ((a.oy + by) % a.ny) * a.nz + (a.oz + bz) % a.nz;
+  }
   float* f_cell = a.f + (long)c * cap * 3;
-  float* eb_cell = a.eb + (long)c * k;
-  float* cred_cell = a.cred + (long)c * NB * NC;
+  float* eb_cell = a.eb + (long)row * k;
+  float* cred_cell = a.cred + (long)row * NB * NC;
   if (c >= a.C) {  // a pad cell
     for (int i = tid; i < cap * 3; i += ROW_THREADS) f_cell[i] = 0.0f;
     for (int i = tid; i < k; i += ROW_THREADS) eb_cell[i] = 0.0f;
@@ -430,7 +448,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
       const long slot = (long)cell * cap + sl;
       bool live = false;
       if (sl < k) {
-        live = a.mc[slot] > 0.5f;
+        live = (o == 0 ? a.mc[(long)row * cap + sl] : a.mcand[slot]) > 0.5f;
         got[i] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
                              TYPED ? a.ts[slot] : 0.0f);
       }
@@ -573,6 +591,39 @@ k1_credits(float* __restrict__ f, float* __restrict__ eb, const float* __restric
 #pragma unroll
   for (int o = 0; o < 13; ++o) v = d < 3 ? v - inc[o] : v + inc[o];
   *dst = v;
+}
+
+// The second pass of K1's owned-row form, one thread per element of the
+// window's force planes f (n_out cells x cap x 3): an owned cell keeps its
+// row sums, any other cell starts from 0; each then subtracts, in HALF_OFF
+// order, the credits of those of its 13 source cells that lie in the row
+// box (a source outside it has no rows and credits nothing).  Skipping a
+// source subtracts what the full-window pass subtracts there, an exact 0, so
+// the owned-row pass is bitwise the full-window pass with the rows outside
+// the box masked out.  Zeros at slots >= k and pad cells.
+__global__ void __launch_bounds__(CREDIT_THREADS)
+k1_credits_box(float* __restrict__ f, const float* __restrict__ cred, int C, int n_out, int cap,
+               int k, int nx, int ny, int nz, int ox, int oy, int oz, int rx, int ry, int rz) {
+  const long t = (long)blockIdx.x * CREDIT_THREADS + threadIdx.x;
+  if (t >= (long)n_out * cap * 3) return;
+  const int d = (int)(t % 3);
+  const long slot = t / 3;
+  const int c = (int)(slot / cap), s = (int)(slot - (long)c * cap);
+  if (c >= C || s >= k) {
+    f[t] = 0.0f;
+    return;
+  }
+  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
+  const bool own = ix >= ox && ix < ox + rx && iy >= oy && iy < oy + ry && iz >= oz && iz < oz + rz;
+  float v = own ? f[t] : 0.0f;
+#pragma unroll
+  for (int o = 0; o < 13; ++o) {
+    const int bx = wrap(ix - HALF_OFF[o][0], nx) - ox, by = wrap(iy - HALF_OFF[o][1], ny) - oy,
+              bz = wrap(iz - HALF_OFF[o][2], nz) - oz;
+    if (bx >= 0 && bx < rx && by >= 0 && by < ry && bz >= 0 && bz < rz)
+      v -= cred[(((long)((bx * ry + by) * rz + bz) * 13 + o) * k + s) * 3 + d];
+  }
+  f[t] = v;
 }
 
 // ---------------------------------------------------------------- K2
@@ -759,21 +810,29 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
   return p;
 }
 
-// The row pass on every cell of the padded lattice, then (credits) the
-// second pass.  Shared memory is sized by k and the table; above the 48 KB
-// default the kernel's limit is raised first.
+// The row pass on every cell of the padded lattice (on the R cells of the
+// row box when boxed), then (credits) the second pass: over the n_out cells
+// of the window when boxed.  Shared memory is sized by k and the table;
+// above the 48 KB default the kernel's limit is raised first.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
 cudaError_t row_launch(const RowArgs& a, int Cg, bool credits, const PairParams& p,
-                       cudaStream_t st) {
+                       cudaStream_t st, int n_out = 0, int rx = 0) {
   auto kern = k1_rows<ENERGY, LOOK, TYPED, VCRED>;
   const int bytes = 16 * row_layout(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp).total4();
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
   }
-  kern<<<Cg, ROW_THREADS, bytes, st>>>(a, p);
+  kern<<<a.boxed ? rx * a.ry * a.rz : Cg, ROW_THREADS, bytes, st>>>(a, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !credits) return e;
+  if (a.boxed) {
+    const long n = (long)n_out * a.cap * 3;
+    k1_credits_box<<<(unsigned)((n + CREDIT_THREADS - 1) / CREDIT_THREADS), CREDIT_THREADS, 0,
+                     st>>>(a.f, a.cred, a.C, n_out, a.cap, a.k, a.nx, a.ny, a.nz, a.ox, a.oy,
+                           a.oz, rx, a.ry, a.rz);
+    return cudaGetLastError();
+  }
   const int n = a.C * a.k * (VCRED ? 4 : 3);
   k1_credits<VCRED><<<(n + CREDIT_THREADS - 1) / CREDIT_THREADS, CREDIT_THREADS, 0, st>>>(
       a.f, a.eb, a.cred, a.C, a.cap, a.k, a.nx, a.ny, a.nz);
@@ -782,19 +841,19 @@ cudaError_t row_launch(const RowArgs& a, int Cg, bool credits, const PairParams&
 
 template <int LOOK, bool TYPED>
 cudaError_t k1_energy(const RowArgs& a, int Cg, int energy, bool credits, const PairParams& p,
-                      cudaStream_t st) {
-  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, credits, p, st)
-                : row_launch<false, LOOK, TYPED, false>(a, Cg, credits, p, st);
+                      cudaStream_t st, int n_out, int rx) {
+  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, credits, p, st, n_out, rx)
+                : row_launch<false, LOOK, TYPED, false>(a, Cg, credits, p, st, n_out, rx);
 }
 
 cudaError_t k1_dispatch(const RowArgs& a, int Cg, int look, int energy, bool credits,
-                        const PairParams& p, cudaStream_t st) {
+                        const PairParams& p, cudaStream_t st, int n_out, int rx) {
   const bool typed = a.ts != nullptr;
   if (look == CHEB)
-    return typed ? k1_energy<CHEB, true>(a, Cg, energy, credits, p, st)
-                 : k1_energy<CHEB, false>(a, Cg, energy, credits, p, st);
-  return typed ? k1_energy<HERMITE, true>(a, Cg, energy, credits, p, st)
-               : k1_energy<HERMITE, false>(a, Cg, energy, credits, p, st);
+    return typed ? k1_energy<CHEB, true>(a, Cg, energy, credits, p, st, n_out, rx)
+                 : k1_energy<CHEB, false>(a, Cg, energy, credits, p, st, n_out, rx);
+  return typed ? k1_energy<HERMITE, true>(a, Cg, energy, credits, p, st, n_out, rx)
+               : k1_energy<HERMITE, false>(a, Cg, energy, credits, p, st, n_out, rx);
 }
 
 // The sweep over the tiles of low slots and the tail-tail block, then the
@@ -833,24 +892,41 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // K1 (credits = 1: the credits applied by the second pass) or K6
 // (credits = 0: the row pass alone; cred is returned to the caller).
 // f (Cg, cap, 3), eb (Cg, k) and cred (Cg, 13, k, 3) are written whole: no
-// fill is needed beforehand.
+// fill is needed beforehand.  mc masks the rows and the self block, mcand
+// the 13 neighbour cells' candidates.  K1's owned-row form (box = {ox, oy,
+// oz, rx, ry, rz}, not null): rows over that sub-box of the (nx, ny, nz)
+// window only, which it must lie inside; mc is then (R, cap) and eb (R, k),
+// cred (R, 13, k, 3), R = rx * ry * rz, and f spans n_out >= C window
+// cells.
 // look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
 // (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
 // (see PairParams); lj = {four_eps, sig2, rcut};
 // box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
 // types and tpair = {ti, tj} for the typed CV, or null for none
-int cell_force_newton_launch(const float* xs, const float* mc, float* f, float* eb,
-                             float* cred, int C, int Cg, int cap, int k, int nx, int ny,
-                             int nz, int credits, const float* ts, const float* tpair,
-                             int look, const float* t1, const float* t2, int rows, int degp,
-                             const float* geom, const float* box, const float* lj, int energy,
-                             void* stream) {
+int cell_force_newton_launch(const float* xs, const float* mc, const float* mcand, float* f,
+                             float* eb, float* cred, int C, int Cg, int cap, int k, int nx,
+                             int ny, int nz, int credits, const int* rbox, int n_out,
+                             const float* ts, const float* tpair, int look, const float* t1,
+                             const float* t2, int rows, int degp, const float* geom,
+                             const float* box, const float* lj, int energy, void* stream) {
   if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K || k > cap || Cg < C)
     return (int)cudaErrorInvalidValue;
+  int o[3] = {0, 0, 0}, r[3] = {0, 0, 0};
+  if (rbox) {
+    const int n[3] = {nx, ny, nz};
+    for (int d = 0; d < 3; ++d) {
+      o[d] = rbox[d];
+      r[d] = rbox[3 + d];
+      if (o[d] < 0 || r[d] < 1 || o[d] + r[d] > n[d]) return (int)cudaErrorInvalidValue;
+    }
+    if (!credits || n_out < C) return (int)cudaErrorInvalidValue;
+  }
   RowArgs a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
-            f, eb, cred, C, cap, k, nx, ny, nz};
+            f, eb, cred, C, cap, k, nx, ny, nz, mcand, rbox != nullptr, o[0], o[1], o[2],
+            r[1], r[2]};
   return (int)k1_dispatch(a, Cg, look, energy, credits != 0,
-                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
+                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream, n_out,
+                          r[0]);
 }
 
 // K7: the row pass at full cap with the value credited too, then the second
@@ -862,7 +938,8 @@ int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb
                            const float* geom, const float* box, const float* lj, void* stream) {
   if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K || Cg < C)
     return (int)cudaErrorInvalidValue;
-  RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz};
+  RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz,
+            mc, 0, 0, 0, 0, 0, 0};
   return (int)row_launch<true, CHEB, false, true>(
       a, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }

@@ -26,8 +26,9 @@ counter, which it reads back (one host sync per step, counted).
 hill_capacity`` compacted rows.  ``collect_records=True`` makes every step
 return ``(energy, bias.HillRoundLog)`` for the HILLS log
 (``driver.run_simulation``): the round's records on a hill step, zeros of
-the same shapes on the others.  Not ported: ``axis_name`` (ROADMAP Queue 1,
-item 7).
+the same shapes on the others.  ``axis_name`` sums each round's bias over
+the ranks of a mesh (``bias.add_hills_round``).  Not ported: the sharded
+coordinate host (``parallel/coord.py``, ROADMAP Queue 1, item 7b).
 """
 
 from __future__ import annotations
@@ -69,8 +70,9 @@ class CoordStep:
 
     def __init__(self, params: B.BiasParams, lp: LangevinParams, hill_stride: int,
                  external_force, group_mask, hill_capacity: int, do_hills: Optional[bool],
-                 hill_passes: int = 1, collect_records: bool = False):
+                 hill_passes: int = 1, collect_records: bool = False, axis_name=None):
         self.params, self.lp, self.hill_stride = params, lp, hill_stride
+        self.axis_name = axis_name  # the mesh axis the rounds' bias is summed over
         self.external_force = external_force
         self.group_mask = group_mask  # (N,) bool numpy array or None
         self._gmask = None  # its copy on the state's device, made at first use
@@ -149,11 +151,13 @@ class CoordStep:
                 trunc = count > Hc
                 bias_state, rec, reads = B.add_hills_round(params, bias_state, pos_c, run_c, N,
                                                            active=active,
+                                                           axis_name=self.axis_name,
                                                            n_passes=self.hill_passes)
                 log_pos = pos_c
             else:
                 bias_state, rec, reads = B.add_hills_round(params, bias_state, x[..., :D],
-                                                           runiform, N, active=gmask)
+                                                           runiform, N, active=gmask,
+                                                           axis_name=self.axis_name)
                 log_pos = x[..., :D]
             if self.collect_records:
                 log = B.HillRoundLog(torch.ones((), dtype=torch.bool, device=dev), log_pos, rec)
@@ -198,10 +202,9 @@ def make_step(
     fast path, driven by ``driver.strided_segment``), None a step that
     decides from ``state.step % hill_stride`` on each call and reads the
     counter back to do so.  ``collect_records``: each step returns
-    ``(energy, bias.HillRoundLog)``."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name (the sharded host) is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
+    ``(energy, bias.HillRoundLog)``.  ``axis_name``: the mesh axis
+    (``parallel.make_mesh``) over which each round's bias is summed into
+    ``cum_bias`` (``bias.add_hills_round``)."""
     if hill_stride < 1:
         raise ValueError("hill_stride must be >= 1")
     density = float(params.cfg.hill_density)
@@ -210,7 +213,7 @@ def make_step(
     gmask = None if group_mask is None else np.asarray(group_mask, bool)
     do_hills = None if static_do_hills is None else bool(static_do_hills)
     return CoordStep(params, lp, hill_stride, external_force, gmask, hill_capacity, do_hills,
-                     hill_passes, collect_records)
+                     hill_passes, collect_records, axis_name)
 
 
 def init_state(params: B.BiasParams, bias_state: B.BiasState, x0: torch.Tensor, key,

@@ -25,8 +25,9 @@ step counts in ``host_syncs``.
 ``static_do_hills`` True or False builds a static stride phase (the fast
 path, driven by ``driver.strided_segment``); None (the JAX default) decides
 on each call from ``state.step % hill_stride``, which it reads back once a
-call.  Not ported: ``axis_name`` (the sharded pair host, ROADMAP Queue 1,
-item 7).
+call.  ``axis_name`` sums each round's bias over the ranks of a mesh
+(``bias.add_hills_round``); the sharded pair host itself is
+``parallel.pair.make_sharded_pair_step``.
 """
 
 from __future__ import annotations
@@ -129,13 +130,14 @@ class PairStepBase:
 
     def __init__(self, params: B.BiasParams, lp: LangevinParams, lj: LJParams, box,
                  hill_stride: int, hill_capacity: int, do_hills: Optional[bool],
-                 collect_records: bool):
+                 collect_records: bool, axis_name: Optional[str] = None):
         if hill_stride < 1:
             raise ValueError("hill_stride must be >= 1")
         self.params, self.lp, self.lj = params, lp, lj
         self.box = tuple(float(b) for b in np.asarray(box, np.float64).reshape(-1))
         self.hill_stride, self.hill_capacity = hill_stride, hill_capacity
         self.do_hills, self.collect_records = do_hills, collect_records
+        self.axis_name = axis_name  # the mesh axis the rounds' bias is summed over
         self.host_syncs = 0
 
     def check_phase(self, pos: int, cycle: int):
@@ -166,7 +168,7 @@ class PairStepBase:
             dtype = x.dtype
             bias_state, rec, reads = B.add_hills_round(
                 params, state.bias, hills[:, None], runifs, state.last_calls.to(dtype),
-                active=active)
+                active=active, axis_name=self.axis_name)
             self.host_syncs += reads
             last_calls = ncalls
             # refit at the carried table's degree and panels
@@ -193,8 +195,8 @@ class PairStepBase:
 class PairStep(PairStepBase):
     """One step of the dense all-pairs host (``make_step``)."""
 
-    def __init__(self, *args, types=None, type_pair=None):
-        super().__init__(*args)
+    def __init__(self, *args, types=None, type_pair=None, axis_name=None):
+        super().__init__(*args, axis_name=axis_name)
         # the rdf type pair of the CV (both given, else every pair)
         self.types = None if types is None or type_pair is None else np.asarray(types, np.int64)
         self.type_pair = None if self.types is None else tuple(int(t) for t in type_pair)
@@ -271,13 +273,12 @@ def make_step(
     ``static_do_hills``: True or False builds one static stride phase, None
     a step that decides from ``state.step % hill_stride`` on each call and
     reads the counter back to do so.  ``collect_records``: each step returns
-    ``(energy, bias.HillRoundLog)``, zeros on steps without a round."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name (the sharded pair host) is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
+    ``(energy, bias.HillRoundLog)``, zeros on steps without a round.
+    ``axis_name``: the mesh axis (``parallel.make_mesh``) over which each
+    round's bias is summed into ``cum_bias``."""
     do_hills = None if static_do_hills is None else bool(static_do_hills)
     return PairStep(params, lp, lj, box, hill_stride, hill_capacity, do_hills, collect_records,
-                    types=types, type_pair=type_pair)
+                    types=types, type_pair=type_pair, axis_name=axis_name)
 
 
 def run_segment(step_fn, state: PairEDMState, n_steps: int):

@@ -25,8 +25,9 @@ The JAX host extracts each row's accepts by 32 rounds of argmax; here the
 same entries in the same order come from a prefix count along the row, as
 the cell host's pass 2 does (``pair_edm_cells.CellStep._compact``).  No
 host read outside the round's capping loop (``ops/prefix_cap``), counted in
-``step.host_syncs``.  The state is the dense host's ``PairEDMState``.  Not
-ported: ``axis_name`` (ROADMAP Queue 1, item 7).
+``step.host_syncs``.  The state is the dense host's ``PairEDMState``.
+``axis_name`` sums each round's bias over the ranks of a mesh
+(``bias.add_hills_round``).
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ M_PER_ROW = 32
 class BlockedStep(PairStepBase):
     """One step of the blocked host (``make_step_blocked``)."""
 
-    def __init__(self, *args, block_size: int):
-        super().__init__(*args)
+    def __init__(self, *args, block_size: int, axis_name=None):
+        super().__init__(*args, axis_name=axis_name)
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.block_size = block_size
@@ -150,11 +151,8 @@ def make_step_blocked(
     """Build a step of the blocked host, with the JAX signature.  The atom
     count must be a whole number of ``block_size`` blocks (a step raises
     ``ValueError`` otherwise; the JAX host fails to trace).  The Chebyshev
-    table, ``static_do_hills`` and ``collect_records`` as in
+    table, ``static_do_hills``, ``collect_records`` and ``axis_name`` as in
     ``pair_edm.make_step``."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name (the sharded pair host) is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
     do_hills = None if static_do_hills is None else bool(static_do_hills)
     return BlockedStep(params, lp, lj, box, hill_stride, hill_capacity, do_hills,
-                       collect_records, block_size=block_size)
+                       collect_records, block_size=block_size, axis_name=axis_name)

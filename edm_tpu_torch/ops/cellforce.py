@@ -6,7 +6,10 @@ a plain PyTorch version beside it:
 
   - ``cell_force_newton`` (K1) replaces ``edm_tpu/ops/cellforce_pallas.py``
     ``cell_forces_pallas_newton_rescredit``: the half-stencil Newton pass
-    over the slot lattice, every step of the default path;
+    over the slot lattice, every step of the default path; with a
+    ``row_box``, its owned-row form (rows over a slab rank's owned sub-box
+    of its halo window, the force planes over the window, the neighbour
+    cells masked by ``mc_cand``), every step of the slab host;
   - ``overflow_force`` (K2) replaces ``overflow_forces_pallas``: the dense
     sweep of the compacted tail atoms (slots >= kernel_cap) against every
     placed low slot, on reduced-cap steps;
@@ -42,6 +45,7 @@ gathers each cell's 13 half-stencil neighbours itself.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -261,25 +265,34 @@ def type_pair_mask(t_rows, t_cols, type_pair):
     return ((t_rows == ti) & (t_cols == tj)) | ((t_rows == tj) & (t_cols == ti))
 
 
-def _newton_rows(xs, mc, table, *, k, ncells, box, lj, energy, ts, type_pair):
+def _newton_rows(xs, mc, table, *, k, ncells, box, lj, energy, ts, type_pair, mc_cand=None,
+                 rows=None):
     """The row pass of K1 and K6 (plain): each occupied slot < k against
     its own cell's other slots and the 13 half-stencil neighbours' slots.
-    Returns the row sums f (C, k, 3), self block included; the credits
-    cred (C, 13, k, 3), each offset's column sums (+); and eb (C, k), the
+    ``rows`` (R,): the window cells that are rows (default every cell, R =
+    C); ``mc`` masks the rows and the self block, (R, cap) when ``rows`` is
+    given, and ``mc_cand`` (default ``mc``) the neighbours' candidates.
+    Returns the row sums f (R, k, 3), self block included; the credits
+    cred (R, 13, k, 3), each offset's column sums (+); and eb (R, k), the
     row's bias energy with the self block at weight 0.5."""
     C = int(np.prod(ncells))
+    mc_cand = mc if mc_cand is None else mc_cand
     nbr = half_neighbors(tuple(ncells), xs.device)  # (C, 13)
-    xl = xs[:C, :k]
-    ml = mc[:C, :k] > 0.5
+    if rows is None:
+        rows, mc = slice(0, C), mc[:C]
+    nbr = nbr[rows]
+    C = nbr.shape[0]  # the row cells
+    xl = xs[rows, :k]
+    ml = mc[:, :k] > 0.5
     xw = torch.cat([xl, xs[nbr][:, :, :k].reshape(C, 13 * k, 3)], 1)
-    mw = torch.cat([ml, (mc[nbr][:, :, :k] > 0.5).reshape(C, 13 * k)], 1)
+    mw = torch.cat([ml, (mc_cand[nbr][:, :, :k] > 0.5).reshape(C, 13 * k)], 1)
     W = 14 * k
     d = [_mimage(xl[:, :, None, c] - xw[:, None, :, c], box[c]) for c in range(3)]
     ok = ml[:, :, None] & mw[:, None, :]
     ok = ok & ~torch.eye(k, W, dtype=torch.bool, device=xs.device)[None]
     ok_cv = None
     if ts is not None:
-        tl = ts[:C, :k]
+        tl = ts[rows, :k]
         tw = torch.cat([tl, ts[nbr][:, :, :k].reshape(C, 13 * k)], 1)
         ok_cv = ok & type_pair_mask(tl[:, :, None], tw[:, None, :], type_pair)
     f_over_r, val = _pair_terms(*d, ok, table, lj, energy, ok_cv)
@@ -293,23 +306,79 @@ def _newton_rows(xs, mc, table, *, k, ncells, box, lj, energy, ts, type_pair):
     return g.sum(2), cred, eb
 
 
-def cell_force_newton_ref(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
-                          ts=None, type_pair=None):
-    """Plain version of K1.  xs (Cg, cap, 3) slot positions, mc (Cg, cap)
-    occupancy (1.0 = atom); only slots < k take part; ``table`` a
-    HermiteTable or a ChebTable; ``ts`` (Cg, cap) slot types (0 = empty)
-    with ``type_pair`` for the typed CV.  Returns
-    f (Cg, cap, 3) — row sums plus Newton credits, zero at slots >= k and
-    padded cells — and eb (Cg, k), the per-row bias energy (self block at
-    weight 0.5; zeros when ``energy`` is False)."""
+def box_cells(ncells, row_box, device) -> torch.Tensor:
+    """(R,) window cell ids of the row box ((ox, oy, oz), (rx, ry, rz)),
+    x-major: the row ids of K1's owned-row pass (``_kernel_newton_rc``'s
+    remap, cellforce_pallas.py:577-595, wrapped per axis of the window)."""
+    (ox, oy, oz), (rx, ry, rz) = row_box
+    nx, ny, nz = ncells
+    ix = (ox + torch.arange(rx, device=device)) % nx
+    iy = (oy + torch.arange(ry, device=device)) % ny
+    iz = (oz + torch.arange(rz, device=device)) % nz
+    return ((ix[:, None, None] * ny + iy[None, :, None]) * nz + iz[None, None, :]).reshape(-1)
+
+
+def _check_row_box(xs, mc_rows, ncells, row_box, out_cells):
+    """The owned-row form's shapes: the box lies inside the window, the
+    row mask has exactly R = rx * ry * rz rows (no program padding), and the
+    force planes span at least the window's cells.  Returns (R, n_out)."""
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
-    f_own, cred, eb_c = _newton_rows(xs, mc, table, k=k, ncells=ncells, box=box, lj=lj,
-                                     energy=energy, ts=ts, type_pair=type_pair)
-    f = torch.zeros((Cg, cap, 3), dtype=xs.dtype, device=xs.device)
-    f[:C, :k] = subtract_credits(f_own, cred, ncells)
-    eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
-    eb[:C] = eb_c
+    if row_box is None:
+        if tuple(mc_rows.shape) != (Cg, cap) or out_cells not in (None, Cg):
+            raise ValueError("without a row_box the row mask is (Cg, cap) and f spans Cg cells")
+        return Cg, Cg
+    origin, rdims = (tuple(int(v) for v in t) for t in row_box)
+    if any(o < 0 or r < 1 or o + r > n for o, r, n in zip(origin, rdims, ncells)):
+        raise ValueError(f"row_box {row_box} does not lie inside the window {tuple(ncells)}")
+    R = int(np.prod(rdims))
+    if tuple(mc_rows.shape) != (R, cap):
+        raise ValueError(f"the row mask has shape {tuple(mc_rows.shape)}, the row box "
+                         f"{row_box} has {R} rows: expected ({R}, {cap})")
+    n_out = Cg if out_cells is None else int(out_cells)
+    if n_out < C:
+        raise ValueError(f"out_cells={n_out} is below the window's {C} cells")
+    return R, n_out
+
+
+def cell_force_newton_ref(xs, mc_rows, table, *, k: int, ncells, box, lj, energy: bool,
+                          ts=None, type_pair=None, mc_cand=None, row_box=None,
+                          out_cells=None):
+    """Plain version of K1.  xs (Cg, cap, 3) slot positions, ``mc_rows``
+    (Cg, cap) the occupancy of the rows (1.0 = atom), which also masks each
+    cell's self block, ``mc_cand`` (default ``mc_rows``) that of the 13
+    neighbour cells' candidates (a sharded host's halo cells are candidates,
+    not rows); only slots < k take part; ``table`` a HermiteTable or a
+    ChebTable; ``ts`` (Cg, cap) slot types (0 = empty) with ``type_pair``
+    for the typed CV.  Returns f (Cg, cap, 3) — row sums plus Newton
+    credits, zero at slots >= k and padded cells — and eb (Cg, k), the
+    per-row bias energy (self block at weight 0.5; zeros when ``energy`` is
+    False).
+
+    ``row_box=((ox, oy, oz), (rx, ry, rz))``: the owned-row form — rows over
+    that sub-box of the (nx, ny, nz) window only (``box_cells`` order);
+    ``mc_rows`` is then (R, cap) for its R = rx * ry * rz cells, eb (R, k),
+    and f spans ``out_cells`` (default Cg) window cells: an owned cell gets
+    its row sums and credits, another cell only the credits of owned rows,
+    subtracted in HALF_OFFSETS order as the full-window pass does."""
+    Cg, cap, _ = xs.shape
+    C = int(np.prod(ncells))
+    R, n_out = _check_row_box(xs, mc_rows, ncells, row_box, out_cells)
+    kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair,
+              mc_cand=mc_cand)
+    f = torch.zeros((n_out, cap, 3), dtype=xs.dtype, device=xs.device)
+    if row_box is None:
+        f_own, cred, eb_c = _newton_rows(xs, mc_rows, table, **kw)
+        f[:C, :k] = subtract_credits(f_own, cred, ncells)
+        eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
+        eb[:C] = eb_c
+        return f, eb
+    rows = box_cells(tuple(ncells), row_box, xs.device)
+    f_own, cred, eb = _newton_rows(xs, mc_rows, table, rows=rows, **kw)
+    f[rows, :k] = f_own
+    tgt = half_neighbors(tuple(ncells), xs.device)[rows]  # (R, 13)
+    for o in range(13):  # a translation: each offset's targets are distinct
+        f[tgt[:, o], :k] = f[tgt[:, o], :k] - cred[:, o]
     return f, eb
 
 
@@ -417,14 +486,19 @@ def _pair_args(table, box, lj, device):
 
 
 def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
-                   ts, type_pair):
-    """Checks and launches K1 (``credits``: applied in the kernel) or K6 on
-    CUDA tensors."""
+                   ts, type_pair, mc_cand=None, row_box=None, n_out=None):
+    """Checks and launches K1 (``credits``: applied in the kernel) or K6
+    on CUDA tensors."""
     lib, lim = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     check(xs, "xs", (Cg, cap, 3), xs.device)
-    check(mc, "mc", (Cg, cap), xs.device)
+    check(mc, "mc", (Cg if row_box is None else mc.shape[0], cap), xs.device)
+    mc_cand = mc if mc_cand is None else mc_cand
+    check(mc_cand, "mc_cand", (Cg, cap), xs.device)
+    rbox = None
+    if row_box is not None:
+        rbox = (ctypes.c_int * 6)(*[int(v) for t in row_box for v in t])
     if not 0 < k <= min(cap, lim["max_k"]):
         raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
     if Cg < C or min(ncells) < 3:
@@ -435,8 +509,9 @@ def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box,
         types = (ts.data_ptr(), f32(type_pair))
     args = _pair_args(table, box, lj, xs.device)
     code = lib.cell_force_newton_launch(
-        xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
-        C, Cg, cap, k, *ncells, int(credits), *types, *args, int(energy),
+        xs.data_ptr(), mc.data_ptr(), mc_cand.data_ptr(), f.data_ptr(), eb.data_ptr(),
+        cred.data_ptr(), C, Cg, cap, k, *ncells, int(credits), rbox,
+        Cg if n_out is None else n_out, *types, *args, int(energy),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
@@ -448,29 +523,40 @@ def _device_of(t, what):
     return t.device.type
 
 
-def cell_force_newton(xs, mc, table, *, k: int, ncells, box, lj, energy: bool,
-                      ts=None, type_pair=None):
+def cell_force_newton(xs, mc_rows, table, *, k: int, ncells, box, lj, energy: bool,
+                      ts=None, type_pair=None, mc_cand=None, row_box=None, out_cells=None):
     """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
     Newton credits are summed deterministically: the row pass (one block
-    per cell, a warp per occupied row, the occupied candidates compacted)
-    writes the row sums and a per-offset credit scratch (Cg, 13, k, 3),
-    and a second pass subtracts each slot's 13 credits in a fixed offset
-    order — no atomics.  The two passes write every element of ``f`` and
-    ``eb``, so nothing is filled beforehand; k is at most the library's
-    ``max_k`` (64)."""
-    kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
+    per row cell, a warp per occupied row, the occupied candidates
+    compacted) writes the row sums and a per-offset credit scratch
+    (rows, 13, k, 3), and a second pass subtracts each slot's 13 credits
+    in a fixed offset order — no atomics.  With a ``row_box`` the row pass
+    runs over the box's R cells only, the scratch is sized by R, and the
+    second pass runs over every slot of the ``out_cells`` window cells,
+    taking credits only from sources in the box: bitwise the full-window
+    pass with the rows outside the box masked out.  The two passes write
+    every element of ``f`` and ``eb``, so nothing is filled beforehand; k
+    is at most the library's ``max_k`` (64)."""
+    kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair,
+              mc_cand=mc_cand)
     if _device_of(xs, "cell-force") == "cpu":
-        return cell_force_newton_ref(xs, mc, table, **kw)
-    Cg = xs.shape[0]
-    f = torch.empty_like(xs)
-    eb = torch.empty((Cg, k), dtype=xs.dtype, device=xs.device)
-    cred = torch.empty((Cg, 13, k, 3), dtype=xs.dtype, device=xs.device)
-    _newton_launch(True, xs, mc, f, eb, cred, table, **kw)
+        return cell_force_newton_ref(xs, mc_rows, table, row_box=row_box, out_cells=out_cells,
+                                     **kw)
+    R, n_out = _check_row_box(xs, mc_rows, ncells, row_box, out_cells)
+    cap = xs.shape[1]
+    f = torch.empty((n_out, cap, 3), dtype=xs.dtype, device=xs.device)
+    eb = torch.empty((R, k), dtype=xs.dtype, device=xs.device)
+    cred = torch.empty((R, 13, k, 3), dtype=xs.dtype, device=xs.device)
+    _newton_launch(True, xs, mc_rows, f, eb, cred, table, row_box=row_box, n_out=n_out, **kw)
     cell_force_newton.launches += 1
+    if row_box is not None:
+        cell_force_newton.row_box_launches += 1
     return f, eb
 
 
+# launches: every K1 launch; row_box_launches: those of the owned-row form
 cell_force_newton.launches = 0
+cell_force_newton.row_box_launches = 0
 
 
 def cell_force_newton_planar(xs, mc, table, *, ncells, box, lj, energy: bool,

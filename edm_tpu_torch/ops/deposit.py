@@ -29,8 +29,8 @@ Ported:
     correction terms, with the near-wall hill compaction of the strip
     passes (one host read of the strip counts per deposit);
   - ``duplicate_boundary`` (static boundary, any D).
-Not ported yet: the sharded ``boundary_offset`` forms (ROADMAP Queue 1,
-item 7).
+Not ported yet: the ``boundary_offset`` forms of the spatial host and
+``_duplicate_boundary_dynamic`` (ROADMAP Queue 1, item 7c).
 """
 
 from __future__ import annotations

@@ -126,6 +126,7 @@ def test_blocked_rejects_ragged_blocks():
                                  tlj.LJParams(), BOX, hill_stride=5, block_size=24)
     with pytest.raises(ValueError, match="block_size"):
         step(to_port(st))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpb.make_step_blocked(to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0),
-                              tlj.LJParams(), BOX, hill_stride=5, axis_name="i")
+    # ported since: axis_name sums the rounds' bias over a mesh
+    assert tpb.make_step_blocked(to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0),
+                                 tlj.LJParams(), BOX, hill_stride=5,
+                                 axis_name="dp").axis_name == "dp"

@@ -316,19 +316,25 @@ def test_dynamic_hill_step():
 
 
 def test_unported_options_raise():
-    """What stays unported raises with its ROADMAP item: the sharded
-    options (``axis_name``, ``boundary_offset``).  Record collection is
-    ported: it builds, static and dynamic."""
+    """What stays unported raises with its ROADMAP item: the spatial
+    host's ``boundary_offset``.  Record collection is ported: it builds,
+    static and dynamic; so is ``axis_name``, which on a one-rank mesh gives
+    the round without it."""
+    from edm_tpu_torch.parallel import make_mesh
+
     jparams, jbs, tparams, tbs = _round_setup(True, False)
     lp = tlang.LangevinParams(dt=0.002, friction=1.0, kT=0.0)
     for kw in (dict(static_do_hills=True, collect_records=True), dict(collect_records=True)):
         assert tce.make_step(tparams, lp, 2, **kw).collect_records
-    for kw, item in ((dict(static_do_hills=True, axis_name="i"), "item 7"),
-                     (dict(axis_name="i"), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tce.make_step(tparams, lp, 2, **kw)
-    pos, run = torch.zeros(4, 2, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
-    for kw, item in ((dict(axis_name="i"), "item 7"),
-                     (dict(boundary_offset=torch.zeros(2)), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            TB.add_hills_round(tparams, tbs, pos, run, 4, **kw)
+    for kw in (dict(static_do_hills=True, axis_name="dp"), dict(axis_name="dp")):
+        assert tce.make_step(tparams, lp, 2, **kw).axis_name == "dp"
+    make_mesh(device="cpu")
+    rng = np.random.default_rng(2)
+    pos = torch.as_tensor(rng.uniform(0.5, 9.5, (4, 2)))
+    run = torch.as_tensor(rng.uniform(0.0, 1.0, 4))
+    one, _, _ = TB.add_hills_round(tparams, tbs, pos, run, 4, axis_name="dp")
+    ref, _, _ = TB.add_hills_round(tparams, tbs, pos, run, 4)
+    assert_tree(one, ref, 0.0, "one-rank axis_name round")
+    assert float(one.cum_bias) > 0
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        TB.add_hills_round(tparams, tbs, pos, run, 4, boundary_offset=torch.zeros(2))

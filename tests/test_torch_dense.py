@@ -204,8 +204,8 @@ def test_dense_step_kT08_one_step():
 def test_make_step_options():
     params, _ = jax_pair_setup()
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), tlj.LJParams(), BOX, 5)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpe.make_step(*args, axis_name="i")
+    # ported since: axis_name sums the rounds' bias over a mesh
+    assert tpe.make_step(*args, axis_name="dp").axis_name == "dp"
     with pytest.raises(ValueError, match="hill_stride"):
         tpe.make_step(*args[:4], 0)
     hill = tpe.make_step(*args, static_do_hills=True)

@@ -28,7 +28,13 @@ run on the card against the CPU: ``EDMBias(device="cuda")`` in float64
 every output, and a checkpoint resumed bitwise.  The dense and blocked
 pair hosts: ``threefry_rows`` bitwise against its numpy chain at the
 blocked host's widths, and one hill step of each host on the card against
-the CPU.  Tolerances as in
+the CPU.  The multi-device layer: K1's owned-row form (``row_box``) on the
+slab host's windows of the 10,000-atom bench lattice (2, 3 and 4 ranks
+over its 9 columns, ragged ranks included) at k = 24 and 32, against its
+plain version and bitwise against the full-window kernel with the rows
+outside the box masked; and a 2-rank slab step on the card
+(``parallel.launch``, a rank per card or both on one) against the
+single-device step.  Tolerances as in
 the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -1043,3 +1049,118 @@ def test_pair_hill_round_card_vs_cpu(cuda_state, blocked):
     assert float((g_c - g_h).abs().max()) <= 1e-5 * max(1.0, float(g_h.abs().max()))
     assert_forces(card.f.cpu(), cpu.f, "forces")
     assert_energy(e_c.cpu(), e_h, "energy")
+
+
+# ------------------------------------------------ the multi-device layer
+
+
+@pytest.fixture(scope="module")
+def cuda_slab(cuda_state):
+    """bench_pairwise's 10,000-atom lattice (a = 1.26, jittered) on its 9^3
+    cells of cap 32, with the bias of ``cuda_state`` (hills deposited) as
+    the Hermite table."""
+    _, _, _, tbl, gg = cuda_state
+    dev = torch.device("cuda", 0)
+    pts = (np.stack(np.meshgrid(*[np.arange(22)] * 3, indexing="ij"), -1).reshape(-1, 3)[:10000]
+           * 1.26 + 0.63 + np.random.default_rng(9).uniform(-0.1, 0.1, (10000, 3)))
+    box = [22 * 1.26] * 3
+    cfg = parse_edm_text("tempering 0\nhill_prefactor 0.1\ndimension 1\nbox_low 0\n"
+                         "box_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+    _, bs = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                        dtype=torch.float32, device=dev)
+    core = pair_edm.init_state(bs, torch.tensor(pts % box[0], dtype=torch.float32, device=dev),
+                               PRNGKey(0))
+    spec = CellSpec.create(box, cutoff=3.05, n_atoms=10000)
+    assert spec.ncells == (9, 9, 9) and spec.cap == 32
+    return spec, init_cell_state(spec, core), CF.hermite_pair_table(gg)
+
+
+def _slab_window(spec, xs, mc, n, rank):
+    """Rank ``rank`` of ``n``'s window as the slab host builds it: its
+    columns and a halo column a side, the full-window row mask (halo and
+    surplus columns out), the candidate mask and the row box."""
+    nx, ny, nz = spec.ncells
+    q, rem = divmod(nx, n)
+    x0, wd = rank * q + min(rank, rem), q + (rank < rem)
+    nxd = -(-nx // n)
+    w = nxd + 2
+    cols = (x0 - 1 + torch.arange(w, device=xs.device)) % nx
+    C = nx * ny * nz
+
+    def win(a):
+        return a[:C].reshape((nx, ny * nz) + a.shape[1:])[cols].reshape((-1,) + a.shape[1:])
+
+    sub, subm = win(xs), win(mc)
+    jj = torch.arange(w, device=xs.device)
+    rows = subm.view(w, ny * nz, -1) * ((jj >= 1) & (jj <= wd)).to(subm.dtype)[:, None, None]
+    return sub, rows.reshape(subm.shape), subm, (w, ny, nz), ((1, 0, 0), (nxd, ny, nz))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rank", [(2, 0), (2, 1), (3, 2), (4, 0), (4, 3)])
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_row_box_kernel(cuda_slab, n, rank, k, energy):
+    """K1's owned-row form on the slab windows of the 10k lattice: 2 ranks
+    take 7 x 9 x 9 windows with 405 rows (rank 1 owns 4 of its 5 columns),
+    3 and 4 ranks 5 x 9 x 9 windows with 243 (4 ranks: rank 0 owns 3
+    columns, rank 3 2 of 3)."""
+    spec, st, tbl = cuda_slab
+    sub, rows_full, subm, ncells, rb = _slab_window(spec, st.xs, st.mc, n, rank)
+    cells = CF.box_cells(ncells, rb, sub.device)
+    mrows = rows_full[cells].contiguous()
+    lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
+    kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy, mc_cand=subm)
+    box = dict(row_box=rb, out_cells=sub.shape[0])
+    n0 = CF.cell_force_newton.row_box_launches
+    f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
+    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw, **box)
+    f_full, eb_full = CF.cell_force_newton(sub, rows_full, tbl, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_newton.row_box_launches == n0 + 1
+    assert eb.shape == (cells.numel(), k) and float(f.abs().max()) > 0
+    assert_forces(f.cpu(), f_ref.cpu(), f"K1 row_box {n} ranks, rank {rank}, k={k}")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), "K1 row_box energy")
+    # bitwise the full-window pass with the rows outside the box masked
+    assert torch.equal(f, f_full)
+    assert torch.equal(eb, eb_full[cells])
+    f2, _ = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
+    assert torch.equal(f, f2)
+
+
+@pytest.mark.gpu
+def test_slab_step_two_ranks_on_card(cuda_state, tmp_path):
+    """A 2-rank slab step on the card (``parallel.launch``: NCCL with a
+    card per rank, else gloo on one card) against the single-device step
+    from the same state, 4 steps from the single-device trajectory (two of
+    them hill steps): forces and positions within 2e-5 * max(1, max|.|),
+    the integers exactly, the hill rounds' grids bitwise, both ranks
+    bitwise equal."""
+    import pickle
+
+    import _torch_ranks as ranks
+    from edm_tpu_torch.parallel import launch
+
+    rng = np.random.default_rng(3)
+    box = [12 * 1.26] * 3
+    pts = (np.stack(np.meshgrid(*[np.arange(12)] * 3, indexing="ij"), -1).reshape(-1, 3) * 1.26
+           + 0.63 + rng.normal(scale=0.05, size=(1728, 3))) % box[0]
+    cfg = ("tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 20\n"
+           "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+    path = tmp_path / "in.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(dict(cfg=cfg, pts=pts, box=box, n_steps=4,
+                         lp=dict(dt=0.002, friction=1.0, kT=0.0)), fh)
+    res = launch(ranks.slab_on_card, 2, str(path), device="cuda",
+                 init_file=str(tmp_path / "store"), timeout=300)
+    for i, (got, ref) in enumerate(res[0]):
+        for name in ("xs", "vs", "fs"):
+            assert_forces(got[name], ref[name], f"step {i} {name}")
+        for name in ("aid", "ovl", "tail_count", "tail_ovf"):
+            np.testing.assert_array_equal(got[name], ref[name])
+        for name in ("step", "last_calls", "hills_truncated"):
+            np.testing.assert_array_equal(got["core"][name], ref["core"][name])
+        np.testing.assert_array_equal(got["core"]["bias"]["bias"]["grid"]["values"],
+                                      ref["core"]["bias"]["bias"]["grid"]["values"])
+        for name in ("xs", "vs", "fs", "aid"):
+            np.testing.assert_array_equal(res[1][i][0][name], got[name])

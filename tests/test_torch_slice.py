@@ -139,10 +139,20 @@ def test_make_cell_step_rejects_unported_options():
         assert step.use_pallas is False
         ts1, e = step(ts)
         assert int(ts1.core.step) == 1 and bool(torch.isfinite(ts1.fs).all())
-    # still unported: the sharded hosts (item 7)
-    for kw, item in ((dict(use_pallas=True, slab_axis="x"), "item 7"),
-                     (dict(use_pallas=True, brick_axes=("x", "y")), "item 7"),
-                     (dict(use_pallas=True, axis_name="i"), "item 7")):
+    # ported since: the slab host; one rank runs the single-device step
+    from edm_tpu_torch.parallel import make_mesh, make_slab_cell_step
+
+    mesh = make_mesh(device="cpu")
+    slab = make_slab_cell_step(*args[:4], 10, mesh, **PHASES[1])
+    assert slab.mesh is mesh and slab.slab_hills
+    ts1, e = slab(ts)
+    ref, e_ref = tpc.make_cell_step(*args, use_pallas=True, **PHASES[1])(ts)
+    for f in ("xs", "vs", "fs", "aid"):
+        assert_exact(getattr(ts1, f), getattr(ref, f), f)
+    assert_exact(e, e_ref, "energy")
+    # still unported: the brick host and axis_name on this host (item 7b)
+    for kw, item in ((dict(use_pallas=True, brick_axes=("x", "y")), "item 7b"),
+                     (dict(use_pallas=True, axis_name="i"), "item 7b")):
         with pytest.raises(NotImplementedError, match=item):
             tpc.make_cell_step(*args, **PHASES[1], **kw)
     ok = dict(use_pallas=True, **PHASES[1])
@@ -181,6 +191,8 @@ def test_port_imports_without_jax():
         "import edm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(edm_tpu_torch.__path__, 'edm_tpu_torch.')]\n"
         "[importlib.import_module(n) for n in names]\n"
+        "assert {'edm_tpu_torch.parallel.' + m for m in ('mesh', 'collectives', 'pair', 'cells')}"
+        " <= set(names), names\n"
         "assert 'edm_tpu' not in sys.modules\n"
         "import numpy as np, torch\n"
         "from edm_tpu_torch import GaussGrid, native\n"
@@ -207,7 +219,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=180, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 27
+    assert int(out.stdout.strip()) >= 32  # the multi-device layer's five modules included
 
     for path in pathlib.Path(edm_tpu_torch.__file__).parent.rglob("*.py"):
         for line in path.read_text().splitlines():
