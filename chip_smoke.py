@@ -78,14 +78,14 @@ windowed route and the two held to each other (the e^-8 corner class);
 ``threefry_rows`` against the numpy chain, bitwise, at the blocked host's
 pass-1 and pass-2 shapes; the blocked host's 20 kT = 0 steps through the
 kernel and through its plain version, bitwise, then its kT = 0.8 run
-(100 warm-up and 300 timed steps through ``driver.strided_segment``:
+(50 warm-up and 100 timed steps through ``driver.strided_segment``:
 steps/s, device launches per step, the cycle's busy share and top device
 operations, host syncs per hill and plain step named by line, the Threefry
 launches, end-state checks); the XLA pass's 20 kT = 0 steps from a
 thermalized state, each state's forces held to K1 at full cap, then its
-kT = 0.8 run as the other cell paths'; the dense host's 20 kT = 0 steps
+kT = 0.8 run as the other cell paths' but 100 steps after 50; the dense host's 20 kT = 0 steps
 from a thermalized state, each on the card and on the CPU from the same
-input, then its kT = 0.8 run as the blocked host's;
+input, then its kT = 0.8 run as the blocked host's, 300 steps after 100;
 the multi-device phases, the kernels built in this process before the
 ranks are spawned (the backend, the rank count and the ranks per card
 printed first): on each rank's window of the 10k state K1's owned-row form
@@ -170,7 +170,7 @@ DIST_FLOPS, HILL_FLOPS = 9, 10
 # the device functions of csrc/*.cu, as the profiler names them, by wrapper:
 # the row pass and its credit pass (K1, K6, K7), K2's two passes, the
 # deposition's
-ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS, TF_FUNCS = ("k1_",), ("k2_",), ("dep_",), ("tf_",)
+ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS, TF_FUNCS = ("k1_", "k7_"), ("k2_",), ("dep_",), ("tf_",)
 PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS
 
 
@@ -1675,7 +1675,7 @@ def row_box_kernel_phase(torch, mesh, state, step):
                 for energy in (False, True):
                     kw = dict(k=k, ncells=ncells, box=step.spec.box, lj=step.lj, energy=energy,
                               mc_cand=subm)
-                    box = dict(row_box=rb, out_cells=sub.shape[0])
+                    box = dict(row_box=rb)
                     f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
                     f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw, **box)
                     f_full, _ = CF.cell_force_newton(sub, rows_full, tbl, **kw)
@@ -2551,11 +2551,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     rows.update(threefry_rows_phase(torch, device))
     pair_zero_temperature(torch, device, "blocked")
-    _, blk_launches, blk_ms = pair_run(torch, device, "blocked")
+    # the blocked host and the XLA pass, the slowest paths a step, run 100
+    # steps after 50 (the others 300 after 100), to hold the whole run near 300 s
+    _, blk_launches, blk_ms = pair_run(torch, device, "blocked", warm_steps=50, timed_steps=100)
     print(f"blocked host: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     xla_zero_temperature(torch, device)
-    slice_run(torch, device, "xla")
+    slice_run(torch, device, "xla", warm_steps=50, timed_steps=100)
     print(f"xla slice: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     pair_zero_temperature(torch, device, "dense")
@@ -2595,7 +2597,7 @@ def main() -> int:
         ("cell_force_full", cf, "cellforce_pallas.py:1002", ("full", k7), "cell_force_full"),
         ("cell_force_newton[typed]", cf, "cellforce_pallas.py:291", ("typed", k1),
          "cell_force_newton[typed]"),
-        # K1's owned-row form (row_box / out_cells), the slab host's force pass
+        # K1's owned-row form (row_box), the slab host's force pass
         ("cell_force_newton[row_box]", cf, "cellforce_pallas.py:684", "slab",
          "cell_force_newton[row_box]"),
         # no Pallas kernel: the jax.random Threefry draws that XLA computes

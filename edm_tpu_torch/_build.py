@@ -59,9 +59,8 @@ def _declare(lib):
     # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
     table = [i, vp, vp, i, i] + [fp] * 3 + [i, vp]
     # xs, mc, mcand, f, eb, cred, C, Cg, cap, k, nx, ny, nz, credits, row box
-    # (6 ints, or None), n_out, ts (or None), tpair, table
-    lib.cell_force_newton_launch.argtypes = ([vp] * 6 + [i] * 8 + [ctypes.POINTER(i), i, vp, fp]
-                                             + table)
+    # (ox, oy, oz, rx, ry, rz), n_rows, ts (or None), tpair, table
+    lib.cell_force_newton_launch.argtypes = [vp] * 6 + [i] * 15 + [vp, fp] + table
     lib.cell_force_newton_launch.restype = i
     # xs, mc, f, eb, cred, C, Cg, cap, nx, ny, nz, look, t1, t2, rows, degp,
     # geom, box, lj, stream

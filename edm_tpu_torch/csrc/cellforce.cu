@@ -18,11 +18,14 @@
 //
 //     Credits are DETERMINISTIC: the TPU kernel read-modify-writes its
 //     neighbours' rows in place, which is race-free only because a Pallas
-//     grid runs in order.  Here the row pass k1_rows (one block per cell)
-//     writes its own row sums into f and its column sums into a per-offset
-//     credit scratch (Cg, 13, k, 3); the credit pass k1_credits (one thread
-//     per slot) subtracts the 13 incoming credits in a fixed offset order.
-//     No atomics: a run repeats bitwise.
+//     grid runs in order.  Here the row pass k1_rows (one block per row
+//     cell) writes its own row sums into f and its column sums into a
+//     per-offset credit scratch (rows, 13, k, 3); the credit pass k1_credits
+//     (one thread per element of f) subtracts the 13 incoming credits in a
+//     fixed offset order.  No atomics: a run repeats bitwise.  The rows are
+//     a row box: the whole lattice, or a slab rank's owned sub-box of its
+//     halo window (the owned-row form, cellforce_pallas.py:684 row_box),
+//     where the credit pass takes credits only from sources in the box.
 //
 //     What bounds it: not the card's arithmetic or memory rate (bound
 //     0.0008 ms at k = 24) but warp operations executed per useful pair and the
@@ -37,8 +40,8 @@
 //     iterations a row) and runs the full pair arithmetic only over that
 //     list (1-2 iterations); one 6-shuffle reduction per row; credits by
 //     plain adds into per-warp accumulators in shared memory, summed in
-//     warp order; a credit pass with a thread per slot and component, its
-//     13 loads independent; shared memory sized by k and the table (44 KB at k = 24
+//     warp order; a credit pass with a thread per element, its 13 loads
+//     independent; shared memory sized by k and the table (44 KB at k = 24
 //     with the bench's 151-row table); the kernels write every output
 //     element, so the wrappers fill nothing.  0.0204 ms, row pass 0.0175 +
 //     credit pass 0.0032 (0.0371 before the redesign, when every lane
@@ -327,10 +330,12 @@ struct RowArgs {
   int C, cap, k, nx, ny, nz;
   // the neighbour cells' candidate mask (mc for K6 and K7: one mask)
   const float* mcand;
-  // owned rows (boxed): block b is the row cell b of the sub-box at (ox, oy,
-  // oz) of ry x rz cells across; mc, eb and cred are indexed by row, f by
-  // window cell.  Not boxed: block b is cell b, pad cells included.
-  int boxed, ox, oy, oz, ry, rz;
+  // the row box: the sub-box at (ox, oy, oz) of rx x ry x rz cells whose
+  // R cells are the rows (the whole lattice but on a sharded host's owned
+  // rows).  A proper sub-box's block b is its cell b, x-major; the whole
+  // lattice's block b is cell b, pad cells (b >= C) included.  mc, eb and
+  // cred are indexed by row, f by lattice cell.
+  int ox, oy, oz, rx, ry, rz;
 };
 
 // The row pass's dynamic shared memory, in float4 units: the lookup table,
@@ -390,11 +395,11 @@ __device__ __forceinline__ int wrap(int v, int n) { return v < 0 ? v + n : (v >=
 // of V) and the self block takes V whole instead of halved.
 //
 // Masks: the own slots (the live rows and the self block) come from the
-// row mask mc, the 13 neighbour cells' candidates from mcand.  With a row
-// box (K1's owned-row pass, cellforce_pallas.py:577-595) the blocks are the
-// box's cells only: block b maps to its window cell with the wrap taken per
-// axis of the window lattice (nx, ny, nz), while the minimum image still
-// uses the real box.
+// row mask mc, the 13 neighbour cells' candidates from mcand.  Rows: the
+// row box's cells (K1's owned-row pass, cellforce_pallas.py:577-595, when
+// it is a sharded host's owned sub-box): block b maps to its lattice cell
+// with the wrap taken per axis of the (window) lattice (nx, ny, nz), while
+// the minimum image still uses the real box.
 //
 // Writes every row of f and eb of its cell (zeros at empty slots and at
 // rows >= k) and, on a pad cell, zeros throughout.
@@ -406,8 +411,8 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
   const int k = a.k, cap = a.cap, W = 14 * k, NB = 13 * k;
   const int row = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  int c = row;
-  if (a.boxed) {
+  int c = row;  // the whole lattice: row b is cell b, pad cells included
+  if (a.rx * a.ry * a.rz < a.C) {  // an owned sub-box: row b is its cell b
     const int bz = row % a.rz, by = (row / a.rz) % a.ry, bx = row / (a.ry * a.rz);
     c = ((a.ox + bx) % a.nx) * (a.ny * a.nz) + ((a.oy + by) % a.ny) * a.nz + (a.oz + bz) % a.nz;
   }
@@ -564,18 +569,54 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
   }
 }
 
-// The second pass of K1 and K7, one thread per slot < k and component:
-// subtracts the slot's 13 incoming force credits in HALF_OFF order and, with
-// VCRED (component 3), adds the value credits onto eb.  A thread's 13 loads
-// are independent, and neighbouring threads read neighbouring words.
-template <bool VCRED>
-__global__ void __launch_bounds__(CREDIT_THREADS)
-k1_credits(float* __restrict__ f, float* __restrict__ eb, const float* __restrict__ cred, int C,
-           int cap, int k, int nx, int ny, int nz) {
-  constexpr int NC = VCRED ? 4 : 3;
+// The second pass of K1, one thread per element of the force planes f
+// (Cg cells x cap x 3): a cell of the row box keeps its row sums, any other
+// cell starts from 0; each then subtracts, in HALF_OFF order, the credits
+// of its 13 source cells, an exact 0 for a source outside the row box (it
+// has no rows): what the whole-lattice pass subtracts there, so the
+// owned-row pass is bitwise the whole-lattice pass with the rows outside
+// the box masked out.  Zeros at slots >= k and pad cells.
+__global__ void __launch_bounds__(CREDIT_THREADS) k1_credits(RowArgs a, int Cg) {
+  const long t = (long)blockIdx.x * CREDIT_THREADS + threadIdx.x;
+  if (t >= (long)Cg * a.cap * 3) return;
+  const int d = (int)(t % 3);
+  const long slot = t / 3;
+  const int c = (int)(slot / a.cap), s = (int)(slot - (long)c * a.cap);
+  if (c >= a.C || s >= a.k) {
+    a.f[t] = 0.0f;
+    return;
+  }
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
+  float inc[13];
+#pragma unroll
+  for (int o = 0; o < 13; ++o) {
+    // the source cell whose offset-o neighbour is c, as a row of the box; a
+    // source outside the box credits an exact 0 (its load, of row 0, is
+    // discarded: unconditional, so that the 13 loads are all in flight)
+    const int bx = wrap(ix - HALF_OFF[o][0], nx) - a.ox, by = wrap(iy - HALF_OFF[o][1], ny) - a.oy,
+              bz = wrap(iz - HALF_OFF[o][2], nz) - a.oz;
+    const bool in = bx >= 0 && bx < a.rx && by >= 0 && by < a.ry && bz >= 0 && bz < a.rz;
+    const long src = in ? (bx * a.ry + by) * a.rz + bz : 0;
+    const float cv = __ldg(a.cred + ((src * 13 + o) * a.k + s) * 3 + d);
+    inc[o] = in ? cv : 0.0f;
+  }
+  const bool own = ix >= a.ox && ix < a.ox + a.rx && iy >= a.oy && iy < a.oy + a.ry &&
+                   iz >= a.oz && iz < a.oz + a.rz;
+  float v = own ? a.f[t] : 0.0f;
+#pragma unroll
+  for (int o = 0; o < 13; ++o) v -= inc[o];
+  a.f[t] = v;
+}
+
+// The second pass of K7, one thread per slot and component (4: the value
+// too): subtracts the slot's 13 incoming force credits in HALF_OFF order,
+// adds the value credits onto eb.  The rows are the whole lattice.
+__global__ void __launch_bounds__(CREDIT_THREADS) k7_credits(RowArgs a) {
+  const int k = a.k, nx = a.nx, ny = a.ny, nz = a.nz;
   const int t = blockIdx.x * CREDIT_THREADS + threadIdx.x;
-  if (t >= C * k * NC) return;
-  const int d = t % NC, slot = t / NC;
+  if (t >= a.C * k * 4) return;
+  const int d = t % 4, slot = t / 4;
   const int c = slot / k, s = slot - c * k;
   const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
   float inc[13];
@@ -584,46 +625,13 @@ k1_credits(float* __restrict__ f, float* __restrict__ eb, const float* __restric
     // the cell whose offset-o neighbour is c
     const int src = wrap(ix - HALF_OFF[o][0], nx) * (ny * nz) + wrap(iy - HALF_OFF[o][1], ny) * nz +
                     wrap(iz - HALF_OFF[o][2], nz);
-    inc[o] = cred[(((long)src * 13 + o) * k + s) * NC + d];
+    inc[o] = __ldg(a.cred + (((long)src * 13 + o) * k + s) * 4 + d);
   }
-  float* dst = d < 3 ? f + ((long)c * cap + s) * 3 + d : eb + slot;
+  float* dst = d < 3 ? a.f + ((long)c * a.cap + s) * 3 + d : a.eb + slot;
   float v = *dst;
 #pragma unroll
   for (int o = 0; o < 13; ++o) v = d < 3 ? v - inc[o] : v + inc[o];
   *dst = v;
-}
-
-// The second pass of K1's owned-row form, one thread per element of the
-// window's force planes f (n_out cells x cap x 3): an owned cell keeps its
-// row sums, any other cell starts from 0; each then subtracts, in HALF_OFF
-// order, the credits of those of its 13 source cells that lie in the row
-// box (a source outside it has no rows and credits nothing).  Skipping a
-// source subtracts what the full-window pass subtracts there, an exact 0, so
-// the owned-row pass is bitwise the full-window pass with the rows outside
-// the box masked out.  Zeros at slots >= k and pad cells.
-__global__ void __launch_bounds__(CREDIT_THREADS)
-k1_credits_box(float* __restrict__ f, const float* __restrict__ cred, int C, int n_out, int cap,
-               int k, int nx, int ny, int nz, int ox, int oy, int oz, int rx, int ry, int rz) {
-  const long t = (long)blockIdx.x * CREDIT_THREADS + threadIdx.x;
-  if (t >= (long)n_out * cap * 3) return;
-  const int d = (int)(t % 3);
-  const long slot = t / 3;
-  const int c = (int)(slot / cap), s = (int)(slot - (long)c * cap);
-  if (c >= C || s >= k) {
-    f[t] = 0.0f;
-    return;
-  }
-  const int ix = c / (ny * nz), iy = (c / nz) % ny, iz = c % nz;
-  const bool own = ix >= ox && ix < ox + rx && iy >= oy && iy < oy + ry && iz >= oz && iz < oz + rz;
-  float v = own ? f[t] : 0.0f;
-#pragma unroll
-  for (int o = 0; o < 13; ++o) {
-    const int bx = wrap(ix - HALF_OFF[o][0], nx) - ox, by = wrap(iy - HALF_OFF[o][1], ny) - oy,
-              bz = wrap(iz - HALF_OFF[o][2], nz) - oz;
-    if (bx >= 0 && bx < rx && by >= 0 && by < ry && bz >= 0 && bz < rz)
-      v -= cred[(((long)((bx * ry + by) * rz + bz) * 13 + o) * k + s) * 3 + d];
-  }
-  f[t] = v;
 }
 
 // ---------------------------------------------------------------- K2
@@ -810,50 +818,48 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
   return p;
 }
 
-// The row pass on every cell of the padded lattice (on the R cells of the
-// row box when boxed), then (credits) the second pass: over the n_out cells
-// of the window when boxed.  Shared memory is sized by k and the table;
-// above the 48 KB default the kernel's limit is raised first.
+// The row pass, one block per row (the row box's R cells, then the pad
+// cells up to n_rows), then (credits) the second pass: k1_credits over the
+// Cg cells of f, or k7_credits with the value.  Shared memory is sized by k
+// and the table; above the 48 KB default the kernel's limit is raised first.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
-cudaError_t row_launch(const RowArgs& a, int Cg, bool credits, const PairParams& p,
-                       cudaStream_t st, int n_out = 0, int rx = 0) {
+cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const PairParams& p,
+                       cudaStream_t st) {
   auto kern = k1_rows<ENERGY, LOOK, TYPED, VCRED>;
   const int bytes = 16 * row_layout(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp).total4();
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
   }
-  kern<<<a.boxed ? rx * a.ry * a.rz : Cg, ROW_THREADS, bytes, st>>>(a, p);
+  kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !credits) return e;
-  if (a.boxed) {
-    const long n = (long)n_out * a.cap * 3;
-    k1_credits_box<<<(unsigned)((n + CREDIT_THREADS - 1) / CREDIT_THREADS), CREDIT_THREADS, 0,
-                     st>>>(a.f, a.cred, a.C, n_out, a.cap, a.k, a.nx, a.ny, a.nz, a.ox, a.oy,
-                           a.oz, rx, a.ry, a.rz);
-    return cudaGetLastError();
+  if (VCRED) {
+    const int n = a.C * a.k * 4;
+    k7_credits<<<(n + CREDIT_THREADS - 1) / CREDIT_THREADS, CREDIT_THREADS, 0, st>>>(a);
+  } else {
+    const long n = (long)Cg * a.cap * 3;
+    k1_credits<<<(unsigned)((n + CREDIT_THREADS - 1) / CREDIT_THREADS), CREDIT_THREADS, 0, st>>>(
+        a, Cg);
   }
-  const int n = a.C * a.k * (VCRED ? 4 : 3);
-  k1_credits<VCRED><<<(n + CREDIT_THREADS - 1) / CREDIT_THREADS, CREDIT_THREADS, 0, st>>>(
-      a.f, a.eb, a.cred, a.C, a.cap, a.k, a.nx, a.ny, a.nz);
   return cudaGetLastError();
 }
 
 template <int LOOK, bool TYPED>
-cudaError_t k1_energy(const RowArgs& a, int Cg, int energy, bool credits, const PairParams& p,
-                      cudaStream_t st, int n_out, int rx) {
-  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, credits, p, st, n_out, rx)
-                : row_launch<false, LOOK, TYPED, false>(a, Cg, credits, p, st, n_out, rx);
+cudaError_t k1_energy(const RowArgs& a, int Cg, int n_rows, int energy, bool credits,
+                      const PairParams& p, cudaStream_t st) {
+  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, st)
+                : row_launch<false, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, st);
 }
 
-cudaError_t k1_dispatch(const RowArgs& a, int Cg, int look, int energy, bool credits,
-                        const PairParams& p, cudaStream_t st, int n_out, int rx) {
+cudaError_t k1_dispatch(const RowArgs& a, int Cg, int n_rows, int look, int energy, bool credits,
+                        const PairParams& p, cudaStream_t st) {
   const bool typed = a.ts != nullptr;
   if (look == CHEB)
-    return typed ? k1_energy<CHEB, true>(a, Cg, energy, credits, p, st, n_out, rx)
-                 : k1_energy<CHEB, false>(a, Cg, energy, credits, p, st, n_out, rx);
-  return typed ? k1_energy<HERMITE, true>(a, Cg, energy, credits, p, st, n_out, rx)
-               : k1_energy<HERMITE, false>(a, Cg, energy, credits, p, st, n_out, rx);
+    return typed ? k1_energy<CHEB, true>(a, Cg, n_rows, energy, credits, p, st)
+                 : k1_energy<CHEB, false>(a, Cg, n_rows, energy, credits, p, st);
+  return typed ? k1_energy<HERMITE, true>(a, Cg, n_rows, energy, credits, p, st)
+               : k1_energy<HERMITE, false>(a, Cg, n_rows, energy, credits, p, st);
 }
 
 // The sweep over the tiles of low slots and the tail-tail block, then the
@@ -891,13 +897,13 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 
 // K1 (credits = 1: the credits applied by the second pass) or K6
 // (credits = 0: the row pass alone; cred is returned to the caller).
-// f (Cg, cap, 3), eb (Cg, k) and cred (Cg, 13, k, 3) are written whole: no
-// fill is needed beforehand.  mc masks the rows and the self block, mcand
-// the 13 neighbour cells' candidates.  K1's owned-row form (box = {ox, oy,
-// oz, rx, ry, rz}, not null): rows over that sub-box of the (nx, ny, nz)
-// window only, which it must lie inside; mc is then (R, cap) and eb (R, k),
-// cred (R, 13, k, 3), R = rx * ry * rz, and f spans n_out >= C window
-// cells.
+// mc masks the rows and the self block, mcand (Cg, cap) the 13 neighbour
+// cells' candidates.  The rows: the row box {ox, oy, oz, rx, ry, rz}, which
+// lies inside the (nx, ny, nz) lattice, and n_rows the rows of mc, eb
+// (n_rows, k) and cred (n_rows, 13, k, 3): either R = rx * ry * rz (K1's
+// owned-row form, credits only) or, when the box is the whole lattice, Cg
+// (the pad cells' rows written zeros).  f (Cg, cap, 3), eb and cred are
+// written whole: no fill is needed beforehand.
 // look: 0 Hermite (t1 = (G, 4) table, rows = G, degp unused) or 1 Chebyshev
 // (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
 // (see PairParams); lj = {four_eps, sig2, rcut};
@@ -905,28 +911,22 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // types and tpair = {ti, tj} for the typed CV, or null for none
 int cell_force_newton_launch(const float* xs, const float* mc, const float* mcand, float* f,
                              float* eb, float* cred, int C, int Cg, int cap, int k, int nx,
-                             int ny, int nz, int credits, const int* rbox, int n_out,
-                             const float* ts, const float* tpair, int look, const float* t1,
-                             const float* t2, int rows, int degp, const float* geom,
-                             const float* box, const float* lj, int energy, void* stream) {
+                             int ny, int nz, int credits, int ox, int oy, int oz, int rx, int ry,
+                             int rz, int n_rows, const float* ts, const float* tpair, int look,
+                             const float* t1, const float* t2, int rows, int degp,
+                             const float* geom, const float* box, const float* lj, int energy,
+                             void* stream) {
   if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K || k > cap || Cg < C)
     return (int)cudaErrorInvalidValue;
-  int o[3] = {0, 0, 0}, r[3] = {0, 0, 0};
-  if (rbox) {
-    const int n[3] = {nx, ny, nz};
-    for (int d = 0; d < 3; ++d) {
-      o[d] = rbox[d];
-      r[d] = rbox[3 + d];
-      if (o[d] < 0 || r[d] < 1 || o[d] + r[d] > n[d]) return (int)cudaErrorInvalidValue;
-    }
-    if (!credits || n_out < C) return (int)cudaErrorInvalidValue;
-  }
+  const int o[3] = {ox, oy, oz}, r[3] = {rx, ry, rz}, n[3] = {nx, ny, nz};
+  for (int d = 0; d < 3; ++d)
+    if (o[d] < 0 || r[d] < 1 || o[d] + r[d] > n[d]) return (int)cudaErrorInvalidValue;
+  const int R = rx * ry * rz;
+  if (!(n_rows == R && credits) && !(R == C && n_rows == Cg)) return (int)cudaErrorInvalidValue;
   RowArgs a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
-            f, eb, cred, C, cap, k, nx, ny, nz, mcand, rbox != nullptr, o[0], o[1], o[2],
-            r[1], r[2]};
-  return (int)k1_dispatch(a, Cg, look, energy, credits != 0,
-                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream, n_out,
-                          r[0]);
+            f, eb, cred, C, cap, k, nx, ny, nz, mcand, ox, oy, oz, rx, ry, rz};
+  return (int)k1_dispatch(a, Cg, n_rows, look, energy, credits != 0,
+                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
 // K7: the row pass at full cap with the value credited too, then the second
@@ -939,9 +939,9 @@ int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb
   if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K || Cg < C)
     return (int)cudaErrorInvalidValue;
   RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz,
-            mc, 0, 0, 0, 0, 0, 0};
+            mc, 0, 0, 0, nx, ny, nz};
   return (int)row_launch<true, CHEB, false, true>(
-      a, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
+      a, Cg, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
 }
 
 // K2.  xo (5, O): x, y, z, mask, own; xp (4, N): x, y, z, mask; fo (4, O) and

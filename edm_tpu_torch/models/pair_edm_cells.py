@@ -230,11 +230,11 @@ def cell_diag(spec: CellSpec, state: CellPairState, kernel_caps=(16, 24)) -> dic
     return d
 
 
-def _half_concat(plane, ncells, cap: int, cells=None):
-    """(Cg, cap[, ...]) per-slot plane -> (C, 14cap[, ...]) candidate planes:
-    the cell's own slots, then its 13 HALF_OFFSETS neighbours' slots (the
-    JAX lattice rolls, as a gather); for the given ``cells`` (B,) only, if
-    any: (B, 14cap[, ...])."""
+def _half_concat(plane, ncells, cap: int, cells: slice = None):
+    """(Cg, cap[, ...]) per-slot plane -> (B, 14cap[, ...]) candidate planes
+    of the B cells of the range ``cells`` (default every cell): the cell's
+    own slots, then its 13 HALF_OFFSETS neighbours' slots (the JAX lattice
+    rolls, as a gather)."""
     nbr = half_neighbors(tuple(ncells), plane.device)
     if cells is None:
         cells = slice(0, int(np.prod(ncells)))
@@ -293,8 +293,9 @@ def newton_lattice_force(xs, mc_rows, ncells, box, lj, table, energy: bool = Tru
     if rescredit:
         if row_box is not None:
             rows = box_cells(tuple(ncells), row_box, xs.device)
-            f, eb = cell_force_newton(xs, mc_rows[rows], table, k=xs.shape[1], mc_cand=mc_cand,
-                                      row_box=row_box, out_cells=xs.shape[0], **kw)
+            f, eb = cell_force_newton(xs, mc_rows[rows], table, k=xs.shape[1],
+                                      mc_cand=mc_rows if mc_cand is None else mc_cand,
+                                      row_box=row_box, **kw)
             return eb.sum(), f
         f, eb = cell_force_newton(xs, mc_rows, table, k=xs.shape[1], mc_cand=mc_cand, **kw)
         return eb.sum(), f
@@ -819,11 +820,10 @@ class CellStep:
         if self.slab_hills:
             nyz = spec.ncells[1] * spec.ncells[2]
             x0, wd = self._slab_part()
-            cells = torch.arange(x0 * nyz, (x0 + wd) * nyz, device=dev)
-            rc = self.row_cap_local
+            lo, B_, rc = x0 * nyz, wd * nyz, self.row_cap_local
         else:
-            cells, rc = torch.arange(C, device=dev), self.row_cap
-        B_ = cells.shape[0]
+            lo, B_, rc = 0, C, self.row_cap
+        cells = slice(lo, lo + B_)
         cand = [_half_concat(xs[..., c], spec.ncells, cap, cells) for c in range(3)]
         candm = _half_concat(state.mc, spec.ncells, cap, cells) > 0.5
         ci = torch.arange(W, device=dev)
@@ -843,7 +843,7 @@ class CellStep:
             r2 = r2 + dd * dd
         ri = torch.arange(cap, device=dev)[None, :, None]
         ok = candm[:, :cap, None] & candm[:, None, :] & upper(ri) & (r2 < bmax2)
-        gids = (cells[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
+        gids = torch.arange(lo * cap, (lo + B_) * cap, device=dev)
         u = uniform_rows_cols(seeds, gids, 2 * W, dtype).reshape(B_, cap, W, 2)
         row_counts = accepted(ok, u).sum((2, 3)).reshape(-1)
         ncalls = 2 * torch.sum(ok.to(torch.int64))
@@ -855,7 +855,9 @@ class CellStep:
         if B_ == 0:  # a rank that owns no cell: one empty cell, every row masked
             cand, candm = [p.new_zeros((1, W)) for p in cand], candm.new_zeros((1, W))
         rows_c = torch.clamp(rows_sel, 0, sent - 1)
-        cells_c = torch.clamp(rows_c // cap - (cells[0] if B_ else 0), 0, max(B_ - 1, 0))
+        cells_c = rows_c // cap
+        if self.slab_hills:  # the sentinel and other ranks' rows fall outside the range
+            cells_c = torch.clamp(cells_c - lo, 0, max(B_ - 1, 0))
         slot_c = (rows_c % cap)[:, None]
         r2 = 0.0
         ms = candm[cells_c]

@@ -21,11 +21,12 @@ a plain PyTorch version beside it:
     (``use_pallas="full"``).  Its plain version walks the 27-stencil; its
     kernel evaluates each unordered pair once over the half-stencil.
 
-K1, K6 and K7 share one CUDA row pass (``k1_rows``: a block per cell, the
-occupied candidates compacted, a warp per occupied row over the partners
-within reach of the cutoffs) and, K1 and K7, one credit pass
-(``k1_credits``).  Together they write every element of their outputs, so
-the wrappers allocate with ``torch.empty``.
+K1, K6 and K7 share one CUDA row pass (``k1_rows``: a block per row cell,
+the occupied candidates compacted, a warp per occupied row over the
+partners within reach of the cutoffs); K1's credit pass (``k1_credits``)
+runs over the force planes, K7's (``k7_credits``) adds the value too.
+Together they write every element of their outputs, so the wrappers
+allocate with ``torch.empty``.
 
 K1, K2 and K6 take either bias table: a ``HermiteTable``
 (``pair_lookup="interp"``) or a ``ChebTable`` (``pair_lookup="chebyshev"``),
@@ -45,7 +46,6 @@ gathers each cell's 13 half-stencil neighbours itself.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -318,16 +318,17 @@ def box_cells(ncells, row_box, device) -> torch.Tensor:
     return ((ix[:, None, None] * ny + iy[None, :, None]) * nz + iz[None, None, :]).reshape(-1)
 
 
-def _check_row_box(xs, mc_rows, ncells, row_box, out_cells):
-    """The owned-row form's shapes: the box lies inside the window, the
-    row mask has exactly R = rx * ry * rz rows (no program padding), and the
-    force planes span at least the window's cells.  Returns (R, n_out)."""
+def _row_box(xs, mc_rows, mc_cand, ncells, row_box):
+    """K1's rows, checked: ``row_box`` (default the whole lattice) lies
+    inside the window; the row mask has exactly R = rx * ry * rz rows (no
+    program padding), or Cg for the whole lattice; an owned-row box needs
+    the candidates' mask.  Returns the box as ((ox, oy, oz), (rx, ry, rz))."""
     Cg, cap, _ = xs.shape
-    C = int(np.prod(ncells))
     if row_box is None:
-        if tuple(mc_rows.shape) != (Cg, cap) or out_cells not in (None, Cg):
-            raise ValueError("without a row_box the row mask is (Cg, cap) and f spans Cg cells")
-        return Cg, Cg
+        if tuple(mc_rows.shape) != (Cg, cap):
+            raise ValueError(f"the row mask has shape {tuple(mc_rows.shape)}: expected "
+                             f"({Cg}, {cap}) without a row_box")
+        return (0, 0, 0), tuple(int(n) for n in ncells)
     origin, rdims = (tuple(int(v) for v in t) for t in row_box)
     if any(o < 0 or r < 1 or o + r > n for o, r, n in zip(origin, rdims, ncells)):
         raise ValueError(f"row_box {row_box} does not lie inside the window {tuple(ncells)}")
@@ -335,15 +336,13 @@ def _check_row_box(xs, mc_rows, ncells, row_box, out_cells):
     if tuple(mc_rows.shape) != (R, cap):
         raise ValueError(f"the row mask has shape {tuple(mc_rows.shape)}, the row box "
                          f"{row_box} has {R} rows: expected ({R}, {cap})")
-    n_out = Cg if out_cells is None else int(out_cells)
-    if n_out < C:
-        raise ValueError(f"out_cells={n_out} is below the window's {C} cells")
-    return R, n_out
+    if mc_cand is None:
+        raise ValueError("a row_box needs mc_cand, the (Cg, cap) candidates' mask")
+    return origin, rdims
 
 
 def cell_force_newton_ref(xs, mc_rows, table, *, k: int, ncells, box, lj, energy: bool,
-                          ts=None, type_pair=None, mc_cand=None, row_box=None,
-                          out_cells=None):
+                          ts=None, type_pair=None, mc_cand=None, row_box=None):
     """Plain version of K1.  xs (Cg, cap, 3) slot positions, ``mc_rows``
     (Cg, cap) the occupancy of the rows (1.0 = atom), which also masks each
     cell's self block, ``mc_cand`` (default ``mc_rows``) that of the 13
@@ -358,27 +357,25 @@ def cell_force_newton_ref(xs, mc_rows, table, *, k: int, ncells, box, lj, energy
     ``row_box=((ox, oy, oz), (rx, ry, rz))``: the owned-row form — rows over
     that sub-box of the (nx, ny, nz) window only (``box_cells`` order);
     ``mc_rows`` is then (R, cap) for its R = rx * ry * rz cells, eb (R, k),
-    and f spans ``out_cells`` (default Cg) window cells: an owned cell gets
-    its row sums and credits, another cell only the credits of owned rows,
-    subtracted in HALF_OFFSETS order as the full-window pass does."""
+    and ``mc_cand`` is required: a cell of the box gets its row sums and
+    credits, another cell only the credits of the box's rows.  Either way
+    each cell's credits are subtracted offset by offset in HALF_OFFSETS
+    order, so the owned-row form is bitwise the whole lattice's with the
+    rows outside the box masked out."""
     Cg, cap, _ = xs.shape
-    C = int(np.prod(ncells))
-    R, n_out = _check_row_box(xs, mc_rows, ncells, row_box, out_cells)
-    kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair,
-              mc_cand=mc_cand)
-    f = torch.zeros((n_out, cap, 3), dtype=xs.dtype, device=xs.device)
-    if row_box is None:
-        f_own, cred, eb_c = _newton_rows(xs, mc_rows, table, **kw)
-        f[:C, :k] = subtract_credits(f_own, cred, ncells)
-        eb = torch.zeros((Cg, k), dtype=xs.dtype, device=xs.device)
-        eb[:C] = eb_c
-        return f, eb
-    rows = box_cells(tuple(ncells), row_box, xs.device)
-    f_own, cred, eb = _newton_rows(xs, mc_rows, table, rows=rows, **kw)
+    rbox = _row_box(xs, mc_rows, mc_cand, ncells, row_box)
+    rows = box_cells(tuple(ncells), rbox, xs.device)
+    R = rows.shape[0]
+    f_own, cred, eb_r = _newton_rows(xs, mc_rows[:R], table, k=k, ncells=ncells, box=box, lj=lj,
+                                     energy=energy, ts=ts, type_pair=type_pair,
+                                     mc_cand=mc_rows if mc_cand is None else mc_cand, rows=rows)
+    f = torch.zeros_like(xs)
     f[rows, :k] = f_own
     tgt = half_neighbors(tuple(ncells), xs.device)[rows]  # (R, 13)
     for o in range(13):  # a translation: each offset's targets are distinct
         f[tgt[:, o], :k] = f[tgt[:, o], :k] - cred[:, o]
+    eb = eb_r.new_zeros((mc_rows.shape[0], k))
+    eb[:R] = eb_r
     return f, eb
 
 
@@ -486,19 +483,17 @@ def _pair_args(table, box, lj, device):
 
 
 def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
-                   ts, type_pair, mc_cand=None, row_box=None, n_out=None):
+                   ts, type_pair, mc_cand=None, row_box=None):
     """Checks and launches K1 (``credits``: applied in the kernel) or K6
     on CUDA tensors."""
     lib, lim = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     check(xs, "xs", (Cg, cap, 3), xs.device)
-    check(mc, "mc", (Cg if row_box is None else mc.shape[0], cap), xs.device)
+    origin, rdims = _row_box(xs, mc, mc_cand, ncells, row_box)
+    check(mc, "mc", tuple(mc.shape), xs.device)
     mc_cand = mc if mc_cand is None else mc_cand
     check(mc_cand, "mc_cand", (Cg, cap), xs.device)
-    rbox = None
-    if row_box is not None:
-        rbox = (ctypes.c_int * 6)(*[int(v) for t in row_box for v in t])
     if not 0 < k <= min(cap, lim["max_k"]):
         raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
     if Cg < C or min(ncells) < 3:
@@ -510,9 +505,8 @@ def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box,
     args = _pair_args(table, box, lj, xs.device)
     code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), mc_cand.data_ptr(), f.data_ptr(), eb.data_ptr(),
-        cred.data_ptr(), C, Cg, cap, k, *ncells, int(credits), rbox,
-        Cg if n_out is None else n_out, *types, *args, int(energy),
-        torch.cuda.current_stream(xs.device).cuda_stream,
+        cred.data_ptr(), C, Cg, cap, k, *ncells, int(credits), *origin, *rdims, mc.shape[0],
+        *types, *args, int(energy), torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
 
@@ -524,30 +518,27 @@ def _device_of(t, what):
 
 
 def cell_force_newton(xs, mc_rows, table, *, k: int, ncells, box, lj, energy: bool,
-                      ts=None, type_pair=None, mc_cand=None, row_box=None, out_cells=None):
+                      ts=None, type_pair=None, mc_cand=None, row_box=None):
     """K1 (see ``cell_force_newton_ref`` for the contract).  On the GPU the
     Newton credits are summed deterministically: the row pass (one block
     per row cell, a warp per occupied row, the occupied candidates
     compacted) writes the row sums and a per-offset credit scratch
-    (rows, 13, k, 3), and a second pass subtracts each slot's 13 credits
-    in a fixed offset order — no atomics.  With a ``row_box`` the row pass
-    runs over the box's R cells only, the scratch is sized by R, and the
-    second pass runs over every slot of the ``out_cells`` window cells,
-    taking credits only from sources in the box: bitwise the full-window
-    pass with the rows outside the box masked out.  The two passes write
-    every element of ``f`` and ``eb``, so nothing is filled beforehand; k
-    is at most the library's ``max_k`` (64)."""
+    (rows, 13, k, 3), and a second pass over every element of ``f``
+    subtracts each slot's credits from the sources in the row box, in a
+    fixed offset order — no atomics.  With a ``row_box`` the row pass runs
+    over the box's R cells only and the scratch is sized by R: bitwise the
+    whole-lattice pass with the rows outside the box masked out.  The two
+    passes write every element of ``f`` and ``eb``, so nothing is filled
+    beforehand; k is at most the library's ``max_k`` (64)."""
     kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair,
-              mc_cand=mc_cand)
+              mc_cand=mc_cand, row_box=row_box)
     if _device_of(xs, "cell-force") == "cpu":
-        return cell_force_newton_ref(xs, mc_rows, table, row_box=row_box, out_cells=out_cells,
-                                     **kw)
-    R, n_out = _check_row_box(xs, mc_rows, ncells, row_box, out_cells)
-    cap = xs.shape[1]
-    f = torch.empty((n_out, cap, 3), dtype=xs.dtype, device=xs.device)
-    eb = torch.empty((R, k), dtype=xs.dtype, device=xs.device)
-    cred = torch.empty((R, 13, k, 3), dtype=xs.dtype, device=xs.device)
-    _newton_launch(True, xs, mc_rows, f, eb, cred, table, row_box=row_box, n_out=n_out, **kw)
+        return cell_force_newton_ref(xs, mc_rows, table, **kw)
+    n_rows = mc_rows.shape[0]
+    f = torch.empty_like(xs)
+    eb = torch.empty((n_rows, k), dtype=xs.dtype, device=xs.device)
+    cred = torch.empty((n_rows, 13, k, 3), dtype=xs.dtype, device=xs.device)
+    _newton_launch(True, xs, mc_rows, f, eb, cred, table, **kw)
     cell_force_newton.launches += 1
     if row_box is not None:
         cell_force_newton.row_box_launches += 1

@@ -1111,7 +1111,7 @@ def test_cell_force_newton_row_box_kernel(cuda_slab, n, rank, k, energy):
     mrows = rows_full[cells].contiguous()
     lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
     kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy, mc_cand=subm)
-    box = dict(row_box=rb, out_cells=sub.shape[0])
+    box = dict(row_box=rb)
     n0 = CF.cell_force_newton.row_box_launches
     f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
     f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw, **box)
