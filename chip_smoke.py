@@ -228,17 +228,20 @@ def bench_setup(torch, kT: float, device, path="interp", dynamic=False, mesh=Non
     ``static_do_*`` None (the JAX default, which ``run_simulation`` drives)
     and ``collect_records=True``.  With a ``mesh``, the steps are this
     rank's of the slab host (``parallel.make_slab_cell_step``, ``extra``
-    its options)."""
+    its options; on a 2-D or 3-D mesh the brick host's,
+    ``parallel.make_brick_cell_step``)."""
     from edm_tpu_torch.models import pair_edm
     from edm_tpu_torch.models.cells import CellSpec
     from edm_tpu_torch.models.langevin import LangevinParams
     from edm_tpu_torch.models.lj import LJParams
     from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu_torch.ops.prng import PRNGKey
-    from edm_tpu_torch.parallel import make_slab_cell_step
+    from edm_tpu_torch.parallel import make_brick_cell_step, make_slab_cell_step
 
+    sharded = make_slab_cell_step if mesh is None or mesh.devices.ndim == 1 else (
+        make_brick_cell_step)
     build = make_cell_step if mesh is None else (
-        lambda *a, **kw: make_slab_cell_step(*a, mesh=mesh, **kw, **extra))
+        lambda *a, **kw: sharded(*a, mesh=mesh, **kw, **extra))
     opts = dict(use_pallas=False) if path == "xla" else PATHS[path]
     params, bias_state = bench_bias(torch, device)
     pts, box = bench_lattice(N_ATOMS)
@@ -1613,6 +1616,17 @@ def xla_zero_temperature(torch, device, n_steps=20):
 # ------------------------------------------------ the multi-device layer
 
 SLAB_RANKS = (2, 4)  # the slab host's rank counts at 10k: 9 columns as 5 + 4, and 3 + 2 + 2 + 2
+# the brick host's grids at 10k (9 cells a side as 5 + 4): 7 x 7 x 9 windows
+# with the row box ((1, 1, 0), (5, 5, 9)) on 2 x 2, 7^3 with ((1, 1, 1), (5, 5,
+# 5)) on 2 x 2 x 2
+BRICK_GRIDS = ((2, 2), (2, 2, 2))
+
+
+def mesh_label(mesh) -> str:
+    """"slab" on a 1-D mesh, "brick 2x2" (the grid) on a brick mesh."""
+    if mesh.devices.ndim == 1:
+        return "slab"
+    return "brick " + "x".join(map(str, mesh.shape))
 
 
 def multi_rank_line(n) -> str:
@@ -1660,7 +1674,7 @@ def row_box_kernel_phase(torch, mesh, state, step):
     from edm_tpu_torch.ops import cellforce as CF
 
     tbl = CF.hermite_pair_table(state.core.bias.bias)
-    window = step._slab_window(state.xs, state.mc)
+    window = step._window(state.xs, state.mc)
     if window is None:
         raise AssertionError(f"{mesh.size} ranks over {step.spec.ncells[0]} columns take no "
                              "window")
@@ -1702,20 +1716,22 @@ def row_box_kernel_phase(torch, mesh, state, step):
 
 
 def slab_zero_temperature(torch, mesh, n_steps=20):
-    """20 kT = 0 steps of the 10k exact cell, each from the single-device
-    trajectory's state (100 kT = 0.8 steps from the lattice first: on the
-    lattice the forces cancel below their terms' rounding) through the
-    single-device host and through the slab host on the card: forces,
-    positions and velocities within FORCE_REL of max(1, max|.|) (the slab's
-    psum adds the owned and halo contributions in another order), integers
-    and flags exactly, the hill rounds' grids bitwise (the slab collection
-    replays the round), every rank's state bitwise rank 0's; at the first
-    hill step ``slab_collect=False`` bitwise the default."""
+    """``n_steps`` kT = 0 steps of the 10k exact cell, each from the
+    single-device trajectory's state (100 kT = 0.8 steps from the lattice
+    first: on the lattice the forces cancel below their terms' rounding)
+    through the single-device host and through the slab host (the brick host
+    on a brick mesh) on the card: forces, positions and velocities within
+    FORCE_REL of max(1, max|.|) (the psum adds the owned and halo
+    contributions in another order), integers and flags exactly, the hill
+    rounds' grids bitwise (the sharded collection replays the round), every
+    rank's state bitwise rank 0's; at the first hill step
+    ``slab_collect=False`` bitwise the default."""
     device = mesh.device
     _, _, steps1 = bench_setup(torch, 0.0, device)
     _, _, stepsN = bench_setup(torch, 0.0, device, mesh=mesh)
     _, _, steps_rep = bench_setup(torch, 0.0, device, mesh=mesh, slab_collect=False)
     state = thermalized(torch, device, "interp")
+    label = mesh_label(mesh)
     worst = {}
     for i in range(n_steps):
         k = 0 if i % 10 == 0 else 2 if i % 10 == 9 else 1
@@ -1724,28 +1740,28 @@ def slab_zero_temperature(torch, mesh, n_steps=20):
         for name in ("aid", "ovl", "tail_count", "tail_ovf", "tail_fallbacks",
                      "table_overflow", "mc"):
             if not bool((getattr(got, name) == getattr(ref, name)).all()):
-                raise AssertionError(f"slab step {i}: {name} differs from one device")
+                raise AssertionError(f"{label} step {i}: {name} differs from one device")
         for name in ("step", "last_calls", "hills_truncated"):
             if not bool((getattr(got.core, name) == getattr(ref.core, name)).all()):
-                raise AssertionError(f"slab step {i}: core.{name} differs from one device")
+                raise AssertionError(f"{label} step {i}: core.{name} differs from one device")
         for name in ("xs", "vs", "fs"):
             worst[name] = max(worst.get(name, 0.0),
-                              check_forces(f"slab step {i} {name}", getattr(got, name),
+                              check_forces(f"{label} step {i} {name}", getattr(got, name),
                                            getattr(ref, name)))
-        check_energy(f"slab step {i}", got.core.energy, ref.core.energy)
+        check_energy(f"{label} step {i}", got.core.energy, ref.core.energy)
         if k == 0:
             if not torch.equal(got.core.bias.bias.grid.values, ref.core.bias.bias.grid.values):
-                raise AssertionError(f"slab step {i}: the hill round is not one device's")
+                raise AssertionError(f"{label} step {i}: the hill round is not one device's")
             if i == 0:
                 rep, _ = steps_rep[0](state)
                 if bitwise_diffs(rep, got):
                     raise AssertionError("slab_collect=False differs from the default: "
                                          f"{bitwise_diffs(rep, got)}")
-        all_ranks_equal(torch, mesh, f"slab step {i}", {
+        all_ranks_equal(torch, mesh, f"{label} step {i}", {
             "xs": got.xs, "vs": got.vs, "fs": got.fs, "aid": got.aid,
             "grid": got.core.bias.bias.grid.values})
         state = ref
-    rank_print(mesh, f"kT=0 slab ({mesh.size} ranks): {n_steps} steps of the 10k exact cell, "
+    rank_print(mesh, f"kT=0 {label} ({mesh.size} ranks): {n_steps} steps of the 10k exact cell, "
                "each from the single-device trajectory's state, match one device (worst "
                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
                + "); hill rounds bitwise; every rank bitwise rank 0; slab_collect=False "
@@ -1753,7 +1769,8 @@ def slab_zero_temperature(torch, mesh, n_steps=20):
 
 
 def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
-    """The bench's kT = 0.8 run on the slab host: ``warm_steps``, then
+    """The bench's kT = 0.8 run on the slab host (the brick host on a brick
+    mesh): ``warm_steps``, then
     ``timed_steps`` through ``pattern_segment`` with the launch counters,
     the collectives' counters and the steps' host syncs set to 0 just
     before and read just after; one stride cycle's profile (rank 0's busy
@@ -1764,6 +1781,7 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
     from edm_tpu_torch.parallel import collectives
 
     _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
+    label = mesh_label(mesh)
     state, _ = pattern_segment(pattern(steps), warm_steps)(state)
     for s in steps:
         s.host_syncs = 0
@@ -1781,7 +1799,7 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
     coll = dict(collectives.stats)
     syncs = sum(s.host_syncs for s in steps)
     dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
-    rank_print(mesh, busy_line(f"kT=0.8 slab ({mesh.size} ranks) stride cycle, rank 0",
+    rank_print(mesh, busy_line(f"kT=0.8 {label} ({mesh.size} ranks) stride cycle, rank 0",
                                dev_us, 10 * dt / timed_steps * 1e6, top))
     census, counted = {}, {}
     for name, step in zip(("hill", "plain", "rebuild"), steps):
@@ -1789,24 +1807,24 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
         census[name] = sync_sites(torch, lambda: step(state))
         counted[name] = step.host_syncs - before
     for name, sites in census.items():
-        rank_print(mesh, f"host syncs of a slab {name} step, rank 0 (CUDA sync-debug mode): "
+        rank_print(mesh, f"host syncs of a {label} {name} step, rank 0 (CUDA sync-debug mode): "
                    f"{sum(sites.values())}" + "".join(f"; {k} x{n}" for k, n in sites.items())
                    + f" (counted by the step: {counted[name]})")
     core = state.core
-    x0, wd = steps[0]._slab_part()
+    owns = steps[0]._owns_cells()
     checks = {
         "finite": all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs, e)),
         "no table_overflow": not bool(state.table_overflow),
         "no hills_truncated": not bool(core.hills_truncated),
         "cum_bias > 0": float(core.bias.cum_bias) > 0,
-        "K1 owned rows on every step": launches["row_box"] == (timed_steps if wd else 0),
-        "K2 launched": launches["overflow_force"] > 0 or wd == 0,
+        "K1 owned rows on every step": launches["row_box"] == (timed_steps if owns else 0),
+        "K2 launched": launches["overflow_force"] > 0 or not owns,
         "every K1 launch owned-row": launches["row_box"] == launches["cell_force_newton"],
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"kT=0.8 slab run on rank {mesh.rank} failed: {failed}")
-    rank_print(mesh, f"kT=0.8 slab ({mesh.size} ranks): {timed_steps} steps after {warm_steps} "
+        raise AssertionError(f"kT=0.8 {label} run on rank {mesh.rank} failed: {failed}")
+    rank_print(mesh, f"kT=0.8 {label} ({mesh.size} ranks): {timed_steps} steps after {warm_steps} "
                f"warm-up: {timed_steps / dt:.2f} steps/s, rank 0 launches {launches} "
                f"({launches['row_box'] / timed_steps:.2f} K1 owned-row a step), "
                f"collectives {coll['calls'] / timed_steps:.2f} a step moving "
@@ -1815,7 +1833,7 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
                f"counted by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, tail "
                f"{int(state.tail_count)} (fallback periods {int(state.tail_fallbacks)}), "
                f"cum_bias {float(core.bias.cum_bias):.6g}")
-    all_ranks_equal(torch, mesh, "the kT = 0.8 slab run", {
+    all_ranks_equal(torch, mesh, f"the kT = 0.8 {label} run", {
         "xs": state.xs, "vs": state.vs, "aid": state.aid,
         "grid": core.bias.bias.grid.values})
     return {"steps_per_s": timed_steps / dt, "launches": launches, "device_ms": device_ms,
@@ -1865,44 +1883,409 @@ def sharded_pair_zero_temperature(torch, mesh, n_steps=20):
                + "); last_calls exact; grid replicas bitwise")
 
 
-def multi_rank_phase(with_pair: bool):
+def brick_box_kernel_phase(torch, device):
+    """K1's owned-row form over every rank's brick box of the 10k bench state
+    after one hill step, in this process: each window of ``BRICK_GRIDS`` cut
+    as the brick host cuts it (``pair_edm_cells.shard_window``), at k = 24
+    and 32, energy off and on; the kernel against its plain version
+    (FORCE_REL, energies ENERGY_RTOL) and bitwise the full-window kernel
+    with the rows outside the box masked; each timed (CUDA events) beside
+    its plain version and its bound.  Returns the rows, the main path's
+    first (2 x 2, rank 0, k = 24, energy off)."""
+    import types
+
+    from edm_tpu_torch.models.pair_edm_cells import shard_window
+    from edm_tpu_torch.ops import cellforce as CF
+
+    spec, state, steps = bench_setup(torch, 0.8, device)
+    state, _ = steps[0](state)  # a state with a live bias: one hill step
+    tbl = CF.hermite_pair_table(state.core.bias.bias)
+    lj = steps[0].lj
+    out = {}
+    for grid in BRICK_GRIDS:
+        g3 = tuple(grid) + (1,) * (3 - len(grid))
+        for rank in range(int(np.prod(grid))):
+            coord = tuple(int(c) for c in np.unravel_index(rank, g3))
+            sub, rows_full, subm, _, ncells, rb = shard_window(spec.ncells, g3, coord, state.xs,
+                                                               state.mc)
+            cells = CF.box_cells(ncells, rb, device)
+            mrows = rows_full[cells].contiguous()
+            wspec = types.SimpleNamespace(ncells=ncells, box=spec.box)
+            for k in (24, 32):
+                for energy in (False, True):
+                    kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy,
+                              mc_cand=subm)
+                    f, eb = CF.cell_force_newton(sub, mrows, tbl, row_box=rb, **kw)
+                    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, row_box=rb, **kw)
+                    f_full, eb_full = CF.cell_force_newton(sub, rows_full, tbl, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"cell_force_newton[brick row_box] {'x'.join(map(str, grid))} rank "
+                            f"{rank} window {'x'.join(map(str, ncells))} box {rb} "
+                            f"R={cells.numel()} k={k} energy={int(energy)}")
+                    err = check_forces(what, f, f_ref)
+                    check_energy(what, eb.sum(), eb_ref.sum())
+                    if not (torch.equal(f, f_full) and torch.equal(eb, eb_full[cells])):
+                        raise AssertionError(f"{what}: not bitwise the masked full window")
+                    ms = cuda_ms(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, row_box=rb,
+                                                                     **kw))
+                    plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(
+                        sub, mrows, tbl, row_box=rb, **kw), reps=10)
+                    counts = pair_counts(wspec, sub, subm, k, reach(tbl, lj), rows=cells,
+                                         mc_rows=mrows)
+                    cap = sub.shape[1]
+                    nbytes = 4 * (sub.numel() + subm.numel() + mrows.numel()
+                                  + sub.shape[0] * cap * 3 + cells.numel() * k)
+                    out[what] = (err, ms, plain) + bound(pair_flops(counts, tbl, energy),
+                                                         nbytes + table_bytes(tbl))
+    print_rows(out)
+    return out
+
+
+def sharded_cells_setup(torch, mesh, kT: float):
+    """The work-sharded host (``parallel.make_sharded_cell_step``, its
+    defaults: cell_chunk 32, hill_capacity and row_cap 1024 a rank) on the
+    10k Chebyshev cell, its three static phases as the cell host's stride
+    cycle; returns (spec, the cell state, the single-device cell host's
+    three phases, the work-sharded host's three)."""
+    from edm_tpu_torch.parallel import make_sharded_cell_step
+
+    spec, state, steps1 = bench_setup(torch, kT, mesh.device, "chebyshev")
+    s0 = steps1[0]
+    wsteps = [make_sharded_cell_step(s0.params, s0.lp, s0.lj, spec, 10, mesh, rebuild_stride=10,
+                                     static_do_hills=h, static_do_rebuild=r)
+              for h, r in ((True, False), (False, False), (False, True))]
+    return spec, state, steps1, wsteps
+
+
+def sharded_cells_state(spec, state):
+    """The work-sharded state of a cell state: its atoms in atom order, in
+    the cell state's own slot table.  Between rebuilds atoms drift from the
+    cells they were binned in, and a pair within the CV's range can drift
+    two cells apart, out of the stencil: a table made anew would pair atoms
+    that the cell host, binned at its last rebuild, does not see."""
+    import dataclasses
+
+    from edm_tpu_torch.models.pair_edm_cells import _atoms_from_slots
+    from edm_tpu_torch.parallel import ShardedCellPairState
+
+    x, v, f = _atoms_from_slots(spec, state.aid, state.xs, state.vs, state.fs)
+    return ShardedCellPairState(core=dataclasses.replace(state.core, x=x, v=v, f=f),
+                                aid=state.aid[:spec.n_slots],
+                                table_overflow=state.table_overflow)
+
+
+# last_calls of the work-sharded host against the cell host's: both count
+# the pairs within the CV's range twice, but from positions one force
+# rounding apart, so a pair at the range's edge may fall on either side
+CALLS_REL = 1e-5
+
+
+def sharded_cells_zero_temperature(torch, mesh, n_steps=10):
+    """``n_steps`` kT = 0 steps of the 10k Chebyshev cell, each from the
+    single-device cell host's trajectory (100 kT = 0.8 steps from the
+    lattice first), through the cell host and through the work-sharded host
+    on the card: positions, velocities and forces, the latter's atoms laid
+    into the cell host's slots, within FORCE_REL of max(1, max|.|) (an atom
+    with a pair within an ulp of a Chebyshev table edge up to the table's
+    jump there: ``check_slot_forces``), step, hills_truncated and
+    table_overflow exactly, last_calls within CALLS_REL and the energy
+    within ENERGY_RTOL on hill steps, every rank bitwise rank 0."""
+    spec, _, steps1, wsteps = sharded_cells_setup(torch, mesh, 0.0)
+    state = thermalized(torch, mesh.device, "chebyshev")
+    worst, calls, edge = {}, 0.0, 0
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 2 if i % 10 == 9 else 1
+        ref, _ = steps1[k](state)
+        got, _ = wsteps[k](sharded_cells_state(spec, state))
+        what = f"work-sharded step {i}"
+        slot = torch.clamp(ref.aid, 0, spec.n_atoms - 1)
+        for name in ("x", "v", "f"):
+            a = getattr(got.core, name)[slot].reshape(ref.xs.shape) * ref.mc[..., None]
+            err, n_edge = check_slot_forces(torch, f"{what} {name}", a, getattr(ref, name + "s"),
+                                            ref.xs, ref.mc, spec.box, state.core.cheb)
+            worst[name], edge = max(worst.get(name, 0.0), err), edge + n_edge
+        for name, a, b in (("step", got.core.step, ref.core.step),
+                           ("hills_truncated", got.core.hills_truncated,
+                            ref.core.hills_truncated),
+                           ("table_overflow", got.table_overflow, ref.table_overflow)):
+            if not bool((a == b).all()):
+                raise AssertionError(f"{what}: {name} differs from the cell host")
+        if k == 0:
+            a, b = int(got.core.last_calls), int(ref.core.last_calls)
+            calls = max(calls, abs(a - b) / b)
+            if not abs(a - b) <= CALLS_REL * b:
+                raise AssertionError(f"{what}: last_calls {a} against the cell host's {b}")
+            check_energy(what, got.core.energy, ref.core.energy)
+        all_ranks_equal(torch, mesh, what, {"x": got.core.x, "f": got.core.f, "aid": got.aid,
+                                            "grid": got.core.bias.bias.grid.values})
+        state = ref
+    rank_print(mesh, f"kT=0 work-sharded ({mesh.size} ranks): {n_steps} steps of the 10k Chebyshev "
+               "cell, each from the cell host's state, match it atom for atom (worst "
+               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+               + f"; {edge} atom(s) by a table-edge pair; last_calls {calls:.2e} relative); "
+               "every rank bitwise rank 0")
+
+
+def sharded_cells_run(torch, mesh, warm_steps=20, timed_steps=50):
+    """The work-sharded host at kT = 0.8 on the 10k Chebyshev cell:
+    ``warm_steps``, then ``timed_steps`` through ``pattern_segment`` with the
+    collectives' counters and the steps' host syncs set to 0 just before
+    and read just after; end checks; every rank bitwise rank 0."""
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.parallel import collectives
+
+    spec, state, _, wsteps = sharded_cells_setup(torch, mesh, 0.8)
+    state, _ = pattern_segment(pattern(wsteps), warm_steps)(sharded_cells_state(spec, state))
+    for s in wsteps:
+        s.host_syncs = 0
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, e = pattern_segment(pattern(wsteps), timed_steps)(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    coll = dict(collectives.stats)
+    core = state.core
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (core.x, core.v, core.f, e)),
+        "no table_overflow": not bool(state.table_overflow),
+        "no hills_truncated": not bool(core.hills_truncated),
+        "cum_bias > 0": float(core.bias.cum_bias) > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0.8 work-sharded run on rank {mesh.rank} failed: {failed}")
+    syncs = sum(s.host_syncs for s in wsteps)
+    rank_print(mesh, f"kT=0.8 work-sharded ({mesh.size} ranks, 10k Chebyshev): {timed_steps} steps "
+               f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, collectives "
+               f"{coll['calls'] / timed_steps:.2f} a step moving "
+               f"{coll['bytes'] / timed_steps / 1e3:.1f} kB a step, "
+               f"{coll['host_syncs'] / timed_steps:.2f} host stagings a step, host syncs counted "
+               f"by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, cum_bias "
+               f"{float(core.bias.cum_bias):.6g}")
+    all_ranks_equal(torch, mesh, "the kT = 0.8 work-sharded run", {
+        "x": core.x, "v": core.v, "aid": state.aid, "grid": core.bias.bias.grid.values})
+    return {"steps_per_s": timed_steps / dt, "collectives": coll}
+
+
+def sharded_coord_setup(torch, mesh, kT: float):
+    """The sharded coordinate host (``parallel.make_sharded_coord_step``,
+    hill_capacity at its default 2048) on ``coord_setup``'s 2-D heavy cell;
+    returns (the full state, the single-device host's hill and plain steps,
+    the sharded host's)."""
+    from edm_tpu_torch.parallel import make_sharded_coord_step
+
+    state, steps = coord_setup(torch, kT, mesh.device)
+    wsteps = [make_sharded_coord_step(steps[0].params, steps[0].lp, 10, mesh, static_do_hills=h)
+              for h in (True, False)]
+    if wsteps[0].hill_capacity != 2048:
+        raise AssertionError("the sharded 2-D host's hill capacity is not the bench's 2048")
+    return state, steps, wsteps
+
+
+@contextlib.contextmanager
+def drawn_uniforms(u):
+    """``prng.uniform`` returns ``u`` for a draw of its shape (the
+    single-device coordinate host's acceptance draw)."""
+    from edm_tpu_torch.ops import prng
+
+    saved = prng.uniform
+
+    def uniform(key, shape, *args, **kw):
+        if tuple(shape) == tuple(u.shape):
+            return u
+        return saved(key, shape, *args, **kw)
+
+    prng.uniform = uniform
+    try:
+        yield
+    finally:
+        prng.uniform = saved
+
+
+def sharded_coord_zero_temperature(torch, mesh, n_steps=20):
+    """``n_steps`` kT = 0 steps of the 2-D heavy cell (two of them hill
+    steps), each from the single-device host's trajectory, through the
+    sharded host and through the single-device host on the card, the latter
+    drawing its acceptance uniforms as the ranks draw theirs (rank r's
+    ``fold_in(fold_in(key, r), 11)``, in rank order), so that both deposit
+    the same hills: this rank's x, v and f within COORD_GRID_REL of max(1,
+    max|.|) (the sharded host looks up without the corner table), the grid,
+    the buffer and cum_bias within COORD_GRID_REL (the deposition's sums
+    run in another order), cv_hist and the integer leaves exactly (not the
+    key: the sharded host advances it once a step, the single-device host
+    twice), every rank's replica bitwise rank 0's."""
+    from edm_tpu_torch.ops import prng
+    from edm_tpu_torch.parallel import shard_coord_state
+
+    require_full_f32(torch)
+    state, steps, wsteps = sharded_coord_setup(torch, mesh, 0.0)
+    nl = COORD_N // mesh.size
+    mine = slice(mesh.rank * nl, (mesh.rank + 1) * nl)
+    worst, hills = {}, 0
+    for i in range(n_steps):
+        k = 0 if i % 10 == 0 else 1
+        got, _ = wsteps[k](shard_coord_state(state, mesh))
+        if k == 0:
+            u = torch.cat([prng.uniform(prng.fold_in(prng.fold_in(state.key, r), 11), (nl,),
+                                        torch.float32, mesh.device) for r in range(mesh.size)])
+            with drawn_uniforms(u):
+                ref, _ = steps[0](state)
+            hills += 1
+        else:
+            ref, _ = steps[1](state)
+        what = f"sharded 2-D step {i}"
+        for name, a, b in (("step", got.step, ref.step),
+                           ("hills_truncated", got.hills_truncated, ref.hills_truncated),
+                           ("cv_hist", got.bias.cv_hist.values, ref.bias.cv_hist.values),
+                           ("rounds", got.bias.steps, ref.bias.steps),
+                           ("buf_left", got.bias.buf_left, ref.bias.buf_left),
+                           ("buf_right", got.bias.buf_right, ref.bias.buf_right)):
+            if not bool((a == b).all()):
+                raise AssertionError(f"{what}: {name} differs from one device")
+        for name, a, b in (("x", got.x, ref.x[mine]), ("v", got.v, ref.v[mine]),
+                           ("f", got.f, ref.f[mine]),
+                           ("grid values", got.bias.bias.grid.values, ref.bias.bias.grid.values),
+                           ("grid derivs", got.bias.bias.grid.derivs, ref.bias.bias.grid.derivs),
+                           ("buf_h", got.bias.buf_h, ref.bias.buf_h),
+                           ("cum_bias", got.bias.cum_bias, ref.bias.cum_bias),
+                           ("energy", got.energy, ref.energy)):
+            a, b = a.double(), b.double()
+            e = float((a - b).abs().max())
+            worst[name] = max(worst.get(name, 0.0), e)
+            if not e <= COORD_GRID_REL * max(1.0, float(b.abs().max())):
+                raise AssertionError(f"{what}: {name} differs by {e:.3e} from one device")
+        all_ranks_equal(torch, mesh, what, {"grid": got.bias.bias.grid.values,
+                                            "derivs": got.bias.bias.grid.derivs,
+                                            "cv_hist": got.bias.cv_hist.values,
+                                            "cum_bias": got.bias.cum_bias})
+        state = ref
+    if hills < 2 or not float(state.bias.cum_bias) > 0:
+        raise AssertionError("the kT = 0 sharded 2-D run deposited no hills")
+    rank_print(mesh, f"kT=0 sharded 2-D ({mesh.size} ranks, N={COORD_N}): {n_steps} steps "
+               f"({hills} hill steps), each from the single-device host's state with the ranks' "
+               "acceptance draws, match it (worst "
+               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+               + "); cv_hist and the integer leaves exact; replicas bitwise")
+
+
+def sharded_coord_run(torch, mesh, warm_steps=50, timed_steps=200):
+    """The sharded 2-D host at kT = 1.0: ``warm_steps``, then
+    ``timed_steps`` through ``driver.strided_segment`` with the Threefry
+    counter, the collectives' counters and the steps' host syncs set to 0
+    just before and read just after; end checks (one normal draw a step and
+    one acceptance draw a hill step through ``threefry_bits``); every
+    rank's replica bitwise rank 0's."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.ops import prng
+    from edm_tpu_torch.parallel import collectives, shard_coord_state
+
+    require_full_f32(torch)
+    state, _, wsteps = sharded_coord_setup(torch, mesh, 1.0)
+    state, _ = strided_segment(wsteps[0], wsteps[1], 10, warm_steps)(
+        shard_coord_state(state, mesh))
+    for s in wsteps:
+        s.host_syncs = 0
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    prng.threefry_bits.launches = 0
+    t0 = time.perf_counter()
+    state, e = strided_segment(wsteps[0], wsteps[1], 10, timed_steps)(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tf = prng.threefry_bits.launches
+    coll = dict(collectives.stats)
+    b = state.bias
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.f, e,
+                                                               b.bias.grid.values)),
+        "no overflow_error": not bool(b.overflow_error),
+        "no hills_truncated": not bool(state.hills_truncated),
+        "cum_bias > 0": float(b.cum_bias) > 0,
+        "Threefry kernel: a draw a step and one a hill step": n_tf == timed_steps + timed_steps // 10,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=1.0 sharded 2-D run on rank {mesh.rank} failed: {failed}")
+    syncs = sum(s.host_syncs for s in wsteps)
+    rank_print(mesh, f"kT=1.0 sharded 2-D ({mesh.size} ranks, N={COORD_N}): {timed_steps} steps "
+               f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, Threefry launches "
+               f"{n_tf}, collectives {coll['calls'] / timed_steps:.2f} a step moving "
+               f"{coll['bytes'] / timed_steps / 1e3:.1f} kB a step, "
+               f"{coll['host_syncs'] / timed_steps:.2f} host stagings a step, host syncs counted "
+               f"by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, cum_bias "
+               f"{float(b.cum_bias):.6g}, hill rounds {int(b.steps)}")
+    all_ranks_equal(torch, mesh, "the kT = 1.0 sharded 2-D run", {
+        "grid": b.bias.grid.values, "cv_hist": b.cv_hist.values})
+    return {"steps_per_s": timed_steps / dt, "threefry_bits": n_tf, "collectives": coll}
+
+
+def multi_rank_phase():
     """One rank's share of the multi-device phases (run by
-    ``parallel.launch``): K1's owned-row form on the rank's window, the
-    slab host's kT = 0 steps and kT = 0.8 run, and with ``with_pair`` the
-    sharded dense host.  Returns rank 0's kernel rows and run numbers."""
+    ``parallel.launch``), by the world size: on ``SLAB_RANKS`` K1's
+    owned-row form on the rank's slab window and the slab host's kT = 0
+    steps and kT = 0.8 run; on 2 ranks also the sharded dense host, the
+    work-sharded cell host and the sharded 2-D host; on 4 the brick host on
+    2 x 2 (20 kT = 0 steps, the kT = 0.8 run: 100 steps after 50); on 8 the
+    brick host on 2 x 2 x 2 (5 kT = 0 steps).  Each part's seconds printed
+    by rank 0.  Returns rank 0's kernel rows and run numbers."""
     import torch
 
-    from edm_tpu_torch.parallel import make_mesh
+    from edm_tpu_torch.parallel import make_brick_mesh, make_mesh
 
     mesh = make_mesh()
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
-    state, _ = steps[0](state)  # a state with a live bias: one hill step
-    rows = row_box_kernel_phase(torch, mesh, state, steps[0])
-    if mesh.rank == 0:
-        print_rows(rows)
-    slab_zero_temperature(torch, mesh)
-    run = slab_run(torch, mesh)
-    if with_pair:
-        sharded_pair_zero_temperature(torch, mesh)
-    return {"rows": rows, "run": run} if mesh.rank == 0 else None
+    out = {}
+
+    def timed(what, fn):
+        t = time.perf_counter()
+        res = fn()
+        rank_print(mesh, f"  {what}: {time.perf_counter() - t:.1f} s")
+        return res
+
+    if mesh.size in SLAB_RANKS:
+        def slab():
+            _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
+            state, _ = steps[0](state)  # a state with a live bias: one hill step
+            rows = row_box_kernel_phase(torch, mesh, state, steps[0])
+            if mesh.rank == 0:
+                print_rows(rows)
+            slab_zero_temperature(torch, mesh)
+            return rows, slab_run(torch, mesh)
+
+        out["rows"], out["run"] = timed(f"slab host on {mesh.size} ranks", slab)
+    if mesh.size == 2:
+        timed("sharded pair host", lambda: sharded_pair_zero_temperature(torch, mesh))
+        out["cells_run"] = timed("work-sharded cell host", lambda: (
+            sharded_cells_zero_temperature(torch, mesh), sharded_cells_run(torch, mesh))[1])
+        out["coord_run"] = timed("sharded 2-D host", lambda: (
+            sharded_coord_zero_temperature(torch, mesh), sharded_coord_run(torch, mesh))[1])
+    if mesh.size == 4:
+        bmesh = make_brick_mesh(2, 2)
+        out["brick_run"] = timed("brick host on 2 x 2", lambda: (
+            slab_zero_temperature(torch, bmesh),
+            slab_run(torch, bmesh, warm_steps=50, timed_steps=100))[1])
+    if mesh.size == 8:
+        bmesh = make_brick_mesh(2, 2, 2)
+        timed("brick host on 2 x 2 x 2", lambda: slab_zero_temperature(torch, bmesh, n_steps=5))
+    return out if mesh.rank == 0 else None
 
 
 def multi_rank_phases():
-    """The multi-device phases on ``SLAB_RANKS`` ranks through
+    """The multi-device phases on 2, 4 and 8 ranks through
     ``parallel.launch`` (the kernels are built already, in this process);
-    a failing or hung rank raises.  Returns the 2-rank run's rank 0
-    results."""
+    a failing or hung rank raises.  Returns rank 0's results of each launch,
+    by rank count."""
     from edm_tpu_torch.parallel import launch
 
     out = {}
-    for n in SLAB_RANKS:
+    for n in (2, 4, 8):
         t_phase = time.perf_counter()
         print(f"multi-device: {multi_rank_line(n)}", flush=True)
-        out[n] = launch(multi_rank_phase, n, n == SLAB_RANKS[0], timeout=300)[0]
-        print(f"slab host on {n} ranks{' and the sharded pair host' if n == 2 else ''}: "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return out[SLAB_RANKS[0]]
+        out[n] = launch(multi_rank_phase, n, timeout=300)[0]
+        print(f"multi-device phases on {n} ranks: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    return out
 
 
 # ------------------------------------------------ the user's entry points
@@ -2551,9 +2934,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     rows.update(threefry_rows_phase(torch, device))
     pair_zero_temperature(torch, device, "blocked")
-    # the blocked host and the XLA pass, the slowest paths a step, run 100
-    # steps after 50 (the others 300 after 100), to hold the whole run near 300 s
-    _, blk_launches, blk_ms = pair_run(torch, device, "blocked", warm_steps=50, timed_steps=100)
+    # the blocked host, the slowest path a step, runs 40 steps after 20, the
+    # XLA pass 100 after 50 (the others 300 after 100), to hold the whole
+    # run near 480 s with the multi-device phases
+    _, blk_launches, blk_ms = pair_run(torch, device, "blocked", warm_steps=20, timed_steps=40)
     print(f"blocked host: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     xla_zero_temperature(torch, device)
@@ -2565,8 +2949,12 @@ def main() -> int:
     n_tf += blk_launches["threefry_bits"] + dense_launches["threefry_bits"]
     print(f"dense host: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
+    rows.update(brick_box_kernel_phase(torch, device))
+    print(f"kernel checks, K1 brick row box: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     multi = multi_rank_phases()
-    rows.update(multi["rows"])
+    rows.update(multi[2]["rows"])
+    n_tf += multi[2]["coord_run"]["threefry_bits"]
     print(f"multi-device phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     api_phase(torch, device)
@@ -2600,6 +2988,10 @@ def main() -> int:
         # K1's owned-row form (row_box), the slab host's force pass
         ("cell_force_newton[row_box]", cf, "cellforce_pallas.py:684", "slab",
          "cell_force_newton[row_box]"),
+        # the same over a brick box (rows remapped on all three axes), the
+        # brick host's force pass
+        ("cell_force_newton[brick row_box]", cf, "cellforce_pallas.py:684", "brick",
+         "cell_force_newton[brick row_box]"),
         # no Pallas kernel: the jax.random Threefry draws that XLA computes
         ("threefry_bits", "edm_tpu_torch/csrc/threefry.cu", "../models/langevin.py:51",
          "2-D", "threefry_bits"),
@@ -2616,8 +3008,8 @@ def main() -> int:
             n, dev = n_tf, tf_ms
         elif where == "blocked":
             n, dev = blk_launches["threefry_rows"], blk_ms["threefry_rows"]
-        elif where == "slab":
-            run = multi["run"]
+        elif where in ("slab", "brick"):
+            run = multi[2]["run"] if where == "slab" else multi[4]["brick_run"]
             n, dev = run["launches"]["row_box"], run["device_ms"].get("cell_force_newton")
         else:
             n, dev = dep[prefix], dep_ms[where]

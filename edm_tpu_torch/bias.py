@@ -56,6 +56,14 @@ from .utils.errors import edm_error
 BIAS_CLAMP = 1.0  # edm_bias.h:14
 BIAS_BUFFER_SIZE = 2048  # edm_bias.h:15
 
+# hill-event type codes of the HILLS log (edm_bias.h:20-25)
+NEIGH_HILL = "n"
+BUFF_HILL = "b"
+BUFF_UNDO_HILL = "v"
+ADD_HILL = "h"
+ADD_UNDO_HILL = "u"
+BUFF_ZERO_HILL = "z"
+
 
 @dataclasses.dataclass(frozen=True)
 class BiasState:

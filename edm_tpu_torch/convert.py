@@ -1,7 +1,8 @@
 """Convert JAX-package states and parameters into the port's.
 
 The JAX package's ``BiasParams``, ``BiasState``, ``PairEDMState``,
-``CellPairState`` and ``CoordEDMState`` are dataclass pytrees.  Flattened to nested dicts of
+``CellPairState``, ``ShardedCellPairState`` and ``CoordEDMState`` are
+dataclass pytrees.  Flattened to nested dicts of
 numpy arrays and plain values (every dataclass a dict of its fields, every
 array a ``numpy.ndarray``), they are the data this system carries from one
 run to the next; ``state_from_numpy`` and ``params_from_numpy`` rebuild
@@ -28,6 +29,7 @@ from .models.coord_edm import CoordEDMState
 from .models.pair_edm import PairEDMState
 from .ops.chebyshev import ChebTable
 from .models.pair_edm_cells import CellPairState
+from .parallel.cells import ShardedCellPairState
 from .utils.config import EDMConfig
 
 
@@ -96,6 +98,12 @@ def _cell_state(d, device) -> CellPairState:
     return CellPairState(core=_pair_state(d["core"], device), **t, **tail)
 
 
+def _sharded_cell_state(d, device) -> ShardedCellPairState:
+    return ShardedCellPairState(core=_pair_state(d["core"], device),
+                                aid=_tensor(d["aid"], device),
+                                table_overflow=_tensor(d["table_overflow"], device))
+
+
 def _coord_state(d, device) -> CoordEDMState:
     t = {k: _tensor(d[k], device) for k in ("x", "v", "f", "step", "energy")}
     opt = {k: None if d.get(k) is None else _tensor(d[k], device)
@@ -105,11 +113,11 @@ def _coord_state(d, device) -> CoordEDMState:
 
 
 def state_from_numpy(tree: dict, device="cuda"):
-    """A flattened JAX ``CellPairState``, ``PairEDMState``,
-    ``CoordEDMState`` or ``BiasState`` -> the port's dataclass on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    """A flattened JAX ``CellPairState``, ``ShardedCellPairState``,
+    ``PairEDMState``, ``CoordEDMState`` or ``BiasState`` -> the port's
+    dataclass on ``device`` (the card unless the caller asks for the CPU)."""
     if "core" in tree:
-        return _cell_state(tree, device)
+        return _cell_state(tree, device) if "xs" in tree else _sharded_cell_state(tree, device)
     if "last_calls" in tree:
         return _pair_state(tree, device)
     if "ptab" in tree:

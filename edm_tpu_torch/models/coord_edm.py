@@ -27,8 +27,9 @@ hill_capacity`` compacted rows.  ``collect_records=True`` makes every step
 return ``(energy, bias.HillRoundLog)`` for the HILLS log
 (``driver.run_simulation``): the round's records on a hill step, zeros of
 the same shapes on the others.  ``axis_name`` sums each round's bias over
-the ranks of a mesh (``bias.add_hills_round``).  Not ported: the sharded
-coordinate host (``parallel/coord.py``, ROADMAP Queue 1, item 7b).
+the ranks of a mesh (``bias.add_hills_round``).  The sharded coordinate
+host (``parallel/coord.py``) is a ``CoordStep`` over this rank's share of
+the atoms.
 """
 
 from __future__ import annotations
@@ -63,6 +64,29 @@ class CoordEDMState:
     hills_truncated: Optional[torch.Tensor] = None
 
 
+def default_hill_capacity(params: B.BiasParams) -> int:
+    """~8x the expected acceptances, in steps of 512 and at least 512; 0
+    (no compaction) when every candidate is accepted."""
+    density = float(params.cfg.hill_density)
+    return 0 if density < 0 else max(512, int(-(-8.0 * max(density, 64.0) // 512)) * 512)
+
+
+def compact_accepted(acc, pos, runiform, Hc: int):
+    """The accepted rows of ``pos`` (N, D) and ``runiform`` (N,), in order,
+    rank-compacted into ``Hc`` rows (zeros and ones past the count; the
+    JAX ``mode="drop"`` scatter, through a spare row).  Returns (pos_c (Hc,
+    D), run_c (Hc,), count of accepted rows)."""
+    dev = pos.device
+    ranks = torch.cumsum(acc.to(torch.int32), 0) - 1
+    tgt = torch.where(acc & (ranks < Hc), ranks.to(torch.int64),
+                      torch.full((), Hc, dtype=torch.int64, device=dev))
+    pos_c = torch.zeros((Hc + 1, pos.shape[1]), dtype=pos.dtype, device=dev).index_put_(
+        (tgt,), pos)[:Hc]
+    run_c = torch.ones(Hc + 1, dtype=runiform.dtype, device=dev).index_put_(
+        (tgt,), runiform)[:Hc]
+    return pos_c, run_c, torch.sum(acc.to(torch.int64))
+
+
 class CoordStep:
     """One step of the coordinate host (``make_step``): ``step(state) ->
     (new_state, bias_energy)``.  ``do_hills``: True or False for a static
@@ -94,6 +118,10 @@ class CoordStep:
             self._gmask = torch.as_tensor(self.group_mask, device=device)
         return self._gmask
 
+    def _total(self, e):
+        """An energy term summed over the host's atoms (one device: as is)."""
+        return e
+
     def _force_fn(self, bias_state, ptab, gmask):
         D = self.params.cfg.dim
 
@@ -101,10 +129,11 @@ class CoordStep:
             e, der = B.update_forces(self.params, bias_state, x, mask=gmask, packed=ptab)
             f = torch.zeros_like(x)
             f[..., :D] = f[..., :D] + (-der)
+            e = self._total(e)
             if self.external_force is not None:
                 e_ext, f_ext = self.external_force(x)
                 f = f + f_ext
-                e = e + e_ext
+                e = e + self._total(e_ext)
             return e, f
 
         return fn
@@ -139,14 +168,7 @@ class CoordStep:
                 acc = runiform < density / N
                 if gmask is not None:
                     acc = acc & gmask
-                ranks = torch.cumsum(acc.to(torch.int32), 0) - 1
-                tgt = torch.where(acc & (ranks < Hc), ranks.to(torch.int64),
-                                  torch.full((), Hc, dtype=torch.int64, device=dev))
-                pos_c = torch.zeros((Hc + 1, D), dtype=dtype, device=dev).index_put_(
-                    (tgt,), x[..., :D])[:Hc]
-                run_c = torch.ones(Hc + 1, dtype=dtype, device=dev).index_put_(
-                    (tgt,), runiform)[:Hc]
-                count = torch.sum(acc.to(torch.int64))
+                pos_c, run_c, count = compact_accepted(acc, x[..., :D], runiform, Hc)
                 active = torch.arange(Hc, device=dev) < count
                 trunc = count > Hc
                 bias_state, rec, reads = B.add_hills_round(params, bias_state, pos_c, run_c, N,
@@ -207,9 +229,8 @@ def make_step(
     ``cum_bias`` (``bias.add_hills_round``)."""
     if hill_stride < 1:
         raise ValueError("hill_stride must be >= 1")
-    density = float(params.cfg.hill_density)
-    if hill_capacity is None:  # ~8x the expected acceptances, in steps of 512
-        hill_capacity = 0 if density < 0 else max(512, int(-(-8.0 * max(density, 64.0) // 512)) * 512)
+    if hill_capacity is None:
+        hill_capacity = default_hill_capacity(params)
     gmask = None if group_mask is None else np.asarray(group_mask, bool)
     do_hills = None if static_do_hills is None else bool(static_do_hills)
     return CoordStep(params, lp, hill_stride, external_force, gmask, hill_capacity, do_hills,

@@ -119,6 +119,30 @@ def compact_hills(accept, values, runifs, n_log: int):
     return hills, run_c, active, count
 
 
+NO_KEY = torch.iinfo(torch.int64).max  # the sort key of an empty hill slot
+
+
+def extract_first(acc, rvals, uvals, hc: int, m_per_row: int, row_ids=None):
+    """The first ``m_per_row`` accepted columns of each row, in row-major
+    order, compacted into ``hc`` slots (the JAX ``_extract_first_m`` and
+    its compaction): ``acc``, ``rvals`` and ``uvals`` are (rows, columns).
+    Returns (hills, runifs (1.0 past the count), active, count, keys):
+    with ``row_ids`` (rows,) each hill's key ``row_id * m_per_row + its
+    place in the row`` (``NO_KEY`` past the count), else None."""
+    mpos = torch.cumsum(acc.to(torch.int64), 1)
+    vflat = (acc & (mpos <= m_per_row)).reshape(-1)
+    ranks = torch.cumsum(vflat.to(torch.int64), 0) - 1
+    tgt = torch.where(vflat & (ranks < hc), ranks, torch.full_like(ranks, hc))
+    hills = _scatter_drop(hc, 0.0, tgt, rvals.reshape(-1))
+    runifs = _scatter_drop(hc, 1.0, tgt, uvals.reshape(-1))
+    count = torch.sum(vflat.to(torch.int64))
+    active = torch.arange(hc, device=acc.device) < count
+    keys = None
+    if row_ids is not None:
+        keys = _scatter_drop(hc, NO_KEY, tgt, (row_ids[:, None] * m_per_row + mpos - 1).reshape(-1))
+    return hills, runifs, active, count, keys
+
+
 class PairStepBase:
     """What the dense and the blocked steps share: ``step(state) ->
     (new_state, bias_energy)``, or ``(new_state, (bias_energy,

@@ -63,9 +63,12 @@ returns are updated in place by the tail pass.
 host.  ``make_cell_step(slab_axis=...)`` builds a rank's step of the
 slab-sharded host (``parallel.make_slab_cell_step``): the force pass over
 the rank's x-columns through K1's owned-row pass (``row_box``), the hill
-collection and the BAOAB floor over them, psums and a gather over the mesh.
-Not ported yet: the brick host and ``axis_name`` (ROADMAP Queue 1, item
-7b).
+collection and the BAOAB floor over them, psums and a gather over the mesh;
+``make_cell_step(brick_axes=..., brick_ndev=...)`` a rank's step of the
+brick host (``parallel.make_brick_cell_step``), the same over a 2-D or 3-D
+grid of ranks, each owning a brick of cells (K1's owned-row pass over the
+brick box of its halo window), the hill collection merged by global row
+key.  ``axis_name`` sums each hill round's bias over a mesh axis.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ from .cells import (
 )
 from .langevin import LangevinParams
 from .lj import LJParams, lj_pair_terms, minimum_image
-from .pair_edm import PairEDMState, bias_pair_terms
+from .pair_edm import NO_KEY, PairEDMState, bias_pair_terms, extract_first
 from ..parallel.collectives import all_gather, psum, psum_many
 from ..parallel.mesh import mesh_of
 
@@ -271,6 +274,65 @@ def init_cell_state(spec: CellSpec, core: PairEDMState, with_ids: bool = False,
     return CellPairState(core=core, aid=aid_g, table_overflow=table.overflow, **slots)
 
 
+def shard_part(ncells, grid, coord, d: int):
+    """(start, width, widest) of the share of lattice axis ``d`` that the
+    rank at ``coord`` of a ``grid`` of ranks owns, in the balanced partition
+    over the grid's ``p`` ranks along it (the first n % p own one more);
+    (0, n, n) for an unsharded axis (``_brick_part``)."""
+    n, p, i = ncells[d], grid[d], coord[d]
+    if p == 1:
+        return 0, n, n
+    q, rem = divmod(n, p)
+    return i * q + min(i, rem), q + (1 if i < rem else 0), -(-n // p)
+
+
+def sub_lattice(a, ncells, idx):
+    """The sub-lattice of a (Cg, cap[, 3]) slot plane at the per-axis cell
+    indices ``idx`` (None: the whole axis), as a (cells, cap[, 3]) window
+    lattice, x-major."""
+    g = a[:int(np.prod(ncells))].reshape(tuple(ncells) + a.shape[1:])
+    for d, ix in enumerate(idx):
+        if ix is not None:
+            g = g.index_select(d, ix)
+    return g.reshape((-1,) + a.shape[1:])
+
+
+def _window_mask(ncells, grid, coord, dims, lo, dtype, dev):
+    """(prod(dims),) 1.0 at the window cells whose index along every
+    sharded axis d lies in [lo, lo + width_d)."""
+    m = torch.ones(dims, dtype=dtype, device=dev)
+    for d in range(3):
+        if grid[d] > 1:
+            j = torch.arange(dims[d], device=dev)
+            ok = ((j >= lo) & (j < lo + shard_part(ncells, grid, coord, d)[1])).to(dtype)
+            m = m * ok.view([-1 if e == d else 1 for e in range(3)])
+    return m.reshape(-1)
+
+
+def shard_window(ncells, grid, coord, xs_c, mc_c):
+    """The window of the rank at ``coord`` of a slab or brick ``grid`` of
+    ranks, when the lattice is wide enough for one (the widest share plus 2
+    fits every sharded axis), else None: its owned cells plus one halo cell
+    a side along every sharded axis, the whole lattice along the others,
+    taken from (Cg, cap_c[, 3]) planes.  Returns (window xs, window row mask
+    (the halo and a ragged rank's surplus cells zeroed), window candidate
+    mask, the per-axis lattice indices of the window (``sub_lattice``), its
+    lattice dims, the row box ((h, h, h), (widest or n per axis)), h = 1 on
+    sharded axes and 0 elsewhere)."""
+    parts = [shard_part(ncells, grid, coord, d) for d in range(3)]
+    halo = tuple(int(p > 1) for p in grid)
+    if not any(halo) or any(h and parts[d][2] + 2 > ncells[d] for d, h in enumerate(halo)):
+        return None
+    dev = xs_c.device
+    dims = tuple(parts[d][2] + 2 if halo[d] else ncells[d] for d in range(3))
+    idx = [(parts[d][0] - 1 + torch.arange(dims[d], device=dev)) % ncells[d] if halo[d]
+           else None for d in range(3)]
+    sub, subm = sub_lattice(xs_c, ncells, idx), sub_lattice(mc_c, ncells, idx)
+    rows = subm * _window_mask(ncells, grid, coord, dims, 1, subm.dtype, dev)[:, None]
+    box = (halo, tuple(parts[d][2] if halo[d] else ncells[d] for d in range(3)))
+    return sub, rows, subm, idx, dims, box
+
+
 def newton_lattice_force(xs, mc_rows, ncells, box, lj, table, energy: bool = True, ts=None,
                          type_pair=None, rescredit: bool = False, mc_cand=None, row_box=None):
     """Half-stencil Newton force pass over the (nx, ny, nz) slot lattice at
@@ -321,8 +383,9 @@ class CellStep:
                  m_per_row: int, mover_cap: int, kernel_cap, overflow_cap: int,
                  use_pallas, types, type_pair, strides=(1, 1, 1),
                  collect_records: bool = False, cell_chunk: int = 32, mesh=None,
-                 slab_collect: bool = True, shard_floor: bool = True,
-                 row_cap_local: Optional[int] = None):
+                 grid=(1, 1, 1), coord=(0, 0, 0), slab_collect: bool = True,
+                 shard_floor: bool = True, row_cap_local: Optional[int] = None,
+                 axis_name=None):
         self.params, self.lp, self.lj, self.spec = params, lp, lj, spec
         self.strides = strides  # the JAX host's (hill, rebuild, energy) strides
         self.do_hills, self.do_energy, self.do_rebuild = do_hills, do_energy, do_rebuild
@@ -342,13 +405,17 @@ class CellStep:
         self._c1 = c1
         self._c2 = float(np.sqrt(max(0.0, (1.0 - c1 * c1)) * lp.kT / lp.mass))
         self.host_syncs = 0
-        # slab mode (make_cell_step(slab_axis=...)): this rank's mesh, the
-        # sharded hill collection (untyped runs), the sharded BAOAB floor
-        # and the per-rank pass-2 row budget
+        # the sharded modes (make_cell_step(slab_axis=...) or brick_axes):
+        # this rank's mesh, the ranks along each lattice axis (slab: (n, 1,
+        # 1)) and this rank's place among them, the sharded hill collection
+        # (untyped runs), the sharded BAOAB floor and the per-rank pass-2
+        # row budget
         self.mesh = mesh
-        self.slab_hills = mesh is not None and slab_collect and self.types is None
+        self.grid, self.coord = tuple(grid), tuple(coord)
+        self.shard_hills = mesh is not None and slab_collect and self.types is None
         self.shard_floor = mesh is not None and shard_floor
         self.row_cap_local = row_cap if row_cap_local is None else row_cap_local
+        self.axis_name = axis_name  # the mesh axis the rounds' bias is summed over
 
     def phases(self, step: int):
         """(hills, rebuild, energy): what the JAX host runs at ``step``."""
@@ -408,7 +475,7 @@ class CellStep:
             )
             bias_state, rec, reads = B.add_hills_round(
                 self.params, core.bias, hills[:, None], runifs,
-                core.last_calls.to(dtype), active=active,
+                core.last_calls.to(dtype), active=active, axis_name=self.axis_name,
             )
             self.host_syncs += reads
             last_calls = ncalls
@@ -443,10 +510,10 @@ class CellStep:
 
     def _phase1(self, state, seeds):
         """B-A-O-A stages on the slot arrays; padded slots stay pinned.  In
-        slab mode with ``shard_floor`` each rank updates its owned columns
-        only and one psum of (x, v) joins the disjoint windows."""
+        the sharded modes with ``shard_floor`` each rank updates its owned
+        cells only and one psum of (x, v) joins the disjoint windows."""
         if self.shard_floor:
-            return self._phase1_slab(state, seeds)
+            return self._phase1_shard(state, seeds)
         Cg, cap = state.mc.shape
         rows = torch.arange(Cg * cap, device=state.xs.device)
         xi = normal_rows_cols(seeds, rows, 3, state.xs.dtype).reshape(Cg, cap, 3)
@@ -461,132 +528,119 @@ class CellStep:
         v2 = self._c1 * v1 + self._c2 * xi  # O
         return x1 + (0.5 * lp.dt) * v2, v2  # A
 
-    # ----------------------------------------------------------- slab mode
+    # ----------------------------------------------------------- sharded modes
 
-    def _slab_part(self):
-        """(x0, wd): this rank's first x-column and column count in the
-        balanced partition (the first nx % size ranks own one more)."""
-        nx, n = self.spec.ncells[0], self.mesh.size
-        q, rem = divmod(nx, n)
-        d = self.mesh.rank
-        return d * q + min(d, rem), q + (1 if d < rem else 0)
+    def _part(self, d: int):
+        return shard_part(self.spec.ncells, self.grid, self.coord, d)
 
-    def _columns(self, a, cols):
-        """The x-columns ``cols`` of a (Cg, cap[, 3]) slot plane, as a
-        (len(cols) * ny * nz, cap[, 3]) window lattice."""
-        nx, ny, nz = self.spec.ncells
-        C = nx * ny * nz
-        g = a[:C].reshape((nx, ny * nz) + a.shape[1:])[cols]
-        return g.reshape((-1,) + a.shape[1:])
+    def _sub(self, a, idx):
+        return sub_lattice(a, self.spec.ncells, idx)
 
-    def _to_lattice(self, win, cols):
-        """A window lattice of x-columns ``cols`` back onto the (Cg, ...)
-        lattice; the other columns and the padded cells zeros."""
-        nx, ny, nz = self.spec.ncells
-        C = nx * ny * nz
+    def _window(self, xs_c, mc_c):
+        return shard_window(self.spec.ncells, self.grid, self.coord, xs_c, mc_c)
+
+    def _to_lattice(self, win, idx):
+        """A window lattice at the per-axis indices ``idx`` (``_sub``) back
+        onto the (Cg, ...) lattice; the other cells and the padded cells
+        zeros (each axis' indices are distinct)."""
+        ncells = tuple(self.spec.ncells)
+        dev = win.device
+        full = [torch.arange(n, device=dev) if ix is None else ix for n, ix in zip(ncells, idx)]
         out = win.new_zeros((self.Cg,) + win.shape[1:])
-        out[:C].view((nx, ny * nz) + win.shape[1:])[cols] = win.view(
-            (len(cols), ny * nz) + win.shape[1:])
+        out[:self.spec.n_cells].view(ncells + win.shape[1:])[
+            full[0][:, None, None], full[1][None, :, None], full[2][None, None, :]] = win.view(
+                tuple(len(ix) for ix in full) + win.shape[1:])
         return out
 
-    def _phase1_slab(self, state, seeds):
-        """``phase1_slab``: the B-A-O-A stages over this rank's owned
-        columns (a window of ceil(nx / size) columns from x0, the surplus
-        masked), the noise keyed by GLOBAL slot row, so the rank draws
-        exactly the values of the replicated draw; one fused psum of the
-        disjoint windows."""
-        nx, ny, nz = self.spec.ncells
+    def _phase1_shard(self, state, seeds):
+        """``phase1_slab`` / ``phase1_brick``: the B-A-O-A stages over this
+        rank's owned cells (a window of the widest share along each sharded
+        axis from the rank's first cell, the surplus masked), the noise
+        keyed by GLOBAL slot row, so the rank draws exactly the values of
+        the replicated draw; one fused psum of the disjoint windows."""
         cap = self.spec.cap
         dev = state.xs.device
-        x0, wd = self._slab_part()
-        w = -(-nx // self.mesh.size)
-        cols = (x0 + torch.arange(w, device=dev)) % nx
-        rowlen = ny * nz * cap
-        rows = (cols[:, None] * rowlen + torch.arange(rowlen, device=dev)[None, :]).reshape(-1)
+        ncells = self.spec.ncells
+        parts = [self._part(d) for d in range(3)]
+        idx = [None if self.grid[d] == 1 else (parts[d][0] + torch.arange(parts[d][2], device=dev))
+               % ncells[d] for d in range(3)]
+        cells = self._sub(torch.arange(self.spec.n_cells, device=dev), idx)
+        rows = (cells[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
         xi = normal_rows_cols(seeds, rows, 3, state.xs.dtype).reshape(-1, cap, 3)
-        x2, v2 = self._p1_update(self._columns(state.xs, cols), self._columns(state.vs, cols),
-                                 self._columns(state.fs, cols), xi)
-        own = (torch.arange(w, device=dev) < wd).to(state.xs.dtype)
-        m = (self._columns(state.mc, cols).view(w, ny * nz, cap) * own[:, None, None])
-        m = m.reshape(-1, cap, 1)
-        return psum_many([self._to_lattice(x2 * m, cols), self._to_lattice(v2 * m, cols)],
+        x2, v2 = self._p1_update(self._sub(state.xs, idx), self._sub(state.vs, idx),
+                                 self._sub(state.fs, idx), xi)
+        dims = tuple(p[2] for p in parts)
+        m = self._sub(state.mc, idx) * _window_mask(ncells, self.grid, self.coord, dims, 0,
+                                                   state.xs.dtype, dev)[:, None]
+        m = m[..., None]
+        return psum_many([self._to_lattice(x2 * m, idx), self._to_lattice(v2 * m, idx)],
                          self.mesh)
+
+    def _owns_cells(self) -> bool:
+        return all(self._part(d)[1] > 0 for d in range(3))
+
+    def _owned_box(self):
+        """This rank's owned cells as a row box ((x0, y0, z0), (wx, wy, wz))
+        of the lattice."""
+        parts = [self._part(d) for d in range(3)]
+        return tuple(p[0] for p in parts), tuple(p[1] for p in parts)
 
     def _owned_cells(self, dtype):
         """(Cg,) 1.0 at the cells this rank owns (disjoint over the mesh)."""
         nx, ny, nz = self.spec.ncells
-        x0, wd = self._slab_part()
-        colx = torch.arange(self.Cg, device=self.mesh.device) // (ny * nz)
-        return ((colx >= x0) & (colx < x0 + wd)).to(dtype)
+        c = torch.arange(self.Cg, device=self.mesh.device)
+        mine = c < self.spec.n_cells
+        for d, co in enumerate((c // (ny * nz), (c // nz) % ny, c % nz)):
+            if self.grid[d] > 1:
+                start, width, _ = self._part(d)
+                mine = mine & (co >= start) & (co < start + width)
+        return mine.to(dtype)
 
-    def _slab_window(self, xs_c, mc_c):
-        """This rank's window when the lattice is wide enough for one
-        (ceil(nx / size) + 2 <= nx columns), else None: its owned columns
-        plus one halo column a side, taken from (Cg, cap_c[, 3]) planes.
-        Returns (window xs, window row mask (the halo and a ragged rank's
-        surplus column zeroed), window candidate mask, the window's x
-        columns, its lattice (w, ny, nz), the row box ((1, 0, 0), (ceil(nx
-        / size), ny, nz)))."""
-        nx, ny, nz = self.spec.ncells
-        nxd = -(-nx // self.mesh.size)
-        if nxd + 2 > nx:
-            return None
-        x0, wd = self._slab_part()
-        w = nxd + 2
-        dev = xs_c.device
-        cols = (x0 - 1 + torch.arange(w, device=dev)) % nx
-        sub, subm = self._columns(xs_c, cols), self._columns(mc_c, cols)
-        jj = torch.arange(w, device=dev)  # halo columns 0 and w - 1, surplus > wd
-        own = ((jj >= 1) & (jj <= wd)).to(subm.dtype)
-        rows = (subm.view(w, ny * nz, -1) * own[:, None, None]).reshape(subm.shape)
-        return sub, rows, subm, cols, (w, ny, nz), ((1, 0, 0), (nxd, ny, nz))
-
-    def _slab_rows(self, xs_c, mc_c, ts_c, tp, tbl, energy):
-        """``slab_newton_force``'s local pass at slot cap ``xs_c.shape[1]``:
-        (energy, f (Cg, cap_c, 3)) of this rank's owned rows, before the
-        psum.  The window (``_slab_window``), with its own periodic x-wrap (a
-        pair wrapped there is either the real wrap or beyond the cutoff: the
-        cell edge is at least the interaction range), runs K1's owned-row
-        pass over its row box; a lattice too small for a window runs K1 on
-        the whole lattice with the rows masked to the owned columns.  A rank
-        that owns no column launches nothing."""
+    def _shard_rows(self, xs_c, mc_c, ts_c, tp, tbl, energy):
+        """``slab_newton_force`` / ``brick_newton_force``'s local pass at
+        slot cap ``xs_c.shape[1]``: (energy, f (Cg, cap_c, 3)) of this rank's
+        owned rows, before the psum.  The window (``_window``), with its own
+        periodic wrap along each sharded axis (a pair wrapped there is either
+        the real wrap or beyond the cutoff: the cell edge is at least the
+        interaction range), runs K1's owned-row pass over its row box; a
+        lattice too small for a window runs K1 on the whole lattice with the
+        rows masked to the owned cells.  A rank that owns no cell launches
+        nothing."""
         spec, lj = self.spec, self.lj
-        nx, ny, nz = spec.ncells
         cap_c = xs_c.shape[1]
-        x0, wd = self._slab_part()
-        if wd == 0:
+        if not self._owns_cells():
             return xs_c.new_zeros(()), xs_c.new_zeros((self.Cg, cap_c, 3))
         kw = dict(energy=energy, ts=ts_c, type_pair=tp, rescredit=True)
-        window = self._slab_window(xs_c, mc_c)
+        window = self._window(xs_c, mc_c)
         if window is not None:
-            sub, rows, subm, cols, ncells, row_box = window
+            sub, rows, subm, idx, ncells, row_box = window
             if ts_c is not None:
-                kw["ts"] = self._columns(ts_c, cols)
+                kw["ts"] = self._sub(ts_c, idx)
             e, f_sub = newton_lattice_force(sub, rows, ncells, spec.box, lj, tbl, mc_cand=subm,
                                             row_box=row_box, **kw)
-            return e, self._to_lattice(f_sub, cols)
+            return e, self._to_lattice(f_sub, idx)
         return newton_lattice_force(xs_c, mc_c * self._owned_cells(mc_c.dtype)[:, None],
                                     spec.ncells, spec.box, lj, tbl, mc_cand=mc_c, **kw)
 
-    def _slab_force(self, state, xs, energy: bool):
-        """The slab-sharded force pass: this rank's owned rows (K1; at
-        ``kernel_cap`` plus K2 with the tail rows and partners masked to
-        the owned cells, so that the sum counts each tail pair once; at full
-        cap on a ``tail_ovf`` period), then one psum of the forces and the
-        energy over the mesh."""
+    def _shard_force(self, state, xs, energy: bool):
+        """The slab- or brick-sharded force pass: this rank's owned rows
+        (K1; at ``kernel_cap`` plus K2 with the tail rows and partners
+        masked to the owned cells, so that the sum counts each tail pair
+        once; at full cap on a ``tail_ovf`` period), then one psum of the
+        forces and the energy over the mesh."""
         tbl = state.core.cheb
         if tbl is None:
             tbl = hermite_pair_table(state.core.bias.bias)
         ts, tp = self._kernel_types(state)
         kcap = self.kernel_cap
         if kcap is None or state.tail_ovf_host:
-            e, f = self._slab_rows(xs, state.mc, ts, tp, tbl, energy)
+            e, f = self._shard_rows(xs, state.mc, ts, tp, tbl, energy)
         else:
-            e, f_low = self._slab_rows(xs[:, :kcap].contiguous(),
-                                       state.mc[:, :kcap].contiguous(), None, None, tbl, energy)
+            e, f_low = self._shard_rows(xs[:, :kcap].contiguous(),
+                                        state.mc[:, :kcap].contiguous(), None, None, tbl, energy)
             f = torch.zeros_like(xs)
             f[:, :kcap] = f_low
-            if self._slab_part()[1] > 0:
+            if self._owns_cells():
                 fo, fp = overflow_force(*self._overflow_inputs(state, xs,
                                                                self._owned_cells(xs.dtype)),
                                         tbl, box=self.spec.box, lj=self.lj, energy=energy)
@@ -633,7 +687,7 @@ class CellStep:
         grid."""
         spec, lj = self.spec, self.lj
         if self.mesh is not None:
-            return self._slab_force(state, xs, energy)
+            return self._shard_force(state, xs, energy)
         if not self.use_pallas:
             return self._xla_force(state, xs, energy)
         if self.use_pallas == "full":
@@ -730,7 +784,7 @@ class CellStep:
 
     def _overflow_inputs(self, state, xs, owncell=None):
         """K2's planes: the tail rows (x, y, z, mask, own) and every low
-        slot (x, y, z, mask).  ``owncell`` (Cg,): a slab rank's owned cells
+        slot (x, y, z, mask).  ``owncell`` (Cg,): a sharded rank's owned cells
         (``_overflow_pass``), to which the partners and the tail-tail rows
         are restricted."""
         Cg, cap = state.mc.shape
@@ -773,24 +827,17 @@ class CellStep:
         tgt = torch.where(has & (rranks < rc), rranks, torch.full_like(rranks, rc))
         return _scatter_drop(rc, sent, tgt, gids), torch.sum(has.to(torch.int64))
 
-    def _compact(self, acc, rvals, uvals, row_counts, n_rows, rc=None):
-        """The first ``m_per_row`` accepted columns of each selected row, in
-        row-major order, compacted into ``hill_capacity`` slots (the JAX
-        ``_extract_first_m`` and its compaction).  ``acc``, ``rvals`` and
-        ``uvals`` are (rows, columns); ``rc`` the row budget (default
-        ``row_cap``).  Returns (hills, runifs, active, truncated, count)."""
-        hc, m_per_row = self.hill_capacity, self.m_per_row
-        sel = acc & (torch.cumsum(acc.to(torch.int64), 1) <= m_per_row)
-        vflat = sel.reshape(-1)
-        ranks = torch.cumsum(vflat.to(torch.int64), 0) - 1
-        tgt = torch.where(vflat & (ranks < hc), ranks, torch.full_like(ranks, hc))
-        hills = _scatter_drop(hc, 0.0, tgt, rvals.reshape(-1))
-        runifs = _scatter_drop(hc, 1.0, tgt, uvals.reshape(-1))
-        count = torch.sum(vflat.to(torch.int64))
-        active = torch.arange(hc, device=acc.device) < count
-        truncated = ((count > hc) | (n_rows > (self.row_cap if rc is None else rc))
-                     | torch.any(row_counts > m_per_row))
-        return hills, runifs, active, truncated, count
+    def _compact(self, acc, rvals, uvals, row_counts, n_rows, rc=None, row_ids=None):
+        """``extract_first`` of the selected rows into ``hill_capacity``
+        slots and the round's truncation flag; ``rc`` the row budget
+        (default ``row_cap``).  Returns (hills, runifs, active, truncated,
+        count, keys)."""
+        hills, runifs, active, count, keys = extract_first(acc, rvals, uvals, self.hill_capacity,
+                                                           self.m_per_row, row_ids)
+        truncated = ((count > self.hill_capacity)
+                     | (n_rows > (self.row_cap if rc is None else rc))
+                     | torch.any(row_counts > self.m_per_row))
+        return hills, runifs, active, truncated, count, keys
 
     def _collect_hills_half(self, state, xs, key, last_calls, dtype):
         """Two-level hill collection over half-stencil tiles: each unordered
@@ -800,14 +847,19 @@ class CellStep:
         slot row; pass 2 re-derives the same draws on the selected rows and
         extracts the first ``m_per_row`` per row in column order.
 
-        Slab mode (``slab_collect``): both passes run over this rank's owned
-        cells only — a contiguous ascending range of the x-major cell order
-        — with the draws and the row selection keyed by GLOBAL slot row
-        (sentinel C * cap) and pass 2 on ``row_cap_local`` rows; the ranks'
-        compacted lists are gathered in rank order and compacted again to
-        the first ``hill_capacity``, which replays the single-device round
-        bitwise, truncation at capacity included; count, ncalls and the
-        truncation flag are psums."""
+        Sharded modes (``slab_collect``): both passes run over this rank's
+        owned cells only, with the draws and the row selection keyed by
+        GLOBAL slot row (sentinel C * cap) and pass 2 on ``row_cap_local``
+        rows.  A slab rank owns a contiguous ascending range of the x-major
+        cell order, so the ranks' compacted lists gathered in rank order and
+        compacted again to the first ``hill_capacity`` replay the
+        single-device round bitwise, truncation at capacity included.  A
+        brick rank's cells are not contiguous: each hill carries its global
+        key (slot row * m_per_row + its place in the row), and the gathered
+        lists are merged by a stable sort of the keys, which is the
+        single-device order (a hill of global rank < capacity has a rank <
+        capacity on its own rank too, so it survives the rank's compaction).
+        count, ncalls and the truncation flag are psums."""
         spec, params = self.spec, self.params
         cap = spec.cap
         C = spec.n_cells
@@ -817,13 +869,20 @@ class CellStep:
         thresh = self._accept_threshold(last_calls, dtype)
         bmax2 = params.cfg.box_high[0] * params.cfg.box_high[0]
         box = device_const(spec.box, dev, dtype)
-        if self.slab_hills:
-            nyz = spec.ncells[1] * spec.ncells[2]
-            x0, wd = self._slab_part()
-            lo, B_, rc = x0 * nyz, wd * nyz, self.row_cap_local
+        brick = self.shard_hills and self.grid[1:] != (1, 1)
+        if self.shard_hills:
+            origin, widths = self._owned_box()
+            B_, rc = int(np.prod(widths)), self.row_cap_local
         else:
-            lo, B_, rc = 0, C, self.row_cap
-        cells = slice(lo, lo + B_)
+            B_, rc = C, self.row_cap
+        if brick:  # the owned box's cells, x-major: ascending global ids
+            cells = box_cells(spec.ncells, (origin, widths), dev) if B_ else torch.zeros(
+                0, dtype=torch.int64, device=dev)
+            gids = (cells[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
+        else:  # a contiguous range
+            lo = origin[0] * spec.ncells[1] * spec.ncells[2] if self.shard_hills else 0
+            cells = slice(lo, lo + B_)
+            gids = torch.arange(lo * cap, (lo + B_) * cap, device=dev)
         cand = [_half_concat(xs[..., c], spec.ncells, cap, cells) for c in range(3)]
         candm = _half_concat(state.mc, spec.ncells, cap, cells) > 0.5
         ci = torch.arange(W, device=dev)
@@ -843,7 +902,6 @@ class CellStep:
             r2 = r2 + dd * dd
         ri = torch.arange(cap, device=dev)[None, :, None]
         ok = candm[:, :cap, None] & candm[:, None, :] & upper(ri) & (r2 < bmax2)
-        gids = torch.arange(lo * cap, (lo + B_) * cap, device=dev)
         u = uniform_rows_cols(seeds, gids, 2 * W, dtype).reshape(B_, cap, W, 2)
         row_counts = accepted(ok, u).sum((2, 3)).reshape(-1)
         ncalls = 2 * torch.sum(ok.to(torch.int64))
@@ -856,8 +914,13 @@ class CellStep:
             cand, candm = [p.new_zeros((1, W)) for p in cand], candm.new_zeros((1, W))
         rows_c = torch.clamp(rows_sel, 0, sent - 1)
         cells_c = rows_c // cap
-        if self.slab_hills:  # the sentinel and other ranks' rows fall outside the range
-            cells_c = torch.clamp(cells_c - lo, 0, max(B_ - 1, 0))
+        if self.shard_hills:  # the place in the owned box; the sentinel's is clamped
+            ny, nz = spec.ncells[1], spec.ncells[2]
+            co = (cells_c // (ny * nz), (cells_c // nz) % ny, cells_c % nz)
+            loc = co[0] - origin[0]
+            for d in (1, 2):
+                loc = loc * widths[d] + (co[d] - origin[d])
+            cells_c = torch.clamp(loc, 0, max(B_ - 1, 0))
         slot_c = (rows_c % cap)[:, None]
         r2 = 0.0
         ms = candm[cells_c]
@@ -872,16 +935,18 @@ class CellStep:
         u = uniform_rows_cols(seeds, rows_c, 2 * W, dtype).reshape(rc, W, 2)
         acc = accepted(ok, u).reshape(rc, 2 * W)
         r21 = r[:, :, None].expand(rc, W, 2)  # r[w] at columns 2w, 2w+1
-        hills, runifs, active, truncated, count = self._compact(acc, r21, u, row_counts, n_rows,
-                                                                rc)
-        if not self.slab_hills:
+        hills, runifs, active, truncated, count, keys = self._compact(
+            acc, r21, u, row_counts, n_rows, rc, rows_sel if brick else None)
+        if not self.shard_hills:
             return hills, runifs, active, ncalls, truncated
-        return self._gather_round(hills, runifs, active, count, ncalls, truncated)
+        return self._gather_round(hills, runifs, active, count, ncalls, truncated, keys)
 
-    def _gather_round(self, hills, runifs, active, count, ncalls, truncated):
-        """The ranks' compacted lists gathered in rank order and compacted
-        again to the first ``hill_capacity`` (one all_gather); count,
-        ncalls and the truncation flag summed (one psum)."""
+    def _gather_round(self, hills, runifs, active, count, ncalls, truncated, keys=None):
+        """The ranks' compacted lists gathered in rank order (one
+        all_gather) and merged to the first ``hill_capacity``: in rank
+        order, or with ``keys`` by a stable sort of the hills' global keys
+        (a second all_gather); count, ncalls and the truncation flag summed
+        (one psum)."""
         mesh, hc = self.mesh, self.hill_capacity
         dtype = hills.dtype
         g = all_gather(torch.stack([hills, runifs, active.to(dtype)])[None], mesh)
@@ -889,10 +954,16 @@ class CellStep:
         active_g = active_g > 0.5
         total, ncalls, n_trunc = psum(torch.stack([count, ncalls, truncated.to(torch.int64)]),
                                       mesh)
-        granks = torch.cumsum(active_g.to(torch.int64), 0) - 1
-        gtgt = torch.where(active_g & (granks < hc), granks, torch.full_like(granks, hc))
-        hills = _scatter_drop(hc, 0.0, gtgt, hills_g)
-        runifs = _scatter_drop(hc, 1.0, gtgt, runifs_g)
+        if keys is None:
+            granks = torch.cumsum(active_g.to(torch.int64), 0) - 1
+            gtgt = torch.where(active_g & (granks < hc), granks, torch.full_like(granks, hc))
+            hills = _scatter_drop(hc, 0.0, gtgt, hills_g)
+            runifs = _scatter_drop(hc, 1.0, gtgt, runifs_g)
+        else:
+            keys_g = torch.where(active_g, all_gather(keys, mesh),
+                                 torch.full_like(active_g, NO_KEY, dtype=torch.int64))
+            order = torch.sort(keys_g, stable=True).indices[:hc]
+            hills, runifs = hills_g[order], runifs_g[order]
         active = torch.arange(hc, device=hills.device) < total
         return hills, runifs, active, ncalls, (n_trunc > 0) | (total > hc)
 
@@ -952,7 +1023,7 @@ class CellStep:
         u = uniform_rows_cols(seeds, rows_c, W, dtype)
         acc = torch.isfinite(r) & (r < bmax)
         acc = acc if thresh is None else acc & (u < thresh)
-        hills, runifs, active, truncated, _ = self._compact(acc, r, u, row_counts, n_rows)
+        hills, runifs, active, truncated, _, _ = self._compact(acc, r, u, row_counts, n_rows)
         return hills, runifs, active, ncalls, truncated
 
     # ----------------------------------------------------------- rebuilds
@@ -1098,8 +1169,19 @@ def make_cell_step(
     ``shard_floor`` the BAOAB pre-force stages over the owned columns and
     one fused (x, v) psum, and pass 2 on ``row_cap_local`` rows (default
     ``row_cap`` times the widest rank's share of the columns, at least 64,
-    rounded up to 8).  Needs ``use_pallas``.  Not ported: ``brick_axes``
-    and ``axis_name`` (ROADMAP Queue 1, item 7b)."""
+    rounded up to 8).  Needs ``use_pallas``.
+
+    ``brick_axes``/``brick_ndev``: the brick host
+    (``parallel.make_brick_cell_step``) over the (px, py[, pz]) mesh
+    registered under the tuple ``brick_axes`` (``parallel.make_brick_mesh``):
+    as the slab host, but each rank owns a balanced x-range by y-range (by
+    z-range) of cells and its window adds one halo cell a side along every
+    sharded axis (an axis of one rank, and z of a 2-D brick, stays whole and
+    periodic); K1 runs its owned-row pass over the brick box ((1, 1, h_z),
+    widest shares), and the hill collection merges the ranks' lists by
+    global row key.  Needs ``use_pallas``.  ``axis_name``: the mesh axis
+    over which each hill round's bias is summed into ``cum_bias``
+    (``bias.add_hills_round``)."""
     if hill_stride < 1 or rebuild_stride < 1 or energy_stride < 1:
         raise ValueError("hill_stride, rebuild_stride and energy_stride must be >= 1")
     if use_pallas not in (False, None, True, "newton", "full"):
@@ -1108,11 +1190,7 @@ def make_cell_step(
         raise ValueError("cell_chunk must be >= 1")
     if brick_axes is not None and slab_axis is not None:
         raise ValueError("brick_axes and slab_axis are mutually exclusive")
-    if (axis_name is not None or brick_axes is not None
-            or tuple(brick_ndev) not in ((1, 1), (1, 1, 1))):
-        raise NotImplementedError("axis_name and the brick host are not ported yet "
-                                  "(ROADMAP Queue 1, item 7b)")
-    mesh = None
+    mesh, grid, coord = None, (1, 1, 1), (0, 0, 0)
     if slab_axis is not None:
         if not use_pallas:
             raise ValueError("slab mode requires use_pallas")
@@ -1120,14 +1198,28 @@ def make_cell_step(
         if mesh.size != slab_ndev:
             raise ValueError(f"slab_ndev={slab_ndev} but the mesh over {slab_axis!r} has "
                              f"{mesh.size} ranks")
-        if row_cap_local is None:
-            row_cap_local = row_cap
-            if slab_ndev > 1 and shard_floor:
-                nx = spec.ncells[0]
-                frac = (-(-nx // slab_ndev)) / nx
-                row_cap_local = min(row_cap, max(64, (int(row_cap * frac) + 7) // 8 * 8))
+        grid, coord = (slab_ndev, 1, 1), (mesh.rank, 0, 0)
     elif slab_ndev != 1:
         raise ValueError("slab_ndev needs slab_axis")
+    if brick_axes is not None:
+        if not use_pallas:
+            raise ValueError("brick mode requires use_pallas")
+        brick_axes, brick_ndev = tuple(brick_axes), tuple(int(p) for p in brick_ndev)
+        if len(brick_axes) not in (2, 3) or len(brick_axes) != len(brick_ndev):
+            raise ValueError("brick_axes/brick_ndev must be 2-D or 3-D")
+        mesh = mesh_of(brick_axes)
+        if mesh.shape != brick_ndev or mesh.axis_names != brick_axes:
+            raise ValueError(f"brick_ndev={brick_ndev} over {brick_axes} but the mesh is "
+                             f"{mesh.shape} over {mesh.axis_names}")
+        # a 2-D brick is a 3-D brick with pz = 1 (z unsharded)
+        grid = brick_ndev + (1,) * (3 - len(brick_ndev))
+        coord = tuple(mesh.axis_index(a) for a in brick_axes) + (0,) * (3 - len(brick_axes))
+    if mesh is not None and row_cap_local is None:
+        row_cap_local = row_cap
+        if mesh.size > 1 and shard_floor:  # the widest rank's share of the cells
+            frac = (int(np.prod([-(-n // p) for n, p in zip(spec.ncells, grid)]))
+                    / int(np.prod(spec.ncells)))
+            row_cap_local = min(row_cap, max(64, (int(row_cap * frac) + 7) // 8 * 8))
     if kernel_cap is not None:
         if use_pallas is not True:
             raise ValueError("kernel_cap requires the default Newton kernel path (use_pallas=True)")
@@ -1166,6 +1258,7 @@ def make_cell_step(
         mover_cap=mover_cap, kernel_cap=kernel_cap, overflow_cap=overflow_cap,
         use_pallas=use_pallas, types=types, type_pair=type_pair,
         strides=(hill_stride, rebuild_stride, energy_stride),
-        collect_records=collect_records, cell_chunk=cell_chunk, mesh=mesh,
-        slab_collect=slab_collect, shard_floor=shard_floor, row_cap_local=row_cap_local,
+        collect_records=collect_records, cell_chunk=cell_chunk, mesh=mesh, grid=grid,
+        coord=coord, slab_collect=slab_collect, shard_floor=shard_floor,
+        row_cap_local=row_cap_local, axis_name=axis_name,
     )

@@ -205,6 +205,14 @@ def hill_windows(gg: GaussGrid, centers: torch.Tensor) -> HillWindows:
     return HillWindows(idx=idx, value_w=value_w, deriv_w=deriv_w, valid=valid)
 
 
+def hill_weights(gg: GaussGrid, centers: torch.Tensor) -> torch.Tensor:
+    """Per-hill integrated bias per unit height, ``s_k = sum_w value_w *
+    prod(dx)``: a hill of height h adds ``h * s_k`` to the grid's integral
+    (the reference's integral tests, tests/edm_test.cpp:537-628)."""
+    hw = hill_windows(gg, centers)
+    return torch.sum(hw.value_w, dim=-1) * float(np.prod(gg.spec.grid.dx))
+
+
 def deposit_precomputed(gg: GaussGrid, hw: HillWindows, heights):
     """Scatter-add precomputed unit windows scaled by the heights; returns
     (new grid, per-hill bias_added (H,)).  CPU sums run in window order;

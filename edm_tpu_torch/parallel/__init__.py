@@ -1,29 +1,37 @@
 """The port's multi-device layer (counterpart of ``edm_tpu/parallel``): a
-1-D mesh of ranks, one process each, over ``torch.distributed``.
+mesh of ranks, one process each, over ``torch.distributed``.
 
 Ported:
-  - ``mesh``: ``Mesh``, ``make_mesh``, ``launch`` (spawned ranks, a
+  - ``mesh``: ``Mesh``, ``make_mesh`` (1-D), ``make_brick_mesh`` (a (px,
+    py[, pz]) grid, ranks row-major), ``launch`` (spawned ranks, a
     ``FileStore``, NCCL with a card per rank, else gloo);
   - ``collectives``: ``all_gather`` and ``psum`` in rank order, bitwise the
     same on every rank;
   - ``pair``: ``shard_pair_state``, ``make_sharded_pair_step`` (the sharded
     dense host);
-  - ``cells``: ``make_slab_cell_step`` (the slab-sharded cell host, K1's
-    owned-row pass).
+  - ``cells``: ``make_slab_cell_step`` and ``make_brick_cell_step`` (the
+    slab- and brick-sharded cell hosts, K1's owned-row pass), and the
+    work-sharded host (``ShardedCellPairState``, ``init_sharded_cell_state``,
+    ``make_sharded_cell_step``);
+  - ``coord``: ``shard_coord_state``, ``make_sharded_coord_step`` (the
+    sharded coordinate host).
 
-Not ported yet (each raises ``NotImplementedError`` where it is defined):
-  - ``make_brick_mesh``, ``make_brick_cell_step``, the work-sharded
-    ``make_sharded_cell_step`` and the sharded coordinate host
-    (``parallel/coord.py``: ``make_sharded_coord_step``,
-    ``shard_coord_state``) — ROADMAP Queue 1, item 7b;
-  - the spatial host (``parallel/spatial.py``, ``boundary_offset``) and the
-    ``dryrun_multichip`` probes — item 7c.
+Not ported yet: the spatial host (``parallel/spatial.py``,
+``boundary_offset``) and the ``dryrun_multichip`` probes — ROADMAP Queue 1,
+item 7c.
 """
 
 from .mesh import DATA_AXIS, Mesh, launch, make_brick_mesh, make_mesh, mesh_of
 from .collectives import all_gather, psum, psum_many
 from .pair import make_sharded_pair_step, shard_pair_state
-from .cells import make_brick_cell_step, make_sharded_cell_step, make_slab_cell_step
+from .cells import (
+    ShardedCellPairState,
+    init_sharded_cell_state,
+    make_brick_cell_step,
+    make_sharded_cell_step,
+    make_slab_cell_step,
+)
+from .coord import make_sharded_coord_step, shard_coord_state
 
 __all__ = [
     "DATA_AXIS",
@@ -40,4 +48,8 @@ __all__ = [
     "make_slab_cell_step",
     "make_sharded_cell_step",
     "make_brick_cell_step",
+    "ShardedCellPairState",
+    "init_sharded_cell_state",
+    "make_sharded_coord_step",
+    "shard_coord_state",
 ]

@@ -3,7 +3,8 @@
 ``shard_map``.
 
 ``all_gather(t, mesh)`` concatenates the ranks' tensors along axis 0 in
-rank order.  ``psum(t, mesh)`` is an all_gather followed by a sum in rank
+rank order (on a brick mesh over the whole axis tuple: its ranks lie on
+the grid row-major, so rank order is JAX's mesh order).  ``psum(t, mesh)`` is an all_gather followed by a sum in rank
 order, one add after another, so that every rank computes the bitwise-same
 result and a run repeats bitwise ("no atomics; every kernel repeats
 bitwise"); a ring all_reduce promises neither.  ``psum_many`` sums several
@@ -40,9 +41,11 @@ def reset_stats():
         stats[k] = 0
 
 
-def resolve(mesh: Union[Mesh, str]) -> Mesh:
-    """A Mesh, or the mesh registered under an axis name."""
-    return mesh_of(mesh) if isinstance(mesh, str) else mesh
+def resolve(mesh: Union[Mesh, str, tuple]) -> Mesh:
+    """A Mesh, or the mesh registered under an axis name or a tuple of them
+    (a brick mesh's axes: its collectives run over the whole tuple, which is
+    the world group in rank order)."""
+    return mesh if isinstance(mesh, Mesh) else mesh_of(mesh)
 
 
 def _gather_parts(t: torch.Tensor, mesh: Mesh):
@@ -66,7 +69,7 @@ def _gather_parts(t: torch.Tensor, mesh: Mesh):
     return [p.view(t.shape).to(t.dtype) for p in out.unbind(0)]
 
 
-def all_gather(t: torch.Tensor, mesh: Union[Mesh, str]) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh: Union[Mesh, str, tuple]) -> torch.Tensor:
     """The ranks' ``t`` concatenated along axis 0 in rank order
     (``all_gather(tiled=True)``); 0-d tensors are stacked."""
     mesh = resolve(mesh)
@@ -76,7 +79,7 @@ def all_gather(t: torch.Tensor, mesh: Union[Mesh, str]) -> torch.Tensor:
     return torch.cat(parts) if t.dim() else torch.stack(parts)
 
 
-def psum(t: torch.Tensor, mesh: Union[Mesh, str]) -> torch.Tensor:
+def psum(t: torch.Tensor, mesh: Union[Mesh, str, tuple]) -> torch.Tensor:
     """The sum of the ranks' ``t``, added in rank order; bitwise the same on
     every rank."""
     mesh = resolve(mesh)
@@ -89,7 +92,7 @@ def psum(t: torch.Tensor, mesh: Union[Mesh, str]) -> torch.Tensor:
     return acc
 
 
-def psum_many(ts: Sequence[torch.Tensor], mesh: Union[Mesh, str]):
+def psum_many(ts: Sequence[torch.Tensor], mesh: Union[Mesh, str, tuple]):
     """``psum`` of several tensors of one dtype with one gather (JAX's psum
     of a tuple)."""
     mesh = resolve(mesh)

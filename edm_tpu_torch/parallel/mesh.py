@@ -5,14 +5,21 @@ Counterpart of ``edm_tpu/parallel/mesh.py``.  The JAX package runs a 1-D
 rank is a process of its own, and a ``Mesh`` is that process's view of the
 group: the process group, ``rank``, ``size``, the rank's ``device``, and
 ``axis_names`` / ``devices`` shaped as the JAX mesh's, so that
-``mesh.devices.size`` and ``mesh.axis_names`` read the same.
-``axis_index()`` takes the place of ``jax.lax.axis_index``.
+``mesh.devices.size``, ``mesh.devices.shape`` and ``mesh.axis_names`` read
+the same.  ``axis_index(axis)`` takes the place of ``jax.lax.axis_index``.
 
-``make_mesh`` builds a mesh over the initialised default group (or a
-one-rank mesh when no group is initialised) and registers it under its axis
-name, so that code given only an axis name (``bias.add_hills_round(
-axis_name=...)``, ``make_cell_step(slab_axis=...)``) finds it, as a JAX
-function traced under ``shard_map`` finds its mesh axis.
+``make_mesh`` builds a 1-D mesh over the initialised default group (or a
+one-rank mesh when no group is initialised); ``make_brick_mesh`` the (px,
+py[, pz]) grid of the brick host over the same group, its ranks laid on
+the grid row-major (``rank = (ix * py + iy) * pz + iz``, the order of JAX's
+``np.asarray(devices).reshape(shape)``), so that a gather in rank order
+lists the parts in JAX's mesh order.  Each registers the mesh under its
+axis names (a brick mesh also under the tuple of them), so that code given
+only an axis name (``bias.add_hills_round(axis_name=...)``,
+``make_cell_step(slab_axis=...)``, ``make_cell_step(brick_axes=...)``) finds
+it, as a JAX function traced under ``shard_map`` finds its mesh axis.  The
+JAX brick host reduces and gathers only over the whole axis tuple, which is
+the world group in rank order: no collective needs a group of one axis.
 
 ``launch`` spawns the ranks: each is initialised from a ``FileStore`` in a
 given file (never a fixed TCP port), keeps to one torch thread, and gives
@@ -20,8 +27,6 @@ given file (never a fixed TCP port), keeps to one torch thread, and gives
 of hanging; a rank's exception is raised again in the parent.  The backend
 is NCCL when the ranks run on CUDA and the machine has a card per rank,
 otherwise gloo, with every rank on ``cuda:0`` when a card is asked for.
-
-Not ported: ``make_brick_mesh`` (the brick host, ROADMAP Queue 1, item 7b).
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ _RANK: dict = {}
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a 1-D mesh.  ``group`` is None for a one-rank
-    mesh that needs no process group."""
+    """One rank's view of a mesh of ``size`` ranks over the world group,
+    laid on the grid ``devices.shape`` row-major.  ``group`` is None for a
+    one-rank mesh that needs no process group."""
 
     group: object
     rank: int
@@ -61,11 +67,22 @@ class Mesh:
     device: torch.device
     backend: str
     axis_names: tuple = (DATA_AXIS,)
-    devices: np.ndarray = None  # (size,) the ranks' device names
+    devices: np.ndarray = None  # the ranks' device names, in the grid's shape
 
-    def axis_index(self) -> int:
-        """This rank's index along the mesh axis (``jax.lax.axis_index``)."""
-        return self.rank
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.devices.shape)
+
+    def axis_index(self, axis: Optional[str] = None) -> int:
+        """This rank's coordinate along ``axis`` (``jax.lax.axis_index``);
+        with no axis, the rank's index on a 1-D mesh."""
+        if axis is None:
+            if len(self.axis_names) != 1:
+                raise ValueError(f"a mesh over {self.axis_names} needs the axis to index")
+            return self.rank
+        if axis not in self.axis_names:
+            raise ValueError(f"no axis {axis!r} in the mesh's {self.axis_names}")
+        return int(np.unravel_index(self.rank, self.shape)[self.axis_names.index(axis)])
 
 
 def _rank_device(rank: int, backend: str, device) -> torch.device:
@@ -75,19 +92,19 @@ def _rank_device(rank: int, backend: str, device) -> torch.device:
     return torch.device("cuda", rank if backend == "nccl" else 0)
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = DATA_AXIS, device=None) -> Mesh:
-    """The mesh over the initialised default group (all of its ranks; a
-    given ``n_devices`` must equal the world size), or a one-rank mesh when
-    no group is initialised.  ``device``: the rank's device, by default the
-    one ``launch`` gave this rank, else ``"cuda"``.  Registers the mesh under
-    ``axis``."""
+def _grid_mesh(shape: tuple, axes: tuple, device) -> Mesh:
+    """The mesh of ``shape`` over the initialised default group (a one-rank
+    mesh when no group is initialised), whose world size must be
+    ``prod(shape)``; registered under each axis name and, with several,
+    under their tuple."""
     if dist.is_available() and dist.is_initialized():
         size, rank = dist.get_world_size(), dist.get_rank()
         group, backend = dist.group.WORLD, dist.get_backend()
     else:
         size, rank, group, backend = 1, 0, None, "none"
-    if n_devices is not None and n_devices != size:
-        raise ValueError(f"a mesh of {n_devices} ranks asked for, the group has {size}")
+    if int(np.prod(shape)) != size:
+        raise ValueError(f"a mesh of {'x'.join(map(str, shape))} ranks asked for, the group "
+                         f"has {size}")
     if device is None:
         device = _RANK.get("device", "cuda")
     device = torch.device(device)
@@ -95,23 +112,46 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = DATA_AXIS, device=Non
         device = _rank_device(rank, backend, device)
     names = np.asarray([str(_rank_device(r, backend, device)) for r in range(size)])
     mesh = Mesh(group=group, rank=rank, size=size, device=device, backend=backend,
-                axis_names=(axis,), devices=names)
-    _MESHES[axis] = mesh
+                axis_names=tuple(axes), devices=names.reshape(shape))
+    for axis in axes:
+        _MESHES[axis] = mesh
+    if len(axes) > 1:
+        _MESHES[tuple(axes)] = mesh
     return mesh
 
 
-def mesh_of(axis: str) -> Mesh:
-    """The mesh registered under ``axis`` (``make_mesh``)."""
+def make_mesh(n_devices: Optional[int] = None, axis: str = DATA_AXIS, device=None) -> Mesh:
+    """The 1-D mesh over the initialised default group (all of its ranks; a
+    given ``n_devices`` must equal the world size), or a one-rank mesh when
+    no group is initialised.  ``device``: the rank's device, by default the
+    one ``launch`` gave this rank, else ``"cuda"``.  Registers the mesh under
+    ``axis``."""
+    if n_devices is None:
+        n_devices = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return _grid_mesh((n_devices,), (axis,), device)
+
+
+def make_brick_mesh(px: int, py: int, pz: Optional[int] = None, axes: Optional[tuple] = None,
+                    device=None) -> Mesh:
+    """The (px, py[, pz]) device grid of the brick host over the default
+    group, whose world size must be px * py[ * pz]; the ranks lie on it
+    row-major.  ``axes`` (default ("bx", "by"[, "bz"])) name its axes;
+    the mesh is registered under each and under their tuple."""
+    shape = (px, py) if pz is None else (px, py, pz)
+    if axes is None:
+        axes = (BRICK_X_AXIS, BRICK_Y_AXIS, BRICK_Z_AXIS)[: len(shape)]
+    if len(axes) != len(shape):
+        raise ValueError(f"{len(axes)} axis names for a {len(shape)}-D grid")
+    return _grid_mesh(shape, tuple(axes), device)
+
+
+def mesh_of(axis) -> Mesh:
+    """The mesh registered under ``axis``, an axis name or a tuple of them
+    (``make_mesh``, ``make_brick_mesh``)."""
     if axis not in _MESHES:
         raise ValueError(f"no mesh over axis {axis!r}: build one with parallel.make_mesh "
-                         f"(axis={axis!r}) first")
+                         "or parallel.make_brick_mesh first")
     return _MESHES[axis]
-
-
-def make_brick_mesh(px: int, py: int, pz: Optional[int] = None, axes: Optional[tuple] = None):
-    """The (px, py[, pz]) device grid of the brick host: not ported yet."""
-    raise NotImplementedError("make_brick_mesh (the brick host) is not ported yet "
-                              "(ROADMAP Queue 1, item 7b)")
 
 
 def pick_backend(world_size: int, device) -> str:

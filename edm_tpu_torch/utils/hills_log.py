@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..bias import ADD_HILL, ADD_UNDO_HILL, BUFF_HILL, BUFF_UNDO_HILL
 
 
 def _leaves(tree, out):
@@ -121,22 +122,22 @@ class HillsLog:
         for i in np.nonzero(c["drain_processed"])[0]:
             h, s, p = c["drain_h"][i], c["drain_s"][i], c["drain_pos"][i]
             counter += 1
-            self._line(buf, step, "b", counter, p, h, h * s, cum)
+            self._line(buf, step, BUFF_HILL, counter, p, h, h * s, cum)
             if c["drain_straddled"][i]:
                 undo = c["drain_dep"][i] - h  # a negative partial
                 counter += 1
-                self._line(buf, step, "v", counter, p, undo, undo * s, cum)
+                self._line(buf, step, BUFF_UNDO_HILL, counter, p, undo, undo * s, cum)
         for i in np.nonzero(c["called"])[0]:
             h, s, p = c["hill_h"][i], c["hill_s"][i], c["hill_pos"][i]
             if c["deposited"][i]:
                 counter += 1
-                self._line(buf, step, "h", counter, p, h, h * s, cum)
+                self._line(buf, step, ADD_HILL, counter, p, h, h * s, cum)
                 if c["straddled"][i]:
                     undo = c["hill_dep"][i] - h
                     counter += 1
-                    self._line(buf, step, "u", counter, p, undo, undo * s, cum)
+                    self._line(buf, step, ADD_UNDO_HILL, counter, p, undo, undo * s, cum)
             else:  # capped out: zero height, the counter not bumped
-                self._line(buf, step, "h", counter, p, 0.0, 0.0, cum)
+                self._line(buf, step, ADD_HILL, counter, p, 0.0, 0.0, cum)
         return buf.getvalue()
 
     def _format_native(self, lib, step, cum, c) -> str:

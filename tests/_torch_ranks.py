@@ -24,10 +24,16 @@ from edm_tpu_torch.models.langevin import LangevinParams
 from edm_tpu_torch.models.lj import LJParams
 from edm_tpu_torch.parallel import (
     all_gather,
+    init_sharded_cell_state,
+    make_brick_cell_step,
+    make_brick_mesh,
     make_mesh,
+    make_sharded_cell_step,
+    make_sharded_coord_step,
     make_sharded_pair_step,
     make_slab_cell_step,
     psum,
+    shard_coord_state,
     shard_pair_state,
 )
 
@@ -103,18 +109,44 @@ def _cell_setup(d, mesh):
     return params, spec, LangevinParams(**d["lp"]), LJParams(**d["lj"])
 
 
-def slab_steps(path: str):
-    """The slab host over every rank, for each entry of ``runs`` (a name and
-    make_slab_cell_step's keyword arguments): ``n_steps`` steps from the
-    input state, or (``each``) one step from each of the run's list of
-    input states (``port_state[name]``).  Returns the states after each
-    step."""
+def brick_mesh(path: str):
+    """The brick mesh of shape ``grid``: each axis' coordinate, psum and
+    all_gather over the axis tuple of per-rank arrays from a seed, and what
+    a mesh of the wrong size raises."""
     d = _load(path)
-    mesh = make_mesh(device="cpu")
+    mesh = make_brick_mesh(*d["grid"], device="cpu")
+    axes = mesh.axis_names
+    rng = np.random.default_rng(d["seed"] + mesh.rank)
+    a = {"f32": rng.normal(size=(3, 2)).astype(np.float32), "i64": rng.integers(-9, 9, size=4)}
+    out = {"rank": mesh.rank, "shape": mesh.shape, "axes": axes,
+           "coords": [mesh.axis_index(ax) for ax in axes], "in": a}
+    for name, v in a.items():
+        out[name + "_psum"] = psum(torch.as_tensor(v), axes).numpy()
+        out[name + "_gather"] = all_gather(torch.as_tensor(v), axes).numpy()
+    try:
+        make_brick_mesh(*d["wrong"], device="cpu")
+        out["wrong"] = None
+    except ValueError as e:
+        out["wrong"] = str(e)
+    return out
+
+
+def slab_steps(path: str):
+    """The slab host over every rank (or, with ``grid``, the brick host over
+    that mesh), for each entry of ``runs`` (a name and the step's keyword
+    arguments): ``n_steps`` steps from the input state, or (``each``) one
+    step from each of the run's list of input states (``port_state[name]``).
+    Returns the states after each step."""
+    d = _load(path)
+    if d.get("grid"):
+        mesh = make_brick_mesh(*d["grid"], device="cpu")
+        make = make_brick_cell_step
+    else:
+        mesh, make = make_mesh(device="cpu"), make_slab_cell_step
     params, spec, lp, lj = _cell_setup(d, mesh)
     out = {}
     for name, kw in d["runs"]:
-        step = make_slab_cell_step(params, lp, lj, spec, d["hill_stride"], mesh, **kw)
+        step = make(params, lp, lj, spec, d["hill_stride"], mesh, **kw)
         if d.get("each"):
             out[name] = [to_numpy_tree(step(s)[0]) for s in d["port_state"][name]]
             continue
@@ -141,18 +173,19 @@ def slab_segment(path: str):
 
 
 def slab_on_card(path: str):
-    """A 2-rank slab step on the card against the single-device step: the
-    ragged 12^3 lattice of test_torch_parallel (kernel_cap 24, overflow_cap
-    32), built on the rank's card through the port's entry points; each of
-    ``n_steps`` steps from the single-device trajectory's state.  Returns
-    both hosts' states after each step."""
+    """A slab step (or, with ``grid``, a brick step over that mesh) on the
+    card against the single-device step: the ragged 12^3 lattice of
+    test_torch_parallel (kernel_cap 24, overflow_cap 32), built on the
+    rank's card through the port's entry points; each of ``n_steps`` steps
+    from the single-device trajectory's state.  Returns both hosts' states
+    after each step."""
     from edm_tpu_torch.models import pair_edm as tpe
     from edm_tpu_torch.models import pair_edm_cells as tpc
     from edm_tpu_torch.ops import prng
     from edm_tpu_torch.utils.config import parse_edm_text
 
     d = _load(path)
-    mesh = make_mesh()
+    mesh = make_brick_mesh(*d["grid"]) if d.get("grid") else make_mesh()
     dev = mesh.device
     params, bs = TB.subdivide(parse_edm_text(d["cfg"]), 1.0, 1.0, [0], [3.0], [0], [3.0],
                               [False], [0], dtype=torch.float32, device=dev)
@@ -164,11 +197,45 @@ def slab_on_card(path: str):
               overflow_cap=32)
     lp, lj = LangevinParams(**d["lp"]), LJParams()
     one = tpc.make_cell_step(params, lp, lj, spec, use_pallas=True, **kw)
-    slab = make_slab_cell_step(params, lp, lj, spec, mesh=mesh, **kw)
+    make = make_brick_cell_step if d.get("grid") else make_slab_cell_step
+    slab = make(params, lp, lj, spec, mesh=mesh, **kw)
     out = []
     for _ in range(d["n_steps"]):
         ref, _ = one(state)
         got, _ = slab(state)
         out.append((to_numpy_tree(got), to_numpy_tree(ref)))
         state = ref
+    return out
+
+
+def sharded_cells(path: str):
+    """``n_steps`` of the work-sharded cell host from the input state, with
+    records; returns the states and the logs after each step."""
+    d = _load(path)
+    mesh = make_mesh(device="cpu")
+    params, spec, lp, lj = _cell_setup(d, mesh)
+    step = make_sharded_cell_step(params, lp, lj, spec, d["hill_stride"], mesh, **d["kw"])
+    state = init_sharded_cell_state(spec, _state(d).core)
+    states, logs = [], []
+    for _ in range(d["n_steps"]):
+        state, (_, log) = step(state)
+        states.append(to_numpy_tree(state))
+        logs.append(to_numpy_tree(log))
+    return {"states": states, "logs": logs, "host_syncs": step.host_syncs}
+
+
+def sharded_coord(path: str):
+    """``n_steps`` of the sharded coordinate host from the full state, for
+    each ``hill_capacity`` of ``capacities``; returns the rank's states."""
+    d = _load(path)
+    mesh = make_mesh(device="cpu")
+    params = params_from_numpy(d["params"], "cpu")
+    out = {}
+    for cap in d["capacities"]:
+        step = make_sharded_coord_step(params, LangevinParams(**d["lp"]), d["hill_stride"], mesh,
+                                       hill_capacity=cap)
+        state = shard_coord_state(_state(d), mesh)
+        for _ in range(d["n_steps"]):
+            state, _ = step(state)
+        out[cap] = to_numpy_tree(state)
     return out

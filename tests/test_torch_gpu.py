@@ -1129,6 +1129,42 @@ def test_cell_force_newton_row_box_kernel(cuda_slab, n, rank, k, energy):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid,box", [((2, 2), ((1, 1, 0), (5, 5, 9))),
+                                      ((2, 2, 2), ((1, 1, 1), (5, 5, 5)))], ids=["2x2", "2x2x2"])
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_brick_box_kernel(cuda_slab, grid, box, k, energy):
+    """K1's owned-row form over every rank's brick box of the 10k lattice
+    (9 cells a side as 5 + 4): 7 x 7 x 9 windows on 2 x 2 ranks, 7^3 on 2 x
+    2 x 2, built as the brick host builds them; against the plain version
+    and bitwise the full-window kernel with the rows outside the box masked."""
+    from edm_tpu_torch.models.pair_edm_cells import shard_window
+
+    spec, st, tbl = cuda_slab
+    g3 = tuple(grid) + (1,) * (3 - len(grid))
+    lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
+    for rank in range(int(np.prod(grid))):
+        coord = tuple(int(c) for c in np.unravel_index(rank, g3))
+        sub, rows_full, subm, _, ncells, rb = shard_window(spec.ncells, g3, coord, st.xs, st.mc)
+        assert rb == box
+        cells = CF.box_cells(ncells, rb, sub.device)
+        mrows = rows_full[cells].contiguous()
+        kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy, mc_cand=subm)
+        n0 = CF.cell_force_newton.row_box_launches
+        f, eb = CF.cell_force_newton(sub, mrows, tbl, row_box=rb, **kw)
+        f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, row_box=rb, **kw)
+        f_full, eb_full = CF.cell_force_newton(sub, rows_full, tbl, **kw)
+        torch.cuda.synchronize()
+        assert CF.cell_force_newton.row_box_launches == n0 + 1
+        what = f"K1 brick box {grid}, rank {rank}, k={k}"
+        assert eb.shape == (cells.numel(), k) and float(f.abs().max()) > 0
+        assert_forces(f.cpu(), f_ref.cpu(), what)
+        assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), what)
+        assert torch.equal(f, f_full), what
+        assert torch.equal(eb, eb_full[cells]), what
+
+
+@pytest.mark.gpu
 def test_slab_step_two_ranks_on_card(cuda_state, tmp_path):
     """A 2-rank slab step on the card (``parallel.launch``: NCCL with a
     card per rank, else gloo on one card) against the single-device step
@@ -1164,3 +1200,43 @@ def test_slab_step_two_ranks_on_card(cuda_state, tmp_path):
                                       ref["core"]["bias"]["bias"]["grid"]["values"])
         for name in ("xs", "vs", "fs", "aid"):
             np.testing.assert_array_equal(res[1][i][0][name], got[name])
+
+
+@pytest.mark.gpu
+def test_brick_step_on_card(cuda_state, tmp_path):
+    """A 2 x 2 brick step on the card (4 ranks through ``parallel.launch``:
+    NCCL with a card per rank, else gloo on one card) against the
+    single-device step on the 5-cell lattice (windows of 5^3 cells, K1's
+    brick box and K2 with the brick ownership masks), 4 steps from the
+    single-device trajectory: forces and positions within 2e-5 * max(1,
+    max|.|), the integers exactly, the hill rounds' grids bitwise, every
+    rank bitwise rank 0."""
+    import pickle
+
+    import _torch_ranks as ranks
+    from edm_tpu_torch.parallel import launch
+
+    rng = np.random.default_rng(3)
+    box = [12 * 1.26] * 3
+    pts = (np.stack(np.meshgrid(*[np.arange(12)] * 3, indexing="ij"), -1).reshape(-1, 3) * 1.26
+           + 0.63 + rng.normal(scale=0.05, size=(1728, 3))) % box[0]
+    cfg = ("tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 20\n"
+           "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+    path = tmp_path / "in.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(dict(cfg=cfg, pts=pts, box=box, n_steps=4, grid=(2, 2),
+                         lp=dict(dt=0.002, friction=1.0, kT=0.0)), fh)
+    res = launch(ranks.slab_on_card, 4, str(path), device="cuda",
+                 init_file=str(tmp_path / "store"), timeout=300)
+    for i, (got, ref) in enumerate(res[0]):
+        for name in ("xs", "vs", "fs"):
+            assert_forces(got[name], ref[name], f"step {i} {name}")
+        for name in ("aid", "ovl", "tail_count", "tail_ovf"):
+            np.testing.assert_array_equal(got[name], ref[name])
+        for name in ("step", "last_calls", "hills_truncated"):
+            np.testing.assert_array_equal(got["core"][name], ref["core"][name])
+        np.testing.assert_array_equal(got["core"]["bias"]["bias"]["grid"]["values"],
+                                      ref["core"]["bias"]["bias"]["grid"]["values"])
+        for r in res[1:]:
+            for name in ("xs", "vs", "fs", "aid"):
+                np.testing.assert_array_equal(r[i][0][name], got[name])

@@ -37,7 +37,8 @@ the columns alike.
     equal the single-device host's;
   - the port's own bitwise identities: ``slab_collect`` and ``shard_floor``
     True equal False, and every rank's state equals rank 0's;
-  - what still raises names its ROADMAP item.
+  - what still raises names its ROADMAP item (7c); the item-7b entry
+    points build.
 """
 
 import dataclasses
@@ -482,16 +483,22 @@ def test_slab_host_ragged_lattice(tmp_path):
 
 
 def test_unported_multi_device_options_raise():
+    """Only item 7c still raises (``boundary_offset``, the spatial host);
+    the item-7b entry points build: ``make_brick_mesh`` (a one-rank mesh
+    here: a 2 x 2 grid needs 4 ranks), the brick step over a 1 x 1 grid,
+    the work-sharded cell step and ``make_cell_step(axis_name=...)``."""
     params, _, x0, box = _setup(8)
     tspec = tcells.CellSpec(**dataclasses.asdict(CellSpec.create(box, 3.0, x0.shape[0])))
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec, 2)
-    for call in (lambda: tpar.make_brick_mesh(2, 2),
-                 lambda: tpar.make_brick_cell_step(*args, mesh=None),
-                 lambda: tpar.make_sharded_cell_step(*args, mesh=None),
-                 lambda: tpc.make_cell_step(*args, use_pallas=True, brick_axes=("bx", "by"),
-                                            brick_ndev=(2, 2))):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            call()
+    with pytest.raises(ValueError, match="asked for"):
+        tpar.make_brick_mesh(2, 2, device="cpu")
+    mesh = tpar.make_brick_mesh(1, 1, device="cpu")
+    assert mesh.shape == (1, 1) and tpar.mesh_of(("bx", "by")) is mesh
+    brick = tpar.make_brick_cell_step(*args, mesh=mesh)
+    assert brick.grid == (1, 1, 1) and brick.mesh is mesh
+    sharded = tpar.make_sharded_cell_step(*args, mesh=tpar.make_mesh(device="cpu"))
+    assert sharded.chunks == 1 and sharded.Cp == 32
+    assert tpc.make_cell_step(*args, use_pallas=True, axis_name="dp").axis_name == "dp"
     tparams, tbs = TB.subdivide(parse_edm_text(CFG), 1.0, 1.0, [0], [3.0], [0], [3.0], [False],
                                 [0], dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7c"):

@@ -144,17 +144,24 @@ def test_make_cell_step_rejects_unported_options():
 
     mesh = make_mesh(device="cpu")
     slab = make_slab_cell_step(*args[:4], 10, mesh, **PHASES[1])
-    assert slab.mesh is mesh and slab.slab_hills
+    assert slab.mesh is mesh and slab.shard_hills
     ts1, e = slab(ts)
     ref, e_ref = tpc.make_cell_step(*args, use_pallas=True, **PHASES[1])(ts)
     for f in ("xs", "vs", "fs", "aid"):
         assert_exact(getattr(ts1, f), getattr(ref, f), f)
     assert_exact(e, e_ref, "energy")
-    # still unported: the brick host and axis_name on this host (item 7b)
-    for kw, item in ((dict(use_pallas=True, brick_axes=("x", "y")), "item 7b"),
-                     (dict(use_pallas=True, axis_name="i"), "item 7b")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpc.make_cell_step(*args, **PHASES[1], **kw)
+    # ported since: axis_name (a hill round's bias summed over the mesh; a
+    # plain step is the single-device one) and the brick host, which needs
+    # its brick mesh and the kernel path
+    named = tpc.make_cell_step(*args, use_pallas=True, axis_name="dp", **PHASES[1])
+    assert named.axis_name == "dp"
+    ts2, e2 = named(ts)
+    for f in ("xs", "vs", "fs", "aid"):
+        assert_exact(getattr(ts2, f), getattr(ref, f), f)
+    with pytest.raises(ValueError, match="no mesh"):
+        tpc.make_cell_step(*args, **PHASES[1], use_pallas=True, brick_axes=("x", "y"))
+    with pytest.raises(ValueError, match="use_pallas"):
+        tpc.make_cell_step(*args, **PHASES[1], brick_axes=("bx", "by"), brick_ndev=(2, 2))
     ok = dict(use_pallas=True, **PHASES[1])
     with pytest.raises(ValueError, match="multiple of 8"):
         tpc.make_cell_step(*args, **ok, kernel_cap=20)
