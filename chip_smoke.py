@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives twelve paths of the port through their CUDA kernels and checks each
-kernel against its plain PyTorch version on the same card:
+Drives fourteen paths of the port through their CUDA kernels and checks
+each kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
     ``bench.py:bench_pairwise`` (well-tempered, RDF-targeted bias on a
@@ -46,6 +46,15 @@ kernel against its plain PyTorch version on the same card:
     ranks, K1's owned-row form (``row_box``) on every step; and the
     sharded dense host (``parallel.make_sharded_pair_step``) at 1,000
     atoms on 2 ranks;
+  - the spatial host (``parallel/spatial.py``): the 2-D heavy cell's CV
+    range split into bricks, one local grid a rank, hills exchanged and
+    replayed at their heights: periodic on 2 ranks (2, 1) and on 2 x 2,
+    and on the McGDP box on 2 ranks through ``boundary_offset``; every
+    draw through ``threefry_bits``;
+  - the multi-device dry run (``parallel.dryrun.dryrun_multichip(8)``):
+    the eight probes of ``__graft_entry__.py``, each held to the port's
+    single-device host or serial engine (K1's owned-row forms and K2 on
+    the card again);
   - the user's entry points: ``EDMBias`` on the card replaying the
     compiled reference's ``tests/oracles/workload.txt`` and writing its
     ``.ltab`` fixtures; the 10k exact cell through ``driver.run_simulation``
@@ -98,7 +107,14 @@ hill rounds' grids exactly, every rank bitwise rank 0, a hill round with
 launches and collectives a step, host stagings, rank 0's busy share, the
 syncs of a hill, a plain and a rebuild step named by line, end checks); on
 2 ranks also the sharded dense host's 20 kT = 0 steps against the dense
-host on the card; then the entry points: the workload replay within 1e-9 of the compiled
+host on the card; the spatial cases (2 ranks: (a) and (c); 4 ranks: (b)),
+each with 3 hill rounds of frozen walkers, the stitched grid after each
+held to a single-device windowed deposit of the round's hills, the forces
+to ``update_forces`` on the stitched grid, then the kT = 1.0 run (200
+steps after 50, a rebin every 20: steps/s, Threefry launches,
+collectives and kB a step, host syncs, rank 0's busy share, end checks);
+``dryrun_multichip(8)`` (each probe's seconds and worst error beside its
+bound); then the entry points: the workload replay within 1e-9 of the compiled
 reference (cum_bias each round, 31 probes; rounds/s and the syncs of a
 round named by line) and the two .ltab fixtures; ``run_simulation`` at
 kT = 0 for 20 steps bitwise against ``pattern_segment``'s static phases,
@@ -2220,13 +2236,272 @@ def sharded_coord_run(torch, mesh, warm_steps=50, timed_steps=200):
     return {"steps_per_s": timed_steps / dt, "threefry_bits": n_tf, "collectives": coll}
 
 
+# the spatial host (parallel/spatial.py) on the 2-D heavy cell, split with
+# skin 1.0: (a) periodic on 2 ranks, parts (2, 1); (b) periodic on 2 x 2;
+# (c) non-periodic on 2 ranks (the McGDP box: boundary_offset on dim 0).
+# Walker slots a rank, and the steps between two rebins
+SPATIAL_CASES = {"a": dict(parts=(2, 1), periodic=True), "b": dict(parts=(2, 2), periodic=True),
+                 "c": dict(parts=(2, 1), periodic=False)}
+SPATIAL_CAP = {2: 6000, 4: 3000}
+SPATIAL_REBIN = 20
+# stitched grid against the single-device deposit: values within
+# COORD_GRID_REL * max(1, max|values|).  The derivatives within
+# SPATIAL_DERIV_REL * max(1, max|derivs|): a rank's local frame moves a
+# hill's float32 offset from a grid point by up to half an ulp of 10
+# (4.8e-7, 6.7e-6 sigma'), and a derivative term's slope in that offset is
+# 2 / sigma' times the value term, ~3e-5 of the largest derivative term per
+# hill: float32 rounding of the same size as each frame's own error
+SPATIAL_DERIV_REL = 5e-5
+# ... plus one support-edge term: a grid point whose dp^2 rounds to either
+# side of GAUSS_SUPPORT (8) in the two frames takes a hill's edge term in
+# one and not the other, e^-8 h / (pi sigma'^2) on the value (below
+# COORD_GRID_REL at the bench's heights) and 2 sqrt(8) / sigma' times that
+# on a derivative (6.8e-4 at h = 4e-4)
+# forces against update_forces on the stitched grid: FORCE_REL * max(1,
+# max|f|), plus, walker by walker, the spread of that lookup when a sharded
+# coordinate moves by one float32 ulp of 10 (a rank's frame rounds a
+# walker's offset in its cell differently, by up to half an ulp of the
+# coordinate; on the McGDP box the lookup next to a wall can be steep
+# enough for that to pass FORCE_REL)
+SPATIAL_ULP = float(np.spacing(np.float32(10.0)))
+
+
+def spatial_label(case) -> str:
+    c = SPATIAL_CASES[case]
+    return (f"spatial ({case}) {'x'.join(map(str, c['parts']))} "
+            f"{'periodic' if c['periodic'] else 'McGDP'}")
+
+
+def spatial_setup(torch, mesh, case, lp, collect_records=False):
+    """``coord_setup``'s 2-D heavy cell on the spatial host: the bench's
+    10,000 walkers (default_rng(77)) binned into the bricks of
+    ``spatial_subdivide(COORD_CFG, parts, skin=1.0)`` with ``SPATIAL_CAP``
+    slots a rank, PRNGKey(0); the hill and the plain static steps
+    (hill_stride 10, hill_capacity at its default, which must come to the
+    bench's 2048).  Returns (setup, state, steps)."""
+    from edm_tpu_torch.ops.prng import PRNGKey
+    from edm_tpu_torch.parallel import spatial as S
+    from edm_tpu_torch.utils.config import parse_edm_text
+
+    c = SPATIAL_CASES[case]
+    setup, tmpl = S.spatial_subdivide(parse_edm_text(COORD_CFG), 1.0, 1.0, c["parts"], 1.0,
+                                      dtype=torch.float32, periodic=[c["periodic"]] * 2,
+                                      device=mesh.device)
+    x0 = np.random.default_rng(77).uniform(0, 10, (COORD_N, 2))
+    state = S.init_spatial_state(setup, tmpl, x0, PRNGKey(0), SPATIAL_CAP[mesh.size], mesh)
+    steps = [S.make_spatial_coord_step(setup, lp, 10, mesh, collect_records=collect_records,
+                                       static_do_hills=h) for h in (True, False)]
+    if steps[0].hill_capacity != 2048:
+        raise AssertionError(f"{spatial_label(case)}: hill capacity {steps[0].hill_capacity}, "
+                             "not the bench's 2048")
+    return setup, state, steps
+
+
+def spatial_reference(torch, mesh, case):
+    """The single-device global grid of the case on the card: the periodic
+    1000 x 1000 grid, or the McGDP box's 1001 x 1001 (``bias.subdivide``
+    over [0, 10]^2).  Returns (params, bias state)."""
+    from edm_tpu_torch import bias as B
+    from edm_tpu_torch.utils.config import parse_edm_text
+
+    per = SPATIAL_CASES[case]["periodic"]
+    return B.subdivide(parse_edm_text(COORD_CFG), 1.0, 1.0, [0, 0], [10, 10], [0, 0], [10, 10],
+                       [per] * 2, [0, 0], dtype=torch.float32, device=mesh.device)
+
+
+def spatial_zero_temperature(torch, mesh, case, n_rounds=3):
+    """Frozen walkers (dt 1e-9, friction 0, kT 0) through ``n_rounds`` hill
+    steps with records: after each round the stitched grid's values and
+    derivatives against a windowed deposit (``GaussGrid.add_value``) on
+    the single-device global grid of the round's gathered hills at their
+    recorded heights, the values within COORD_GRID_REL * max(1, max|values|),
+    the derivatives within SPATIAL_DERIV_REL * max(1, max|derivs|) plus one
+    support-edge term of the largest hill; then one
+    plain step, and each rank's forces against ``bias.update_forces`` on
+    the stitched grid at its walkers, within FORCE_REL * max(1, max|f|) plus
+    each walker's spread of that lookup over ``SPATIAL_ULP``.  Every rank
+    runs every check."""
+    import dataclasses
+
+    from edm_tpu_torch import bias as B
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.parallel import spatial as S
+
+    require_full_f32(torch)
+    label = spatial_label(case)
+    setup, state, steps = spatial_setup(torch, mesh, case,
+                                        LangevinParams(dt=1e-9, friction=0.0, kT=0.0), True)
+    params_g, ref = spatial_reference(torch, mesh, case)
+    g_ref = ref.bias
+    sig = ref.bias.spec.sigma  # sigma' = sqrt(2) sigma
+    worst, hills, h_max, n_edge = {}, 0, 0.0, 0
+    for r in range(n_rounds):
+        state, _, log = steps[0](state)
+        rec = log.rec
+        on = rec.hill_called & (rec.hill_dep_h > 0)
+        g_ref, _ = g_ref.add_value(log.positions[on], rec.hill_dep_h[on])
+        hills += int(on.sum())
+        h_max = max(h_max, float(rec.hill_dep_h.max()))
+        edge = 2 * np.sqrt(8.0) / min(sig) * np.exp(-8.0) * h_max / (np.pi * sig[0] * sig[1])
+        st = S.stitch_spatial_grid(setup, state, mesh)
+        for name, a, b, rel, extra in (
+                ("values", st.values, g_ref.grid.values, COORD_GRID_REL, 0.0),
+                ("derivs", st.derivs, g_ref.grid.derivs, SPATIAL_DERIV_REL, edge)):
+            if a.shape != b.shape:
+                raise AssertionError(f"{label}: stitched {name} {tuple(a.shape)}, the "
+                                     f"single-device grid {tuple(b.shape)}")
+            diff = (a.double() - b.double()).abs()
+            e = float(diff.max())
+            worst[name] = max(worst.get(name, 0.0), e)
+            base = rel * max(1.0, float(b.abs().max()))
+            if extra:
+                n_edge = max(n_edge, int((diff > base).any(-1).sum()))
+            if not e <= base + extra:
+                raise AssertionError(f"{label} round {r}: stitched {name} differ from the "
+                                     f"single-device deposit by {e:.3e} > {base + extra:.3e}")
+    state, _, _ = steps[1](state)
+    st = S.stitch_spatial_grid(setup, state, mesh)
+    g_st = dataclasses.replace(ref, bias=dataclasses.replace(ref.bias, grid=dataclasses.replace(
+        ref.bias.grid, values=st.values, derivs=st.derivs)))
+    x, f = state.x[state.valid], state.f[state.valid]
+
+    def f_ref(xq):
+        return -B.update_forces(params_g, g_st, xq)[1]
+
+    # the lookup's spread over SPATIAL_ULP of each sharded coordinate: how far
+    # the rounding of a walker's cell offset in another frame can move it
+    # (the McGDP box's 2-D corrections leave jumps at the support edges
+    # near a wall, where a cubic-Hermite cell is steep)
+    want = f_ref(x)
+    spread = torch.zeros_like(want)
+    for d in steps[0].sharded_dims:
+        for sgn in (-1.0, 1.0):
+            xq = x.clone()
+            xq[:, d] += sgn * SPATIAL_ULP
+            spread = torch.maximum(spread, (f_ref(xq) - want).abs())
+    err = (f - want).abs()
+    tol = FORCE_REL * max(1.0, float(want.abs().max()))
+    beyond = err > tol
+    if bool((err > tol + spread).any()):
+        k = int(torch.argmax((err - tol - spread).max(-1).values))
+        raise AssertionError(f"{label} rank {mesh.rank}: walker at {x[k].tolist()} force "
+                             f"{f[k].tolist()}, on the stitched grid {want[k].tolist()}: "
+                             f"beyond {tol:.3e} + its spread {spread[k].tolist()}")
+    if bool((state.f[~state.valid] != 0).any()):
+        raise AssertionError(f"{label}: an empty slot carries a force")
+    worst["forces"] = float(err.max())
+    n_beyond = int(beyond.any(-1).sum())
+    if hills < 3 or not float(state.bias.cum_bias) > 0:
+        raise AssertionError(f"{label}: the frozen rounds deposited nothing")
+    rank_print(mesh, f"kT=0 {label} ({mesh.size} ranks, N={COORD_N}, local grid "
+               f"{'x'.join(map(str, state.bias.bias.spec.grid.nbins))}): {n_rounds} frozen hill "
+               f"rounds ({hills} hills on rank 0) stitch to the single-device windowed deposit "
+               f"(worst values {worst['values']:.3e}, bound COORD_GRID_REL x max(1, "
+               f"max|values|); derivs {worst['derivs']:.3e}, bound SPATIAL_DERIV_REL x max(1, "
+               f"max|derivs|) plus one support-edge term {edge:.3e}, taken by {n_edge} points); "
+               f"rank 0's forces against update_forces on the stitched grid: "
+               f"worst {worst['forces']:.3e}, bound FORCE_REL x max(1, max|f|) = {tol:.3e}, "
+               f"{n_beyond} walkers beyond it, each within its lookup's spread over "
+               f"{SPATIAL_ULP:.3g} of its sharded coordinates")
+
+
+def spatial_segment(setup, steps, mesh, state, n):
+    """``n`` steps (a multiple of 10) in whole stride cycles, with
+    ``rebin_spatial_atoms`` after each ``SPATIAL_REBIN`` of them."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.parallel import spatial as S
+
+    e = None
+    while n > 0:
+        k = min(n, SPATIAL_REBIN)
+        state, e = strided_segment(steps[0], steps[1], 10, k)(state)
+        if k == SPATIAL_REBIN:
+            state = S.rebin_spatial_atoms(setup, state, mesh)
+        n -= k
+    return state, e
+
+
+def spatial_run(torch, mesh, case, warm_steps=50, timed_steps=200):
+    """The spatial host at kT = 1.0 (dt 0.002, friction 1.0):
+    ``warm_steps``, then ``timed_steps`` (``spatial_segment``: a rebin
+    every 20 steps) with the Threefry counter, the collectives' counters
+    and the steps' host syncs set to 0 just before and read just after;
+    one stride cycle's profile (rank 0's busy share); end checks
+    (``hills_truncated`` and ``overflow_error`` false, everything finite,
+    one Threefry launch a step and one a hill step, cum_bias bitwise the
+    same on every rank)."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.ops import prng
+    from edm_tpu_torch.parallel import all_gather, collectives
+
+    require_full_f32(torch)
+    label = spatial_label(case)
+    setup, state, steps = spatial_setup(torch, mesh, case,
+                                        LangevinParams(dt=0.002, friction=1.0, kT=1.0))
+    state, _ = spatial_segment(setup, steps, mesh, state, warm_steps)
+    for s in steps:
+        s.host_syncs = 0
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    prng.threefry_bits.launches = 0
+    t0 = time.perf_counter()
+    state, e = spatial_segment(setup, steps, mesh, state, timed_steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tf = prng.threefry_bits.launches
+    coll = dict(collectives.stats)
+    syncs = sum(s.host_syncs for s in steps)
+    cycle = strided_segment(steps[0], steps[1], 10, 10)
+    dev_us, _, top, per_cycle = device_time_us(torch, lambda: cycle(state), 2)
+    rank_print(mesh, busy_line(f"kT=1.0 {label} ({mesh.size} ranks) stride cycle, rank 0",
+                               dev_us, 10 * dt / timed_steps * 1e6, top))
+    b = state.bias
+    n_valid = int(all_gather(state.valid.sum()[None], mesh).sum())
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.f, e,
+                                                               b.bias.grid.values)),
+        "no overflow_error": not bool(b.overflow_error),
+        "no hills_truncated": not bool(state.hills_truncated),
+        "cum_bias > 0": float(b.cum_bias) > 0,
+        "every walker in a brick": n_valid == COORD_N,
+        "Threefry kernel: a draw a step and one a hill step": n_tf == timed_steps + timed_steps // 10,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=1.0 {label} run on rank {mesh.rank} failed: {failed}")
+    all_ranks_equal(torch, mesh, f"the kT = 1.0 {label} run", {"cum_bias": b.cum_bias})
+    rank_print(mesh, f"kT=1.0 {label} ({mesh.size} ranks, N={COORD_N}): {timed_steps} steps "
+               f"after {warm_steps} warm-up, a rebin every {SPATIAL_REBIN}: "
+               f"{timed_steps / dt:.2f} steps/s, Threefry launches {n_tf}, collectives "
+               f"{coll['calls'] / timed_steps:.2f} a step moving "
+               f"{coll['bytes'] / timed_steps / 1e3:.1f} kB a step, "
+               f"{coll['host_syncs'] / timed_steps:.2f} host stagings a step, host syncs counted "
+               f"by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, device launches "
+               f"a step {per_cycle / 10:.1f} (rank 0), cum_bias {float(b.cum_bias):.6g}, hill "
+               f"rounds {int(b.steps)}, walkers on rank 0 {int(state.valid.sum())}")
+    return {"steps_per_s": timed_steps / dt, "threefry_bits": n_tf, "collectives": coll}
+
+
+def spatial_phases(torch, mesh, timed):
+    """The spatial cases of this world size (2 ranks: (a) and (c); 4: (b)),
+    each frozen and then at kT = 1.0; returns {case: run numbers}."""
+    out = {}
+    for case, c in SPATIAL_CASES.items():
+        if int(np.prod(c["parts"])) == mesh.size:
+            out[case] = timed(spatial_label(case), lambda: (
+                spatial_zero_temperature(torch, mesh, case), spatial_run(torch, mesh, case))[1])
+    return out
+
+
 def multi_rank_phase():
     """One rank's share of the multi-device phases (run by
     ``parallel.launch``), by the world size: on ``SLAB_RANKS`` K1's
     owned-row form on the rank's slab window and the slab host's kT = 0
     steps and kT = 0.8 run; on 2 ranks also the sharded dense host, the
-    work-sharded cell host and the sharded 2-D host; on 4 the brick host on
-    2 x 2 (20 kT = 0 steps, the kT = 0.8 run: 100 steps after 50); on 8 the
+    work-sharded cell host, the sharded 2-D host and the spatial host's
+    cases (a) and (c); on 4 the brick host on 2 x 2 (20 kT = 0 steps, the
+    kT = 0.8 run: 100 steps after 50) and the spatial case (b); on 8 the
     brick host on 2 x 2 x 2 (5 kT = 0 steps).  Each part's seconds printed
     by rank 0.  Returns rank 0's kernel rows and run numbers."""
     import torch
@@ -2265,6 +2540,7 @@ def multi_rank_phase():
         out["brick_run"] = timed("brick host on 2 x 2", lambda: (
             slab_zero_temperature(torch, bmesh),
             slab_run(torch, bmesh, warm_steps=50, timed_steps=100))[1])
+    out["spatial"] = spatial_phases(torch, mesh, timed)
     if mesh.size == 8:
         bmesh = make_brick_mesh(2, 2, 2)
         timed("brick host on 2 x 2 x 2", lambda: slab_zero_temperature(torch, bmesh, n_steps=5))
@@ -2955,7 +3231,13 @@ def main() -> int:
     multi = multi_rank_phases()
     rows.update(multi[2]["rows"])
     n_tf += multi[2]["coord_run"]["threefry_bits"]
+    n_tf += sum(r["threefry_bits"] for n in (2, 4) for r in multi[n]["spatial"].values())
     print(f"multi-device phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    from edm_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(8, timeout=300)
+    print(f"dry run (dryrun_multichip(8)): {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     api_phase(torch, device)
     rs_launches = production_zero_temperature(torch, device)

@@ -22,10 +22,11 @@ JAX round (the dense 1-D tables, the separable tables of fully periodic
 2-D/3-D grids, the McGovern–De Pablo tables of the other 2-D/3-D grids,
 the windowed scatter), multi-pass rounds and replay heights, and the
 per-step record a host emits for the HILLS log (``HillRoundLog``,
-``round_log_zeros``), and ``axis_name``: the round's bias psummed over the
-ranks of a mesh (``parallel.collectives``).  Not ported yet:
-``boundary_offset``, the spatial host's local-to-global shift (ROADMAP
-Queue 1, item 7c), which raises ``NotImplementedError``.
+``round_log_zeros``), ``axis_name``: the round's bias psummed over the
+ranks of a mesh (``parallel.collectives``), and ``boundary_offset``: the
+local-to-global shift of the spatial host's grids (``parallel/spatial.py``),
+with which every boundary-relative term is evaluated at ``x +
+boundary_offset``.
 """
 
 from __future__ import annotations
@@ -174,19 +175,22 @@ def subdivide(
     return params, state
 
 
-def update_forces(params: BiasParams, state: BiasState, positions, mask=None, packed=None):
+def update_forces(params: BiasParams, state: BiasState, positions, mask=None, packed=None,
+                  boundary_offset=None):
     """Batched bias energy and derivative lookup (edm_bias.cpp:276-311).
     ``positions`` (N, >= D): the first D components are the CV.  Returns
     (total energy, der (N, D)); the host applies ``forces[:, :D] -= der``.
     ``mask`` (N,) bool zeroes the unmasked rows; ``packed``: the bias
-    grid's ``ops/interp.packed_corner_table``, if the host keeps one."""
+    grid's ``ops/interp.packed_corner_table``, if the host keeps one;
+    ``boundary_offset`` (D,): the local-to-global shift of a grid in local
+    coordinates against a global boundary (the spatial host)."""
     D = params.cfg.dim
     dtype = state.bias.dtype
     x = positions[..., :D]
     if params.b_outofbounds:
         return (torch.zeros((), dtype=dtype, device=x.device),
                 torch.zeros(x.shape, dtype=dtype, device=x.device))
-    v, der = state.bias.get_value_deriv(x, packed=packed)
+    v, der = state.bias.get_value_deriv(x, packed=packed, boundary_offset=boundary_offset)
     if mask is not None:
         zero = torch.zeros((), dtype=dtype, device=x.device)
         v = torch.where(mask, v, zero)
@@ -275,18 +279,23 @@ def round_prefactor(params: BiasParams, state: BiasState) -> torch.Tensor:
     return pref
 
 
-def _hill_heights(params, bias_grid, positions, est_hill_count, pref):
+def _hill_heights(params, bias_grid, positions, est_hill_count, pref, target_positions=None,
+                  boundary_offset=None):
     """Tempered, normalized, clamped per-hill heights (edm_bias.cpp:543-558)
-    evaluated against ``bias_grid``."""
+    evaluated against ``bias_grid``.  ``target_positions``: where the target
+    grid is evaluated when that differs from ``positions`` (the spatial
+    host's local grid against its global target)."""
     cfg = params.cfg
     kT = params.boltzmann_factor
     h = torch.ones(positions.shape[:1], dtype=bias_grid.dtype,
                    device=positions.device) * pref
     if params.target is not None:
-        h = h * torch.exp(params.target.get_value(positions) - params.expected_target)
+        tp = positions if target_positions is None else target_positions
+        h = h * torch.exp(params.target.get_value(tp) - params.expected_target)
     if cfg.b_tempering and cfg.global_tempering < 0:
         # strict `< 0` as in edm_bias.cpp:547 (the code wins over the README)
-        h = h * torch.exp(-bias_grid.get_value(positions) / ((cfg.bias_factor - 1) * kT))
+        h = h * torch.exp(-bias_grid.get_value(positions, boundary_offset=boundary_offset)
+                          / ((cfg.bias_factor - 1) * kT))
     if cfg.hill_density < 0:
         h = h / device_const(est_hill_count, h.device, h.dtype)
     else:
@@ -294,12 +303,16 @@ def _hill_heights(params, bias_grid, positions, est_hill_count, pref):
     return torch.clamp(h, max=BIAS_CLAMP * cfg.bias_per_step)
 
 
-def hill_heights(params: BiasParams, state: BiasState, positions, est_hill_count):
+def hill_heights(params: BiasParams, state: BiasState, positions, est_hill_count,
+                 target_positions=None, boundary_offset=None):
     """The heights this replica attaches to new hills, against the
-    round-start grid."""
+    round-start grid (the spatial host's outgoing hills);
+    ``target_positions`` and ``boundary_offset``: see ``_hill_heights``
+    and ``update_forces``."""
     positions = positions.to(state.bias.dtype)[..., : params.cfg.dim]
     pref = round_prefactor(params, state)
-    return _hill_heights(params, state.bias, positions, est_hill_count, pref)
+    return _hill_heights(params, state.bias, positions, est_hill_count, pref,
+                         target_positions=target_positions, boundary_offset=boundary_offset)
 
 
 def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
@@ -332,10 +345,12 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     ``axis_name``: the mesh axis (``parallel.make_mesh``) over which the
     round's bias is summed into ``cum_bias`` (update_height's Allreduce,
     edm_bias.cpp:922-931); every rank of the mesh must call the round.  The
-    record keeps this rank's own ``round_bias``, as the JAX round's does."""
-    if boundary_offset is not None:
-        raise NotImplementedError(
-            "boundary_offset (the spatial host) is not ported yet (ROADMAP Queue 1, item 7c)")
+    record keeps this rank's own ``round_bias``, as the JAX round's does.
+
+    ``boundary_offset`` (D,): the local-to-global shift of the spatial
+    host's grids: the drain and every pass evaluate the boundary terms,
+    masks and boundary copies at ``x + boundary_offset``, and the McGDP
+    table route is off (as in the JAX round)."""
     cfg = params.cfg
     D = cfg.dim
     dtype = state.bias.dtype
@@ -383,30 +398,30 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
     use_dense2 = (D in (2, 3) and not params.exact_deposit and all(gs.grid.periodic)
                   and all(gs.boundary_periodic) and windows_fit)
     use_dense2m = (D in (2, 3) and not params.exact_deposit and not all(gs.boundary_periodic)
-                   and windows_fit)
+                   and boundary_offset is None and windows_fit)
 
     def _tables(bias_g, pos):
         """(deposit tables, unit integrals s) from the grid's geometry."""
         if use_dense:
-            Mval, Mder, s = dense_tables_1d(bias_g, pos)
+            Mval, Mder, s = dense_tables_1d(bias_g, pos, boundary_offset)
             return (Mval, Mder), s
         if use_dense2:
             return dense_tables_sep(bias_g, pos)
         if use_dense2m:
             tabs = dense_tables_mcgdp(bias_g, pos)
             return tabs, tabs.s
-        hw = hill_windows(bias_g, pos)
+        hw = hill_windows(bias_g, pos, boundary_offset)
         return hw, torch.sum(hw.value_w, dim=-1) * vol
 
     def _deposit(bias_g, tabs, dep_h):
         """(new grid, host reads)."""
         if use_dense:
-            return deposit_from_tables(bias_g, tabs[0], tabs[1], dep_h), 0
+            return deposit_from_tables(bias_g, tabs[0], tabs[1], dep_h, boundary_offset), 0
         if use_dense2:
             return deposit_from_tables_sep(bias_g, tabs, dep_h), 0
         if use_dense2m:
             return deposit_from_mcgdp(bias_g, tabs, dep_h)
-        return deposit_precomputed(bias_g, tabs, dep_h)[0], 0
+        return deposit_precomputed(bias_g, tabs, dep_h, boundary_offset)[0], 0
 
     # 1. global tempering (edm_bias.cpp:422-426)
     pref = round_prefactor(params, state)
@@ -481,7 +496,8 @@ def add_hills_round(params: BiasParams, state: BiasState, positions, runiform,
         if override_h is not None:
             h_p = override_h[sl]
         else:
-            h_p = _hill_heights(params, bias_c, pos_p, est_hill_count, pref)
+            h_p = _hill_heights(params, bias_c, pos_p, est_hill_count, pref,
+                                boundary_offset=boundary_offset)
         tabs_p, s_p = _tables(bias_c, pos_p)
         cr, n_reads = cap_scan(h_p, s_p, called_p, cap_bias, cum)
         bias_c, n_dep = _deposit(bias_c, tabs_p, cr.dep_heights)

@@ -1,12 +1,14 @@
 """Convert JAX-package states and parameters into the port's.
 
 The JAX package's ``BiasParams``, ``BiasState``, ``PairEDMState``,
-``CellPairState``, ``ShardedCellPairState`` and ``CoordEDMState`` are
-dataclass pytrees.  Flattened to nested dicts of
+``CellPairState``, ``ShardedCellPairState``, ``CoordEDMState`` and
+``SpatialCoordState`` are dataclass pytrees.  Flattened to nested dicts of
 numpy arrays and plain values (every dataclass a dict of its fields, every
 array a ``numpy.ndarray``), they are the data this system carries from one
 run to the next; ``state_from_numpy`` and ``params_from_numpy`` rebuild
-them as the port's dataclasses on ``device``.  Flattening the JAX objects is
+them as the port's dataclasses on ``device``; ``spatial_state_from_numpy``
+takes one rank's row of a spatial state, whose every array carries a
+leading device axis.  Flattening the JAX objects is
 the caller's step, so the port never imports jax.
 
 Float arrays keep their dtype, integer arrays become int64, the Threefry key
@@ -30,6 +32,7 @@ from .models.pair_edm import PairEDMState
 from .ops.chebyshev import ChebTable
 from .models.pair_edm_cells import CellPairState
 from .parallel.cells import ShardedCellPairState
+from .parallel.spatial import SpatialCoordState
 from .utils.config import EDMConfig
 
 
@@ -125,6 +128,25 @@ def state_from_numpy(tree: dict, device="cuda"):
     if "cv_hist" in tree:
         return _bias_state(tree, device)
     raise ValueError(f"not a known state: keys {sorted(tree)}")
+
+
+def _row(tree, rank: int):
+    """Row ``rank`` of every array of a tree (its leading device axis)."""
+    if isinstance(tree, dict):
+        return {k: _row(v, rank) for k, v in tree.items()}
+    return np.asarray(tree)[rank] if isinstance(tree, np.ndarray) else tree
+
+
+def spatial_state_from_numpy(stacked_numpy_state: dict, rank: int,
+                             device="cuda") -> SpatialCoordState:
+    """Row ``rank`` of a flattened JAX ``SpatialCoordState`` (every array
+    with a leading device axis) -> this rank's ``parallel.spatial``
+    state on ``device``."""
+    d = _row(stacked_numpy_state, rank)
+    t = {k: _tensor(d[k], device) for k in ("x", "v", "f", "valid", "step", "energy")}
+    trunc = None if d.get("hills_truncated") is None else _tensor(d["hills_truncated"], device)
+    return SpatialCoordState(key=np.asarray(d["key"], np.uint32),
+                             bias=_bias_state(d["bias"], device), hills_truncated=trunc, **t)
 
 
 def params_from_numpy(tree: dict, device="cuda") -> BiasParams:

@@ -6,7 +6,10 @@ height, so unit-height contributions are evaluated once per batch and
 committed with a product over hills or a scatter.  The McGovern–De Pablo
 boundary correction (gaussian_grid.h:299-355) is replicated exactly, with
 the boundary-table index computed host-side in float64 numpy
-(``_bc_point_index_np``), bit-for-bit the reference's truncation.
+(``_bc_point_index_np``), bit-for-bit the reference's truncation; with a
+``boundary_offset`` (the spatial host's local grids against a global
+boundary) it is computed on the device in the grid's dtype
+(``_bc_index``), as the JAX package does.
 
 Ported:
   - ``dense_tables_1d`` + ``deposit_from_tables`` (small 1-D grids) and
@@ -28,9 +31,12 @@ Ported:
     that decay with the Gaussian and dense boundary-strip fields for the
     correction terms, with the near-wall hill compaction of the strip
     passes (one host read of the strip counts per deposit);
-  - ``duplicate_boundary`` (static boundary, any D).
-Not ported yet: the ``boundary_offset`` forms of the spatial host and
-``_duplicate_boundary_dynamic`` (ROADMAP Queue 1, item 7c).
+  - ``duplicate_boundary`` (static boundary, any D; with a
+    ``boundary_offset``, ``_duplicate_boundary_dynamic``).
+``hill_windows``, ``dense_tables_1d``, ``deposit_from_tables``,
+``deposit_precomputed`` and ``duplicate_boundary`` take the
+``boundary_offset`` (D,) of the spatial host (``parallel/spatial.py``):
+every boundary-relative term is evaluated at ``x + boundary_offset``.
 """
 
 from __future__ import annotations
@@ -83,18 +89,30 @@ def _bc_point_index_np(spec, d: int) -> np.ndarray:
     return np.clip(t.astype(np.int32), 0, BC_TABLE_SIZE - 1)
 
 
+def _bc_index(xxd: torch.Tensor, bmin: float, span: float) -> torch.Tensor:
+    """McGDP table index of points ``xxd`` shifted by a boundary offset
+    (gaussian_grid.h:308), on the device in their dtype: the JAX package's
+    expression ``(BC_TABLE_SIZE - 1) * (xxd - bmin) / span``, each step one
+    IEEE operation (a true division), truncated toward zero and clipped."""
+    t = _div((BC_TABLE_SIZE - 1) * (xxd - bmin), span)
+    return torch.clamp(t.to(torch.int32), 0, BC_TABLE_SIZE - 1).to(torch.int64)
+
+
 @functools.lru_cache(maxsize=16)
 def _bc_point_index(spec, d: int, device) -> torch.Tensor:
     """``_bc_point_index_np`` on ``device``, copied once per grid."""
     return torch.as_tensor(_bc_point_index_np(spec, d).astype(np.int64), device=device)
 
 
-def _pointwise_contrib(gg: GaussGrid, xx, x, dp, dp2, valid, grid_idx):
+def _pointwise_contrib(gg: GaussGrid, xx, x, dp, dp2, valid, grid_idx, boundary_offset=None):
     """Unit-height (value, gradient) contribution of a hill centred at x to
     grid point xx: the Gaussian + McGovern–De Pablo block of
     gaussian_grid.h:299-355, sequential over dims with the running
     ``bc_denom``.  All arguments broadcast: xx/x/dp (..., D), dp2/valid
-    (...); ``grid_idx`` (..., D) integer lattice indices behind xx."""
+    (...); ``grid_idx`` (..., D) integer lattice indices behind xx.
+    ``boundary_offset`` (D,): xx and x are shifted by it in every
+    boundary-relative term (dp is shift-invariant), and the table index is
+    ``_bc_index`` of the shifted point, even for a zero offset."""
     spec = gg.spec
     D = spec.dim
     bmin = spec.boundary_min
@@ -110,7 +128,12 @@ def _pointwise_contrib(gg: GaussGrid, xx, x, dp, dp2, valid, grid_idx):
             xxd = xx[..., d]
             xcd = x[..., d]
             sig = sigma[d]
-            bc_idx = _bc_point_index(spec, d, xx.device)[grid_idx[..., d]]
+            if boundary_offset is None:
+                bc_idx = _bc_point_index(spec, d, xx.device)[grid_idx[..., d]]
+            else:
+                xxd = xxd + boundary_offset[d]
+                xcd = xcd + boundary_offset[d]
+                bc_idx = _bc_index(xxd, bmin[d], bmax[d] - bmin[d])
             temp1 = torch.exp(-((xcd - bmin[d]) ** 2) / sig**2)
             temp2 = sigmoid((xxd - bmin[d]) / (sig * BC_MAR))
             temp3 = torch.exp(-((xcd - bmax[d]) ** 2) / sig**2)
@@ -143,12 +166,20 @@ def _pointwise_contrib(gg: GaussGrid, xx, x, dp, dp2, valid, grid_idx):
     return value_w, torch.stack(deriv_dims, dim=-1)
 
 
-def hill_windows(gg: GaussGrid, centers: torch.Tensor) -> HillWindows:
+def _offset(boundary_offset, d):
+    """Dim d of a boundary offset, or 0.0 without one."""
+    return 0.0 if boundary_offset is None else boundary_offset[d]
+
+
+def hill_windows(gg: GaussGrid, centers: torch.Tensor, boundary_offset=None) -> HillWindows:
     """Unit-height contributions of hills at ``centers`` (H, D) on their
     static support windows (gaussian_grid.h:213-295): the window of
     ``2 minisize + 1`` points per dim around the centre's point, wrapped on
     periodic dims and clipped (and masked) on the others, the per-point
-    boundary mask, and the support cutoff dp^2 < GAUSS_SUPPORT."""
+    boundary mask, and the support cutoff dp^2 < GAUSS_SUPPORT.
+    ``boundary_offset`` (D,): the whole-hill rejection, the per-point mask
+    and the McGovern–De Pablo terms compare ``x + boundary_offset`` with the
+    boundary."""
     spec = gg.spec
     g = spec.grid
     D = spec.dim
@@ -163,7 +194,8 @@ def hill_windows(gg: GaussGrid, centers: torch.Tensor) -> HillWindows:
     hill_ok = torch.ones(x.shape[:1], dtype=torch.bool, device=dev)
     for d in range(D):
         if not spec.boundary_periodic[d]:
-            hill_ok = hill_ok & (x[:, d] >= bmin[d]) & (x[:, d] <= bmax[d])
+            xc = x[:, d] + _offset(boundary_offset, d)
+            hill_ok = hill_ok & (xc >= bmin[d]) & (xc <= bmax[d])
 
     # centre index, possibly negative (gaussian_grid.h:222-224), and the window
     x_index = torch.floor((x - gmin) / gdx).to(torch.int64)
@@ -187,7 +219,8 @@ def hill_windows(gg: GaussGrid, centers: torch.Tensor) -> HillWindows:
     # per-point boundary mask (gaussian_grid.h:272-276)
     for d in range(D):
         if not spec.boundary_periodic[d]:
-            valid = valid & (xx[..., d] >= bmin[d]) & (xx[..., d] <= bmax[d])
+            xg = xx[..., d] + _offset(boundary_offset, d)
+            valid = valid & (xg >= bmin[d]) & (xg <= bmax[d])
 
     # sigma-scaled distances with the periodic minimum image (gaussian_grid.h:285-295)
     dp_dims = []
@@ -201,7 +234,8 @@ def hill_windows(gg: GaussGrid, centers: torch.Tensor) -> HillWindows:
     dp2 = torch.sum(dp * dp, dim=-1)
     # inclusive epsilon on the support cutoff, as the JAX package
     valid = valid & (dp2 < GAUSS_SUPPORT + 1e-12)
-    value_w, deriv_w = _pointwise_contrib(gg, xx, x[:, None, :], dp, dp2, valid, idx)
+    value_w, deriv_w = _pointwise_contrib(gg, xx, x[:, None, :], dp, dp2, valid, idx,
+                                          boundary_offset)
     return HillWindows(idx=idx, value_w=value_w, deriv_w=deriv_w, valid=valid)
 
 
@@ -213,23 +247,37 @@ def hill_weights(gg: GaussGrid, centers: torch.Tensor) -> torch.Tensor:
     return torch.sum(hw.value_w, dim=-1) * float(np.prod(gg.spec.grid.dx))
 
 
-def deposit_precomputed(gg: GaussGrid, hw: HillWindows, heights):
+def deposit_precomputed(gg: GaussGrid, hw: HillWindows, heights, boundary_offset=None):
     """Scatter-add precomputed unit windows scaled by the heights; returns
     (new grid, per-hill bias_added (H,)).  CPU sums run in window order;
-    the card's ``index_put_`` adds in no fixed order."""
+    the card's ``index_put_`` adds in no fixed order.  A window point
+    outside the grid or the support adds an exact zero; it is sent to a
+    point of its own (its place in the batch modulo the grid size) rather
+    than to its clamped edge index, where a batch's masked rows (the spatial
+    host's empty exchange slots, hills beyond a rank's grid) would pile
+    millions of zeros onto one point and serialize the card's sorted
+    accumulate.  ``boundary_offset``: see ``duplicate_boundary``."""
     dtype = gg.dtype
     heights = heights.to(dtype)
     vol = float(np.prod(gg.spec.grid.dx))
     contrib = heights[:, None] * hw.value_w  # (H, W)
     bias_added = torch.sum(contrib, dim=-1) * vol
     D = gg.spec.dim
-    gather = tuple(i.reshape(-1) for i in hw.idx.unbind(-1))
-    values = gg.grid.values.index_put(gather, contrib.reshape(-1), accumulate=True)
+    shape = gg.grid.values.shape
+    lin = hw.idx[..., 0]
+    for d in range(1, D):
+        lin = lin * shape[d] + hw.idx[..., d]
+    lin = lin.reshape(-1)
+    spread = torch.remainder(torch.arange(lin.numel(), device=lin.device), gg.grid.values.numel())
+    lin = torch.where(hw.valid.reshape(-1), lin, spread)
+    values = gg.grid.values.reshape(-1).index_put((lin,), contrib.reshape(-1),
+                                                  accumulate=True).reshape(shape)
     dcontrib = heights[:, None, None] * hw.deriv_w
-    derivs = gg.grid.derivs.index_put(gather, dcontrib.reshape(-1, D), accumulate=True)
+    derivs = gg.grid.derivs.reshape(-1, D).index_put((lin,), dcontrib.reshape(-1, D),
+                                                     accumulate=True).reshape(gg.grid.derivs.shape)
     out = dataclasses.replace(gg, grid=dataclasses.replace(gg.grid, values=values, derivs=derivs))
     if any(not p for p in gg.spec.boundary_periodic):
-        out = duplicate_boundary(out)
+        out = duplicate_boundary(out, boundary_offset)
     return out, bias_added
 
 
@@ -297,17 +345,18 @@ def deposit_from_tables_sep(gg: GaussGrid, tabs, heights) -> GaussGrid:
     return dataclasses.replace(gg, grid=dataclasses.replace(gg.grid, values=values, derivs=derivs))
 
 
-def _hill_ok_1d(gg: GaussGrid, x):
+def _hill_ok_1d(gg: GaussGrid, x, boundary_offset=None):
     """Whole-hill rejection outside a non-periodic boundary
     (gaussian_grid.h:213-216); x (H, 1) remapped centres."""
     spec = gg.spec
     ok = torch.ones(x.shape[:1], dtype=torch.bool, device=x.device)
     if not spec.boundary_periodic[0]:
-        ok = ok & (x[:, 0] >= spec.boundary_min[0]) & (x[:, 0] <= spec.boundary_max[0])
+        xc = x[:, 0] + _offset(boundary_offset, 0)
+        ok = ok & (xc >= spec.boundary_min[0]) & (xc <= spec.boundary_max[0])
     return ok
 
 
-def _dense_contrib_1d(gg: GaussGrid, x, hill_ok, i0: int, n: int):
+def _dense_contrib_1d(gg: GaussGrid, x, hill_ok, i0: int, n: int, boundary_offset=None):
     """(value_w (n, H), deriv_w (n, H)) at grid points i0..i0+n-1."""
     spec = gg.spec
     g = spec.grid
@@ -316,7 +365,8 @@ def _dense_contrib_1d(gg: GaussGrid, x, hill_ok, i0: int, n: int):
     gxs = g.min[0] + g.dx[0] * gi.to(dtype)
     point_ok = torch.ones_like(gi, dtype=torch.bool)
     if not spec.boundary_periodic[0]:
-        point_ok = point_ok & (gxs >= spec.boundary_min[0]) & (gxs <= spec.boundary_max[0])
+        gxo = gxs + _offset(boundary_offset, 0)
+        point_ok = point_ok & (gxo >= spec.boundary_min[0]) & (gxo <= spec.boundary_max[0])
     dpd = gxs[:, None] - x[None, :, 0]
     if g.periodic[0]:
         L = g.max[0] - g.min[0]
@@ -326,26 +376,29 @@ def _dense_contrib_1d(gg: GaussGrid, x, hill_ok, i0: int, n: int):
     valid = point_ok[:, None] & hill_ok[None, :] & (dp2 < GAUSS_SUPPORT + 1e-12)
     gidx = gi[:, None, None]
     value_w, deriv_w = _pointwise_contrib(
-        gg, gxs[:, None, None], x[None, :, :], dp, dp2, valid, gidx
+        gg, gxs[:, None, None], x[None, :, :], dp, dp2, valid, gidx, boundary_offset
     )
     return value_w, deriv_w[..., 0]
 
 
-def dense_tables_1d(gg: GaussGrid, centers: torch.Tensor):
+def dense_tables_1d(gg: GaussGrid, centers: torch.Tensor, boundary_offset=None):
     """Unit-height dense tables for a 1-D grid: (Mval (G, H), Mder (G, H),
     s (H,)) such that depositing heights h is ``values += Mval @ h``,
-    ``derivs[:, 0] += Mder @ h`` and ``bias_added = h * s``."""
+    ``derivs[:, 0] += Mder @ h`` and ``bias_added = h * s``.
+    ``boundary_offset``: see ``hill_windows``."""
     spec = gg.spec
     assert spec.dim == 1
     x = gg.remap(centers.to(gg.dtype))
     G = spec.grid.nbins[0]
-    Mval, Mder = _dense_contrib_1d(gg, x, _hill_ok_1d(gg, x), 0, G)
+    Mval, Mder = _dense_contrib_1d(gg, x, _hill_ok_1d(gg, x, boundary_offset), 0, G,
+                                   boundary_offset)
     s = torch.sum(Mval, dim=0) * spec.grid.dx[0]
     return Mval, Mder, s
 
 
-def deposit_from_tables(gg: GaussGrid, Mval, Mder, heights) -> GaussGrid:
-    """Commit a dense-table deposit (a product over hills; no scatter)."""
+def deposit_from_tables(gg: GaussGrid, Mval, Mder, heights, boundary_offset=None) -> GaussGrid:
+    """Commit a dense-table deposit (a product over hills; no scatter).
+    ``boundary_offset``: see ``duplicate_boundary``."""
     heights = heights.to(gg.dtype)
     values = gg.grid.values + Mval @ heights
     derivs = gg.grid.derivs + (Mder @ heights)[:, None]
@@ -353,7 +406,7 @@ def deposit_from_tables(gg: GaussGrid, Mval, Mder, heights) -> GaussGrid:
         gg, grid=dataclasses.replace(gg.grid, values=values, derivs=derivs)
     )
     if any(not p for p in gg.spec.boundary_periodic):
-        out = duplicate_boundary(out)
+        out = duplicate_boundary(out, boundary_offset)
     return out
 
 
@@ -410,9 +463,70 @@ def _duplication_assignments(spec):
     return assignments
 
 
-def duplicate_boundary(gg: GaussGrid) -> GaussGrid:
+def _duplicate_boundary_dynamic(gg: GaussGrid, boundary_offset) -> GaussGrid:
+    """The reference's 4^D boundary copies (gaussian_grid.h:571-630) against
+    a boundary shifted by ``boundary_offset`` (D,): each dim's boundary rows
+    found on the device (the reference's while-adjust unrolled twice), and
+    a combination whose rows lie outside this grid switched off, so that a
+    grid with no boundary in range (a mid-brick rank) keeps its values."""
+    spec = gg.spec
+    g = spec.grid
+    D = spec.dim
+    dtype = gg.dtype
+    values = gg.grid.values
+    dev = values.device
+    min_i, max_i = [], []
+    for d in range(D):
+        off_d = boundary_offset[d].to(dtype)
+        blo = spec.boundary_min[d] - off_d  # the boundary in local coordinates
+        bhi = spec.boundary_max[d] - off_d
+        dx, gmin, nb = g.dx[d], g.min[d], g.nbins[d]
+        lo = torch.floor(_div(blo - gmin, dx)).to(torch.int64)
+        for _ in range(2):
+            lo = torch.where(lo.to(dtype) * dx + gmin < blo, lo + 1, lo)
+        hi = torch.floor(_div(bhi - gmin, dx)).to(torch.int64)
+        for _ in range(2):
+            hi = torch.where((hi.to(dtype) * dx + gmin > bhi) | (hi == nb), hi - 1, hi)
+        min_i.append(lo)
+        max_i.append(hi)
+
+    values = values.clone()
+    for combo in range(4**D):
+        temp = combo
+        outer, bound = [], []
+        valid = torch.ones((), dtype=torch.bool, device=dev)
+        for d in range(D):
+            off = temp % 4
+            temp //= 4
+            nb = g.nbins[d]
+            lo, hi = min_i[d], max_i[d]
+            in_rng = (lo >= 0) & (hi <= nb - 1) & (lo <= hi)
+            if off == 0:
+                valid = valid & (lo >= 1) & in_rng & (not spec.boundary_periodic[d])
+                o, b = lo - 1, lo
+            elif off == 1:
+                valid = valid & in_rng
+                o, b = lo, lo
+            elif off == 2:
+                valid = valid & in_rng
+                o, b = hi, hi
+            else:
+                valid = valid & (hi <= nb - 2) & in_rng & (not spec.boundary_periodic[d])
+                o, b = hi + 1, hi
+            outer.append(torch.clamp(o, 0, nb - 1).reshape(1))
+            bound.append(torch.clamp(b, 0, nb - 1).reshape(1))
+        outer, bound = tuple(outer), tuple(bound)
+        values.index_put_(outer, torch.where(valid, values[bound], values[outer]))
+    return dataclasses.replace(gg, grid=dataclasses.replace(gg.grid, values=values))
+
+
+def duplicate_boundary(gg: GaussGrid, boundary_offset=None) -> GaussGrid:
     """Copy boundary values outward so the bias outside the boundary stays
-    flat (zero force).  Values only; gradients there stay 0."""
+    flat (zero force).  Values only; gradients there stay 0.  With a
+    ``boundary_offset`` the boundary rows are found on the device
+    (``_duplicate_boundary_dynamic``)."""
+    if boundary_offset is not None:
+        return _duplicate_boundary_dynamic(gg, boundary_offset)
     values = gg.grid.values.clone()
     for outer, bound in _duplication_assignments(gg.spec):
         values[outer] = values[bound]

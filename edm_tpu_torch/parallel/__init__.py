@@ -14,11 +14,13 @@ Ported:
     work-sharded host (``ShardedCellPairState``, ``init_sharded_cell_state``,
     ``make_sharded_cell_step``);
   - ``coord``: ``shard_coord_state``, ``make_sharded_coord_step`` (the
-    sharded coordinate host).
-
-Not ported yet: the spatial host (``parallel/spatial.py``,
-``boundary_offset``) and the ``dryrun_multichip`` probes — ROADMAP Queue 1,
-item 7c.
+    sharded coordinate host);
+  - ``spatial``: ``spatial_subdivide``, ``init_spatial_state``,
+    ``make_spatial_coord_step``, ``rebin_spatial_atoms``,
+    ``gather_spatial_grid``, ``stitch_spatial_grid`` (the spatially-sharded
+    coordinate host: one brick of the CV grid per rank);
+  - ``dryrun``: ``dryrun_multichip``, the eight multi-device probes of
+    ``__graft_entry__.py``, each against the port's single-device hosts.
 """
 
 from .mesh import DATA_AXIS, Mesh, launch, make_brick_mesh, make_mesh, mesh_of
@@ -32,6 +34,14 @@ from .cells import (
     make_slab_cell_step,
 )
 from .coord import make_sharded_coord_step, shard_coord_state
+from .spatial import (
+    gather_spatial_grid,
+    init_spatial_state,
+    make_spatial_coord_step,
+    rebin_spatial_atoms,
+    spatial_subdivide,
+    stitch_spatial_grid,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -52,4 +62,10 @@ __all__ = [
     "init_sharded_cell_state",
     "make_sharded_coord_step",
     "shard_coord_state",
+    "spatial_subdivide",
+    "init_spatial_state",
+    "make_spatial_coord_step",
+    "rebin_spatial_atoms",
+    "gather_spatial_grid",
+    "stitch_spatial_grid",
 ]

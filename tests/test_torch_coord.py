@@ -316,10 +316,13 @@ def test_dynamic_hill_step():
 
 
 def test_unported_options_raise():
-    """What stays unported raises with its ROADMAP item: the spatial
-    host's ``boundary_offset``.  Record collection is ported: it builds,
-    static and dynamic; so is ``axis_name``, which on a one-rank mesh gives
-    the round without it."""
+    """Nothing raises any more: ``boundary_offset`` (the spatial host's) is
+    ported, and a round with a zero offset equals JAX's round with the same
+    offset, on the periodic grid (the separable route) and the McGDP one
+    (the offset turns the McGDP tables off: the windowed scatter), float64
+    at 1e-12 and the integer leaves exactly.  Record collection builds,
+    static and dynamic; so does ``axis_name``, which on a one-rank mesh
+    gives the round without it."""
     from edm_tpu_torch.parallel import make_mesh
 
     jparams, jbs, tparams, tbs = _round_setup(True, False)
@@ -336,5 +339,13 @@ def test_unported_options_raise():
     ref, _, _ = TB.add_hills_round(tparams, tbs, pos, run, 4)
     assert_tree(one, ref, 0.0, "one-rank axis_name round")
     assert float(one.cum_bias) > 0
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        TB.add_hills_round(tparams, tbs, pos, run, 4, boundary_offset=torch.zeros(2))
+    for periodic in (True, False):
+        jparams, jbs, tparams, tbs = _round_setup(periodic, False)
+        jnew, jrec = JB.add_hills_round(jparams, jbs, jnp.asarray(pos.numpy()),
+                                        jnp.asarray(run.numpy()), 4,
+                                        boundary_offset=jnp.zeros(2))
+        tnew, trec, _ = TB.add_hills_round(tparams, tbs, pos, run, 4,
+                                           boundary_offset=torch.zeros(2, dtype=torch.float64))
+        assert_tree(tnew, jnew, 1e-12, f"zero-offset round, periodic={periodic}")
+        assert_tree(trec, jrec, 1e-12, f"zero-offset records, periodic={periodic}")
+        assert float(tnew.cum_bias) > 0

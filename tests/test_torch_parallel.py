@@ -37,8 +37,8 @@ the columns alike.
     equal the single-device host's;
   - the port's own bitwise identities: ``slab_collect`` and ``shard_floor``
     True equal False, and every rank's state equals rank 0's;
-  - what still raises names its ROADMAP item (7c); the item-7b entry
-    points build.
+  - a round with a zero ``boundary_offset`` against JAX's; the item-7b
+    entry points build.
 """
 
 import dataclasses
@@ -483,10 +483,13 @@ def test_slab_host_ragged_lattice(tmp_path):
 
 
 def test_unported_multi_device_options_raise():
-    """Only item 7c still raises (``boundary_offset``, the spatial host);
-    the item-7b entry points build: ``make_brick_mesh`` (a one-rank mesh
-    here: a 2 x 2 grid needs 4 ranks), the brick step over a 1 x 1 grid,
-    the work-sharded cell step and ``make_cell_step(axis_name=...)``."""
+    """Nothing raises any more: a round with a zero ``boundary_offset`` (the
+    spatial host's; on this 1-D grid the dense tables with the table index
+    computed from the shifted points) equals JAX's round with the same
+    offset, float64 at 1e-12 and the integer leaves exactly.  The item-7b
+    entry points build: ``make_brick_mesh`` (a one-rank mesh here: a 2 x 2
+    grid needs 4 ranks), the brick step over a 1 x 1 grid, the work-sharded
+    cell step and ``make_cell_step(axis_name=...)``."""
     params, _, x0, box = _setup(8)
     tspec = tcells.CellSpec(**dataclasses.asdict(CellSpec.create(box, 3.0, x0.shape[0])))
     args = (to_port(params), TLP(dt=0.002, friction=1.0, kT=0.0), TLJ(), tspec, 2)
@@ -499,8 +502,15 @@ def test_unported_multi_device_options_raise():
     sharded = tpar.make_sharded_cell_step(*args, mesh=tpar.make_mesh(device="cpu"))
     assert sharded.chunks == 1 and sharded.Cp == 32
     assert tpc.make_cell_step(*args, use_pallas=True, axis_name="dp").axis_name == "dp"
-    tparams, tbs = TB.subdivide(parse_edm_text(CFG), 1.0, 1.0, [0], [3.0], [0], [3.0], [False],
-                                [0], dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        TB.add_hills_round(tparams, tbs, torch.zeros(4, 1), torch.zeros(4), 4,
-                           boundary_offset=torch.zeros(1))
+    jparams, jbs = JB.subdivide(parse_edm_text(CFG), 1.0, 1.0, [0], [3.0], [0], [3.0], [False],
+                                [0], dtype=jnp.float64)
+    rng = np.random.default_rng(6)
+    pos, run = rng.uniform(0.05, 2.95, (16, 1)), rng.uniform(0.0, 0.5, 16)
+    jnew, jrec = JB.add_hills_round(jparams, jbs, jnp.asarray(pos), jnp.asarray(run), 16,
+                                    boundary_offset=jnp.zeros(1))
+    tnew, trec, _ = TB.add_hills_round(to_port(jparams), to_port(jbs), torch.as_tensor(pos),
+                                       torch.as_tensor(run), 16,
+                                       boundary_offset=torch.zeros(1, dtype=torch.float64))
+    assert_tree(tnew, jnew, 1e-12, "zero-offset round")
+    assert_tree(trec, jrec, 1e-12, "zero-offset records")
+    assert float(tnew.cum_bias) > 0
