@@ -33,12 +33,14 @@ F64 = torch.float64
 FROZEN = LangevinParams(dt=1e-8, friction=0.0, kT=0.0)
 
 
-def _host(mesh, cfg, x0, skin, seed=0, lp=FROZEN, capacity=4, setup_kw=None, **step_kw):
+def _host(mesh, cfg, x0, skin, seed=0, lp=FROZEN, capacity=4, setup_kw=None, hill_stride=1,
+          **step_kw):
     """(setup, state, step) of the spatial host on ``mesh`` in float64."""
+    setup_kw = dict(setup_kw)
     setup, tmpl = S.spatial_subdivide(parse_edm_text(cfg), 1.0, 1.0, setup_kw.pop("parts"),
                                       skin, dtype=F64, device="cpu", **setup_kw)
     state = S.init_spatial_state(setup, tmpl, x0, prng.PRNGKey(seed), capacity, mesh)
-    return setup, state, S.make_spatial_coord_step(setup, lp, 1, mesh, **step_kw)
+    return setup, state, S.make_spatial_coord_step(setup, lp, hill_stride, mesh, **step_kw)
 
 
 def _steps(step, state, n):
@@ -171,6 +173,31 @@ def overlap(mesh, cfg, x0, skin):
     return out
 
 
+def harmonic(x):
+    """A harmonic well at x = 5 along dim 0 (per-atom energies, forces)."""
+    d = x - torch.tensor([5.0, 0.0, 0.0], dtype=x.dtype)
+    return 0.15 * torch.sum(d * d, dim=-1), -0.3 * d
+
+
+def external(mesh, cfg, x0, skin):
+    """Four steps with an external force and hill_stride 2: the dynamic
+    step, and the static hill and plain steps through ``strided_segment``."""
+    from edm_tpu_torch.models.driver import strided_segment
+
+    lp = LangevinParams(dt=1e-3, friction=0.0, kT=0.0)
+    kw = dict(lp=lp, setup_kw=dict(parts=8), hill_stride=2, external_force=harmonic)
+    _, state, step = _host(mesh, cfg, x0, skin, **kw)
+    energies = []
+    for _ in range(4):
+        state, e = step(state)
+        energies.append(float(e))
+    pair = [_host(mesh, cfg, x0, skin, **kw, static_do_hills=h)[2] for h in (True, False)]
+    _, state0, _ = _host(mesh, cfg, x0, skin, **kw)
+    static, _ = strided_segment(pair[0], pair[1], 2, 4)(state0)
+    return _row(state, energies=energies, static=to_numpy_tree(static),
+                host_syncs=(step.host_syncs, pair[0].host_syncs, pair[1].host_syncs))
+
+
 def brick_serial(mesh, cfg, x0, skin, periodic, n_rounds=2):
     """A (2, 4) brick run against the port's serial windowed engine: the
     stitched grid and the windowed deposits of the same hills at the
@@ -195,7 +222,7 @@ def brick_serial(mesh, cfg, x0, skin, periodic, n_rounds=2):
 
 CASES = {f.__name__: f for f in (targeting, initial_bias, nonperiodic, density, compacted,
                                  wraparound, rebin, hills_logging, write_roundtrip, brick_rebin,
-                                 overlap, brick_serial)}
+                                 overlap, external, brick_serial)}
 
 
 def spatial_cases(path: str):

@@ -14,9 +14,10 @@ against the JAX package.
     module, its ranks running every case) against JAX's host on conftest's
     8 CPU devices: each rank's state against JAX's row of it in float64 at
     1e-12 (the key, counters, flags, masks and histogram counts exactly),
-    the stitched grids at 1e-12, the written files number by number; and
-    ``convert.spatial_state_from_numpy`` and ``spatial_subdivide``'s
-    geometry against JAX's.
+    the stitched grids at 1e-12, the written files number by number; an
+    external force against JAX's, with the static phases bitwise the
+    dynamic step; and ``convert.spatial_state_from_numpy`` and
+    ``spatial_subdivide``'s geometry against JAX's.
 """
 
 import dataclasses
@@ -239,18 +240,19 @@ def _port_cases(out_dir):
         ("brick_write", dict(case="write_roundtrip", cfg=EDM2D, x0=_brick_atoms(), skin=SKIN,
                              out_dir=out_dir, dim=2, parts=(2, 4))),
         ("overlap", dict(cfg=EDM, x0=_slab_atoms(), skin=SKIN)),
+        ("external", dict(cfg=EDM + "hill_density 8\n", x0=_slab_atoms(), skin=SKIN)),
     ]
 
 
-def _jax_host(cfg, x0, seed=0, lp=None, parts=N_DEV, setup_kw=(), **step_kw):
+def _jax_host(cfg, x0, seed=0, lp=None, parts=N_DEV, setup_kw=(), hill_stride=1, **step_kw):
     setup, tmpl = JS.spatial_subdivide(parse_edm_text(cfg), 1.0, 1.0, parts, SKIN,
                                        dtype=jnp.float64, **dict(setup_kw))
     mesh = make_mesh(N_DEV)
     state = JS.init_spatial_state(setup, tmpl, x0, jax.random.PRNGKey(seed), capacity=4,
                                   mesh=mesh)
     lp = lp or JLP(dt=1e-8, friction=0.0, kT=0.0)
-    return setup, mesh, state, JS.make_spatial_coord_step(setup, lp, hill_stride=1, mesh=mesh,
-                                                          **step_kw)
+    return setup, mesh, state, JS.make_spatial_coord_step(setup, lp, hill_stride=hill_stride,
+                                                          mesh=mesh, **step_kw)
 
 
 def _jax_steps(step, state, n):
@@ -341,6 +343,19 @@ def _jax_cases(tmp):
         _, _, st, step = _jax_host(EDM, _slab_atoms(), lp=JLP(dt=1e-8, friction=0.0, kT=0.5),
                                    overlap_capacity=cap)
         out["overlap"][name] = to_numpy_tree(_jax_steps(step, st, n)[0])
+
+    def harmonic(x):
+        d = x - jnp.asarray([5.0, 0.0, 0.0], x.dtype)
+        return 0.15 * jnp.sum(d * d, axis=-1), -0.3 * d
+
+    _, _, st, step = _jax_host(EDM + "hill_density 8\n", _slab_atoms(),
+                               lp=JLP(dt=1e-3, friction=0.0, kT=0.0), hill_stride=2,
+                               external_force=harmonic)
+    energies = []
+    for _ in range(4):
+        st, e = step(st)
+        energies.append(float(e))
+    out["external"] = dict(state=to_numpy_tree(st), energies=energies)
     return out
 
 
@@ -562,3 +577,20 @@ def test_spatial_state_from_numpy_and_setup(runs):
         assert ts.params.total_volume == js.params.total_volume
         assert to_numpy_tree(tt.bias.spec) == to_numpy_tree(jt.bias.spec)
         assert_tree(tt, jt, 0.0, f"template {cfg[:20]} {parts}")
+
+
+def test_spatial_external_force_and_static_phases(runs):
+    """An external force (a harmonic well) with hill_stride 2 against
+    JAX's dynamic step, float64 at 1e-12; the static hill and plain steps
+    through ``strided_segment`` bitwise the dynamic step, which counts one
+    host read a step."""
+    port, ref = runs
+    j = ref["external"]
+    _rows_match([p["external"]["state"] for p in port], j["state"], "external force")
+    for p in port:
+        np.testing.assert_allclose(p["external"]["energies"], j["energies"], rtol=1e-12)
+        assert_tree(p["external"]["static"], p["external"]["state"], 0.0, "static phases")
+        assert p["external"]["host_syncs"][0] == 4 + p["external"]["host_syncs"][1]
+        assert p["external"]["host_syncs"][2] == 0
+    assert float(ref["external"]["state"]["bias"]["cum_bias"][0]) > 0
+    assert np.abs(np.diff(j["energies"])).max() > 0
