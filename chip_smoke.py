@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives fourteen paths of the port through their CUDA kernels and checks
+Drives fifteen paths of the port through their CUDA kernels and checks
 each kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -8,6 +8,9 @@ each kernel against its plain PyTorch version on the same card:
     151-point grid, kernel_cap 24, overflow_cap 32, energy stride 10, the
     hills / 8 plain / rebuild stride cycle) with the exact Hermite lookup:
     K1 ``cell_force_newton`` and K2 ``overflow_force``;
+  - the same step on ``bench.py:378-382``'s 100,000-atom cell (47^3
+    lattice sites, cells 19^3, nothing cut), the north-star scale: K1 and
+    K2 again, the hill collection's pass 1 in six chunks of whole cells;
   - the same step with the Chebyshev lookup (``pair_lookup="chebyshev"``,
     4 panels of degree 16, refit after every hill round): K1 and K2 with
     the Clenshaw chains (K3);
@@ -70,7 +73,18 @@ path 20 steps at kT = 0 through the kernels, each step held to the same
 step through the plain versions, then the bench's kT = 0.8 run with the
 launch counters reset (rate, host syncs, the device-busy share of a
 stride cycle, end-state checks; the typed path also holds its first hill
-round's candidates below the untyped round's); the deposition run (hills/s,
+round's candidates below the untyped round's); after the exact path, the
+sampled g(r) at kT = 0.8: 300 steps from one thermalized state through
+the kernels and through the plain versions with the same key, and through
+the kernels with another key, the first two within twice the distance of
+the kernel runs plus ``GOFR_FLOOR`` (L1 of the normalized histograms);
+after the five 10k paths, the 100k cell: 10 kT = 0 steps from a
+thermalized state (200 kT = 0.8 steps) held to the plain versions, the
+bench's segment at kT = 0.8 (360 warm-up and 360 timed steps, the same
+prints and checks), the counter hash's share of a stride cycle's device
+time, a hill step's peak memory with pass 1 chunked (below 2 GB) and in
+one chunk, and K1 and K2 against their plain versions on its state, with
+each part's seconds; the deposition run (hills/s,
 host syncs, device-busy share and device launches of a round; its final
 grid held to the same rounds through the plain versions); the Threefry
 kernel against the numpy chain, bitwise; the 2-D slice, 20 kT = 0 steps
@@ -135,7 +149,8 @@ failed check raises, and the script exits non-zero without the last line.
 ``python3 chip_smoke.py --ab-slice OTHER`` times only the exact-lookup
 kT = 0.8 run and the 256-round deposition, of the checkout OTHER (say, the
 parent commit unpacked by ``git archive``) and of this one in turns, to
-compare the two in one call (steps/s and hills/s, medians and ranges).
+compare the two in one call (steps/s, hills/s and the device launches of
+one 10k hill step; medians and ranges).
 ``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
 way: the device time per launch of every entry of the ``kernels`` line,
 from the profile of a stride cycle of each MD path and of a deposition
@@ -156,6 +171,7 @@ import warnings
 import numpy as np
 
 N_ATOMS = 10000  # the bench's 10k cell
+BIG_N = 100000  # bench.py:378-382's 100k cell, the north-star scale
 # the MD paths: the bench's default force path with each lookup, and the
 # other force paths (no kernel_cap: the JAX host allows it only on the
 # default path, untyped)
@@ -197,10 +213,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bench_types():
+def bench_types(n_atoms=None):
     """The binary mixture of tests/test_md.py's type test: every other atom
-    type 2, the rest type 1."""
-    return np.where(np.arange(N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
+    type 2, the rest type 1 (``n_atoms`` atoms, default ``N_ATOMS``)."""
+    return np.where(np.arange(n_atoms or N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
 
 
 def bench_bias(torch, device):
@@ -235,8 +251,10 @@ def bench_lattice(n_atoms):
     return pts, [side * a] * 3
 
 
-def bench_setup(torch, kT: float, device, path="interp", dynamic=False, mesh=None, **extra):
-    """The bench_pairwise configuration, built through the port's entry
+def bench_setup(torch, kT: float, device, path="interp", dynamic=False, mesh=None,
+                n_atoms=None, **extra):
+    """The bench_pairwise configuration at ``n_atoms`` atoms (default
+    ``N_ATOMS``), built through the port's entry
     points: bias.subdivide -> pair_edm.init_state -> CellSpec.create ->
     init_cell_state, and the three static phase steps of ``path``
     (``PATHS``, or "xla": the XLA force pass, ``use_pallas=False``, at full
@@ -259,23 +277,24 @@ def bench_setup(torch, kT: float, device, path="interp", dynamic=False, mesh=Non
     build = make_cell_step if mesh is None else (
         lambda *a, **kw: sharded(*a, mesh=mesh, **kw, **extra))
     opts = dict(use_pallas=False) if path == "xla" else PATHS[path]
+    n_atoms = n_atoms or N_ATOMS
     params, bias_state = bench_bias(torch, device)
-    pts, box = bench_lattice(N_ATOMS)
+    pts, box = bench_lattice(n_atoms)
     lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
     lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
     core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32,
                                                         device=device),
-                               PRNGKey(0), n_est=N_ATOMS * 40,
+                               PRNGKey(0), n_est=n_atoms * 40,
                                pair_lookup=opts.get("pair_lookup", "interp"), **CHEB)
-    spec = CellSpec.create(box, cutoff=3.05, n_atoms=N_ATOMS)
+    spec = CellSpec.create(box, cutoff=3.05, n_atoms=n_atoms)
     kw = dict(hill_stride=10, rebuild_stride=10, hill_capacity=2048, cell_chunk=81,
               use_pallas=True, energy_stride=10)
     st_kw = dict(with_ids=opts.get("with_ids", False))
     if "use_pallas" in opts:
         kw["use_pallas"] = opts["use_pallas"]
     elif opts.get("typed"):
-        kw.update(types=bench_types(), type_pair=TYPE_PAIR)
-        st_kw["types"] = bench_types()
+        kw.update(types=bench_types(n_atoms), type_pair=TYPE_PAIR)
+        st_kw["types"] = bench_types(n_atoms)
     else:
         kw.update(kernel_cap=24, overflow_cap=32)
         st_kw.update(kernel_cap=24, overflow_cap=32)
@@ -544,6 +563,19 @@ def kernel_phase(torch, device, pair_lookup="interp"):
     else:
         tables = {"cheb P=4 deg=16": state.core.cheb,
                   "cheb P=1 deg=64": fit_gauss_grid(state.core.bias.bias, 64, 1)}
+    rows = k1k2_rows(torch, spec, state, step, tables)
+    print_rows(rows)
+    return rows
+
+
+def k1k2_rows(torch, spec, state, step, tables, ks=(24, 32), tag=""):
+    """K1 at each k of ``ks`` (energy off and on) and K2 on the state's live
+    tail (energy off and on) against their plain versions on ``state``,
+    with each of ``tables``: {row name: (max |diff|, kernel ms, plain ms,
+    bound ms, what bounds it)}; ``tag`` follows the wrapper's name in the
+    row names."""
+    from edm_tpu_torch.ops import cellforce as CF
+
     xs, mc = state.xs, state.mc
     xo, xp = step._overflow_inputs(state, xs)
     n_tail = int((xo[3] > 0.5).sum())
@@ -551,13 +583,13 @@ def kernel_phase(torch, device, pair_lookup="interp"):
         raise AssertionError("K2 check needs a real tail: the bench state has none")
     rows = {}
     for tname, tbl in tables.items():
-        for k in (24, 32):
+        for k in ks:
             for energy in (False, True):
                 kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=step.lj, energy=energy)
                 f, eb = CF.cell_force_newton(xs, mc, tbl, **kw)
                 f_ref, eb_ref = CF.cell_force_newton_ref(xs, mc, tbl, **kw)
                 torch.cuda.synchronize()
-                what = f"cell_force_newton {tname} k={k} energy={int(energy)}"
+                what = f"cell_force_newton{tag} {tname} k={k} energy={int(energy)}"
                 err = check_forces(what, f, f_ref)
                 check_energy(what, eb.sum(), eb_ref.sum())
                 ms = cuda_ms(torch, lambda: CF.cell_force_newton(xs, mc, tbl, **kw))
@@ -569,14 +601,13 @@ def kernel_phase(torch, device, pair_lookup="interp"):
             fo, fp = CF.overflow_force(xo, xp, tbl, **kw)
             fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tbl, **kw)
             torch.cuda.synchronize()
-            what = f"overflow_force {tname} tail={n_tail} energy={int(energy)}"
+            what = f"overflow_force{tag} {tname} tail={n_tail} energy={int(energy)}"
             err = max(check_forces(what + " fo", fo[:3], fo_ref[:3]),
                       check_forces(what + " fp", fp, fp_ref))
             check_energy(what, fo[3].sum(), fo_ref[3].sum())
             ms = cuda_ms(torch, lambda: CF.overflow_force(xo, xp, tbl, **kw))
             plain = cuda_ms(torch, lambda: CF.overflow_force_ref(xo, xp, tbl, **kw), reps=10)
             rows[what] = (err, ms, plain) + k2_work(xo, xp, tbl, step.lj, spec.box, energy)
-    print_rows(rows)
     return rows
 
 
@@ -729,23 +760,35 @@ def states_match(torch, ks, ps, i, box, table):
     return n_edge
 
 
-def slice_zero_temperature(torch, device, path="interp", n_steps=20):
+def slice_zero_temperature(torch, device, path="interp", n_steps=20, n_atoms=None,
+                           warm_steps=0):
     """20 steps at kT = 0 through the kernels; each step is also taken
     through the plain versions from the same input state and the two
     results are held to each other.  (Two free-running f32 trajectories
     part after ~15 steps at 10k atoms: a 1-ulp position difference can move
-    a pair distance across a table node or edge.)"""
-    spec, state, steps = bench_setup(torch, 0.0, device, path)
-    n_edge = 0
+    a pair distance across a table node or edge.)  With ``warm_steps``, the
+    steps start from the state of that many kT = 0.8 steps
+    (``thermalized``).  Returns how many of the steps ran K2."""
+    from edm_tpu_torch.ops import cellforce as CF
+
+    spec, state, steps = bench_setup(torch, 0.0, device, path, n_atoms=n_atoms)
+    if warm_steps:
+        state = thermalized(torch, device, path, warm_steps, n_atoms)
+    n_edge, k2 = 0, 0
     for i in range(n_steps):
         step = steps[0 if i % 10 == 0 else 2 if i % 10 == 9 else 1]
         table = state.core.cheb
         with plain_versions():
             plain, _ = step(state)
+        k2_before = CF.overflow_force.launches
         state, _ = step(state)
+        k2 += CF.overflow_force.launches > k2_before
         n_edge += states_match(torch, state, plain, i, spec.box, table)
-    print(f"kT=0 {path}: {n_steps} steps through the kernels match the plain versions "
-          f"step for step (same input state each step; {n_edge} atom(s) by a table-edge pair)")
+    label = path if n_atoms is None else f"{path} N={n_atoms}"
+    print(f"kT=0 {label}: {n_steps} steps through the kernels match the plain versions "
+          f"step for step (same input state each step; {n_edge} atom(s) by a table-edge pair; "
+          f"{k2} step(s) ran K2)")
+    return k2
 
 
 def sync_census(torch, steps, state):
@@ -766,13 +809,17 @@ def sync_census(torch, steps, state):
     return state, counts
 
 
-def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
+def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_atoms=None):
     """The bench's kT = 0.8 run of ``path`` through the kernels: the launch
-    counters are set to 0 just before it and read just after."""
+    counters are set to 0 just before it and read just after.  Returns
+    {"rate": steps/s, "launches": the force wrappers', "device_ms": device
+    ms a launch of each, "dev_us": a stride cycle's device µs, "state",
+    "steps"}."""
     from edm_tpu_torch.models.driver import pattern_segment
     from edm_tpu_torch.ops import cellforce as CF
 
-    spec, state, steps = bench_setup(torch, 0.8, device, path)
+    spec, state, steps = bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
+    label = path if n_atoms is None else f"{path} N={n_atoms}"
     calls = {}
     if path == "typed":  # one hill round, typed and untyped, from this state
         _, st_u, steps_u = bench_setup(torch, 0.8, device)
@@ -784,6 +831,8 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
         getattr(CF, name).launches = 0
     state, e_warm = pattern_segment(pattern(steps), warm_steps)(state)
     torch.cuda.synchronize()
+    warm_tail = (f"tail after warm-up {int(state.tail_count)} (fallback periods "
+                 f"{int(state.tail_fallbacks)}), " if state.tail_count is not None else "")
     syncs0 = sum(s.host_syncs for s in steps)
     t0 = time.perf_counter()
     state, e = pattern_segment(pattern(steps), timed_steps)(state)
@@ -794,7 +843,7 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
     # device time of one stride cycle (two cycles from this state), beside
     # the timed run's wall time per cycle
     dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
-    print(busy_line(f"kT=0.8 {path} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    print(busy_line(f"kT=0.8 {label} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
     state, census = sync_census(torch, steps, state)
     core = state.core
     n_steps = warm_steps + timed_steps
@@ -823,18 +872,185 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300):
         checks["typed round collects fewer candidates"] = 0 < calls["typed"] < calls["untyped"]
     if core.cheb is not None:
         checks["Chebyshev table carried"] = bool(torch.isfinite(core.cheb.cder).all())
-    print(f"host syncs in one stride cycle, {path} (CUDA sync-debug mode): {census}")
-    tail = (f"tail {int(state.tail_count)} (fallback periods {int(state.tail_fallbacks)}), "
-            if state.tail_count is not None else "")
-    print(f"kT=0.8 {path}: {timed_steps} steps after {warm_steps} warm-up: "
+    print(f"host syncs in one stride cycle, {label} (CUDA sync-debug mode): {census}")
+    tail = (f"{warm_tail}tail at the end {int(state.tail_count)} (fallback periods "
+            f"{int(state.tail_fallbacks)}), " if state.tail_count is not None else "")
+    print(f"kT=0.8 {label}: {timed_steps} steps after {warm_steps} warm-up: "
           f"{timed_steps / dt:.2f} steps/s, {syncs / (timed_steps / 10):.2f} host syncs "
           f"per stride cycle, launches {launches}, {tail}cum_bias "
           f"{float(core.bias.cum_bias):.6g}, last energy {float(e[-1]):.6g}"
           + (f", first-round candidates {calls}" if calls else ""))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"kT=0.8 {path} run failed: {failed}")
-    return timed_steps / dt, launches, device_ms
+        raise AssertionError(f"kT=0.8 {label} run failed: {failed}")
+    return dict(rate=timed_steps / dt, launches=launches, device_ms=device_ms, dev_us=dev_us,
+                state=state, steps=steps)
+
+
+# the sampled g(r): pair distances binned by 0.05 up to 3.0 (the bias
+# grid's range), positions sampled every 10 steps over 300 steps; the
+# kernel route's histogram against the plain versions' within twice the
+# distance between two kernel runs of other keys plus GOFR_FLOOR (L1 of
+# the normalized histograms)
+GOFR_EDGES = np.linspace(0.0, 3.0, 61)
+GOFR_STEPS, GOFR_EVERY, GOFR_FLOOR = 300, 10, 0.01
+
+
+def pair_histogram(torch, x, box):
+    """Counts of the minimum-image distances of the pairs of ``x`` (N, 3),
+    each once, in the bins of ``GOFR_EDGES`` (float64)."""
+    n = x.shape[0]
+    L = torch.tensor(box, dtype=x.dtype, device=x.device)
+    edges = torch.tensor(GOFR_EDGES, dtype=x.dtype, device=x.device)
+    counts = torch.zeros(len(GOFR_EDGES) - 1, dtype=torch.float64, device=x.device)
+    j = torch.arange(n, device=x.device)
+    for i0 in range(0, n, 1024):
+        d = x[i0:i0 + 1024, None] - x[None]
+        d = d - torch.round(d / L) * L
+        r = torch.sqrt((d * d).sum(-1))
+        r = r[(j[i0:i0 + 1024, None] < j[None]) & (r < edges[-1])]
+        b = torch.bucketize(r, edges, right=True) - 1
+        counts += torch.bincount(b, minlength=counts.numel()).double()
+    return counts
+
+
+def sampled_gofr(torch, steps, state, box):
+    """``GOFR_STEPS`` steps of the stride cycle from ``state``: the pair
+    histogram of the atoms' positions after every ``GOFR_EVERY``,
+    summed and normalized, and the end state, held to the bench's checks."""
+    from edm_tpu_torch.models.driver import pattern_segment
+
+    hist = 0.0
+    for _ in range(GOFR_STEPS // GOFR_EVERY):
+        state, _ = pattern_segment(pattern(steps), GOFR_EVERY)(state)
+        hist = hist + pair_histogram(torch, state.xs.reshape(-1, 3)[state.mc.reshape(-1) > 0.5],
+                                     box)
+    core = state.core
+    if not (bool(torch.isfinite(state.xs).all()) and not bool(state.table_overflow)
+            and not bool(core.hills_truncated) and float(core.bias.cum_bias) > 0):
+        raise AssertionError("g(r) run: not finite, overflowed, truncated or no bias")
+    return hist / hist.sum()
+
+
+def gofr_phase(torch, device):
+    """The bench-scale sampled g(r) at kT = 0.8: ``GOFR_STEPS`` steps of the
+    10k exact cell from one thermalized state (100 steps) through the
+    kernels and through the plain versions with the same key, and through
+    the kernels with another key; the kernel route's g(r) within
+    2 L1(kernels, kernels') + ``GOFR_FLOOR`` of the plain route's."""
+    import dataclasses
+
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    spec, _, steps = bench_setup(torch, 0.8, device)
+    start = thermalized(torch, device, "interp")
+    g_kernel = sampled_gofr(torch, steps, start, spec.box)
+    with plain_versions():
+        g_plain = sampled_gofr(torch, steps, start, spec.box)
+    other = dataclasses.replace(start, core=dataclasses.replace(start.core, key=PRNGKey(1)))
+    g_other = sampled_gofr(torch, steps, other, spec.box)
+    l1_plain = float((g_kernel - g_plain).abs().sum())
+    l1_keys = float((g_kernel - g_other).abs().sum())
+    limit = 2 * l1_keys + GOFR_FLOOR
+    print(f"g(r) at kT=0.8 (10k exact, {GOFR_STEPS} steps from one thermalized state, sampled "
+          f"every {GOFR_EVERY}, bins of 0.05 to 3.0): L1(kernels, plain versions) {l1_plain:.5f}, "
+          f"L1(kernels, kernels with another key) {l1_keys:.5f}, bound 2 x {l1_keys:.5f} + "
+          f"{GOFR_FLOOR} = {limit:.5f}")
+    if not l1_plain <= limit:
+        raise AssertionError(f"g(r): the kernel route is {l1_plain:.5f} off the plain route")
+
+
+@contextlib.contextmanager
+def recorded_draws(calls):
+    """Record the cell host's counter-hash draws (``uniform_rows_cols``,
+    ``normal_rows_cols``) into ``calls`` as (function, arguments)."""
+    from edm_tpu_torch.models import pair_edm_cells as PC
+
+    saved = PC.uniform_rows_cols, PC.normal_rows_cols
+
+    def recording(fn):
+        def draw(*args):
+            calls.append((fn, args))
+            return fn(*args)
+        return draw
+
+    PC.uniform_rows_cols, PC.normal_rows_cols = (recording(fn) for fn in saved)
+    try:
+        yield
+    finally:
+        PC.uniform_rows_cols, PC.normal_rows_cols = saved
+
+
+def hill_step_peak_gb(torch, step, state, p1_draws=None):
+    """The device memory one hill step takes beyond what was allocated
+    before it (GB), with pass 1's chunk limit ``p1_draws`` (default
+    ``pair_edm_cells.P1_DRAWS``)."""
+    from edm_tpu_torch.models import pair_edm_cells as PC
+
+    saved = PC.P1_DRAWS
+    PC.P1_DRAWS = p1_draws or saved
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+    finally:
+        PC.P1_DRAWS = saved
+
+
+def big_cell_phase(torch, device):
+    """The 100k exact cell (``bench.py:378-382``, nothing cut): 10 kT = 0
+    steps from a thermalized state (200 kT = 0.8 steps) held to the plain
+    versions; the bench segment at kT = 0.8 (360 warm-up and 360 timed
+    steps, ``slice_run``'s checks); the counter hash's share of a stride
+    cycle's device time; a hill step's peak memory with pass 1 chunked and
+    in one chunk (the collection before the chunking); K1 and K2 against
+    their plain versions on the end state.  Returns {"rows", "launches",
+    "device_ms"}."""
+    from edm_tpu_torch.models import pair_edm_cells as PC
+    from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.ops import cellforce as CF
+
+    t0 = time.perf_counter()
+    k2 = slice_zero_temperature(torch, device, "interp", n_steps=10, n_atoms=BIG_N,
+                                warm_steps=200)
+    t1 = time.perf_counter()
+    run = slice_run(torch, device, "interp", warm_steps=360, timed_steps=360, n_atoms=BIG_N)
+    t2 = time.perf_counter()
+    state, steps = run["state"], run["steps"]
+    spec = steps[0].spec
+    calls = []
+    with recorded_draws(calls):
+        pattern_segment(pattern(steps), 10)(state)
+    hash_us, _, _, n_hash = device_time_us(torch, lambda: [fn(*a) for fn, a in calls], 2)
+    share = f"{hash_us / run['dev_us']:.1%}" if run["dev_us"] > 0 else "not measured"
+    print(f"100k counter-hash draws in one stride cycle: {len(calls)} calls, {n_hash:.0f} "
+          f"device launches, {hash_us:.1f} us of the cycle's {run['dev_us']:.1f} us device "
+          f"time ({share})")
+    cells = spec.n_cells
+    chunks = len(PC._p1_ranges(cells, 2 * 14 * spec.cap * spec.cap))
+    peak = hill_step_peak_gb(torch, steps[0], state)
+    peak_one = hill_step_peak_gb(torch, steps[0], state, 1 << 62)
+    print(f"100k hill step peak memory beyond its input: {peak:.3f} GB with pass 1 in {chunks} "
+          f"chunks of whole cells (P1_DRAWS {PC.P1_DRAWS}), {peak_one:.3f} GB in one chunk "
+          f"(the collection before the chunking); {cells} cells, cap {spec.cap}")
+    if not peak < 2.0:
+        raise AssertionError(f"100k hill step takes {peak:.3f} GB (limit 2 GB)")
+    t3 = time.perf_counter()
+    for _ in range(10):  # K2's check needs a live tail: on to the next rebuild without one
+        if int(state.tail_count) > 0:
+            break
+        state, _ = pattern_segment(pattern(steps), 10)(state)
+    rows = k1k2_rows(torch, spec, state, steps[0],
+                     {"hermite": CF.hermite_pair_table(state.core.bias.bias)}, ks=(24,),
+                     tag="[100k]")
+    print_rows(rows)
+    print(f"100k phase seconds: kT=0 check {t1 - t0:.1f}, kT=0.8 run {t2 - t1:.1f}, hash share "
+          f"and peak memory {t3 - t2:.1f}, kernel rows {time.perf_counter() - t3:.1f}; "
+          f"{k2} of the 10 kT=0 steps ran K2")
+    return dict(rows=rows, launches=run["launches"], device_ms=run["device_ms"])
 
 
 @contextlib.contextmanager
@@ -1487,15 +1703,15 @@ def pair_zero_temperature(torch, device, host, n_steps=20):
           f"{int(b.steps)}, last_calls {int(state.last_calls)}, cum_bias {float(b.cum_bias):.6g})")
 
 
-def thermalized(torch, device, host, n_steps=100):
+def thermalized(torch, device, host, n_steps=100, n_atoms=None):
     """The start state of a kT = 0 check with real forces: ``n_steps``
     steps at kT = 0.8 from the lattice (on the lattice the net forces are
     sums of terms that cancel to ~1e-4, below float32 rounding of the
-    terms)."""
+    terms); a cell path's at ``n_atoms`` (default ``N_ATOMS``)."""
     from edm_tpu_torch.models.driver import pattern_segment, strided_segment
 
     if host not in PAIR_N:  # a cell path
-        _, state, hot = bench_setup(torch, 0.8, device, host)
+        _, state, hot = bench_setup(torch, 0.8, device, host, n_atoms=n_atoms)
         return pattern_segment(pattern(hot), n_steps)(state)[0]
     state, hot = pair_setup(torch, 0.8, device, host)
     return strided_segment(hot[0], hot[1], 10, n_steps)(state)[0]
@@ -3050,7 +3266,8 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
     """The exact-lookup kT = 0.8 run of the checkout at ``tree``, through
     that checkout's own ``chip_smoke.bench_setup`` and package: one warm-up
     of ``warm_steps``, then ``runs`` timed runs of ``timed_steps`` (host
-    clock up to a device sync), each printed as a JSON line.  Then the
+    clock up to a device sync), each printed as a JSON line, and the device
+    launches of one hill step from the end state.  Then the
     deposition the same way: ``runs`` timed runs of 256 ``add_value``
     rounds of 200 hills on that checkout's 1e6-point grid."""
     tree = os.path.abspath(tree)
@@ -3068,6 +3285,9 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
         state, _ = pattern_segment(smoke.pattern(steps), timed_steps)(state)
         torch.cuda.synchronize()
         print(json.dumps({"tree": tree, "steps_per_s": timed_steps / (time.perf_counter() - t0)}))
+    # the device launches (kernels and copies) of one hill step
+    _, _, _, n_launch = device_time_us(torch, lambda: steps[0](state), 2)
+    print(json.dumps({"tree": tree, "hill_step_launches": n_launch}))
     k4, _, c, h = smoke.deposit_grids(torch, torch.device("cuda", 0))
     for i in range(runs + 1):  # the first run warms up
         g = k4
@@ -3137,7 +3357,8 @@ def ab_slice(other):
     """``time_slice`` of both checkouts in turns; the median steps/s and
     hills/s of each."""
     for tree, runs in ab_runs("--time-slice", other).items():
-        for key, unit in (("steps_per_s", "steps/s"), ("hills_per_s", "hills/s")):
+        for key, unit in (("steps_per_s", "steps/s"), ("hills_per_s", "hills/s"),
+                          ("hill_step_launches", "device launches of a 10k hill step")):
             print(f"{tree}: {unit} {spread([r[key] for r in runs if key in r])}")
 
 
@@ -3191,8 +3412,18 @@ def main() -> int:
     for path in PATHS:
         t_phase = time.perf_counter()
         slice_zero_temperature(torch, device, path)
-        _, launches[path], device_ms[path] = slice_run(torch, device, path)
+        run = slice_run(torch, device, path)
+        launches[path], device_ms[path] = run["launches"], run["device_ms"]
         print(f"{path} slice: {time.perf_counter() - t_phase:.1f} s")
+        if path == "interp":
+            t_phase = time.perf_counter()
+            gofr_phase(torch, device)
+            print(f"10k g(r): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    big = big_cell_phase(torch, device)
+    rows.update(big["rows"])
+    launches["100k"], device_ms["100k"] = big["launches"], big["device_ms"]
+    print(f"100k exact cell: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     _, dep, dep_ms = deposition_run(torch, device)
     print(f"deposition: {time.perf_counter() - t_phase:.1f} s")
@@ -3256,6 +3487,11 @@ def main() -> int:
         ("cell_force_newton", cf, "cellforce_pallas.py:684", ("interp", k1),
          "cell_force_newton hermite"),
         ("overflow_force", cf, "cellforce_pallas.py:870", ("interp", k2), "overflow_force hermite"),
+        # the same two on the 100k exact cell
+        ("cell_force_newton[100k]", cf, "cellforce_pallas.py:684", ("100k", k1),
+         "cell_force_newton[100k]"),
+        ("overflow_force[100k]", cf, "cellforce_pallas.py:870", ("100k", k2),
+         "overflow_force[100k]"),
         ("cell_force_newton[chebyshev]", cf, "cellforce_pallas.py:67", ("chebyshev", k1),
          "cell_force_newton cheb"),
         ("overflow_force[chebyshev]", cf, "cellforce_pallas.py:67", ("chebyshev", k2),
@@ -3285,7 +3521,7 @@ def main() -> int:
     for name, source, replaces, where, prefix in entries:
         if isinstance(where, tuple):
             path, wrapper = where
-            n, dev = launches[path][wrapper], device_ms[path][wrapper]
+            n, dev = launches[path][wrapper], device_ms[path].get(wrapper)
         elif where == "2-D":
             n, dev = n_tf, tf_ms
         elif where == "blocked":

@@ -246,6 +246,35 @@ def _half_concat(plane, ncells, cap: int, cells: slice = None):
     return torch.cat([own, nb], 1)
 
 
+# Pass 1 of the hill collections draws 2 * 14 * cap (half stencil) or
+# 27 * cap (typed) uniforms for every slot row and keeps several int64
+# temporaries of that size (ops/hashrng).  It runs in chunks of whole cells
+# whose draws stay within P1_DRAWS values (268 MB an int64 temporary): the
+# 10k lattice's 729 cells are one chunk, so its hill step launches no more
+# than an unchunked pass, and the 100k lattice's 6,859 cells six.  The JAX
+# host scans pass 1 by ``cell_chunk`` (81 cells in the bench), which would
+# multiply the hash's launches of a 10k hill step by about eight.  The
+# draws are keyed by global slot row and column, so the chunking changes
+# no value.
+P1_DRAWS = 1 << 25
+
+
+def _p1_ranges(n_cells: int, draws_per_cell: int):
+    """Pass 1's chunks: (first, end) cell ranges of at most ``P1_DRAWS //
+    draws_per_cell`` whole cells (at least one) covering ``n_cells``."""
+    step = max(1, P1_DRAWS // draws_per_cell)
+    return [(c0, min(c0 + step, n_cells)) for c0 in range(0, n_cells, step)]
+
+
+def _p1_join(counts, calls, like):
+    """Pass 1's per-chunk row counts and candidate counts -> (row_counts,
+    candidates), int64 like ``like``; a single chunk's are returned as they
+    are, so an unchunked pass launches nothing more."""
+    if not counts:  # a rank that owns no cell
+        return like.new_zeros(0), like.new_zeros(())
+    return (counts[0] if len(counts) == 1 else torch.cat(counts)), sum(calls[1:], calls[0])
+
+
 def init_cell_state(spec: CellSpec, core: PairEDMState, with_ids: bool = False,
                     types=None, kernel_cap=None, overflow_cap: int = 128
                     ) -> CellPairState:
@@ -844,8 +873,9 @@ class CellStep:
         pair once (self block strictly upper, 13 positive neighbours) with
         two acceptance uniforms (the reference's two ordered candidates,
         fix_edm_pair.cpp:229-237).  Pass 1 counts accepted candidates per
-        slot row; pass 2 re-derives the same draws on the selected rows and
-        extracts the first ``m_per_row`` per row in column order.
+        slot row in chunks of whole cells (``P1_DRAWS``); pass 2 re-derives
+        the same draws on the selected rows and extracts the first
+        ``m_per_row`` per row in column order.
 
         Sharded modes (``slab_collect``): both passes run over this rank's
         owned cells only, with the draws and the row selection keyed by
@@ -895,16 +925,22 @@ class CellStep:
             return acc if thresh is None else acc & (u < thresh)
 
         # pass 1: accepted candidates per slot row of the (owned) cells
-        r2 = 0.0
-        for c in range(3):
-            dd = cand[c][:, :cap, None] - cand[c][:, None, :]
-            dd = dd - torch.round(dd / box[c]) * box[c]
-            r2 = r2 + dd * dd
         ri = torch.arange(cap, device=dev)[None, :, None]
-        ok = candm[:, :cap, None] & candm[:, None, :] & upper(ri) & (r2 < bmax2)
-        u = uniform_rows_cols(seeds, gids, 2 * W, dtype).reshape(B_, cap, W, 2)
-        row_counts = accepted(ok, u).sum((2, 3)).reshape(-1)
-        ncalls = 2 * torch.sum(ok.to(torch.int64))
+        counts, calls = [], []
+        for c0, c1 in _p1_ranges(B_, 2 * W * cap):
+            r2 = 0.0
+            for c in range(3):
+                pl = cand[c][c0:c1]
+                dd = pl[:, :cap, None] - pl[:, None, :]
+                dd = dd - torch.round(dd / box[c]) * box[c]
+                r2 = r2 + dd * dd
+            m = candm[c0:c1]
+            ok = m[:, :cap, None] & m[:, None, :] & upper(ri) & (r2 < bmax2)
+            u = uniform_rows_cols(seeds, gids[c0 * cap:c1 * cap], 2 * W, dtype)
+            counts.append(accepted(ok, u.reshape(c1 - c0, cap, W, 2)).sum((2, 3)).reshape(-1))
+            calls.append(torch.sum(ok.to(torch.int64)))
+        row_counts, ncalls = _p1_join(counts, calls, gids)
+        ncalls = 2 * ncalls
         sent = C * cap  # the global slot-row sentinel
         rows_sel, n_rows = self._select_rows(row_counts, rc, gids, sent)
 
@@ -972,9 +1008,9 @@ class CellStep:
         with ``chunk_pairs``' typed branch): every ordered candidate of a
         slot row (27 * cap, CellSpec.stencil() order) with one acceptance
         uniform, self pairs masked by atom id, candidates only within the
-        CV's type pair.  Pass 1 counts per slot row, all cells at once;
-        pass 2 redraws on the selected rows and extracts as the half-stencil
-        collection does."""
+        CV's type pair.  Pass 1 counts per slot row in chunks of whole
+        cells (``P1_DRAWS``); pass 2 redraws on the selected rows and
+        extracts as the half-stencil collection does."""
         spec, params = self.spec, self.params
         n, cap, C = spec.n_atoms, spec.cap, spec.n_cells
         W = 27 * cap
@@ -1002,13 +1038,17 @@ class CellStep:
             return r2, valid, type_pair_mask(ti[..., None], tw, self.type_pair)
 
         # pass 1: ordered candidates and accepted draws per slot row
-        r2, valid, cv = tile(xs[:C], aid2[:C], tslot[:C], torch.arange(C, device=dev)[:, None])
-        cand = valid & cv & (r2 < bmax * bmax)
-        rows = torch.arange(C * cap, device=dev)
-        u = uniform_rows_cols(seeds, rows, W, dtype).reshape(C, cap, W)
-        acc = cand if thresh is None else cand & (u < thresh)
-        row_counts = acc.sum(2).reshape(-1)
-        ncalls = torch.sum(cand.to(torch.int64))
+        counts, calls = [], []
+        for c0, c1 in _p1_ranges(C, W * cap):
+            cells = torch.arange(c0, c1, device=dev)
+            r2, valid, cv = tile(xs[c0:c1], aid2[c0:c1], tslot[c0:c1], cells[:, None])
+            cand = valid & cv & (r2 < bmax * bmax)
+            rows = torch.arange(c0 * cap, c1 * cap, device=dev)
+            u = uniform_rows_cols(seeds, rows, W, dtype).reshape(c1 - c0, cap, W)
+            acc = cand if thresh is None else cand & (u < thresh)
+            counts.append(acc.sum(2).reshape(-1))
+            calls.append(torch.sum(cand.to(torch.int64)))
+        row_counts, ncalls = _p1_join(counts, calls, state.aid)
         rows_sel, n_rows = self._select_rows(row_counts)
 
         # pass 2 on the selected slot rows
@@ -1152,8 +1192,8 @@ def make_cell_step(
     (``init_cell_state(..., types=types)``), the XLA pass gathers them from
     ``types``.  ``kernel_cap``/``overflow_cap`` as in the JAX host
     (``use_pallas=True``, untyped).  ``cell_chunk`` chunks the XLA force
-    pass; the JAX host also chunks its hill collection with it, which
-    computes the same values (the port collects all cells at once).
+    pass; the JAX host also scans its hill collection's pass 1 by it, the
+    port by ``P1_DRAWS`` (bounded chunks of whole cells; the same values).
     ``cheb_deg`` changes nothing: a hill round refits at the carried
     table's degree.
 

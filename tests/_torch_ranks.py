@@ -158,6 +158,38 @@ def slab_steps(path: str):
     return out
 
 
+def collect_chunked(path: str):
+    """One hill collection of the slab host (or, with ``grid``, the brick
+    host) from the input state, for each pass-1 chunk limit of ``p1``
+    (``pair_edm_cells.P1_DRAWS``; None keeps the default); returns per
+    limit the gathered round (hills, runifs, active, ncalls, truncated) and
+    this rank's pass-1 row counts."""
+    from edm_tpu_torch.models import pair_edm_cells as tpc
+    from edm_tpu_torch.ops import prng
+
+    d = _load(path)
+    if d.get("grid"):
+        mesh, make = make_brick_mesh(*d["grid"], device="cpu"), make_brick_cell_step
+    else:
+        mesh, make = make_mesh(device="cpu"), make_slab_cell_step
+    params, spec, lp, lj = _cell_setup(d, mesh)
+    state, default = _state(d), tpc.P1_DRAWS
+    out = {}
+    for p1 in d["p1"]:
+        tpc.P1_DRAWS = default if p1 is None else p1
+        try:
+            step = make(params, lp, lj, spec, 10, mesh, hill_capacity=d["hill_capacity"])
+            seen = []
+            select = step._select_rows
+            step._select_rows = lambda rc, *a: seen.append(rc) or select(rc, *a)
+            res = step._collect_hills(state, state.xs, prng.PRNGKey(d["key"]),
+                                      torch.tensor(d["last_calls"]), torch.float32)
+        finally:
+            tpc.P1_DRAWS = default
+        out[p1] = {"round": to_numpy_tree(res), "row_counts": seen[0].numpy()}
+    return out
+
+
 def slab_segment(path: str):
     """``pattern_segment`` over the slab host's three static phases with
     ``collect_records``; returns the final state and the stacked log."""
