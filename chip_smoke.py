@@ -10,7 +10,10 @@ each kernel against its plain PyTorch version on the same card:
     K1 ``cell_force_newton`` and K2 ``overflow_force``;
   - the same step on ``bench.py:378-382``'s 100,000-atom cell (47^3
     lattice sites, cells 19^3, nothing cut), the north-star scale: K1 and
-    K2 again, the hill collection's pass 1 in six chunks of whole cells;
+    K2 again; on every cell path the thermostat's normals through
+    ``hash_normals``, the hill collection's pass 1 through
+    ``p1_count_half`` (typed: ``p1_count_typed``) and pass 2's draws
+    through ``hash_uniforms`` (``csrc/hashrng.cu``, the counter hash);
   - the same step with the Chebyshev lookup (``pair_lookup="chebyshev"``,
     4 panels of degree 16, refit after every hill round): K1 and K2 with
     the Clenshaw chains (K3);
@@ -73,17 +76,24 @@ path 20 steps at kT = 0 through the kernels, each step held to the same
 step through the plain versions, then the bench's kT = 0.8 run with the
 launch counters reset (rate, host syncs, the device-busy share of a
 stride cycle, end-state checks; the typed path also holds its first hill
-round's candidates below the untyped round's); after the exact path, the
-sampled g(r) at kT = 0.8: 300 steps from one thermalized state through
+round's candidates below the untyped round's; the counter-hash and
+pass-1 kernels launched as often as the steps ask); after the exact path,
+the counter-hash and pass-1 kernels against their plain versions on its
+end state (``hash_kernel_phase``: uniforms bitwise, normals within 2 ulps,
+the row counts and ncalls of pass 1 exactly over the lattice, a 2-rank
+slab's and a 2 x 2 brick's owned cells and the typed stencil, whole
+collections bitwise), then the sampled g(r) at kT = 0.8: 300 steps from one thermalized state through
 the kernels and through the plain versions with the same key, and through
 the kernels with another key, the first two within twice the distance of
 the kernel runs plus ``GOFR_FLOOR`` (L1 of the normalized histograms);
 after the five 10k paths, the 100k cell: 10 kT = 0 steps from a
 thermalized state (200 kT = 0.8 steps) held to the plain versions, the
 bench's segment at kT = 0.8 (360 warm-up and 360 timed steps, the same
-prints and checks), the counter hash's share of a stride cycle's device
-time, a hill step's peak memory with pass 1 chunked (below 2 GB) and in
-one chunk, and K1 and K2 against their plain versions on its state, with
+prints and checks), the counter hash's and pass 1's share of a stride
+cycle's device time through the kernels and through the plain versions, a
+hill step's peak memory through the kernels (below 2 GB) and through the
+plain pass 1 chunked and in one chunk, ``hash_kernel_phase`` at its
+shapes, and K1 and K2 against their plain versions on its state, with
 each part's seconds; the deposition run (hills/s,
 host syncs, device-busy share and device launches of a round; its final
 grid held to the same rounds through the plain versions); the Threefry
@@ -203,7 +213,19 @@ DIST_FLOPS, HILL_FLOPS = 9, 10
 # the row pass and its credit pass (K1, K6, K7), K2's two passes, the
 # deposition's
 ROW_FUNCS, K2_FUNCS, DEPOSIT_FUNCS, TF_FUNCS = ("k1_", "k7_"), ("k2_",), ("dep_",), ("tf_",)
-PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS
+# the counter hash and pass 1 of the hill collections (csrc/hashrng.cu): each
+# wrapper's module under edm_tpu_torch/ops and its device function
+HASH_KERNELS = {"uniform_rows_cols": ("hashrng", ("hash_uniforms",)),
+                "normal_rows_cols": ("hashrng", ("hash_normals",)),
+                "p1_counts_half": ("collect", ("p1_count_half",)),
+                "p1_counts_typed": ("collect", ("p1_count_typed",))}
+PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS + ("hash_", "p1_")
+# operations counted from csrc/hashrng.cu: a hash, 12 integer operations (at
+# half the f32 rate); its uniform, the conversion and the scale; a normal's
+# Box-Muller, 7 more (each libm call counted as one); a pair's minimum-image
+# r^2 and its test in pass 1 (per axis a subtraction, the division, rint, a
+# product, a subtraction and the square; two sums, one comparison)
+HASH_INT_OPS, UNIFORM_FLOPS, BOX_MULLER_FLOPS, P1_R2_FLOPS = 12, 2, 7, 21
 
 
 def card_line() -> str:
@@ -317,9 +339,59 @@ FORCE_KERNELS = ("cell_force_newton", "overflow_force", "cell_force_newton_plana
                  "cell_force_full")
 
 
+def hash_module(name):
+    """The module of ``edm_tpu_torch.ops`` that holds the wrapper ``name``
+    of ``HASH_KERNELS``."""
+    import importlib
+
+    return importlib.import_module("edm_tpu_torch.ops." + HASH_KERNELS[name][0])
+
+
+def port_wrappers():
+    """{name: wrapper} of the force kernels and the counter-hash and pass-1
+    kernels (a checkout without the latter, in ``--ab-kernels``, has the
+    former only)."""
+    from edm_tpu_torch.ops import cellforce as CF
+
+    out = {name: getattr(CF, name) for name in FORCE_KERNELS}
+    for name in HASH_KERNELS:
+        try:
+            fn = getattr(hash_module(name), name)
+        except (ImportError, AttributeError):
+            continue
+        if hasattr(fn, "launches"):
+            out[name] = fn
+    return out
+
+
+def wrapper_funcs(name):
+    """The device functions of a wrapper of ``port_wrappers``, as the
+    profiler names them (prefixes)."""
+    if name in HASH_KERNELS:
+        return HASH_KERNELS[name][1]
+    return K2_FUNCS if name == "overflow_force" else ROW_FUNCS
+
+
+@contextlib.contextmanager
+def plain_hash():
+    """Route the cell host's counter-hash draws and pass 1 through their
+    plain versions (``*_ref``)."""
+    from edm_tpu_torch.models import pair_edm_cells as PC
+
+    saved = {name: getattr(PC, name) for name in HASH_KERNELS}
+    for name in HASH_KERNELS:
+        setattr(PC, name, getattr(hash_module(name), name + "_ref"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(PC, name, fn)
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the host's force pass through the kernels' plain versions."""
+    """Route the host's force pass, its counter-hash draws and pass 1 through
+    the kernels' plain versions."""
     from edm_tpu_torch.models import pair_edm_cells as PC
     from edm_tpu_torch.ops import cellforce as CF
 
@@ -327,7 +399,8 @@ def plain_versions():
     for name in FORCE_KERNELS:
         setattr(PC, name, getattr(CF, name + "_ref"))
     try:
-        yield
+        with plain_hash():
+            yield
     finally:
         for name, fn in saved.items():
             setattr(PC, name, fn)
@@ -346,21 +419,30 @@ def cuda_ms(torch, fn, reps=50, warm=5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+PROFILE_PAD_S = 0.05
+
+
 def device_time_us(torch, fn, n):
     """Device time per call of ``fn`` (kernels and copies, µs), from
     ``torch.profiler`` over n calls after one warm-up; the same per kernel
     name; as text, the three kernels that take most of it, then each of the
     port's; and the device launches (kernels and copies) per call.  0 when
-    the profiler saw no device activity."""
+    the profiler saw no device activity.  The calls run ``PROFILE_PAD_S``
+    inside each end of the profile's window: the profiler keeps only
+    device activity whose timestamps fall in the window, and the card's
+    clock has run up to 8 ms behind the host's (kineto's "GPU op timestamp
+    < runtime timestamp"), which emptied the profiles of short calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     per, count = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -385,17 +467,17 @@ def funcs_ms(per_us, funcs, launches=1.0) -> float:
 def cycle_device_ms(torch, cycle, state):
     """Profile of one stride cycle (two, after a warm-up one) from ``state``:
     (device µs per cycle, the text of ``device_time_us``, {wrapper: device
-    ms per launch} for each force wrapper the cycle launched).  A path runs
-    one of the row-pass wrappers, so the row pass's functions are its."""
-    from edm_tpu_torch.ops import cellforce as CF
-
-    n0 = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
+    ms per launch} for each wrapper of ``port_wrappers`` the cycle
+    launched).  A path runs one of the row-pass wrappers, so the row pass's
+    functions are its."""
+    wrappers = port_wrappers()
+    n0 = {name: w.launches for name, w in wrappers.items()}
     dev_us, per, top, _ = device_time_us(torch, lambda: cycle(state), 2)
     ms = {}
-    for name in FORCE_KERNELS:
-        n = (getattr(CF, name).launches - n0[name]) / 3  # the warm-up cycle launched too
+    for name, w in wrappers.items():
+        n = (w.launches - n0[name]) / 3  # the warm-up cycle launched too
         if n > 0:
-            ms[name] = funcs_ms(per, K2_FUNCS if name == "overflow_force" else ROW_FUNCS, n)
+            ms[name] = funcs_ms(per, wrapper_funcs(name), n)
     return dev_us, top, ms
 
 
@@ -812,11 +894,10 @@ def sync_census(torch, steps, state):
 def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_atoms=None):
     """The bench's kT = 0.8 run of ``path`` through the kernels: the launch
     counters are set to 0 just before it and read just after.  Returns
-    {"rate": steps/s, "launches": the force wrappers', "device_ms": device
-    ms a launch of each, "dev_us": a stride cycle's device µs, "state",
-    "steps"}."""
+    {"rate": steps/s, "launches": the force, counter-hash and pass-1
+    wrappers', "device_ms": device ms a launch of each, "dev_us": a stride
+    cycle's device µs, "state", "steps"}."""
     from edm_tpu_torch.models.driver import pattern_segment
-    from edm_tpu_torch.ops import cellforce as CF
 
     spec, state, steps = bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
     label = path if n_atoms is None else f"{path} N={n_atoms}"
@@ -827,8 +908,9 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
                  "untyped": int(steps_u[0](st_u)[0].core.last_calls)}
     for s in steps:
         s.host_syncs = 0
-    for name in FORCE_KERNELS:
-        getattr(CF, name).launches = 0
+    wrappers = port_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     state, e_warm = pattern_segment(pattern(steps), warm_steps)(state)
     torch.cuda.synchronize()
     warm_tail = (f"tail after warm-up {int(state.tail_count)} (fallback periods "
@@ -838,7 +920,7 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
     state, e = pattern_segment(pattern(steps), timed_steps)(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
+    launches = {name: w.launches for name, w in wrappers.items()}
     syncs = sum(s.host_syncs for s in steps) - syncs0
     # device time of one stride cycle (two cycles from this state), beside
     # the timed run's wall time per cycle
@@ -855,6 +937,12 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
         "cum_bias > 0": float(core.bias.cum_bias) > 0,
         "no sync on plain steps": census["plain"] == 0,
         "at most 5 syncs on hill steps": census["hills"] <= 5,
+        # the counter hash and pass 1 on the card: the thermostat's normals
+        # every step, pass 1 and pass 2's draws every hill step
+        "hash_normals on every step": launches["normal_rows_cols"] == n_steps,
+        "pass 1 kernel on every hill step": launches[
+            "p1_counts_typed" if path == "typed" else "p1_counts_half"] == n_steps // 10,
+        "hash_uniforms on every hill step": launches["uniform_rows_cols"] == n_steps // 10,
     }
     if path in ("interp", "chebyshev"):
         checks["K1 launched"] = launches["cell_force_newton"] > 0
@@ -866,7 +954,8 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
         checks["K7 on every step"] = launches["cell_force_full"] == n_steps
         checks["slot ids carried"] = state.sid is not None
     elif path == "xla":
-        checks["no force kernel launched (the XLA pass)"] = not any(launches.values())
+        checks["no force kernel launched (the XLA pass)"] = not any(
+            launches[name] for name in FORCE_KERNELS)
     else:
         checks["typed K1 on every step"] = launches["cell_force_newton"] == n_steps
         checks["typed round collects fewer candidates"] = 0 < calls["typed"] < calls["untyped"]
@@ -960,35 +1049,197 @@ def gofr_phase(torch, device):
         raise AssertionError(f"g(r): the kernel route is {l1_plain:.5f} off the plain route")
 
 
-@contextlib.contextmanager
-def recorded_draws(calls):
-    """Record the cell host's counter-hash draws (``uniform_rows_cols``,
-    ``normal_rows_cols``) into ``calls`` as (function, arguments)."""
+def hash_bound(flops: float, int_ops: float, nbytes: float):
+    """``bound`` with integer operations at half the f32 rate."""
+    return bound(flops + 2 * int_ops, nbytes)
+
+
+def max_ulps(a, b) -> float:
+    """The largest |a - b| in units of the spacing of the type at the
+    larger of |a| and |b|."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float((np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max())
+
+
+def half_inputs(torch, spec, state, cells):
+    """Pass 1's inputs on the row cells ``cells`` (a slice or a tensor of
+    cell ids) of the cell state: the three candidate planes, their
+    occupancy, the rows' global slot-row ids."""
     from edm_tpu_torch.models import pair_edm_cells as PC
 
-    saved = PC.uniform_rows_cols, PC.normal_rows_cols
+    cap, dev = spec.cap, state.xs.device
+    ids = torch.arange(spec.n_cells, device=dev)[cells]
+    gids = (ids[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
+    cand = [PC._half_concat(state.xs[..., c], spec.ncells, cap, cells) for c in range(3)]
+    return cand, PC._half_concat(state.mc, spec.ncells, cap, cells) > 0.5, gids
 
-    def recording(fn):
+
+def hash_kernel_phase(torch, device, state, steps, tag=""):
+    """The counter-hash and pass-1 kernels of ``csrc/hashrng.cu`` against
+    their plain versions on the card, on a cell state of the bench (the 10k
+    or the 100k cell) and its hill step ``steps[0]``: ``hash_rows``'
+    uniforms bitwise in float32 and float64 at the thermostat's rows (Cg
+    cap x 6), at the plain pass 1's first chunk (x 2W) and at pass 2's
+    ``row_cap`` unsorted rows (x 2W); its normals (Cg cap x 3) within 2
+    ulps; ``p1_count_half``'s row counts and ncalls exactly over every
+    cell, over the owned cells of a 2-rank slab and of a 2 x 2 brick (the
+    boxes' ncalls summing to the lattice's), and ``p1_count_typed``'s on
+    the binary mixture's slot types; and one whole hill collection, half
+    and typed, through the kernels bitwise through the plain versions.
+    Each kernel is timed at the main path's shape beside its plain version
+    and its bound.  Returns the rows."""
+    from edm_tpu_torch.grid import device_const
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import collect
+    from edm_tpu_torch.ops import hashrng as H
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    f32, f64 = torch.float32, torch.float64
+    step = steps[0]
+    spec = step.spec
+    cap, C, Cg, n = spec.cap, spec.n_cells, state.mc.shape[0], spec.n_atoms
+    W = 14 * cap
+    seeds = H.seeds_from_key(PRNGKey(3))
+    thermo = torch.arange(Cg * cap, device=device)
+    chunk = torch.arange(collect._p1_ranges(C, 2 * W * cap)[0][1] * cap, device=device)
+    gen = torch.Generator().manual_seed(5)
+    pass2 = torch.randperm(C * cap, generator=gen)[:step.row_cap].to(device)
+    for label, r, m in (("thermostat", thermo, 6), ("pass-1 chunk", chunk, 2 * W),
+                        ("pass 2", pass2, 2 * W)):
+        for dt in (f32, f64):
+            bad = int((H.uniform_rows_cols(seeds, r, m, dt)
+                       != H.uniform_rows_cols_ref(seeds, r, m, dt)).sum())
+            if bad:
+                raise AssertionError(f"hash_uniforms{tag} {label} {len(r)}x{m} {dt}: {bad} "
+                                     "draws differ from the plain version")
+    ulps = {}
+    for dt in (f32, f64):
+        z, z_ref = (fn(seeds, thermo, 3, dt) for fn in (H.normal_rows_cols, H.normal_rows_cols_ref))
+        ulps[dt] = max_ulps(z, z_ref)
+        if dt == f32:
+            z_err = max_err(z, z_ref)
+        if not ulps[dt] <= 2:
+            raise AssertionError(f"hash_normals{tag} {dt}: {ulps[dt]} ulps from the plain version")
+    rows = {}
+    R2 = len(pass2)
+    ms = cuda_ms(torch, lambda: H.uniform_rows_cols(seeds, pass2, 2 * W, f32))
+    plain = cuda_ms(torch, lambda: H.uniform_rows_cols_ref(seeds, pass2, 2 * W, f32), reps=10)
+    d = R2 * 2 * W
+    rows[f"uniform_rows_cols{tag} pass 2 {R2}x{2 * W}"] = (0.0, ms, plain) + hash_bound(
+        UNIFORM_FLOPS * d, HASH_INT_OPS * d, 8 * R2 + 4 * d)
+    ms = cuda_ms(torch, lambda: H.normal_rows_cols(seeds, thermo, 3, f32))
+    plain = cuda_ms(torch, lambda: H.normal_rows_cols_ref(seeds, thermo, 3, f32), reps=10)
+    d = len(thermo) * 3
+    rows[f"normal_rows_cols{tag} thermostat {len(thermo)}x3"] = (z_err, ms, plain) + hash_bound(
+        (2 * UNIFORM_FLOPS + BOX_MULLER_FLOPS) * d, 2 * HASH_INT_OPS * d, 8 * len(thermo) + 4 * d)
+
+    # pass 1, half stencil: the lattice, a 2-rank slab's and a 2 x 2 brick's owned boxes
+    thresh = step._accept_threshold(state.core.last_calls, f32)
+    box = device_const(spec.box, device, f32)
+    bmax2 = step.params.cfg.box_high[0] * step.params.cfg.box_high[0]
+    nx, ny, nz = spec.ncells
+    qx, qy = -(-nx // 2), -(-ny // 2)
+    forms = {"lattice": [slice(0, C)],
+             "slab": [slice(0, qx * ny * nz), slice(qx * ny * nz, C)],
+             "brick": [CF.box_cells(spec.ncells, ((x0, y0, 0), (wx, wy, nz)), device)
+                       for x0, wx in ((0, qx), (qx, nx - qx)) for y0, wy in ((0, qy), (qy, ny - qy))]}
+    total = {}
+    for form, boxes in forms.items():
+        total[form] = 0
+        for cells in boxes:
+            args = half_inputs(torch, spec, state, cells) + (box, bmax2, thresh, seeds, cap)
+            rc, nc = collect.p1_counts_half(*args)
+            rc_ref, nc_ref = collect.p1_counts_half_ref(*args)
+            if not (torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)):
+                raise AssertionError(f"p1_count_half{tag} {form}: row counts or ncalls "
+                                     f"({int(nc)} vs {int(nc_ref)}) differ from the plain version")
+            total[form] += int(nc)
+    if not total["slab"] == total["brick"] == total["lattice"] > 0:
+        raise AssertionError(f"p1_count_half{tag}: the boxes' ncalls {total} do not partition")
+    args = half_inputs(torch, spec, state, slice(0, C)) + (box, bmax2, thresh, seeds, cap)
+    candm = args[1]
+    ms = cuda_ms(torch, lambda: collect.p1_counts_half(*args))
+    plain = cuda_ms(torch, lambda: collect.p1_counts_half_ref(*args), reps=5, warm=1)
+    ci = torch.arange(W, device=device)
+    upper = (ci >= cap) | (ci > torch.arange(cap, device=device)[:, None])
+    pairs = int((candm[:, :cap, None] & candm[:, None, :] & upper).sum())
+    draws = total["lattice"] if thresh is not None else 0
+    rows[f"p1_counts_half{tag} {C} cells"] = (0.0, ms, plain) + hash_bound(
+        P1_R2_FLOPS * pairs + (UNIFORM_FLOPS + 1) * draws, HASH_INT_OPS * draws,
+        13 * C * W + 16 * C * cap)
+
+    # pass 1, typed: the binary mixture's slot types
+    types = torch.tensor(bench_types(n), device=device, dtype=torch.int64)
+    real = state.aid < n
+    tslot = torch.where(real, types[torch.clamp(state.aid, 0, n - 1)], 0).to(f32).reshape(
+        state.mc.shape)
+    nbr = CF.stencil_neighbors(tuple(spec.ncells), device)
+    targs = (state.xs, state.aid, tslot, nbr, box, bmax2, thresh, seeds, n, TYPE_PAIR)
+    rc, nc = collect.p1_counts_typed(*targs)
+    rc_ref, nc_ref = collect.p1_counts_typed_ref(*targs)
+    if not (torch.equal(rc, rc_ref) and int(nc) == int(nc_ref) > 0):
+        raise AssertionError(f"p1_count_typed{tag}: row counts or ncalls ({int(nc)} vs "
+                             f"{int(nc_ref)}) differ from the plain version")
+    ms = cuda_ms(torch, lambda: collect.p1_counts_typed(*targs))
+    plain = cuda_ms(torch, lambda: collect.p1_counts_typed_ref(*targs), reps=5, warm=1)
+    k1, k2 = (((tslot == t) & real.reshape(tslot.shape)).sum(1) for t in TYPE_PAIR)
+    pairs = int((k1[:C] * k2[nbr].sum(1) + k2[:C] * k1[nbr].sum(1)).sum())
+    draws = int(nc) if thresh is not None else 0
+    rows[f"p1_counts_typed{tag} {C} cells"] = (0.0, ms, plain) + hash_bound(
+        P1_R2_FLOPS * pairs + (UNIFORM_FLOPS + 1) * draws, HASH_INT_OPS * draws,
+        24 * Cg * cap + 8 * 27 * C + 8 * C * cap)
+
+    # whole collections, half and typed: the kernels against the plain versions
+    typed_step = bench_setup(torch, 0.8, device, "typed", n_atoms=n)[2][0]
+    for label, st in (("half", step), ("typed", typed_step)):
+        cargs = (state, state.xs, PRNGKey(7), state.core.last_calls, f32)
+        got = st._collect_hills(*cargs)
+        with plain_hash():
+            want = st._collect_hills(*cargs)
+        for name, a, b in zip(("hills", "runifs", "active", "ncalls", "truncated"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} collection{tag}: {name} differs from the plain "
+                                     "route")
+    print(f"counter hash and pass 1{tag}: hash_uniforms bitwise the plain version (f32, f64; "
+          f"{len(thermo)}x6, {len(chunk)}x{2 * W}, {R2}x{2 * W}), hash_normals within "
+          f"{ulps[f32]:g} (f32) and {ulps[f64]:g} (f64) ulps, p1_count_half exact (lattice, 2-rank "
+          f"slab, 2 x 2 brick; ncalls {total['lattice']}), p1_count_typed exact (ncalls "
+          f"{int(nc)}), the half and typed collections bitwise the plain route")
+    print_rows(rows)
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_draws(calls):
+    """Record the cell host's counter-hash draws and pass 1 (the wrappers of
+    ``HASH_KERNELS``) into ``calls`` as (name, arguments)."""
+    from edm_tpu_torch.models import pair_edm_cells as PC
+
+    saved = {name: getattr(PC, name) for name in HASH_KERNELS}
+
+    def recording(name, fn):
         def draw(*args):
-            calls.append((fn, args))
+            calls.append((name, args))
             return fn(*args)
         return draw
 
-    PC.uniform_rows_cols, PC.normal_rows_cols = (recording(fn) for fn in saved)
+    for name, fn in saved.items():
+        setattr(PC, name, recording(name, fn))
     try:
         yield
     finally:
-        PC.uniform_rows_cols, PC.normal_rows_cols = saved
+        for name, fn in saved.items():
+            setattr(PC, name, fn)
 
 
 def hill_step_peak_gb(torch, step, state, p1_draws=None):
     """The device memory one hill step takes beyond what was allocated
-    before it (GB), with pass 1's chunk limit ``p1_draws`` (default
-    ``pair_edm_cells.P1_DRAWS``)."""
-    from edm_tpu_torch.models import pair_edm_cells as PC
+    before it (GB), with the plain pass 1's chunk limit ``p1_draws``
+    (default ``collect.P1_DRAWS``)."""
+    from edm_tpu_torch.ops import collect
 
-    saved = PC.P1_DRAWS
-    PC.P1_DRAWS = p1_draws or saved
+    saved = collect.P1_DRAWS
+    collect.P1_DRAWS = p1_draws or saved
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -997,21 +1248,23 @@ def hill_step_peak_gb(torch, step, state, p1_draws=None):
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 1e9
     finally:
-        PC.P1_DRAWS = saved
+        collect.P1_DRAWS = saved
 
 
 def big_cell_phase(torch, device):
     """The 100k exact cell (``bench.py:378-382``, nothing cut): 10 kT = 0
     steps from a thermalized state (200 kT = 0.8 steps) held to the plain
     versions; the bench segment at kT = 0.8 (360 warm-up and 360 timed
-    steps, ``slice_run``'s checks); the counter hash's share of a stride
-    cycle's device time; a hill step's peak memory with pass 1 chunked and
-    in one chunk (the collection before the chunking); K1 and K2 against
-    their plain versions on the end state.  Returns {"rows", "launches",
+    steps, ``slice_run``'s checks); the counter hash's and pass 1's share
+    of a stride cycle's device time through the kernels and through the
+    plain versions; a hill step's peak memory through the kernels and
+    through the plain pass 1, chunked and in one chunk; the hash and pass-1
+    kernels against their plain versions (``hash_kernel_phase``) and K1 and
+    K2 against theirs on the end state.  Returns {"rows", "launches",
     "device_ms"}."""
-    from edm_tpu_torch.models import pair_edm_cells as PC
     from edm_tpu_torch.models.driver import pattern_segment
     from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import collect
 
     t0 = time.perf_counter()
     k2 = slice_zero_temperature(torch, device, "interp", n_steps=10, n_atoms=BIG_N,
@@ -1024,32 +1277,41 @@ def big_cell_phase(torch, device):
     calls = []
     with recorded_draws(calls):
         pattern_segment(pattern(steps), 10)(state)
-    hash_us, _, _, n_hash = device_time_us(torch, lambda: [fn(*a) for fn, a in calls], 2)
-    share = f"{hash_us / run['dev_us']:.1%}" if run["dev_us"] > 0 else "not measured"
-    print(f"100k counter-hash draws in one stride cycle: {len(calls)} calls, {n_hash:.0f} "
-          f"device launches, {hash_us:.1f} us of the cycle's {run['dev_us']:.1f} us device "
-          f"time ({share})")
+    share = {}
+    for route, suffix in (("kernels", ""), ("plain versions", "_ref")):
+        fns = {name: getattr(hash_module(name), name + suffix) for name in HASH_KERNELS}
+        us, _, _, n_dev = device_time_us(torch, lambda: [fns[nm](*a) for nm, a in calls], 2)
+        pct = f"{us / run['dev_us']:.1%}" if run["dev_us"] > 0 else "not measured"
+        share[route] = f"{us:.1f} us in {n_dev:.0f} device launches ({pct})"
+    print(f"100k counter-hash draws and pass 1 in one stride cycle ({len(calls)} calls), against "
+          f"the cycle's {run['dev_us']:.1f} us of device time: through the kernels "
+          f"{share['kernels']}, through the plain versions {share['plain versions']}")
     cells = spec.n_cells
-    chunks = len(PC._p1_ranges(cells, 2 * 14 * spec.cap * spec.cap))
+    chunks = len(collect._p1_ranges(cells, 2 * 14 * spec.cap * spec.cap))
     peak = hill_step_peak_gb(torch, steps[0], state)
-    peak_one = hill_step_peak_gb(torch, steps[0], state, 1 << 62)
-    print(f"100k hill step peak memory beyond its input: {peak:.3f} GB with pass 1 in {chunks} "
-          f"chunks of whole cells (P1_DRAWS {PC.P1_DRAWS}), {peak_one:.3f} GB in one chunk "
-          f"(the collection before the chunking); {cells} cells, cap {spec.cap}")
+    with plain_hash():
+        peak_plain = hill_step_peak_gb(torch, steps[0], state)
+        peak_one = hill_step_peak_gb(torch, steps[0], state, 1 << 62)
+    print(f"100k hill step peak memory beyond its input: {peak:.3f} GB through the kernels; "
+          f"{peak_plain:.3f} GB through the plain pass 1 in {chunks} chunks of whole cells "
+          f"(P1_DRAWS {collect.P1_DRAWS}), {peak_one:.3f} GB in one chunk; {cells} cells, cap "
+          f"{spec.cap}")
     if not peak < 2.0:
         raise AssertionError(f"100k hill step takes {peak:.3f} GB (limit 2 GB)")
     t3 = time.perf_counter()
+    rows = hash_kernel_phase(torch, device, state, steps, tag="[100k]")
+    t4 = time.perf_counter()
     for _ in range(10):  # K2's check needs a live tail: on to the next rebuild without one
         if int(state.tail_count) > 0:
             break
         state, _ = pattern_segment(pattern(steps), 10)(state)
-    rows = k1k2_rows(torch, spec, state, steps[0],
-                     {"hermite": CF.hermite_pair_table(state.core.bias.bias)}, ks=(24,),
-                     tag="[100k]")
-    print_rows(rows)
+    rows.update(k1k2_rows(torch, spec, state, steps[0],
+                          {"hermite": CF.hermite_pair_table(state.core.bias.bias)}, ks=(24,),
+                          tag="[100k]"))
+    print_rows({k: v for k, v in rows.items() if k.startswith(("cell_", "overflow_"))})
     print(f"100k phase seconds: kT=0 check {t1 - t0:.1f}, kT=0.8 run {t2 - t1:.1f}, hash share "
-          f"and peak memory {t3 - t2:.1f}, kernel rows {time.perf_counter() - t3:.1f}; "
-          f"{k2} of the 10 kT=0 steps ran K2")
+          f"and peak memory {t3 - t2:.1f}, hash kernel checks {t4 - t3:.1f}, K1/K2 rows "
+          f"{time.perf_counter() - t4:.1f}; {k2} of the 10 kT=0 steps ran K2")
     return dict(rows=rows, launches=run["launches"], device_ms=run["device_ms"])
 
 
@@ -3267,7 +3529,8 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
     that checkout's own ``chip_smoke.bench_setup`` and package: one warm-up
     of ``warm_steps``, then ``runs`` timed runs of ``timed_steps`` (host
     clock up to a device sync), each printed as a JSON line, and the device
-    launches of one hill step from the end state.  Then the
+    launches of one hill step from the end state; the same for the 100k
+    cell (360 warm-up steps, runs of 360).  Then the
     deposition the same way: ``runs`` timed runs of 256 ``add_value``
     rounds of 200 hills on that checkout's 1e6-point grid."""
     tree = os.path.abspath(tree)
@@ -3288,6 +3551,16 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
     # the device launches (kernels and copies) of one hill step
     _, _, _, n_launch = device_time_us(torch, lambda: steps[0](state), 2)
     print(json.dumps({"tree": tree, "hill_step_launches": n_launch}))
+    # the 100k cell the same way: 360 warm-up steps, then runs of 360
+    _, state, steps = smoke.bench_setup(torch, 0.8, torch.device("cuda", 0), n_atoms=BIG_N)
+    state, _ = pattern_segment(smoke.pattern(steps), 360)(state)
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        state, _ = pattern_segment(smoke.pattern(steps), 360)(state)
+        torch.cuda.synchronize()
+        print(json.dumps({"tree": tree, "steps_per_s_100k": 360 / (time.perf_counter() - t0)}))
+    del state, steps
     k4, _, c, h = smoke.deposit_grids(torch, torch.device("cuda", 0))
     for i in range(runs + 1):  # the first run warms up
         g = k4
@@ -3357,7 +3630,8 @@ def ab_slice(other):
     """``time_slice`` of both checkouts in turns; the median steps/s and
     hills/s of each."""
     for tree, runs in ab_runs("--time-slice", other).items():
-        for key, unit in (("steps_per_s", "steps/s"), ("hills_per_s", "hills/s"),
+        for key, unit in (("steps_per_s", "steps/s"), ("steps_per_s_100k", "steps/s, 100k cell"),
+                          ("hills_per_s", "hills/s"),
                           ("hill_step_launches", "device launches of a 10k hill step")):
             print(f"{tree}: {unit} {spread([r[key] for r in runs if key in r])}")
 
@@ -3416,6 +3690,9 @@ def main() -> int:
         launches[path], device_ms[path] = run["launches"], run["device_ms"]
         print(f"{path} slice: {time.perf_counter() - t_phase:.1f} s")
         if path == "interp":
+            t_phase = time.perf_counter()
+            rows.update(hash_kernel_phase(torch, device, run["state"], run["steps"]))
+            print(f"kernel checks, counter hash and pass 1: {time.perf_counter() - t_phase:.1f} s")
             t_phase = time.perf_counter()
             gofr_phase(torch, device)
             print(f"10k g(r): {time.perf_counter() - t_phase:.1f} s")
@@ -3482,6 +3759,7 @@ def main() -> int:
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
+    hr = "edm_tpu_torch/csrc/hashrng.cu"
     k1, k2, k6, k7 = FORCE_KERNELS
     entries = [  # name, source, the TPU kernel, (path, wrapper) or deposition route, rows' prefix
         ("cell_force_newton", cf, "cellforce_pallas.py:684", ("interp", k1),
@@ -3516,6 +3794,22 @@ def main() -> int:
         # no Pallas kernel: the per-row fold_in + uniform draws XLA computes
         ("threefry_rows", "edm_tpu_torch/csrc/threefry.cu", "../models/pair_edm_blocked.py:115",
          "blocked", "threefry_rows"),
+        # no Pallas kernel: the counter hash and pass 1 of the hill
+        # collections, which XLA fuses
+        ("hash_rows[uniform]", hr, "hashrng.py:53", ("interp", "uniform_rows_cols"),
+         "uniform_rows_cols pass 2"),
+        ("hash_rows[normal]", hr, "hashrng.py:33", ("interp", "normal_rows_cols"),
+         "normal_rows_cols thermostat"),
+        ("p1_count_half", hr, "../models/pair_edm_cells.py:1886", ("interp", "p1_counts_half"),
+         "p1_counts_half "),
+        ("p1_count_typed", hr, "../models/pair_edm_cells.py:2073", ("typed", "p1_counts_typed"),
+         "p1_counts_typed "),
+        ("hash_rows[uniform][100k]", hr, "hashrng.py:53", ("100k", "uniform_rows_cols"),
+         "uniform_rows_cols[100k]"),
+        ("hash_rows[normal][100k]", hr, "hashrng.py:33", ("100k", "normal_rows_cols"),
+         "normal_rows_cols[100k]"),
+        ("p1_count_half[100k]", hr, "../models/pair_edm_cells.py:1886",
+         ("100k", "p1_counts_half"), "p1_counts_half[100k]"),
     ]
     records = []
     for name, source, replaces, where, prefix in entries:

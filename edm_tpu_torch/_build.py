@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``load_library()`` compiles ``csrc/*.cu`` (the cell-force kernels, the
-deposition kernels and the Threefry draws) with ``nvcc`` for ``sm_90a``, one process per source
+deposition kernels, the Threefry draws and the counter hash with the hill
+collections' pass 1) with ``nvcc`` for ``sm_90a``, one process per source
 run at once, and links them into one shared library with a plain C
 interface, under ``_build/`` next to this file (git-ignored); it loads
 the library with ctypes.  The library's name carries a
@@ -79,6 +80,19 @@ def _declare(lib):
     # k0, k1, rows, R, n, f64, out, stream
     lib.threefry_rows_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, i, i, i, vp, vp]
     lib.threefry_rows_launch.restype = i
+    u32, f64, i64 = ctypes.c_uint32, ctypes.c_double, ctypes.c_longlong
+    # s0, s1, rows, R, n, normal, f64, out, stream
+    lib.hash_rows_launch.argtypes = [u32, u32, vp, i64, i, i, i, vp, vp]
+    lib.hash_rows_launch.restype = i
+    # cx, cy, cz, cm, gids, box, bmax2, thresh, s0, s1, B, cap, W, f64,
+    # row_counts, ncalls, stream
+    lib.p1_count_half_launch.argtypes = [vp] * 6 + [f64, vp, u32, u32, i, i, i, i, vp, vp, vp]
+    lib.p1_count_half_launch.restype = i
+    # xs, aid, ts, nbr, box, bmax2, thresh, t0, t1, n_atoms, s0, s1, C, cap,
+    # f64, row_counts, ncalls, stream
+    lib.p1_count_typed_launch.argtypes = [vp] * 5 + [f64, vp, f64, f64, i64, u32, u32, i, i, i,
+                                                      vp, vp, vp]
+    lib.p1_count_typed_launch.restype = i
     for name in _LIMITS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i

@@ -6,7 +6,8 @@ of the slab-sharded host.  The MD state lives in cell-slot order
 8, ``aid`` of length Cg*cap, exactly the JAX layout):
 
   1. BAOAB pre-force stages on the slot arrays; thermostat noise from the
-     counter hash keyed by global slot row (``ops/hashrng``);
+     counter hash keyed by global slot row (``ops/hashrng``: the CUDA kernel
+     ``hash_normals`` on the card);
   2. the force pass, by ``use_pallas``:
        - False (the JAX default): the XLA force pass in plain PyTorch — the
          27-stencil ordered-pair tiles of ``cell_chunk`` cells at a time
@@ -25,7 +26,9 @@ of the slab-sharded host.  The MD state lives in cell-slot order
      with ``types``/``type_pair`` (the XLA pass, K1 at full cap or K6) the
      CV term is kept only for the rdf type pair
      (fix_edm_pair.cpp:39-44,177-202);
-  3. on hill steps: two-level hill collection and
+  3. on hill steps: two-level hill collection (pass 1 through the CUDA
+     kernels of ``ops/collect`` on the card, pass 2 a plain tile of the
+     selected rows) and
      ``bias.add_hills_round``; untyped runs collect over half-stencil tiles
      (two acceptance draws per unordered pair), typed runs over the
      27-stencil (one draw per ordered candidate, {ti, tj} pairs only); with
@@ -96,6 +99,7 @@ from ..ops.cellforce import (
     subtract_credits,
     type_pair_mask,
 )
+from ..ops.collect import p1_counts_half, p1_counts_typed, stencil_tile
 from ..ops.hashrng import normal_rows_cols, seeds_from_key, uniform_rows_cols
 from ..utils.hills_log import to_host
 from .cells import (
@@ -244,35 +248,6 @@ def _half_concat(plane, ncells, cap: int, cells: slice = None):
     own, nbr = plane[cells], nbr[cells]
     nb = plane[nbr].reshape((own.shape[0], 13 * cap) + plane.shape[2:])
     return torch.cat([own, nb], 1)
-
-
-# Pass 1 of the hill collections draws 2 * 14 * cap (half stencil) or
-# 27 * cap (typed) uniforms for every slot row and keeps several int64
-# temporaries of that size (ops/hashrng).  It runs in chunks of whole cells
-# whose draws stay within P1_DRAWS values (268 MB an int64 temporary): the
-# 10k lattice's 729 cells are one chunk, so its hill step launches no more
-# than an unchunked pass, and the 100k lattice's 6,859 cells six.  The JAX
-# host scans pass 1 by ``cell_chunk`` (81 cells in the bench), which would
-# multiply the hash's launches of a 10k hill step by about eight.  The
-# draws are keyed by global slot row and column, so the chunking changes
-# no value.
-P1_DRAWS = 1 << 25
-
-
-def _p1_ranges(n_cells: int, draws_per_cell: int):
-    """Pass 1's chunks: (first, end) cell ranges of at most ``P1_DRAWS //
-    draws_per_cell`` whole cells (at least one) covering ``n_cells``."""
-    step = max(1, P1_DRAWS // draws_per_cell)
-    return [(c0, min(c0 + step, n_cells)) for c0 in range(0, n_cells, step)]
-
-
-def _p1_join(counts, calls, like):
-    """Pass 1's per-chunk row counts and candidate counts -> (row_counts,
-    candidates), int64 like ``like``; a single chunk's are returned as they
-    are, so an unchunked pass launches nothing more."""
-    if not counts:  # a rank that owns no cell
-        return like.new_zeros(0), like.new_zeros(())
-    return (counts[0] if len(counts) == 1 else torch.cat(counts)), sum(calls[1:], calls[0])
 
 
 def init_cell_state(spec: CellSpec, core: PairEDMState, with_ids: bool = False,
@@ -873,7 +848,7 @@ class CellStep:
         pair once (self block strictly upper, 13 positive neighbours) with
         two acceptance uniforms (the reference's two ordered candidates,
         fix_edm_pair.cpp:229-237).  Pass 1 counts accepted candidates per
-        slot row in chunks of whole cells (``P1_DRAWS``); pass 2 re-derives
+        slot row (``ops/collect.p1_counts_half``); pass 2 re-derives
         the same draws on the selected rows and extracts the first
         ``m_per_row`` per row in column order.
 
@@ -925,22 +900,7 @@ class CellStep:
             return acc if thresh is None else acc & (u < thresh)
 
         # pass 1: accepted candidates per slot row of the (owned) cells
-        ri = torch.arange(cap, device=dev)[None, :, None]
-        counts, calls = [], []
-        for c0, c1 in _p1_ranges(B_, 2 * W * cap):
-            r2 = 0.0
-            for c in range(3):
-                pl = cand[c][c0:c1]
-                dd = pl[:, :cap, None] - pl[:, None, :]
-                dd = dd - torch.round(dd / box[c]) * box[c]
-                r2 = r2 + dd * dd
-            m = candm[c0:c1]
-            ok = m[:, :cap, None] & m[:, None, :] & upper(ri) & (r2 < bmax2)
-            u = uniform_rows_cols(seeds, gids[c0 * cap:c1 * cap], 2 * W, dtype)
-            counts.append(accepted(ok, u.reshape(c1 - c0, cap, W, 2)).sum((2, 3)).reshape(-1))
-            calls.append(torch.sum(ok.to(torch.int64)))
-        row_counts, ncalls = _p1_join(counts, calls, gids)
-        ncalls = 2 * ncalls
+        row_counts, ncalls = p1_counts_half(cand, candm, gids, box, bmax2, thresh, seeds, cap)
         sent = C * cap  # the global slot-row sentinel
         rows_sel, n_rows = self._select_rows(row_counts, rc, gids, sent)
 
@@ -1008,9 +968,9 @@ class CellStep:
         with ``chunk_pairs``' typed branch): every ordered candidate of a
         slot row (27 * cap, CellSpec.stencil() order) with one acceptance
         uniform, self pairs masked by atom id, candidates only within the
-        CV's type pair.  Pass 1 counts per slot row in chunks of whole
-        cells (``P1_DRAWS``); pass 2 redraws on the selected rows and
-        extracts as the half-stencil collection does."""
+        CV's type pair.  Pass 1 counts per slot row
+        (``ops/collect.p1_counts_typed``); pass 2 redraws on the selected
+        rows and extracts as the half-stencil collection does."""
         spec, params = self.spec, self.params
         n, cap, C = spec.n_atoms, spec.cap, spec.n_cells
         W = 27 * cap
@@ -1023,40 +983,18 @@ class CellStep:
         aid2 = state.aid.reshape(-1, cap)
         tslot = self._slot_types(state)  # 0 = empty
 
-        def tile(xi, ai, ti, cells):
-            """r2, the validity and the CV type mask of rows (xi, ai, ti)
-            against the stencil candidates of ``cells``."""
-            xw = xs[nbr[cells]].reshape(cells.shape + (W, 3))
-            aw = aid2[nbr[cells]].reshape(cells.shape + (W,))
-            tw = tslot[nbr[cells]].reshape(cells.shape + (W,))
-            r2 = 0.0
-            for c in range(3):
-                dd = xi[..., c, None] - xw[..., c]
-                dd = dd - torch.round(dd / box[c]) * box[c]
-                r2 = r2 + dd * dd
-            valid = (ai[..., None] < n) & (aw < n) & (ai[..., None] != aw)
-            return r2, valid, type_pair_mask(ti[..., None], tw, self.type_pair)
-
         # pass 1: ordered candidates and accepted draws per slot row
-        counts, calls = [], []
-        for c0, c1 in _p1_ranges(C, W * cap):
-            cells = torch.arange(c0, c1, device=dev)
-            r2, valid, cv = tile(xs[c0:c1], aid2[c0:c1], tslot[c0:c1], cells[:, None])
-            cand = valid & cv & (r2 < bmax * bmax)
-            rows = torch.arange(c0 * cap, c1 * cap, device=dev)
-            u = uniform_rows_cols(seeds, rows, W, dtype).reshape(c1 - c0, cap, W)
-            acc = cand if thresh is None else cand & (u < thresh)
-            counts.append(acc.sum(2).reshape(-1))
-            calls.append(torch.sum(cand.to(torch.int64)))
-        row_counts, ncalls = _p1_join(counts, calls, state.aid)
+        row_counts, ncalls = p1_counts_typed(xs, state.aid, tslot, nbr, box, bmax * bmax, thresh,
+                                             seeds, n, self.type_pair)
         rows_sel, n_rows = self._select_rows(row_counts)
 
         # pass 2 on the selected slot rows
         sent = C * cap
         rows_c = torch.clamp(rows_sel, 0, sent - 1)
         flat_aid, flat_t = aid2.reshape(-1), tslot.reshape(-1)
-        r2, valid, cv = tile(xs.reshape(-1, 3)[rows_c], flat_aid[rows_c], flat_t[rows_c],
-                             rows_c // cap)
+        r2, valid, cv = stencil_tile(xs, aid2, tslot, nbr, box, n, self.type_pair,
+                                     xs.reshape(-1, 3)[rows_c], flat_aid[rows_c],
+                                     flat_t[rows_c], rows_c // cap)
         valid = (rows_sel < sent)[:, None] & valid
         inf = torch.full_like(r2, float("inf"))
         r = torch.where(cv, torch.sqrt(torch.where(valid, r2, inf)), inf)
@@ -1193,7 +1131,8 @@ def make_cell_step(
     ``types``.  ``kernel_cap``/``overflow_cap`` as in the JAX host
     (``use_pallas=True``, untyped).  ``cell_chunk`` chunks the XLA force
     pass; the JAX host also scans its hill collection's pass 1 by it, the
-    port by ``P1_DRAWS`` (bounded chunks of whole cells; the same values).
+    port runs pass 1 in one kernel launch on the card (``ops/collect``; the
+    plain version in chunks of ``collect.P1_DRAWS``, the same values).
     ``cheb_deg`` changes nothing: a hill round refits at the carried
     table's degree.
 

@@ -161,11 +161,10 @@ def slab_steps(path: str):
 def collect_chunked(path: str):
     """One hill collection of the slab host (or, with ``grid``, the brick
     host) from the input state, for each pass-1 chunk limit of ``p1``
-    (``pair_edm_cells.P1_DRAWS``; None keeps the default); returns per
+    (``ops.collect.P1_DRAWS``; None keeps the default); returns per
     limit the gathered round (hills, runifs, active, ncalls, truncated) and
     this rank's pass-1 row counts."""
-    from edm_tpu_torch.models import pair_edm_cells as tpc
-    from edm_tpu_torch.ops import prng
+    from edm_tpu_torch.ops import collect, prng
 
     d = _load(path)
     if d.get("grid"):
@@ -173,10 +172,10 @@ def collect_chunked(path: str):
     else:
         mesh, make = make_mesh(device="cpu"), make_slab_cell_step
     params, spec, lp, lj = _cell_setup(d, mesh)
-    state, default = _state(d), tpc.P1_DRAWS
+    state, default = _state(d), collect.P1_DRAWS
     out = {}
     for p1 in d["p1"]:
-        tpc.P1_DRAWS = default if p1 is None else p1
+        collect.P1_DRAWS = default if p1 is None else p1
         try:
             step = make(params, lp, lj, spec, 10, mesh, hill_capacity=d["hill_capacity"])
             seen = []
@@ -185,7 +184,7 @@ def collect_chunked(path: str):
             res = step._collect_hills(state, state.xs, prng.PRNGKey(d["key"]),
                                       torch.tensor(d["last_calls"]), torch.float32)
         finally:
-            tpc.P1_DRAWS = default
+            collect.P1_DRAWS = default
         out[p1] = {"round": to_numpy_tree(res), "row_counts": seen[0].numpy()}
     return out
 

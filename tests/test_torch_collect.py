@@ -1,6 +1,6 @@
-"""PyTorch port: pass 1 of the cell host's hill collections runs in
-bounded chunks of whole cells (``pair_edm_cells.P1_DRAWS``), and the
-chunking changes nothing.
+"""PyTorch port: the plain version of pass 1 of the cell host's hill
+collections (``ops/collect``, which the CPU runs) takes bounded chunks of
+whole cells (``collect.P1_DRAWS``), and the chunking changes nothing.
 
 Each collection is held bitwise between a forced small chunk (7 cells,
 which divides none of these lattices) and the default, which takes these
@@ -37,7 +37,7 @@ from edm_tpu_torch.models import cells as tcells
 from edm_tpu_torch.models import pair_edm_cells as tpc
 from edm_tpu_torch.models.langevin import LangevinParams as TLP
 from edm_tpu_torch.models.lj import LJParams as TLJ
-from edm_tpu_torch.ops import prng
+from edm_tpu_torch.ops import collect, prng
 from test_torch_parallel import CFG, _launch_bg, _ragged_setup
 
 LAST_CALLS = 4000  # hill_density 20 over this: about 1% of the candidates accepted
@@ -56,13 +56,13 @@ def _collect(step, state, p1=None):
     seen = []
     select = step._select_rows
     step._select_rows = lambda rc, *a: seen.append(rc) or select(rc, *a)
-    saved = tpc.P1_DRAWS
-    tpc.P1_DRAWS = saved if p1 is None else p1
+    saved = collect.P1_DRAWS
+    collect.P1_DRAWS = saved if p1 is None else p1
     try:
         res = step._collect_hills(state, state.xs, prng.PRNGKey(11), torch.tensor(LAST_CALLS),
                                   torch.float32)
     finally:
-        tpc.P1_DRAWS = saved
+        collect.P1_DRAWS = saved
         del step._select_rows
     return to_numpy_tree(res), seen[0].numpy()
 
@@ -81,20 +81,20 @@ def _port_step(params, spec, typed=False, **kw):
 
 
 def test_p1_ranges_cover_whole_cells():
-    assert tpc._p1_ranges(125, 2 * 14 * 32 * 32) == [(0, 125)]
-    assert tpc._p1_ranges(0, 1) == []
-    saved = tpc.P1_DRAWS
-    tpc.P1_DRAWS = 7 * 100 + 99
+    assert collect._p1_ranges(125, 2 * 14 * 32 * 32) == [(0, 125)]
+    assert collect._p1_ranges(0, 1) == []
+    saved = collect.P1_DRAWS
+    collect.P1_DRAWS = 7 * 100 + 99
     try:
-        r = tpc._p1_ranges(125, 100)
+        r = collect._p1_ranges(125, 100)
     finally:
-        tpc.P1_DRAWS = saved
+        collect.P1_DRAWS = saved
     assert r[0] == (0, 7) and r[-1] == (119, 125) and len(r) == 18
     assert all(b == c for (_, b), (c, _) in zip(r, r[1:]))
     # the default at the bench's widths: 10k one chunk, 100k six
-    assert len(tpc._p1_ranges(729, 2 * 14 * 32 * 32)) == 1
-    assert len(tpc._p1_ranges(6859, 2 * 14 * 32 * 32)) == 6
-    assert len(tpc._p1_ranges(6859, 27 * 32 * 32)) == 6
+    assert len(collect._p1_ranges(729, 2 * 14 * 32 * 32)) == 1
+    assert len(collect._p1_ranges(6859, 2 * 14 * 32 * 32)) == 6
+    assert len(collect._p1_ranges(6859, 27 * 32 * 32)) == 6
 
 
 @pytest.mark.parametrize("hill_capacity", [2048, 64])
@@ -164,12 +164,12 @@ def test_chunked_hill_step_matches_jax():
     jst, (_, jlog) = jstep(state, None)
     tstep = tpc.make_cell_step(to_port(params), TLP(**lp), TLJ(),
                                tcells.CellSpec(**dataclasses.asdict(spec)), 10, **kw)
-    saved = tpc.P1_DRAWS
-    tpc.P1_DRAWS = _p1_cells(7, 2 * 14 * 32)
+    saved = collect.P1_DRAWS
+    collect.P1_DRAWS = _p1_cells(7, 2 * 14 * 32)
     try:
         tst, (_, tlog) = tstep(to_port(state))
     finally:
-        tpc.P1_DRAWS = saved
+        collect.P1_DRAWS = saved
     assert_exact(tst.core.last_calls, jst.core.last_calls, "ncalls")
     assert_exact(tst.core.hills_truncated, jst.core.hills_truncated, "truncated")
     assert int(np_(tst.core.last_calls)) > 0

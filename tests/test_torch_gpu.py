@@ -34,8 +34,15 @@ over its 9 columns, ragged ranks included) at k = 24 and 32, against its
 plain version and bitwise against the full-window kernel with the rows
 outside the box masked; and a 2-rank slab step on the card
 (``parallel.launch``, a rank per card or both on one) against the
-single-device step.  Tolerances as in
-the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
+single-device step.  The counter hash and pass 1 of the hill
+collections (``csrc/hashrng.cu``): ``hash_uniforms`` bitwise and
+``hash_normals`` within 2 ulps of their plain versions at the 10k
+thermostat's rows and a pass-1 width, in float32 and float64;
+``p1_count_half`` (the lattice, a 2-rank slab's and a 2 x 2 brick's owned
+cells) and ``p1_count_typed`` on the 10,000-atom lattice, row counts and
+ncalls exactly, the threshold on and off; and whole hill collections,
+half and typed, bitwise through the kernels and the plain versions.
+Tolerances as in the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
 Every kernel repeats bitwise.
@@ -51,6 +58,7 @@ from _torch_parity import assert_energy, assert_forces
 from edm_tpu_torch import bias as B
 from edm_tpu_torch import gauss as tg
 from edm_tpu_torch.models import pair_edm
+from edm_tpu_torch.models import pair_edm_cells as PCELLS
 from edm_tpu_torch.models.cells import CellSpec
 from edm_tpu_torch.models.langevin import LangevinParams
 from edm_tpu_torch.models.lj import LJParams
@@ -1240,3 +1248,153 @@ def test_brick_step_on_card(cuda_state, tmp_path):
         for r in res[1:]:
             for name in ("xs", "vs", "fs", "aid"):
                 np.testing.assert_array_equal(r[i][0][name], got[name])
+
+
+# ------------------------------------------- the counter hash and pass 1
+
+HASH_SEEDS = (0x9E3779B9, 987654321)
+
+
+def _ulps(a, b):
+    """Per element |a - b| in units of the spacing at the larger |.|."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("normal", [False, True], ids=["uniform", "normal"])
+def test_hash_rows_kernel(cuda_state, dtype, normal):
+    """``hash_rows`` against its plain version (the int64 hash on the card):
+    uniforms bitwise, normals within 2 ulps, at the 10k thermostat's rows
+    (23,328) with row ids up to 2^33 (taken mod 2^32), 3 and 7 columns, and
+    a pass-1 width (896 columns) on 700 rows."""
+    from edm_tpu_torch.ops import hashrng as H
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+    rows = torch.tensor(np.concatenate([np.arange(23328), rng.integers(0, 2**33, 500)]),
+                        device=dev)
+    fn, ref = ((H.normal_rows_cols, H.normal_rows_cols_ref) if normal else
+               (H.uniform_rows_cols, H.uniform_rows_cols_ref))
+    for r, n in ((rows, 3), (rows, 7), (rows[:700], 896)):
+        n0 = fn.launches
+        out = fn(HASH_SEEDS, r, n, dtype)
+        want = ref(HASH_SEEDS, r, n, dtype)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1 and out.dtype == dtype and out.shape == (len(r), n)
+        if normal:
+            assert _ulps(out, want).max() <= 2
+        else:
+            assert torch.equal(out, want)
+    assert fn(HASH_SEEDS, rows[:0], 3, dtype).shape == (0, 3)
+
+
+def _half_inputs(spec, st, cells, dtype):
+    cap = spec.cap
+    dev = st.xs.device
+    ids = torch.arange(spec.n_cells, device=dev)[cells]
+    gids = (ids[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
+    cand = [PCELLS._half_concat(st.xs[..., c], spec.ncells, cap, cells).to(dtype)
+            for c in range(3)]
+    candm = PCELLS._half_concat(st.mc, spec.ncells, cap, cells) > 0.5
+    return cand, candm, gids
+
+
+def _threshold(on, dtype, dev):
+    return torch.full((), 0.01, dtype=dtype, device=dev) if on else None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("thresh", [True, False], ids=["thresh", "accept-all"])
+@pytest.mark.parametrize("form", ["lattice", "slab", "brick"])
+def test_p1_counts_half_kernel(cuda_slab, form, thresh, dtype):
+    """``p1_count_half`` against its plain version on the 10k lattice:
+    row_counts and ncalls exactly, over every cell, the owned cells of a
+    2-rank slab and of a 2 x 2 brick; a second launch repeats them."""
+    from edm_tpu_torch.ops import collect
+
+    spec, st, _ = cuda_slab
+    dev = st.xs.device
+    boxes = {"lattice": [slice(0, spec.n_cells)],
+             "slab": [slice(0, 5 * 81), slice(5 * 81, 9 * 81)],
+             "brick": [CF.box_cells(spec.ncells, ((x0, y0, 0), (wx, wy, 9)), dev)
+                       for x0, wx in ((0, 5), (5, 4)) for y0, wy in ((0, 5), (5, 4))]}[form]
+    box = torch.tensor(spec.box, dtype=dtype, device=dev)
+    th = _threshold(thresh, dtype, dev)
+    for cells in boxes:
+        cand, candm, gids = _half_inputs(spec, st, cells, dtype)
+        args = (cand, candm, gids, box, 9.0, th, HASH_SEEDS, spec.cap)
+        n0 = collect.p1_counts_half.launches
+        rc, nc = collect.p1_counts_half(*args)
+        rc_ref, nc_ref = collect.p1_counts_half_ref(*args)
+        torch.cuda.synchronize()
+        assert collect.p1_counts_half.launches == n0 + 1
+        assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
+        rc2, nc2 = collect.p1_counts_half(*args)
+        assert torch.equal(rc2, rc) and int(nc2) == int(nc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("thresh", [True, False], ids=["thresh", "accept-all"])
+def test_p1_counts_typed_kernel(cuda_slab, thresh, dtype):
+    """``p1_count_typed`` against its plain version on the 10k lattice with
+    every other atom type 2, type pair (1, 2): row_counts and ncalls
+    exactly."""
+    from edm_tpu_torch.ops import collect
+
+    spec, st, _ = cuda_slab
+    dev = st.xs.device
+    n = spec.n_atoms
+    types = torch.tensor(np.where(np.arange(n) % 2 == 0, 2, 1), device=dev)
+    t = types[torch.clamp(st.aid, 0, n - 1)]
+    tslot = torch.where(st.aid < n, t, 0).to(dtype).reshape(st.mc.shape)
+    nbr = CF.stencil_neighbors(tuple(spec.ncells), dev)
+    args = (st.xs.to(dtype), st.aid, tslot, nbr, torch.tensor(spec.box, dtype=dtype, device=dev),
+            9.0, _threshold(thresh, dtype, dev), HASH_SEEDS, n, (1, 2))
+    n0 = collect.p1_counts_typed.launches
+    rc, nc = collect.p1_counts_typed(*args)
+    rc_ref, nc_ref = collect.p1_counts_typed_ref(*args)
+    torch.cuda.synchronize()
+    assert collect.p1_counts_typed.launches == n0 + 1
+    assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("typed", [False, True], ids=["half", "typed"])
+def test_collection_kernels_vs_plain(cuda_slab, typed):
+    """One hill collection of the 10k cell host through the kernels and
+    through their plain versions (the module names of ``pair_edm_cells``
+    swapped): hills, runifs, active, ncalls and the truncation flag
+    bitwise."""
+    from edm_tpu_torch.ops import collect
+    from edm_tpu_torch.ops import hashrng as H
+
+    spec, st, _ = cuda_slab
+    n = spec.n_atoms
+    cfg = parse_edm_text("tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 250\n"
+                         "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\n"
+                         "bias_sigma 0.1\n")
+    params, _ = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                            dtype=torch.float32, device=st.xs.device)
+    kw = dict(types=np.where(np.arange(n) % 2 == 0, 2, 1), type_pair=(1, 2)) if typed else {}
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.8), LJ, spec, 10,
+                          **kw)
+    args = (st, st.xs, PRNGKey(7), torch.tensor(40000, device=st.xs.device), torch.float32)
+    got = step._collect_hills(*args)
+    plain = {"p1_counts_half": collect.p1_counts_half_ref,
+             "p1_counts_typed": collect.p1_counts_typed_ref,
+             "uniform_rows_cols": H.uniform_rows_cols_ref}
+    saved = {k: getattr(PCELLS, k) for k in plain}
+    try:
+        for k, fn in plain.items():
+            setattr(PCELLS, k, fn)
+        want = step._collect_hills(*args)
+    finally:
+        for k, fn in saved.items():
+            setattr(PCELLS, k, fn)
+    assert int(want[3]) > 0 and bool(want[2].any())
+    for name, a, b in zip(("hills", "runifs", "active", "ncalls", "truncated"), got, want):
+        assert torch.equal(a, b), name
