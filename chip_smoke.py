@@ -82,7 +82,8 @@ the counter-hash and pass-1 kernels against their plain versions on its
 end state (``hash_kernel_phase``: uniforms bitwise, normals within 2 ulps,
 the row counts and ncalls of pass 1 exactly over the lattice, a 2-rank
 slab's and a 2 x 2 brick's owned cells and the typed stencil, whole
-collections bitwise), then the sampled g(r) at kT = 0.8: 300 steps from one thermalized state through
+collections bitwise; and both pass-1 kernels on ``edge_lattice`` in
+float32 and float64), then the sampled g(r) at kT = 0.8: 300 steps from one thermalized state through
 the kernels and through the plain versions with the same key, and through
 the kernels with another key, the first two within twice the distance of
 the kernel runs plus ``GOFR_FLOOR`` (L1 of the normalized histograms);
@@ -93,8 +94,9 @@ prints and checks), the counter hash's and pass 1's share of a stride
 cycle's device time through the kernels and through the plain versions, a
 hill step's peak memory through the kernels (below 2 GB) and through the
 plain pass 1 chunked and in one chunk, ``hash_kernel_phase`` at its
-shapes, and K1 and K2 against their plain versions on its state, with
-each part's seconds; the deposition run (hills/s,
+shapes, K1 and K2 against their plain versions on its state, and a
+short typed run at 100k (``p1_count_typed[100k]``), with each part's
+seconds; the deposition run (hills/s,
 host syncs, device-busy share and device launches of a round; its final
 grid held to the same rounds through the plain versions); the Threefry
 kernel against the numpy chain, bitwise; the 2-D slice, 20 kT = 0 steps
@@ -163,8 +165,9 @@ compare the two in one call (steps/s, hills/s and the device launches of
 one 10k hill step; medians and ranges).
 ``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
 way: the device time per launch of every entry of the ``kernels`` line,
-from the profile of a stride cycle of each MD path and of a deposition
-round on each route, one process per run, medians and ranges printed; both
+from the profile of a stride cycle of each MD path (and of the exact and
+the typed path at 100k) and of a deposition round on each route, one
+process per run, medians and ranges printed; both
 checkouts must name their device functions as ``PORT_KERNELS`` does.
 """
 
@@ -225,7 +228,11 @@ PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS + ("hash_", "p1_"
 # Box-Muller, 7 more (each libm call counted as one); a pair's minimum-image
 # r^2 and its test in pass 1 (per axis a subtraction, the division, rint, a
 # product, a subtraction and the square; two sums, one comparison)
-HASH_INT_OPS, UNIFORM_FLOPS, BOX_MULLER_FLOPS, P1_R2_FLOPS = 12, 2, 7, 21
+HASH_INT_OPS, UNIFORM_FLOPS, BOX_MULLER_FLOPS = 12, 2, 7
+# pass 1's r^2 a pair: 3 subtractions, 3 |d| <= L/4 tests, 3 squares, 2
+# adds, the bmax test; a component across a periodic face adds its image
+# (a division, rint, a product and a subtraction)
+P1_PAIR_FLOPS, P1_WRAP_FLOPS = 12, 4
 
 
 def card_line() -> str:
@@ -261,6 +268,33 @@ def bench_bias(torch, device):
                   derivs=None, spec=tspec, interpolate=False)
     return B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
                        dtype=torch.float32, device=device, target=target)
+
+
+def edge_lattice():
+    """The edge lattice of pass 1: (positions (n, 3), box, cap, types) on
+    5 x 3 x 5 cells of edge 3 (the CV's bmax) and cap 8.  Cells (0, 0, 0)
+    and (4, 2, 4) are full (8 atoms each, the second a neighbour of the
+    first across all three periodic faces), most cells are empty, and the
+    pairs in between put a component of the displacement at -L/4 (x, 15
+    wide), +-L/4 and +-L/2 (y, 9 wide: there L/4 < bmax) and r^2 at bmax^2
+    exactly, just below it and just above it."""
+    full = np.stack(np.meshgrid(*[[0.75, 2.25]] * 3, indexing="ij"), -1).reshape(-1, 3)
+    corner = np.stack(np.meshgrid([12.5, 14.5], [6.5, 8.5], [12.5, 14.5], indexing="ij"),
+                      -1).reshape(-1, 3)
+    pairs = [
+        (6.25, 4.0, 7.0), (10.0, 4.0, 7.0),  # dx = -L/4
+        (7.0, 4.0, 1.0), (7.0, 6.25, 1.0),  # dy = -L/4, within bmax
+        (8.9, 4.0, 10.0), (9.1, 1.75, 10.0),  # dy = +L/4 on the (1, -1, 0) face
+        (7.0, 7.25, 4.0), (7.0, 0.5, 4.0),  # dy = -L/4 across the periodic face
+        (1.0, 4.0, 7.0), (1.0, 8.5, 7.0),  # dy = -L/2
+        (4.0, 7.0, 10.0), (4.0, 2.5, 10.0),  # dy = +L/2 across the periodic face
+        (10.0, 1.0, 1.0), (10.0, 4.0, 1.0),  # r^2 = bmax^2 = 9
+        (4.0, 4.5, 4.0), (5.0, 6.5, 6.0),  # r^2 = 1 + 4 + 4 = bmax^2
+        (10.0, 1.0, 13.0), (10.0, 3.9999998, 13.0),  # r^2 just below bmax^2 (float32)
+        (10.0, 4.0000005, 13.0),  # and just above it
+    ]
+    pts = np.concatenate([full, corner, np.array(pairs)])
+    return pts, [15.0, 9.0, 15.0], 8, bench_types(len(pts))
 
 
 def bench_lattice(n_atoms):
@@ -903,7 +937,7 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
     label = path if n_atoms is None else f"{path} N={n_atoms}"
     calls = {}
     if path == "typed":  # one hill round, typed and untyped, from this state
-        _, st_u, steps_u = bench_setup(torch, 0.8, device)
+        _, st_u, steps_u = bench_setup(torch, 0.8, device, n_atoms=n_atoms)
         calls = {"typed": int(steps[0](state)[0].core.last_calls),
                  "untyped": int(steps_u[0](st_u)[0].core.last_calls)}
     for s in steps:
@@ -1061,17 +1095,95 @@ def max_ulps(a, b) -> float:
     return float((np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))).max())
 
 
-def half_inputs(torch, spec, state, cells):
-    """Pass 1's inputs on the row cells ``cells`` (a slice or a tensor of
-    cell ids) of the cell state: the three candidate planes, their
-    occupancy, the rows' global slot-row ids."""
-    from edm_tpu_torch.models import pair_edm_cells as PC
+def half_inputs(torch, spec, state, cells, dtype=None):
+    """Pass 1's inputs on the row cells ``cells`` (a tensor of global cell
+    ids) of the cell state, in ``dtype`` (default the state's): the slot
+    lattice (xs, mc), the cells and ``half_neighbors``."""
+    from edm_tpu_torch.ops import cellforce as CF
 
-    cap, dev = spec.cap, state.xs.device
-    ids = torch.arange(spec.n_cells, device=dev)[cells]
-    gids = (ids[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
-    cand = [PC._half_concat(state.xs[..., c], spec.ncells, cap, cells) for c in range(3)]
-    return cand, PC._half_concat(state.mc, spec.ncells, cap, cells) > 0.5, gids
+    dtype = dtype or state.xs.dtype
+    nbr = CF.half_neighbors(tuple(spec.ncells), state.xs.device)
+    return state.xs.to(dtype), state.mc.to(dtype), cells, nbr
+
+
+def stencil_work(torch, spec, occ_a, occ_b, offsets, nbr, half: bool):
+    """Pass 1's pairs and the displacement components among them that
+    cross a periodic face (where the minimum image needs its division; on
+    lattices of 8 or more cells a side no other component does), from the
+    per-cell counts of row atoms ``occ_a`` and candidate atoms ``occ_b``
+    (C,) over the stencil ``offsets`` / ``nbr`` (C, len(offsets)); with
+    ``half`` the cell's own pairs are counted once (occ_a = occ_b) and
+    ``offsets`` are the 13 neighbours, else every ordered pair of the
+    stencil, the cell's own included (an atom with itself excluded by the
+    caller's counts being of distinct types)."""
+    C = spec.n_cells
+    dev = nbr.device
+    a, b = occ_a[:C].to(torch.int64), occ_b[:C].to(torch.int64)
+    cid = torch.arange(C, device=dev)
+    ny, nz = spec.ncells[1], spec.ncells[2]
+    co = (cid // (ny * nz), (cid // nz) % ny, cid % nz)
+    pairs = (a * (a - 1) // 2).sum() if half else 0
+    wraps = 0
+    for k, off in enumerate(offsets):
+        p = a * b[nbr[:, k]]
+        pairs = pairs + p.sum()
+        cross = sum(((co[d] + off[d] < 0) | (co[d] + off[d] >= spec.ncells[d])).to(torch.int64)
+                    for d in range(3))
+        wraps = wraps + (p * cross).sum()
+    return int(pairs), int(wraps)
+
+
+def edge_lattice_phase(torch, device):
+    """Both pass-1 kernels on ``edge_lattice`` (cap 8), in float32 and
+    float64, with the threshold at 0.5 and with none: row counts and ncalls
+    exactly the plain versions'; the half pass also over an unordered cell
+    list."""
+    from edm_tpu_torch.models import pair_edm
+    from edm_tpu_torch.models.cells import CellSpec
+    from edm_tpu_torch.models.pair_edm_cells import init_cell_state
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import collect
+    from edm_tpu_torch.ops.hashrng import seeds_from_key
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    pts, box, cap, types = edge_lattice()
+    n = len(pts)
+    _, bias_state = bench_bias(torch, device)
+    core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32, device=device),
+                               PRNGKey(0))
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=n, cap=cap)
+    state = init_cell_state(spec, core)
+    full, empty = (int((state.mc.sum(1) == k).sum()) for k in (cap, 0))
+    if not (spec.ncells == (5, 3, 5) and full == 2):
+        raise AssertionError(f"edge lattice: {spec.ncells} cells, {full} full")
+    seeds = seeds_from_key(PRNGKey(5))
+    t = torch.as_tensor(types, device=device)[torch.clamp(state.aid, 0, n - 1)]
+    perm = torch.randperm(spec.n_cells, generator=torch.Generator().manual_seed(3)).to(device)
+    checked = []
+    for dt in (torch.float32, torch.float64):
+        boxt = torch.tensor(spec.box, dtype=dt, device=device)
+        tslot = torch.where(state.aid < n, t, 0).to(dt).reshape(state.mc.shape)
+        for th in (torch.full((), 0.5, dtype=dt, device=device), None):
+            calls = [("p1_count_half", collect.p1_counts_half, collect.p1_counts_half_ref,
+                      half_inputs(torch, spec, state, cells, dt) + (boxt, 9.0, th, seeds))
+                     for cells in (torch.arange(spec.n_cells, device=device), perm[:20])]
+            calls.append(("p1_count_typed", collect.p1_counts_typed,
+                          collect.p1_counts_typed_ref,
+                          (state.xs.to(dt), state.aid, tslot,
+                           CF.stencil_neighbors(spec.ncells, device), boxt, 9.0, th, seeds, n,
+                           TYPE_PAIR)))
+            for name, fn, ref, args in calls:
+                rc, nc = fn(*args)
+                rc_ref, nc_ref = ref(*args)
+                if not (torch.equal(rc, rc_ref) and int(nc) == int(nc_ref) > 0):
+                    raise AssertionError(f"{name} on the edge lattice ({dt}, threshold "
+                                         f"{th is not None}): row counts or ncalls ({int(nc)} "
+                                         f"vs {int(nc_ref)}) differ from the plain version")
+                checked.append(int(nc))
+    print(f"edge lattice ({n} atoms on {spec.ncells} cells of cap {cap}: {full} full, {empty} "
+          f"empty; displacements at +-L/4 and +-L/2, r^2 at bmax^2 and a float32 step either "
+          f"side): p1_count_half (every cell, 20 unordered) and p1_count_typed exact in float32 "
+          f"and float64, threshold 0.5 and none; ncalls {checked[:3]}")
 
 
 def hash_kernel_phase(torch, device, state, steps, tag=""):
@@ -1139,15 +1251,16 @@ def hash_kernel_phase(torch, device, state, steps, tag=""):
     bmax2 = step.params.cfg.box_high[0] * step.params.cfg.box_high[0]
     nx, ny, nz = spec.ncells
     qx, qy = -(-nx // 2), -(-ny // 2)
-    forms = {"lattice": [slice(0, C)],
-             "slab": [slice(0, qx * ny * nz), slice(qx * ny * nz, C)],
+    every = torch.arange(C, device=device)
+    forms = {"lattice": [every],
+             "slab": [every[:qx * ny * nz], every[qx * ny * nz:]],
              "brick": [CF.box_cells(spec.ncells, ((x0, y0, 0), (wx, wy, nz)), device)
                        for x0, wx in ((0, qx), (qx, nx - qx)) for y0, wy in ((0, qy), (qy, ny - qy))]}
     total = {}
     for form, boxes in forms.items():
         total[form] = 0
         for cells in boxes:
-            args = half_inputs(torch, spec, state, cells) + (box, bmax2, thresh, seeds, cap)
+            args = half_inputs(torch, spec, state, cells) + (box, bmax2, thresh, seeds)
             rc, nc = collect.p1_counts_half(*args)
             rc_ref, nc_ref = collect.p1_counts_half_ref(*args)
             if not (torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)):
@@ -1156,17 +1269,19 @@ def hash_kernel_phase(torch, device, state, steps, tag=""):
             total[form] += int(nc)
     if not total["slab"] == total["brick"] == total["lattice"] > 0:
         raise AssertionError(f"p1_count_half{tag}: the boxes' ncalls {total} do not partition")
-    args = half_inputs(torch, spec, state, slice(0, C)) + (box, bmax2, thresh, seeds, cap)
-    candm = args[1]
+    args = half_inputs(torch, spec, state, every) + (box, bmax2, thresh, seeds)
     ms = cuda_ms(torch, lambda: collect.p1_counts_half(*args))
     plain = cuda_ms(torch, lambda: collect.p1_counts_half_ref(*args), reps=5, warm=1)
-    ci = torch.arange(W, device=device)
-    upper = (ci >= cap) | (ci > torch.arange(cap, device=device)[:, None])
-    pairs = int((candm[:, :cap, None] & candm[:, None, :] & upper).sum())
+    occ = state.mc.sum(1).round()
+    pairs, wraps = stencil_work(torch, spec, occ, occ, CF.HALF_OFFSETS, args[3], half=True)
     draws = total["lattice"] if thresh is not None else 0
+    # the lattice's slot blocks (xyz, mask) once, the neighbour table and the
+    # cell list, the row counts out
     rows[f"p1_counts_half{tag} {C} cells"] = (0.0, ms, plain) + hash_bound(
-        P1_R2_FLOPS * pairs + (UNIFORM_FLOPS + 1) * draws, HASH_INT_OPS * draws,
-        13 * C * W + 16 * C * cap)
+        P1_PAIR_FLOPS * pairs + P1_WRAP_FLOPS * wraps + (UNIFORM_FLOPS + 1) * draws,
+        HASH_INT_OPS * draws, 16 * C * cap + 8 * 13 * C + 8 * C + 8 * C * cap)
+    print(f"p1_count_half{tag}: {pairs} pairs of occupied slots, {wraps} of their components "
+          f"across a periodic face, {draws} draws hashed; {C} cells of cap {cap}")
 
     # pass 1, typed: the binary mixture's slot types
     types = torch.tensor(bench_types(n), device=device, dtype=torch.int64)
@@ -1183,11 +1298,16 @@ def hash_kernel_phase(torch, device, state, steps, tag=""):
     ms = cuda_ms(torch, lambda: collect.p1_counts_typed(*targs))
     plain = cuda_ms(torch, lambda: collect.p1_counts_typed_ref(*targs), reps=5, warm=1)
     k1, k2 = (((tslot == t) & real.reshape(tslot.shape)).sum(1) for t in TYPE_PAIR)
-    pairs = int((k1[:C] * k2[nbr].sum(1) + k2[:C] * k1[nbr].sum(1)).sum())
+    p12, w12 = stencil_work(torch, spec, k1, k2, CF.STENCIL_OFFSETS, nbr, half=False)
+    p21, w21 = stencil_work(torch, spec, k2, k1, CF.STENCIL_OFFSETS, nbr, half=False)
     draws = int(nc) if thresh is not None else 0
+    # the lattice's slot blocks (xyz, aid, type) once, the stencil table, the row counts out
     rows[f"p1_counts_typed{tag} {C} cells"] = (0.0, ms, plain) + hash_bound(
-        P1_R2_FLOPS * pairs + (UNIFORM_FLOPS + 1) * draws, HASH_INT_OPS * draws,
-        24 * Cg * cap + 8 * 27 * C + 8 * C * cap)
+        (P1_PAIR_FLOPS + 1) * (p12 + p21) + P1_WRAP_FLOPS * (w12 + w21)
+        + (UNIFORM_FLOPS + 1) * draws, HASH_INT_OPS * draws,
+        24 * C * cap + 8 * 27 * C + 8 * C * cap)
+    if not tag:
+        edge_lattice_phase(torch, device)
 
     # whole collections, half and typed: the kernels against the plain versions
     typed_step = bench_setup(torch, 0.8, device, "typed", n_atoms=n)[2][0]
@@ -1260,8 +1380,10 @@ def big_cell_phase(torch, device):
     plain versions; a hill step's peak memory through the kernels and
     through the plain pass 1, chunked and in one chunk; the hash and pass-1
     kernels against their plain versions (``hash_kernel_phase``) and K1 and
-    K2 against theirs on the end state.  Returns {"rows", "launches",
-    "device_ms"}."""
+    K2 against theirs on the end state; then the typed configuration at
+    100k (20 warm-up and 40 timed kT = 0.8 steps, ``slice_run``'s checks),
+    whose profile gives ``p1_count_typed[100k]``.  Returns {"rows",
+    "launches", "device_ms", "typed_launches", "typed_device_ms"}."""
     from edm_tpu_torch.models.driver import pattern_segment
     from edm_tpu_torch.ops import cellforce as CF
     from edm_tpu_torch.ops import collect
@@ -1309,10 +1431,16 @@ def big_cell_phase(torch, device):
                           {"hermite": CF.hermite_pair_table(state.core.bias.bias)}, ks=(24,),
                           tag="[100k]"))
     print_rows({k: v for k, v in rows.items() if k.startswith(("cell_", "overflow_"))})
+    t5 = time.perf_counter()
+    # the typed configuration at 100k: p1_count_typed's launches and device
+    # time on its own path
+    typed = slice_run(torch, device, "typed", warm_steps=20, timed_steps=40, n_atoms=BIG_N)
     print(f"100k phase seconds: kT=0 check {t1 - t0:.1f}, kT=0.8 run {t2 - t1:.1f}, hash share "
           f"and peak memory {t3 - t2:.1f}, hash kernel checks {t4 - t3:.1f}, K1/K2 rows "
-          f"{time.perf_counter() - t4:.1f}; {k2} of the 10 kT=0 steps ran K2")
-    return dict(rows=rows, launches=run["launches"], device_ms=run["device_ms"])
+          f"{t5 - t4:.1f}, typed run {time.perf_counter() - t5:.1f}; {k2} of the 10 kT=0 steps "
+          f"ran K2")
+    return dict(rows=rows, launches=run["launches"], device_ms=run["device_ms"],
+                typed_launches=typed["launches"], typed_device_ms=typed["device_ms"])
 
 
 @contextlib.contextmanager
@@ -3577,9 +3705,10 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
 def time_kernels(torch, tree, warm_steps=200):
     """Device time per launch of every kernel entry of the checkout at
     ``tree``, through that checkout's own ``chip_smoke.bench_setup`` and
-    package: per MD path the profile of a stride cycle after ``warm_steps``
-    (the exact path has left its full-cap fallback by then), and of a
-    deposition round on each route.  Prints one JSON line."""
+    package: per MD path, and for the exact and the typed path at 100k,
+    the profile of a stride cycle after ``warm_steps`` (the exact path has
+    left its full-cap fallback by then), and of a deposition round on each
+    route.  Prints one JSON line."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import importlib
@@ -3589,11 +3718,14 @@ def time_kernels(torch, tree, warm_steps=200):
 
     device = torch.device("cuda", 0)
     out = {}
-    for path in smoke.PATHS:
-        _, state, steps = smoke.bench_setup(torch, 0.8, device, path)
+    runs = [(path, path, None) for path in smoke.PATHS]
+    runs += [("100k", "interp", BIG_N), ("100k typed", "typed", BIG_N)]
+    for label, path, n_atoms in runs:
+        _, state, steps = smoke.bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
         state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
         _, _, ms = cycle_device_ms(torch, pattern_segment(smoke.pattern(steps), 10), state)
-        out.update({f"{path} {name}": v for name, v in ms.items()})
+        out.update({f"{label} {name}": v for name, v in ms.items()})
+        del state, steps
     k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
     for what, gg in (("K4 round", k4), ("K5 round", k5)):
         _, per, _, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
@@ -3700,6 +3832,7 @@ def main() -> int:
     big = big_cell_phase(torch, device)
     rows.update(big["rows"])
     launches["100k"], device_ms["100k"] = big["launches"], big["device_ms"]
+    launches["100k typed"], device_ms["100k typed"] = big["typed_launches"], big["typed_device_ms"]
     print(f"100k exact cell: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     _, dep, dep_ms = deposition_run(torch, device)
@@ -3810,6 +3943,8 @@ def main() -> int:
          "normal_rows_cols[100k]"),
         ("p1_count_half[100k]", hr, "../models/pair_edm_cells.py:1886",
          ("100k", "p1_counts_half"), "p1_counts_half[100k]"),
+        ("p1_count_typed[100k]", hr, "../models/pair_edm_cells.py:2073",
+         ("100k typed", "p1_counts_typed"), "p1_counts_typed[100k]"),
     ]
     records = []
     for name, source, replaces, where, prefix in entries:

@@ -84,9 +84,9 @@ def _declare(lib):
     # s0, s1, rows, R, n, normal, f64, out, stream
     lib.hash_rows_launch.argtypes = [u32, u32, vp, i64, i, i, i, vp, vp]
     lib.hash_rows_launch.restype = i
-    # cx, cy, cz, cm, gids, box, bmax2, thresh, s0, s1, B, cap, W, f64,
+    # xs, mc, cells, nbr, box, bmax2, thresh, s0, s1, B, cap, f64,
     # row_counts, ncalls, stream
-    lib.p1_count_half_launch.argtypes = [vp] * 6 + [f64, vp, u32, u32, i, i, i, i, vp, vp, vp]
+    lib.p1_count_half_launch.argtypes = [vp] * 5 + [f64, vp, u32, u32, i, i, i, vp, vp, vp]
     lib.p1_count_half_launch.restype = i
     # xs, aid, ts, nbr, box, bmax2, thresh, t0, t1, n_atoms, s0, s1, C, cap,
     # f64, row_counts, ncalls, stream

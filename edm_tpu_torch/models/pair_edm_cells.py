@@ -99,7 +99,7 @@ from ..ops.cellforce import (
     subtract_credits,
     type_pair_mask,
 )
-from ..ops.collect import p1_counts_half, p1_counts_typed, stencil_tile
+from ..ops.collect import half_planes, p1_counts_half, p1_counts_typed, stencil_tile
 from ..ops.hashrng import normal_rows_cols, seeds_from_key, uniform_rows_cols
 from ..utils.hills_log import to_host
 from .cells import (
@@ -237,17 +237,14 @@ def cell_diag(spec: CellSpec, state: CellPairState, kernel_caps=(16, 24)) -> dic
     return d
 
 
-def _half_concat(plane, ncells, cap: int, cells: slice = None):
+def _half_concat(plane, ncells, cap: int, cells=None):
     """(Cg, cap[, ...]) per-slot plane -> (B, 14cap[, ...]) candidate planes
-    of the B cells of the range ``cells`` (default every cell): the cell's
-    own slots, then its 13 HALF_OFFSETS neighbours' slots (the JAX lattice
-    rolls, as a gather)."""
-    nbr = half_neighbors(tuple(ncells), plane.device)
+    of the B cells ``cells`` (a slice or a tensor of cell ids; default every
+    cell): the cell's own slots, then its 13 HALF_OFFSETS neighbours' slots
+    (the JAX lattice rolls, as a gather)."""
     if cells is None:
         cells = slice(0, int(np.prod(ncells)))
-    own, nbr = plane[cells], nbr[cells]
-    nb = plane[nbr].reshape((own.shape[0], 13 * cap) + plane.shape[2:])
-    return torch.cat([own, nb], 1)
+    return half_planes(plane, half_neighbors(tuple(ncells), plane.device), cells)
 
 
 def init_cell_state(spec: CellSpec, core: PairEDMState, with_ids: bool = False,
@@ -420,6 +417,7 @@ class CellStep:
         self.shard_floor = mesh is not None and shard_floor
         self.row_cap_local = row_cap if row_cap_local is None else row_cap_local
         self.axis_name = axis_name  # the mesh axis the rounds' bias is summed over
+        self._p1_rows = None  # pass 1's row cells and slot rows (_half_rows)
 
     def phases(self, step: int):
         """(hills, rebuild, energy): what the JAX host runs at ``step``."""
@@ -843,6 +841,22 @@ class CellStep:
                      | torch.any(row_counts > self.m_per_row))
         return hills, runifs, active, truncated, count, keys
 
+    def _half_rows(self, dev):
+        """Pass 1's row cells, (B,) int64 global ids ascending (every cell,
+        or this rank's owned box when the collection is sharded), and their
+        (B cap,) global slot rows; made once per device."""
+        if self._p1_rows is None or self._p1_rows[0].device != dev:
+            spec = self.spec
+            if not self.shard_hills:
+                cells = torch.arange(spec.n_cells, device=dev)
+            elif self._owns_cells():  # x-major over the owned box
+                cells = box_cells(spec.ncells, self._owned_box(), dev)
+            else:
+                cells = torch.zeros(0, dtype=torch.int64, device=dev)
+            gids = (cells[:, None] * spec.cap + torch.arange(spec.cap, device=dev)).reshape(-1)
+            self._p1_rows = cells, gids
+        return self._p1_rows
+
     def _collect_hills_half(self, state, xs, key, last_calls, dtype):
         """Two-level hill collection over half-stencil tiles: each unordered
         pair once (self block strictly upper, 13 positive neighbours) with
@@ -875,61 +889,36 @@ class CellStep:
         bmax2 = params.cfg.box_high[0] * params.cfg.box_high[0]
         box = device_const(spec.box, dev, dtype)
         brick = self.shard_hills and self.grid[1:] != (1, 1)
-        if self.shard_hills:
-            origin, widths = self._owned_box()
-            B_, rc = int(np.prod(widths)), self.row_cap_local
-        else:
-            B_, rc = C, self.row_cap
-        if brick:  # the owned box's cells, x-major: ascending global ids
-            cells = box_cells(spec.ncells, (origin, widths), dev) if B_ else torch.zeros(
-                0, dtype=torch.int64, device=dev)
-            gids = (cells[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
-        else:  # a contiguous range
-            lo = origin[0] * spec.ncells[1] * spec.ncells[2] if self.shard_hills else 0
-            cells = slice(lo, lo + B_)
-            gids = torch.arange(lo * cap, (lo + B_) * cap, device=dev)
-        cand = [_half_concat(xs[..., c], spec.ncells, cap, cells) for c in range(3)]
-        candm = _half_concat(state.mc, spec.ncells, cap, cells) > 0.5
-        ci = torch.arange(W, device=dev)
+        rc = self.row_cap_local if self.shard_hills else self.row_cap
+        cells, gids = self._half_rows(dev)
+        nbr = half_neighbors(tuple(spec.ncells), dev)
 
-        def upper(ri):  # the self block strictly upper: each pair once
-            return (ci >= cap) | (ci > ri)
-
-        def accepted(ok, u):
-            acc = ok[..., None].expand(ok.shape + (2,))
-            return acc if thresh is None else acc & (u < thresh)
-
-        # pass 1: accepted candidates per slot row of the (owned) cells
-        row_counts, ncalls = p1_counts_half(cand, candm, gids, box, bmax2, thresh, seeds, cap)
+        # pass 1: accepted candidates per slot row of the (owned) cells,
+        # read from the slot lattice
+        row_counts, ncalls = p1_counts_half(xs, state.mc, cells, nbr, box, bmax2, thresh, seeds)
         sent = C * cap  # the global slot-row sentinel
         rows_sel, n_rows = self._select_rows(row_counts, rc, gids, sent)
 
-        # pass 2 on the selected slot rows: global ids key the draws, the
-        # planes are indexed by the row's place among the (owned) cells
-        if B_ == 0:  # a rank that owns no cell: one empty cell, every row masked
-            cand, candm = [p.new_zeros((1, W)) for p in cand], candm.new_zeros((1, W))
+        # pass 2 on the selected slot rows: their cells' candidates gathered
+        # from the lattice by global id (the sentinel's clamped, masked)
         rows_c = torch.clamp(rows_sel, 0, sent - 1)
         cells_c = rows_c // cap
-        if self.shard_hills:  # the place in the owned box; the sentinel's is clamped
-            ny, nz = spec.ncells[1], spec.ncells[2]
-            co = (cells_c // (ny * nz), (cells_c // nz) % ny, cells_c % nz)
-            loc = co[0] - origin[0]
-            for d in (1, 2):
-                loc = loc * widths[d] + (co[d] - origin[d])
-            cells_c = torch.clamp(loc, 0, max(B_ - 1, 0))
         slot_c = (rows_c % cap)[:, None]
+        cand = torch.cat([cells_c[:, None], nbr[cells_c]], 1)  # (rc, 14) cells, in column order
+        ms = state.mc[cand].reshape(rc, W) > 0.5
         r2 = 0.0
-        ms = candm[cells_c]
         for c in range(3):
-            sl = cand[c][cells_c]
+            sl = xs[..., c][cand].reshape(rc, W)
             dd = sl.gather(1, slot_c) - sl
             dd = dd - torch.round(dd / box[c]) * box[c]
             r2 = r2 + dd * dd
-        ok = ((rows_sel < sent)[:, None] & ms.gather(1, slot_c) & ms & upper(slot_c)
-              & (r2 < bmax2))
+        ci = torch.arange(W, device=dev)
+        upper = (ci >= cap) | (ci > slot_c)  # the self block strictly upper: each pair once
+        ok = (rows_sel < sent)[:, None] & ms.gather(1, slot_c) & ms & upper & (r2 < bmax2)
         r = torch.sqrt(torch.where(ok, r2, torch.full_like(r2, float("inf"))))
         u = uniform_rows_cols(seeds, rows_c, 2 * W, dtype).reshape(rc, W, 2)
-        acc = accepted(ok, u).reshape(rc, 2 * W)
+        acc = ok[..., None].expand(ok.shape + (2,))
+        acc = (acc if thresh is None else acc & (u < thresh)).reshape(rc, 2 * W)
         r21 = r[:, :, None].expand(rc, W, 2)  # r[w] at columns 2w, 2w+1
         hills, runifs, active, truncated, count, keys = self._compact(
             acc, r21, u, row_counts, n_rows, rc, rows_sel if brick else None)

@@ -6,10 +6,12 @@ Counterpart of ``p1_chunk`` in ``edm_tpu/models/pair_edm_cells.py``
 :2073-2090), which XLA fuses into one pass a chunk that writes no draw to
 memory.  ``p1_counts_half`` and ``p1_counts_typed`` launch the CUDA kernels
 ``p1_count_half`` / ``p1_count_typed`` (``csrc/hashrng.cu``) on a CUDA
-device, one launch a call and no temporaries: the r^2 tile, the masks, the
-counter hash and the per-row sums stay in registers, and the acceptance
+device, one launch a call and no temporaries: both read the slot lattice
+itself (each block stages its cell's candidate cells into shared memory),
+the counter hash and the per-row sums stay on the chip, and the acceptance
 threshold is read from its device scalar, so nothing synchronizes.  On the
-CPU they run their plain versions, ``*_ref``: the r^2 tile and the draws
+CPU they run their plain versions, ``*_ref``: the candidate planes
+(``half_planes``, ``stencil_tile``), the r^2 tile and the draws
 (``hashrng.uniform_rows_cols_ref``) of whole cells at a time, in chunks
 whose draws stay within ``P1_DRAWS`` values (268 MB an int64 temporary of
 the hash): the 10k lattice's 729 cells are one chunk, the 100k lattice's
@@ -64,30 +66,44 @@ def stencil_tile(xs, aid2, tslot, nbr, box, n: int, type_pair, xi, ai, ti, cells
     return r2, valid, type_pair_mask(ti[..., None], tw, type_pair)
 
 
-def p1_counts_half_ref(cand, candm, gids, box, bmax2: float, thresh, seeds, cap: int):
-    """Plain version of ``p1_counts_half``, chunked by ``P1_DRAWS``."""
-    B_, W = candm.shape
-    dtype, dev = cand[0].dtype, candm.device
+def half_planes(plane, nbr, cells):
+    """(Cg, cap[, ...]) per-slot plane -> (B, 14 cap[, ...]) candidate planes
+    of the row cells ``cells`` (a slice or a tensor of global cell ids): the
+    cell's own slots, then those of its 13 neighbours ``nbr`` (C, 13)
+    (``half_neighbors``) in order."""
+    own, nb = plane[cells], plane[nbr[cells]]
+    return torch.cat([own, nb.reshape((own.shape[0], nbr.shape[1] * plane.shape[1])
+                                      + plane.shape[2:])], 1)
+
+
+def p1_counts_half_ref(xs, mc, cells, nbr, box, bmax2: float, thresh, seeds):
+    """Plain version of ``p1_counts_half``, chunked by ``P1_DRAWS``: each
+    chunk builds its cells' candidate planes."""
+    cap = xs.shape[1]
+    W = (1 + nbr.shape[1]) * cap
+    dev = xs.device
     ci = torch.arange(W, device=dev)
-    ri = torch.arange(cap, device=dev)[None, :, None]
-    upper = (ci >= cap) | (ci > ri)  # the self block strictly upper: each pair once
+    ri = torch.arange(cap, device=dev)
+    upper = (ci >= cap) | (ci > ri[None, :, None])  # the self block strictly upper
     counts, calls = [], []
-    for c0, c1 in _p1_ranges(B_, 2 * W * cap):
+    for c0, c1 in _p1_ranges(cells.shape[0], 2 * W * cap):
+        cc = cells[c0:c1]
         r2 = 0.0
         for c in range(3):
-            pl = cand[c][c0:c1]
+            pl = half_planes(xs[..., c], nbr, cc)
             dd = pl[:, :cap, None] - pl[:, None, :]
             dd = dd - torch.round(dd / box[c]) * box[c]
             r2 = r2 + dd * dd
-        m = candm[c0:c1]
+        m = half_planes(mc, nbr, cc) > 0.5
         ok = m[:, :cap, None] & m[:, None, :] & upper & (r2 < bmax2)
         acc = ok[..., None].expand(ok.shape + (2,))
         if thresh is not None:
-            u = uniform_rows_cols_ref(seeds, gids[c0 * cap:c1 * cap], 2 * W, dtype)
+            gids = (cc[:, None] * cap + ri).reshape(-1)
+            u = uniform_rows_cols_ref(seeds, gids, 2 * W, xs.dtype)
             acc = acc & (u.reshape(c1 - c0, cap, W, 2) < thresh)
         counts.append(acc.sum((2, 3)).reshape(-1))
         calls.append(torch.sum(ok.to(torch.int64)))
-    row_counts, ncalls = _p1_join(counts, calls, gids)
+    row_counts, ncalls = _p1_join(counts, calls, cells)
     return row_counts, 2 * ncalls
 
 
@@ -126,36 +142,41 @@ def _launch_args(box, thresh, dtype, device):
             None if thresh is None else thresh.data_ptr())
 
 
-def p1_counts_half(cand, candm, gids, box, bmax2: float, thresh, seeds, cap: int):
+def p1_counts_half(xs, mc, cells, nbr, box, bmax2: float, thresh, seeds):
     """Pass 1 of the half-stencil collection over B row cells.
 
-    ``cand``: the three (B, W = 14 cap) candidate planes of
-    ``_half_concat`` (each cell's own slots first), ``candm`` their (B, W)
-    bool occupancy, ``gids`` (B cap,) int64 the rows' global slot-row ids
-    (the draws' keys), ``box`` (3,) on the device, ``bmax2`` the CV's
-    squared upper edge, ``thresh`` the acceptance threshold (a device
-    scalar, or None: accept every candidate), ``seeds`` the round's two
-    uint32 seeds.  Each pair (row, w) with both slots occupied, above the
+    ``xs`` (Cg, cap, 3) and ``mc`` (Cg, cap) the slot lattice (positions
+    and occupancy, one type), ``cells`` (B,) int64 the row cells' global ids
+    (any order, each below C; row r of cell c is global slot row c cap + r,
+    the draws' key), ``nbr`` (C, 13) int64 ``half_neighbors``, ``box``
+    (3,) on the device, ``bmax2`` the CV's squared upper edge, ``thresh``
+    the acceptance threshold (a device scalar, or None: accept every
+    candidate), ``seeds`` the round's two uint32 seeds.  Candidate column w
+    of a row is its cell's slot w (w < cap), else slot w % cap of neighbour
+    w // cap - 1.  Each pair (row, w) with both slots occupied, above the
     self block's diagonal and within bmax draws columns 2w and 2w + 1.
     Returns (row_counts (B cap,) int64: the accepted draws of each row,
     ncalls () int64: twice the pairs)."""
-    device = candm.device
+    device = xs.device
     if not on_card(device, "p1_counts_half"):
-        return p1_counts_half_ref(cand, candm, gids, box, bmax2, thresh, seeds, cap)
-    B_, W = candm.shape
-    dtype = cand[0].dtype
+        return p1_counts_half_ref(xs, mc, cells, nbr, box, bmax2, thresh, seeds)
+    Cg, cap, _ = xs.shape
+    B_ = cells.shape[0]
+    dtype = xs.dtype
     lib, stream, tptr = _launch_args(box, thresh, dtype, device)
-    for c, p in zip("xyz", cand):
-        check(p, f"cand {c}", (B_, W), device, dtype)
-    check(candm, "candm", (B_, W), device, torch.bool)
-    check(gids, "gids", (B_ * cap,), device, torch.int64)
+    check(xs, "xs", (Cg, cap, 3), device, dtype)
+    check(mc, "mc", (Cg, cap), device, dtype)
+    check(cells, "cells", (B_,), device, torch.int64)
+    check(nbr, "nbr", (nbr.shape[0], 13), device, torch.int64)
+    if nbr.shape[0] > Cg:
+        raise ValueError(f"nbr has {nbr.shape[0]} cells, the lattice {Cg}")
     row_counts = torch.empty(B_ * cap, dtype=torch.int64, device=device)
     ncalls = torch.empty((), dtype=torch.int64, device=device)
     s0, s1 = (int(s) & _M32 for s in seeds)
-    code = lib.p1_count_half_launch(*(p.data_ptr() for p in cand), candm.data_ptr(),
-                                    gids.data_ptr(), box.data_ptr(), float(bmax2), tptr, s0, s1,
-                                    B_, cap, W, int(dtype == torch.float64),
-                                    row_counts.data_ptr(), ncalls.data_ptr(), stream)
+    code = lib.p1_count_half_launch(xs.data_ptr(), mc.data_ptr(), cells.data_ptr(),
+                                    nbr.data_ptr(), box.data_ptr(), float(bmax2), tptr, s0, s1,
+                                    B_, cap, int(dtype == torch.float64), row_counts.data_ptr(),
+                                    ncalls.data_ptr(), stream)
     raise_on(lib, code, "p1_counts_half")
     p1_counts_half.launches += B_ > 0
     return row_counts, ncalls

@@ -39,7 +39,8 @@ collections (``csrc/hashrng.cu``): ``hash_uniforms`` bitwise and
 ``hash_normals`` within 2 ulps of their plain versions at the 10k
 thermostat's rows and a pass-1 width, in float32 and float64;
 ``p1_count_half`` (the lattice, a 2-rank slab's and a 2 x 2 brick's owned
-cells) and ``p1_count_typed`` on the 10,000-atom lattice, row counts and
+cells) and ``p1_count_typed`` on the 10,000-atom lattice, and both on
+``chip_smoke.edge_lattice`` (cap 8) in float32 and float64, row counts and
 ncalls exactly, the threshold on and off; and whole hill collections,
 half and typed, bitwise through the kernels and the plain versions.
 Tolerances as in the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
@@ -1291,14 +1292,9 @@ def test_hash_rows_kernel(cuda_state, dtype, normal):
 
 
 def _half_inputs(spec, st, cells, dtype):
-    cap = spec.cap
-    dev = st.xs.device
-    ids = torch.arange(spec.n_cells, device=dev)[cells]
-    gids = (ids[:, None] * cap + torch.arange(cap, device=dev)[None, :]).reshape(-1)
-    cand = [PCELLS._half_concat(st.xs[..., c], spec.ncells, cap, cells).to(dtype)
-            for c in range(3)]
-    candm = PCELLS._half_concat(st.mc, spec.ncells, cap, cells) > 0.5
-    return cand, candm, gids
+    """Pass 1's lattice inputs in ``dtype``: (xs, mc, cells, nbr)."""
+    nbr = CF.half_neighbors(tuple(spec.ncells), st.xs.device)
+    return st.xs.to(dtype), st.mc.to(dtype), cells, nbr
 
 
 def _threshold(on, dtype, dev):
@@ -1317,15 +1313,15 @@ def test_p1_counts_half_kernel(cuda_slab, form, thresh, dtype):
 
     spec, st, _ = cuda_slab
     dev = st.xs.device
-    boxes = {"lattice": [slice(0, spec.n_cells)],
-             "slab": [slice(0, 5 * 81), slice(5 * 81, 9 * 81)],
+    boxes = {"lattice": [torch.arange(spec.n_cells, device=dev)],
+             "slab": [torch.arange(0, 5 * 81, device=dev),
+                      torch.arange(5 * 81, 9 * 81, device=dev)],
              "brick": [CF.box_cells(spec.ncells, ((x0, y0, 0), (wx, wy, 9)), dev)
                        for x0, wx in ((0, 5), (5, 4)) for y0, wy in ((0, 5), (5, 4))]}[form]
     box = torch.tensor(spec.box, dtype=dtype, device=dev)
     th = _threshold(thresh, dtype, dev)
     for cells in boxes:
-        cand, candm, gids = _half_inputs(spec, st, cells, dtype)
-        args = (cand, candm, gids, box, 9.0, th, HASH_SEEDS, spec.cap)
+        args = _half_inputs(spec, st, cells, dtype) + (box, 9.0, th, HASH_SEEDS)
         n0 = collect.p1_counts_half.launches
         rc, nc = collect.p1_counts_half(*args)
         rc_ref, nc_ref = collect.p1_counts_half_ref(*args)
@@ -1360,6 +1356,53 @@ def test_p1_counts_typed_kernel(cuda_slab, thresh, dtype):
     torch.cuda.synchronize()
     assert collect.p1_counts_typed.launches == n0 + 1
     assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("thresh", [True, False], ids=["thresh", "accept-all"])
+@pytest.mark.parametrize("typed", [False, True], ids=["half", "typed"])
+def test_p1_counts_kernels_edge_lattice(cuda_state, typed, thresh, dtype):
+    """Both pass-1 kernels on ``chip_smoke.edge_lattice`` (cap 8: full and
+    empty cells, displacements at +-L/4 and +-L/2, r^2 at bmax^2 and one
+    float32 step either side of it), threshold 0.5 and none: row counts
+    and ncalls exactly the plain version's, one launch a call; the half
+    pass also over an unordered cell list."""
+    from chip_smoke import edge_lattice
+    from edm_tpu_torch.ops import collect
+
+    dev = torch.device("cuda", 0)
+    pts, box, cap, types = edge_lattice()
+    n = len(pts)
+    cfg = parse_edm_text("tempering 0\nhill_prefactor 0.1\ndimension 1\nbox_low 0\n"
+                         "box_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n")
+    _, bs = B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+                        dtype=torch.float32, device=dev)
+    core = pair_edm.init_state(bs, torch.tensor(pts, dtype=torch.float32, device=dev),
+                               PRNGKey(0))
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=n, cap=cap)
+    st = init_cell_state(spec, core)
+    assert spec.ncells == (5, 3, 5) and int((st.mc.sum(1) == cap).sum()) == 2
+    boxt = torch.tensor(spec.box, dtype=dtype, device=dev)
+    th = torch.full((), 0.5, dtype=dtype, device=dev) if thresh else None
+    if typed:
+        t = torch.as_tensor(types, device=dev)[torch.clamp(st.aid, 0, n - 1)]
+        tslot = torch.where(st.aid < n, t, 0).to(dtype).reshape(st.mc.shape)
+        calls = [(collect.p1_counts_typed, collect.p1_counts_typed_ref,
+                  (st.xs.to(dtype), st.aid, tslot, CF.stencil_neighbors(spec.ncells, dev), boxt,
+                   9.0, th, HASH_SEEDS, n, (1, 2)))]
+    else:
+        perm = torch.randperm(spec.n_cells, generator=torch.Generator().manual_seed(3)).to(dev)
+        calls = [(collect.p1_counts_half, collect.p1_counts_half_ref,
+                  _half_inputs(spec, st, cells, dtype) + (boxt, 9.0, th, HASH_SEEDS))
+                 for cells in (torch.arange(spec.n_cells, device=dev), perm[:20])]
+    for fn, ref, args in calls:
+        n0 = fn.launches
+        rc, nc = fn(*args)
+        rc_ref, nc_ref = ref(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
 
 
 @pytest.mark.gpu

@@ -26,6 +26,7 @@ import torch
 from jax.extend import core as jcore
 
 from _torch_parity import np_, to_port
+from chip_smoke import edge_lattice
 from edm_tpu import bias as JB
 from edm_tpu.models import pair_edm as jpe
 from edm_tpu.models.cells import CellSpec
@@ -37,7 +38,7 @@ from edm_tpu_torch.models import pair_edm_cells as tpc
 from edm_tpu_torch.models.langevin import LangevinParams as TLP
 from edm_tpu_torch.models.lj import LJParams as TLJ
 from edm_tpu_torch.ops import collect, hashrng, prng
-from edm_tpu_torch.ops.cellforce import box_cells, stencil_neighbors
+from edm_tpu_torch.ops.cellforce import box_cells, half_neighbors, stencil_neighbors
 from test_torch_parallel import CFG, _ragged_setup
 
 KEY, LAST_CALLS = 11, 4000
@@ -57,7 +58,7 @@ def lattice():
     return spec, np_(tcore.x)
 
 
-def _jax_pass1(lattice, hill_density, typed):
+def _jax_pass1(lattice, hill_density, typed, types=TYPES):
     """JAX's pass-1 (row_counts, ncalls) of one collection: the outputs of
     the ``lax.scan`` in the collection's jaxpr whose carry is (int32[rows],
     int32[]), evaluated; and the state."""
@@ -65,7 +66,7 @@ def _jax_pass1(lattice, hill_density, typed):
     params, bs = JB.subdivide(parse_edm_text(_cfg(hill_density)), 1.0, 1.0, [0], [3.0], [0],
                               [3.0], [False], [0], dtype=jnp.float32)
     state = init_cell_state(spec, jpe.init_state(bs, jnp.asarray(x), jax.random.PRNGKey(0)))
-    kw = dict(types=TYPES, type_pair=(1, 2)) if typed else {}
+    kw = dict(types=types, type_pair=(1, 2)) if typed else {}
     step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.8), LJParams(),
                           spec, 10, hill_capacity=512, cell_chunk=8, **kw)
     free = dict(zip(step.__code__.co_freevars, (c.cell_contents for c in step.__closure__)))
@@ -99,16 +100,14 @@ def half_case(request, lattice):
 
 
 def _half_counts(spec, pstate, cells, hill_density):
-    """The plain pass 1 over the row cells ``cells`` (a slice or a tensor
-    of cell ids): (row_counts, ncalls, the rows' global ids)."""
+    """The plain pass 1 over the row cells ``cells`` (a tensor of cell ids)
+    of the slot lattice: (row_counts, ncalls, the rows' global ids)."""
     cap = spec.cap
-    ids = torch.arange(spec.n_cells)[cells]
-    gids = (ids[:, None] * cap + torch.arange(cap)[None, :]).reshape(-1)
-    cand = [tpc._half_concat(pstate.xs[..., c], spec.ncells, cap, cells) for c in range(3)]
-    candm = tpc._half_concat(pstate.mc, spec.ncells, cap, cells) > 0.5
+    gids = (cells[:, None] * cap + torch.arange(cap)[None, :]).reshape(-1)
+    nbr = half_neighbors(tuple(spec.ncells), torch.device("cpu"))
     box = torch.tensor(spec.box, dtype=torch.float32)
-    rc, nc = collect.p1_counts_half_ref(cand, candm, gids, box, BMAX2, _thresh(hill_density),
-                                        _seeds(), cap)
+    rc, nc = collect.p1_counts_half_ref(pstate.xs, pstate.mc, cells, nbr, box, BMAX2,
+                                        _thresh(hill_density), _seeds())
     return rc.numpy(), int(nc), gids.numpy()
 
 
@@ -129,7 +128,7 @@ def test_p1_counts_half_ref_matches_jax(lattice, half_case, form):
             collect.P1_DRAWS = _chunks(7, 2 * 14 * cap)
             assert len(collect._p1_ranges(C, 2 * 14 * cap * cap)) == 18
         try:
-            rc, nc, _ = _half_counts(spec, pstate, slice(0, C), hd)
+            rc, nc, _ = _half_counts(spec, pstate, torch.arange(C), hd)
         finally:
             collect.P1_DRAWS = saved
         np.testing.assert_array_equal(rc, jrc[:C * cap])
@@ -137,7 +136,7 @@ def test_p1_counts_half_ref_matches_jax(lattice, half_case, form):
         assert (rc.sum() == jnc) == (hd < 0)
         return
     if form == "slab":  # 2 ranks over nx = 5: columns 3 + 2, contiguous cell ranges
-        boxes = [slice(0, 75), slice(75, 125)]
+        boxes = [torch.arange(0, 75), torch.arange(75, 125)]
     else:  # 2 x 2 bricks: x columns 3 + 2 by y rows 3 + 2, z whole
         boxes = [box_cells(spec.ncells, ((x0, y0, 0), (wx, wy, 5)), "cpu")
                  for x0, wx in ((0, 3), (3, 2)) for y0, wy in ((0, 3), (3, 2))]
@@ -175,6 +174,63 @@ def test_p1_counts_typed_ref_matches_jax(lattice, hill_density, chunked):
     assert int(nc) == jnc
 
 
+def test_p1_counts_half_ref_any_cell_order(lattice, half_case):
+    """Pass 1 over an unordered cell-id tensor (the kernel's cell list):
+    each cell's rows are its rows of the whole-lattice pass, and an
+    unordered subset's ncalls and its complement's sum to the lattice's."""
+    spec, _ = lattice
+    hd, jrc, jnc, pstate = half_case
+    C, cap = spec.n_cells, spec.cap
+    perm = torch.as_tensor(np.random.default_rng(7).permutation(C))
+    total = 0
+    for cells in (perm[:40], perm[40:]):
+        rc, nc, _ = _half_counts(spec, pstate, cells, hd)
+        np.testing.assert_array_equal(rc.reshape(-1, cap),
+                                      jrc[:C * cap].reshape(C, cap)[cells.numpy()])
+        total += nc
+    assert total == jnc
+
+
+@pytest.fixture(scope="module")
+def edge():
+    pts, box, cap, types = edge_lattice()
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=len(pts), cap=cap)
+    assert spec.ncells == (5, 3, 5) and spec.edge == (3.0, 3.0, 3.0)
+    return (spec, pts.astype(np.float32)), types
+
+
+@pytest.mark.parametrize("typed", [False, True], ids=["half", "typed"])
+@pytest.mark.parametrize("hill_density", [2000, -1], ids=["thresh", "accept-all"])
+def test_p1_counts_ref_edge_lattice_matches_jax(edge, typed, hill_density):
+    """The edge lattice (full and empty cells of cap 8, displacements at
+    +-L/4 and +-L/2, r^2 at bmax^2 and one float32 step either side of it):
+    the plain pass 1 equals JAX's exactly, with the threshold at 0.5 and
+    with none."""
+    lat, types = edge
+    spec = lat[0]
+    C, cap, n = spec.n_cells, spec.cap, spec.n_atoms
+    jrc, jnc, state = _jax_pass1(lat, hill_density, typed, types)
+    pstate = to_port(state)
+    assert (pstate.mc.sum(1) == cap).sum() == 2 and (pstate.mc.sum(1) == 0).sum() > C // 2
+    thresh = _thresh(hill_density)
+    box = torch.tensor(spec.box, dtype=torch.float32)
+    if typed:
+        t = torch.as_tensor(types, dtype=torch.int64)[torch.clamp(pstate.aid, 0, n - 1)]
+        tslot = torch.where(pstate.aid < n, t, 0).to(torch.float32).reshape(pstate.mc.shape)
+        rc, nc = collect.p1_counts_typed_ref(
+            pstate.xs, pstate.aid, tslot, stencil_neighbors(tuple(spec.ncells), "cpu"), box,
+            BMAX2, thresh, _seeds(), n, (1, 2))
+    else:
+        rc, nc = collect.p1_counts_half_ref(
+            pstate.xs, pstate.mc, torch.arange(C), half_neighbors(tuple(spec.ncells), "cpu"),
+            box, BMAX2, thresh, _seeds())
+    assert jnc > 0 and not jrc[C * cap:].any()
+    np.testing.assert_array_equal(rc.numpy(), jrc[:C * cap])
+    assert int(nc) == jnc
+    if hill_density > 0:
+        assert 0 < rc.sum() < (jnc if typed else 2 * jnc)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("normal", [False, True], ids=["uniform", "normal"])
 def test_hash_dispatch_on_cpu_is_the_plain_version(dtype, normal):
@@ -196,16 +252,14 @@ def _meta_calls():
     meta = torch.device("meta")
     rows = torch.zeros(4, dtype=torch.int64, device=meta)
     box = torch.zeros(3, device=meta)
-    planes = [torch.zeros(2, 14 * 4, device=meta) for _ in range(3)]
-    candm = torch.zeros(2, 14 * 4, dtype=torch.bool, device=meta)
     xs = torch.zeros(27, 4, 3, device=meta)
     aid = torch.zeros(27 * 4, dtype=torch.int64, device=meta)
     nbr = torch.zeros(27, 27, dtype=torch.int64, device=meta)
     return {
         "uniform_rows_cols": lambda: hashrng.uniform_rows_cols((1, 2), rows, 3, torch.float32),
         "normal_rows_cols": lambda: hashrng.normal_rows_cols((1, 2), rows, 3, torch.float32),
-        "p1_counts_half": lambda: collect.p1_counts_half(planes, candm, torch.zeros(
-            8, dtype=torch.int64, device=meta), box, BMAX2, None, (1, 2), 4),
+        "p1_counts_half": lambda: collect.p1_counts_half(
+            xs, xs[..., 0], rows[:2], nbr[:, :13], box, BMAX2, None, (1, 2)),
         "p1_counts_typed": lambda: collect.p1_counts_typed(
             xs, aid, xs[..., 0], nbr, box, BMAX2, None, (1, 2), 27 * 4, (1, 2)),
     }
