@@ -297,6 +297,37 @@ def edge_lattice():
     return pts, [15.0, 9.0, 15.0], 8, bench_types(len(pts))
 
 
+def dense_lattice(cap, seed=0):
+    """A lattice for pass 1 at large cell caps: (positions (n, 3), box, cap,
+    types) on 3 x 3 x 3 cells of edge 3.1 (just above the CV's bmax),
+    cell 0 full (``cap`` atoms), the last cell empty and each other cell
+    holding between cap / 2 and cap - 1 atoms, uniform inside it (0.1% of
+    the edge clear of its faces, so each atom's cell is certain)."""
+    rng = np.random.default_rng(seed)
+    edge = 3.1
+    counts = rng.integers(cap // 2, cap, 27)
+    counts[0], counts[-1] = cap, 0
+    lo = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1).reshape(-1, 3) * edge
+    pts = np.concatenate([lo[c] + rng.uniform(0.001, 0.999, (k, 3)) * edge
+                          for c, k in enumerate(counts)])
+    return pts, [3 * edge] * 3, cap, bench_types(len(pts))
+
+
+def lattice_state(torch, device, pts, box, cap):
+    """The cell state of ``pts`` in ``box`` on cells of the CV's bmax (3.0)
+    and slot cap ``cap``, with bench_bias: (spec, state)."""
+    from edm_tpu_torch.models import pair_edm
+    from edm_tpu_torch.models.cells import CellSpec
+    from edm_tpu_torch.models.pair_edm_cells import init_cell_state
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    _, bias_state = bench_bias(torch, device)
+    core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32, device=device),
+                               PRNGKey(0))
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=len(pts), cap=cap)
+    return spec, init_cell_state(spec, core)
+
+
 def bench_lattice(n_atoms):
     """bench_pairwise's LJ fluid at density ~0.5: the first ``n_atoms``
     sites of a cubic lattice (a = 1.26) and its periodic box."""
@@ -960,6 +991,9 @@ def slice_run(torch, device, path="interp", warm_steps=100, timed_steps=300, n_a
     # the timed run's wall time per cycle
     dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
     print(busy_line(f"kT=0.8 {label} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    if path == "interp":  # the device launches (kernels and copies) of one plain step
+        _, _, _, n_plain = device_time_us(torch, lambda: steps[1](state), 2)
+        print(f"device launches of a plain step, {label}: {n_plain:.1f}")
     state, census = sync_census(torch, steps, state)
     core = state.core
     n_steps = warm_steps + timed_steps
@@ -1138,9 +1172,6 @@ def edge_lattice_phase(torch, device):
     float64, with the threshold at 0.5 and with none: row counts and ncalls
     exactly the plain versions'; the half pass also over an unordered cell
     list."""
-    from edm_tpu_torch.models import pair_edm
-    from edm_tpu_torch.models.cells import CellSpec
-    from edm_tpu_torch.models.pair_edm_cells import init_cell_state
     from edm_tpu_torch.ops import cellforce as CF
     from edm_tpu_torch.ops import collect
     from edm_tpu_torch.ops.hashrng import seeds_from_key
@@ -1148,11 +1179,7 @@ def edge_lattice_phase(torch, device):
 
     pts, box, cap, types = edge_lattice()
     n = len(pts)
-    _, bias_state = bench_bias(torch, device)
-    core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32, device=device),
-                               PRNGKey(0))
-    spec = CellSpec.create(box, cutoff=3.0, n_atoms=n, cap=cap)
-    state = init_cell_state(spec, core)
+    spec, state = lattice_state(torch, device, pts, box, cap)
     full, empty = (int((state.mc.sum(1) == k).sum()) for k in (cap, 0))
     if not (spec.ncells == (5, 3, 5) and full == 2):
         raise AssertionError(f"edge lattice: {spec.ncells} cells, {full} full")
@@ -1184,6 +1211,100 @@ def edge_lattice_phase(torch, device):
           f"empty; displacements at +-L/4 and +-L/2, r^2 at bmax^2 and a float32 step either "
           f"side): p1_count_half (every cell, 20 unordered) and p1_count_typed exact in float32 "
           f"and float64, threshold 0.5 and none; ncalls {checked[:3]}")
+    large_cap_phase(torch, device)
+
+
+def large_cap_phase(torch, device):
+    """Both pass-1 kernels above the largest cap whose candidate cells fit
+    one shared-memory piece, on ``dense_lattice``: typed at cap 128 and
+    half at cap 300, in float64 (the cells in two pieces), threshold 0.5
+    and none: row counts and ncalls exactly the plain versions'."""
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import collect
+    from edm_tpu_torch.ops.hashrng import seeds_from_key
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    f64 = torch.float64
+    seeds = seeds_from_key(PRNGKey(5))
+    for typed, cap in ((True, 128), (False, 300)):
+        t0 = time.perf_counter()
+        pts, box, cap, types = dense_lattice(cap)
+        n = len(pts)
+        spec, state = lattice_state(torch, device, pts, box, cap)
+        boxt = torch.tensor(spec.box, dtype=f64, device=device)
+        if typed:
+            t = torch.as_tensor(types, device=device)[torch.clamp(state.aid, 0, n - 1)]
+            tslot = torch.where(state.aid < n, t, 0).to(f64).reshape(state.mc.shape)
+            name, fn, ref = "p1_count_typed", collect.p1_counts_typed, collect.p1_counts_typed_ref
+            nbr = CF.stencil_neighbors(spec.ncells, device)
+            args = lambda th: (state.xs.to(f64), state.aid, tslot, nbr, boxt, 9.0, th, seeds, n,
+                               TYPE_PAIR)
+        else:
+            name, fn, ref = "p1_count_half", collect.p1_counts_half, collect.p1_counts_half_ref
+            inputs = half_inputs(torch, spec, state, torch.arange(spec.n_cells, device=device), f64)
+            args = lambda th: inputs + (boxt, 9.0, th, seeds)
+        ncalls = []
+        for th in (torch.full((), 0.5, dtype=f64, device=device), None):
+            rc, nc = fn(*args(th))
+            rc_ref, nc_ref = ref(*args(th))
+            if not (torch.equal(rc, rc_ref) and int(nc) == int(nc_ref) > 0):
+                raise AssertionError(f"{name} at cap {cap} (float64, threshold {th is not None}): "
+                                     f"row counts or ncalls ({int(nc)} vs {int(nc_ref)}) differ "
+                                     "from the plain version")
+            ncalls.append(int(nc))
+        print(f"{name} at cap {cap} (float64, {n} atoms on {spec.ncells} cells, one full): exact, "
+              f"threshold 0.5 and none, ncalls {ncalls}; {time.perf_counter() - t0:.1f} s")
+
+
+# hash_rows' tile edges: row counts (R = 1, 33, the 10k thermostat's 23,552
+# and 2^16 + 33, either side of the narrow rows' switch to a thread a row,
+# with ids near and above 2^32; a strided view) and widths (a thread a row
+# or an element up to 16, a warp a row beyond, 897 on every 16-byte phase)
+HASH_EDGE_COLS = (1, 3, 5, 7, 864, 896, 897)
+
+
+def hash_edge_rows(torch, device):
+    """(label, rows) of ``hash_rows``' tile edges (``HASH_EDGE_COLS``)."""
+    rng = np.random.default_rng(2)
+    ids = np.concatenate([np.arange(16000), rng.integers(2**31, 2**40, 4224),
+                          2**32 + np.arange(-1664, 1664)])
+    many = np.concatenate([ids, rng.integers(0, 2**40, 2**16 + 33 - len(ids))])
+    wide = torch.tensor(rng.integers(0, 2**40, 2 * 33), device=device)
+    return [("R=1", torch.tensor([2**32 - 1], device=device)),
+            ("R=33", torch.arange(2**32 - 16, 2**32 + 17, device=device)),
+            ("R=23552", torch.tensor(ids, device=device)),
+            ("R=65569", torch.tensor(many, device=device)), ("R=33 strided", wide[::2])]
+
+
+def hash_edge_phase(torch, device, seeds):
+    """``hash_rows`` at its tile edges (``hash_edge_rows`` x
+    ``HASH_EDGE_COLS``) in float32 and float64: uniforms bitwise, normals
+    within 2 ulps, one launch a call."""
+    from edm_tpu_torch.ops import hashrng as H
+
+    t0 = time.perf_counter()
+    worst = {}
+    for fn, ref in ((H.uniform_rows_cols, H.uniform_rows_cols_ref),
+                    (H.normal_rows_cols, H.normal_rows_cols_ref)):
+        normal = fn is H.normal_rows_cols
+        for dt in (torch.float32, torch.float64):
+            for label, r in hash_edge_rows(torch, device):
+                for n in HASH_EDGE_COLS:
+                    n0 = fn.launches
+                    out, want = fn(seeds, r, n, dt), ref(seeds, r, n, dt)
+                    ok = fn.launches == n0 + 1 and out.shape == want.shape
+                    if normal:
+                        worst[dt] = max(worst.get(dt, 0.0), max_ulps(out, want))
+                        ok = ok and worst[dt] <= 2
+                    else:
+                        ok = ok and torch.equal(out, want)
+                    if not ok:
+                        raise AssertionError(f"{fn.__name__} {label} x {n} {dt}: not the plain "
+                                             "version's, or not one launch")
+    print(f"hash_rows tile edges (R = 1, 33, 23,552, 65,569 with ids near and above 2^32, a "
+          f"strided view; n = {', '.join(map(str, HASH_EDGE_COLS))}): uniforms bitwise, normals "
+          f"within {worst[torch.float32]:g} (f32) and {worst[torch.float64]:g} (f64) ulps, one "
+          f"launch a call; {time.perf_counter() - t0:.1f} s")
 
 
 def hash_kernel_phase(torch, device, state, steps, tag=""):
@@ -1224,6 +1345,8 @@ def hash_kernel_phase(torch, device, state, steps, tag=""):
             if bad:
                 raise AssertionError(f"hash_uniforms{tag} {label} {len(r)}x{m} {dt}: {bad} "
                                      "draws differ from the plain version")
+    if not tag:
+        hash_edge_phase(torch, device, seeds)
     ulps = {}
     for dt in (f32, f64):
         z, z_ref = (fn(seeds, thermo, 3, dt) for fn in (H.normal_rows_cols, H.normal_rows_cols_ref))
@@ -3657,7 +3780,8 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
     that checkout's own ``chip_smoke.bench_setup`` and package: one warm-up
     of ``warm_steps``, then ``runs`` timed runs of ``timed_steps`` (host
     clock up to a device sync), each printed as a JSON line, and the device
-    launches of one hill step from the end state; the same for the 100k
+    launches of one hill step and of one plain step from the end state; the
+    same for the 100k
     cell (360 warm-up steps, runs of 360).  Then the
     deposition the same way: ``runs`` timed runs of 256 ``add_value``
     rounds of 200 hills on that checkout's 1e6-point grid."""
@@ -3676,9 +3800,11 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
         state, _ = pattern_segment(smoke.pattern(steps), timed_steps)(state)
         torch.cuda.synchronize()
         print(json.dumps({"tree": tree, "steps_per_s": timed_steps / (time.perf_counter() - t0)}))
-    # the device launches (kernels and copies) of one hill step
-    _, _, _, n_launch = device_time_us(torch, lambda: steps[0](state), 2)
-    print(json.dumps({"tree": tree, "hill_step_launches": n_launch}))
+    # the device launches (kernels and copies) of one hill step and of one
+    # plain step
+    for key, step in (("hill_step_launches", steps[0]), ("plain_step_launches", steps[1])):
+        _, _, _, n_launch = device_time_us(torch, lambda: step(state), 2)
+        print(json.dumps({"tree": tree, key: n_launch}))
     # the 100k cell the same way: 360 warm-up steps, then runs of 360
     _, state, steps = smoke.bench_setup(torch, 0.8, torch.device("cuda", 0), n_atoms=BIG_N)
     state, _ = pattern_segment(smoke.pattern(steps), 360)(state)
@@ -3764,7 +3890,8 @@ def ab_slice(other):
     for tree, runs in ab_runs("--time-slice", other).items():
         for key, unit in (("steps_per_s", "steps/s"), ("steps_per_s_100k", "steps/s, 100k cell"),
                           ("hills_per_s", "hills/s"),
-                          ("hill_step_launches", "device launches of a 10k hill step")):
+                          ("hill_step_launches", "device launches of a 10k hill step"),
+                          ("plain_step_launches", "device launches of a 10k plain step")):
             print(f"{tree}: {unit} {spread([r[key] for r in runs if key in r])}")
 
 

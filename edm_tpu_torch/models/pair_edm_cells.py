@@ -401,6 +401,7 @@ class CellStep:
         self.types = None if types is None or type_pair is None else types
         self.type_pair = None if self.types is None else tuple(int(t) for t in type_pair)
         self._types_dev = None
+        self._rows_dev = None  # the thermostat's slot rows (_slot_rows)
         self.Cg = _padded_cells(spec)
         c1 = float(np.exp(-lp.friction * lp.dt))
         self._c1 = c1
@@ -517,11 +518,18 @@ class CellStep:
         if self.shard_floor:
             return self._phase1_shard(state, seeds)
         Cg, cap = state.mc.shape
-        rows = torch.arange(Cg * cap, device=state.xs.device)
-        xi = normal_rows_cols(seeds, rows, 3, state.xs.dtype).reshape(Cg, cap, 3)
+        xi = normal_rows_cols(seeds, self._slot_rows(Cg * cap, state.xs.device), 3,
+                              state.xs.dtype).reshape(Cg, cap, 3)
         x2, v2 = self._p1_update(state.xs, state.vs, state.fs, xi)
         m = state.mc[..., None]
         return x2 * m, v2 * m
+
+    def _slot_rows(self, n: int, device) -> torch.Tensor:
+        """The thermostat's row ids 0..n-1 on ``device``, made once."""
+        if self._rows_dev is None or self._rows_dev.device != device or (
+                self._rows_dev.shape[0] != n):
+            self._rows_dev = torch.arange(n, device=device)
+        return self._rows_dev
 
     def _p1_update(self, xs, vs, fs, xi):
         lp = self.lp

@@ -7,10 +7,11 @@ Counterpart of ``p1_chunk`` in ``edm_tpu/models/pair_edm_cells.py``
 memory.  ``p1_counts_half`` and ``p1_counts_typed`` launch the CUDA kernels
 ``p1_count_half`` / ``p1_count_typed`` (``csrc/hashrng.cu``) on a CUDA
 device, one launch a call and no temporaries: both read the slot lattice
-itself (each block stages its cell's candidate cells into shared memory),
-the counter hash and the per-row sums stay on the chip, and the acceptance
-threshold is read from its device scalar, so nothing synchronizes.  On the
-CPU they run their plain versions, ``*_ref``: the candidate planes
+itself (each block stages its cell's candidate cells into shared memory,
+in pieces where they do not fit at once, so any cap is taken), the
+counter hash and the per-row sums stay on the chip, and the acceptance
+threshold is read from its device scalar, so nothing synchronizes.  On
+the CPU they run their plain versions, ``*_ref``: the candidate planes
 (``half_planes``, ``stencil_tile``), the r^2 tile and the draws
 (``hashrng.uniform_rows_cols_ref``) of whole cells at a time, in chunks
 whose draws stay within ``P1_DRAWS`` values (268 MB an int64 temporary of

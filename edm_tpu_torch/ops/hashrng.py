@@ -7,11 +7,12 @@ so a row range can be redrawn exactly (count pass and extract pass).
 
 ``uniform_rows_cols`` and ``normal_rows_cols`` launch the CUDA kernel
 ``hash_rows`` (``csrc/hashrng.cu``) on a CUDA device: the hash in native
-uint32 arithmetic, one launch a call, the seeds passed as launch
-arguments.  On the CPU they run their plain versions, ``*_ref``: PyTorch has
-no uint32 arithmetic, so there the hash runs in int64 with every product
-split into 16-bit halves (each below 2^48) and masked to 32 bits.  Each
-wrapper's ``launches`` counts its kernel launches.
+uint32 arithmetic, a warp a row for wide rows and a thread a row or an
+element for narrow ones, one launch a call, the seeds passed as launch
+arguments.  On the CPU they run their plain versions, ``*_ref``: PyTorch
+has no uint32 arithmetic, so there the hash runs in int64 with every
+product split into 16-bit halves (each below 2^48) and masked to 32 bits.
+Each wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations

@@ -36,13 +36,16 @@ outside the box masked; and a 2-rank slab step on the card
 (``parallel.launch``, a rank per card or both on one) against the
 single-device step.  The counter hash and pass 1 of the hill
 collections (``csrc/hashrng.cu``): ``hash_uniforms`` bitwise and
-``hash_normals`` within 2 ulps of their plain versions at the 10k
-thermostat's rows and a pass-1 width, in float32 and float64;
-``p1_count_half`` (the lattice, a 2-rank slab's and a 2 x 2 brick's owned
-cells) and ``p1_count_typed`` on the 10,000-atom lattice, and both on
-``chip_smoke.edge_lattice`` (cap 8) in float32 and float64, row counts and
-ncalls exactly, the threshold on and off; and whole hill collections,
-half and typed, bitwise through the kernels and the plain versions.
+``hash_normals`` within 2 ulps of their plain versions at the edges of
+their tiles (1 to 897 columns, 1 to 65,569 rows, ids above 2^32, a strided
+view), in float32 and float64; ``p1_count_half`` (the lattice, a 2-rank
+slab's and a 2 x 2 brick's owned cells) and ``p1_count_typed`` on the
+10,000-atom lattice, both on ``chip_smoke.edge_lattice`` (cap 8) in
+float32 and float64, and both on ``chip_smoke.dense_lattice`` at caps
+whose cells take more than one shared-memory piece (128 to 3000), row
+counts and ncalls exactly, the threshold on and off; and whole hill
+collections, half and typed, bitwise through the kernels and the plain
+versions.
 Tolerances as in the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -1266,29 +1269,36 @@ def _ulps(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("normal", [False, True], ids=["uniform", "normal"])
 def test_hash_rows_kernel(cuda_state, dtype, normal):
-    """``hash_rows`` against its plain version (the int64 hash on the card):
-    uniforms bitwise, normals within 2 ulps, at the 10k thermostat's rows
-    (23,328) with row ids up to 2^33 (taken mod 2^32), 3 and 7 columns, and
-    a pass-1 width (896 columns) on 700 rows."""
+    """``hash_rows`` against its plain version (the int64 hash on the card)
+    at the edges of its tiles (``chip_smoke.hash_edge_rows``): n = 1, 3, 5,
+    7 (a thread an element, or a row from 2^16 rows on) and 864, 896, 897
+    (a warp a row, 897 with rows on every 16-byte phase), R = 1, 33, the
+    10k thermostat's 23,552 and 2^16 + 33, row ids near and above 2^32, a
+    non-contiguous view of the rows.  Uniforms bitwise, normals within 2
+    ulps (the largest printed), one launch a call."""
+    from chip_smoke import HASH_EDGE_COLS, hash_edge_rows
     from edm_tpu_torch.ops import hashrng as H
 
     dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(2)
-    rows = torch.tensor(np.concatenate([np.arange(23328), rng.integers(0, 2**33, 500)]),
-                        device=dev)
     fn, ref = ((H.normal_rows_cols, H.normal_rows_cols_ref) if normal else
                (H.uniform_rows_cols, H.uniform_rows_cols_ref))
-    for r, n in ((rows, 3), (rows, 7), (rows[:700], 896)):
-        n0 = fn.launches
-        out = fn(HASH_SEEDS, r, n, dtype)
-        want = ref(HASH_SEEDS, r, n, dtype)
-        torch.cuda.synchronize()
-        assert fn.launches == n0 + 1 and out.dtype == dtype and out.shape == (len(r), n)
-        if normal:
-            assert _ulps(out, want).max() <= 2
-        else:
-            assert torch.equal(out, want)
-    assert fn(HASH_SEEDS, rows[:0], 3, dtype).shape == (0, 3)
+    worst = 0.0
+    for label, r in hash_edge_rows(torch, dev):
+        for n in HASH_EDGE_COLS:
+            n0 = fn.launches
+            out = fn(HASH_SEEDS, r, n, dtype)
+            want = ref(HASH_SEEDS, r, n, dtype)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1 and out.dtype == dtype and out.shape == (len(r), n)
+            if normal:
+                ulps = float(_ulps(out, want).max())
+                assert ulps <= 2, (label, n, ulps)
+                worst = max(worst, ulps)
+            else:
+                assert torch.equal(out, want), (label, n)
+    assert fn(HASH_SEEDS, r[:0], 3, dtype).shape == (0, 3)
+    if normal:
+        print(f"hash_normals {dtype}: at most {worst:g} ulps from the plain version")
 
 
 def _half_inputs(spec, st, cells, dtype):
@@ -1403,6 +1413,48 @@ def test_p1_counts_kernels_edge_lattice(cuda_state, typed, thresh, dtype):
         torch.cuda.synchronize()
         assert fn.launches == n0 + 1
         assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thresh", [True, False], ids=["thresh", "accept-all"])
+@pytest.mark.parametrize("typed, cap, dtype", [
+    (True, 128, torch.float64), (False, 300, torch.float64), (False, 512, torch.float32),
+    (False, 3000, torch.float64), (True, 3000, torch.float64)],
+    ids=["typed-128-f64", "half-300-f64", "half-512-f32", "half-3000-f64", "typed-3000-f64"])
+def test_p1_counts_kernels_large_cap(cuda_state, typed, cap, dtype, thresh):
+    """Both pass-1 kernels above the largest cap whose candidate cells fit
+    one shared-memory piece, on ``chip_smoke.dense_lattice`` (3^3 cells,
+    one full, one empty, the rest half to fully occupied): typed cap 128 in
+    float64, half cap 300 in float64 and 512 in float32 (the cells in two
+    pieces), and cap 3000 in float64 (the rows tiled too and each cell in
+    runs of slots).  Row counts and ncalls exactly the plain version's,
+    threshold 0.5 and none, one launch a call."""
+    from chip_smoke import dense_lattice, lattice_state
+    from edm_tpu_torch.ops import collect
+
+    dev = torch.device("cuda", 0)
+    pts, box, cap, types = dense_lattice(cap)
+    n = len(pts)
+    spec, st = lattice_state(torch, dev, pts, box, cap)
+    assert spec.ncells == (3, 3, 3) and int(st.mc.sum()) == n
+    boxt = torch.tensor(spec.box, dtype=dtype, device=dev)
+    th = torch.full((), 0.5, dtype=dtype, device=dev) if thresh else None
+    if typed:
+        t = torch.as_tensor(types, device=dev)[torch.clamp(st.aid, 0, n - 1)]
+        tslot = torch.where(st.aid < n, t, 0).to(dtype).reshape(st.mc.shape)
+        fn, ref = collect.p1_counts_typed, collect.p1_counts_typed_ref
+        args = (st.xs.to(dtype), st.aid, tslot, CF.stencil_neighbors(spec.ncells, dev), boxt, 9.0,
+                th, HASH_SEEDS, n, (1, 2))
+    else:
+        fn, ref = collect.p1_counts_half, collect.p1_counts_half_ref
+        args = _half_inputs(spec, st, torch.arange(spec.n_cells, device=dev), dtype) + (
+            boxt, 9.0, th, HASH_SEEDS)
+    n0 = fn.launches
+    rc, nc = fn(*args)
+    rc_ref, nc_ref = ref(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert int(nc_ref) > 0 and torch.equal(rc, rc_ref) and int(nc) == int(nc_ref)
 
 
 @pytest.mark.gpu

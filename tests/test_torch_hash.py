@@ -11,7 +11,12 @@ acceptance threshold on (hill_density 20 over 4,000 calls) and off
 in 7-cell chunks of ``P1_DRAWS``, and over the owned boxes of a 2-rank slab
 and a 2 x 2 brick (each box's rows those of JAX's single-device pass, and
 the boxes' ncalls summing to its); the typed pass over the lattice and in
-7-cell chunks.  Then the dispatching ``uniform_rows_cols`` /
+7-cell chunks.  Both passes also at cap 128 in float64 on
+``chip_smoke.dense_lattice`` (3^3 cells; the typed kernel stages their
+candidate cells in two pieces in float64).  The plain uniforms bitwise JAX's
+and the plain normals within the tolerance of ``test_torch_rng.py`` at 1,
+5 and 897 columns and row ids at and above 2^31 and 2^32.  Then the
+dispatching ``uniform_rows_cols`` /
 ``normal_rows_cols`` on the CPU bitwise their ``_ref`` (no launch
 counted), and every wrapper raising on a device that is neither the CPU
 nor CUDA.  The kernels themselves are held to these plain versions on the
@@ -26,13 +31,14 @@ import torch
 from jax.extend import core as jcore
 
 from _torch_parity import np_, to_port
-from chip_smoke import edge_lattice
+from chip_smoke import dense_lattice, edge_lattice
 from edm_tpu import bias as JB
 from edm_tpu.models import pair_edm as jpe
 from edm_tpu.models.cells import CellSpec
 from edm_tpu.models.langevin import LangevinParams
 from edm_tpu.models.lj import LJParams
 from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
+from edm_tpu.ops import hashrng as jh
 from edm_tpu.utils.config import parse_edm_text
 from edm_tpu_torch.models import pair_edm_cells as tpc
 from edm_tpu_torch.models.langevin import LangevinParams as TLP
@@ -58,10 +64,11 @@ def lattice():
     return spec, np_(tcore.x)
 
 
-def _jax_pass1(lattice, hill_density, typed, types=TYPES):
-    """JAX's pass-1 (row_counts, ncalls) of one collection: the outputs of
-    the ``lax.scan`` in the collection's jaxpr whose carry is (int32[rows],
-    int32[]), evaluated; and the state."""
+def _jax_pass1(lattice, hill_density, typed, types=TYPES, dtype=jnp.float32):
+    """JAX's pass-1 (row_counts, ncalls) of one collection in ``dtype``
+    (the positions cast to it): the outputs of the ``lax.scan`` in the
+    collection's jaxpr whose carry is (int32[rows], int32[]), evaluated; and
+    the state."""
     spec, x = lattice
     params, bs = JB.subdivide(parse_edm_text(_cfg(hill_density)), 1.0, 1.0, [0], [3.0], [0],
                               [3.0], [False], [0], dtype=jnp.float32)
@@ -72,7 +79,7 @@ def _jax_pass1(lattice, hill_density, typed, types=TYPES):
     free = dict(zip(step.__code__.co_freevars, (c.cell_contents for c in step.__closure__)))
     coll = free["collect_hills" if typed else "collect_hills_half"]
     args = (state, jax.random.PRNGKey(KEY), jnp.asarray(LAST_CALLS, jnp.int32))
-    closed = jax.make_jaxpr(lambda st, k, lc: coll(st, st.xs, k, lc, jnp.float32))(*args)
+    closed = jax.make_jaxpr(lambda st, k, lc: coll(st, st.xs.astype(dtype), k, lc, dtype))(*args)
     scans = [e for e in closed.jaxpr.eqns if e.primitive.name == "scan" and len(e.outvars) == 2
              and all(v.aval.dtype == jnp.int32 for v in e.outvars)
              and [v.aval.ndim for v in e.outvars] == [1, 0]]
@@ -229,6 +236,87 @@ def test_p1_counts_ref_edge_lattice_matches_jax(edge, typed, hill_density):
     assert int(nc) == jnc
     if hill_density > 0:
         assert 0 < rc.sum() < (jnc if typed else 2 * jnc)
+
+
+@pytest.fixture(scope="module")
+def large():
+    pts, box, cap, types = dense_lattice(128)
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=len(pts), cap=cap)
+    assert spec.ncells == (3, 3, 3) and spec.cap == 128
+    return (spec, pts.astype(np.float32)), types
+
+
+@pytest.mark.parametrize("typed", [False, True], ids=["half", "typed"])
+@pytest.mark.parametrize("hill_density", [20, -1], ids=["thresh", "accept-all"])
+def test_p1_counts_ref_large_cap_matches_jax(large, typed, hill_density):
+    """Cap 128 in float64 (``chip_smoke.dense_lattice``: 3^3 cells, one
+    full, one empty, the rest half to fully occupied; the typed kernel
+    stages their candidate cells in two pieces in float64): the plain pass
+    1 equals JAX's exactly, with the threshold on and with none.  2-11 s a
+    case on one worker, 20 s the four."""
+    lat, types = large
+    spec = lat[0]
+    C, cap, n = spec.n_cells, spec.cap, spec.n_atoms
+    f64 = torch.float64
+    jrc, jnc, state = _jax_pass1(lat, hill_density, typed, types, jnp.float64)
+    pstate = to_port(state)
+    assert (pstate.mc.sum(1) == cap).sum() == 1
+    thresh = None if hill_density < 0 else torch.div(torch.full((), float(hill_density), dtype=f64),
+                                                     torch.tensor(float(LAST_CALLS), dtype=f64))
+    box = torch.tensor(spec.box, dtype=f64)
+    xs = pstate.xs.to(f64)
+    if typed:
+        t = torch.as_tensor(types, dtype=torch.int64)[torch.clamp(pstate.aid, 0, n - 1)]
+        tslot = torch.where(pstate.aid < n, t, 0).to(f64).reshape(pstate.mc.shape)
+        rc, nc = collect.p1_counts_typed_ref(
+            xs, pstate.aid, tslot, stencil_neighbors(tuple(spec.ncells), "cpu"), box, BMAX2,
+            thresh, _seeds(), n, (1, 2))
+    else:
+        rc, nc = collect.p1_counts_half_ref(
+            xs, pstate.mc.to(f64), torch.arange(C), half_neighbors(tuple(spec.ncells), "cpu"),
+            box, BMAX2, thresh, _seeds())
+    assert jnc > 0 and not jrc[C * cap:].any()
+    np.testing.assert_array_equal(rc.numpy(), jrc[:C * cap])
+    assert int(nc) == jnc
+    if hill_density > 0:
+        assert 0 < rc.sum() < (jnc if typed else 2 * jnc)
+
+
+def _wide_ids():
+    """Row ids from 0 up, about 2^31 and 2^32, and up to 2^40 (all taken
+    mod 2^32, as ``rows.astype(uint32)``)."""
+    rng = np.random.default_rng(6)
+    return np.concatenate([np.arange(16), 2**31 + np.arange(-8, 8), 2**32 + np.arange(-8, 8),
+                           rng.integers(2**31, 2**40, 24)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_cols", [1, 5, 897])
+def test_uniform_rows_cols_ref_matches_jax(n_cols, dtype):
+    """The plain uniforms bitwise JAX's at the widths at the edges of the
+    kernel's tiles (a thread a row up to 16 columns, a warp a row beyond)
+    and row ids at and above 2^31 and 2^32."""
+    rows = _wide_ids()
+    seeds = (0x9E3779B9, 987654321)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    ref = jh.uniform_rows_cols(jnp.asarray(seeds, jnp.uint32), jnp.asarray(rows), n_cols, jdt)
+    out = hashrng.uniform_rows_cols_ref(seeds, torch.as_tensor(rows), n_cols, dtype)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_cols", [1, 5, 897])
+def test_normal_rows_cols_ref_matches_jax(n_cols, dtype):
+    """The plain normals against JAX's at the same widths and row ids,
+    within ``test_torch_rng``'s tolerance (log and cos round differently in
+    XLA and PyTorch)."""
+    rows = _wide_ids()
+    seeds = (123456789, 987654321)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    ref = np.asarray(jh.normal_rows_cols(jnp.asarray(seeds, jnp.uint32), jnp.asarray(rows),
+                                         n_cols, jdt))
+    out = hashrng.normal_rows_cols_ref(seeds, torch.as_tensor(rows), n_cols, dtype).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
