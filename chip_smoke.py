@@ -31,8 +31,9 @@ each kernel against its plain PyTorch version on the same card:
   - ``bench.py:bench_coord2d``: the 2-D coordinate host
     (``models/coord_edm``, 10,000 free particles, a periodic 1000 x 1000
     grid, hill_density 250, hill_capacity 2048, the cached corner table,
-    ``driver.strided_segment`` with hill_stride 10): every draw through
-    the Threefry kernel ``prng.threefry_bits``; and its ``mcgdp=True``
+    ``driver.strided_segment`` with hill_stride 10): every draw (the
+    thermostat's normals, the acceptance uniforms) one launch of the
+    Threefry draw kernel ``tf_bits``; and its ``mcgdp=True``
     form, a non-periodic 1001 x 1001 grid with McGovern-De Pablo walls on
     both dims, whose hill rounds deposit through ``dense_tables_mcgdp`` +
     ``deposit_from_mcgdp``;
@@ -44,7 +45,7 @@ each kernel against its plain PyTorch version on the same card:
     (``use_pallas=False``, the JAX default, cell_chunk 81) on the 10k exact
     cell at full cap, held to K1; and the dense all-pairs host
     (``models/pair_edm``) at bench.py --quick's 1,000 atoms, its N^2
-    acceptance uniforms through ``threefry_bits``;
+    acceptance uniforms through ``tf_bits``;
   - the multi-device layer (``parallel``), its ranks spawned by
     ``parallel.launch`` (NCCL with a card per rank, else gloo with the ranks
     sharing the card): the slab-sharded cell host
@@ -56,7 +57,7 @@ each kernel against its plain PyTorch version on the same card:
     range split into bricks, one local grid a rank, hills exchanged and
     replayed at their heights: periodic on 2 ranks (2, 1) and on 2 x 2,
     and on the McGDP box on 2 ranks through ``boundary_offset``; every
-    draw through ``threefry_bits``;
+    draw through ``tf_bits``;
   - the multi-device dry run (``parallel.dryrun.dryrun_multichip(8)``):
     the eight probes of ``__graft_entry__.py``, each held to the port's
     single-device host or serial engine (K1's owned-row forms and K2 on
@@ -99,7 +100,9 @@ short typed run at 100k (``p1_count_typed[100k]``), with each part's
 seconds; the deposition run (hills/s,
 host syncs, device-busy share and device launches of a round; its final
 grid held to the same rounds through the plain versions); the Threefry
-kernel against the numpy chain, bitwise; the 2-D slice, 20 kT = 0 steps
+draw kernel against its plain versions (bits and uniforms bitwise, normals
+within 2 ulps, n = 1 to 10^6 + 3, one launch a draw) and its time on the
+2-D thermostat's normals and the dense host's 10^6 uniforms; the 2-D slice, 20 kT = 0 steps
 each taken from the same input state on the card and on the CPU (integer
 leaves exactly, the rest within ``COORD_*``; the worst difference of each
 leaf printed), then the bench's kT = 1.0 run (100 warm-up steps, each hill
@@ -111,7 +114,8 @@ then the same two phases on the McGDP grid, with its
 first hill round deposited through the McGDP tables and through the
 windowed route and the two held to each other (the e^-8 corner class);
 ``threefry_rows`` against the numpy chain, bitwise, at the blocked host's
-pass-1 and pass-2 shapes; the blocked host's 20 kT = 0 steps through the
+pass-1 and pass-2 shapes, the work-sharded host's, ragged and short rows
+and 70,000 rows, one launch a call; the blocked host's 20 kT = 0 steps through the
 kernel and through its plain version, bitwise, then its kT = 0.8 run
 (50 warm-up and 100 timed steps through ``driver.strided_segment``:
 steps/s, device launches per step, the cycle's busy share and top device
@@ -166,8 +170,11 @@ one 10k hill step; medians and ranges).
 ``python3 chip_smoke.py --ab-kernels OTHER`` compares the kernels the same
 way: the device time per launch of every entry of the ``kernels`` line,
 from the profile of a stride cycle of each MD path (and of the exact and
-the typed path at 100k) and of a deposition round on each route, one
-process per run, medians and ranges printed; both
+the typed path at 100k), of a deposition round on each route and of the
+Threefry kernels on the 2-D, blocked and dense hosts (``time_threefry``,
+with the device launches of a 2-D step and of its draws and those hosts'
+steps/s), one process per run, medians and ranges printed;
+``--ab-kernels OTHER threefry`` times the Threefry kernels alone.  Both
 checkouts must name their device functions as ``PORT_KERNELS`` does.
 """
 
@@ -229,6 +236,16 @@ PORT_KERNELS = ROW_FUNCS + K2_FUNCS + DEPOSIT_FUNCS + TF_FUNCS + ("hash_", "p1_"
 # r^2 and its test in pass 1 (per axis a subtraction, the division, rint, a
 # product, a subtraction and the square; two sums, one comparison)
 HASH_INT_OPS, UNIFORM_FLOPS, BOX_MULLER_FLOPS = 12, 2, 7
+# operations counted from csrc/threefry.cu: a Threefry-2x32 block
+# (tf_block), 20 rounds of an add, a rotation (one funnel shift) and an xor
+# plus six key injections of two adds, 72 integer operations; a key's
+# schedule (tf_key: the parity word, two xors, and the five counter sums)
+# 7 more, once a key; the mantissa trick, 3 integer operations (xor,
+# shift, or; float32) and the subtraction; a normal past its uniform, the
+# product, the sum, the max, erfinv (a libm call, counted as one) and the
+# product by sqrt(2)
+TF_BLOCK_INT_OPS, TF_KEY_INT_OPS, TF_MANTISSA_INT_OPS = 72, 7, 3
+TF_UNIFORM_FLOPS, TF_NORMAL_FLOPS = 1, 5
 # pass 1's r^2 a pair: 3 subtractions, 3 |d| <= L/4 tests, 3 squares, 2
 # adds, the bmax test; a component across a periodic face adds its image
 # (a division, rint, a product and a subtraction)
@@ -1120,6 +1137,17 @@ def gofr_phase(torch, device):
 def hash_bound(flops: float, int_ops: float, nbytes: float):
     """``bound`` with integer operations at half the f32 rate."""
     return bound(flops + 2 * int_ops, nbytes)
+
+
+def tf_bound(elements: int, nbytes: int, rows: int = 0, normal: bool = False):
+    """``hash_bound`` of Threefry uniforms (``normal``: normals), the work
+    the function needs: a block and the mantissa trick an element, the
+    launch key's schedule once, and for per-row streams a row key a row
+    (its ``fold_in`` block and its schedule)."""
+    int_ops = ((TF_BLOCK_INT_OPS + TF_MANTISSA_INT_OPS) * elements
+               + (TF_BLOCK_INT_OPS + TF_KEY_INT_OPS) * rows + TF_KEY_INT_OPS)
+    flops = (TF_UNIFORM_FLOPS + (TF_NORMAL_FLOPS if normal else 0)) * elements
+    return hash_bound(flops, int_ops, nbytes)
 
 
 def max_ulps(a, b) -> float:
@@ -2058,31 +2086,120 @@ def mcgdp_deposit_phase(torch, device):
         raise AssertionError(f"McGDP deposit vs windowed failed: {bad or 'no hill deposited'}")
 
 
-def threefry_kernel_phase(torch, device):
-    """The Threefry kernel against ``ops/prng``'s numpy chain, bitwise, for
-    n = 10,000 and 20,000 (the 2-D step's draws) and two keys, both
-    outputs; its time at n = 20,000 (the step's normals) beside the plain
-    version's (the numpy chain and its copy to the card)."""
+# the draw kernel's shapes: ragged and tiny n, the 2-D step's acceptance
+# (10,000) and thermostat (20,000) draws, the dense host's N^2 = 10^6
+# uniforms (16-byte stores from prng.DRAW_VEC_MIN) and a ragged large n
+TF_DRAW_SIZES = (1, 31, 257, 10000, 20000, 20001, 10**6, 10**6 + 3)
+# a normal on the card against its plain version, in ulps: CUDA's erfinvf /
+# erfinv (at most 2 / 5 ulps from the exact value, CUDA's math library
+# documentation), PyTorch's CPU erfinv (within 1 ulp of the exact value at
+# every argument sampled), and the product by sqrt(2), one rounding
+TF_NORMAL_ULPS = {"torch.float32": 4, "torch.float64": 7}
+
+
+def erfinv_ulps(torch, device):
+    """``torch.erfinv`` on the card (CUDA's erfinv, what the earlier card
+    route of a normal draw called) against PyTorch's CPU erfinv, in ulps of
+    the result: over every float32 argument a Threefry normal can take
+    (u = max(lo, f span + lo) for each of the 2^23 float32 uniforms f) and
+    over the arguments of 4 x 10^6 float64 draws.  {dtype: (max ulps,
+    counts of 0, 1, 2, ... ulps)}."""
     from edm_tpu_torch.ops import prng
 
-    rows = {}
-    for n in (20000, 10000):
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        lo, span, _ = prng._normal_consts(dt)
+        if dt == torch.float32:
+            f = (torch.arange(2**23, dtype=torch.float64) * 2.0**-23).to(dt)
+        else:
+            f = prng.uniform_ref(prng.PRNGKey(9), (4 * 10**6,), dt)
+        lo_t = torch.tensor(lo, dtype=dt)
+        u = torch.maximum(lo_t, f * torch.tensor(span, dtype=dt) + lo_t)
+        a, b = torch.erfinv(u.to(device)).cpu().numpy(), torch.erfinv(u).numpy()
+        e = np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        out[str(dt)] = (float(e.max()), np.bincount(np.rint(e).astype(np.int64)).tolist())
+    return out
+
+
+def threefry_kernel_phase(torch, device):
+    """The draw kernel ``tf_bits`` against its plain versions at
+    ``TF_DRAW_SIZES``, two keys: the bits (both forms) and the uniforms
+    (float32, float64) bitwise, the normals within ``TF_NORMAL_ULPS`` (the
+    ulps printed, and whether they are bitwise the earlier card route: the
+    kernel's bits through the PyTorch ops on the card), one launch a draw.
+    Its time on the 2-D thermostat's 20,000 normals and on the dense host's
+    10^6 uniforms beside the plain versions' (the numpy chain, the PyTorch
+    ops on the CPU and the copy to the card), the earlier card route's and
+    the bound; the phase's seconds."""
+    from edm_tpu_torch.ops import prng
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    ulps, old_ulps, z_err = {f32: 0.0, f64: 0.0}, {f32: 0.0, f64: 0.0}, 0.0
+    for n in TF_DRAW_SIZES:
         for seed in (0, 2**33 + 5):
             key = prng.PRNGKey(seed)
-            for wide in (False, True):
-                out = prng.threefry_bits(key, n, device, wide=wide)
-                ref = prng._bits_ref(key, n, wide)
+            got = {}
+            for what, fn, ref in (
+                    ("bits", lambda: prng.threefry_bits(key, n, device),
+                     lambda: prng._bits_ref(key, n, False)),
+                    ("wide bits", lambda: prng.threefry_bits(key, n, device, wide=True),
+                     lambda: prng._bits_ref(key, n, True)),
+                    ("float32 uniforms", lambda: prng.uniform(key, (n,), f32, device),
+                     lambda: prng.uniform_ref(key, (n,), f32)),
+                    ("float64 uniforms", lambda: prng.uniform(key, (n,), f64, device),
+                     lambda: prng.uniform_ref(key, (n,), f64))):
+                n0 = prng.threefry_bits.launches
+                got[what] = fn()
                 torch.cuda.synchronize()
-                bad = int((out.cpu() != ref).sum())
-                if bad:
-                    raise AssertionError(f"threefry_bits n={n} seed={seed} wide={wide}: "
-                                         f"{bad} words differ from the numpy chain")
-        key = prng.PRNGKey(0)
-        ms = cuda_ms(torch, lambda: prng.threefry_bits(key, n, device))
-        plain = cuda_ms(torch, lambda: prng._bits_ref(key, n, False).to(device), reps=10)
-        rows[f"threefry_bits n={n}"] = (0.0, ms, plain) + bound(0.0, 4 * n)
-    print("Threefry kernel: bitwise equal to the numpy chain (n = 10000, 20000; 2 keys; "
-          "both outputs)")
+                bad = int((got[what].cpu() != ref()).sum())
+                if bad or prng.threefry_bits.launches != n0 + 1:
+                    raise AssertionError(f"tf_bits {what} n={n} seed={seed}: {bad} differ from the "
+                                         f"plain version, {prng.threefry_bits.launches - n0} "
+                                         "launches")
+            for dt in (f32, f64):
+                n0 = prng.threefry_bits.launches
+                z = prng.normal(key, (n,), dt, device)
+                if prng.threefry_bits.launches != n0 + 1:
+                    raise AssertionError(f"tf_bits normals n={n}: not one launch")
+                bits = got["wide bits" if dt == f64 else "bits"]
+                old = prng._normal_chain(prng._uniform_chain(bits, dt), dt)
+                z_ref = prng.normal_ref(key, (n,), dt)
+                ulps[dt] = max(ulps[dt], max_ulps(z, z_ref))
+                old_ulps[dt] = max(old_ulps[dt], max_ulps(z, old))
+                if dt == f32:
+                    z_err = max(z_err, max_err(z.cpu(), z_ref))
+    if not all(ulps[dt] <= TF_NORMAL_ULPS[str(dt)] for dt in (f32, f64)):
+        raise AssertionError(f"tf_bits normals: {ulps[f32]} / {ulps[f64]} ulps (float32 / "
+                             f"float64) from the plain version, bound {TF_NORMAL_ULPS}")
+    same = "bitwise" if max(old_ulps.values()) == 0 else (
+        f"not bitwise: {old_ulps[f32]} / {old_ulps[f64]} ulps from")
+    erf = erfinv_ulps(torch, device)
+    rows = {}
+    key = prng.PRNGKey(0)
+    shape = (COORD_N, 2)
+    d = COORD_N * 2
+    ms = cuda_ms(torch, lambda: prng.normal(key, shape, f32, device))
+    plain = cuda_ms(torch, lambda: prng.normal_ref(key, shape, f32).to(device), reps=10)
+    old_ms = cuda_ms(torch, lambda: prng._normal_chain(
+        prng._uniform_chain(prng.threefry_bits(key, d, device), f32), f32))
+    rows[f"threefry_bits normal {d}"] = (z_err, ms, plain) + tf_bound(d, 4 * d, normal=True)
+    d2 = PAIR_N["dense"] ** 2
+    ms2 = cuda_ms(torch, lambda: prng.uniform(key, (d2,), f32, device))
+    plain2 = cuda_ms(torch, lambda: prng.uniform_ref(key, (d2,), f32).to(device), reps=3, warm=1)
+    old_ms2 = cuda_ms(torch, lambda: prng._uniform_chain(prng.threefry_bits(key, d2, device), f32))
+    rows[f"threefry_bits uniform {d2}"] = (0.0, ms2, plain2) + tf_bound(d2, 4 * d2)
+    print(f"tf_bits (the draw kernel): bits and uniforms bitwise the plain versions, normals "
+          f"{ulps[f32]} / {ulps[f64]} ulps (float32 / float64; bound {TF_NORMAL_ULPS[str(f32)]} / "
+          f"{TF_NORMAL_ULPS[str(f64)]}), {same} the earlier card route (tf_bits' bits through "
+          f"the PyTorch ops on the card); one launch a draw; n = "
+          f"{', '.join(map(str, TF_DRAW_SIZES))}, 2 keys.  The earlier card route: {old_ms:.4f} "
+          f"ms for {d} normals, {old_ms2:.4f} ms for {d2} uniforms (CUDA events, against "
+          f"{ms:.4f} and {ms2:.4f}); {time.perf_counter() - t0:.1f} s")
+    for dt, (worst, hist) in erf.items():
+        print(f"torch.erfinv on the card against the CPU, {dt} "
+              f"({'every argument of a normal' if dt == str(f32) else '4e6 draws'}): max {worst} "
+              f"ulps; arguments at 0, 1, 2, ... ulps: {hist}")
     print_rows(rows)
     return rows
 
@@ -2143,37 +2260,66 @@ def plain_rows():
         prng.threefry_rows = kernel
 
 
+def threefry_rows_cases():
+    """``threefry_rows``' check shapes, (label, ids (int64), n, dtypes): the
+    blocked host's pass 1 (500 rows of 10,000) and pass 2 (2048 unsorted
+    rows, the clamped padding rows repeating), the work-sharded host's
+    chunks of 14 cap = 448 and 27 cap = 864 columns (1024 rows), a ragged
+    n, short rows, and 70,000 rows (ids up to 2^32 - 1)."""
+    n = PAIR_N["blocked"]
+    pass2 = np.random.default_rng(9).permutation(n)[:2048]
+    pass2[1500:] = n - 1  # padding rows draw row n-1's stream
+    wide = np.random.default_rng(4).integers(0, 2**32, 70000)
+    wide[:3] = (2**32 - 1, 2**31, 0)
+    both = (np.float32, np.float64)
+    cases = [("pass 1", np.arange(PAIR_BLOCK, 2 * PAIR_BLOCK), n, both),
+             ("pass 2", pass2, n, (np.float32,)),
+             ("work-sharded", np.arange(1024) + 7 * 1024, 864, both),
+             ("work-sharded", np.arange(1024) + 7 * 1024, 448, both),
+             ("ragged", np.arange(PAIR_BLOCK), n + 1, both)]
+    cases += [("short", wide[:R], m, both) for R in (1, 3) for m in (1, 3, 5, 448, n + 1)]
+    return cases + [("70,000 rows", wide, m, both) for m in (1, 3, 5)]
+
+
 def threefry_rows_phase(torch, device):
-    """``threefry_rows`` against its plain version, bitwise, at the blocked
-    host's shapes: pass 1's 500 rows (float32 and float64) and pass 2's 2048
-    (unsorted, with the clamped padding rows' repeats; float32, the host's
-    type) of 10,000 uniforms; the kernel's time at each shape beside the
-    plain version's (the numpy chain and its copy to the card, one call)."""
+    """``threefry_rows`` against its plain version, bitwise, at
+    ``threefry_rows_cases`` in float32 and float64 (pass 1 and pass 2 also
+    with int32 ids), one launch a call; the kernel's time at pass 1, pass 2
+    and the work-sharded host's 1024 x 864 beside the plain version's (the
+    numpy chain and its copy to the card, one call) and the bound; the
+    phase's seconds."""
     from edm_tpu_torch.ops import prng
 
-    n = PAIR_N["blocked"]
+    t0 = time.perf_counter()
     key = prng.fold_in(prng.PRNGKey(0), 1)
-    pass2 = np.random.default_rng(9).permutation(n)[:2048].astype(np.int32)
-    pass2[1500:] = n - 1  # padding rows draw row n-1's stream
-    rows = {}
-    for label, ids in (("pass 1", np.arange(PAIR_BLOCK, 2 * PAIR_BLOCK, dtype=np.int32)),
-                       ("pass 2", pass2)):
-        r = torch.tensor(ids, device=device)
-        for dtype in (torch.float32, torch.float64)[:2 if label == "pass 1" else 1]:
-            out = prng.threefry_rows(key, r, n, dtype)
+    rows, checked = {}, 0
+    for label, ids, n, types in threefry_rows_cases():
+        for np_dt in types:
+            dtype = torch.float64 if np_dt == np.float64 else torch.float32
             ref = prng._rows_ref(key, ids, n, dtype)
-            torch.cuda.synchronize()
-            bad = int((out.cpu() != ref).sum())
-            if bad:
-                raise AssertionError(f"threefry_rows {label} {dtype}: {bad} of {ref.numel()} "
-                                     "uniforms differ from the numpy chain")
-        ms = cuda_ms(torch, lambda: prng.threefry_rows(key, r, n))
-        plain = cuda_ms(torch, lambda: prng._rows_ref(key, ids, n, torch.float32).to(device),
-                        reps=1, warm=0)
-        rows[f"threefry_rows {label} {len(ids)}x{n}"] = (0.0, ms, plain) + bound(
-            0.0, 4 * len(ids) * (n + 1))
-    print("threefry_rows: bitwise equal to the numpy chain (500 rows x 10000 in float32 and "
-          "float64, 2048 rows x 10000 in float32)")
+            for id_dt in (torch.int64, torch.int32)[:2 if label.startswith("pass") else 1]:
+                r = torch.tensor(ids.astype(np.int64), device=device).to(id_dt)
+                n0 = prng.threefry_rows.launches
+                out = prng.threefry_rows(key, r, n, dtype)
+                torch.cuda.synchronize()
+                bad = int((out.cpu() != ref).sum())
+                if bad or prng.threefry_rows.launches != n0 + 1:
+                    raise AssertionError(f"threefry_rows {label} {len(ids)}x{n} {dtype} {id_dt}: "
+                                         f"{bad} of {ref.numel()} uniforms differ from the numpy "
+                                         f"chain, {prng.threefry_rows.launches - n0} launches")
+                checked += 1
+        if label in ("pass 1", "pass 2") or (label == "work-sharded" and n == 864):
+            r = torch.tensor(ids, device=device)
+            ms = cuda_ms(torch, lambda: prng.threefry_rows(key, r, n))
+            plain = cuda_ms(torch, lambda: prng._rows_ref(key, ids, n, torch.float32).to(device),
+                            reps=1, warm=0)
+            R = len(ids)
+            rows[f"threefry_rows {label} {R}x{n}"] = (0.0, ms, plain) + tf_bound(
+                R * n, 4 * R * n + 8 * R, rows=R)
+    print(f"threefry_rows: bitwise equal to the numpy chain in {checked} calls of one launch "
+          f"each (pass 1 and 2 of 10000 columns, work-sharded 1024 x 864 and x 448, 500 x 10001, "
+          f"1 and 3 rows of 1 to 10001, 70000 rows of 1, 3 and 5; float32 and float64, int64 "
+          f"ids, pass 1 and 2 also int32); {time.perf_counter() - t0:.1f} s")
     print_rows(rows)
     return rows
 
@@ -2322,9 +2468,10 @@ def pair_run(torch, device, host, warm_steps=100, timed_steps=300):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"kT=0.8 {host} run failed: {failed}")
+    # a cycle's draws: its 10 steps' normals, and the dense host's N^2 uniforms
     return timed_steps / dt, {"threefry_bits": n_bits, "threefry_rows": n_rows}, {
         "threefry_rows": funcs_ms(per, ("tf_rows",), blocks + 1),
-        "threefry_bits": funcs_ms(per, ("tf_bits",), 11)}
+        "threefry_bits": funcs_ms(per, ("tf_bits",), 10 if host == "blocked" else 11)}
 
 
 def xla_zero_temperature(torch, device, n_steps=20):
@@ -3828,13 +3975,69 @@ def time_slice(torch, tree, runs=2, warm_steps=100, timed_steps=300):
                               "hills_per_s": 200 * 256 / (time.perf_counter() - t0)}))
 
 
-def time_kernels(torch, tree, warm_steps=200):
+def time_threefry(torch, smoke, device, out, launches, rates):
+    """The Threefry kernels' device time in the checkout of ``smoke`` (its
+    ``coord_setup`` and ``pair_setup``): a launch of ``tf_bits`` in the 2-D
+    heavy cell's stride cycle (after 20 steps) and the cycle's device
+    launches a step; a step's two draws alone (20,000 normals, 10,000
+    uniforms), all their device time and launches; ``tf_rows`` a launch in a
+    blocked hill step (10,000 atoms, its 21 launches); the dense host's
+    hill step (1,000 atoms), its two ``tf_bits`` launches (the thermostat's
+    normals and the N^2 uniforms) and all its launches, and the N^2 draw
+    alone, all its device time and launches.  Each host's steps/s at kT
+    1.0 (2-D) or 0.8 over 100 steps (blocked 10) through
+    ``driver.strided_segment``, host clock up to a device sync."""
+    from edm_tpu_torch.models.driver import strided_segment
+    from edm_tpu_torch.ops import prng
+
+    def rate(name, steps, state, n):
+        seg = strided_segment(steps[0], steps[1], 10, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg(state)
+        torch.cuda.synchronize()
+        rates[name] = n / (time.perf_counter() - t0)
+
+    f32 = torch.float32
+    state, steps = smoke.coord_setup(torch, 1.0, device)
+    state, _ = strided_segment(steps[0], steps[1], 10, 20)(state)
+    rate("2-D steps/s", steps, state, 100)
+    cycle = strided_segment(steps[0], steps[1], 10, 10)
+    _, per, _, n = device_time_us(torch, lambda: cycle(state), 2)
+    out["2-D tf_bits"] = funcs_ms(per, ("tf_bits",), 20)
+    launches["2-D a step"] = n / 10
+    key = prng.PRNGKey(1)
+    us, _, _, n = device_time_us(torch, lambda: (
+        prng.normal(key, (COORD_N, 2), f32, device), prng.uniform(key, (COORD_N,), f32, device)),
+        20)
+    out["2-D a step's draws, every launch"] = us / 1e3
+    launches["2-D a step's draws"] = n
+    del state, steps
+    state, steps = smoke.pair_setup(torch, 0.8, device, "blocked")
+    rate("blocked steps/s", steps, state, 10)
+    _, per, _, _ = device_time_us(torch, lambda: steps[0](state), 1)
+    out["blocked hill step tf_rows"] = funcs_ms(per, ("tf_rows",),
+                                                PAIR_N["blocked"] // PAIR_BLOCK + 1)
+    del state, steps
+    state, steps = smoke.pair_setup(torch, 0.8, device, "dense")
+    rate("dense steps/s", steps, strided_segment(steps[0], steps[1], 10, 20)(state)[0], 100)
+    _, per, _, n = device_time_us(torch, lambda: steps[0](state), 5)
+    out["dense hill step tf_bits"] = funcs_ms(per, ("tf_bits",), 2)
+    launches["dense hill step"] = n
+    d2 = PAIR_N["dense"] ** 2
+    us, _, _, n = device_time_us(torch, lambda: prng.uniform(key, (d2,), f32, device), 10)
+    out["dense N^2 draw, every launch"] = us / 1e3
+    launches["dense N^2 draw"] = n
+
+
+def time_kernels(torch, tree, group="all", warm_steps=200):
     """Device time per launch of every kernel entry of the checkout at
-    ``tree``, through that checkout's own ``chip_smoke.bench_setup`` and
+    ``tree``, through that checkout's own ``chip_smoke`` setups and
     package: per MD path, and for the exact and the typed path at 100k,
     the profile of a stride cycle after ``warm_steps`` (the exact path has
-    left its full-cap fallback by then), and of a deposition round on each
-    route.  Prints one JSON line."""
+    left its full-cap fallback by then), of a deposition round on each
+    route, and the Threefry kernels' (``time_threefry``); with ``group``
+    "threefry" only the last.  Prints one JSON line."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import importlib
@@ -3843,32 +4046,34 @@ def time_kernels(torch, tree, warm_steps=200):
     from edm_tpu_torch.models.driver import pattern_segment
 
     device = torch.device("cuda", 0)
-    out = {}
-    runs = [(path, path, None) for path in smoke.PATHS]
-    runs += [("100k", "interp", BIG_N), ("100k typed", "typed", BIG_N)]
-    for label, path, n_atoms in runs:
-        _, state, steps = smoke.bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
-        state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
-        _, _, ms = cycle_device_ms(torch, pattern_segment(smoke.pattern(steps), 10), state)
-        out.update({f"{label} {name}": v for name, v in ms.items()})
-        del state, steps
-    k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
-    for what, gg in (("K4 round", k4), ("K5 round", k5)):
-        _, per, _, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
-        out[what] = funcs_ms(per, DEPOSIT_FUNCS)
-    print(json.dumps({"tree": tree, "device_ms": out}))
+    out, launches, rates = {}, {}, {}
+    if group == "all":
+        runs = [(path, path, None) for path in smoke.PATHS]
+        runs += [("100k", "interp", BIG_N), ("100k typed", "typed", BIG_N)]
+        for label, path, n_atoms in runs:
+            _, state, steps = smoke.bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
+            state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
+            _, _, ms = cycle_device_ms(torch, pattern_segment(smoke.pattern(steps), 10), state)
+            out.update({f"{label} {name}": v for name, v in ms.items()})
+            del state, steps
+        k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
+        for what, gg in (("K4 round", k4), ("K5 round", k5)):
+            _, per, _, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
+            out[what] = funcs_ms(per, DEPOSIT_FUNCS)
+    time_threefry(torch, smoke, device, out, launches, rates)
+    print(json.dumps({"tree": tree, "device_ms": out, "launches": launches, "rates": rates}))
 
 
-def ab_runs(flag, other, rounds=2):
-    """``python3 chip_smoke.py FLAG TREE`` for another checkout (e.g. the
-    parent commit, unpacked by ``git archive``) and this one in turns, one
-    process each: other, this, this, other, ``rounds`` times.  Prints every
-    run's JSON lines and returns them parsed, {tree: [line, ...]}."""
+def ab_runs(flag, other, rounds=2, extra=()):
+    """``python3 chip_smoke.py FLAG TREE [EXTRA]`` for another checkout (e.g.
+    the parent commit, unpacked by ``git archive``) and this one in turns,
+    one process each: other, this, this, other, ``rounds`` times.  Prints
+    every run's JSON lines and returns them parsed, {tree: [line, ...]}."""
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
     lines = {other: [], here: []}
     for tree in [other, here, here, other] * rounds:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree, *extra],
                              capture_output=True, text=True, timeout=900, cwd=here)
         if out.returncode != 0:
             raise RuntimeError(f"{flag} {tree} failed:\n{out.stdout}\n{out.stderr}")
@@ -3895,12 +4100,16 @@ def ab_slice(other):
             print(f"{tree}: {unit} {spread([r[key] for r in runs if key in r])}")
 
 
-def ab_kernels(other):
+def ab_kernels(other, group="all"):
     """``time_kernels`` of both checkouts in turns; per entry the median
-    device ms per launch of each."""
-    for tree, runs in ab_runs("--time-kernels", other).items():
+    device ms per launch of each, and the launch counts."""
+    for tree, runs in ab_runs("--time-kernels", other, extra=(group,)).items():
         for key in runs[0]["device_ms"]:
             print(f"{tree}: {key}: device ms {spread([r['device_ms'][key] for r in runs])}")
+        for key in runs[0]["launches"]:
+            print(f"{tree}: {key}: device launches {spread([r['launches'][key] for r in runs])}")
+        for key in runs[0]["rates"]:
+            print(f"{tree}: {key} {spread([r['rates'][key] for r in runs])}")
 
 
 def main() -> int:
@@ -3910,11 +4119,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     modes = {"--time-slice": lambda tree: time_slice(torch, tree), "--ab-slice": ab_slice,
-             "--time-kernels": lambda tree: time_kernels(torch, tree), "--ab-kernels": ab_kernels}
-    if len(sys.argv) == 3 and sys.argv[1] in modes:
+             "--time-kernels": lambda tree, group="all": time_kernels(torch, tree, group),
+             "--ab-kernels": ab_kernels}
+    if len(sys.argv) in (3, 4) and sys.argv[1] in modes:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(f"card: {card_line()}")
-        modes[sys.argv[1]](sys.argv[2])
+        modes[sys.argv[1]](*sys.argv[2:])
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from edm_tpu_torch import _build

@@ -73,14 +73,13 @@ def _declare(lib):
     # scratch, H, G, geom, reach, T, windowed, stream
     lib.deposit_1d_launch.argtypes = [vp] * 8 + [i, i, fp, i, i, i, vp]
     lib.deposit_1d_launch.restype = i
-    # k0, k1, n, wide, out, stream
-    lib.threefry_bits_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, i,
-                                         vp, vp]
-    lib.threefry_bits_launch.restype = i
-    # k0, k1, rows, R, n, f64, out, stream
-    lib.threefry_rows_launch.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, i, i, i, vp, vp]
-    lib.threefry_rows_launch.restype = i
     u32, f64, i64 = ctypes.c_uint32, ctypes.c_double, ctypes.c_longlong
+    # k0, k1, n, kind, f64, lo, span, sqrt(2), blocks, vec, out, stream
+    lib.threefry_bits_launch.argtypes = [u32, u32, i64, i, i, f64, f64, f64, i64, i, vp, vp]
+    lib.threefry_bits_launch.restype = i
+    # k0, k1, rows, ids64, R, n, f64, gx, gy, tx, tr, out, stream
+    lib.threefry_rows_launch.argtypes = [u32, u32, vp, i, i64, i, i, u32, u32, i, i, vp, vp]
+    lib.threefry_rows_launch.restype = i
     # s0, s1, rows, R, n, normal, f64, out, stream
     lib.hash_rows_launch.argtypes = [u32, u32, vp, i64, i, i, i, vp, vp]
     lib.hash_rows_launch.restype = i

@@ -25,11 +25,16 @@ size is no multiple of 4 with 1, 200 and 300 raw centres up to three
 periods outside the grid and on its wrap seam.  The user's entry points
 run on the card against the CPU: ``EDMBias(device="cuda")`` in float64
 (1-D and 2-D), ``run_simulation`` of a small cell host with records and
-every output, and a checkpoint resumed bitwise.  The dense and blocked
-pair hosts: ``threefry_rows`` bitwise against its numpy chain at the
-blocked host's widths, and one hill step of each host on the card against
-the CPU.  The multi-device layer: K1's owned-row form (``row_box``) on the
-slab host's windows of the 10,000-atom bench lattice (2, 3 and 4 ranks
+every output, and a checkpoint resumed bitwise.  The Threefry draws: the
+draw kernel's bits and uniforms bitwise and its normals within 4 (float32)
+and 7 (float64) ulps of their plain versions (n = 1 to 10^6 + 3), one
+launch a draw.  The dense and
+blocked pair hosts: ``threefry_rows`` bitwise against its numpy chain at
+the blocked host's widths, the work-sharded host's, ragged and short rows,
+70,000 rows and strided row tiles, int32 and int64 ids, one launch a call;
+and one hill step of each host on the card against the CPU.  The
+multi-device layer: K1's owned-row form (``row_box``) on the slab host's
+windows of the 10,000-atom bench lattice (2, 3 and 4 ranks
 over its 9 columns, ragged ranks included) at k = 24 and 32, against its
 plain version and bitwise against the full-window kernel with the rows
 outside the box masked; and a 2-rank slab step on the card
@@ -562,12 +567,16 @@ def test_row_pass_k7(cuda_state, row_states, poisoned_empty, case, cap, panels, 
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 31, 257, 10000, 20001])
+@pytest.mark.parametrize("n", [1, 31, 257, 10000, 20001, 10**6, 10**6 + 3])
 @pytest.mark.parametrize("wide", [False, True])
 def test_threefry_kernel(cuda_state, n, wide):
-    """The Threefry kernel against ``ops/prng``'s numpy chain, bitwise (so
-    every word was written), for ragged n and n = 1; the draws built on
-    it."""
+    """The draw kernel ``tf_bits`` against its plain versions (``ops/prng``'s
+    numpy chain and the PyTorch ops on the CPU), for ragged n and n = 1, a
+    thread an element and 16-byte stores (from ``prng.DRAW_VEC_MIN``): the
+    bits bitwise (so every word was written), the uniforms bitwise, the
+    normals within ``chip_smoke.TF_NORMAL_ULPS`` (CUDA's erfinv against
+    PyTorch's CPU one), in float32 and float64; one launch a draw."""
+    from chip_smoke import TF_NORMAL_ULPS
     from edm_tpu_torch.ops import prng
 
     dev = torch.device("cuda", 0)
@@ -579,12 +588,14 @@ def test_threefry_kernel(cuda_state, n, wide):
         assert prng.threefry_bits.launches == n0 + 1
         assert torch.equal(out.cpu(), prng._bits_ref(key, n, wide))
     for dtype in (torch.float32, torch.float64):
+        n0 = prng.threefry_bits.launches
         u = prng.uniform(key, (n,), dtype, dev)
+        z = prng.normal(key, (n,), dtype, dev)
+        torch.cuda.synchronize()
+        assert prng.threefry_bits.launches == n0 + 2
+        assert u.dtype == z.dtype == dtype and u.shape == z.shape == (n,)
         assert torch.equal(u.cpu(), prng.uniform(key, (n,), dtype, "cpu"))
-        z = prng.normal(key, (n,), dtype, dev).cpu()
-        z_ref = prng.normal(key, (n,), dtype, "cpu")
-        assert float((z - z_ref).abs().max()) <= (1e-5 if dtype == torch.float32 else 1e-12) * \
-            max(1.0, float(z_ref.abs().max()))
+        assert _ulps(z, prng.normal(key, (n,), dtype, "cpu")).max() <= TF_NORMAL_ULPS[str(dtype)]
 
 
 def _dense_grid(G, m, dev):
@@ -981,27 +992,53 @@ def test_checkpoint_resume_on_card(cuda_state, tmp_path):
 # ------------------------------------------- the dense and blocked pair hosts
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R", [1, 500, 2048])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_threefry_rows_kernel(cuda_state, R, dtype):
-    """``threefry_rows`` against its plain version (the numpy chain),
-    bitwise, at the blocked host's widths (n = 10,000; 500 rows of pass 1,
-    2048 of pass 2) for unsorted row ids with repeats (pass 2's clamped
-    padding rows)."""
+THREEFRY_ROWS = [(R, n) for R in (1, 3, 500, 2048) for n in (1, 3, 5, 448, 864, 10000, 10001)]
+THREEFRY_ROWS += [(70000, n) for n in (1, 3, 5)]
+
+
+def _threefry_rows_check(R, n, dev):
+    """``threefry_rows`` bitwise its plain version on R unsorted row ids of
+    n columns (ids above 2^31 and repeats, as pass 2's clamped padding
+    rows), float32 and float64, int64 ids and (below 2^31) int32; one
+    launch a call."""
     from edm_tpu_torch.ops import prng
 
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(R)
-    rows = rng.integers(0, 10000, R).astype(np.int32)
-    rows[-R // 4:] = 9999
+    rng = np.random.default_rng(R + n)
+    rows = rng.integers(0, 2**32, R)
+    rows[-(R // 4):] = rows[0]
     key = prng.fold_in(prng.PRNGKey(5), 3)
-    n0 = prng.threefry_rows.launches
-    out = prng.threefry_rows(key, torch.as_tensor(rows, device=dev), 10000, dtype)
-    torch.cuda.synchronize()
-    assert prng.threefry_rows.launches == n0 + 1
-    assert out.dtype == dtype and out.shape == (R, 10000)
-    assert torch.equal(out.cpu(), prng._rows_ref(key, rows, 10000, dtype))
+    for ids in (rows, rows % 2**31):
+        for dtype in (torch.float32, torch.float64):
+            ref = prng._rows_ref(key, ids, n, dtype)
+            for id_dt in (torch.int64, torch.int32)[:1 if ids is rows else 2]:
+                n0 = prng.threefry_rows.launches
+                out = prng.threefry_rows(key, torch.as_tensor(ids, device=dev).to(id_dt), n, dtype)
+                torch.cuda.synchronize()
+                assert prng.threefry_rows.launches == n0 + 1
+                assert out.dtype == dtype and out.shape == (R, n)
+                assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,n", THREEFRY_ROWS)
+def test_threefry_rows_kernel(cuda_state, R, n):
+    """``threefry_rows`` against its plain version (the numpy chain),
+    bitwise, at the blocked host's widths (n = 10,000; 500 rows of pass 1,
+    2048 of pass 2), the work-sharded host's (448, 864), ragged and short
+    rows and 70,000 rows (``_threefry_rows_check``)."""
+    _threefry_rows_check(R, n, torch.device("cuda", 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,n", [(500, 5), (700, 10001), (300, 1)])
+def test_threefry_rows_kernel_strided(cuda_state, monkeypatch, R, n):
+    """The same with the grid's y extent cut to 3 row tiles, so that the
+    kernel strides over its row tiles."""
+    from edm_tpu_torch.ops import prng
+
+    monkeypatch.setattr(prng, "ROWS_MAX_TILES", 3)
+    assert prng.rows_plan(R, n, False).grid[1] == 3
+    _threefry_rows_check(R, n, torch.device("cuda", 0))
 
 
 def _pair_host(dev, blocked, kT=0.0):
