@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives fifteen paths of the port through their CUDA kernels and checks
+Drives sixteen paths of the port through their CUDA kernels and checks
 each kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -68,7 +68,14 @@ each kernel against its plain PyTorch version on the same card:
     with the dynamic step (every ``static_do_*`` None), hill records, a
     ``HillsLog`` and bias, histogram and .ltab files (K1 and K2 again);
     ``utils/checkpoint`` save and resume; the C++ text formatters of
-    ``native/``.
+    ``native/``;
+  - the user's example scripts (``examples/torch_*.py``), each through its
+    own functions: the boundary sweep (``EDMBias`` in float64), the single
+    particle (the coordinate host's dynamic step, 2,000 steps), the
+    pairwise RDF run (the dense host under ``run_simulation``, 400 steps),
+    the occupancy diagnostic on the 10k and the 100k cells (K1 at full
+    cap), the weak-scaling script's slab and bricks (K1's owned-row form
+    with the Chebyshev table) and the spatial script on 8 ranks.
 
 Phases: the card (nvidia-smi name and power limit) and software versions;
 the kernel build from ``edm_tpu_torch/csrc`` (one nvcc per source, sm_90a);
@@ -117,12 +124,12 @@ windowed route and the two held to each other (the e^-8 corner class);
 pass-1 and pass-2 shapes, the work-sharded host's, ragged and short rows
 and 70,000 rows, one launch a call; the blocked host's 20 kT = 0 steps through the
 kernel and through its plain version, bitwise, then its kT = 0.8 run
-(50 warm-up and 100 timed steps through ``driver.strided_segment``:
+(10 warm-up and 20 timed steps through ``driver.strided_segment``:
 steps/s, device launches per step, the cycle's busy share and top device
 operations, host syncs per hill and plain step named by line, the Threefry
 launches, end-state checks); the XLA pass's 20 kT = 0 steps from a
 thermalized state, each state's forces held to K1 at full cap, then its
-kT = 0.8 run as the other cell paths' but 100 steps after 50; the dense host's 20 kT = 0 steps
+kT = 0.8 run as the other cell paths' but 50 steps after 20; the dense host's 20 kT = 0 steps
 from a thermalized state, each on the card and on the CPU from the same
 input, then its kT = 0.8 run as the blocked host's, 300 steps after 100;
 the multi-device phases, the kernels built in this process before the
@@ -135,16 +142,24 @@ host from the same input state (forces within FORCE_REL, integers and the
 hill rounds' grids exactly, every rank bitwise rank 0, a hill round with
 ``slab_collect=False`` bitwise the default); the kT = 0.8 run (rate,
 launches and collectives a step, host stagings, rank 0's busy share, the
-syncs of a hill, a plain and a rebuild step named by line, end checks); on
+syncs of a hill, a plain and a rebuild step named by line, end checks;
+100 steps after 50); on
 2 ranks also the sharded dense host's 20 kT = 0 steps against the dense
 host on the card; the spatial cases (2 ranks: (a) and (c); 4 ranks: (b)),
 each with 3 hill rounds of frozen walkers, the stitched grid after each
 held to a single-device windowed deposit of the round's hills, the forces
-to ``update_forces`` on the stitched grid, then the kT = 1.0 run (200
-steps after 50, a rebin every 20: steps/s, Threefry launches,
+to ``update_forces`` on the stitched grid, then the kT = 1.0 run (100
+steps after 20, a rebin every 20: steps/s, Threefry launches,
 collectives and kB a step, host syncs, rank 0's busy share, end checks);
 ``dryrun_multichip(8)`` (each probe's seconds and worst error beside its
-bound); then the entry points: the workload replay within 1e-9 of the compiled
+bound); before the launches, K1's owned-row form with the bench's
+Chebyshev table on the weak-scaling example's slab windows and on the 10k
+state's slab and brick windows, against its plain version and bitwise the
+masked full window; at the end of each launch the examples' share of that
+rank count (``example_rank_part``: the weak-scaling script's slab on 2
+ranks, 2 x 2 brick on 4, 2 x 2 x 2 brick on 8, each row printed, and on 8
+the spatial script: cum_bias equal on every rank, its files written);
+then the entry points: the workload replay within 1e-9 of the compiled
 reference (cum_bias each round, 31 probes; rounds/s and the syncs of a
 round named by line) and the two .ltab fixtures; ``run_simulation`` at
 kT = 0 for 20 steps bitwise against ``pattern_segment``'s static phases,
@@ -153,7 +168,15 @@ cum_bias; at kT = 0.8 its steps/s against ``pattern_segment``'s in turns,
 the wall time of a write and the syncs of a write period named by line; a
 checkpoint after 50 steps resumed into a fresh template, bitwise the 100
 uninterrupted steps; the native formatters loaded and the 1001 x 1001 grid
-written and read back.  The
+written and read back; then the example scripts' single-process parts
+(``examples_phase``, the launch counts set to 0 before each script and
+read after it, each script's seconds printed): the boundary sweep within
+1e-9 of ``tests/oracles/boundary_sweep.txt``, the single particle's host
+path within 1e-12 of the CPU and its 2,000-step run (cum_bias > 0, the
+visits equal to the hill rounds), the RDF run's 400 steps (finite, every
+file, the well below the outside), the occupancy diagnostic at 10k (2
+segments of 300 steps) and 100k (2 of 200) with each ``cell_diag`` line's
+sums, and the weak-scaling script's 1-rank slab.  The
 deposition kernels are checked on grids that already carry hills.  It prints one
 ``kernels`` JSON line (launches, errors, times, the card's least time for
 the work; ``ms`` is the wrapper's time per call by CUDA events, which the
@@ -2553,14 +2576,12 @@ def all_ranks_equal(torch, mesh, what, tensors):
 
 
 def row_box_kernel_phase(torch, mesh, state, step):
-    """K1's owned-row form on this rank's window of the 10k bench state:
-    the kernel against its plain version (FORCE_REL, energies ENERGY_RTOL)
-    and against the full-window kernel with the rows outside the box
-    masked, bitwise; at k = 24 and 32, energy off and on.  The ranks take
-    turns (a barrier between), so that each times the card alone; returns
-    rank 0's rows (its first: the main path's k = 24, energy off)."""
-    import types
-
+    """K1's owned-row form on this rank's window of the 10k bench state
+    (``owned_box_rows``: against its plain version and bitwise the
+    full-window kernel with the rows outside the box masked, at k = 24 and
+    32, energy off and on).  The ranks take turns (a barrier between), so
+    that each times the card alone; returns rank 0's rows (its first: the
+    main path's k = 24, energy off)."""
     import torch.distributed as dist
 
     from edm_tpu_torch.ops import cellforce as CF
@@ -2570,39 +2591,11 @@ def row_box_kernel_phase(torch, mesh, state, step):
     if window is None:
         raise AssertionError(f"{mesh.size} ranks over {step.spec.ncells[0]} columns take no "
                              "window")
-    sub, rows_full, subm, _, ncells, rb = window
-    cells = CF.box_cells(ncells, rb, sub.device)
-    mrows = rows_full[cells].contiguous()
-    wspec = types.SimpleNamespace(ncells=ncells, box=step.spec.box)
     out = {}
     for r in range(mesh.size):
         if r == mesh.rank:
-            for k in (24, 32):
-                for energy in (False, True):
-                    kw = dict(k=k, ncells=ncells, box=step.spec.box, lj=step.lj, energy=energy,
-                              mc_cand=subm)
-                    box = dict(row_box=rb)
-                    f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw, **box)
-                    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw, **box)
-                    f_full, _ = CF.cell_force_newton(sub, rows_full, tbl, **kw)
-                    torch.cuda.synchronize()
-                    what = (f"cell_force_newton[row_box] rank {r}/{mesh.size} window "
-                            f"{'x'.join(map(str, ncells))} R={cells.numel()} k={k} "
-                            f"energy={int(energy)}")
-                    err = check_forces(what, f, f_ref)
-                    check_energy(what, eb.sum(), eb_ref.sum())
-                    if not torch.equal(f, f_full):
-                        raise AssertionError(f"{what}: not bitwise the masked full window")
-                    ms = cuda_ms(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, **kw, **box))
-                    plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(sub, mrows, tbl, **kw,
-                                                                            **box), reps=10)
-                    counts = pair_counts(wspec, sub, subm, k, reach(tbl, step.lj), rows=cells,
-                                         mc_rows=mrows)
-                    cap = sub.shape[1]
-                    nbytes = 4 * (sub.numel() + subm.numel() + mrows.numel()
-                                  + sub.shape[0] * cap * 3 + cells.numel() * k)
-                    out[what] = (err, ms, plain) + bound(pair_flops(counts, tbl, energy),
-                                                         nbytes + table_bytes(tbl))
+            owned_box_rows(torch, f"cell_force_newton[row_box] rank {r}/{mesh.size}", window,
+                           step.spec.box, tbl, step.lj, (24, 32), out)
         dist.barrier()
     return out
 
@@ -2775,62 +2768,121 @@ def sharded_pair_zero_temperature(torch, mesh, n_steps=20):
                + "); last_calls exact; grid replicas bitwise")
 
 
+def owned_box_rows(torch, what, window, box, tbl, lj, ks, out):
+    """K1's owned-row form over one window (``pair_edm_cells.shard_window``'s
+    tuple) at each k of ``ks``, energy off and on: the kernel against its
+    plain version (FORCE_REL, energies ENERGY_RTOL) and bitwise the
+    full-window kernel with the rows outside the box masked; each timed
+    (CUDA events) beside its plain version and its bound, into ``out``
+    under ``what`` and the shape.  Prints the largest |f| of the plain
+    version, the scale of the force check.  Returns the first call's
+    arguments."""
+    import types
+
+    from edm_tpu_torch.ops import cellforce as CF
+
+    sub, rows_full, subm, _, ncells, rb = window
+    cells = CF.box_cells(ncells, rb, sub.device)
+    mrows = rows_full[cells].contiguous()
+    wspec = types.SimpleNamespace(ncells=ncells, box=box)
+    first, f_max = None, 0.0
+    for k in ks:
+        for energy in (False, True):
+            kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, mc_cand=subm,
+                      row_box=rb)
+            first = first or (sub, mrows, tbl, kw)
+            f, eb = CF.cell_force_newton(sub, mrows, tbl, **kw)
+            f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, **kw)
+            kw_full = {**kw, "row_box": None}
+            f_full, eb_full = CF.cell_force_newton(sub, rows_full, tbl, **kw_full)
+            torch.cuda.synchronize()
+            name = (f"{what} window {'x'.join(map(str, ncells))} box {rb} R={cells.numel()} "
+                    f"k={k} energy={int(energy)}")
+            err = check_forces(name, f, f_ref)
+            f_max = max(f_max, float(f_ref.abs().max()))
+            check_energy(name, eb.sum(), eb_ref.sum())
+            if not (torch.equal(f, f_full) and torch.equal(eb, eb_full[cells])):
+                raise AssertionError(f"{name}: not bitwise the masked full window")
+            ms = cuda_ms(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, **kw))
+            plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(sub, mrows, tbl, **kw),
+                            reps=10)
+            counts = pair_counts(wspec, sub, subm, k, reach(tbl, lj), rows=cells, mc_rows=mrows)
+            cap = sub.shape[1]
+            nbytes = 4 * (sub.numel() + subm.numel() + mrows.numel()
+                          + sub.shape[0] * cap * 3 + cells.numel() * k)
+            out[name] = (err, ms, plain) + bound(pair_flops(counts, tbl, energy),
+                                                 nbytes + table_bytes(tbl))
+    print(f"{what}: max |f_ref| {f_max:.4e} (the force check's scale: max(1, max |f_ref|))")
+    return first
+
+
 def brick_box_kernel_phase(torch, device):
     """K1's owned-row form over every rank's brick box of the 10k bench state
     after one hill step, in this process: each window of ``BRICK_GRIDS`` cut
     as the brick host cuts it (``pair_edm_cells.shard_window``), at k = 24
-    and 32, energy off and on; the kernel against its plain version
-    (FORCE_REL, energies ENERGY_RTOL) and bitwise the full-window kernel
-    with the rows outside the box masked; each timed (CUDA events) beside
-    its plain version and its bound.  Returns the rows, the main path's
-    first (2 x 2, rank 0, k = 24, energy off)."""
-    import types
-
+    and 32 (``owned_box_rows``).  Returns the rows, the main path's first
+    (2 x 2, rank 0, k = 24, energy off)."""
     from edm_tpu_torch.models.pair_edm_cells import shard_window
     from edm_tpu_torch.ops import cellforce as CF
 
     spec, state, steps = bench_setup(torch, 0.8, device)
     state, _ = steps[0](state)  # a state with a live bias: one hill step
     tbl = CF.hermite_pair_table(state.core.bias.bias)
-    lj = steps[0].lj
     out = {}
     for grid in BRICK_GRIDS:
         g3 = tuple(grid) + (1,) * (3 - len(grid))
         for rank in range(int(np.prod(grid))):
             coord = tuple(int(c) for c in np.unravel_index(rank, g3))
-            sub, rows_full, subm, _, ncells, rb = shard_window(spec.ncells, g3, coord, state.xs,
-                                                               state.mc)
-            cells = CF.box_cells(ncells, rb, device)
-            mrows = rows_full[cells].contiguous()
-            wspec = types.SimpleNamespace(ncells=ncells, box=spec.box)
-            for k in (24, 32):
-                for energy in (False, True):
-                    kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy,
-                              mc_cand=subm)
-                    f, eb = CF.cell_force_newton(sub, mrows, tbl, row_box=rb, **kw)
-                    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tbl, row_box=rb, **kw)
-                    f_full, eb_full = CF.cell_force_newton(sub, rows_full, tbl, **kw)
-                    torch.cuda.synchronize()
-                    what = (f"cell_force_newton[brick row_box] {'x'.join(map(str, grid))} rank "
-                            f"{rank} window {'x'.join(map(str, ncells))} box {rb} "
-                            f"R={cells.numel()} k={k} energy={int(energy)}")
-                    err = check_forces(what, f, f_ref)
-                    check_energy(what, eb.sum(), eb_ref.sum())
-                    if not (torch.equal(f, f_full) and torch.equal(eb, eb_full[cells])):
-                        raise AssertionError(f"{what}: not bitwise the masked full window")
-                    ms = cuda_ms(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, row_box=rb,
-                                                                     **kw))
-                    plain = cuda_ms(torch, lambda: CF.cell_force_newton_ref(
-                        sub, mrows, tbl, row_box=rb, **kw), reps=10)
-                    counts = pair_counts(wspec, sub, subm, k, reach(tbl, lj), rows=cells,
-                                         mc_rows=mrows)
-                    cap = sub.shape[1]
-                    nbytes = 4 * (sub.numel() + subm.numel() + mrows.numel()
-                                  + sub.shape[0] * cap * 3 + cells.numel() * k)
-                    out[what] = (err, ms, plain) + bound(pair_flops(counts, tbl, energy),
-                                                         nbytes + table_bytes(tbl))
+            window = shard_window(spec.ncells, g3, coord, state.xs, state.mc)
+            owned_box_rows(torch, f"cell_force_newton[brick row_box] {'x'.join(map(str, grid))} "
+                           f"rank {rank}", window, spec.box, tbl, steps[0].lj, (24, 32), out)
     print_rows(out)
     return out
+
+
+def row_box_cheb_kernel_phase(torch, device):
+    """K1's owned-row form with the bench's Chebyshev table (``CHEB``: 4
+    panels of degree 16, K3), the form the weak-scaling example's slab and
+    brick ranks run: on both ranks' windows of that script's 2-rank slab
+    lattice (16 x 8 x 8 sites, 6 x 3 x 3 cells) at its full cap, first (the
+    main path's shape), then on rank 0 of the 10k bench state's 2-rank slab
+    and 2 x 2 brick at k = 24 and 32 (``owned_box_rows``); the table is the
+    10k Chebyshev path's after one hill step (a live bias).  The script's
+    lattice is perfect: an atom's whole force vanishes by symmetry, and
+    only the half stencil's partial sums are left to compare.  So each of
+    its atoms is moved by up to 0.1 on each axis first (the GPU tests'
+    jitter, which keeps every atom in its cell), and every force compared
+    is a real one.
+    Returns the rows and the first row's device ms per launch (its
+    profile)."""
+    import dataclasses
+
+    from edm_tpu_torch.models.pair_edm_cells import shard_window
+    from edm_tpu_torch.ops import cellforce as CF
+
+    ws = example("torch_weak_scaling")
+    spec, state, steps = bench_setup(torch, 0.8, device, "chebyshev")
+    state, _ = steps[0](state)  # a state with a live bias and its refitted table
+    tbl, lj = state.core.cheb, steps[0].lj
+    _, wspec, wstate = ws.lattice_setup(ws.rank_grid(2), device)
+    jitter = np.random.default_rng(9).uniform(-0.1, 0.1, tuple(wstate.xs.shape))
+    wstate = dataclasses.replace(wstate, xs=wstate.xs + torch.tensor(
+        jitter, dtype=wstate.xs.dtype, device=device) * wstate.mc[..., None])
+    out, first = {}, None
+    for what, sp, st, g3, rank, ks in (
+            ("examples slab 2", wspec, wstate, (2, 1, 1), 0, (wspec.cap,)),
+            ("examples slab 2", wspec, wstate, (2, 1, 1), 1, (wspec.cap,)),
+            ("10k slab 2", spec, state, (2, 1, 1), 0, (24, 32)),
+            ("10k brick 2x2", spec, state, (2, 2, 1), 0, (24, 32))):
+        coord = tuple(int(c) for c in np.unravel_index(rank, g3))
+        window = shard_window(sp.ncells, g3, coord, st.xs, st.mc)
+        args = owned_box_rows(torch, f"cell_force_newton[row_box cheb] {what} rank {rank}",
+                              window, sp.box, tbl, lj, ks, out)
+        first = first or args
+    sub, mrows, tbl, kw = first
+    _, per, _, _ = device_time_us(torch, lambda: CF.cell_force_newton(sub, mrows, tbl, **kw), 20)
+    print_rows(out)
+    return out, funcs_ms(per, ROW_FUNCS)
 
 
 def sharded_cells_setup(torch, mesh, kT: float):
@@ -3366,20 +3418,24 @@ def spatial_phases(torch, mesh, timed):
     for case, c in SPATIAL_CASES.items():
         if int(np.prod(c["parts"])) == mesh.size:
             out[case] = timed(spatial_label(case), lambda: (
-                spatial_zero_temperature(torch, mesh, case), spatial_run(torch, mesh, case))[1])
+                spatial_zero_temperature(torch, mesh, case),
+                spatial_run(torch, mesh, case, warm_steps=20, timed_steps=100))[1])
     return out
 
 
-def multi_rank_phase():
+def multi_rank_phase(workdir):
     """One rank's share of the multi-device phases (run by
     ``parallel.launch``), by the world size: on ``SLAB_RANKS`` K1's
     owned-row form on the rank's slab window and the slab host's kT = 0
-    steps and kT = 0.8 run; on 2 ranks also the sharded dense host, the
+    steps and kT = 0.8 run (100 steps after 50; the spatial and sharded 2-D
+    runs 100 after 20); on 2 ranks also the sharded dense host, the
     work-sharded cell host, the sharded 2-D host and the spatial host's
     cases (a) and (c); on 4 the brick host on 2 x 2 (20 kT = 0 steps, the
     kT = 0.8 run: 100 steps after 50) and the spatial case (b); on 8 the
-    brick host on 2 x 2 x 2 (5 kT = 0 steps).  Each part's seconds printed
-    by rank 0.  Returns rank 0's kernel rows and run numbers."""
+    brick host on 2 x 2 x 2 (5 kT = 0 steps); then the example scripts'
+    share of this rank count (``example_rank_part``, files in
+    ``workdir``).  Each part's seconds printed by rank 0.  Returns rank 0's
+    kernel rows and run numbers."""
     import torch
 
     from edm_tpu_torch.parallel import make_brick_mesh, make_mesh
@@ -3402,7 +3458,7 @@ def multi_rank_phase():
             if mesh.rank == 0:
                 print_rows(rows)
             slab_zero_temperature(torch, mesh)
-            return rows, slab_run(torch, mesh)
+            return rows, slab_run(torch, mesh, warm_steps=50, timed_steps=100)
 
         out["rows"], out["run"] = timed(f"slab host on {mesh.size} ranks", slab)
     if mesh.size == 2:
@@ -3410,7 +3466,8 @@ def multi_rank_phase():
         out["cells_run"] = timed("work-sharded cell host", lambda: (
             sharded_cells_zero_temperature(torch, mesh), sharded_cells_run(torch, mesh))[1])
         out["coord_run"] = timed("sharded 2-D host", lambda: (
-            sharded_coord_zero_temperature(torch, mesh), sharded_coord_run(torch, mesh))[1])
+            sharded_coord_zero_temperature(torch, mesh),
+            sharded_coord_run(torch, mesh, warm_steps=20, timed_steps=100))[1])
     if mesh.size == 4:
         bmesh = make_brick_mesh(2, 2)
         out["brick_run"] = timed("brick host on 2 x 2", lambda: (
@@ -3420,6 +3477,8 @@ def multi_rank_phase():
     if mesh.size == 8:
         bmesh = make_brick_mesh(2, 2, 2)
         timed("brick host on 2 x 2 x 2", lambda: slab_zero_temperature(torch, bmesh, n_steps=5))
+    out["examples"] = timed(f"example scripts on {mesh.size} ranks",
+                            lambda: example_rank_part(torch, mesh, workdir))
     return out if mesh.rank == 0 else None
 
 
@@ -3428,13 +3487,16 @@ def multi_rank_phases():
     ``parallel.launch`` (the kernels are built already, in this process);
     a failing or hung rank raises.  Returns rank 0's results of each launch,
     by rank count."""
+    import tempfile
+
     from edm_tpu_torch.parallel import launch
 
     out = {}
     for n in (2, 4, 8):
         t_phase = time.perf_counter()
         print(f"multi-device: {multi_rank_line(n)}", flush=True)
-        out[n] = launch(multi_rank_phase, n, timeout=300)[0]
+        with tempfile.TemporaryDirectory() as workdir:
+            out[n] = launch(multi_rank_phase, n, workdir, timeout=300)[0]
         print(f"multi-device phases on {n} ranks: {time.perf_counter() - t_phase:.1f} s",
               flush=True)
     return out
@@ -3910,6 +3972,262 @@ def native_io_phase(torch, device):
     return dt
 
 
+# ------------------------------------------------ the example scripts
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+SINGLE_HOST_TOL = 1e-12  # the single-particle host path, card against CPU (float64)
+# the occupancy script at each width: (segments, steps a segment); the JAX
+# script's defaults are 8 segments of 300 steps (10k) and of 200 (100k)
+OCC_DEPTH = {10000: (2, 300), 100000: (2, 200)}
+# the weak-scaling script's configurations on the card, by rank count: one
+# of each decomposition (the 1-rank slab runs in this process, the others
+# in the multi-device launches)
+EXAMPLE_WEAK = {1: ((1, None),), 2: ((2, None),), 4: ((4, (2, 2)),), 8: ((8, (2, 2, 2)),)}
+
+
+def example(name):
+    """The module of ``examples/<name>.py``."""
+    import importlib
+
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    return importlib.import_module(name)
+
+
+@contextlib.contextmanager
+def example_dir():
+    """A scratch directory for a script's files: new temporary directories
+    go under it while the block runs, and the working directory (which the
+    scripts change) is restored after it."""
+    import tempfile
+
+    cwd, saved = os.getcwd(), tempfile.tempdir
+    with tempfile.TemporaryDirectory() as d:
+        tempfile.tempdir = d
+        try:
+            yield d
+        finally:
+            tempfile.tempdir = saved
+            os.chdir(cwd)
+
+
+def launch_counters():
+    """[(name, object with the counter, attribute)] of every kernel wrapper.
+    The examples phases zero and read every counter at once through it; the
+    earlier phases keep their own resets of the wrappers they drive."""
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import deposit_kernels as DK
+    from edm_tpu_torch.ops import prng
+
+    out = [(name, w, "launches") for name, w in port_wrappers().items()]
+    out.append(("row_box", CF.cell_force_newton, "row_box_launches"))
+    for name, w in (("threefry_bits", prng.threefry_bits), ("threefry_rows", prng.threefry_rows),
+                    ("deposit_windowed_1d", DK.deposit_windowed_1d),
+                    ("deposit_dense_1d_kernel", DK.deposit_dense_1d_kernel)):
+        out.append((name, w, "launches"))
+    return out
+
+
+def reset_launches():
+    for _, obj, attr in launch_counters():
+        setattr(obj, attr, 0)
+
+
+def read_launches() -> dict:
+    """The kernel launches since ``reset_launches``, those not zero."""
+    return {name: getattr(obj, attr) for name, obj, attr in launch_counters()
+            if getattr(obj, attr)}
+
+
+def require_launches(what, launches, names):
+    """Raise unless each kernel of ``names`` was launched in the part."""
+    missing = [n for n in names if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"{what}: no launch of {missing} (launches {launches})")
+
+
+def example_sweep(torch, device, d):
+    """``torch_boundary_sweep.sweep`` on the card (float64; the script's
+    ``main`` adds a summary of 601 lookups a deposit, left out here): each deposit's
+    cum_bias, values and derivatives at the fixture's probes within 1e-9
+    (``API_TOL``) of the compiled reference; the seven grid files."""
+    bs = example("torch_boundary_sweep")
+    grids = bs.sweep(d, device)
+    runs = bs.read_oracle(os.path.join(ORACLES, "boundary_sweep.txt"))
+    if not len(grids) == len(runs) == 7:
+        raise AssertionError(f"boundary sweep: {len(grids)} deposits, fixture {len(runs)}")
+    worst = [0.0, 0.0, 0.0]
+    for (x_ref, cum_ref, probes), (x, b) in zip(runs, grids):
+        if b.device != device or b.dtype != torch.float64 or abs(x - x_ref) > 1e-12:
+            raise AssertionError(f"boundary sweep: deposit at {x} on {b.device} in {b.dtype}")
+        worst[0] = max(worst[0], abs(b.cum_bias - cum_ref))
+        for q, v_ref, d_ref in probes:
+            v, (dv,) = b.get_force([q])
+            worst[1], worst[2] = max(worst[1], abs(v - v_ref)), max(worst[2], abs(dv - d_ref))
+    if not max(worst) <= API_TOL:
+        raise AssertionError(f"boundary sweep: worst |diff| {worst} > {API_TOL}")
+    files = [f for f in (f"grid_{i + 1}.dat" for i in range(7))
+             if os.path.getsize(os.path.join(d, f)) > 0]
+    if len(files) != 7:
+        raise AssertionError(f"boundary sweep: grid files written {files}")
+    print(f"boundary sweep on the card (float64): 7 deposits against the compiled reference, "
+          f"worst |diff| cum_bias {worst[0]:.3e}, values {worst[1]:.3e}, derivatives "
+          f"{worst[2]:.3e} (bound {API_TOL:g}); 7 grid files")
+
+
+def example_single_particle(torch, device):
+    """``torch_single_particle.main`` on the card at full length (2,000
+    steps): the host path's U and dU/dx after one hill and after 20 more
+    within ``SINGLE_HOST_TOL`` of the same calls on the CPU; after the run
+    cum_bias > 0, the step counter at 2,000 and the CV histogram's visits
+    equal to the hill rounds (one particle, one visit a round: 200), the
+    energies finite, the BIAS file written."""
+    import random
+
+    sp = example("torch_single_particle")
+    random.seed(0)
+    card = sp.main(device)
+    random.seed(0)
+    cpu = sp.main("cpu", n_steps=10)
+    errs = {k: abs(card[k] - cpu[k]) for k in ("u", "du", "u20", "du20")}
+    if not all(e <= SINGLE_HOST_TOL * max(1.0, abs(cpu[k])) for k, e in errs.items()):
+        raise AssertionError(f"single particle host path, card vs CPU: {errs}")
+    st = card["state"]
+    visits, rounds = float(st.bias.cv_hist.values.sum()), int(st.bias.steps)
+    cum = float(st.bias.cum_bias)
+    if not (int(st.step) == sp.N_STEPS and cum > 0 and rounds == sp.N_STEPS // 10
+            and visits == rounds and bool(torch.isfinite(card["energies"]).all())
+            and os.path.getsize(os.path.join(card["workdir"], "BIAS")) > 0):
+        raise AssertionError(f"single particle: step {int(st.step)}, cum_bias {cum}, rounds "
+                             f"{rounds}, visits {visits}")
+    print(f"single particle on the card: host path within {max(errs.values()):.3e} of the CPU "
+          f"(bound {SINGLE_HOST_TOL:g}); {sp.N_STEPS} steps, cum_bias {cum:.4f}, {rounds} "
+          f"rounds, visits {visits:.0f}")
+
+
+def example_rdf(torch, device):
+    """``torch_pairwise_rdf.main(400)`` on the card: the state, grid and
+    energies finite, every output file written, and the script's verdict:
+    the bias in the target well below the bias outside it."""
+    r = example("torch_pairwise_rdf").main(400, device)
+    st = r["state"]
+    files = {f: os.path.getsize(os.path.join(r["workdir"], f))
+             for f in ("BIAS", "BIAS.ltab", "HIST", "target.grid")}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (st.x, st.v, st.bias.bias.grid.values, r["energies"]))
+    if not (finite and int(st.step) == 400 and all(files.values())
+            and r["well"] < r["outside"]):
+        raise AssertionError(f"pairwise RDF: finite {finite}, step {int(st.step)}, files "
+                             f"{files}, well {r['well']} vs outside {r['outside']}")
+    print(f"pairwise RDF on the card: 400 steps finite, files {sorted(files)}, bias in the "
+          f"well {r['well']:.4f} < outside {r['outside']:.4f}")
+
+
+def example_occupancy(torch, device, n):
+    """``torch_occupancy_diag`` on the card at ``n`` atoms (``OCC_DEPTH``):
+    every ``cell_diag`` line's histogram sums to the cells and its
+    occupancies to the atoms, no cell overflowed (the script asserts no hill
+    was dropped).  Returns the lines."""
+    segs, steps = OCC_DEPTH[n]
+    lines, state = example("torch_occupancy_diag").main(
+        ["--n", str(n), "--segments", str(segs), "--steps", str(steps), "--device", str(device)])
+    for d in lines:
+        hist = np.asarray(d["occ_hist"])
+        if not (hist.sum() == d["n_cells"] and (hist * np.arange(len(hist))).sum() == n
+                and not d["cell_overflow"]):
+            raise AssertionError(f"occupancy at {n} ({d['at']}): {d}")
+    if len(lines) != segs + 1 or int(state.core.step) != segs * steps:
+        raise AssertionError(f"occupancy at {n}: {len(lines)} lines, step {int(state.core.step)}")
+    return lines
+
+
+def examples_phase(torch, device):
+    """The example scripts' single-process parts on the card, each with the
+    launch counters set to 0 just before it and read just after (the 2-, 4-
+    and 8-rank parts run in the multi-device launches:
+    ``example_rank_part``): the boundary sweep, the single particle, the
+    RDF run, the occupancy diagnostic at 10k and 100k, the weak-scaling
+    script's 1-rank slab.  Returns each part's seconds and launches."""
+    ws = example("torch_weak_scaling")
+    seconds, launches = {}, {}
+    need = {"occupancy 10k": ("cell_force_newton", "normal_rows_cols", "p1_counts_half",
+                              "uniform_rows_cols"),
+            "single particle": ("threefry_bits",), "pairwise RDF": ("threefry_bits",),
+            "weak scaling 1 rank": ("cell_force_newton",)}
+    need["occupancy 100k"] = need["occupancy 10k"]
+    parts = (
+        ("boundary sweep", lambda d: example_sweep(torch, device, d)),
+        ("single particle", lambda d: example_single_particle(torch, device)),
+        ("pairwise RDF", lambda d: example_rdf(torch, device)),
+        ("occupancy 10k", lambda d: example_occupancy(torch, device, 10000)),
+        ("occupancy 100k", lambda d: example_occupancy(torch, device, 100000)),
+        ("weak scaling 1 rank", lambda d: [print(json.dumps(ws.run(n, grid, device=device)))
+                                           for n, grid in EXAMPLE_WEAK[1]]))
+    for name, fn in parts:
+        reset_launches()
+        t = time.perf_counter()
+        with example_dir() as d:
+            fn(d)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = read_launches()
+        require_launches(f"example {name}", launches[name], need.get(name, ()))
+        print(f"  example {name}: {seconds[name]:.1f} s; kernel launches {launches[name]}",
+              flush=True)
+    return {"seconds": seconds, "launches": launches}
+
+
+def example_rank_part(torch, mesh, workdir):
+    """One rank's share of the example scripts, with the launch counters set
+    to 0 just before each script and read just after: the weak-scaling
+    script's configuration of this rank count (``EXAMPLE_WEAK``: the slab
+    on 2 ranks, the 2 x 2 brick on 4, the 2 x 2 x 2 brick on 8; K1's owned
+    box with the Chebyshev table on every step, its JSON line printed),
+    and on 8 ranks the spatial script's ``rank_main`` in ``workdir``:
+    cum_bias, the rounds and the segment numbers equal on every rank,
+    ``BIAS_GLOBAL`` and the eight ``HILLS_<r>`` written.  Returns this
+    rank's launches and seconds by script."""
+    from edm_tpu_torch.parallel import all_gather
+
+    ws = example("torch_weak_scaling")
+    out = {"launches": {}, "seconds": {}}
+    reset_launches()
+    t = time.perf_counter()
+    for row in ws.run_group(EXAMPLE_WEAK[mesh.size], ws.STEPS):
+        rank_print(mesh, json.dumps(row))
+    out["seconds"]["weak scaling"] = time.perf_counter() - t
+    out["launches"]["weak scaling"] = read_launches()
+    require_launches(f"example weak scaling, rank {mesh.rank}", out["launches"]["weak scaling"],
+                     ("row_box",))
+    if mesh.size == 8:
+        sp = example("torch_spatial_sharded")
+        reset_launches()
+        t = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            res = sp.rank_main()
+        finally:
+            os.chdir(cwd)
+        out["seconds"]["spatial"] = time.perf_counter() - t
+        out["launches"]["spatial"] = read_launches()
+        require_launches(f"example spatial, rank {mesh.rank}", out["launches"]["spatial"],
+                         ("threefry_bits",))
+        nums = torch.tensor([res["cum"], res["rounds"]] + [v for s in res["segments"] for v in s],
+                            dtype=torch.float64, device=mesh.device)
+        g = all_gather(nums[None], mesh)
+        if not bool((g == g[0]).all()) or res["truncated"]:
+            raise AssertionError(f"example spatial: the ranks differ or truncated: {g.tolist()}")
+        if mesh.rank == 0:
+            files = {f: os.path.getsize(os.path.join(workdir, f))
+                     for f in ["BIAS_GLOBAL"] + [f"HILLS_{r}" for r in range(8)]}
+            if not all(files.values()):
+                raise AssertionError(f"example spatial: files {files}")
+            print(f"spatial example (8 ranks): cum_bias {res['cum']:.4f} over {res['rounds']} "
+                  f"rounds equal on every rank; BIAS_GLOBAL and HILLS_0..7 written", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, device_ms, rows, prefix):
     """One ``kernels`` record: the worst error over the prefix's checks,
     the time and bound of its first row (the main path's shape), and the
@@ -4188,14 +4506,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     rows.update(threefry_rows_phase(torch, device))
     pair_zero_temperature(torch, device, "blocked")
-    # the blocked host, the slowest path a step, runs 40 steps after 20, the
-    # XLA pass 100 after 50 (the others 300 after 100), to hold the whole
-    # run near 480 s with the multi-device phases
-    _, blk_launches, blk_ms = pair_run(torch, device, "blocked", warm_steps=20, timed_steps=40)
+    # the blocked host, the slowest path a step, runs 20 steps after 10, the
+    # XLA pass 50 after 20 (the single-device others 300 after 100), to hold
+    # the whole run near 600 s with the multi-device phases and the examples
+    _, blk_launches, blk_ms = pair_run(torch, device, "blocked", warm_steps=10, timed_steps=20)
     print(f"blocked host: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     xla_zero_temperature(torch, device)
-    slice_run(torch, device, "xla", warm_steps=50, timed_steps=100)
+    slice_run(torch, device, "xla", warm_steps=20, timed_steps=50)
     print(f"xla slice: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     pair_zero_temperature(torch, device, "dense")
@@ -4205,6 +4523,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     rows.update(brick_box_kernel_phase(torch, device))
     print(f"kernel checks, K1 brick row box: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    cheb_rows, cheb_box_ms = row_box_cheb_kernel_phase(torch, device)
+    rows.update(cheb_rows)
+    print(f"kernel checks, K1 row box with the Chebyshev table: "
+          f"{time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     multi = multi_rank_phases()
     rows.update(multi[2]["rows"])
@@ -4226,6 +4549,13 @@ def main() -> int:
           f"{time.perf_counter() - t_phase:.1f} s; K1 / K2 launches on the run_simulation path: "
           f"kT=0 {rs_launches['cell_force_newton']} / {rs_launches['overflow_force']}, kT=0.8 "
           f"{rs_launches_warm['cell_force_newton']} / {rs_launches_warm['overflow_force']}")
+
+    t_phase = time.perf_counter()
+    examples = examples_phase(torch, device)
+    ranks = {n: multi[n]["examples"]["seconds"] for n in (2, 4, 8)}
+    print(f"example scripts: {time.perf_counter() - t_phase:.1f} s in this process "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in examples['seconds'].items())}); on the "
+          f"ranks (rank 0, s): {ranks}")
 
     cf = "edm_tpu_torch/csrc/cellforce.cu"
     dp = "edm_tpu_torch/csrc/deposit.cu"
@@ -4258,6 +4588,10 @@ def main() -> int:
         # brick host's force pass
         ("cell_force_newton[brick row_box]", cf, "cellforce_pallas.py:684", "brick",
          "cell_force_newton[brick row_box]"),
+        # the owned-row form with the Chebyshev table (K3), the weak-scaling
+        # example's slab ranks
+        ("cell_force_newton[row_box cheb]", cf, "cellforce_pallas.py:67", "examples",
+         "cell_force_newton[row_box cheb]"),
         # no Pallas kernel: the jax.random Threefry draws that XLA computes
         ("threefry_bits", "edm_tpu_torch/csrc/threefry.cu", "../models/langevin.py:51",
          "2-D", "threefry_bits"),
@@ -4295,6 +4629,8 @@ def main() -> int:
         elif where in ("slab", "brick"):
             run = multi[2]["run"] if where == "slab" else multi[4]["brick_run"]
             n, dev = run["launches"]["row_box"], run["device_ms"].get("cell_force_newton")
+        elif where == "examples":
+            n, dev = multi[2]["examples"]["launches"]["weak scaling"]["row_box"], cheb_box_ms
         else:
             n, dev = dep[prefix], dep_ms[where]
         records.append(kernel_entry(name, source, os.path.normpath("edm_tpu/ops/" + replaces),

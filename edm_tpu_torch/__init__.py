@@ -9,6 +9,8 @@ host-side formatters are C++ in ``native/``, also built at first use.  The
 package imports torch and numpy, never jax; importing it builds nothing.
 """
 
+import torch
+
 from .grid import Grid, GridSpec, grid_points
 from .gauss import GaussGrid, GaussSpec
 from .utils.errors import EDMError, edm_error
@@ -23,4 +25,14 @@ __all__ = [
     "EDMBias",
     "EDMError",
     "edm_error",
+    "checked_device",
 ]
+
+
+def checked_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" with no card raises, so that a
+    run asked of the card does not carry on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    return device

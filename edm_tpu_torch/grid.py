@@ -26,6 +26,11 @@ import torch
 from .utils.errors import edm_error
 
 
+def int_floor(x: torch.Tensor) -> torch.Tensor:
+    """Round-toward -inf floor returning integer (reference lib/grid.h:17-20)."""
+    return torch.floor(x).to(torch.int32)
+
+
 def device_const(vals, device, dtype) -> torch.Tensor:
     """A host scalar or short sequence as a tensor on ``device``, filled on
     the device: a copy from pageable host memory would synchronize the

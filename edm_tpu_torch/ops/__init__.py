@@ -1,0 +1,3 @@
+from .interp import grid_value_deriv
+
+__all__ = ["grid_value_deriv"]

@@ -37,7 +37,8 @@ multi-device layer: K1's owned-row form (``row_box``) on the slab host's
 windows of the 10,000-atom bench lattice (2, 3 and 4 ranks
 over its 9 columns, ragged ranks included) at k = 24 and 32, against its
 plain version and bitwise against the full-window kernel with the rows
-outside the box masked; and a 2-rank slab step on the card
+outside the box masked, and with the Chebyshev table (4 panels of degree
+16) on slab and brick windows; and a 2-rank slab step on the card
 (``parallel.launch``, a rank per card or both on one) against the
 single-device step.  The counter hash and pass 1 of the hill
 collections (``csrc/hashrng.cu``): ``hash_uniforms`` bitwise and
@@ -1211,6 +1212,48 @@ def test_cell_force_newton_brick_box_kernel(cuda_slab, grid, box, k, energy):
         assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), what)
         assert torch.equal(f, f_full), what
         assert torch.equal(eb, eb_full[cells]), what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", ["slab 2 rank 0", "slab 2 rank 1", "brick 2x2 rank 3",
+                                    "brick 2x2x2 rank 5"])
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("energy", [False, True])
+def test_cell_force_newton_row_box_cheb_kernel(cuda_state, cuda_slab, window, k, energy):
+    """K1's owned-row form with the Chebyshev lookup (K3: the bench's table,
+    4 panels of degree 16, fitted to ``cuda_state``'s grid), the form the
+    sharded hosts run with ``pair_lookup="chebyshev"``: on a slab window of
+    the 10k lattice (``_slab_window``) and on a brick window
+    (``pair_edm_cells.shard_window``), against the plain version and
+    bitwise the full-window kernel with the rows outside the box masked."""
+    from edm_tpu_torch.models.pair_edm_cells import shard_window
+
+    spec, st, _ = cuda_slab
+    tab = fit_gauss_grid(cuda_state[4], 16, 4)
+    kind, grid, _, rank = window.split()
+    if kind == "slab":
+        sub, rows_full, subm, ncells, rb = _slab_window(spec, st.xs, st.mc, int(grid),
+                                                        int(rank))
+    else:
+        g3 = tuple(int(g) for g in grid.split("x")) + (1,) * (3 - len(grid.split("x")))
+        coord = tuple(int(c) for c in np.unravel_index(int(rank), g3))
+        sub, rows_full, subm, _, ncells, rb = shard_window(spec.ncells, g3, coord, st.xs, st.mc)
+    cells = CF.box_cells(ncells, rb, sub.device)
+    mrows = rows_full[cells].contiguous()
+    lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
+    kw = dict(k=k, ncells=ncells, box=spec.box, lj=lj, energy=energy, mc_cand=subm)
+    n0 = CF.cell_force_newton.row_box_launches
+    f, eb = CF.cell_force_newton(sub, mrows, tab, row_box=rb, **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(sub, mrows, tab, row_box=rb, **kw)
+    f_full, eb_full = CF.cell_force_newton(sub, rows_full, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_newton.row_box_launches == n0 + 1
+    what = f"K1 row_box cheb {window}, k={k}"
+    assert eb.shape == (cells.numel(), k) and float(f.abs().max()) > 0
+    assert_forces(f.cpu(), f_ref.cpu(), what)
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), what)
+    assert torch.equal(f, f_full), what
+    assert torch.equal(eb, eb_full[cells]), what
 
 
 @pytest.mark.gpu
