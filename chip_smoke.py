@@ -52,7 +52,10 @@ each kernel against its plain PyTorch version on the same card:
     (``parallel.make_slab_cell_step``) on the 10k exact cell at 2 and 4
     ranks, K1's owned-row form (``row_box``) on every step; and the
     sharded dense host (``parallel.make_sharded_pair_step``) at 1,000
-    atoms on 2 ranks;
+    atoms on 2 ranks; the brick host on 2 x 2 and 2 x 2 x 2, the
+    work-sharded cell host and the sharded 2-D host; a sharded run
+    checkpointed into one file and resumed (``utils/checkpoint`` with a
+    mesh);
   - the spatial host (``parallel/spatial.py``): the 2-D heavy cell's CV
     range split into bricks, one local grid a rank, hills exchanged and
     replayed at their heights: periodic on 2 ranks (2, 1) and on 2 x 2,
@@ -133,8 +136,12 @@ kT = 0.8 run as the other cell paths' but 50 steps after 20; the dense host's 20
 from a thermalized state, each on the card and on the CPU from the same
 input, then its kT = 0.8 run as the blocked host's, 300 steps after 100;
 the multi-device phases, the kernels built in this process before the
-ranks are spawned (the backend, the rank count and the ranks per card
-printed first): on each rank's window of the 10k state K1's owned-row form
+ranks are spawned (the backend, the rank count, the ranks per card and the
+cards used printed first; every launch whose rank count the machine's
+cards cover runs over NCCL, a card a rank, and must stage nothing through
+the host; the timed runs in one table, ``ranks_table``, rank 0's busy
+share "not measured" over NCCL): on each rank's window of the 10k state
+K1's owned-row form
 against its plain version and bitwise against the full-window kernel with
 the halo rows masked, at k = 24 and 32 (the ranks take turns on the card
 to time it); 20 kT = 0 steps through the slab host and the single-device
@@ -145,7 +152,13 @@ launches and collectives a step, host stagings, rank 0's busy share, the
 syncs of a hill, a plain and a rebuild step named by line, end checks;
 100 steps after 50); on
 2 ranks also the sharded dense host's 20 kT = 0 steps against the dense
-host on the card; the spatial cases (2 ranks: (a) and (c); 4 ranks: (b)),
+host on the card, the work-sharded cell host and the sharded 2-D host
+(each held to one device, then timed), and ``sharded_checkpoint_phase``
+(the slab host and the spatial case (a) checkpointed after 10 steps with
+the mesh, resumed into fresh templates, 10 more steps bitwise the
+uninterrupted run on every rank); the brick host on 2 x 2 (4 ranks: 20
+kT = 0 steps, 100 steps after 50) and 2 x 2 x 2 (8 ranks: 5 kT = 0
+steps, 100 after 50); the spatial cases (2 ranks: (a) and (c); 4 ranks: (b)),
 each with 3 hill rounds of frozen walkers, the stitched grid after each
 held to a single-device windowed deposit of the round's hills, the forces
 to ``update_forces`` on the stitched grid, then the kT = 1.0 run (100
@@ -183,8 +196,14 @@ the work; ``ms`` is the wrapper's time per call by CUDA events, which the
 host bounds, ``device_ms`` the device time per launch in the path's
 profile) and, last, ``{"ok": true, "device": {...}}``.
 
-Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).  Any
+Usage: ``python3 chip_smoke.py`` from the repository root (one GPU; on a
+machine with several, the rank counts they cover run over NCCL).  Any
 failed check raises, and the script exits non-zero without the last line.
+``python3 chip_smoke.py --ranks`` builds the kernels and runs only the
+multi-device part on the rank counts the machine's cards cover (over NCCL;
+on one card all three, over gloo) and the dry run on the most of them;
+``--ranks gloo`` also runs each NCCL launch's timed runs again over gloo
+with the ranks sharing card 0, the same hosts on both routes in one table.
 ``python3 chip_smoke.py --ab-slice OTHER`` times only the exact-lookup
 kT = 0.8 run and the 256-round deposition, of the checkout OTHER (say, the
 parent commit unpacked by ``git archive``) and of this one in turns, to
@@ -275,11 +294,21 @@ TF_UNIFORM_FLOPS, TF_NORMAL_FLOPS = 1, 5
 P1_PAIR_FLOPS, P1_WRAP_FLOPS = 12, 4
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    """The first card's name and power limit, and the machine's card count
+    (each card's line where they differ)."""
+    lines = card_lines()
+    if len(set(lines)) == 1:
+        return f"{lines[0]} ({len(lines)} card{'s' if len(lines) > 1 else ''})"
+    return "; ".join(f"card {i}: {line}" for i, line in enumerate(lines))
 
 
 def bench_types(n_atoms=None):
@@ -586,8 +615,8 @@ def cycle_device_ms(torch, cycle, state):
     return dev_us, top, ms
 
 
-def busy_line(what, dev_us, wall_us, kernels) -> str:
-    share = f"{dev_us / wall_us:.1%}" if dev_us > 0 else "not measured"
+def busy_line(what, dev_us, wall_us, kernels, measured=True) -> str:
+    share = f"{dev_us / wall_us:.1%}" if measured and dev_us > 0 else "not measured"
     return (f"{what}: device busy {dev_us:.1f} us of {wall_us:.1f} us wall ({share}); "
             f"top kernels; the port's kernels (us): {kernels}")
 
@@ -2537,11 +2566,14 @@ SLAB_RANKS = (2, 4)  # the slab host's rank counts at 10k: 9 columns as 5 + 4, a
 BRICK_GRIDS = ((2, 2), (2, 2, 2))
 
 
+def brick_label(grid) -> str:
+    """"brick 2x2" for the grid (2, 2)."""
+    return "brick " + "x".join(map(str, grid))
+
+
 def mesh_label(mesh) -> str:
     """"slab" on a 1-D mesh, "brick 2x2" (the grid) on a brick mesh."""
-    if mesh.devices.ndim == 1:
-        return "slab"
-    return "brick " + "x".join(map(str, mesh.shape))
+    return "slab" if mesh.devices.ndim == 1 else brick_label(mesh.shape)
 
 
 def multi_rank_line(n) -> str:
@@ -2552,8 +2584,32 @@ def multi_rank_line(n) -> str:
 
     backend = pick_backend(n, "cuda")
     cards = n if backend == "nccl" else 1
+    lines = card_lines()[:cards]
+    used = lines[0] if len(set(lines)) == 1 else "; ".join(lines)
     return (f"{n} ranks, backend {backend}, {cards} card(s) of {torch.cuda.device_count()}, "
-            f"{n // cards} rank(s) per card")
+            f"{n // cards} rank(s) per card: cuda:{'-'.join(map(str, sorted({0, cards - 1})))} "
+            f"({used})")
+
+
+def run_record(mesh, what, timed_steps, dt, coll, syncs, busy, **extra):
+    """A sharded run's numbers for the records (``ranks_table``): steps/s,
+    collectives and bytes a step, host stagings and the steps' counted host
+    syncs a step, rank 0's busy share of a stride cycle (``rank_busy``).
+    Over NCCL no collective may stage through the host."""
+    if mesh.backend == "nccl" and coll["host_syncs"]:
+        raise AssertionError(f"{what}: {coll['host_syncs']} host stagings on NCCL")
+    return dict(steps_per_s=timed_steps / dt, collectives=coll, timed_steps=timed_steps,
+                syncs_per_step=syncs / timed_steps, busy=busy, backend=mesh.backend, **extra)
+
+
+def rank_busy(mesh, what, dev_us, wall_us, top):
+    """Print rank 0's device time in a sharded run's stride cycle and
+    return its busy share: None where it is not measured, which over NCCL
+    is always (its collective kernels spin on the card while they wait for
+    the other ranks, and the profile counts that as busy)."""
+    measured = mesh.backend != "nccl" and dev_us > 0
+    rank_print(mesh, busy_line(what, dev_us, wall_us, top, measured))
+    return dev_us / wall_us if measured else None
 
 
 def rank_print(mesh, text):
@@ -2674,18 +2730,18 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
         getattr(CF, name).launches = 0
     CF.cell_force_newton.row_box_launches = 0
     collectives.reset_stats()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     t0 = time.perf_counter()
     state, e = pattern_segment(pattern(steps), timed_steps)(state)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     dt = time.perf_counter() - t0
     launches = {name: getattr(CF, name).launches for name in FORCE_KERNELS}
     launches["row_box"] = CF.cell_force_newton.row_box_launches
     coll = dict(collectives.stats)
     syncs = sum(s.host_syncs for s in steps)
     dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
-    rank_print(mesh, busy_line(f"kT=0.8 {label} ({mesh.size} ranks) stride cycle, rank 0",
-                               dev_us, 10 * dt / timed_steps * 1e6, top))
+    busy = rank_busy(mesh, f"kT=0.8 {label} ({mesh.size} ranks) stride cycle, rank 0", dev_us,
+                     10 * dt / timed_steps * 1e6, top)
     census, counted = {}, {}
     for name, step in zip(("hill", "plain", "rebuild"), steps):
         before = step.host_syncs
@@ -2721,8 +2777,8 @@ def slab_run(torch, mesh, warm_steps=100, timed_steps=300):
     all_ranks_equal(torch, mesh, f"the kT = 0.8 {label} run", {
         "xs": state.xs, "vs": state.vs, "aid": state.aid,
         "grid": core.bias.bias.grid.values})
-    return {"steps_per_s": timed_steps / dt, "launches": launches, "device_ms": device_ms,
-            "collectives": coll}
+    return run_record(mesh, f"kT=0.8 {label}", timed_steps, dt, coll, syncs, busy,
+                      launches=launches, device_ms=device_ms)
 
 
 def sharded_pair_zero_temperature(torch, mesh, n_steps=20):
@@ -2983,10 +3039,10 @@ def sharded_cells_run(torch, mesh, warm_steps=20, timed_steps=50):
     for s in wsteps:
         s.host_syncs = 0
     collectives.reset_stats()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     t0 = time.perf_counter()
     state, e = pattern_segment(pattern(wsteps), timed_steps)(state)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     dt = time.perf_counter() - t0
     coll = dict(collectives.stats)
     core = state.core
@@ -3000,6 +3056,10 @@ def sharded_cells_run(torch, mesh, warm_steps=20, timed_steps=50):
     if failed:
         raise AssertionError(f"kT=0.8 work-sharded run on rank {mesh.rank} failed: {failed}")
     syncs = sum(s.host_syncs for s in wsteps)
+    dev_us, _, top, _ = device_time_us(torch, lambda: pattern_segment(pattern(wsteps), 10)(state),
+                                       2)
+    busy = rank_busy(mesh, f"kT=0.8 work-sharded ({mesh.size} ranks) stride cycle, rank 0",
+                     dev_us, 10 * dt / timed_steps * 1e6, top)
     rank_print(mesh, f"kT=0.8 work-sharded ({mesh.size} ranks, 10k Chebyshev): {timed_steps} steps "
                f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, collectives "
                f"{coll['calls'] / timed_steps:.2f} a step moving "
@@ -3009,7 +3069,7 @@ def sharded_cells_run(torch, mesh, warm_steps=20, timed_steps=50):
                f"{float(core.bias.cum_bias):.6g}")
     all_ranks_equal(torch, mesh, "the kT = 0.8 work-sharded run", {
         "x": core.x, "v": core.v, "aid": state.aid, "grid": core.bias.bias.grid.values})
-    return {"steps_per_s": timed_steps / dt, "collectives": coll}
+    return run_record(mesh, "kT=0.8 work-sharded", timed_steps, dt, coll, syncs, busy)
 
 
 def sharded_coord_setup(torch, mesh, kT: float):
@@ -3131,11 +3191,11 @@ def sharded_coord_run(torch, mesh, warm_steps=50, timed_steps=200):
     for s in wsteps:
         s.host_syncs = 0
     collectives.reset_stats()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     prng.threefry_bits.launches = 0
     t0 = time.perf_counter()
     state, e = strided_segment(wsteps[0], wsteps[1], 10, timed_steps)(state)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     dt = time.perf_counter() - t0
     n_tf = prng.threefry_bits.launches
     coll = dict(collectives.stats)
@@ -3152,6 +3212,10 @@ def sharded_coord_run(torch, mesh, warm_steps=50, timed_steps=200):
     if failed:
         raise AssertionError(f"kT=1.0 sharded 2-D run on rank {mesh.rank} failed: {failed}")
     syncs = sum(s.host_syncs for s in wsteps)
+    dev_us, _, top, _ = device_time_us(
+        torch, lambda: strided_segment(wsteps[0], wsteps[1], 10, 10)(state), 2)
+    busy = rank_busy(mesh, f"kT=1.0 sharded 2-D ({mesh.size} ranks) stride cycle, rank 0",
+                     dev_us, 10 * dt / timed_steps * 1e6, top)
     rank_print(mesh, f"kT=1.0 sharded 2-D ({mesh.size} ranks, N={COORD_N}): {timed_steps} steps "
                f"after {warm_steps} warm-up: {timed_steps / dt:.2f} steps/s, Threefry launches "
                f"{n_tf}, collectives {coll['calls'] / timed_steps:.2f} a step moving "
@@ -3161,7 +3225,8 @@ def sharded_coord_run(torch, mesh, warm_steps=50, timed_steps=200):
                f"{float(b.cum_bias):.6g}, hill rounds {int(b.steps)}")
     all_ranks_equal(torch, mesh, "the kT = 1.0 sharded 2-D run", {
         "grid": b.bias.grid.values, "cv_hist": b.cv_hist.values})
-    return {"steps_per_s": timed_steps / dt, "threefry_bits": n_tf, "collectives": coll}
+    return run_record(mesh, "kT=1.0 sharded 2-D", timed_steps, dt, coll, syncs, busy,
+                      threefry_bits=n_tf)
 
 
 # the spatial host (parallel/spatial.py) on the 2-D heavy cell, split with
@@ -3371,19 +3436,19 @@ def spatial_run(torch, mesh, case, warm_steps=50, timed_steps=200):
     for s in steps:
         s.host_syncs = 0
     collectives.reset_stats()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     prng.threefry_bits.launches = 0
     t0 = time.perf_counter()
     state, e = spatial_segment(setup, steps, mesh, state, timed_steps)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(mesh.device)
     dt = time.perf_counter() - t0
     n_tf = prng.threefry_bits.launches
     coll = dict(collectives.stats)
     syncs = sum(s.host_syncs for s in steps)
     cycle = strided_segment(steps[0], steps[1], 10, 10)
     dev_us, _, top, per_cycle = device_time_us(torch, lambda: cycle(state), 2)
-    rank_print(mesh, busy_line(f"kT=1.0 {label} ({mesh.size} ranks) stride cycle, rank 0",
-                               dev_us, 10 * dt / timed_steps * 1e6, top))
+    busy = rank_busy(mesh, f"kT=1.0 {label} ({mesh.size} ranks) stride cycle, rank 0", dev_us,
+                     10 * dt / timed_steps * 1e6, top)
     b = state.bias
     n_valid = int(all_gather(state.valid.sum()[None], mesh).sum())
     checks = {
@@ -3408,41 +3473,108 @@ def spatial_run(torch, mesh, case, warm_steps=50, timed_steps=200):
                f"by the steps {syncs / (timed_steps / 10):.2f} per stride cycle, device launches "
                f"a step {per_cycle / 10:.1f} (rank 0), cum_bias {float(b.cum_bias):.6g}, hill "
                f"rounds {int(b.steps)}, walkers on rank 0 {int(state.valid.sum())}")
-    return {"steps_per_s": timed_steps / dt, "threefry_bits": n_tf, "collectives": coll}
+    return run_record(mesh, f"kT=1.0 {label}", timed_steps, dt, coll, syncs, busy,
+                      threefry_bits=n_tf)
 
 
-def spatial_phases(torch, mesh, timed):
-    """The spatial cases of this world size (2 ranks: (a) and (c); 4: (b)),
-    each frozen and then at kT = 1.0; returns {case: run numbers}."""
-    out = {}
-    for case, c in SPATIAL_CASES.items():
-        if int(np.prod(c["parts"])) == mesh.size:
-            out[case] = timed(spatial_label(case), lambda: (
-                spatial_zero_temperature(torch, mesh, case),
-                spatial_run(torch, mesh, case, warm_steps=20, timed_steps=100))[1])
-    return out
+def rank_cases(size):
+    """The spatial cases of a world size (2 ranks: (a) and (c); 4: (b))."""
+    return [case for case, c in SPATIAL_CASES.items() if int(np.prod(c["parts"])) == size]
+
+
+def rank_runs(torch, mesh):
+    """The timed runs of this world size, in order: {host: a thunk that
+    runs it and returns its ``run_record``}.  The slab host on
+    ``SLAB_RANKS`` (100 steps after 50), on 2 ranks the work-sharded cell
+    host (50 after 20) and the sharded 2-D host (100 after 20), the brick
+    host on 2 x 2 (4 ranks) and 2 x 2 x 2 (8 ranks), 100 after 50 each, the
+    spatial cases (100 after 20)."""
+    from edm_tpu_torch.parallel import make_brick_mesh
+
+    runs = {}
+    if mesh.size in SLAB_RANKS:
+        runs["slab"] = lambda: slab_run(torch, mesh, warm_steps=50, timed_steps=100)
+    if mesh.size == 2:
+        runs["work-sharded"] = lambda: sharded_cells_run(torch, mesh)
+        runs["sharded 2-D"] = lambda: sharded_coord_run(torch, mesh, warm_steps=20,
+                                                        timed_steps=100)
+    # the bench's lattice runs its first ~80 steps in the full-cap fallback,
+    # where K2 does not launch: a shorter run than 100 after 50 never reaches
+    # it (the 2 x 2 x 2 brick at 50 after 20 did not)
+    for grid in BRICK_GRIDS:
+        if int(np.prod(grid)) == mesh.size:
+            runs[brick_label(grid)] = lambda g=grid: slab_run(
+                torch, make_brick_mesh(*g), warm_steps=50, timed_steps=100)
+    for case in rank_cases(mesh.size):
+        runs[spatial_label(case)] = lambda c=case: spatial_run(torch, mesh, c, warm_steps=20,
+                                                               timed_steps=100)
+    return runs
+
+
+def sharded_checkpoint_phase(torch, mesh, workdir, n=10):
+    """A sharded run checkpointed into one file and resumed: the slab host
+    on the 10k exact cell at kT = 0.8 (its ranks' states alike: each leaf
+    stored once) and the spatial case (a) at kT = 1.0 (a row a rank), each
+    ``n`` steps, ``save_state`` with the mesh, ``load_state`` with it into a
+    freshly built template, ``n`` more steps: every leaf on every rank
+    bitwise the ``2 n`` uninterrupted steps."""
+    from edm_tpu_torch.models.driver import pattern_segment, strided_segment
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.utils.checkpoint import load_state, save_state
+
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=1.0)
+    hosts = {
+        "slab": (lambda: bench_setup(torch, 0.8, mesh.device, mesh=mesh)[1:],
+                 lambda steps, state, k: pattern_segment(pattern(steps), k)(state)[0],
+                 "replicated"),
+        "spatial (a)": (lambda: spatial_setup(torch, mesh, "a", lp)[1:],
+                        lambda steps, state, k: strided_segment(steps[0], steps[1], 10, k)(
+                            state)[0], "rows"),
+    }
+    for name, (make, run, layout) in hosts.items():
+        t = time.perf_counter()
+        state0, steps = make()
+        full = run(steps, state0, 2 * n)
+        mid = run(steps, state0, n)
+        path = os.path.join(workdir, f"ckpt_{name.split()[0]}.npz")
+        save_state(mid, path, mesh)
+        with np.load(path) as data:
+            saved = bytes(data["__fingerprint__"]).decode().split("layout=")[-1]
+        if saved != layout:
+            raise AssertionError(f"{name} checkpoint: layout {saved}, expected {layout}")
+        fresh, steps2 = make()
+        resumed = load_state(fresh, path, mesh)
+        diffs = bitwise_diffs(run(steps2, resumed, n), full)
+        if diffs:
+            raise AssertionError(f"{name} checkpoint on rank {mesh.rank}: leaves differ from the "
+                                 f"uninterrupted run {diffs}")
+        rank_print(mesh, f"checkpoint of the {name} host on {mesh.size} ranks: {n} steps, "
+                   f"save_state with the mesh ({os.path.getsize(path)} bytes, layout {layout}), "
+                   f"load_state into a fresh "
+                   f"template on every rank, {n} more: bitwise the {2 * n} uninterrupted steps "
+                   f"on every rank (every leaf); {time.perf_counter() - t:.1f} s")
 
 
 def multi_rank_phase(workdir):
     """One rank's share of the multi-device phases (run by
-    ``parallel.launch``), by the world size: on ``SLAB_RANKS`` K1's
-    owned-row form on the rank's slab window and the slab host's kT = 0
-    steps and kT = 0.8 run (100 steps after 50; the spatial and sharded 2-D
-    runs 100 after 20); on 2 ranks also the sharded dense host, the
-    work-sharded cell host, the sharded 2-D host and the spatial host's
-    cases (a) and (c); on 4 the brick host on 2 x 2 (20 kT = 0 steps, the
-    kT = 0.8 run: 100 steps after 50) and the spatial case (b); on 8 the
-    brick host on 2 x 2 x 2 (5 kT = 0 steps); then the example scripts'
-    share of this rank count (``example_rank_part``, files in
-    ``workdir``).  Each part's seconds printed by rank 0.  Returns rank 0's
-    kernel rows and run numbers."""
+    ``parallel.launch``), by the world size, each part's checks and then
+    its timed run of ``rank_runs``: on ``SLAB_RANKS`` K1's owned-row form on
+    the rank's slab window and the slab host's kT = 0 steps; on 2 ranks
+    also the sharded dense host, the work-sharded cell host, the sharded
+    2-D host and ``sharded_checkpoint_phase``; on 4 the brick host on 2 x 2
+    (20 kT = 0 steps), on 8 on 2 x 2 x 2 (5 kT = 0 steps); the spatial
+    cases of the world size; then the example scripts' share of this rank
+    count (``example_rank_part``, files in ``workdir``).  Each part's
+    seconds printed by rank 0.  Returns rank 0's kernel rows and run
+    records."""
     import torch
 
     from edm_tpu_torch.parallel import make_brick_mesh, make_mesh
 
     mesh = make_mesh()
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
+    runs = rank_runs(torch, mesh)
+    out = {"runs": {}}
 
     def timed(what, fn):
         t = time.perf_counter()
@@ -3450,56 +3582,123 @@ def multi_rank_phase(workdir):
         rank_print(mesh, f"  {what}: {time.perf_counter() - t:.1f} s")
         return res
 
+    def part(what, checks, host):
+        out["runs"][host] = timed(what, lambda: (checks(), runs[host]())[1])
+
     if mesh.size in SLAB_RANKS:
-        def slab():
+        def slab_checks():
             _, state, steps = bench_setup(torch, 0.8, mesh.device, mesh=mesh)
             state, _ = steps[0](state)  # a state with a live bias: one hill step
-            rows = row_box_kernel_phase(torch, mesh, state, steps[0])
+            out["rows"] = row_box_kernel_phase(torch, mesh, state, steps[0])
             if mesh.rank == 0:
-                print_rows(rows)
+                print_rows(out["rows"])
             slab_zero_temperature(torch, mesh)
-            return rows, slab_run(torch, mesh, warm_steps=50, timed_steps=100)
 
-        out["rows"], out["run"] = timed(f"slab host on {mesh.size} ranks", slab)
+        part(f"slab host on {mesh.size} ranks", slab_checks, "slab")
     if mesh.size == 2:
         timed("sharded pair host", lambda: sharded_pair_zero_temperature(torch, mesh))
-        out["cells_run"] = timed("work-sharded cell host", lambda: (
-            sharded_cells_zero_temperature(torch, mesh), sharded_cells_run(torch, mesh))[1])
-        out["coord_run"] = timed("sharded 2-D host", lambda: (
-            sharded_coord_zero_temperature(torch, mesh),
-            sharded_coord_run(torch, mesh, warm_steps=20, timed_steps=100))[1])
-    if mesh.size == 4:
-        bmesh = make_brick_mesh(2, 2)
-        out["brick_run"] = timed("brick host on 2 x 2", lambda: (
-            slab_zero_temperature(torch, bmesh),
-            slab_run(torch, bmesh, warm_steps=50, timed_steps=100))[1])
-    out["spatial"] = spatial_phases(torch, mesh, timed)
-    if mesh.size == 8:
-        bmesh = make_brick_mesh(2, 2, 2)
-        timed("brick host on 2 x 2 x 2", lambda: slab_zero_temperature(torch, bmesh, n_steps=5))
+        part("work-sharded cell host", lambda: sharded_cells_zero_temperature(torch, mesh),
+             "work-sharded")
+        part("sharded 2-D host", lambda: sharded_coord_zero_temperature(torch, mesh),
+             "sharded 2-D")
+        timed("checkpoint and resume on 2 ranks",
+              lambda: sharded_checkpoint_phase(torch, mesh, workdir))
+    for grid, n_steps in zip(BRICK_GRIDS, (20, 5)):
+        if int(np.prod(grid)) == mesh.size:
+            bmesh = make_brick_mesh(*grid)
+            part(f"brick host on {' x '.join(map(str, grid))}",
+                 lambda: slab_zero_temperature(torch, bmesh, n_steps=n_steps), brick_label(grid))
+    for case in rank_cases(mesh.size):
+        part(spatial_label(case), lambda: spatial_zero_temperature(torch, mesh, case),
+             spatial_label(case))
     out["examples"] = timed(f"example scripts on {mesh.size} ranks",
                             lambda: example_rank_part(torch, mesh, workdir))
     return out if mesh.rank == 0 else None
 
 
-def multi_rank_phases():
-    """The multi-device phases on 2, 4 and 8 ranks through
+def multi_rank_runs():
+    """One rank's timed runs of ``rank_runs`` alone (the same host over
+    another backend, for the records); returns rank 0's records."""
+    import torch
+
+    from edm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {host: run() for host, run in rank_runs(torch, mesh).items()}
+    return out if mesh.rank == 0 else None
+
+
+def ranks_table(records):
+    """The records of each sharded host by rank count and backend, one row
+    each: steps/s, collectives and kB a step, host stagings and counted
+    host syncs a step, rank 0's busy share."""
+    print("sharded hosts (rank 0; " + card_line() + "): host | ranks | backend | steps/s | "
+          "collectives a step | kB a step | host stagings a step | host syncs a step | "
+          "rank 0 busy", flush=True)
+    for (n, backend), runs in records.items():
+        for host, r in runs.items():
+            c, k = r["collectives"], r["timed_steps"]
+            busy = "not measured" if r["busy"] is None else f"{r['busy']:.1%}"
+            print(f"  {host} | {n} | {backend} | {r['steps_per_s']:.2f} | {c['calls'] / k:.2f} | "
+                  f"{c['bytes'] / k / 1e3:.1f} | {c['host_syncs'] / k:.2f} | "
+                  f"{r['syncs_per_step']:.2f} | {busy}", flush=True)
+
+
+def multi_rank_phases(counts=(2, 4, 8), gloo=False):
+    """The multi-device phases on each of ``counts`` ranks through
     ``parallel.launch`` (the kernels are built already, in this process);
-    a failing or hung rank raises.  Returns rank 0's results of each launch,
-    by rank count."""
+    a failing or hung rank raises.  Where the machine has a card per rank
+    the launch is NCCL's; with ``gloo`` the same host's timed runs then run
+    again over gloo with the ranks sharing card 0, for the records.  Prints
+    the runs' table (``ranks_table``) and returns rank 0's results of each
+    launch, by rank count."""
     import tempfile
 
     from edm_tpu_torch.parallel import launch
+    from edm_tpu_torch.parallel.mesh import pick_backend
 
-    out = {}
-    for n in (2, 4, 8):
+    out, records = {}, {}
+    for n in counts:
         t_phase = time.perf_counter()
         print(f"multi-device: {multi_rank_line(n)}", flush=True)
         with tempfile.TemporaryDirectory() as workdir:
             out[n] = launch(multi_rank_phase, n, workdir, timeout=300)[0]
+        backend = pick_backend(n, "cuda")
+        records[(n, backend)] = out[n]["runs"]
         print(f"multi-device phases on {n} ranks: {time.perf_counter() - t_phase:.1f} s",
               flush=True)
+        if gloo and backend == "nccl":
+            t_phase = time.perf_counter()
+            print(f"multi-device, the same runs: {n} ranks, backend gloo, 1 card: cuda:0 "
+                  f"({card_lines()[0]})", flush=True)
+            records[(n, "gloo")] = launch(multi_rank_runs, n, backend="gloo", timeout=300)[0]
+            print(f"the gloo runs on {n} ranks: {time.perf_counter() - t_phase:.1f} s",
+                  flush=True)
+    ranks_table(records)
     return out
+
+
+def ranks_main(torch, *args) -> int:
+    """``--ranks [gloo]``: the multi-device part alone, for a machine with
+    several cards (each of its seconds costs one a card): the launches of
+    the rank counts its cards cover, over NCCL a card a rank (on one card
+    all three, over gloo), with ``gloo`` each NCCL launch's timed runs again
+    over gloo on card 0, then the dry run on the most ranks launched."""
+    from edm_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    if args not in ((), ("gloo",)):
+        print("usage: chip_smoke.py --ranks [gloo]", file=sys.stderr)
+        return 2
+    counts = tuple(n for n in (2, 4, 8) if n <= torch.cuda.device_count()) or (2, 4, 8)
+    t_phase = time.perf_counter()
+    multi_rank_phases(counts, gloo=bool(args))
+    print(f"multi-device phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    dryrun_multichip(max(counts), timeout=300)
+    print(f"dry run (dryrun_multichip({max(counts)})): {time.perf_counter() - t_phase:.1f} s")
+    print(f"--ranks: the launches of {', '.join(map(str, counts))} ranks and the dry run passed")
+    return 0
 
 
 # ------------------------------------------------ the user's entry points
@@ -4460,6 +4659,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    if sys.argv[1:2] == ["--ranks"]:
+        return ranks_main(torch, *sys.argv[2:])
 
     rows = {}
     for what, phase in (("K1/K2 Hermite", lambda: kernel_phase(torch, device, "interp")),
@@ -4531,8 +4732,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     multi = multi_rank_phases()
     rows.update(multi[2]["rows"])
-    n_tf += multi[2]["coord_run"]["threefry_bits"]
-    n_tf += sum(r["threefry_bits"] for n in (2, 4) for r in multi[n]["spatial"].values())
+    n_tf += sum(r.get("threefry_bits", 0) for n in (2, 4) for r in multi[n]["runs"].values())
     print(f"multi-device phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     from edm_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -4627,7 +4827,7 @@ def main() -> int:
         elif where == "blocked":
             n, dev = blk_launches["threefry_rows"], blk_ms["threefry_rows"]
         elif where in ("slab", "brick"):
-            run = multi[2]["run"] if where == "slab" else multi[4]["brick_run"]
+            run = multi[2]["runs"]["slab"] if where == "slab" else multi[4]["runs"]["brick 2x2"]
             n, dev = run["launches"]["row_box"], run["device_ms"].get("cell_force_newton")
         elif where == "examples":
             n, dev = multi[2]["examples"]["launches"]["weak scaling"]["row_box"], cheb_box_ms

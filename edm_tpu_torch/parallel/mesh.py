@@ -24,7 +24,9 @@ the world group in rank order: no collective needs a group of one axis.
 ``launch`` spawns the ranks: each is initialised from a ``FileStore`` in a
 given file (never a fixed TCP port), keeps to one torch thread, and gives
 ``init_process_group`` a timeout, so that a hung collective fails instead
-of hanging; a rank's exception is raised again in the parent.  The backend
+of hanging; a rank's exception is raised again in the parent, with its
+traceback, once every rank has ended or ``timeout`` + 30 s have passed
+(the ranks still running are then stopped).  The backend
 is NCCL when the ranks run on CUDA and the machine has a card per rank,
 otherwise gloo, with every rank on ``cuda:0`` when a card is asked for.
 """
@@ -173,13 +175,17 @@ def _rank_main(rank, world_size, backend, device, store_path, timeout, fn, args,
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
                                 timeout=datetime.timedelta(seconds=timeout))
-        try:
-            res = fn(*args)
-        finally:
-            dist.destroy_process_group()
-        out.put((rank, True, res))
+        res = fn(*args)
     except BaseException:
+        # report first and leave without tearing the group down: over NCCL
+        # the teardown waits on the ranks still inside a collective, which
+        # the parent stops once its grace is over
         out.put((rank, False, traceback.format_exc()))
+        out.close()
+        out.join_thread()
+        os._exit(1)
+    dist.destroy_process_group()
+    out.put((rank, True, res))
 
 
 def launch(fn: Callable, world_size: int, *args, backend: Optional[str] = None,
@@ -226,10 +232,19 @@ def launch(fn: Callable, world_size: int, *args, backend: Optional[str] = None,
             if grace is not None and time.monotonic() > grace:
                 break
     finally:
+        # the ranks that reported end on their own; once the grace is over
+        # (or on an interrupt) the rest are stopped at once, all of them
+        # within one shared wait
+        done = len(results) + len(errors) == world_size
+        end = time.monotonic() + (30.0 if done else 0.0)
         for p in procs:
-            p.join(timeout=30.0)
+            p.join(timeout=max(0.0, end - time.monotonic()))
+        for p in procs:
             if p.is_alive():
                 p.terminate()
+                p.join(timeout=5.0)
+            if p.is_alive():
+                p.kill()
                 p.join()
     if errors or len(results) < world_size:
         lost = [r for r in range(world_size) if r not in results and r not in errors]

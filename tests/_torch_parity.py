@@ -49,6 +49,19 @@ def to_numpy_tree(obj):
     return obj
 
 
+def tree_leaves(tree, path=""):
+    """(path, numpy array) of every leaf of a ``to_numpy_tree`` result, None
+    leaves left out."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}[{i}]")
+    elif tree is not None:
+        yield path, np.asarray(tree)
+
+
 def to_port(obj, device="cpu"):
     """A JAX state or BiasParams -> the port's (via numpy)."""
     from edm_tpu_torch.convert import params_from_numpy, state_from_numpy

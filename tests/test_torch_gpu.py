@@ -40,7 +40,13 @@ plain version and bitwise against the full-window kernel with the rows
 outside the box masked, and with the Chebyshev table (4 panels of degree
 16) on slab and brick windows; and a 2-rank slab step on the card
 (``parallel.launch``, a rank per card or both on one) against the
-single-device step.  The counter hash and pass 1 of the hill
+single-device step.  With several cards (each case skips, naming the
+count, where the machine has fewer cards than its ranks): the work-sharded
+cell host and the sharded 2-D host on 2 ranks, the spatial host on (2, 1)
+and 2 x 2, and the brick host on 2 x 2 x 2, 4 kT = 0 steps each over NCCL
+(a card a rank) and over gloo (the ranks on card 0), every leaf of every
+rank bitwise the same; and a rank that raises inside an NCCL collective,
+reported by ``launch`` within its timeout.  The counter hash and pass 1 of the hill
 collections (``csrc/hashrng.cu``): ``hash_uniforms`` bitwise and
 ``hash_normals`` within 2 ulps of their plain versions at the edges of
 their tiles (1 to 897 columns, 1 to 65,569 rows, ids above 2^32, a strided
@@ -64,7 +70,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_energy, assert_forces
+from _torch_parity import assert_energy, assert_forces, tree_leaves
 from edm_tpu_torch import bias as B
 from edm_tpu_torch import gauss as tg
 from edm_tpu_torch.models import pair_edm
@@ -1332,6 +1338,84 @@ def test_brick_step_on_card(cuda_state, tmp_path):
         for r in res[1:]:
             for name in ("xs", "vs", "fs", "aid"):
                 np.testing.assert_array_equal(r[i][0][name], got[name])
+
+
+# ------------------------------------------- the sharded hosts on NCCL
+
+NCCL_CASES = {  # case: (host, ranks, brick grid)
+    "work-sharded cells": ("cells", 2, None),
+    "sharded 2-D": ("coord", 2, None),
+    "spatial (a) 2x1": ("spatial", 2, None),
+    "spatial (b) 2x2": ("spatial", 4, None),
+    "brick 2x2x2": ("brick", 8, (2, 2, 2)),
+}
+
+
+def _needs_cards(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on the card)")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards for NCCL ({n} ranks, a card each); this machine has "
+                    f"{torch.cuda.device_count()}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(NCCL_CASES))
+def test_sharded_host_nccl_matches_gloo(case, tmp_path):
+    """One sharded host over 4 kT = 0 steps (two hill steps) from the same
+    seeded inputs, launched over NCCL (a card a rank) and over gloo (every
+    rank on card 0, the collectives staged through the host): every leaf of
+    every rank's state after each step bitwise the same, integers and
+    floats, and the hill rounds deposited something.  Every collective is a
+    gather and ``psum`` adds the gathered parts in rank order on each rank,
+    so both routes hand each rank the same bits."""
+    import pickle
+
+    import _torch_ranks as ranks
+    from edm_tpu_torch.parallel import launch
+
+    host, n, grid = NCCL_CASES[case]
+    _needs_cards(n)
+    path = tmp_path / "in.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(dict(host=host, grid=grid, n_steps=4), fh)
+    runs = {b: launch(ranks.card_host_steps, n, str(path), backend=b, device="cuda",
+                      init_file=str(tmp_path / f"{b}.store"), timeout=300)
+            for b in ("nccl", "gloo")}
+    assert [r["device"] for r in runs["nccl"]] == [f"cuda:{r}" for r in range(n)]
+    assert {r["device"] for r in runs["gloo"]} == {"cuda:0"}
+    for rank, (a, b) in enumerate(zip(runs["nccl"], runs["gloo"])):
+        for i, (sa, sb) in enumerate(zip(a["states"], b["states"])):
+            la, lb = dict(tree_leaves(sa)), dict(tree_leaves(sb))
+            assert la.keys() == lb.keys()
+            for name, x in la.items():
+                y, what = lb[name], f"{case} rank {rank} step {i} {name}"
+                assert (x.shape, x.dtype) == (y.shape, y.dtype), what
+                np.testing.assert_array_equal(x, y, err_msg=what)
+    cum = [v for k, v in tree_leaves(runs["nccl"][0]["states"][-1]) if k.endswith("cum_bias")]
+    assert cum and float(cum[0]) > 0, f"{case}: no hill was deposited"
+
+
+@pytest.mark.gpu
+def test_nccl_rank_failure_reported(tmp_path):
+    """A rank that raises inside an NCCL collective (a host tensor handed
+    to it) while the other waits in its own: ``launch`` raises with that
+    rank's traceback within its timeout and the 30 s grace of the failure."""
+    import time
+
+    import _torch_ranks as ranks
+    from edm_tpu_torch.parallel import launch
+
+    _needs_cards(2)
+    timeout, failed_at = 10, tmp_path / "failed_at"
+    with pytest.raises(RuntimeError, match="ranks failed") as err:
+        launch(ranks.nccl_failure, 2, str(failed_at), backend="nccl", device="cuda",
+               init_file=str(tmp_path / "store"), timeout=timeout)
+    elapsed = time.time() - float(failed_at.read_text())
+    assert "--- rank 1 ---" in str(err.value) and "all_gather" in str(err.value)
+    # from the failure: the grace, then the parent's poll (1 s), the stop of
+    # the hung rank (terminate, 5 s, then kill) and its exit
+    assert elapsed < timeout + 30 + 20, f"launch took {elapsed:.1f} s after the failure"
 
 
 # ------------------------------------------- the counter hash and pass 1

@@ -180,6 +180,20 @@ def test_launch_reraises_a_rank_failure(tmp_path):
         _launch(tmp_path, ranks.hills_round, 2, {"missing": True})
 
 
+def test_launch_stops_hung_ranks_after_the_grace(tmp_path):
+    """A rank that fails while another hangs outside any collective: the
+    launch raises with the failed rank's traceback once the grace
+    (``timeout`` + 30 s) is over, and stops the hung rank at once."""
+    import time
+
+    t = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 fails on purpose") as err:
+        tpar.launch(ranks.fail_and_hang, 2, None, backend="gloo", device="cpu",
+                    init_file=str(tmp_path / "store"), timeout=1)
+    assert "ranks [1] were stopped" in str(err.value)
+    assert time.monotonic() - t < 1 + 30 + 15
+
+
 def test_one_rank_mesh_without_a_group():
     mesh = tpar.make_mesh(device="cpu")
     assert (mesh.size, mesh.rank, mesh.axis_index(), mesh.devices.size) == (1, 0, 0, 1)
