@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives sixteen paths of the port through their CUDA kernels and checks
+Drives seventeen paths of the port through their CUDA kernels and checks
 each kernel against its plain PyTorch version on the same card:
 
   - the 10,000-atom pairwise-EDM cell-list MD step of
@@ -14,6 +14,13 @@ each kernel against its plain PyTorch version on the same card:
     ``hash_normals``, the hill collection's pass 1 through
     ``p1_count_half`` (typed: ``p1_count_typed``) and pass 2's draws
     through ``hash_uniforms`` (``csrc/hashrng.cu``, the counter hash);
+  - the dense 32,000-atom liquid of LAMMPS's ``bench/in.lj`` (fcc at
+    rho* = 0.8442, LJ rcut 2.5) with the bench's bias out to r = 4.0 on
+    8^3 cells of the automatic cap 96 (``dense_liquid_phase``): K1 at full
+    cap past k = 64 (the pieces form), K2 with 384 tail rows (row tiles)
+    under kernel_cap 72, and both with 16 Chebyshev panels of degree 16;
+    then each force kernel past the old shape limits, and K4/K5 with hills
+    wider than the grid;
   - the same step with the Chebyshev lookup (``pair_lookup="chebyshev"``,
     4 panels of degree 16, refit after every hill round): K1 and K2 with
     the Clenshaw chains (K3);
@@ -216,8 +223,10 @@ the typed path at 100k), of a deposition round on each route and of the
 Threefry kernels on the 2-D, blocked and dense hosts (``time_threefry``,
 with the device launches of a 2-D step and of its draws and those hosts'
 steps/s), one process per run, medians and ranges printed;
-``--ab-kernels OTHER threefry`` times the Threefry kernels alone.  Both
-checkouts must name their device functions as ``PORT_KERNELS`` does.
+``--ab-kernels OTHER threefry`` times the Threefry kernels alone,
+``--ab-kernels OTHER cells`` the force kernels on the 10k paths and the
+100k exact cell alone.  Both checkouts must name their device functions
+as ``PORT_KERNELS`` does.
 """
 
 from __future__ import annotations
@@ -317,25 +326,26 @@ def bench_types(n_atoms=None):
     return np.where(np.arange(n_atoms or N_ATOMS) % 2 == 0, 2, 1).astype(np.int32)
 
 
-def bench_bias(torch, device):
+def bench_bias(torch, device, box_high=3.0):
     """bench_pairwise's well-tempered, RDF-targeted pair bias on its
-    151-point grid: ``bias.subdivide`` with the target ``-2 ln max(r,
-    0.5)``; returns (params, bias_state)."""
+    151-point grid (``box_high`` 3.0; the dense liquid's 4.0: 201 points):
+    ``bias.subdivide`` with the target ``-2 ln max(r, 0.5)``; returns
+    (params, bias_state)."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
     from edm_tpu_torch.utils.config import parse_edm_text
 
     cfg = parse_edm_text(
         "tempering 1\nbias_factor 10\nhill_prefactor 0.1\nbias_per_step 1.0\n"
-        "hill_density 250\ndimension 1\nbox_low 0\nbox_high 3.0\n"
+        f"hill_density 250\ndimension 1\nbox_low 0\nbox_high {box_high}\n"
         "bias_spacing 0.02\nbias_sigma 0.1\n"
     )
-    tspec = GridSpec.create([0.0], [3.0], [0.02], [False])
+    tspec = GridSpec.create([0.0], [box_high], [0.02], [False])
     r_pts = np.arange(tspec.nbins[0]) * tspec.dx[0] + tspec.min[0]
     target = Grid(values=torch.tensor(-2.0 * np.log(np.maximum(r_pts, 0.5)),
                                       dtype=torch.float32, device=device),
                   derivs=None, spec=tspec, interpolate=False)
-    return B.subdivide(cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0],
+    return B.subdivide(cfg, 1.0, 1.0, [0], [box_high], [0], [box_high], [False], [0],
                        dtype=torch.float32, device=device, target=target)
 
 
@@ -382,9 +392,30 @@ def dense_lattice(cap, seed=0):
     return pts, [3 * edge] * 3, cap, bench_types(len(pts))
 
 
-def lattice_state(torch, device, pts, box, cap):
+def cap_lattice(cap, seed=0):
+    """``dense_lattice``'s cells and occupancies (3 x 3 x 3 cells of edge
+    3.1, cell 0 full at ``cap``, the last empty, the others cap / 2 to cap -
+    1), the atoms on a jittered sub-lattice of each cell (m^3 >= cap sites,
+    a random subset, each moved by up to 0.15 of the spacing), so no two
+    atoms come closer than 0.7 of the spacing and LJ stays finite in float32:
+    the force kernels' large-cap states.  (positions, box, cap, types)."""
+    rng = np.random.default_rng(seed)
+    edge = 3.1
+    m = int(np.ceil(cap ** (1 / 3) - 1e-9))
+    a = edge / m
+    sites = (np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), -1).reshape(-1, 3) + 0.5) * a
+    counts = rng.integers(cap // 2, cap, 27)
+    counts[0], counts[-1] = cap, 0
+    lo = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1).reshape(-1, 3) * edge
+    pts = np.concatenate([lo[c] + sites[rng.choice(len(sites), k, replace=False)]
+                          + rng.uniform(-0.15, 0.15, (k, 3)) * a for c, k in enumerate(counts)])
+    return pts, [3 * edge] * 3, cap, bench_types(len(pts))
+
+
+def lattice_state(torch, device, pts, box, cap, **kw):
     """The cell state of ``pts`` in ``box`` on cells of the CV's bmax (3.0)
-    and slot cap ``cap``, with bench_bias: (spec, state)."""
+    and slot cap ``cap``, with bench_bias (``kw``: ``init_cell_state``'s
+    options): (spec, state)."""
     from edm_tpu_torch.models import pair_edm
     from edm_tpu_torch.models.cells import CellSpec
     from edm_tpu_torch.models.pair_edm_cells import init_cell_state
@@ -394,7 +425,7 @@ def lattice_state(torch, device, pts, box, cap):
     core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32, device=device),
                                PRNGKey(0))
     spec = CellSpec.create(box, cutoff=3.0, n_atoms=len(pts), cap=cap)
-    return spec, init_cell_state(spec, core)
+    return spec, init_cell_state(spec, core, **kw)
 
 
 def bench_lattice(n_atoms):
@@ -691,24 +722,29 @@ def pair_counts(spec, xs, mc, k, far, ts=None, rows=None, mc_rows=None):
     nbr = half_neighbors(tuple(spec.ncells), mc.device)
     if rows is None:
         rows, mc_rows = torch.arange(C, device=mc.device), mc[:C]
-    nb = nbr[rows]
-
-    def window(plane, own):  # (Cg, cap, ...) -> each row cell's 14k candidates, its own first
-        return torch.cat([own[:, :k], plane[nb][:, :, :k].flatten(1, 2)], 1)
-
-    occ_w = window(mc, mc_rows) > 0.5
-    ok = occ_w[:, :k, None] & occ_w[:, None, :]
-    ok[:, :, :k] &= torch.ones(k, k, dtype=torch.bool, device=mc.device).triu(1)
-    xw = window(xs, xs[rows]).double()
-    d = xw[:, :k, None] - xw[:, None, :]
     L = torch.tensor(spec.box, dtype=torch.float64, device=xs.device)
-    d = d - torch.round(d / L) * L
-    near = ok & ((d * d).sum(-1) <= far * far)
-    cv = near
-    if ts is not None:
-        tw = window(ts, ts[rows])
-        cv = near & type_pair_mask(tw[:, :k, None], tw[:, None, :], TYPE_PAIR)
-    return float(ok.sum()), float(near.sum()), float(cv.sum())
+    out = np.zeros(3)
+    step = max(1, int(5e7 // (14 * k * k)))  # row cells a chunk: ~5e7 pairs
+    for r0 in range(0, rows.shape[0], step):
+        rr = rows[r0:r0 + step]
+        nb = nbr[rr]
+
+        def window(plane, own):  # (Cg, cap, ...) -> each row cell's 14k candidates, own first
+            return torch.cat([own[:, :k], plane[nb][:, :, :k].flatten(1, 2)], 1)
+
+        occ_w = window(mc, mc_rows[r0:r0 + step]) > 0.5
+        ok = occ_w[:, :k, None] & occ_w[:, None, :]
+        ok[:, :, :k] &= torch.ones(k, k, dtype=torch.bool, device=mc.device).triu(1)
+        xw = window(xs, xs[rr]).double()
+        d = xw[:, :k, None] - xw[:, None, :]
+        d = d - torch.round(d / L) * L
+        near = ok & ((d * d).sum(-1) <= far * far)
+        cv = near
+        if ts is not None:
+            tw = window(ts, ts[rr])
+            cv = near & type_pair_mask(tw[:, :k, None], tw[:, None, :], TYPE_PAIR)
+        out += [float(ok.sum()), float(near.sum()), float(cv.sum())]
+    return tuple(float(v) for v in out)
 
 
 def pair_flops(counts, table, energy: bool) -> float:
@@ -1644,6 +1680,433 @@ def big_cell_phase(torch, device):
           f"ran K2")
     return dict(rows=rows, launches=run["launches"], device_ms=run["device_ms"],
                 typed_launches=typed["launches"], typed_device_ms=typed["device_ms"])
+
+
+# The dense liquid (LAMMPS's own LJ benchmark, bench/in.lj): an fcc lattice
+# at rho* = 0.8442, 20^3 unit cells, 32,000 atoms, box 33.592^3, LJ eps =
+# sigma = 1, rcut 2.5, with the bench's well-tempered RDF-targeted pair
+# bias out to r = 4.0 (201 Hermite points, the second and third shells)
+# and its hill settings, Langevin kT = 0.8, dt 0.002.  Cells of edge >=
+# 4.05 (the bias domain's 4.0 and a margin): 8^3 cells of 4.199 and the
+# automatic cap (mean 62.5 + 4 sqrt(62.5), rounded up to 8): 96.  Nothing
+# is cut.  Three runs: (a) K1 at full cap (k = 96) on every step; (b)
+# kernel_cap 72 with 384 tail rows for K2 (3x the old limit of 128) and the
+# full-cap fallback at 96; (c) (b) with the Chebyshev lookup, 16 panels of
+# degree 16 (the old limit was 8 panels).
+LIQUID_CELLS, LIQUID_RHO, LIQUID_BOX_HIGH, LIQUID_CUTOFF = 20, 0.8442, 4.0, 4.05
+LIQUID_RUNS = {
+    "a": dict(),
+    "b": dict(kernel_cap=72, overflow_cap=384),
+    "c": dict(kernel_cap=72, overflow_cap=384, pair_lookup="chebyshev", cheb_deg=16,
+              cheb_panels=16),
+}
+LIQUID_JITTER = 0.05  # the kT = 0 steps' input: each site moved by up to this (sigma)
+# K2's checks past one row tile take the liquid's slots past this one as
+# their tail (~4,000 atoms), so that every tile of 128 rows is full
+K2_CHECK_CAP = 56
+# the large-cap lattices of the kernel checks: (cap, the k of K1 on it); at
+# 256 a row takes several pieces, at 1,024 the rows take several tiles too
+LIQUID_LATTICES = ((256, (128, 256)), (1024, (1024,)))
+LIQUID_DEPTH = (50, 100)  # the kT = 0.8 runs: warm-up and timed steps
+
+
+def fcc_lattice(cells, rho):
+    """An fcc lattice of ``cells``^3 unit cells at reduced density ``rho``
+    (LAMMPS ``lattice fcc``): (positions (4 cells^3, 3), box)."""
+    a = (4.0 / rho) ** (1 / 3)
+    basis = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+    sites = np.stack(np.meshgrid(*[np.arange(cells)] * 3, indexing="ij"), -1).reshape(-1, 1, 3)
+    return ((sites + basis[None]) * a).reshape(-1, 3), [cells * a] * 3
+
+
+def liquid_setup(torch, kT: float, device, run, jitter=0.0):
+    """The dense liquid's run ``run`` of ``LIQUID_RUNS`` through the port's
+    entry points (bias.subdivide -> pair_edm.init_state -> CellSpec.create
+    with the automatic cap -> init_cell_state), the lattice sites moved by
+    up to ``jitter`` (seeded), and the three static phase steps of the
+    bench's stride cycle: (spec, state, steps)."""
+    from edm_tpu_torch.models import pair_edm
+    from edm_tpu_torch.models.cells import CellSpec
+    from edm_tpu_torch.models.langevin import LangevinParams
+    from edm_tpu_torch.models.lj import LJParams
+    from edm_tpu_torch.models.pair_edm_cells import init_cell_state, make_cell_step
+    from edm_tpu_torch.ops.prng import PRNGKey
+
+    opts = LIQUID_RUNS[run]
+    params, bias_state = bench_bias(torch, device, LIQUID_BOX_HIGH)
+    pts, box = fcc_lattice(LIQUID_CELLS, LIQUID_RHO)
+    if jitter:
+        pts = pts + np.random.default_rng(7).uniform(-jitter, jitter, pts.shape)
+    n = len(pts)
+    core = pair_edm.init_state(bias_state, torch.tensor(pts, dtype=torch.float32, device=device),
+                               PRNGKey(0), n_est=n * 40,
+                               pair_lookup=opts.get("pair_lookup", "interp"),
+                               cheb_deg=opts.get("cheb_deg", 64),
+                               cheb_panels=opts.get("cheb_panels", 1))
+    spec = CellSpec.create(box, cutoff=LIQUID_CUTOFF, n_atoms=n)
+    caps = {k: v for k, v in opts.items() if k in ("kernel_cap", "overflow_cap")}
+    state = init_cell_state(spec, core, **caps)
+    lp = LangevinParams(dt=0.002, friction=1.0, kT=kT)
+    lj = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)
+    steps = [make_cell_step(params, lp, lj, spec, hill_stride=10, rebuild_stride=10,
+                            hill_capacity=2048, cell_chunk=81, use_pallas=True, energy_stride=10,
+                            static_do_hills=h, static_do_energy=e, static_do_rebuild=r, **caps)
+             for h, e, r in ((True, True, False), (False, False, False), (False, False, True))]
+    return spec, state, steps
+
+
+def liquid_label(run) -> str:
+    o = LIQUID_RUNS[run]
+    caps = (f"kernel_cap {o['kernel_cap']}, overflow_cap {o['overflow_cap']}"
+            if "kernel_cap" in o else "full cap")
+    look = (f", Chebyshev {o['cheb_panels']} x {o['cheb_deg']}" if "cheb_deg" in o else "")
+    return f"32k liquid ({run}) {caps}{look}"
+
+
+def liquid_zero_temperature(torch, device, run, n_steps=20):
+    """20 steps at kT = 0 of run ``run`` from the jittered lattice, each step
+    through the kernels and through the plain versions from the same input
+    state, held to each other (``states_match``: integer leaves exactly,
+    forces within FORCE_REL).  Returns (steps that ran K2, fallback
+    periods)."""
+    from edm_tpu_torch.ops import cellforce as CF
+
+    spec, state, steps = liquid_setup(torch, 0.0, device, run, LIQUID_JITTER)
+    n_edge, k2 = 0, 0
+    for i in range(n_steps):
+        step = steps[0 if i % 10 == 0 else 2 if i % 10 == 9 else 1]
+        with plain_versions():
+            plain, _ = step(state)
+        k2_before = CF.overflow_force.launches
+        state, _ = step(state)
+        k2 += CF.overflow_force.launches > k2_before
+        n_edge += states_match(torch, state, plain, i, spec.box, state.core.cheb)
+    falls = int(state.tail_fallbacks) if state.tail_fallbacks is not None else 0
+    print(f"kT=0 {liquid_label(run)}: cap {spec.cap} on {spec.ncells} cells, {n_steps} steps "
+          f"through the kernels match the plain versions step for step ({n_edge} atom(s) by a "
+          f"table-edge pair; {k2} step(s) ran K2; fallback periods {falls})")
+    return k2, falls
+
+
+def liquid_run(torch, device, run):
+    """Run ``run``'s kT = 0.8 segment (``LIQUID_DEPTH``: 100 steps after 50)
+    through the kernels, the launch counters set to 0 just before it and
+    read just after; counted only if the state is finite, no cap overflowed
+    (table_overflow, hills_truncated) and cum_bias > 0.  Prints steps/s, the
+    stride cycle's busy share and K1's and K2's device ms a launch, the
+    syncs of a cycle, the tail population and the fallback periods, beside
+    the card.  Returns {"rate", "launches", "device_ms", "state", "steps",
+    "spec"}."""
+    from edm_tpu_torch.models.driver import pattern_segment
+
+    warm_steps, timed_steps = LIQUID_DEPTH
+    spec, state, steps = liquid_setup(torch, 0.8, device, run)
+    if spec.cap <= 64:
+        raise AssertionError(f"the dense liquid's automatic cap is {spec.cap}: not above 64")
+    wrappers = port_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    for s in steps:
+        s.host_syncs = 0
+    state, _ = pattern_segment(pattern(steps), warm_steps)(state)
+    torch.cuda.synchronize()
+    tail_warm = (int(state.tail_count), int(state.tail_fallbacks)) if state.tail_count is not None \
+        else None
+    syncs0 = sum(s.host_syncs for s in steps)
+    t0 = time.perf_counter()
+    state, e = pattern_segment(pattern(steps), timed_steps)(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    syncs = sum(s.host_syncs for s in steps) - syncs0
+    dev_us, top, device_ms = cycle_device_ms(torch, pattern_segment(pattern(steps), 10), state)
+    label = liquid_label(run)
+    print(busy_line(f"kT=0.8 {label} stride cycle", dev_us, 10 * dt / timed_steps * 1e6, top))
+    state, census = sync_census(torch, steps, state)
+    core = state.core
+    n_steps = warm_steps + timed_steps
+    checks = {
+        "finite": all(bool(torch.isfinite(t).all()) for t in (state.xs, state.vs, state.fs, e)),
+        "no table_overflow": not bool(state.table_overflow),
+        "no hills_truncated": not bool(core.hills_truncated),
+        "cum_bias > 0": float(core.bias.cum_bias) > 0,
+        "K1 launched": launches["cell_force_newton"] > 0,
+        "pass 1 kernel on every hill step": launches["p1_counts_half"] == n_steps // 10,
+    }
+    if "kernel_cap" in LIQUID_RUNS[run]:
+        checks["K2 launched"] = launches["overflow_force"] > 0
+    else:
+        checks["K1 at full cap on every step"] = launches["cell_force_newton"] == n_steps
+    tail = ""
+    if tail_warm is not None:
+        tail = (f"; tail after warm-up {tail_warm[0]} (fallback periods {tail_warm[1]}), at the "
+                f"end {int(state.tail_count)} (fallback periods {int(state.tail_fallbacks)} of "
+                f"{n_steps // 10})")
+    k1 = device_ms.get("cell_force_newton")
+    k2 = device_ms.get("overflow_force")
+    print(f"kT=0.8 {label}: {timed_steps} steps after {warm_steps} warm-up: "
+          f"{timed_steps / dt:.2f} steps/s, {syncs / (timed_steps / 10):.2f} host syncs per "
+          f"stride cycle (sync-debug census {census}), K1 "
+          f"{'not measured' if k1 is None else f'{k1:.4f}'} / K2 "
+          f"{'not launched' if k2 is None else f'{k2:.4f}'} device ms a launch, launches "
+          f"{launches}{tail}, cum_bias {float(core.bias.cum_bias):.6g}; card {card_line()}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kT=0.8 {label} run failed: {failed}")
+    return dict(rate=timed_steps / dt, launches=launches, device_ms=device_ms, state=state,
+                steps=steps, spec=spec)
+
+
+def check_row(torch, what, kernel, ref, compare, work, reps=20, plain_reps=3):
+    """One kernel against its plain version on the same inputs: ``compare``
+    (kernel out, plain out) -> the worst error, raising past its bound; the
+    kernel's and the plain version's ms a call (CUDA events) and ``work``,
+    the bound.  Returns the row."""
+    got, want = kernel(), ref()
+    torch.cuda.synchronize()
+    err = compare(what, got, want)
+    ms = cuda_ms(torch, kernel, reps=reps, warm=2)
+    plain = cuda_ms(torch, ref, reps=plain_reps, warm=1)
+    return (err, ms, plain) + work
+
+
+def forces_compare(*names):
+    """A ``compare`` of ``check_row`` for outputs (f, ..., e?): each named
+    output as forces, an output named "energy" summed as an energy."""
+    def compare(what, got, want):
+        err = 0.0
+        for name, a, b in zip(names, got, want):
+            if name == "energy":
+                check_energy(f"{what} energy", a.sum(), b.sum())
+            elif name:
+                err = max(err, check_forces(f"{what} {name}", a, b))
+        return err
+    return compare
+
+
+def k2_compare(what, got, want):
+    """K2's ``compare``: fo (forces and per-row energies) and fp as forces,
+    the energy row's sum as an energy."""
+    check_energy(what, got[0][3].sum(), want[0][3].sum())
+    return forces_compare("fo", "fp")(what, got, want)
+
+
+def tail_inputs(torch, state, xs, kcap, O, ovl=None):
+    """K2's planes (``CellStep._overflow_inputs``) at kernel cap ``kcap``
+    with the tail list ``ovl`` (default the state's) taken to O rows: its
+    first O entries, padded with the empty sentinel."""
+    Cg, cap = state.mc.shape
+    S = Cg * cap
+    ovl = (state.ovl if ovl is None else ovl)[:O]
+    if ovl.shape[0] < O:
+        ovl = torch.cat([ovl, ovl.new_full((O - ovl.shape[0],), S)])
+    mo = (ovl < S).to(xs.dtype)
+    xo3 = xs.reshape(S, 3)[torch.clamp(ovl, 0, S - 1)] * mo[:, None]
+    xo = torch.cat([xo3.T, mo[None], mo[None]]).contiguous()
+    xp = torch.cat([xs[:, :kcap].reshape(-1, 3).T, state.mc[:, :kcap].reshape(1, -1)])
+    return xo, xp.contiguous()
+
+
+def liquid_kernel_phase(torch, device, runs):
+    """Each force kernel against its plain version at the shapes past the old
+    limits, on the runs' end states (``runs``: {run: liquid_run's result})
+    and on ``cap_lattice`` states: K1 at k = 72 and 96 on the liquid and
+    128 and 256 on the cap-256 lattice, energy off and on; typed K1, K6
+    (typed and not) and K7 at cap 96 on the liquid rebuilt with slot ids and
+    the binary types; K1's row box over a slab of the liquid's cells; K1 at
+    k = 1,024 on the cap-1,024 lattice (the rows in tiles, the candidates in
+    pieces); K2 on run (b)'s tail list and at 136, 384 and 1,024 full tail
+    rows (the slots past K2_CHECK_CAP); K1 and K2 with run (c)'s
+    16 x 16 table and with a table past TABLE_SMEM_MAX (1,024 panels of
+    degree 7, read from global memory); K4 and K5 with hills whose reach
+    spans the grid.  Returns the rows; each kernel launch on these shapes
+    is counted by its wrapper."""
+    import dataclasses
+
+    from edm_tpu_torch import gauss as tg
+    from edm_tpu_torch.models.pair_edm_cells import atom_positions, init_cell_state
+    from edm_tpu_torch.ops import cellforce as CF
+    from edm_tpu_torch.ops import deposit_kernels as DK
+    from edm_tpu_torch.ops.chebyshev import fit_gauss_grid
+
+    t0 = time.perf_counter()
+    rows = {}
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    spec, lj = a["spec"], a["steps"][0].lj
+    geo = dict(ncells=spec.ncells, box=spec.box, lj=lj)
+    herm = CF.hermite_pair_table(a["state"].core.bias.bias)
+    cheb = c["state"].core.cheb
+    wide_tab = fit_gauss_grid(c["state"].core.bias.bias, 7, 1024)
+    counts0 = {n: getattr(CF, n).launches for n in FORCE_KERNELS}
+
+    def k1_rows(tag, sp, st, tbl, ks, **kw):
+        g = dict(ncells=sp.ncells, box=sp.box, lj=lj)
+        for k in ks:
+            for energy in (False, True):
+                args = dict(g, k=k, energy=energy, **kw)
+                what = f"cell_force_newton{tag} k={k} energy={int(energy)}"
+                rows[what] = check_row(
+                    torch, what, lambda: CF.cell_force_newton(st.xs, st.mc, tbl, **args),
+                    lambda: CF.cell_force_newton_ref(st.xs, st.mc, tbl, **args),
+                    forces_compare("f", "energy"),
+                    half_work(sp, st.xs, st.mc, tbl, lj, k, energy, kw.get("ts")))
+
+    # K1 on the liquid, run (a)'s main-path shape first
+    k1_rows("[cap 96] hermite", spec, a["state"], herm, (96, 72))
+    # K1 past one piece and past one row tile, on cap_lattice states
+    for cap, ks in LIQUID_LATTICES:
+        pts, box, cap, _ = cap_lattice(cap)
+        sp, st = lattice_state(torch, device, pts, box, cap)
+        k = max(ks)
+        plan = CF.row_plan(k, 3, False, CF.HERMITE, herm.tab.shape[0], 0)
+        if plan.small or (k > CF.ROW_TILE) != (plan.row_tile < k):
+            raise AssertionError(f"cap {cap}: plan {plan} is not the pieces form")
+        k1_rows(f"[large cap] hermite cap={cap}", sp, st, herm, ks)
+    # typed K1, K6 and K7 at cap 96 on the liquid with slot ids and types
+    st_a = a["state"]
+    core = dataclasses.replace(st_a.core, x=atom_positions(spec, st_a))
+    st = init_cell_state(spec, core, with_ids=True,
+                         types=torch.as_tensor(bench_types(spec.n_atoms), device=device))
+    k1_rows("[typed cap 96] hermite", spec, st, herm, (96,), ts=st.ts, type_pair=TYPE_PAIR)
+    for tname, tbl in (("hermite", herm), ("cheb 16x16", cheb)):
+        for typed in (False, True):
+            kw = dict(geo, energy=True, ts=st.ts if typed else None,
+                      type_pair=TYPE_PAIR if typed else None)
+            what = f"cell_force_newton_planar[cap 96] {tname} typed={int(typed)}"
+            rows[what] = check_row(
+                torch, what, lambda: CF.cell_force_newton_planar(st.xs, st.mc, tbl, **kw),
+                lambda: CF.cell_force_newton_planar_ref(st.xs, st.mc, tbl, **kw),
+                forces_compare("f", "credits", "energy"),
+                half_work(spec, st.xs, st.mc, tbl, lj, spec.cap, True, kw["ts"],
+                          credits_out=True))
+    what = "cell_force_full[cap 96] cheb 16x16"
+    rows[what] = check_row(
+        torch, what, lambda: CF.cell_force_full(st.xs, st.mc, st.sid, cheb, **geo),
+        lambda: CF.cell_force_full_ref(st.xs, st.mc, st.sid, cheb, **geo),
+        forces_compare("f", "energy"), full_work(spec, st.xs, st.mc, cheb, lj))
+    # K1's row box: the owned rows of a slab of x-columns (4 of the 8^3 cells)
+    nx = spec.ncells[0]
+    box_ = ((nx // 4, 0, 0), (max(1, nx // 2),) + tuple(spec.ncells[1:]))
+    cells = CF.box_cells(tuple(spec.ncells), box_, device)
+    mc_rows = st_a.mc[cells].contiguous()
+    counts = pair_counts(spec, st_a.xs, st_a.mc, spec.cap, reach(herm, lj), rows=cells,
+                         mc_rows=mc_rows)
+    Cg, cap = st_a.mc.shape
+    nbytes = 4 * (Cg * cap * 4 + cells.shape[0] * cap * 2 + Cg * cap * 3) + table_bytes(herm)
+    for energy in (False, True):
+        kw = dict(geo, k=spec.cap, energy=energy, mc_cand=st_a.mc, row_box=box_)
+        what = f"cell_force_newton[row_box cap 96] hermite energy={int(energy)}"
+        rows[what] = check_row(
+            torch, what, lambda: CF.cell_force_newton(st_a.xs, mc_rows, herm, **kw),
+            lambda: CF.cell_force_newton_ref(st_a.xs, mc_rows, herm, **kw),
+            forces_compare("f", "energy"), bound(pair_flops(counts, herm, energy), nbytes))
+    # K2: run (b)'s own 384-row tail list (its main-path shape), then the
+    # end state's slots past 56 as a tail (every row tile full) at 136, 384
+    # and 1,024 rows
+    st_b, step_b = b["state"], b["steps"][0]
+    kcap = step_b.kernel_cap
+    n_tail = int(st_b.tail_count)
+    Cg, cap = st_b.mc.shape
+    past = torch.nonzero(st_b.mc[:, K2_CHECK_CAP:] > 0.5)
+    full = past[:, 0] * cap + K2_CHECK_CAP + past[:, 1]
+    if full.shape[0] < 1024:
+        raise AssertionError(f"only {full.shape[0]} atoms past slot {K2_CHECK_CAP}")
+    for O, ovl, kc in ((384, None, kcap), (136, full, K2_CHECK_CAP), (384, full, K2_CHECK_CAP),
+                       (1024, full, K2_CHECK_CAP)):
+        xo, xp = tail_inputs(torch, st_b, st_b.xs, kc, O, ovl)
+        for energy in (False, True):
+            kw = dict(box=spec.box, lj=lj, energy=energy)
+            what = (f"overflow_force[{O} tail rows] hermite kernel_cap={kc} "
+                    f"live={int((xo[3] > 0.5).sum())} energy={int(energy)}")
+            rows[what] = check_row(
+                torch, what, lambda: CF.overflow_force(xo, xp, herm, **kw),
+                lambda: CF.overflow_force_ref(xo, xp, herm, **kw), k2_compare,
+                k2_work(xo, xp, herm, lj, spec.box, energy))
+    # K3: run (c)'s 16 x 16 table and one past the shared-memory fit, in K1 and K2
+    st_c = c["state"]
+    past = torch.nonzero(st_c.mc[:, K2_CHECK_CAP:] > 0.5)
+    tails = (tail_inputs(torch, st_c, st_c.xs, kcap, 384),
+             tail_inputs(torch, st_c, st_c.xs, K2_CHECK_CAP, 384,
+                         past[:, 0] * cap + K2_CHECK_CAP + past[:, 1]))
+    for tname, tbl in (("16x16", cheb), ("1024x7", wide_tab)):
+        plan = CF.row_plan(kcap, 3, False, CF.CHEB, *tbl.cval.shape)
+        if plan.table_smem != (tname == "16x16"):
+            raise AssertionError(f"the {tname} table's plan {plan}")
+        for energy in (False, True):
+            kw = dict(geo, k=kcap, energy=energy)
+            what = f"cell_force_newton[cheb {tname}] k={kcap} energy={int(energy)}"
+            rows[what] = check_row(
+                torch, what, lambda: CF.cell_force_newton(st_c.xs, st_c.mc, tbl, **kw),
+                lambda: CF.cell_force_newton_ref(st_c.xs, st_c.mc, tbl, **kw),
+                forces_compare("f", "energy"),
+                half_work(spec, st_c.xs, st_c.mc, tbl, lj, kcap, energy))
+            kw = dict(box=spec.box, lj=lj, energy=energy)
+            for xo, xp in tails:
+                what = (f"overflow_force[cheb {tname}] 384 tail rows live="
+                        f"{int((xo[3] > 0.5).sum())} energy={int(energy)}")
+                rows[what] = check_row(
+                    torch, what, lambda: CF.overflow_force(xo, xp, tbl, **kw),
+                    lambda: CF.overflow_force_ref(xo, xp, tbl, **kw), k2_compare,
+                    k2_work(xo, xp, tbl, lj, spec.box, energy))
+    counts = {n: getattr(CF, n).launches - counts0[n] for n in FORCE_KERNELS}
+    if not all(counts.values()):
+        raise AssertionError(f"a force kernel did not launch on the large shapes: {counts}")
+    # K4 and K5 with hills whose reach spans the grid
+    rng = np.random.default_rng(11)
+    for G, sigma in ((16384, 4.0), (40000, 3.0)):
+        gg = tg.GaussGrid.create([0], [10], [10.0 / G], [True], [sigma], device=device)
+        gg = DK._commit(gg, torch.tensor(rng.normal(0.0, 1.0, G), dtype=torch.float32,
+                                         device=device),
+                        torch.tensor(rng.normal(0.0, 1.0, (G, 1)), dtype=torch.float32,
+                                     device=device))
+        cen = torch.tensor(rng.uniform(-10, 20, (200, 1)), dtype=torch.float32, device=device)
+        hts = torch.tensor(rng.uniform(0.05, 0.2, 200), dtype=torch.float32, device=device)
+        for name, kernel, ref, tile in (
+                ("deposit_windowed_1d", DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref, 1024),
+                ("deposit_dense_1d_kernel", DK.deposit_dense_1d_kernel,
+                 DK.deposit_dense_1d_kernel_ref, 512)):
+            if not DK.wide_reach(gg, tile):
+                raise AssertionError(f"{name} G={G} sigma={sigma}: the reach does not span the grid")
+            n0 = kernel.launches
+            what = f"{name}[reach spans the grid] G={G} sigma={sigma}"
+
+            def compare(what, got, want):
+                errs = check_deposit(what, got[0], got[1], want[0], want[1])
+                return max(e for e, _ in errs.values())
+            # a listed hill meets every point (the support counted once a point)
+            support, dense, nbytes = deposit_work(gg, cen)
+            work = bound(dense * DIST_FLOPS + min(support, dense) * HILL_FLOPS, nbytes)
+            rows[what] = check_row(torch, what, lambda: kernel(gg, cen, hts),
+                                   lambda: ref(gg, cen, hts), compare, work)
+            if kernel.launches == n0:
+                raise AssertionError(f"{what}: the kernel did not launch")
+    print_rows(rows)
+    print(f"dense liquid kernel checks (K2's tail {n_tail} rows at the end of run (b); launches "
+          f"{counts}): {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def dense_liquid_phase(torch, device):
+    """The dense 32,000-atom liquid at cap 96 (``liquid_setup``): for each
+    run (a), (b), (c) the 20 kT = 0 steps through both routes
+    (``liquid_zero_temperature``) and the kT = 0.8 run (``liquid_run``),
+    then ``liquid_kernel_phase`` on the runs' end states.  Returns {"rows",
+    "runs", "seconds"}."""
+    t0 = time.perf_counter()
+    runs, seconds = {}, {}
+    for run in LIQUID_RUNS:
+        t = time.perf_counter()
+        liquid_zero_temperature(torch, device, run)
+        t1 = time.perf_counter()
+        runs[run] = liquid_run(torch, device, run)
+        seconds[run] = (t1 - t, time.perf_counter() - t1)
+    t = time.perf_counter()
+    rows = liquid_kernel_phase(torch, device, runs)
+    seconds["checks"] = time.perf_counter() - t
+    print(f"dense liquid phase seconds: " + ", ".join(
+        f"({k}) kT=0 {v[0]:.1f} + run {v[1]:.1f}" if isinstance(v, tuple) else f"{k} {v:.1f}"
+        for k, v in seconds.items()) + f"; total {time.perf_counter() - t0:.1f}")
+    return dict(rows=rows, runs=runs, seconds=seconds)
 
 
 @contextlib.contextmanager
@@ -4554,7 +5017,9 @@ def time_kernels(torch, tree, group="all", warm_steps=200):
     the profile of a stride cycle after ``warm_steps`` (the exact path has
     left its full-cap fallback by then), of a deposition round on each
     route, and the Threefry kernels' (``time_threefry``); with ``group``
-    "threefry" only the last.  Prints one JSON line."""
+    "threefry" only the last, with "cells" only the 10k paths and the
+    100k exact cell (the force kernels' forms of k <= 64).  Prints one
+    JSON line."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import importlib
@@ -4564,20 +5029,24 @@ def time_kernels(torch, tree, group="all", warm_steps=200):
 
     device = torch.device("cuda", 0)
     out, launches, rates = {}, {}, {}
-    if group == "all":
+    if group in ("all", "cells"):
         runs = [(path, path, None) for path in smoke.PATHS]
-        runs += [("100k", "interp", BIG_N), ("100k typed", "typed", BIG_N)]
+        runs += [("100k", "interp", BIG_N)]
+        if group == "all":
+            runs += [("100k typed", "typed", BIG_N)]
         for label, path, n_atoms in runs:
             _, state, steps = smoke.bench_setup(torch, 0.8, device, path, n_atoms=n_atoms)
             state, _ = pattern_segment(smoke.pattern(steps), warm_steps)(state)
             _, _, ms = cycle_device_ms(torch, pattern_segment(smoke.pattern(steps), 10), state)
             out.update({f"{label} {name}": v for name, v in ms.items()})
             del state, steps
+    if group == "all":
         k4, k5, c, h = smoke.deposit_grids(torch, device, carried=True)
         for what, gg in (("K4 round", k4), ("K5 round", k5)):
             _, per, _, _ = device_time_us(torch, lambda: gg.add_value(c, h), 20)
             out[what] = funcs_ms(per, DEPOSIT_FUNCS)
-    time_threefry(torch, smoke, device, out, launches, rates)
+    if group != "cells":
+        time_threefry(torch, smoke, device, out, launches, rates)
     print(json.dumps({"tree": tree, "device_ms": out, "launches": launches, "rates": rates}))
 
 
@@ -4690,6 +5159,12 @@ def main() -> int:
     launches["100k"], device_ms["100k"] = big["launches"], big["device_ms"]
     launches["100k typed"], device_ms["100k typed"] = big["typed_launches"], big["typed_device_ms"]
     print(f"100k exact cell: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    liquid = dense_liquid_phase(torch, device)
+    rows.update(liquid["rows"])
+    for run, res in liquid["runs"].items():
+        launches[f"liquid {run}"], device_ms[f"liquid {run}"] = res["launches"], res["device_ms"]
+    print(f"32k dense liquid: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     _, dep, dep_ms = deposition_run(torch, device)
     print(f"deposition: {time.perf_counter() - t_phase:.1f} s")
@@ -4816,6 +5291,17 @@ def main() -> int:
          ("100k", "p1_counts_half"), "p1_counts_half[100k]"),
         ("p1_count_typed[100k]", hr, "../models/pair_edm_cells.py:2073",
          ("100k typed", "p1_counts_typed"), "p1_counts_typed[100k]"),
+        # the dense 32k liquid at cap 96: K1 at full cap (the pieces form),
+        # K2 with 384 tail rows (the rows in tiles), and both with the
+        # 16-panel Chebyshev table
+        ("cell_force_newton[cap 96]", cf, "cellforce_pallas.py:684", ("liquid a", k1),
+         "cell_force_newton[cap 96]"),
+        ("overflow_force[384 tail rows]", cf, "cellforce_pallas.py:870", ("liquid b", k2),
+         "overflow_force[384 tail rows]"),
+        ("cell_force_newton[cheb 16x16]", cf, "cellforce_pallas.py:67", ("liquid c", k1),
+         "cell_force_newton[cheb 16x16]"),
+        ("overflow_force[cheb 16x16]", cf, "cellforce_pallas.py:67", ("liquid c", k2),
+         "overflow_force[cheb 16x16]"),
     ]
     records = []
     for name, source, replaces, where, prefix in entries:

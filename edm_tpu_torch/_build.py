@@ -32,9 +32,9 @@ _FLAGS = [
 ]
 
 _lib = None
-# the compiled limits, read once at load: max_k, max_g, max_o, max_deg,
-# max_panels, K2's tile of partners (k2_tile) and the deposition tile per
-# route (tile_dense, tile_windowed)
+# the compiled limits, read once at load: the Hermite table's rows (max_g,
+# the JAX kernels' own limit), K2's tile of partners and tail rows
+# (k2_tile) and the deposition tile per route (tile_dense, tile_windowed)
 limits = {}
 build_log = ""  # nvcc's output (with -Xptxas -v: registers, shared memory, spills)
 build_seconds = 0.0  # 0 when the library was reused
@@ -51,23 +51,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-_LIMITS = ("edm_max_k", "edm_max_g", "edm_max_o", "edm_max_deg", "edm_max_panels",
-           "edm_k2_tile")
+_LIMITS = ("edm_max_g", "edm_k2_tile")
 
 
 def _declare(lib):
     vp, i, fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
     # both force launches end in: look, t1, t2, rows, degp, geom, box, lj, energy, stream
     table = [i, vp, vp, i, i] + [fp] * 3 + [i, vp]
+    # the row pass's plan: small, piece words, row tile, table in shared memory
+    plan = [i] * 4
     # xs, mc, mcand, f, eb, cred, C, Cg, cap, k, nx, ny, nz, credits, row box
-    # (ox, oy, oz, rx, ry, rz), n_rows, ts (or None), tpair, table
-    lib.cell_force_newton_launch.argtypes = [vp] * 6 + [i] * 15 + [vp, fp] + table
+    # (ox, oy, oz, rx, ry, rz), n_rows, ts (or None), tpair, plan, table
+    lib.cell_force_newton_launch.argtypes = [vp] * 6 + [i] * 15 + [vp, fp] + plan + table
     lib.cell_force_newton_launch.restype = i
-    # xs, mc, f, eb, cred, C, Cg, cap, nx, ny, nz, look, t1, t2, rows, degp,
-    # geom, box, lj, stream
-    lib.cell_force_full_launch.argtypes = [vp] * 5 + [i] * 6 + [i, vp, vp, i, i] + [fp] * 3 + [vp]
+    # xs, mc, f, eb, cred, C, Cg, cap, nx, ny, nz, plan, look, t1, t2, rows,
+    # degp, geom, box, lj, stream
+    lib.cell_force_full_launch.argtypes = ([vp] * 5 + [i] * 6 + plan + [i, vp, vp, i, i]
+                                           + [fp] * 3 + [vp])
     lib.cell_force_full_launch.restype = i
-    lib.overflow_force_launch.argtypes = [vp] * 5 + [i] * 2 + table
+    # xo, xp, fo, fp, part, fpart, O, N, table in shared memory, table
+    lib.overflow_force_launch.argtypes = [vp] * 6 + [i] * 3 + table
     lib.overflow_force_launch.restype = i
     # values, derivs, centers, heights, new values, new derivs, bias_added,
     # scratch, H, G, geom, reach, T, windowed, stream

@@ -134,6 +134,32 @@
 //     27-stencil body it replaces evaluated it from both sides.  0.0280 ms
 //     (0.0952 before; bound 0.0012).
 //
+// Any shape.  The JAX kernels take any cell cap, any number of tail rows
+// (a multiple of 8) and any Chebyshev table; only the Hermite table is
+// bounded, at 1,024 rows, in both packages.  Here the shapes that fit a
+// block's shared memory at once keep the forms above, and the others take
+// their work in pieces (ops/cellforce.py:row_plan and k2_plan choose, the
+// launchers check the plan against the shared memory it needs):
+//   - the row pass (K1, K6, K7) up to k = SMALL_K with its table in shared
+//     memory is k1_rows as above; past it k1_rows_pieces takes the 14
+//     cells' candidates a piece of ballot words at a time (a piece's
+//     compacted candidates and the warps' credit accumulators are what
+//     grows with k: at k = 96 the whole row would take ~165 KB, at 128
+//     ~220 KB) and the own cell's rows a tile of up to ROW_TILE at a time,
+//     each row's sums kept in shared memory across the pieces and each
+//     piece's credits flushed to the scratch, warps in order, before the
+//     next;
+//   - K2 takes the tail rows a tile of K2_THREADS at a time, a tile a row
+//     of the grid: the tail-tail blocks become one a tile of tail rows as
+//     partners, and with more than one row tile the partners' credits are
+//     written per tile and added in tile order by k2_finish;
+//   - a Chebyshev table past TABLE_SMEM_MAX (48 KB) is read from global
+//     memory through the cache instead of shared memory (Lut).
+// Every sum keeps a fixed order: the runs repeat bitwise.  The small forms
+// run the code they ran before (in turns with it: within 2.3%); the pieces
+// form's and the row tiles' times on the 32,000-atom liquid at cap 96 are in
+// PERF.md, section 6 (K1 at k = 96 ~17x its bound).
+//
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and each entry point returns the first launch error.
 
@@ -145,19 +171,19 @@ namespace {
 constexpr int ROW_WARPS = 8;  // the row pass: each warp one live row at a time
 constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int CREDIT_THREADS = 128;
-constexpr int MAX_K = 64;
-constexpr int MAX_W = 14 * MAX_K;
-constexpr int MAX_SEG = MAX_W / 32;  // ballot words of a candidate row: 14 cells x 64 slots
-static_assert(MAX_K == 64 && MAX_SEG % 4 == 0, "slot_pitch() is 32 or 64");
-constexpr int MAX_G = 1024;
-constexpr int K2_THREADS = 128;  // k2_partners' tile of partners
+constexpr int SMALL_K = 64;  // the row pass's small form: k <= 64, one piece
+constexpr int SMALL_W = 14 * SMALL_K;
+constexpr int MAX_SEG = SMALL_W / 32;  // ballot words of a small-form row: 14 cells x 64 slots
+static_assert(SMALL_K == 64 && MAX_SEG % 4 == 0, "slot_pitch() is 32 or 64");
+constexpr int MAX_G = 1024;  // Hermite table rows (the JAX kernels' own limit)
+constexpr int K2_THREADS = 128;  // k2_partners' tile of partners, and of tail rows
 constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int K2_BATCH = 2;  // tail rows a warp evaluates together
-constexpr int MAX_O = 128;
-static_assert(MAX_O <= K2_THREADS, "k2_partners compacts the tail rows a thread per row");
-constexpr int MAX_DEG = 64;  // Chebyshev degree (the JAX default 64)
-constexpr int MAX_PANELS = 8;  // Chebyshev panels (the bench uses 4)
-static_assert(MAX_W < 32768, "compacted indices are int16");
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on Hopper (227 KB)
+// a lookup table larger than this is read from global memory (through the
+// cache) instead of shared memory
+constexpr int TABLE_SMEM_MAX = 48 * 1024;
+static_assert(SMALL_W < 32768, "compacted indices are int16");
 
 enum Lookup { HERMITE = 0, CHEB = 1 };
 
@@ -201,6 +227,26 @@ __device__ __forceinline__ void load_table(float4* tab, const float* t1, const f
   }
 }
 
+// Where a kernel reads its table: the Hermite rows, or the Chebyshev value
+// and derivative series, in shared memory or (a table past TABLE_SMEM_MAX,
+// and K2's Hermite table) in global memory.
+struct Lut {
+  const float4* herm;
+  const float *cv, *cd;
+};
+
+// the table as load_table lays it out in shared memory
+__device__ __forceinline__ Lut smem_lut(const float4* tab, const PairParams& p) {
+  const float* c = reinterpret_cast<const float*>(tab);
+  return Lut{tab, c, c + p.G * p.degp};
+}
+
+// the table where the caller passed it: t1 the Hermite rows or the value
+// series, t2 the derivative series
+__device__ __forceinline__ Lut global_lut(const float* t1, const float* t2) {
+  return Lut{reinterpret_cast<const float4*>(t1), t1, t2};
+}
+
 __device__ __forceinline__ float mimage(float d, float L, float iL) {
   return d - floorf(d * iL + 0.5f) * L;
 }
@@ -224,10 +270,11 @@ __device__ __forceinline__ void hermite_val_der(const PairParams& p, const float
 
 // Panelized Chebyshev value and dV/dr (_cheb_val_der:67-105), op for op:
 // the mask is lo <= r <= hi; for P > 1 the panel index is clamped to
-// [0, P-1] and t is not clipped.
+// [0, P-1] and t is not clipped.  cvals / cders: the (P, degp) series.
 template <bool ENERGY>
-__device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* tab,
-                                             float r, float& der, float& val) {
+__device__ __forceinline__ void cheb_eval(const PairParams& p, const float* cvals,
+                                          const float* cders, float r, float& der,
+                                          float& val) {
   der = 0.0f;
   val = 0.0f;
   if (!(r >= p.g0 && r <= p.g1)) return;
@@ -241,8 +288,8 @@ __device__ __forceinline__ void cheb_val_der(const PairParams& p, const float* t
     t = (2.0f * (rc - p.g0 - pf * p.g4) - p.g4) / p.g4;
     base = (int)pf * p.degp;
   }
-  const float* cv = tab + base;
-  const float* cd = tab + p.G * p.degp + base;
+  const float* cv = cvals + base;
+  const float* cd = cders + base;
   const float t2 = 2.0f * t;
   float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f;
   for (int k = p.degp - 1; k > 0; --k) {
@@ -273,9 +320,9 @@ __device__ __forceinline__ float pair_r2(const PairParams& p, float4 a, float4 b
 // gets -g); val only when ENERGY.  cv false (a type pair other than the
 // CV's) drops the bias term, not LJ.  Mirrors _kernel_newton_rc:604-654.
 template <bool ENERGY, int LOOK>
-__device__ __forceinline__ void pair_force(const PairParams& p, const float4* tab,
-                                           float4 a, float4 b, bool cv, float& gx,
-                                           float& gy, float& gz, float& val) {
+__device__ __forceinline__ void pair_force(const PairParams& p, const Lut& lut, float4 a,
+                                           float4 b, bool cv, float& gx, float& gy, float& gz,
+                                           float& val) {
   float dx, dy, dz;
   float r2 = pair_r2(p, a, b, dx, dy, dz);
   float r2s = fmaxf(r2, 1e-12f);
@@ -292,9 +339,9 @@ __device__ __forceinline__ void pair_force(const PairParams& p, const float4* ta
   val = 0.0f;
   if (cv) {
     if (LOOK == CHEB)
-      cheb_val_der<ENERGY>(p, reinterpret_cast<const float*>(tab), r, der, val);
+      cheb_eval<ENERGY>(p, lut.cv, lut.cd, r, der, val);
     else
-      hermite_val_der<ENERGY>(p, tab, r, der, val);
+      hermite_val_der<ENERGY>(p, lut.herm, r, der, val);
   }
   float f_over_r = fmag - der * inv_r;
   gx = f_over_r * dx;
@@ -437,6 +484,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
 
   // gather whole ballot words of candidate slots into registers
   load_table(tab, a.t1, a.t2, p, LOOK);
+  const Lut lut = smem_lut(tab, p);
   const int pitch = slot_pitch(k), wsh = pitch >> 6, words = 1 << wsh;  // 1 or 2 words per cell
   const int n_seg = 14 * words;
   const int ix = c / (a.ny * a.nz), iy = (c / a.nz) % a.ny, iz = c % a.nz;
@@ -515,7 +563,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
       const float4 b = cand[q];
       const bool cv = !TYPED || type_pair_ok(ctype[r], ctype[q], a.ti, a.tj);
       float gx, gy, gz, val;
-      pair_force<ENERGY, LOOK>(p, tab, ra, b, cv, gx, gy, gz, val);
+      pair_force<ENERGY, LOOK>(p, lut, ra, b, cv, gx, gy, gz, val);
       rx += gx;
       ry += gy;
       rz += gz;
@@ -566,6 +614,290 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows(RowArgs a, PairParams p) 
       f_cell[3 * i] = f_cell[3 * i + 1] = f_cell[3 * i + 2] = 0.0f;
       if (i < k) eb_cell[i] = 0.0f;
     }
+  }
+}
+
+// The row pass's plan: the small form (k <= SMALL_K: the whole row in one
+// piece, k1_rows) or the pieces form (k1_rows_pieces) with its piece and
+// row tile; ops/cellforce.py:row_plan chooses it, the launcher checks it.
+struct RowPlan {
+  int small;  // 1: k1_rows
+  int pww;  // ballot words (32 candidates each) a piece
+  int rt;  // rows a tile
+  int tsm;  // 1: the table in shared memory; 0: read from global memory
+};
+
+__host__ __device__ inline int cell_words(int k) { return (k + 31) >> 5; }  // ballot words a cell
+
+// The pieces form's dynamic shared memory, in float4 units: the lookup
+// table (when in shared memory), a row tile's rows and their running sums
+// (x, y, z, energy) and types, the own cell's ballot words, then a piece's
+// compacted candidates and types, the warps' credit accumulators
+// [warp][component][candidate], the piece's ballot words, each slot's
+// compacted index and the warps' lists of partners in reach (int16).
+struct PieceLayout {
+  int tab4, rows4, racc4, rtype4, obal4, cand4, ctype4, acc4, bal4, qof4, near4;
+  __host__ __device__ int total4() const {
+    return tab4 + rows4 + racc4 + rtype4 + obal4 + cand4 + ctype4 + acc4 + bal4 + qof4 + near4;
+  }
+};
+
+__host__ __device__ inline PieceLayout piece_layout(int k, int nc, bool typed, int look, int rows,
+                                                    int degp, const RowPlan& pl) {
+  const int PW = 32 * pl.pww;
+  PieceLayout l;
+  l.tab4 = pl.tsm ? table4(look, rows, degp) : 0;
+  l.rows4 = pl.rt;
+  l.racc4 = pl.rt;
+  l.rtype4 = typed ? (pl.rt + 3) / 4 : 0;
+  l.obal4 = (cell_words(k) + 3) / 4;
+  l.cand4 = PW;
+  l.ctype4 = typed ? PW / 4 : 0;
+  l.acc4 = ROW_WARPS * nc * PW / 4;
+  l.bal4 = (pl.pww + 3) / 4;
+  l.qof4 = PW / 8;
+  l.near4 = ROW_WARPS * PW / 8;
+  return l;
+}
+
+// the lattice cell of a row block: the whole lattice's block b is cell b,
+// a proper sub-box's block b its cell b, x-major
+__device__ __forceinline__ int row_cell(const RowArgs& a, int row) {
+  if (a.rx * a.ry * a.rz >= a.C) return row;
+  const int bz = row % a.rz, by = (row / a.rz) % a.ry, bx = row / (a.ry * a.rz);
+  return ((a.ox + bx) % a.nx) * (a.ny * a.nz) + ((a.oy + by) % a.ny) * a.nz + (a.oz + bz) % a.nz;
+}
+
+// cell c's neighbour at HALF_OFF[o - 1] (o = 0: c itself)
+__device__ __forceinline__ int half_cell(const RowArgs& a, int c, int o) {
+  if (o == 0) return c;
+  const int ix = c / (a.ny * a.nz), iy = (c / a.nz) % a.ny, iz = c % a.nz;
+  return wrap(ix + HALF_OFF[o - 1][0], a.nx) * (a.ny * a.nz) +
+         wrap(iy + HALF_OFF[o - 1][1], a.ny) * a.nz + wrap(iz + HALF_OFF[o - 1][2], a.nz);
+}
+
+// The row pass at any k: k1_rows' work and outputs, its candidates and rows
+// taken in pieces so that shared memory holds a bounded part of them.
+//
+// The candidates are the 14 cells' slots as ballot words, cell_words(k) a
+// cell (word w: cell o = w / cell_words(k) in HALF_OFF order after the
+// cell itself, slots 32 (w mod cell_words(k)) + lane; slots >= k are
+// empty).  The own cell's occupied slots are the rows, compacted in slot
+// order; a row tile of pl.rt of them at a time sits in shared memory with
+// its running sums.  For each row tile the candidates are taken a piece of
+// pl.pww words at a time: ballots, compaction, and then, as in k1_rows,
+// warp w takes rows w, w + ROW_WARPS, ... of the tile, lists the piece's
+// partners within reach, sums the pair terms over its lanes (one warp_sum4
+// a row and piece, added into the row's running sums: every piece of a row
+// is taken by the same warp, in order) and credits the partners into its
+// own accumulator.  After each piece the warps' accumulators are summed in
+// warp order and written at the piece's slots of the credit scratch (the
+// first row tile writes every slot, empty ones 0; a later tile adds its
+// credits to the occupied ones).  A candidate of the own cell (the self
+// block) is no partner of itself (by slot) and is credited nothing; its
+// value counts half (VCRED: whole).  After a row tile's last piece its rows'
+// sums are written into f and eb.  No atomics: the order is fixed.
+//
+// TSM: the table in shared memory, else read from global memory through
+// the cache (a Chebyshev table past TABLE_SMEM_MAX); a template parameter,
+// so that each form's loads are compiled for their memory.
+template <bool ENERGY, int LOOK, bool TYPED, bool VCRED, bool TSM>
+__global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairParams p,
+                                                             RowPlan pl) {
+  extern __shared__ float4 smem[];
+  constexpr int NC = VCRED ? 4 : 3;
+  const int k = a.k, cap = a.cap, NB = 13 * k;
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c = row_cell(a, row);
+  float* f_cell = a.f + (long)c * cap * 3;
+  float* eb_cell = a.eb + (long)row * k;
+  float* cred_cell = a.cred + (long)row * NB * NC;
+  if (c >= a.C) {  // a pad cell
+    for (int i = tid; i < cap * 3; i += ROW_THREADS) f_cell[i] = 0.0f;
+    for (int i = tid; i < k; i += ROW_THREADS) eb_cell[i] = 0.0f;
+    for (int i = tid; i < NB * NC; i += ROW_THREADS) cred_cell[i] = 0.0f;
+    return;
+  }
+
+  const int wpc = cell_words(k), n_words = 14 * wpc, PW = 32 * pl.pww, RT = pl.rt;
+  const int self_end = 32 * wpc;  // candidate indices below it are the own cell's slots
+  const PieceLayout lay = piece_layout(k, NC, TYPED, LOOK, p.G, p.degp, pl);
+  float4* tab = smem;
+  float4* rows = tab + lay.tab4;  // x, y, z, slot (as bits)
+  float4* racc = rows + lay.rows4;  // the rows' running sums: gx, gy, gz, val
+  float* rtype = reinterpret_cast<float*>(racc + lay.racc4);
+  unsigned* obal = reinterpret_cast<unsigned*>(rtype + 4 * lay.rtype4);
+  float4* cand = reinterpret_cast<float4*>(obal + 4 * lay.obal4);  // x, y, z, index (as bits)
+  float* ctype = reinterpret_cast<float*>(cand + lay.cand4);
+  float* acc = ctype + 4 * lay.ctype4;  // [warp][component][PW]
+  unsigned* bal = reinterpret_cast<unsigned*>(acc + 4 * lay.acc4);
+  short* qof = reinterpret_cast<short*>(bal + 4 * lay.bal4);
+  short* near = qof + 8 * lay.qof4 + warp * PW;
+  if (TSM) load_table(tab, a.t1, a.t2, p, LOOK);
+  const Lut lut = TSM ? smem_lut(tab, p) : global_lut(a.t1, a.t2);
+
+  // the rows' sums overwrite these at the end of their tile
+  for (int i = tid; i < cap * 3; i += ROW_THREADS) f_cell[i] = 0.0f;
+  for (int i = tid; i < k; i += ROW_THREADS) eb_cell[i] = 0.0f;
+  for (int w = warp; w < wpc; w += ROW_WARPS) {
+    const int sl = 32 * w + lane;
+    const bool live = sl < k && a.mc[(long)row * cap + sl] > 0.5f;
+    const unsigned b = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) obal[w] = b;
+  }
+  __syncthreads();
+  int n_rows = 0;
+  for (int w = 0; w < wpc; ++w) n_rows += __popc(obal[w]);
+  if (n_rows == 0) {  // no rows: no credits
+    for (int i = tid; i < NB * NC; i += ROW_THREADS) cred_cell[i] = 0.0f;
+    return;
+  }
+
+  for (int rt0 = 0; rt0 < n_rows; rt0 += RT) {
+    const int nr = min(RT, n_rows - rt0);
+    // the tile's rows: the own cell's occupied slots of rank rt0 .. rt0 + nr
+    for (int w = warp; w < wpc; w += ROW_WARPS) {
+      int before = 0;
+      for (int v = 0; v < w; ++v) before += __popc(obal[v]);
+      const unsigned b = obal[w];
+      if ((b >> lane) & 1u) {
+        const int rk = before + __popc(b & ((1u << lane) - 1u)) - rt0;
+        if (rk >= 0 && rk < nr) {
+          const int sl = 32 * w + lane;
+          const long slot = (long)c * cap + sl;
+          rows[rk] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
+                                 __int_as_float(sl));
+          if (TYPED) rtype[rk] = a.ts[slot];
+        }
+      }
+    }
+    for (int i = tid; i < nr; i += ROW_THREADS) racc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+
+    for (int w0 = 0; w0 < n_words; w0 += pl.pww) {
+      const int nw = min(pl.pww, n_words - w0);
+      // the piece's ballots
+      for (int s = warp; s < nw; s += ROW_WARPS) {
+        const int w = w0 + s, o = w / wpc, sl = 32 * (w - o * wpc) + lane;
+        bool live = false;
+        if (sl < k)
+          live = (o == 0 ? a.mc[(long)row * cap + sl]
+                         : a.mcand[(long)half_cell(a, c, o) * cap + sl]) > 0.5f;
+        const unsigned b = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) bal[s] = b;
+      }
+      __syncthreads();
+      // compact: candidate j goes to the count of occupied slots before it
+      for (int s = warp; s < nw; s += ROW_WARPS) {
+        int before = 0;
+        for (int v = 0; v < s; ++v) before += __popc(bal[v]);
+        const unsigned b = bal[s];
+        int q = -1;
+        if ((b >> lane) & 1u) {
+          const int w = w0 + s, o = w / wpc, sl = 32 * (w - o * wpc) + lane;
+          const long slot = (long)half_cell(a, c, o) * cap + sl;
+          q = before + __popc(b & ((1u << lane) - 1u));
+          cand[q] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
+                                __int_as_float(32 * w + lane));
+          if (TYPED) ctype[q] = a.ts[slot];
+        }
+        qof[32 * s + lane] = (short)q;
+      }
+      int n_live = 0;
+      for (int v = 0; v < nw; ++v) n_live += __popc(bal[v]);
+      float* wacc = acc + warp * NC * PW;
+      if (warp < nr) {
+        for (int q = lane; q < n_live; q += 32) {
+#pragma unroll
+          for (int d = 0; d < NC; ++d) wacc[d * PW + q] = 0.0f;
+        }
+      }
+      __syncthreads();
+
+      for (int r = warp; r < nr; r += ROW_WARPS) {
+        const float4 ra = rows[r];
+        const int rs = __float_as_int(ra.w);
+        int n_near = 0;  // the row's partners in reach, in candidate order
+        for (int base = 0; base < n_live; base += 32) {
+          const int q = base + lane;
+          bool in = false;
+          if (q < n_live) {
+            const float4 b = cand[q];
+            float dx, dy, dz;
+            in = __float_as_int(b.w) != rs && pair_r2(p, ra, b, dx, dy, dz) <= p.r2_far;
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, in);
+          if (in) near[n_near + __popc(m & ((1u << lane) - 1u))] = (short)q;
+          n_near += __popc(m);
+        }
+        __syncwarp();
+        float rx = 0.0f, ry = 0.0f, rz = 0.0f, re = 0.0f;
+        for (int t = lane; t < n_near; t += 32) {
+          const int q = near[t];
+          const float4 b = cand[q];
+          const bool cv = !TYPED || type_pair_ok(rtype[r], ctype[q], a.ti, a.tj);
+          float gx, gy, gz, val;
+          pair_force<ENERGY, LOOK>(p, lut, ra, b, cv, gx, gy, gz, val);
+          rx += gx;
+          ry += gy;
+          rz += gz;
+          if (__float_as_int(b.w) >= self_end) {
+            float* dst = wacc + q;
+            dst[0] += gx;
+            dst[PW] += gy;
+            dst[2 * PW] += gz;
+            if (VCRED) dst[3 * PW] += val;
+            if (ENERGY) re += val;
+          } else if (ENERGY) {
+            re += VCRED ? val : 0.5f * val;
+          }
+        }
+        // the next row rewrites the list, and another lane may credit a partner
+        __syncwarp();
+        const float tot = warp_sum4(rx, ry, rz, re, lane);
+        if ((lane & 7) == 0) reinterpret_cast<float*>(racc + r)[lane >> 3] += tot;
+      }
+      __syncthreads();
+
+      // the piece's credits at its neighbour slots: the warps' accumulators
+      // in warp order
+      const int n_used = nr < ROW_WARPS ? nr : ROW_WARPS;
+      for (int j = tid; j < 32 * nw; j += ROW_THREADS) {
+        const int w = w0 + (j >> 5), o = w / wpc, sl = 32 * (w - o * wpc) + (j & 31);
+        if (o == 0 || sl >= k) continue;
+        const int q = qof[j];
+        float sum[NC];
+#pragma unroll
+        for (int d = 0; d < NC; ++d) sum[d] = 0.0f;
+        if (q >= 0) {
+          for (int v = 0; v < n_used; ++v) {
+#pragma unroll
+            for (int d = 0; d < NC; ++d) sum[d] += acc[(v * NC + d) * PW + q];
+          }
+        }
+        float* dst = cred_cell + ((o - 1) * k + sl) * NC;
+        if (rt0 == 0) {
+#pragma unroll
+          for (int d = 0; d < NC; ++d) dst[d] = sum[d];
+        } else if (q >= 0) {
+#pragma unroll
+          for (int d = 0; d < NC; ++d) dst[d] += sum[d];
+        }
+      }
+      __syncthreads();  // the next piece rewrites the lists
+    }
+
+    // the tile's rows
+    for (int i = tid; i < nr; i += ROW_THREADS) {
+      const float4 sum = racc[i];
+      const int sl = __float_as_int(rows[i].w);
+      f_cell[3 * sl] = sum.x;
+      f_cell[3 * sl + 1] = sum.y;
+      f_cell[3 * sl + 2] = sum.z;
+      eb_cell[sl] = ENERGY ? sum.w : 0.0f;
+    }
+    __syncthreads();  // the next tile rewrites the rows
   }
 }
 
@@ -638,55 +970,66 @@ __global__ void __launch_bounds__(CREDIT_THREADS) k7_credits(RowArgs a) {
 
 // K2's dynamic shared memory, in float4 units: the Chebyshev series (a
 // Hermite table stays in global memory: a row of it is read only for a pair
-// within reach, through the cache), the tail rows a block works on,
-// compacted, and the warps' accumulators [warp][row].
+// within reach, through the cache; so does a Chebyshev table past
+// TABLE_SMEM_MAX), the tail rows a block works on, compacted (at most a
+// row tile: K2_THREADS rows), and the warps' accumulators [warp][row].
 struct K2Layout {
   int tab4, rows4, acc4;
   __host__ __device__ int total4() const { return tab4 + rows4 + acc4; }
 };
 
-__host__ __device__ inline K2Layout k2_layout(int O, int look, int rows, int degp) {
-  return K2Layout{look == HERMITE ? 0 : table4(look, rows, degp), O, K2_WARPS * O};
+__host__ __device__ inline K2Layout k2_layout(int O, int look, int rows, int degp, int tsm) {
+  const int R = O < K2_THREADS ? O : K2_THREADS;
+  return K2Layout{look == HERMITE || !tsm ? 0 : table4(look, rows, degp), R, K2_WARPS * R};
 }
 
-// K2's sweep.  Block t < gridDim.x - 1 takes the tile t of K2_THREADS low
-// slots as its partners, a thread per partner, against the live tail rows;
-// it writes its partners' fp (a masked partner's credit is 0).  The last
-// block is the tail-tail block: its partners are the O tail rows themselves
-// (the live ones count), its rows those with `own`, a row never paired with
-// itself, the energy halved, no credit written (both orders are present).
+// K2's sweep, block (t, y): row tile y, the tail rows y K2_THREADS ..
+// (y + 1) K2_THREADS - 1.  Block t < n_low takes the tile t of K2_THREADS
+// low slots as its partners, a thread per partner, against the tile's live
+// tail rows; a block t >= n_low is a tail-tail block: its partners are the
+// tail rows of tile t - n_low themselves (the live ones count), its rows
+// those with `own`, a row never paired with itself, the energy halved, no
+// credit written (both orders are present).  A low block writes its
+// partners' credits: fp (a masked partner's 0) when there is one row tile,
+// else its tile's sums into fpart[y] for k2_finish to add in tile order.
 // Either way a block writes, for each of its rows, the block's partial
-// (gx, gy, gz, val) at part[block][row]; other rows' partials stay unwritten.
-template <bool ENERGY, int LOOK>
+// (gx, gy, gz, val) at part[t][row]; other rows' partials stay unwritten.
+// TSM (Chebyshev only): the series in shared memory, else read from global
+// memory; a template parameter, so that the loads are compiled for their
+// memory.
+template <bool ENERGY, int LOOK, bool TSM>
 __global__ void __launch_bounds__(K2_THREADS)
 k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
             const float* __restrict__ t1, const float* __restrict__ t2,
-            float* __restrict__ fp, float4* __restrict__ part, int O, int N, PairParams p) {
+            float* __restrict__ fp, float* __restrict__ fpart, float4* __restrict__ part, int O,
+            int N, int n_low, PairParams p) {
   extern __shared__ float4 smem[];
   __shared__ int wcount[K2_WARPS];
-  const K2Layout lay = k2_layout(O, LOOK, p.G, p.degp);
-  const float4* tab = LOOK == HERMITE ? reinterpret_cast<const float4*>(t1) : smem;
+  const K2Layout lay = k2_layout(O, LOOK, p.G, p.degp, TSM);
+  if (TSM) load_table(smem, t1, t2, p, LOOK);
+  const Lut lut = TSM ? smem_lut(smem, p) : global_lut(t1, t2);
   float4* rows = smem + lay.tab4;  // the block's rows in row order: x, y, z, row (as bits)
   float4* acc = rows + lay.rows4;  // [warp][row]: gx, gy, gz, val
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const bool tail = blockIdx.x == gridDim.x - 1;
-  const int n = blockIdx.x * K2_THREADS + tid;
+  const bool tail = (int)blockIdx.x >= n_low;
+  const int r0 = blockIdx.y * K2_THREADS, nr = min(K2_THREADS, O - r0);
+  const int n = (tail ? blockIdx.x - n_low : blockIdx.x) * K2_THREADS + tid;
   float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (tail) {
-    if (tid < O) b = make_float4(xo[tid], xo[O + tid], xo[2 * O + tid], xo[3 * O + tid]);
+    if (n < O) b = make_float4(xo[n], xo[O + n], xo[2 * O + n], xo[3 * O + n]);
   } else if (n < N) {
     b = make_float4(xp[n], xp[N + n], xp[2 * N + n], xp[3 * N + n]);
   }
-  if (LOOK == CHEB) load_table(smem, t1, t2, p, LOOK);
 
-  // compact the block's tail rows, a thread per row (O <= K2_THREADS)
+  // compact the block's tail rows, a thread per row of the tile
   bool mine_row = false;
   float4 a = b;
-  if (tid < O) {
-    mine_row = xo[(tail ? 4 : 3) * O + tid] > 0.5f;
-    a = make_float4(xo[tid], xo[O + tid], xo[2 * O + tid], __int_as_float(tid));
+  if (tid < nr) {
+    const int i = r0 + tid;
+    mine_row = xo[(tail ? 4 : 3) * O + i] > 0.5f;
+    a = make_float4(xo[i], xo[O + i], xo[2 * O + i], __int_as_float(i));
   }
   const unsigned bal = __ballot_sync(0xffffffffu, mine_row);
   if (lane == 0) wcount[warp] = __popc(bal);
@@ -698,12 +1041,12 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
     n_rows += wcount[w];
   }
   if (mine_row) rows[off + __popc(bal & ((1u << lane) - 1u))] = a;
-  float4* wacc = acc + warp * O;
+  float4* wacc = acc + warp * lay.rows4;
   for (int q = lane; q < n_rows; q += 32) wacc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
 
   const bool placed = b.w > 0.5f;
-  const int self = tail ? tid : -1;  // the row this partner is, in the tail-tail block
+  const int self = tail ? n : -1;  // the row this partner is, in a tail-tail block
   float cx = 0.0f, cy = 0.0f, cz = 0.0f;
   for (int q0 = 0; q0 < n_rows; q0 += 32) {
     // the rows within reach of this partner, 32 rows at a time
@@ -732,7 +1075,7 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
 #pragma unroll
       for (int u = 0; u < K2_BATCH; ++u) {
         const int q = max(qs[u], 0);
-        pair_force<ENERGY, LOOK>(p, tab, rows[q0 + q], b, true, g[u][0], g[u][1], g[u][2],
+        pair_force<ENERGY, LOOK>(p, lut, rows[q0 + q], b, true, g[u][0], g[u][1], g[u][2],
                                  g[u][3]);
         if (qs[u] < 0 || !((mine >> q) & 1u)) g[u][0] = g[u][1] = g[u][2] = g[u][3] = 0.0f;
         if (tail) g[u][3] *= 0.5f;
@@ -750,15 +1093,22 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
     }
   }
   if (!tail && n < N) {
-    fp[n] = -cx;
-    fp[N + n] = -cy;
-    fp[2 * N + n] = -cz;
+    if (gridDim.y == 1) {
+      fp[n] = -cx;
+      fp[N + n] = -cy;
+      fp[2 * N + n] = -cz;
+    } else {
+      float* fq = fpart + (long)blockIdx.y * 3 * N;
+      fq[n] = cx;
+      fq[N + n] = cy;
+      fq[2 * N + n] = cz;
+    }
   }
   __syncthreads();
   for (int q = tid; q < n_rows; q += K2_THREADS) {  // the block's partials, warps in order
     float4 s = acc[q];
     for (int w = 1; w < K2_WARPS; ++w) {
-      const float4 t = acc[w * O + q];
+      const float4 t = acc[w * lay.rows4 + q];
       s.x += t.x;
       s.y += t.y;
       s.z += t.z;
@@ -768,23 +1118,35 @@ k2_partners(const float* __restrict__ xo, const float* __restrict__ xp,
   }
 }
 
-// fo of tail row i, a warp per row, lanes striding over the blocks'
-// partials: those of the n_tiles low tiles count for a live row, the
-// tail-tail block's (the last) for a row with `own`; then one shuffle tree.
-// A partial that does not count may be unwritten: it is read and dropped.
-// Writes fo whole: zeros at rows that are neither live nor owned, and in
-// the energy row when the sweep took no energy (its partials carry 0 there).
+// K2's finish.  Blocks below row_blocks: fo of tail row i, a warp per row,
+// lanes striding over the blocks' partials: those of the n_low low tiles
+// count for a live row, those of the tail-tail blocks (n_low .. n_all - 1)
+// for a row with `own`; then one shuffle tree.  A partial that does not
+// count may be unwritten: it is read and dropped.  Writes fo whole: zeros
+// at rows that are neither live nor owned, and in the energy row when the
+// sweep took no energy (its partials carry 0 there).  With n_rt > 1 row
+// tiles the blocks from row_blocks on write fp, a thread an element: minus
+// the tiles' credit sums added in tile order.
 __global__ void __launch_bounds__(K2_THREADS)
 k2_finish(const float* __restrict__ xo, const float4* __restrict__ part,
-          float* __restrict__ fo, int O, int n_tiles) {
+          const float* __restrict__ fpart, float* __restrict__ fo, float* __restrict__ fp, int O,
+          int N, int n_low, int n_all, int row_blocks, int n_rt) {
+  if ((int)blockIdx.x >= row_blocks) {
+    const long t = (long)(blockIdx.x - row_blocks) * K2_THREADS + threadIdx.x;
+    if (t >= 3L * N) return;
+    float s = 0.0f;
+    for (int y = 0; y < n_rt; ++y) s += fpart[(long)y * 3 * N + t];
+    fp[t] = -s;
+    return;
+  }
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * K2_WARPS + (threadIdx.x >> 5);
   if (i >= O) return;
   const bool live = xo[3 * O + i] > 0.5f, own = xo[4 * O + i] > 0.5f;
   float sx = 0.0f, sy = 0.0f, sz = 0.0f, sv = 0.0f;
-  for (int t = lane; t <= n_tiles; t += 32) {
+  for (int t = lane; t < n_all; t += 32) {
     const float4 v = part[(long)t * O + i];
-    if (t < n_tiles ? live : own) {
+    if (t < n_low ? live : own) {
       sx += v.x;
       sy += v.y;
       sz += v.z;
@@ -818,25 +1180,60 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
   return p;
 }
 
-// The row pass, one block per row (the row box's R cells, then the pad
-// cells up to n_rows), then (credits) the second pass: k1_credits over the
-// Cg cells of f, or k7_credits with the value.  Shared memory is sized by k
-// and the table; above the 48 KB default the kernel's limit is raised first.
+// The shared memory of a row-pass plan, in bytes, or -1 when the plan is
+// no valid one: the small form needs k <= SMALL_K and the table in shared
+// memory; the pieces form a piece of 1 to 14 cell_words(k) words and a row
+// tile of 1 to k rows; either must fit SMEM_MAX.
+int row_bytes(int k, int nc, bool typed, int look, int rows, int degp, const RowPlan& pl) {
+  long bytes;
+  if (pl.small) {
+    if (k > SMALL_K || !pl.tsm) return -1;
+    bytes = 16L * row_layout(k, nc, typed, look, rows, degp).total4();
+  } else {
+    if (pl.pww < 1 || pl.pww > 14 * cell_words(k) || pl.rt < 1 || pl.rt > k ||
+        (look == HERMITE && !pl.tsm))
+      return -1;
+    bytes = 16L * piece_layout(k, nc, typed, look, rows, degp, pl).total4();
+  }
+  return bytes <= SMEM_MAX ? (int)bytes : -1;
+}
+
+// raise a kernel's dynamic shared memory limit above the 48 KB default
+template <class Kern>
+cudaError_t smem_limit(Kern kern, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The row pass by the plan's form, one block per row (the row box's R
+// cells, then the pad cells up to n_rows), then (credits) the second pass:
+// k1_credits over the Cg cells of f, or k7_credits with the value.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
 cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const PairParams& p,
-                       cudaStream_t st) {
-  auto kern = k1_rows<ENERGY, LOOK, TYPED, VCRED>;
-  const int bytes = 16 * row_layout(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp).total4();
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                       const RowPlan& pl, cudaStream_t st) {
+  const int bytes = row_bytes(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp, pl);
+  if (bytes < 0) return cudaErrorInvalidValue;
+  if (pl.small) {
+    auto kern = k1_rows<ENERGY, LOOK, TYPED, VCRED>;
+    cudaError_t e = smem_limit(kern, bytes);
     if (e != cudaSuccess) return e;
+    kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p);
+  } else {
+    // a Hermite table (at most 16 KB) is always in shared memory
+    auto kern = k1_rows_pieces<ENERGY, LOOK, TYPED, VCRED, true>;
+    if constexpr (LOOK == CHEB) {
+      if (!pl.tsm) kern = k1_rows_pieces<ENERGY, LOOK, TYPED, VCRED, false>;
+    }
+    cudaError_t e = smem_limit(kern, bytes);
+    if (e != cudaSuccess) return e;
+    kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p, pl);
   }
-  kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !credits) return e;
   if (VCRED) {
-    const int n = a.C * a.k * 4;
-    k7_credits<<<(n + CREDIT_THREADS - 1) / CREDIT_THREADS, CREDIT_THREADS, 0, st>>>(a);
+    const long n = (long)a.C * a.k * 4;
+    k7_credits<<<(unsigned)((n + CREDIT_THREADS - 1) / CREDIT_THREADS), CREDIT_THREADS, 0, st>>>(
+        a);
   } else {
     const long n = (long)Cg * a.cap * 3;
     k1_credits<<<(unsigned)((n + CREDIT_THREADS - 1) / CREDIT_THREADS), CREDIT_THREADS, 0, st>>>(
@@ -847,52 +1244,61 @@ cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const
 
 template <int LOOK, bool TYPED>
 cudaError_t k1_energy(const RowArgs& a, int Cg, int n_rows, int energy, bool credits,
-                      const PairParams& p, cudaStream_t st) {
-  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, st)
-                : row_launch<false, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, st);
+                      const PairParams& p, const RowPlan& pl, cudaStream_t st) {
+  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, st)
+                : row_launch<false, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, st);
 }
 
 cudaError_t k1_dispatch(const RowArgs& a, int Cg, int n_rows, int look, int energy, bool credits,
-                        const PairParams& p, cudaStream_t st) {
+                        const PairParams& p, const RowPlan& pl, cudaStream_t st) {
   const bool typed = a.ts != nullptr;
   if (look == CHEB)
-    return typed ? k1_energy<CHEB, true>(a, Cg, n_rows, energy, credits, p, st)
-                 : k1_energy<CHEB, false>(a, Cg, n_rows, energy, credits, p, st);
-  return typed ? k1_energy<HERMITE, true>(a, Cg, n_rows, energy, credits, p, st)
-               : k1_energy<HERMITE, false>(a, Cg, n_rows, energy, credits, p, st);
+    return typed ? k1_energy<CHEB, true>(a, Cg, n_rows, energy, credits, p, pl, st)
+                 : k1_energy<CHEB, false>(a, Cg, n_rows, energy, credits, p, pl, st);
+  return typed ? k1_energy<HERMITE, true>(a, Cg, n_rows, energy, credits, p, pl, st)
+               : k1_energy<HERMITE, false>(a, Cg, n_rows, energy, credits, p, pl, st);
 }
 
-// The sweep over the tiles of low slots and the tail-tail block, then the
-// finish.
+// K2's tiles: n_low of the N low slots, and as many of the O tail rows as
+// tail-tail partners and as row tiles
+inline int k2_tiles(int n) { return (n + K2_THREADS - 1) / K2_THREADS; }
+
+// The sweep over the low tiles and the tail-tail blocks, each row tile a
+// row of the grid, then the finish.
 template <bool ENERGY, int LOOK>
 cudaError_t k2_launch(const float* xo, const float* xp, const float* t1, const float* t2,
-                      float* fo, float* fp, float4* part, int O, int N, const PairParams& p,
-                      cudaStream_t st) {
-  const int n_tiles = (N + K2_THREADS - 1) / K2_THREADS;
-  const int bytes = 16 * k2_layout(O, LOOK, p.G, p.degp).total4();  // under 48 KB at the limits
-  k2_partners<ENERGY, LOOK><<<n_tiles + 1, K2_THREADS, bytes, st>>>(xo, xp, t1, t2, fp, part, O,
-                                                                    N, p);
-  cudaError_t e = cudaGetLastError();
+                      float* fo, float* fp, float* fpart, float4* part, int O, int N, int tsm,
+                      int bytes, const PairParams& p, cudaStream_t st) {
+  const int n_low = k2_tiles(N), n_tail = k2_tiles(O);  // n_tail: row tiles too
+  // a Hermite table is always read from global memory
+  auto kern = k2_partners<ENERGY, LOOK, false>;
+  if constexpr (LOOK == CHEB) {
+    if (tsm) kern = k2_partners<ENERGY, LOOK, true>;
+  }
+  cudaError_t e = smem_limit(kern, bytes);
   if (e != cudaSuccess) return e;
-  k2_finish<<<(O + K2_WARPS - 1) / K2_WARPS, K2_THREADS, 0, st>>>(xo, part, fo, O, n_tiles);
+  kern<<<dim3(n_low + n_tail, n_tail), K2_THREADS, bytes, st>>>(xo, xp, t1, t2, fp, fpart, part, O,
+                                                              N, n_low, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int row_blocks = (O + K2_WARPS - 1) / K2_WARPS;
+  const int fp_blocks = n_tail > 1 ? (int)((3L * N + K2_THREADS - 1) / K2_THREADS) : 0;
+  k2_finish<<<row_blocks + fp_blocks, K2_THREADS, 0, st>>>(xo, part, fpart, fo, fp, O, N, n_low,
+                                                            n_low + n_tail, row_blocks, n_tail);
   return cudaGetLastError();
 }
 
 bool table_ok(int look, int rows, int degp) {
   if (look == HERMITE) return rows >= 1 && rows <= MAX_G;
-  return look == CHEB && rows >= 1 && rows <= MAX_PANELS && degp >= 2 && degp <= MAX_DEG + 1;
+  return look == CHEB && rows >= 1 && degp >= 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-int edm_max_k() { return MAX_K; }
 int edm_max_g() { return MAX_G; }
-int edm_max_o() { return MAX_O; }
-int edm_k2_tile() { return K2_THREADS; }  // partners per block: sizes K2's partials
-int edm_max_deg() { return MAX_DEG; }
-int edm_max_panels() { return MAX_PANELS; }
+int edm_k2_tile() { return K2_THREADS; }  // partners (and tail rows) a tile: sizes K2's scratch
 const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // K1 (credits = 1: the credits applied by the second pass) or K6
@@ -908,15 +1314,17 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // (t1 = cval, t2 = cder, (P, degp) each, rows = P); geom: 5 f32 constants
 // (see PairParams); lj = {four_eps, sig2, rcut};
 // box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
-// types and tpair = {ti, tj} for the typed CV, or null for none
+// types and tpair = {ti, tj} for the typed CV, or null for none; plan =
+// {small, piece words, row tile, table in shared memory}
+// (ops/cellforce.py:row_plan), checked by row_bytes
 int cell_force_newton_launch(const float* xs, const float* mc, const float* mcand, float* f,
                              float* eb, float* cred, int C, int Cg, int cap, int k, int nx,
                              int ny, int nz, int credits, int ox, int oy, int oz, int rx, int ry,
-                             int rz, int n_rows, const float* ts, const float* tpair, int look,
-                             const float* t1, const float* t2, int rows, int degp,
-                             const float* geom, const float* box, const float* lj, int energy,
-                             void* stream) {
-  if (!table_ok(look, rows, degp) || k < 1 || k > MAX_K || k > cap || Cg < C)
+                             int rz, int n_rows, const float* ts, const float* tpair, int small,
+                             int pww, int rt, int tsm, int look, const float* t1, const float* t2,
+                             int rows, int degp, const float* geom, const float* box,
+                             const float* lj, int energy, void* stream) {
+  if (!table_ok(look, rows, degp) || k < 1 || k > cap || Cg < C)
     return (int)cudaErrorInvalidValue;
   const int o[3] = {ox, oy, oz}, r[3] = {rx, ry, rz}, n[3] = {nx, ny, nz};
   for (int d = 0; d < 3; ++d)
@@ -926,43 +1334,58 @@ int cell_force_newton_launch(const float* xs, const float* mc, const float* mcan
   RowArgs a{xs, mc, ts, t1, t2, ts ? tpair[0] : 0.0f, ts ? tpair[1] : 0.0f,
             f, eb, cred, C, cap, k, nx, ny, nz, mcand, ox, oy, oz, rx, ry, rz};
   return (int)k1_dispatch(a, Cg, n_rows, look, energy, credits != 0,
-                          make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
+                          make_params(rows, degp, geom, box, lj), RowPlan{small, pww, rt, tsm},
+                          (cudaStream_t)stream);
 }
 
 // K7: the row pass at full cap with the value credited too, then the second
 // pass; Chebyshev only (look must be 1), energy always.  f (Cg, cap, 3),
-// eb (Cg, cap) and the scratch cred (Cg, 13, cap, 4) are written whole.
+// eb (Cg, cap) and the scratch cred (Cg, 13, cap, 4) are written whole;
+// plan as for K1 (at k = cap, four components).
 int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb, float* cred,
-                           int C, int Cg, int cap, int nx, int ny, int nz, int look,
-                           const float* t1, const float* t2, int rows, int degp,
-                           const float* geom, const float* box, const float* lj, void* stream) {
-  if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || cap > MAX_K || Cg < C)
+                           int C, int Cg, int cap, int nx, int ny, int nz, int small, int pww,
+                           int rt, int tsm, int look, const float* t1, const float* t2, int rows,
+                           int degp, const float* geom, const float* box, const float* lj,
+                           void* stream) {
+  if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || Cg < C)
     return (int)cudaErrorInvalidValue;
   RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz,
             mc, 0, 0, 0, nx, ny, nz};
-  return (int)row_launch<true, CHEB, false, true>(
-      a, Cg, Cg, true, make_params(rows, degp, geom, box, lj), (cudaStream_t)stream);
+  return (int)row_launch<true, CHEB, false, true>(a, Cg, Cg, true,
+                                                  make_params(rows, degp, geom, box, lj),
+                                                  RowPlan{small, pww, rt, tsm},
+                                                  (cudaStream_t)stream);
 }
 
 // K2.  xo (5, O): x, y, z, mask, own; xp (4, N): x, y, z, mask; fo (4, O) and
-// fp (3, N) are written whole; part: the (ceil(N / edm_k2_tile()) + 1, O, 4)
-// scratch, 16-byte aligned
+// fp (3, N) are written whole; part: the (ceil(N / edm_k2_tile()) +
+// ceil(O / edm_k2_tile()), O, 4) scratch, 16-byte aligned; fpart: with more
+// than one row tile (O > edm_k2_tile()) the (ceil(O / edm_k2_tile()), 3, N)
+// scratch, else unused; tsm: a Chebyshev table in shared memory
+// (ops/cellforce.py:k2_plan), checked against its size
 int overflow_force_launch(const float* xo, const float* xp, float* fo, float* fp, float* part_,
-                          int O, int N, int look, const float* t1, const float* t2, int rows,
-                          int degp, const float* geom, const float* box, const float* lj,
-                          int energy, void* stream) {
-  if (!table_ok(look, rows, degp) || O < 1 || O > MAX_O || N < 0)
+                          float* fpart, int O, int N, int tsm, int look, const float* t1,
+                          const float* t2, int rows, int degp, const float* geom,
+                          const float* box, const float* lj, int energy, void* stream) {
+  if (!table_ok(look, rows, degp) || O < 1 || N < 0 || k2_tiles(O) > 65535)
     return (int)cudaErrorInvalidValue;
+  if (tsm && (look != CHEB || 16 * table4(look, rows, degp) > TABLE_SMEM_MAX))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = 16 * k2_layout(O, look, rows, degp, tsm).total4();
   cudaStream_t st = (cudaStream_t)stream;
   PairParams p = make_params(rows, degp, geom, box, lj);
   float4* part = reinterpret_cast<float4*>(part_);
   cudaError_t e;
   if (look == CHEB)
-    e = energy ? k2_launch<true, CHEB>(xo, xp, t1, t2, fo, fp, part, O, N, p, st)
-               : k2_launch<false, CHEB>(xo, xp, t1, t2, fo, fp, part, O, N, p, st);
+    e = energy ? k2_launch<true, CHEB>(xo, xp, t1, t2, fo, fp, fpart, part, O, N, tsm, bytes, p,
+                                       st)
+               : k2_launch<false, CHEB>(xo, xp, t1, t2, fo, fp, fpart, part, O, N, tsm, bytes, p,
+                                        st);
   else
-    e = energy ? k2_launch<true, HERMITE>(xo, xp, t1, t2, fo, fp, part, O, N, p, st)
-               : k2_launch<false, HERMITE>(xo, xp, t1, t2, fo, fp, part, O, N, p, st);
+    e = energy ? k2_launch<true, HERMITE>(xo, xp, t1, t2, fo, fp, fpart, part, O, N, tsm, bytes,
+                                          p, st)
+               : k2_launch<false, HERMITE>(xo, xp, t1, t2, fo, fp, fpart, part, O, N, tsm, bytes,
+                                           p, st);
   return (int)e;
 }
 

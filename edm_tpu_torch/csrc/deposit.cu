@@ -51,9 +51,14 @@
 // The TPU K4's 128-lane windows, margins and periodic fold-back are layout
 // workarounds and are gone: positions come from the wrapped point index, so
 // K4 differs from the TPU kernel's unwrapped-index positions by rounding
-// only.  The routes guarantee a support radius under G/2 points, so one
-// image per point suffices and the minimum image is two comparisons: where
-// they could differ from floor(d / L + 1/2) the point is out of support.
+// only.  Where a hill's reach (2 reach + 2 points) and one tile fit in the
+// grid, its support radius is under G/2 points, so one image per point
+// suffices and the minimum image is two comparisons: where they could
+// differ from floor(d / L + 1/2) the point is out of support.  Where they
+// do not (dep_wide: a hill as wide as the period, which K5's route takes),
+// a hill is listed on every tile and each point takes its minimum image by
+// floor(d / L + 1/2), as the plain versions and the TPU K5 do (the WIDE
+// forms of both kernels); any hill width works.
 //
 // What bounds them (times: device time per launch in a round's profile,
 // chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).  K4 at the bench shape
@@ -107,6 +112,24 @@ struct DepParams {
   int T;  // columns of a hill's row of partial integrals
 };
 
+// Whether a hill's reach, 2 reach + 2 points, together with one tile can
+// span the whole grid (the route's tile, the grid's G points): then a hill
+// is listed on every tile, and the points take the minimum image by
+// floor(d / L + 1/2), as the plain versions do, since more than half the
+// period may lie in a hill's support.
+__host__ __device__ inline bool dep_wide(int reach, int tile, int G) {
+  return 2L * reach + 2 + tile > G;
+}
+
+// The periodic minimum image of d = x_i - c_j (both in [gmin, gmax]).  With
+// a support radius under L/2 (WIDE false) two comparisons suffice: where
+// they could differ from floor(d / L + 1/2) the point is out of support.
+template <bool WIDE>
+__device__ __forceinline__ float dep_mimage(float dpd, float half_L, float L) {
+  if (WIDE) return dpd - floorf(dpd / L + 0.5f) * L;
+  return dpd >= half_L ? dpd - L : (dpd < -half_L ? dpd + L : dpd);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -125,11 +148,12 @@ __device__ __forceinline__ float dep_remap(float x, const DepParams& p) {
 
 // The tiles of `tile` points that the reach of a hill at the remapped
 // centre c meets, as (first tile, count): the points ic - reach ..
-// ic + 1 + reach around the centre's point ic, wrapped into [0, G).  The
-// wrapper guarantees 2 reach + 2 + tile <= G (the range never meets itself)
-// and count <= T.
+// ic + 1 + reach around the centre's point ic, wrapped into [0, G); where
+// the reach and a tile span the grid (dep_wide) every tile from tile 0,
+// else the range never meets itself.  count <= T.
 __device__ __forceinline__ int2 dep_hill_tiles(float c, const DepParams& p, int G, int tile,
                                                int n_blocks) {
+  if (dep_wide(p.reach, tile, G)) return make_int2(0, min(n_blocks, p.T));
   int ic = (int)floorf((c - p.gmin) / p.dx) % G;
   if (ic < 0) ic += G;
   int lo = ic - p.reach, hi = ic + 1 + p.reach;
@@ -174,8 +198,8 @@ __device__ __forceinline__ void dep_store(float* __restrict__ dst, int i0, int G
 }
 
 // K4: one block per tile of PPT * DEP_THREADS points; thread t owns the PPT
-// neighbouring points from tile start + PPT * t.
-template <int PPT>
+// neighbouring points from tile start + PPT * t.  WIDE: dep_wide.
+template <int PPT, bool WIDE>
 __global__ void __launch_bounds__(DEP_THREADS)
 dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
           const float* __restrict__ centers, const float* __restrict__ heights,
@@ -241,8 +265,7 @@ dep_tiles(const float* __restrict__ values, const float* __restrict__ derivs,
 #pragma unroll
       for (int q = 0; q < PPT; ++q) {
         if (i0 + q >= G) continue;
-        float dpd = xx[q] - cl;
-        dpd = dpd >= half_L ? dpd - p.L : (dpd < -half_L ? dpd + p.L : dpd);
+        const float dpd = dep_mimage<WIDE>(xx[q] - cl, half_L, p.L);
         const float dp = dpd / p.sigma;
         const float dp2 = dp * dp;
         if (dp2 < SUPPORT) {
@@ -319,7 +342,8 @@ __device__ __forceinline__ void dep_exchange(float (&s)[K5_HC], int lane) {
 // K5, pass 1: block (tile, chunk); thread t owns the K5_PPT neighbouring
 // points from tile start + K5_PPT * t.  Writes the block's partial planes
 // (dv at planes + chunk * 2 Gp, dd Gp further), the listed hills' partial
-// integrals, and live[chunk * tiles + tile].
+// integrals, and live[chunk * tiles + tile].  WIDE: dep_wide.
+template <bool WIDE>
 __global__ void __launch_bounds__(DEP_THREADS)
 dep_dense_tiles(const float* __restrict__ centers, const float* __restrict__ heights,
                 float* __restrict__ part, float* __restrict__ planes, int* __restrict__ live,
@@ -379,8 +403,7 @@ dep_dense_tiles(const float* __restrict__ centers, const float* __restrict__ hei
       const float cl = sc[l], hl = sh[l];
 #pragma unroll
       for (int q = 0; q < K5_PPT; ++q) {
-        float dpd = xx[q] - cl;
-        dpd = dpd >= half_L ? dpd - p.L : (dpd < -half_L ? dpd + p.L : dpd);
+        const float dpd = dep_mimage<WIDE>(xx[q] - cl, half_L, p.L);
         const float dp = dpd * p.inv_sigma;
         const float dp2 = dp * dp;
         const float ex = expf(-dp2);
@@ -482,9 +505,10 @@ cudaError_t dep_windowed_launch(const float* values, const float* derivs, const 
                                 cudaStream_t st) {
   constexpr int TILE = K4_PPT * DEP_THREADS;
   const int n_blocks = (G + TILE - 1) / TILE;
-  if (2 * p.reach + 2 + TILE > G || p.T < 1) return cudaErrorInvalidValue;
-  dep_tiles<K4_PPT><<<n_blocks, DEP_THREADS, 0, st>>>(values, derivs, centers, heights, out_v,
-                                                      out_d, part, H, G, p);
+  if (p.T < 1) return cudaErrorInvalidValue;
+  auto kern = dep_wide(p.reach, TILE, G) ? dep_tiles<K4_PPT, true> : dep_tiles<K4_PPT, false>;
+  kern<<<n_blocks, DEP_THREADS, 0, st>>>(values, derivs, centers, heights, out_v, out_d, part, H,
+                                         G, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || H == 0) return e;
   dep_bias_added<<<(H + DEP_WARPS - 1) / DEP_WARPS, DEP_THREADS, 0, st>>>(
@@ -499,11 +523,12 @@ cudaError_t dep_dense_launch(const float* values, const float* derivs, const flo
   constexpr int TILE = K5_PPT * DEP_THREADS;
   const int n_tiles = (G + TILE - 1) / TILE, n_chunks = (H + K5_HC - 1) / K5_HC;
   const int Gp = (G + 3) / 4 * 4;
-  if (2 * p.reach + 2 + TILE > G || p.T < 1 || n_chunks > 65535) return cudaErrorInvalidValue;
+  if (p.T < 1 || n_chunks > 65535) return cudaErrorInvalidValue;
   const DenseScratch d = dense_scratch(H, G, p.T);
   int* live = reinterpret_cast<int*>(scratch + d.live);
   if (H > 0) {
-    dep_dense_tiles<<<dim3(n_tiles, n_chunks), DEP_THREADS, 0, st>>>(
+    auto kern = dep_wide(p.reach, TILE, G) ? dep_dense_tiles<true> : dep_dense_tiles<false>;
+    kern<<<dim3(n_tiles, n_chunks), DEP_THREADS, 0, st>>>(
         centers, heights, scratch + d.part, scratch + d.planes, live, H, G, Gp, p);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;

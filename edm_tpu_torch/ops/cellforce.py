@@ -21,12 +21,18 @@ a plain PyTorch version beside it:
     (``use_pallas="full"``).  Its plain version walks the 27-stencil; its
     kernel evaluates each unordered pair once over the half-stencil.
 
-K1, K6 and K7 share one CUDA row pass (``k1_rows``: a block per row cell,
-the occupied candidates compacted, a warp per occupied row over the
-partners within reach of the cutoffs); K1's credit pass (``k1_credits``)
-runs over the force planes, K7's (``k7_credits``) adds the value too.
-Together they write every element of their outputs, so the wrappers
-allocate with ``torch.empty``.
+K1, K6 and K7 share one CUDA row pass (a block per row cell, the occupied
+candidates compacted, a warp per occupied row over the partners within
+reach of the cutoffs), in two forms that ``row_plan`` picks between: up to
+k = 64 (``SMALL_K``) ``k1_rows`` takes a cell's whole row at once; past it,
+or with a Chebyshev table too large for shared memory, ``k1_rows_pieces``
+takes the candidates in pieces of ballot words and the rows in tiles, so
+any k and any table fit a block's shared memory.  K1's credit pass
+(``k1_credits``) runs over the force planes, K7's (``k7_credits``) adds the
+value too.  K2 (``k2_plan``) tiles the tail rows by 128.  Together they
+write every element of their outputs, so the wrappers allocate with
+``torch.empty``.  The one shape limit left is the Hermite table's 1,024
+rows, which the JAX kernels share.
 
 K1, K2 and K6 take either bias table: a ``HermiteTable``
 (``pair_lookup="interp"``) or a ``ChebTable`` (``pair_lookup="chebyshev"``),
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -450,43 +457,183 @@ def overflow_force_ref(xo, xp, table, *, box, lj, energy: bool):
     return fo, fp
 
 
+# ------------------------------------------------------------ launch plans
+
+# csrc/cellforce.cu's constants: the row pass's warps a block, the k its
+# small form (k1_rows) takes, a block's shared memory on the H100 (227 KB),
+# the largest lookup table kept in shared memory (a larger one is read from
+# global memory), the pieces form's shared-memory budget (three blocks an
+# SM), its most rows a tile, and K2's partners and tail rows a tile
+ROW_WARPS = 8
+SMALL_K = 64
+SMEM_MAX = 232448
+TABLE_SMEM_MAX = 48 * 1024
+PIECE_BUDGET = 72 * 1024
+ROW_TILE = 256
+K2_TILE = 128
+HERMITE, CHEB = 0, 1  # the lookup ids
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def table_bytes(look: int, rows: int, degp: int) -> int:
+    """The lookup table's bytes in shared memory: Hermite rows x float4, or
+    the Chebyshev value and derivative series (P x degp floats each)."""
+    return 16 * (rows if look == HERMITE else _ceil(2 * rows * degp, 4))
+
+
+def cell_words(k: int) -> int:
+    """Ballot words (32 slots each) of a cell's k candidate slots."""
+    return _ceil(k, 32)
+
+
+class RowPlan(NamedTuple):
+    """The row pass's launch (K1, K6, K7): the small form (``k1_rows``, the
+    whole row in one piece) or the pieces form (``k1_rows_pieces``)."""
+
+    small: bool
+    piece_words: int  # ballot words (32 candidates each) a piece; 0: small
+    row_tile: int  # rows a tile; 0: small
+    table_smem: bool  # the table in shared memory, else read from global memory
+    smem: int  # dynamic shared memory, bytes
+
+
+def _small_bytes(k, nc, typed, tb) -> int:
+    W = 14 * k
+    pitch = 32 if k <= 32 else 64
+    n4 = (W + _ceil(ROW_WARPS * nc * 13 * k, 4) + (_ceil(W, 4) if typed else 0)
+          + (14 * SMALL_K // 32) // 4 + 14 * pitch // 8 + ROW_WARPS * _ceil(W, 8))
+    return tb + 16 * n4
+
+
+def _piece_bytes(k, nc, typed, tb, pww, rt, tsm) -> int:
+    PW = 32 * pww
+    n4 = (2 * rt + (_ceil(rt, 4) if typed else 0) + _ceil(cell_words(k), 4) + PW
+          + (PW // 4 if typed else 0) + ROW_WARPS * nc * PW // 4 + _ceil(pww, 4) + PW // 8
+          + ROW_WARPS * PW // 8)
+    return (tb if tsm else 0) + 16 * n4
+
+
+@functools.lru_cache(maxsize=256)
+def row_plan(k: int, nc: int, typed: bool, look: int, rows: int, degp: int) -> RowPlan:
+    """The row pass's plan for k rows and candidates a cell, ``nc`` credit
+    components (3; K7: 4), typed or not, and the table (``look`` HERMITE or
+    CHEB, its rows or panels, degp = degree + 1): the small form when k <=
+    SMALL_K and the table fits TABLE_SMEM_MAX; else the pieces form, a row
+    tile of up to ROW_TILE rows and the most ballot words a piece that keep
+    its shared memory within PIECE_BUDGET, with the table in shared memory
+    if it fits beside one word (a Hermite table always does), else read
+    from global memory."""
+    tb = table_bytes(look, rows, degp)
+    tsm = tb <= TABLE_SMEM_MAX
+    if k <= SMALL_K and tsm:
+        return RowPlan(True, 0, 0, True, _small_bytes(k, nc, typed, tb))
+    rt = min(k, ROW_TILE)
+    # a Hermite table (at most 16 KB) stays in shared memory
+    for t in ((True, False) if tsm and look == CHEB else (tsm,)):
+        for pww in range(14 * cell_words(k), 0, -1):
+            b = _piece_bytes(k, nc, typed, tb, pww, rt, t)
+            if b <= PIECE_BUDGET:
+                return RowPlan(False, pww, rt, t, b)
+    t = look == HERMITE
+    return RowPlan(False, 1, rt, t, _piece_bytes(k, nc, typed, tb, 1, rt, t))
+
+
+def piece_candidates(k: int, plan: RowPlan) -> list:
+    """The candidates each piece of a row-pass plan takes, as the kernel maps
+    its ballot words: a list, piece by piece, of (cell offset o, slot)
+    arrays (o = 0 the cell itself, then HALF_OFFSETS order; slots >= k are
+    no candidates).  The small form is one piece."""
+    wpc = cell_words(k)
+    step = 14 * wpc if plan.small else plan.piece_words
+    out = []
+    for w0 in range(0, 14 * wpc, step):
+        w = np.repeat(np.arange(w0, min(w0 + step, 14 * wpc)), 32)
+        o, sl = w // wpc, 32 * (w % wpc) + np.tile(np.arange(32), len(w) // 32)
+        out.append(np.stack([o, sl], 1)[sl < k])
+    return out
+
+
+class K2Plan(NamedTuple):
+    """K2's launch: a grid of (low_tiles + tail_tiles, tail_tiles) blocks."""
+
+    low_tiles: int  # tiles of K2_TILE low slots (partners)
+    tail_tiles: int  # tiles of K2_TILE tail rows: the grid's y, and as partners
+    table_smem: bool  # a Chebyshev table in shared memory
+    smem: int  # dynamic shared memory, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(O: int, N: int, look: int, rows: int, degp: int) -> K2Plan:
+    """K2's plan for O tail rows and N low slots: the tail rows in tiles of
+    K2_TILE, both as the rows of a block and as the tail-tail blocks'
+    partners; a Chebyshev table in shared memory when it fits
+    TABLE_SMEM_MAX (a Hermite table is always read from global memory)."""
+    tsm = look == CHEB and table_bytes(look, rows, degp) <= TABLE_SMEM_MAX
+    R = min(O, K2_TILE)
+    smem = (table_bytes(look, rows, degp) if tsm else 0) + 16 * (R + 4 * R)
+    return K2Plan(_ceil(N, K2_TILE), _ceil(O, K2_TILE), tsm, smem)
+
+
+def k2_blocks(O: int, N: int, plan: K2Plan) -> list:
+    """K2's blocks as the kernel maps them: (block x, row tile y, tail-tail,
+    partner range, tail-row range), each range [start, stop)."""
+    out = []
+    for y in range(plan.tail_tiles):
+        rows = (y * K2_TILE, min(O, (y + 1) * K2_TILE))
+        for x in range(plan.low_tiles + plan.tail_tiles):
+            tail = x >= plan.low_tiles
+            t, n = (x - plan.low_tiles, O) if tail else (x, N)
+            out.append((x, y, tail, (t * K2_TILE, min(n, (t + 1) * K2_TILE)), rows))
+    return out
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 
-def _pair_args(table, box, lj, device):
+def _table_args(table, device):
     """The lookup's launch arguments: (lookup id, t1, t2, rows, degp, geom)
     — Hermite: id 0, the (G, 4) table, rows G, geom (glo, gdx, ghi, blo,
     bhi); Chebyshev: id 1, cval and cder (P, deg+1), rows P, degp deg+1,
-    geom ``cheb_geom`` — and the box and LJ constants, all f32."""
+    geom ``cheb_geom``.  Any Chebyshev table; a Hermite table of at most the
+    library's ``max_g`` rows (the JAX kernels' own limit)."""
     _, lim = library()
     if isinstance(table, ChebTable):
         P, degp = table.cval.shape
         check(table.cval, "cval", (P, degp), device)
         check(table.cder, "cder", (P, degp), device)
-        if not (1 <= P <= lim["max_panels"] and 2 <= degp <= lim["max_deg"] + 1):
-            raise ValueError(f"Chebyshev table with {P} panels of degree {degp - 1} is beyond "
-                             f"the kernels' limits ({lim['max_panels']} panels, degree "
-                             f"{lim['max_deg']})")
-        look = (1, table.cval, table.cder, P, degp, cheb_geom(table, torch.float32))
-    else:
-        G, glo, gdx, ghi, blo, bhi = table.geom
-        check(table.tab, "table", (G, 4), device)
-        if G > lim["max_g"]:
-            raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lim['max_g']}")
-        if table.tab.data_ptr() % 16:
-            raise ValueError("table must be 16-byte aligned")
-        look = (0, table.tab, table.tab, G, 0, (glo, gdx, ghi, blo, bhi))
+        if degp < 2:
+            raise ValueError(f"Chebyshev table of degree {degp - 1}: the kernels take degree >= 1")
+        return CHEB, table.cval, table.cder, P, degp, cheb_geom(table, torch.float32)
+    G, glo, gdx, ghi, blo, bhi = table.geom
+    check(table.tab, "table", (G, 4), device)
+    if G > lim["max_g"]:
+        raise ValueError(f"Hermite table of {G} rows is beyond the kernels' {lim['max_g']}")
+    if table.tab.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    return HERMITE, table.tab, table.tab, G, 0, (glo, gdx, ghi, blo, bhi)
+
+
+def _pair_args(look, box, lj):
+    """(lookup id, t1, t2, rows, degp, geom) of ``_table_args`` as launch
+    arguments, with the box and LJ constants, all f32."""
     lid, t1, t2, rows, degp, geom = look
     return (lid, t1.data_ptr(), t2.data_ptr(), rows, degp, f32(geom),
             f32([box[0], box[1], box[2], 1.0 / box[0], 1.0 / box[1], 1.0 / box[2]]),
             f32([4.0 * lj.epsilon, lj.sigma * lj.sigma, lj.rcut]))
 
 
+def _plan_args(plan: RowPlan):
+    return int(plan.small), plan.piece_words, plan.row_tile, int(plan.table_smem)
+
+
 def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
                    ts, type_pair, mc_cand=None, row_box=None):
     """Checks and launches K1 (``credits``: applied in the kernel) or K6
     on CUDA tensors."""
-    lib, lim = library()
+    lib, _ = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     check(xs, "xs", (Cg, cap, 3), xs.device)
@@ -494,19 +641,21 @@ def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box,
     check(mc, "mc", tuple(mc.shape), xs.device)
     mc_cand = mc if mc_cand is None else mc_cand
     check(mc_cand, "mc_cand", (Cg, cap), xs.device)
-    if not 0 < k <= min(cap, lim["max_k"]):
-        raise ValueError(f"k={k} outside 1..min(cap={cap}, {lim['max_k']})")
+    if not 0 < k <= cap:
+        raise ValueError(f"k={k} outside 1..cap={cap}")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
     types = (None, None)
     if ts is not None:
         check(ts, "ts", (Cg, cap), xs.device)
         types = (ts.data_ptr(), f32(type_pair))
-    args = _pair_args(table, box, lj, xs.device)
+    look = _table_args(table, xs.device)
+    plan = row_plan(k, 3, ts is not None, look[0], look[3], look[4])
     code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), mc_cand.data_ptr(), f.data_ptr(), eb.data_ptr(),
         cred.data_ptr(), C, Cg, cap, k, *ncells, int(credits), *origin, *rdims, mc.shape[0],
-        *types, *args, int(energy), torch.cuda.current_stream(xs.device).cuda_stream,
+        *types, *_plan_args(plan), *_pair_args(look, box, lj), int(energy),
+        torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
 
@@ -529,7 +678,9 @@ def cell_force_newton(xs, mc_rows, table, *, k: int, ncells, box, lj, energy: bo
     over the box's R cells only and the scratch is sized by R: bitwise the
     whole-lattice pass with the rows outside the box masked out.  The two
     passes write every element of ``f`` and ``eb``, so nothing is filled
-    beforehand; k is at most the library's ``max_k`` (64)."""
+    beforehand.  Any k and cap, any table the plain version takes (a
+    Hermite table of at most 1,024 rows, JAX's own limit): ``row_plan``
+    picks the row pass's form."""
     kw = dict(k=k, ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair,
               mc_cand=mc_cand, row_box=row_box)
     if _device_of(xs, "cell-force") == "cpu":
@@ -555,8 +706,7 @@ def cell_force_newton_planar(xs, mc, table, *, ncells, box, lj, energy: bool,
     """K6 (see ``cell_force_newton_planar_ref`` for the contract): K1's row
     pass at full cap, launched alone; the credit scratch is the returned
     ``cred``.  The pass writes every element of the three outputs, zeros
-    at empty slots and pad cells included; cap is at most the library's
-    ``max_k`` (64)."""
+    at empty slots and pad cells included; any cap (``row_plan``)."""
     kw = dict(ncells=ncells, box=box, lj=lj, energy=energy, ts=ts, type_pair=type_pair)
     if _device_of(xs, "cell-force") == "cpu":
         return cell_force_newton_planar_ref(xs, mc, table, **kw)
@@ -581,30 +731,31 @@ def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
     credits and adds the value credits in a fixed offset order.  With 3 or
     more cells per dimension the 27 stencil cells are distinct, so the only
     candidate carrying a row's slot id is the row itself: the kernel masks
-    the self pair by position and ``sid`` is only checked.  The cap <= 64
-    limit (the library's ``max_k``) stays: it is the row pass's."""
+    the self pair by position and ``sid`` is only checked.  Any cap
+    (``row_plan`` at k = cap, four credit components)."""
     if not isinstance(table, ChebTable):
         raise ValueError("cell_force_full evaluates a ChebTable only (the TPU kernel's contract)")
     kw = dict(ncells=ncells, box=box, lj=lj)
     if _device_of(xs, "cell-force") == "cpu":
         return cell_force_full_ref(xs, mc, sid, table, **kw)
-    lib, lim = library()
+    lib, _ = library()
     Cg, cap, _ = xs.shape
     C = int(np.prod(ncells))
     for t, name, shape in ((xs, "xs", (Cg, cap, 3)), (mc, "mc", (Cg, cap)),
                            (sid, "sid", (Cg, cap))):
         check(t, name, shape, xs.device)
-    if cap > lim["max_k"]:
-        raise ValueError(f"cell_force_full takes cap <= {lim['max_k']}, got {cap}")
     if Cg < C or min(ncells) < 3:
         raise ValueError(f"unsupported lattice {ncells} (Cg={Cg})")
     f = torch.empty_like(xs)
     eb = torch.empty((Cg, cap), dtype=xs.dtype, device=xs.device)
     cred = torch.empty((Cg, 13, cap, 4), dtype=xs.dtype, device=xs.device)
-    args = _pair_args(table, box, lj, xs.device)
+    look = _table_args(table, xs.device)
+    plan = row_plan(cap, 4, False, look[0], look[3], look[4])
+    args = _pair_args(look, box, lj)
     code = lib.cell_force_full_launch(
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
-        C, Cg, cap, *ncells, *args, torch.cuda.current_stream(xs.device).cuda_stream,
+        C, Cg, cap, *ncells, *_plan_args(plan), *args,
+        torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_full")
     cell_force_full.launches += 1
@@ -621,8 +772,10 @@ def overflow_force(xo, xp, table, *, box, lj, energy: bool):
     version's terms are exact zeros); each partner's credit is owned by one
     thread; the tail-tail block is one more block of the same sweep, and
     the per-block partial sums of the tail rows are reduced in a fixed order
-    by a second pass.  The two passes write ``fo`` and ``fp`` whole; at most
-    the library's ``max_o`` (128) tail rows."""
+    by a second pass.  The two passes write ``fo`` and ``fp`` whole.  Any
+    number of tail rows: ``k2_plan`` tiles them by K2_TILE, as the rows of a
+    block (a grid row a tile; each tile's partner credits are added in tile
+    order by the second pass) and as the tail-tail blocks' partners."""
     if _device_of(xo, "overflow-force") == "cpu":
         return overflow_force_ref(xo, xp, table, box=box, lj=lj, energy=energy)
     lib, lim = library()
@@ -630,15 +783,23 @@ def overflow_force(xo, xp, table, *, box, lj, energy: bool):
     N = xp.shape[1]
     check(xo, "xo", (5, O), xo.device)
     check(xp, "xp", (4, N), xo.device)
-    if not 0 < O <= lim["max_o"]:
+    if O < 1:
         raise ValueError(f"unsupported tail rows {O}")
-    args = _pair_args(table, box, lj, xo.device)
+    look = _table_args(table, xo.device)
+    plan = k2_plan(O, N, look[0], look[3], look[4])
+    if lim["k2_tile"] != K2_TILE:
+        raise RuntimeError(f"the library's K2 tile {lim['k2_tile']} is not {K2_TILE}")
     fo = torch.empty((4, O), dtype=xo.dtype, device=xo.device)
     fp = torch.empty((3, N), dtype=xo.dtype, device=xo.device)
-    part = torch.empty((-(-N // lim["k2_tile"]) + 1, O, 4), dtype=xo.dtype, device=xo.device)
+    part = torch.empty((plan.low_tiles + plan.tail_tiles, O, 4), dtype=xo.dtype,
+                       device=xo.device)
+    # the row tiles' credit sums, added in tile order by the finish
+    fpart = torch.empty((plan.tail_tiles if plan.tail_tiles > 1 else 0, 3, N), dtype=xo.dtype,
+                        device=xo.device)
     code = lib.overflow_force_launch(
         xo.data_ptr(), xp.data_ptr(), fo.data_ptr(), fp.data_ptr(), part.data_ptr(),
-        O, N, *args, int(energy), torch.cuda.current_stream(xo.device).cuda_stream,
+        fpart.data_ptr(), O, N, int(plan.table_smem), *_pair_args(look, box, lj), int(energy),
+        torch.cuda.current_stream(xo.device).cuda_stream,
     )
     raise_on(lib, code, "overflow_force")
     overflow_force.launches += 1

@@ -21,7 +21,8 @@ write values and derivatives once; K5's own a tile and a chunk of 32
 hills, and a second pass adds their partial planes in chunk order; a
 hill's integrals over the tiles it reaches are summed in a fixed order (no
 atomics, see ``csrc/deposit.cu``).  Both list a hill on the tiles its
-reach meets (``hill_tiles``).
+reach meets (``hill_tiles``), every tile where the reach spans the grid
+(``wide_reach``): any hill width.
 The kernels take the raw centres and remap them themselves
 (``remap_periodic_1d`` states their formula), so a launch costs no PyTorch
 call beside its four allocations.
@@ -98,22 +99,37 @@ def tiles_per_hill(gg: GaussGrid, tile: int) -> int:
     """The most tiles of ``tile`` points that a hill's reach can meet: the
     columns T of the kernels' (H, T) scratch of partial integrals.  2 reach + 2
     points in a row meet at most (2 reach + 1) // tile + 2 whole tiles, and
-    one more across the wrap seam when the last tile is short."""
+    one more across the wrap seam when the last tile is short; never more
+    than the grid's tiles (every tile, where the reach spans the grid)."""
     n_blocks = -(-gg.spec.grid.nbins[0] // tile)
     return min(n_blocks, (2 * hill_reach(gg) + 1) // tile + 3)
+
+
+def wide_reach(gg: GaussGrid, tile: int) -> bool:
+    """Whether a hill's reach (2 reach + 2 points) and one tile of ``tile``
+    points span the grid (the kernels' ``dep_wide``): then every hill is
+    listed on every tile, and more than half the period may lie in its
+    support, so the kernels take each point's minimum image by
+    floor(d / L + 1/2), as the plain versions do."""
+    return 2 * hill_reach(gg) + 2 + tile > gg.spec.grid.nbins[0]
 
 
 def hill_tiles(gg: GaussGrid, x, tile: int):
     """(first tile, count) of each hill at the remapped centres x (H,), as
     the kernels derive them (``dep_hill_tiles``): tile b holds the hill's
     partial integral at column (b - first) mod blocks when that is below
-    count."""
+    count.  Where the reach spans the grid (``wide_reach``) every hill
+    takes every tile from tile 0."""
     g = gg.spec.grid
     G, reach = g.nbins[0], hill_reach(gg)
+    n_blocks = -(-G // tile)
+    if wide_reach(gg, tile):
+        z = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+        return z, z + min(n_blocks, tiles_per_hill(gg, tile))
     ic = torch.floor((x - _scalar(g.min[0], x)) / _scalar(g.dx[0], x)).to(torch.int64) % G
     lo, hi = (ic - reach) % G, (ic + 1 + reach) % G
     first = lo // tile
-    count = (hi // tile - first) % (-(-G // tile)) + 1
+    count = (hi // tile - first) % n_blocks + 1
     return first, torch.clamp(count, max=tiles_per_hill(gg, tile))
 
 
@@ -141,14 +157,19 @@ def _terms(gg: GaussGrid, xx, x):
 
 def deposit_windowed_1d_ref(gg: GaussGrid, centers, heights):
     """Plain version of K4: per hill, the grid points within its support
-    window (wrapped periodically), accumulated hill after hill."""
+    window (wrapped periodically), accumulated hill after hill.  A window
+    wider than the grid would meet some points twice: there each point
+    takes each hill once, at its minimum image, as K5's plain version
+    computes it (and as the kernel does)."""
     spec = gg.spec
     g = spec.grid
     G = g.nbins[0]
+    half = spec.minisize[0] + 2  # covers the support radius sqrt(8) sigma / dx
+    if 2 * half + 1 > G:
+        return deposit_dense_1d_kernel_ref(gg, centers, heights)
     gmin, dx = _consts(gg)[:2]
     x, h = _inputs(gg, centers, heights)
     dev = x.device
-    half = spec.minisize[0] + 2  # covers the support radius sqrt(8) sigma / dx
     ic = torch.floor((x - gmin) / _scalar(dx, x)).to(torch.int64)
     idx = torch.remainder(ic[:, None] + torch.arange(-half, half + 1, device=dev)[None, :], G)
     xx = gmin + dx * idx.to(x.dtype)
@@ -202,9 +223,6 @@ def _launch(gg: GaussGrid, centers, heights, windowed: bool):
         raise ValueError("values and derivs must be 16-byte aligned")
     tile = lim["tile_windowed" if windowed else "tile_dense"]
     reach = hill_reach(gg)
-    if 2 * reach + 2 + tile > G:  # the dense route's windows (W < G) keep under it
-        raise ValueError(f"hill reaches of {2 * reach + 2} points are too wide for the "
-                         f"deposition kernels' tiles of {tile} on {G} points")
     T = tiles_per_hill(gg, tile)
     out_v = torch.empty_like(values)
     out_d = torch.empty_like(derivs)

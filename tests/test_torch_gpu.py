@@ -58,6 +58,12 @@ whose cells take more than one shared-memory piece (128 to 3000), row
 counts and ncalls exactly, the threshold on and off; and whole hill
 collections, half and typed, bitwise through the kernels and the plain
 versions.
+Past the kernels' old shape limits (their launch plans in
+``ops/cellforce``): K1 at k = 72 to 512 on ``chip_smoke.cap_lattice``
+(caps 96, 256 and 512: the row in pieces, at 512 the rows in tiles too),
+typed K1, K6 and K7 at cap 96, K2 with 136, 384 and 1,024 tail rows (row
+tiles), Chebyshev tables of degree 80, of 16 panels and of 1,024 panels
+(read from global memory), and K4/K5 hills whose reach spans the grid.
 Tolerances as in the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
 relative; deposited values
 and derivatives within 1e-4 and 3e-4 of max|.|, bias_added within 2e-6.
@@ -218,10 +224,44 @@ def test_overflow_force_cheb_kernel(cuda_state, panels, deg, energy):
 
 @pytest.mark.gpu
 def test_cheb_table_limits(cuda_state):
-    _, spec, st, _, gg = cuda_state
-    kw = dict(k=24, ncells=spec.ncells, box=spec.box, lj=LJ, energy=False)
+    """No Chebyshev table is refused: K1 and K2 take a degree-80 series (past
+    the old limit of 64), 16 panels of degree 16 (past the old 8 panels) and
+    1,024 panels of degree 7 (64 KB: past ``TABLE_SMEM_MAX``, read from
+    global memory), each against its plain version; the one limit left, the
+    Hermite table's 1,024 rows (JAX's own), raises."""
+    params, spec, st, _, gg = cuda_state
+    step = make_cell_step(params, LangevinParams(dt=0.002, friction=1.0, kT=0.0), LJ, spec, 10,
+                          use_pallas=True, static_do_hills=False, static_do_energy=True,
+                          static_do_rebuild=False, kernel_cap=KCAP, overflow_cap=OCAP)
+    xo, xp = step._overflow_inputs(st, st.xs)
+    for deg, panels in ((80, 1), (16, 16), (7, 1024)):
+        tab = fit_gauss_grid(gg, deg, panels)
+        assert CF.row_plan(24, 3, False, CF.CHEB, panels, deg + 1).table_smem == (panels < 1024)
+        for energy in (False, True):
+            kw = dict(k=24, ncells=spec.ncells, box=spec.box, lj=LJ, energy=energy)
+            f, eb = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+            f_ref, eb_ref = CF.cell_force_newton_ref(st.xs, st.mc, tab, **kw)
+            fo, fp = CF.overflow_force(xo, xp, tab, box=spec.box, lj=LJ, energy=energy)
+            fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tab, box=spec.box, lj=LJ,
+                                                   energy=energy)
+            torch.cuda.synchronize()
+            what = f"P={panels} deg={deg} energy={energy}"
+            if deg == 80:  # one panel of high degree: ill-conditioned in float32
+                t64 = dataclasses.replace(tab, cval=tab.cval.double(), cder=tab.cder.double())
+                f64, _ = CF.cell_force_newton_ref(st.xs.double(), st.mc.double(), t64, **kw)
+                assert float((f - f_ref).abs().max()) <= f32_error_bound(f_ref, f64, 2e-5), what
+            else:
+                assert_forces(f.cpu(), f_ref.cpu(), f"K1 {what}")
+                assert_forces(fo[:3].cpu(), fo_ref[:3].cpu(), f"K2 fo {what}")
+                assert_forces(fp.cpu(), fp_ref.cpu(), f"K2 fp {what}")
+                assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K1 energy {what}")
+                assert_energy(fo[3].sum().cpu(), fo_ref[3].sum().cpu(), f"K2 energy {what}")
+    G = 1025
+    big = CF.HermiteTable(tab=torch.zeros((G, 4), device=st.xs.device),
+                          geom=(G, 0.0, 0.01, 10.24, 0.0, 10.24))
     with pytest.raises(ValueError, match="beyond"):
-        CF.cell_force_newton(st.xs, st.mc, fit_gauss_grid(gg, 80, 1), **kw)
+        CF.cell_force_newton(st.xs, st.mc, big, k=24, ncells=spec.ncells, box=spec.box, lj=LJ,
+                             energy=False)
 
 
 def _deposit_case(windowed):
@@ -322,13 +362,56 @@ def test_deposit_kernel_raw_centres(cuda_state, poisoned_empty, windowed, H, car
 
 @pytest.mark.gpu
 def test_windowed_kernel_rejects_wide_windows(cuda_state):
-    """Called directly on a grid of the dense route, K4 raises: a hill's
-    reach would meet itself around the period."""
+    """Called directly on a grid of the dense route, K4 no longer raises:
+    a hill whose reach meets itself around the period is listed on every
+    tile, each point taking it once at its minimum image, as its plain
+    version (there K5's) computes it."""
     gg = tg.GaussGrid.create([0], [10], [10.0 / 16384], [True], [1.2],
                              device=torch.device("cuda", 0))
-    c = torch.zeros((2, 1), device=gg.grid.values.device)
-    with pytest.raises(ValueError, match="too wide"):
-        DK.deposit_windowed_1d(gg, c, torch.ones(2, device=c.device))
+    c = torch.tensor([[0.0], [3.3]], device=gg.grid.values.device)
+    h = torch.tensor([1.0, 0.5], device=c.device)
+    assert DK.wide_reach(gg, 1024)
+    _check_deposit(DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref, gg, c, h)
+
+
+def _check_deposit(kernel, ref, gg, c, h):
+    """One deposition through ``kernel`` against ``ref``: one launch, the
+    values and derivatives within 1e-4 and 3e-4 of max|.|, bias_added
+    within 2e-6, a bitwise repeat."""
+    n0 = kernel.launches
+    out, ba = kernel(gg, c, h)
+    out_ref, ba_ref = ref(gg, c, h)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    for a, b, rel in ((out.grid.values, out_ref.grid.values, 1e-4),
+                      (out.grid.derivs, out_ref.grid.derivs, 3e-4)):
+        assert float((a - b).abs().max()) <= rel * float(b.abs().max())
+    assert float((ba - ba_ref).abs().max()) <= 2e-6 * max(1.0, float(ba_ref.abs().max()))
+    out2, ba2 = kernel(gg, c, h)
+    assert torch.equal(out.grid.values, out2.grid.values) and torch.equal(ba, ba2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windowed", [True, False])
+@pytest.mark.parametrize("G, sigma", [(16384, 1.8), (16384, 4.0), (40000, 3.0), (17000, 1.7)])
+def test_deposit_kernel_grid_wide_reach(cuda_state, poisoned_empty, windowed, G, sigma):
+    """K4 and K5 with hills whose reach spans the grid (``wide_reach``: the
+    support radius sqrt(8) sigma up to more than the whole period), on a
+    carried grid, raw centres on and off the grid: against their plain
+    versions (K4's there K5's: a point takes each hill once)."""
+    dev = torch.device("cuda", 0)
+    gg = tg.GaussGrid.create([0], [10], [10.0 / G], [True], [sigma], device=dev)
+    tile = 1024 if windowed else 512
+    assert DK.wide_reach(gg, tile)
+    rng = np.random.default_rng(G)
+    gg = DK._commit(gg, torch.tensor(rng.normal(0.0, 1.0, G), dtype=torch.float32, device=dev),
+                    torch.tensor(rng.normal(0.0, 1.0, (G, 1)), dtype=torch.float32, device=dev))
+    c = torch.tensor(np.concatenate([rng.uniform(-10, 20, 37), [0.0, 10.0]])[:, None],
+                     dtype=torch.float32, device=dev)
+    h = torch.tensor(rng.uniform(0.05, 0.2, 39), dtype=torch.float32, device=dev)
+    kernel, ref = ((DK.deposit_windowed_1d, DK.deposit_windowed_1d_ref) if windowed else
+                   (DK.deposit_dense_1d_kernel, DK.deposit_dense_1d_kernel_ref))
+    _check_deposit(kernel, ref, gg, c, h)
 
 
 TYPES = np.where(np.arange(600) % 2 == 0, 2, 1).astype(np.int32)  # test_torch_typed.py's
@@ -423,10 +506,12 @@ def test_cell_force_full_kernel(cuda_ids_types, cap, panels, deg):
                           2 * float((f_ref.double() - f64).abs().max())), err
     f2, eb2 = CF.cell_force_full(st.xs, st.mc, st.sid, tab, **kw)
     assert torch.equal(f, f2) and torch.equal(eb, eb2)
+    # no cap limit: an empty lattice at cap 72 (the pieces form) gives zeros
     big = torch.zeros((st.xs.shape[0], 72, 3), device=st.xs.device)
     m = torch.zeros(big.shape[:2], device=st.xs.device)
-    with pytest.raises(ValueError, match="cap <="):
-        CF.cell_force_full(big, m, m, tab, **kw)
+    f72, eb72 = CF.cell_force_full(big, m, m, tab, **kw)
+    torch.cuda.synchronize()
+    assert not bool(f72.any() or eb72.any())
 
 
 # ------------------------------------------------ the shared row pass (K1, K6, K7)
@@ -1657,3 +1742,122 @@ def test_collection_kernels_vs_plain(cuda_slab, typed):
     assert int(want[3]) > 0 and bool(want[2].any())
     for name, a, b in zip(("hills", "runifs", "active", "ncalls", "truncated"), got, want):
         assert torch.equal(a, b), name
+
+
+# ---------------------------------------- any cap, tail length and table (K1, K2, K6, K7)
+
+
+@pytest.fixture(scope="module")
+def cap_states(cuda_state):
+    """``chip_smoke.cap_lattice`` on the card at caps 96, 256 and 512 (3^3
+    cells, one full, one empty), with slot ids and the binary types:
+    {cap: (spec, state)}."""
+    from chip_smoke import cap_lattice, lattice_state
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for cap in (96, 256, 512):
+        pts, box, cap, types = cap_lattice(cap)
+        out[cap] = lattice_state(torch, dev, pts, box, cap, with_ids=True, types=types)
+    return out
+
+
+CAP_LJ = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)  # the dense liquid's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap, k", [(96, 72), (96, 96), (256, 128), (256, 256), (512, 512)])
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("energy", [False, True])
+def test_row_pass_k1_large_cap(cuda_state, cap_states, poisoned_empty, cap, k, kind, energy):
+    """K1 past k = 64 (the pieces form; at 512 the rows tiled too) on
+    poisoned outputs: the plain version's forces and per-row energies,
+    zeros past k, one launch, a bitwise repeat."""
+    spec, st = cap_states[cap]
+    tab = _table(cuda_state[4], kind)
+    lid, _, _, rows, degp, _ = CF._table_args(tab, st.xs.device)
+    plan = CF.row_plan(k, 3, False, lid, rows, degp)
+    assert not plan.small and (plan.row_tile < k) == (k > CF.ROW_TILE)
+    kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=CAP_LJ, energy=energy)
+    n0 = CF.cell_force_newton.launches
+    out = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(st.xs, st.mc, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.cell_force_newton.launches == n0 + 1
+    f, eb = out
+    assert_forces(f.cpu(), f_ref.cpu(), f"K1 cap={cap} k={k}")
+    assert_forces(eb.cpu(), eb_ref.cpu(), f"K1 cap={cap} k={k} eb rows")
+    assert_energy(eb.sum().cpu(), eb_ref.sum().cpu(), f"K1 cap={cap} k={k} energy")
+    assert not bool(f[:, k:].any() or f[spec.n_cells:].any() or f[st.mc < 0.5].any())
+    assert energy == bool(eb.abs().sum() > 0)
+    assert _same(out, CF.cell_force_newton(st.xs, st.mc, tab, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("energy", [False, True])
+def test_row_pass_typed_k6_k7_large_cap(cuda_state, cap_states, poisoned_empty, kind, energy):
+    """At cap 96 (the pieces form): typed K1, K6 (typed and not) and, with
+    the Chebyshev table, K7, each against its plain version on poisoned
+    outputs, with a bitwise repeat."""
+    spec, st = cap_states[96]
+    tab = _table(cuda_state[4], kind)
+    geo = dict(ncells=spec.ncells, box=spec.box, lj=CAP_LJ)
+    kw = dict(geo, energy=energy, ts=st.ts, type_pair=(1, 2))
+    out = CF.cell_force_newton(st.xs, st.mc, tab, k=96, **kw)
+    f_ref, eb_ref = CF.cell_force_newton_ref(st.xs, st.mc, tab, k=96, **kw)
+    torch.cuda.synchronize()
+    assert_forces(out[0].cpu(), f_ref.cpu(), f"typed K1 {kind}")
+    assert_energy(out[1].sum().cpu(), eb_ref.sum().cpu(), f"typed K1 {kind} energy")
+    assert _same(out, CF.cell_force_newton(st.xs, st.mc, tab, k=96, **kw))
+    for typed in (False, True):
+        kw6 = dict(geo, energy=energy, ts=st.ts if typed else None,
+                   type_pair=(1, 2) if typed else None)
+        n0 = CF.cell_force_newton_planar.launches
+        out = CF.cell_force_newton_planar(st.xs, st.mc, tab, **kw6)
+        f_ref, cred_ref, eb_ref = CF.cell_force_newton_planar_ref(st.xs, st.mc, tab, **kw6)
+        torch.cuda.synchronize()
+        assert CF.cell_force_newton_planar.launches == n0 + 1
+        assert_forces(out[0].cpu(), f_ref.cpu(), f"K6 {kind} typed={typed} rows")
+        assert_forces(out[1].cpu(), cred_ref.cpu(), f"K6 {kind} typed={typed} credits")
+        assert_energy(out[2].sum().cpu(), eb_ref.sum().cpu(), f"K6 {kind} energy")
+        assert _same(out, CF.cell_force_newton_planar(st.xs, st.mc, tab, **kw6))
+    if kind == "cheb" and energy:
+        n0 = CF.cell_force_full.launches
+        out = CF.cell_force_full(st.xs, st.mc, st.sid, tab, **geo)
+        f_ref, eb_ref = CF.cell_force_full_ref(st.xs, st.mc, st.sid, tab, **geo)
+        torch.cuda.synchronize()
+        assert CF.cell_force_full.launches == n0 + 1
+        assert_forces(out[0].cpu(), f_ref.cpu(), "K7 cap=96")
+        assert_forces(out[1].cpu(), eb_ref.cpu(), "K7 cap=96 eb rows")
+        assert_energy(out[1].sum().cpu(), eb_ref.sum().cpu(), "K7 cap=96 energy")
+        assert _same(out, CF.cell_force_full(st.xs, st.mc, st.sid, tab, **geo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("O", [136, 384, 1024])
+@pytest.mark.parametrize("live", ["one", "eight", "all"])
+@pytest.mark.parametrize("kind", ["hermite", "cheb"])
+@pytest.mark.parametrize("energy", [False, True])
+def test_overflow_force_rows_past_tile(cuda_state, poisoned_empty, O, live, kind, energy):
+    """K2 past one tile of 128 tail rows (the rows tiled over the grid's y,
+    the tail-tail blocks over the tail's tiles, the partners' credits added
+    in tile order) on poisoned outputs, ``test_overflow_force_rows``'s
+    checks."""
+    dev = torch.device("cuda", 0)
+    n_live = {"one": 1, "eight": 8, "all": O}[live]
+    xo, xp = (t.to(dev) for t in overflow_case(O, n_live, 1000, seed=O + n_live))
+    tab = _table(cuda_state[4], kind)
+    kw = dict(box=BOX, lj=LJ, energy=energy)
+    n0 = CF.overflow_force.launches
+    out = CF.overflow_force(xo, xp, tab, **kw)
+    fo_ref, fp_ref = CF.overflow_force_ref(xo, xp, tab, **kw)
+    torch.cuda.synchronize()
+    assert CF.overflow_force.launches == n0 + 1
+    fo, fp = out
+    assert_forces(fo[:3].cpu(), fo_ref[:3].cpu(), f"K2 O={O} live={n_live} fo")
+    assert_forces(fp.cpu(), fp_ref.cpu(), f"K2 O={O} live={n_live} fp")
+    assert_forces(fo[3].cpu(), fo_ref[3].cpu(), f"K2 O={O} live={n_live} energy rows")
+    assert_energy(fo[3].sum().cpu(), fo_ref[3].sum().cpu(), f"K2 O={O} live={n_live} energy")
+    assert not bool(fo[:, xo[3] < 0.5].any() or fp[:, xp[3] < 0.5].any())
+    assert _same(out, CF.overflow_force(xo, xp, tab, **kw))

@@ -13,7 +13,8 @@ here the arithmetic their designs rest on is held to the plain versions:
     support point lies inside the hill's range, and that no range exceeds T:
     on the bench's 1e6-point grid, a grid whose size is a multiple of the
     tile, the widest window the route admits, and with hills on the wrap
-    seam and outside the grid;
+    seam and outside the grid; and, where a hill's reach and a tile span
+    the grid (``wide_reach``), that the range is every tile;
   - K2 evaluates only the (tail row, partner) pairs with r^2 <= r2_far.
     ``overflow_force_ref`` with every other pair masked out equals
     ``overflow_force_ref`` bitwise: both lookups, energy on and off, the LJ
@@ -69,7 +70,7 @@ def test_hill_tiles_cover_the_support(case):
         assert W + 258 >= G // 2
     n_blocks = -(-G // tile)
     reach, T = DK.hill_reach(gg), DK.tiles_per_hill(gg, tile)
-    assert 2 * reach + 2 + tile <= G  # what the wrapper demands of the route
+    assert not DK.wide_reach(gg, tile)  # the route's reaches never meet themselves
     x = DK.remap_periodic_1d(gg, _hills(G))
     first, count = DK.hill_tiles(gg, x, tile)
     assert int(count.max()) <= T < n_blocks and int(count.min()) >= 1
@@ -90,6 +91,51 @@ def test_hill_tiles_cover_the_support(case):
         assert int(count[j]) <= len(tiles) + 2
         seen += len(tiles)
     assert seen > len(x)
+
+
+WIDE_CASES = {
+    # name: (G, sigma, tile): the reach and a tile just past the grid, the
+    # support radius past half the period, and past the whole period
+    "reach and a tile just span the grid": (16384, 1.8, 512),
+    "support past half the period": (16384, 2.5, 1024),
+    "support past the period": (4096, 4.0, 1024),
+    "ragged last tile": (17000, 1.7, 1024),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_hill_tiles_wide_reach(case):
+    """Where a hill's reach and one tile span the grid (``wide_reach``: the
+    range of 2 reach + 2 points would meet itself around the period), every
+    hill is listed on every tile from tile 0 and T is the grid's tiles; a
+    brute force over the plain version's terms finds support points on
+    tiles only inside that range; K4's plain version there equals K5's (each
+    point takes each hill once, at its minimum image), whose windows would
+    otherwise repeat points."""
+    G, sigma, tile = WIDE_CASES[case]
+    gg = tg.GaussGrid.create([0], [10], [10.0 / G], [True], [sigma], device="cpu")
+    n_blocks = -(-G // tile)
+    reach = DK.hill_reach(gg)
+    assert DK.wide_reach(gg, tile) and 2 * reach + 2 + tile > G
+    assert not DK.wide_reach(tg.GaussGrid.create([0], [10], [10.0 / G], [True], [0.05],
+                                                 device="cpu"), tile)
+    x = DK.remap_periodic_1d(gg, _hills(G, n=10))
+    first, count = DK.hill_tiles(gg, x, tile)
+    assert DK.tiles_per_hill(gg, tile) == n_blocks
+    assert bool((first == 0).all() and (count == n_blocks).all())
+    xx = 10.0 / G * torch.arange(G, dtype=torch.float32)
+    e, _ = DK._terms(gg, xx[None, :], x[:, None])
+    for j in range(len(x)):
+        tiles = np.unique((torch.nonzero(e[j] > 0)[:, 0] // tile).numpy())
+        assert len(tiles) and ((tiles - int(first[j])) % n_blocks < int(count[j])).all()
+    h = torch.linspace(0.05, 0.2, len(x))
+    out_w, ba_w = DK.deposit_windowed_1d_ref(gg, x, h)
+    out_d, ba_d = DK.deposit_dense_1d_kernel_ref(gg, x, h)
+    if 2 * (gg.spec.minisize[0] + 2) + 1 > G:  # the windows would repeat points
+        assert torch.equal(out_w.grid.values, out_d.grid.values) and torch.equal(ba_w, ba_d)
+    else:
+        assert float((out_w.grid.values - out_d.grid.values).abs().max()) <= 1e-5 * float(
+            out_d.grid.values.abs().max())
 
 
 # ------------------------------------------------------------------ K2 reach
