@@ -1,0 +1,12 @@
+"""The least time a plain step's work needs (``work.py``: the pairs within
+reach, each input byte read once and each output byte written once) over
+the device time of the operations launched inside plain-step spans, per
+plain step, % (layer: the kernels)."""
+
+
+def read(record):
+    tr, w = record.get("trace"), record.get("work")
+    if not tr or not w or not tr["span_count"].get("plain"):
+        return None
+    dev_s = tr["span_device_ns"].get("plain", 0) / tr["span_count"]["plain"] / 1e9
+    return 100.0 * w["least_s"] / dev_s if dev_s > 0 else None

@@ -1,0 +1,275 @@
+#!/usr/bin/env python3
+"""The benchmark of ``edm_tpu_torch`` on one card.
+
+    python3 edmbench/run.py --workload inlj.4m --seed 7 --seconds 10 --trace 0
+
+From the root of a checkout: reads ``BENCHMARK.json``, builds the cell's
+configuration (``edmbench/configs/<config>.json``) at its mix's size
+(``edmbench/mixes/<traffic>.json``) through the port's entry points,
+warms up whole stride cycles, then drives ``pattern_segment(pattern, 10)``
+once a cycle for ``--seconds``, a CUDA event after each.  ``--trace 0``
+prints the cell's end-to-end metrics, ``--trace 1`` its per-layer ones
+(``edmbench/metrics/<name>.py``, from the same window under
+``torch.profiler`` with a span around each phase step).  Either run then
+judges one stride cycle of the window against the plain reference
+(``check.py``) and prints one JSON line last on standard output.
+
+Exits non-zero with no result without enough CUDA cards, without the
+port, or when JAX or the JAX package is loaded once the window has
+closed.  Build and kernel caches stay inside the checkout."""
+
+import time
+
+T0 = time.perf_counter()  # set-up counts from here
+
+import argparse  # noqa: E402
+import gc  # noqa: E402
+import importlib  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+CACHE = os.path.join(ROOT, ".bench_cache")  # every build and kernel cache
+FORBIDDEN = ("jax", "jaxlib", "flax", "edm_tpu")  # top-level module names
+
+
+def load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def cell_of(bench: dict, name: str):
+    """(workload, configuration, mix) of the cell ``name``."""
+    wl = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if wl is None:
+        raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
+    conf = next(c for c in bench["configs"] if c["name"] == wl["config"])
+    cfg = load(os.path.join(ROOT, conf["file"]))
+    mix = load(os.path.join(HERE, "mixes", wl["traffic"] + ".json"))
+    return wl, cfg, mix
+
+
+def metrics_for(bench: dict, kind: str, cell: str) -> list:
+    """The ``end_to_end`` or ``per_layer`` metrics that cell ``cell``
+    reports."""
+    return [m for m in bench[kind] if "workloads" not in m or cell in m["workloads"]]
+
+
+def loaded_forbidden() -> list:
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def set_cache_env():
+    """Fixed cache directories inside the checkout, whatever the caller set."""
+    os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(CACHE, "torch_extensions")
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(CACHE, "triton")
+    os.environ["USE_FLAX"] = "0"
+    os.environ["USE_JAX"] = "0"
+
+
+def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
+             device: str = "cuda", fault=None, control_dtype=None) -> dict:
+    """Set up, warm up, run the window, judge the checked cycle.  Returns
+    {"setup_s", "window_s", "cycles", "cycle_ms", "memory_peak_bytes",
+    "record", "checks", "reference_s", "missed_pairs"}.  ``fault(phase, state_in, (state_out, y))
+    -> (state_out, y)``, for the harness's own tests, breaks every step of
+    the window underneath; ``control_dtype`` also judges the control (the
+    reference in that precision in the program's place) under
+    ``"control"`` (``control.py``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from edm_tpu_torch.models.driver import pattern_segment
+
+    from edmbench import check, system as S, trace as T, work
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sysm = S.build(cfg, mix, seed, device)
+    rng = np.random.default_rng(abs(int(seed)))
+    plain_pos = int(rng.integers(1, S.CYCLE - 1))
+    check_cycle = int(rng.integers(0, max(1, int(2 * seconds))))
+    keep = {0: "hill", plain_pos: "plain", S.CYCLE - 1: "rebuild"}
+
+    state = sysm.state
+    seg_raw = pattern_segment(sysm.pattern(), S.CYCLE)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    for _ in range(int(mix["warmup_cycles"])):
+        state, _ = seg_raw(state)
+    sync()
+
+    taken, spans = {}, {p: [] for p in S.PHASES}
+    pos, capture = [0], [False]
+
+    def call(phase, step, st):
+        p = pos[0]
+        pos[0] += 1
+        if trace:
+            with record_function(T.SPAN + phase):
+                t = time.perf_counter()
+                out = step(st)
+                spans[phase].append(time.perf_counter() - t)
+        else:
+            out = step(st)
+        if fault is not None:
+            out = fault(phase, st, out)
+        if capture[0] and p in keep:
+            taken[p] = (keep[p], st, out[0])
+        return out
+
+    seg_wrap = pattern_segment(sysm.pattern(S.wrap_steps(sysm.steps, call)), S.CYCLE)
+    sysm.state = state
+    counters0 = S.counters(sysm)
+    gc.collect()
+    gc.freeze()  # set-up's objects stay out of the window's full collections
+    prof = None
+    if trace:
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+    window_span = record_function(T.WINDOW) if trace else None
+    sync()
+    t0 = time.perf_counter()
+    setup_s = t0 - T0
+    if window_span is not None:
+        window_span.__enter__()
+    marks = []
+
+    def mark():
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    mark()
+    cycles = 0
+    while True:
+        if trace or fault is not None or cycles == check_cycle:
+            pos[0], capture[0] = 0, cycles == check_cycle
+            state, _ = seg_wrap(state)
+            capture[0] = False
+        else:
+            state, _ = seg_raw(state)
+        mark()
+        cycles += 1
+        if cycles > check_cycle and time.perf_counter() - t0 >= seconds:
+            break
+    sync()
+    t1 = time.perf_counter()
+    gc.unfreeze()
+    if window_span is not None:
+        window_span.__exit__(None, None, None)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    if on_card:
+        cycle_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated()
+    else:
+        cycle_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        peak = 0
+    sysm.state = state
+    c1 = S.counters(sysm)
+    out = dict(setup_s=setup_s, window_s=t1 - t0, cycles=cycles, cycle_ms=cycle_ms,
+               memory_peak_bytes=peak)
+    record = dict(cycles=cycles, steps=cycles * S.CYCLE, window_s=t1 - t0,
+                  host_syncs=c1["host_syncs"] - counters0["host_syncs"],
+                  tail_fallbacks=(c1["tail_fallbacks"] - counters0["tail_fallbacks"]
+                                  if "tail_fallbacks" in c1 else None),
+                  spans=spans)
+    geom = S.geometry(sysm)
+    steps = [(phase, S.snapshot(a), S.snapshot(b)) for _, (phase, a, b) in sorted(taken.items())]
+    del state, sysm, seg_raw, seg_wrap, taken, marks
+    if trace:
+        record["trace"] = T.reduce(prof) if on_card else None
+        del prof
+        plain = next(s1 for phase, _, s1 in steps if phase == "plain")
+        x = work.positions_of(plain, geom["n_atoms"])
+        record["work"] = work.plain_step(cfg, x, geom["box"])
+        record["work"]["least_s"] = work.least_seconds(record["work"])
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    values = check.judge(cfg, geom, steps)
+    out["reference_s"] = time.perf_counter() - t_ref
+    out["missed_pairs"] = values.pop("missed_pairs")
+    out["checks"] = check.verdict(values, check.limits(cfg["name"]))
+    if control_dtype is not None:
+        out["control"] = check.judge(cfg, geom, steps, control_dtype)
+        out["control"].pop("missed_pairs")
+    out["record"] = record
+    return out
+
+
+def percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    set_cache_env()
+    bench = load(os.path.join(ROOT, "BENCHMARK.json"))
+    wl, cfg, mix = cell_of(bench, args.workload)
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < wl["chips"]:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"edmbench: {args.workload} needs {wl['chips']} CUDA card(s), found {n}",
+              file=sys.stderr)
+        return 2
+    res = run_cell(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
+    correct, failed, rows = res["checks"]
+    device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=wl["chips"],
+                  memory_peak_bytes=int(res["memory_peak_bytes"]))
+    result = dict(correct=correct, attempted=len(rows), failed=len(failed))
+    if not args.trace:
+        e2e = dict(steps_per_s=res["cycles"] * 10 / res["window_s"],
+                   cycle_p95_ms=percentile(res["cycle_ms"], 95), setup_s=res["setup_s"])
+        result["metrics"] = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
+                             for m in metrics_for(bench, "end_to_end", args.workload)}
+    else:
+        rec = res["record"]
+        tr = rec["trace"]
+        device.update(busy_s=tr["busy_ns"] / 1e9, window_s=tr["window_ns"] / 1e9)
+        vals = {}
+        for m in metrics_for(bench, "per_layer", args.workload):
+            v = importlib.import_module(f"edmbench.metrics.{m['name']}").read(rec)
+            if v is not None:
+                vals[m["name"]] = {"value": v, "unit": m["unit"]}
+        result["metrics"] = vals
+        result["breakdown"] = dict(device_ops=tr["device_ops"], idle_gaps=tr["idle_gaps"])
+    result["device"] = device
+    bad = loaded_forbidden()
+    if bad:
+        print(f"edmbench: forbidden modules loaded in the benchmark's process: {bad}",
+              file=sys.stderr)
+        return 3
+    cms = sorted(res["cycle_ms"])
+    print(f"edmbench: cycle ms median {percentile(cms, 50)!r}, max {cms[-1]!r}, over twice "
+          f"the median {sum(c > 2 * percentile(cms, 50) for c in cms)}", file=sys.stderr)
+    print(f"edmbench: window {res['window_s']:.3f} s, {res['cycles']} cycles, reference "
+          f"check {res['reference_s']:.3f} s, pairs within reach the slot table did not list "
+          f"{res['missed_pairs']}", file=sys.stderr)
+    result["checks"] = {k: [r["value"], r["limit"]] for k, r in rows.items()}
+    for k, r in rows.items():
+        print(f"check {k}: {r['value']!r} (limit {r['limit']!r})", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Each per-layer reader, and the trace reduction, on synthetic records."""
+
+import importlib
+import json
+import os
+
+import pytest
+from torch.autograd import DeviceType
+
+from edmbench import trace as T, work
+from edmbench.tests.conftest import ROOT
+
+RECORD = dict(
+    cycles=100, steps=1000, window_s=10.0, host_syncs=300, tail_fallbacks=2,
+    spans={"hill": [0.005] * 100, "plain": [0.002] * 800, "rebuild": [0.004] * 100},
+    trace=dict(window_ns=10_000_000_000, busy_ns=2_500_000_000,
+               span_device_ns={"hill": 400_000_000, "plain": 1_600_000_000},
+               span_count={"hill": 100, "plain": 800, "rebuild": 100}),
+    work=dict(least_s=1e-4),
+)
+WANT = {"plain_step_host_ms": 2.0, "host_syncs_per_cycle": 3.0, "fallback_period_share": 2.0,
+        "hill_step_device_ms": 4.0, "plain_step_roofline": 5.0, "device_idle_pct": 75.0}
+
+
+@pytest.mark.parametrize("name", sorted(WANT))
+def test_reader(name):
+    mod = importlib.import_module(f"edmbench.metrics.{name}")
+    assert mod.read(RECORD) == pytest.approx(WANT[name])
+
+
+def test_every_metric_has_a_reader():
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for m in bench["per_layer"]:
+        assert callable(importlib.import_module(f"edmbench.metrics.{m['name']}").read)
+
+
+def test_readers_return_none_without_data():
+    empty = dict(cycles=10, steps=100, window_s=1.0, host_syncs=30, tail_fallbacks=None,
+                 spans={"hill": [], "plain": [], "rebuild": []}, trace=None, work=None)
+    for name in ("fallback_period_share", "hill_step_device_ms", "plain_step_roofline",
+                 "device_idle_pct", "plain_step_host_ms"):
+        assert importlib.import_module(f"edmbench.metrics.{name}").read(empty) is None
+
+
+class Ev:
+    def __init__(self, name, dev, start, dur, cid=0, lcid=0):
+        self._n, self._d, self._s, self._u, self._c, self._l = name, dev, start, dur, cid, lcid
+
+    def name(self):
+        return self._n
+
+    def device_type(self):
+        return self._d
+
+    def start_ns(self):
+        return self._s
+
+    def duration_ns(self):
+        return self._u
+
+    def correlation_id(self):
+        return self._c
+
+    def linked_correlation_id(self):
+        return self._l
+
+
+class Prof:
+    def __init__(self, events):
+        self.profiler = type("P", (), {"kineto_results": type(
+            "K", (), {"events": staticmethod(lambda: events)})()})()
+
+
+def test_trace_reduce():
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    ev = [
+        Ev(T.WINDOW, cpu, 0, 1000),
+        Ev("edmbench.hill", cpu, 0, 300), Ev("edmbench.plain", cpu, 400, 200),
+        Ev("cudaLaunchKernel", cpu, 10, 5, cid=1), Ev("cudaLaunchKernel", cpu, 450, 5, cid=2),
+        Ev("void k1_rows<96>(float*)", cuda, 100, 100, cid=1),
+        Ev("at::native::elementwise_kernel<x>", cuda, 150, 100, cid=2),  # overlaps: union 150
+        Ev("k2_tail", cuda, 900, 50, cid=3),  # launched outside every span
+        Ev("edmbench.plain", cuda, 0, 1000),  # a span's range on the device timeline
+    ]
+    r = T.reduce(Prof(ev))
+    assert r["window_ns"] == 1000
+    assert r["busy_ns"] == 150 + 50
+    assert r["span_device_ns"] == {"hill": 100, "plain": 100, "unmatched": 50}
+    assert r["span_count"] == {"hill": 1, "plain": 1}
+    assert dict(r["device_ops"]) == {"k1_rows": 1e-7, "elementwise_kernel": 1e-7,
+                                     "k2_tail": 5e-8}
+    gaps = r["idle_gaps"]
+    assert gaps[0] == ["plain", pytest.approx(650e-9)]  # 250..900: the host in a plain span
+    assert [g for _, g in gaps] == sorted([g for _, g in gaps], reverse=True)
+
+
+def test_work_counts_pairs_once():
+    """Two atoms 1.0 apart in a large box: one pair, inside the CV."""
+    import torch
+    cfg = {"bias": {"box_high": 3.0, "bias_spacing": 0.02}, "lj": {"rcut": 2.5}}
+    x = torch.tensor([[5.0, 5.0, 5.0], [6.0, 5.0, 5.0], [15.0, 15.0, 15.0]], dtype=torch.float64)
+    w = work.plain_step(cfg, x, [20.0, 20.0, 20.0])
+    assert (w["pairs"], w["cv_pairs"]) == (1, 1)
+    assert w["flops"] == work.PAIR_FLOPS + work.HERMITE_FLOPS + 3 * (
+        work.BAOAB_FLOPS + 3 * work.NORMAL_FLOPS)
