@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.gridio import write_grid, write_lammps_table
 from ..utils.hills_log import to_host
 
@@ -62,13 +63,14 @@ def pattern_segment(pattern, length: int, unroll: int = 2):
             pos += 1
 
     def seg(state):
-        ys = []
-        for _ in range(rounds):
-            for fn, cnt in pattern:
-                for _ in range(cnt):
-                    state, y = fn(state, None)
-                    ys.append(y)
-        return state, stack_outputs(ys)
+        with trace.span(trace.SEGMENT):
+            ys = []
+            for _ in range(rounds):
+                for fn, cnt in pattern:
+                    for _ in range(cnt):
+                        state, y = fn(state, None)
+                        ys.append(y)
+            return state, stack_outputs(ys)
 
     return seg
 

@@ -50,7 +50,11 @@ default) also reads the step counter once a call and picks its phase from
 static phase of that step runs.  ``tail_ovf`` changes only at rebuilds, so
 the state carries its host copy (``tail_ovf_host``) through the period; a
 feasible rebin keeps the tail within ``overflow_cap`` by construction and
-needs no read.  Each step counts its reads in ``step.host_syncs``.
+needs no read.  Each step counts its reads in ``step.host_syncs``; each
+goes through ``utils/trace.read``, which with tracing on reads inside a
+span ``edm.read.<site>``, as the step's parts run inside theirs
+(``edm.step.<phase>``, ``edm.baoab``, ``edm.force``, ``edm.collect``,
+``edm.refit``, ``edm.rebuild``).
 ``collect_records=True`` makes every step return ``(energy,
 bias.HillRoundLog)`` for the HILLS log (``driver.run_simulation``).
 
@@ -101,6 +105,7 @@ from ..ops.cellforce import (
 )
 from ..ops.collect import half_planes, p1_counts_half, p1_counts_typed, stencil_tile
 from ..ops.hashrng import normal_rows_cols, seeds_from_key, uniform_rows_cols
+from ..utils import trace
 from ..utils.hills_log import to_host
 from .cells import (
     CellSpec,
@@ -419,6 +424,7 @@ class CellStep:
         self.row_cap_local = row_cap if row_cap_local is None else row_cap_local
         self.axis_name = axis_name  # the mesh axis the rounds' bias is summed over
         self._p1_rows = None  # pass 1's row cells and slot rows (_half_rows)
+        self._span = trace.step_span(do_hills, do_energy, do_rebuild)
 
     def phases(self, step: int):
         """(hills, rebuild, energy): what the JAX host runs at ``step``."""
@@ -442,6 +448,10 @@ class CellStep:
                 f"the strides (hill {hs}, rebuild {rs}, energy {es}) put {want} there")
 
     def __call__(self, state: CellPairState, _=None):
+        with trace.span(self._span):
+            return self._step(state)
+
+    def _step(self, state: CellPairState):
         core = state.core
         spec, lp = self.spec, self.lp
         dtype = state.xs.dtype
@@ -459,23 +469,26 @@ class CellStep:
         do_hills, do_energy, do_rebuild = self.do_hills, self.do_energy, self.do_rebuild
         if None in (do_hills, do_energy, do_rebuild):
             # the JAX host's lax.conds on step % stride, decided on the host
-            want = self.phases(int(core.step))
-            self.host_syncs += 1
+            want = self.phases(trace.read(self, "step_phase", core.step))
             do_hills, do_rebuild, do_energy = (w if h is None else h for h, w in zip(
                 (do_hills, do_rebuild, do_energy), want))
-        key, sub_noise = prng.split(core.key)
-        xs, vh = self._phase1(state, seeds_from_key(sub_noise))
-        e_bias, fs = self._force(state, xs, do_energy)
-        vs = (vh + (0.5 * lp.dt / lp.mass) * fs) * state.mc[..., None]
+        with trace.span(trace.BAOAB):
+            key, sub_noise = prng.split(core.key)
+            xs, vh = self._phase1(state, seeds_from_key(sub_noise))
+        with trace.span(trace.FORCE):
+            e_bias, fs = self._force(state, xs, do_energy)
+        with trace.span(trace.BAOAB):
+            vs = (vh + (0.5 * lp.dt / lp.mass) * fs) * state.mc[..., None]
         if not do_energy:  # carry the last computed bias energy
             e_bias = core.energy
 
         log = None
         if do_hills:
-            key, sub = prng.split(key)
-            hills, runifs, active, ncalls, truncated = self._collect_hills(
-                state, xs, sub, core.last_calls, dtype
-            )
+            with trace.span(trace.COLLECT):
+                key, sub = prng.split(key)
+                hills, runifs, active, ncalls, truncated = self._collect_hills(
+                    state, xs, sub, core.last_calls, dtype
+                )
             bias_state, rec, reads = B.add_hills_round(
                 self.params, core.bias, hills[:, None], runifs,
                 core.last_calls.to(dtype), active=active, axis_name=self.axis_name,
@@ -483,8 +496,10 @@ class CellStep:
             self.host_syncs += reads
             last_calls = ncalls
             # refit at the carried table's degree and panels
-            cheb = (fit_gauss_grid(bias_state.bias, core.cheb.deg, core.cheb.npanels)
-                    if core.cheb is not None else None)
+            cheb = None
+            if core.cheb is not None:
+                with trace.span(trace.REFIT):
+                    cheb = fit_gauss_grid(bias_state.bias, core.cheb.deg, core.cheb.npanels)
             if self.collect_records:
                 log = B.HillRoundLog(torch.ones((), dtype=torch.bool, device=xs.device),
                                      hills[:, None], rec)
@@ -493,7 +508,8 @@ class CellStep:
             truncated = torch.zeros((), dtype=torch.bool, device=xs.device)
 
         if do_rebuild:
-            upd = self._rebuild(state, xs, vs, fs)
+            with trace.span(trace.REBUILD):
+                upd = self._rebuild(state, xs, vs, fs)
         else:
             upd = dict(xs=xs, vs=vs, fs=fs)
         x_at, v_at, f_at = upd.pop("atoms", (core.x, core.v, core.f))
@@ -638,24 +654,26 @@ class CellStep:
         masked to the owned cells, so that the sum counts each tail pair
         once; at full cap on a ``tail_ovf`` period), then one psum of the
         forces and the energy over the mesh."""
-        tbl = state.core.cheb
-        if tbl is None:
-            tbl = hermite_pair_table(state.core.bias.bias)
+        tbl = self._table(state)
         ts, tp = self._kernel_types(state)
         kcap = self.kernel_cap
         if kcap is None or state.tail_ovf_host:
-            e, f = self._shard_rows(xs, state.mc, ts, tp, tbl, energy)
+            with trace.span(trace.FORCE_K1):
+                e, f = self._shard_rows(xs, state.mc, ts, tp, tbl, energy)
         else:
-            e, f_low = self._shard_rows(xs[:, :kcap].contiguous(),
-                                        state.mc[:, :kcap].contiguous(), None, None, tbl, energy)
-            f = torch.zeros_like(xs)
-            f[:, :kcap] = f_low
+            with trace.span(trace.FORCE_K1):
+                e, f_low = self._shard_rows(xs[:, :kcap].contiguous(),
+                                            state.mc[:, :kcap].contiguous(), None, None, tbl,
+                                            energy)
+                f = torch.zeros_like(xs)
+                f[:, :kcap] = f_low
             if self._owns_cells():
-                fo, fp = overflow_force(*self._overflow_inputs(state, xs,
-                                                               self._owned_cells(xs.dtype)),
-                                        tbl, box=self.spec.box, lj=self.lj, energy=energy)
-                f = self._assemble_tail(state, f, fo, fp)
-                e = e + fo[3].sum()
+                with trace.span(trace.FORCE_TAIL):
+                    fo, fp = overflow_force(*self._overflow_inputs(state, xs,
+                                                                   self._owned_cells(xs.dtype)),
+                                            tbl, box=self.spec.box, lj=self.lj, energy=energy)
+                    f = self._assemble_tail(state, f, fo, fp)
+                    e = e + fo[3].sum()
         f, e = psum_many([f, e.reshape(1)], self.mesh)
         return e[0], f
 
@@ -689,6 +707,13 @@ class CellStep:
             )
         return state.ts, self.type_pair
 
+    def _table(self, state):
+        """The kernels' lookup: the carried ChebTable, else the exact
+        Hermite table of the live grid."""
+        with trace.span(trace.FORCE_TABLE):
+            tbl = state.core.cheb
+            return hermite_pair_table(state.core.bias.bias) if tbl is None else tbl
+
     def _force(self, state, xs, energy: bool):
         """(bias energy, forces (Cg, cap, 3)) by ``use_pallas``: the XLA
         pass on False, K7 on "full", K6 and the credit subtraction on
@@ -701,23 +726,27 @@ class CellStep:
         if not self.use_pallas:
             return self._xla_force(state, xs, energy)
         if self.use_pallas == "full":
-            return self._full_force(state, xs)
-        tbl = state.core.cheb
-        if tbl is None:
-            tbl = hermite_pair_table(state.core.bias.bias)
+            with trace.span(trace.FORCE_K1):
+                return self._full_force(state, xs)
+        tbl = self._table(state)
         ts, tp = self._kernel_types(state)
         if self.use_pallas == "newton":
-            return newton_lattice_force(xs, state.mc, spec.ncells, spec.box, lj, tbl,
-                                        energy, ts=ts, type_pair=tp)
+            with trace.span(trace.FORCE_K1):
+                return newton_lattice_force(xs, state.mc, spec.ncells, spec.box, lj, tbl,
+                                            energy, ts=ts, type_pair=tp)
         kw = dict(box=spec.box, lj=lj, energy=energy)
         if self.kernel_cap is None or state.tail_ovf_host:
-            f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells,
-                                      ts=ts, type_pair=tp, **kw)
-            return eb.sum(), f
+            with trace.span(trace.FORCE_K1):
+                f, eb = cell_force_newton(xs, state.mc, tbl, k=spec.cap, ncells=spec.ncells,
+                                          ts=ts, type_pair=tp, **kw)
+                return eb.sum(), f
         kcap = self.kernel_cap
-        f, eb = cell_force_newton(xs, state.mc, tbl, k=kcap, ncells=spec.ncells, **kw)
-        fo, fp = overflow_force(*self._overflow_inputs(state, xs), tbl, **kw)
-        return eb.sum() + fo[3].sum(), self._assemble_tail(state, f, fo, fp)
+        with trace.span(trace.FORCE_K1):
+            f, eb = cell_force_newton(xs, state.mc, tbl, k=kcap, ncells=spec.ncells, **kw)
+            e = eb.sum()
+        with trace.span(trace.FORCE_TAIL):
+            fo, fp = overflow_force(*self._overflow_inputs(state, xs), tbl, **kw)
+            return e + fo[3].sum(), self._assemble_tail(state, f, fo, fp)
 
     def _assemble_tail(self, state, f, fo, fp):
         """The tail assembly, in place on the force planes: K2's partner
@@ -903,36 +932,39 @@ class CellStep:
 
         # pass 1: accepted candidates per slot row of the (owned) cells,
         # read from the slot lattice
-        row_counts, ncalls = p1_counts_half(xs, state.mc, cells, nbr, box, bmax2, thresh, seeds)
-        sent = C * cap  # the global slot-row sentinel
-        rows_sel, n_rows = self._select_rows(row_counts, rc, gids, sent)
+        with trace.span(trace.COLLECT_PASS1):
+            row_counts, ncalls = p1_counts_half(xs, state.mc, cells, nbr, box, bmax2, thresh,
+                                                seeds)
+        with trace.span(trace.COLLECT_PASS2):
+            sent = C * cap  # the global slot-row sentinel
+            rows_sel, n_rows = self._select_rows(row_counts, rc, gids, sent)
 
-        # pass 2 on the selected slot rows: their cells' candidates gathered
-        # from the lattice by global id (the sentinel's clamped, masked)
-        rows_c = torch.clamp(rows_sel, 0, sent - 1)
-        cells_c = rows_c // cap
-        slot_c = (rows_c % cap)[:, None]
-        cand = torch.cat([cells_c[:, None], nbr[cells_c]], 1)  # (rc, 14) cells, in column order
-        ms = state.mc[cand].reshape(rc, W) > 0.5
-        r2 = 0.0
-        for c in range(3):
-            sl = xs[..., c][cand].reshape(rc, W)
-            dd = sl.gather(1, slot_c) - sl
-            dd = dd - torch.round(dd / box[c]) * box[c]
-            r2 = r2 + dd * dd
-        ci = torch.arange(W, device=dev)
-        upper = (ci >= cap) | (ci > slot_c)  # the self block strictly upper: each pair once
-        ok = (rows_sel < sent)[:, None] & ms.gather(1, slot_c) & ms & upper & (r2 < bmax2)
-        r = torch.sqrt(torch.where(ok, r2, torch.full_like(r2, float("inf"))))
-        u = uniform_rows_cols(seeds, rows_c, 2 * W, dtype).reshape(rc, W, 2)
-        acc = ok[..., None].expand(ok.shape + (2,))
-        acc = (acc if thresh is None else acc & (u < thresh)).reshape(rc, 2 * W)
-        r21 = r[:, :, None].expand(rc, W, 2)  # r[w] at columns 2w, 2w+1
-        hills, runifs, active, truncated, count, keys = self._compact(
-            acc, r21, u, row_counts, n_rows, rc, rows_sel if brick else None)
-        if not self.shard_hills:
-            return hills, runifs, active, ncalls, truncated
-        return self._gather_round(hills, runifs, active, count, ncalls, truncated, keys)
+            # pass 2 on the selected slot rows: their cells' candidates gathered
+            # from the lattice by global id (the sentinel's clamped, masked)
+            rows_c = torch.clamp(rows_sel, 0, sent - 1)
+            cells_c = rows_c // cap
+            slot_c = (rows_c % cap)[:, None]
+            cand = torch.cat([cells_c[:, None], nbr[cells_c]], 1)  # (rc, 14) cells, column order
+            ms = state.mc[cand].reshape(rc, W) > 0.5
+            r2 = 0.0
+            for c in range(3):
+                sl = xs[..., c][cand].reshape(rc, W)
+                dd = sl.gather(1, slot_c) - sl
+                dd = dd - torch.round(dd / box[c]) * box[c]
+                r2 = r2 + dd * dd
+            ci = torch.arange(W, device=dev)
+            upper = (ci >= cap) | (ci > slot_c)  # the self block strictly upper: each pair once
+            ok = (rows_sel < sent)[:, None] & ms.gather(1, slot_c) & ms & upper & (r2 < bmax2)
+            r = torch.sqrt(torch.where(ok, r2, torch.full_like(r2, float("inf"))))
+            u = uniform_rows_cols(seeds, rows_c, 2 * W, dtype).reshape(rc, W, 2)
+            acc = ok[..., None].expand(ok.shape + (2,))
+            acc = (acc if thresh is None else acc & (u < thresh)).reshape(rc, 2 * W)
+            r21 = r[:, :, None].expand(rc, W, 2)  # r[w] at columns 2w, 2w+1
+            hills, runifs, active, truncated, count, keys = self._compact(
+                acc, r21, u, row_counts, n_rows, rc, rows_sel if brick else None)
+            if not self.shard_hills:
+                return hills, runifs, active, ncalls, truncated
+            return self._gather_round(hills, runifs, active, count, ncalls, truncated, keys)
 
     def _gather_round(self, hills, runifs, active, count, ncalls, truncated, keys=None):
         """The ranks' compacted lists gathered in rank order (one
@@ -981,25 +1013,27 @@ class CellStep:
         tslot = self._slot_types(state)  # 0 = empty
 
         # pass 1: ordered candidates and accepted draws per slot row
-        row_counts, ncalls = p1_counts_typed(xs, state.aid, tslot, nbr, box, bmax * bmax, thresh,
-                                             seeds, n, self.type_pair)
-        rows_sel, n_rows = self._select_rows(row_counts)
+        with trace.span(trace.COLLECT_PASS1):
+            row_counts, ncalls = p1_counts_typed(xs, state.aid, tslot, nbr, box, bmax * bmax,
+                                                 thresh, seeds, n, self.type_pair)
+        with trace.span(trace.COLLECT_PASS2):
+            rows_sel, n_rows = self._select_rows(row_counts)
 
-        # pass 2 on the selected slot rows
-        sent = C * cap
-        rows_c = torch.clamp(rows_sel, 0, sent - 1)
-        flat_aid, flat_t = aid2.reshape(-1), tslot.reshape(-1)
-        r2, valid, cv = stencil_tile(xs, aid2, tslot, nbr, box, n, self.type_pair,
-                                     xs.reshape(-1, 3)[rows_c], flat_aid[rows_c],
-                                     flat_t[rows_c], rows_c // cap)
-        valid = (rows_sel < sent)[:, None] & valid
-        inf = torch.full_like(r2, float("inf"))
-        r = torch.where(cv, torch.sqrt(torch.where(valid, r2, inf)), inf)
-        u = uniform_rows_cols(seeds, rows_c, W, dtype)
-        acc = torch.isfinite(r) & (r < bmax)
-        acc = acc if thresh is None else acc & (u < thresh)
-        hills, runifs, active, truncated, _, _ = self._compact(acc, r, u, row_counts, n_rows)
-        return hills, runifs, active, ncalls, truncated
+            # pass 2 on the selected slot rows
+            sent = C * cap
+            rows_c = torch.clamp(rows_sel, 0, sent - 1)
+            flat_aid, flat_t = aid2.reshape(-1), tslot.reshape(-1)
+            r2, valid, cv = stencil_tile(xs, aid2, tslot, nbr, box, n, self.type_pair,
+                                         xs.reshape(-1, 3)[rows_c], flat_aid[rows_c],
+                                         flat_t[rows_c], rows_c // cap)
+            valid = (rows_sel < sent)[:, None] & valid
+            inf = torch.full_like(r2, float("inf"))
+            r = torch.where(cv, torch.sqrt(torch.where(valid, r2, inf)), inf)
+            u = uniform_rows_cols(seeds, rows_c, W, dtype)
+            acc = torch.isfinite(r) & (r < bmax)
+            acc = acc if thresh is None else acc & (u < thresh)
+            hills, runifs, active, truncated, _, _ = self._compact(acc, r, u, row_counts, n_rows)
+            return hills, runifs, active, ncalls, truncated
 
     # ----------------------------------------------------------- rebuilds
 
@@ -1019,32 +1053,37 @@ class CellStep:
         S = Cg * cap
         kcap = self.kernel_cap
         if state.sid is None:
-            plan = plan_incremental_rebin(spec, Cg, state.aid, xs, self.mover_cap)
-            feasible = plan.feasible
-            if kcap is not None:
-                # a mover whose source AND destination are tail slots cancels
-                leave = torch.sum((plan.m_src < S) & (plan.m_src % cap >= kcap))
-                arrive = torch.sum((plan.m_dest < S) & (plan.m_dest % cap >= kcap))
-                feasible = feasible & (state.tail_count - leave + arrive <= self.overflow_cap)
-            self.host_syncs += 1
-            if bool(feasible):
-                return self._rebin(state, plan, xs, vs, fs)
+            with trace.span(trace.REBUILD_PLAN):
+                plan = plan_incremental_rebin(spec, Cg, state.aid, xs, self.mover_cap)
+                feasible = plan.feasible
+                if kcap is not None:
+                    # a mover whose source AND destination are tail slots cancels
+                    leave = torch.sum((plan.m_src < S) & (plan.m_src % cap >= kcap))
+                    arrive = torch.sum((plan.m_dest < S) & (plan.m_dest % cap >= kcap))
+                    feasible = feasible & (state.tail_count - leave + arrive
+                                           <= self.overflow_cap)
+                feasible = trace.read(self, "rebin_feasible", feasible)
+            if feasible:
+                trace.count("rebuild.rebin")
+                with trace.span(trace.REBUILD_REBIN):
+                    return self._rebin(state, plan, xs, vs, fs)
 
-        x_at, v_at, f_at = _atoms_from_slots(spec, state.aid, xs, vs, fs)
-        t = build_table(spec, x_at)
-        aid_g = torch.cat([t.aid, torch.full((S - spec.n_slots,), n, dtype=torch.int64,
-                                             device=xs.device)])
-        types = (self._types_on(xs.device)
-                 if state.ts is not None and self.types is not None else None)
-        upd = _slots_from_atoms(spec, Cg, x_at, v_at, f_at, aid_g, kcap, self.overflow_cap,
-                                types, state.sid is not None)
-        upd.update(aid=aid_g, table_overflow=state.table_overflow | t.overflow,
-                   atoms=(x_at, v_at, f_at))
-        if kcap is not None:
-            upd.update(self._tail_fields(state, upd["tail_count"]))
-            self.host_syncs += 1
-            upd["tail_ovf_host"] = bool(upd["tail_ovf"])
-        return upd
+        trace.count("rebuild.full")
+        with trace.span(trace.REBUILD_FULL):
+            x_at, v_at, f_at = _atoms_from_slots(spec, state.aid, xs, vs, fs)
+            t = build_table(spec, x_at)
+            aid_g = torch.cat([t.aid, torch.full((S - spec.n_slots,), n, dtype=torch.int64,
+                                                 device=xs.device)])
+            types = (self._types_on(xs.device)
+                     if state.ts is not None and self.types is not None else None)
+            upd = _slots_from_atoms(spec, Cg, x_at, v_at, f_at, aid_g, kcap, self.overflow_cap,
+                                    types, state.sid is not None)
+            upd.update(aid=aid_g, table_overflow=state.table_overflow | t.overflow,
+                       atoms=(x_at, v_at, f_at))
+            if kcap is not None:
+                upd.update(self._tail_fields(state, upd["tail_count"]))
+                upd["tail_ovf_host"] = trace.read(self, "tail_ovf", upd["tail_ovf"])
+            return upd
 
     def _rebin(self, state, plan, xs, vs, fs):
         """The incremental rebin's state fields: the slot arrays (and the

@@ -59,6 +59,7 @@ from ..gauss import (
     sigmoid_dx,
 )
 from ..grid import device_const
+from ..utils import trace
 from . import deposit_kernels
 
 
@@ -917,7 +918,7 @@ def _strip_plan(gg, tabs, heights, dims):
         keep = torch.arange(cap_s, device=dev) < count
         hc = torch.where(keep, heights[idx], torch.zeros((), dtype=heights.dtype, device=dev))
         cands.append((count, x[idx], hc))
-    counts = torch.stack([c[0] for c in cands]).tolist()  # the one host read
+    counts = trace.read(None, "mcgdp_strips", torch.stack([c[0] for c in cands]))
     plan = {}
     for d, n, (_, xc, hc) in zip(dims, counts, cands):
         if n <= cap_s:

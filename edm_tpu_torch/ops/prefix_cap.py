@@ -7,7 +7,8 @@ so the reference's sequential hill-by-hill limiter reduces to locating the
 prefix-sum crossing of the cap.  ``cap_scan`` repeats a parallel pass per
 crossing (virtually always one); the JAX ``lax.while_loop`` becomes a
 Python loop here, and each test of its exit condition reads one flag back
-to the host.
+to the host (``utils/trace``: the span ``edm.read.limiter``; the counter
+``limiter.passes`` counts the passes).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..grid import device_const
+from ..utils import trace
 
 
 class CapResult(NamedTuple):
@@ -50,7 +52,7 @@ def cap_scan(heights, weights, active, cap, cum0) -> CapResult:
     deposited = torch.zeros(N, dtype=torch.bool, device=dev)
     straddled = torch.zeros(N, dtype=torch.bool, device=dev)
     reads = 1
-    while not bool(done):
+    while not trace.read(None, "limiter", done):
         undec = active & (idxs >= start)
         c = torch.where(undec, contrib_all, zero)
         prefix = cum + torch.cumsum(c, 0)
@@ -88,6 +90,7 @@ def cap_scan(heights, weights, active, cap, cum0) -> CapResult:
         defer = torch.where(sat & ~any_cross, heights, defer)
         start = torch.where(any_cross, k_star + 1, torch.full_like(start, N))
         reads += 1
+    trace.count("limiter.passes", reads - 1)
     return CapResult(dep, defer, deposited, straddled, cum), reads
 
 
