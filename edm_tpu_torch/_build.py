@@ -61,13 +61,15 @@ def _declare(lib):
     # the row pass's plan: small, piece words, row tile, table in shared memory
     plan = [i] * 4
     # xs, mc, mcand, f, eb, cred, C, Cg, cap, k, nx, ny, nz, credits, row box
-    # (ox, oy, oz, rx, ry, rz), n_rows, ts (or None), tpair, plan, table
-    lib.cell_force_newton_launch.argtypes = [vp] * 6 + [i] * 15 + [vp, fp] + plan + table
+    # (ox, oy, oz, rx, ry, rz), n_rows, ts (or None), tpair, plan, table up to
+    # energy, the cull's counts (or None), stream
+    lib.cell_force_newton_launch.argtypes = ([vp] * 6 + [i] * 15 + [vp, fp] + plan + table[:-1]
+                                             + [vp, vp])
     lib.cell_force_newton_launch.restype = i
     # xs, mc, f, eb, cred, C, Cg, cap, nx, ny, nz, plan, look, t1, t2, rows,
-    # degp, geom, box, lj, stream
+    # degp, geom, box, lj, the cull's counts (or None), stream
     lib.cell_force_full_launch.argtypes = ([vp] * 5 + [i] * 6 + plan + [i, vp, vp, i, i]
-                                           + [fp] * 3 + [vp])
+                                           + [fp] * 3 + [vp, vp])
     lib.cell_force_full_launch.restype = i
     # xo, xp, fo, fp, part, fpart, O, N, table in shared memory, table
     lib.overflow_force_launch.argtypes = [vp] * 6 + [i] * 3 + table

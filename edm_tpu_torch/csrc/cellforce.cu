@@ -148,7 +148,9 @@
 //     ~220 KB) and the own cell's rows a tile of up to ROW_TILE at a time,
 //     each row's sums kept in shared memory across the pieces and each
 //     piece's credits flushed to the scratch, warps in order, before the
-//     next;
+//     next; its distance sweep is culled by the bounding boxes of chunks
+//     of its candidates (what bounds it and what the cull does: the note
+//     before k1_rows_pieces);
 //   - K2 takes the tail rows a tile of K2_THREADS at a time, a tile a row
 //     of the grid: the tail-tail blocks become one a tile of tail rows as
 //     partners, and with more than one row tile the partners' credits are
@@ -629,22 +631,49 @@ struct RowPlan {
 
 __host__ __device__ inline int cell_words(int k) { return (k + 31) >> 5; }  // ballot words a cell
 
+// The pieces form (k1_rows_pieces): its blocks an SM (ops/cellforce.py's
+// PIECE_BUDGET sizes its shared memory for three; its registers are capped
+// to match, at 80), candidates a cull box (a chunk) and chunks a sweep step,
+// the bits of a chunk's count beside its first candidate, the most ballot
+// words a piece (a warp holds its words' candidates in registers over three
+// rounds) and the most sub-cell bins a cell (2 x 2 x 2)
+constexpr int PIECE_BLOCKS = 3;
+constexpr int CHUNK = 8;
+constexpr int STEP = 32 / CHUNK;
+constexpr int CHUNK_BITS = 5, CHUNK_MASK = (1 << CHUNK_BITS) - 1;
+constexpr int PIECE_WORDS = 3 * ROW_WARPS;
+constexpr int PIECE_ROUNDS = PIECE_WORDS / ROW_WARPS;
+constexpr int NKEY = 8;
+static_assert(32 % CHUNK == 0 && CHUNK <= CHUNK_MASK, "chunks tile a warp; a count fits");
+
+// The most chunks a piece of pww words holds: each of its cells (at most
+// pww, at most 14) ends in one part-filled chunk
+__host__ __device__ inline int max_chunks(int pww) {
+  return 32 * pww / CHUNK + (pww < 14 ? pww : 14);
+}
+
 // The pieces form's dynamic shared memory, in float4 units: the lookup
 // table (when in shared memory), a row tile's rows and their running sums
 // (x, y, z, energy) and types, the own cell's ballot words, then a piece's
 // compacted candidates and types, the warps' credit accumulators
-// [warp][component][candidate], the piece's ballot words, each slot's
-// compacted index and the warps' lists of partners in reach (int16).
+// [warp][component][candidate], each slot's compacted index and the warps'
+// lists of partners in reach (int16), the counting sort's offsets (int), the
+// chunks' boxes (two float4 each: the centre with the chunk's first candidate
+// << CHUNK_BITS | its count, and the half-widths), the warps' lists of the
+// chunks in reach (int: first candidate << CHUNK_BITS | count) and the
+// warps' counts of the cull (int64).
 struct PieceLayout {
-  int tab4, rows4, racc4, rtype4, obal4, cand4, ctype4, acc4, bal4, qof4, near4;
+  int tab4, rows4, racc4, rtype4, obal4, cand4, ctype4, acc4, qof4, near4, scan4, box4, plist4,
+      cnt4;
   __host__ __device__ int total4() const {
-    return tab4 + rows4 + racc4 + rtype4 + obal4 + cand4 + ctype4 + acc4 + bal4 + qof4 + near4;
+    return tab4 + rows4 + racc4 + rtype4 + obal4 + cand4 + ctype4 + acc4 + qof4 + near4 + scan4 +
+           box4 + plist4 + cnt4;
   }
 };
 
 __host__ __device__ inline PieceLayout piece_layout(int k, int nc, bool typed, int look, int rows,
                                                     int degp, const RowPlan& pl) {
-  const int PW = 32 * pl.pww;
+  const int PW = 32 * pl.pww, MC = max_chunks(pl.pww);
   PieceLayout l;
   l.tab4 = pl.tsm ? table4(look, rows, degp) : 0;
   l.rows4 = pl.rt;
@@ -654,9 +683,12 @@ __host__ __device__ inline PieceLayout piece_layout(int k, int nc, bool typed, i
   l.cand4 = PW;
   l.ctype4 = typed ? PW / 4 : 0;
   l.acc4 = ROW_WARPS * nc * PW / 4;
-  l.bal4 = (pl.pww + 3) / 4;
   l.qof4 = PW / 8;
   l.near4 = ROW_WARPS * PW / 8;
+  l.scan4 = (NKEY * pl.pww + 2 + 3) / 4;
+  l.box4 = 2 * MC;
+  l.plist4 = (ROW_WARPS * MC + 3) / 4;
+  l.cnt4 = ROW_WARPS * 3 * 8 / 16;
   return l;
 }
 
@@ -668,16 +700,72 @@ __device__ __forceinline__ int row_cell(const RowArgs& a, int row) {
   return ((a.ox + bx) % a.nx) * (a.ny * a.nz) + ((a.oy + by) % a.ny) * a.nz + (a.oz + bz) % a.nz;
 }
 
-// cell c's neighbour at HALF_OFF[o - 1] (o = 0: c itself)
-__device__ __forceinline__ int half_cell(const RowArgs& a, int c, int o) {
-  if (o == 0) return c;
-  const int ix = c / (a.ny * a.nz), iy = (c / a.nz) % a.ny, iz = c % a.nz;
-  return wrap(ix + HALF_OFF[o - 1][0], a.nx) * (a.ny * a.nz) +
-         wrap(iy + HALF_OFF[o - 1][1], a.ny) * a.nz + wrap(iz + HALF_OFF[o - 1][2], a.nz);
+// Whether the cull's sort splits a cell along an axis (ops/cellforce.py:
+// cull_bins): where a cell fills more than one chunk (k > CHUNK) and its
+// edge L / n is at least half the reach; the split is at the cell's centre.
+__device__ __forceinline__ bool bin_split(int k, float L, int n, float reach) {
+  return k > CHUNK && 2.0f * (L / (float)n) >= reach;
+}
+
+// |minimum image of d| in a box test: the nearest image by a fused
+// multiply-add (the boxes' slack covers its rounding)
+__device__ __forceinline__ float cull_dist(float d, float L, float iL) {
+  return fabsf(__fmaf_rn(-rintf(d * iL), L, d));
+}
+
+// A candidate's sub-cell bin: on each split axis (split: x, y, z the bits
+// 4, 2, 1) the side of its cell's centre, (i + 1/2) L / n, it lies on by the
+// minimum image, so an atom drifted out of its cell since the rebuild keeps
+// the side it left by; x the high bit.  (i, j, l): the cell's coordinates.
+__device__ __forceinline__ int bin_key(float4 b, int i, int j, int l, int split, const RowArgs& a,
+                                       const PairParams& p) {
+  const float v[3] = {b.x, b.y, b.z};
+  const int ic[3] = {i, j, l}, n[3] = {a.nx, a.ny, a.nz};
+  int key = 0;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float e = v[d] - ((float)ic[d] + 0.5f) * (p.L[d] / (float)n[d]);
+    key = 2 * key + (((split >> (2 - d)) & 1) && __fmaf_rn(-rintf(e * p.iL[d]), p.L[d], e) > 0.0f);
+  }
+  return key;
+}
+
+// Whether a row at ra reaches chunk j's box (false for j >= n): the squared
+// distance from the row to the box, by the minimum image, against r2_far;
+// e: the chunk's first candidate << CHUNK_BITS | its count
+__device__ __forceinline__ bool box_reach(const PairParams& p, const float4* box, float4 ra, int j,
+                                          int n, int& e) {
+  if (j >= n) return false;
+  const float4 m = box[2 * j], h = box[2 * j + 1];
+  e = __float_as_int(m.w);
+  const float gx = fmaxf(cull_dist(ra.x - m.x, p.L[0], p.iL[0]) - h.x, 0.0f);
+  const float gy = fmaxf(cull_dist(ra.y - m.y, p.L[1], p.iL[1]) - h.y, 0.0f);
+  const float gz = fmaxf(cull_dist(ra.z - m.z, p.L[2], p.iL[2]) - h.z, 0.0f);
+  return __fmaf_rn(gx, gx, __fmaf_rn(gy, gy, gz * gz)) <= p.r2_far;
+}
+
+// the compacted index of member i of the t-th chunk of a row's list (-1: none)
+__device__ __forceinline__ int chunk_slot(const int* plist, int t, int i, int n_pass) {
+  if (t >= n_pass) return -1;
+  const int e = plist[t];
+  return i < (e & CHUNK_MASK) ? (e >> CHUNK_BITS) + i : -1;
+}
+
+// whether candidate q (none: q < 0) is a partner of the row (slot rs) within
+// reach, by k1_rows' test; j: its candidate index
+__device__ __forceinline__ bool near_test(const PairParams& p, const float4* cand, float4 ra,
+                                          int rs, int q, int& j) {
+  j = 0;
+  if (q < 0) return false;
+  const float4 b = cand[q];
+  j = __float_as_int(b.w);
+  float dx, dy, dz;
+  return j != rs && pair_r2(p, ra, b, dx, dy, dz) <= p.r2_far;
 }
 
 // The row pass at any k: k1_rows' work and outputs, its candidates and rows
-// taken in pieces so that shared memory holds a bounded part of them.
+// taken in pieces so that shared memory holds a bounded part of them, and
+// each row's distance sweep culled by bounding boxes of its candidates.
 //
 // The candidates are the 14 cells' slots as ballot words, cell_words(k) a
 // cell (word w: cell o = w / cell_words(k) in HALF_OFF order after the
@@ -685,30 +773,77 @@ __device__ __forceinline__ int half_cell(const RowArgs& a, int c, int o) {
 // empty).  The own cell's occupied slots are the rows, compacted in slot
 // order; a row tile of pl.rt of them at a time sits in shared memory with
 // its running sums.  For each row tile the candidates are taken a piece of
-// pl.pww words at a time: ballots, compaction, and then, as in k1_rows,
-// warp w takes rows w, w + ROW_WARPS, ... of the tile, lists the piece's
-// partners within reach, sums the pair terms over its lanes (one warp_sum4
-// a row and piece, added into the row's running sums: every piece of a row
-// is taken by the same warp, in order) and credits the partners into its
-// own accumulator.  After each piece the warps' accumulators are summed in
-// warp order and written at the piece's slots of the credit scratch (the
-// first row tile writes every slot, empty ones 0; a later tile adds its
-// credits to the occupied ones).  A candidate of the own cell (the self
-// block) is no partner of itself (by slot) and is credited nothing; its
-// value counts half (VCRED: whole).  After a row tile's last piece its rows'
-// sums are written into f and eb.  No atomics: the order is fixed.
+// pl.pww words at a time:
+//   - sort: a warp a word loads its occupied slots into registers and keys
+//     each by its sub-cell bin (bin_key: the side of its cell's centre it
+//     lies on, along each axis); one warp scans the (cell, bin, word) counts; each
+//     candidate goes to its cell's, bin's and word's offset plus its rank
+//     among the word's lanes of its bin: a counting sort in a fixed order,
+//     no atomics.  qof maps each slot to its compacted index;
+//   - chunks: each cell's part of the piece, so ordered, is cut into chunks
+//     of CHUNK candidates; CHUNK lanes a chunk take its members' bounding box,
+//     each member's minimum image from the first member's (so a chunk that
+//     straddles the periodic boundary, or whose atoms drifted out of their
+//     cell, stays small), kept as a centre and half-widths widened by
+//     2^-12 of the box and the centre's magnitude (far above the rounding of
+//     the few operations that place the box);
+//   - rows: warp w takes rows w, w + ROW_WARPS, ... of the tile.  A row
+//     first tests the chunks' boxes (the squared distance from the row to a
+//     box, by the minimum image, against r2_far: a candidate that reaches the
+//     row lies in a box that does) and lists the chunks that pass, then
+//     sweeps only their candidates, CHUNK lanes a chunk, testing r^2 as
+//     k1_rows does: the partners in reach are exactly those of a sweep over
+//     every candidate, in candidate order.  Both loops take two independent
+//     steps a trip, so that their load-to-ballot chains overlap.  It sums the
+//     pair terms over its
+//     lanes (one warp_sum4 a row and piece, added into the row's running
+//     sums: every piece of a row is taken by the same warp, in order) and
+//     credits the partners into its own accumulator.
+// After each piece the warps' accumulators are summed in warp order and
+// written at the piece's slots of the credit scratch (the first row tile
+// writes every slot, empty ones 0; a later tile adds its credits to the
+// occupied ones).  A candidate of the own cell (the self block) is no partner
+// of itself (by slot) and is credited nothing; its value counts half
+// (VCRED: whole).  After a row tile's last piece its rows' sums are written
+// into f and eb.  No atomics but the counts: the order is fixed.
+//
+// What bounds it, at in.lj's shape (4,000,000 atoms, 41^3 cells of 4.097,
+// k = 96, reach 4.0, pieces of 14 words; NVIDIA H100 80GB HBM3 at 700 W, one
+// launch's device time): not the card's rates (the least time for its work,
+// each unordered pair within reach once at 48 + 16 operations, is 0.43 ms)
+// but instructions issued and their latency at three blocks of 8 warps an
+// SM.  Before the cull, on the state 30 steps from the fcc lattice (by
+// cutting the kernel short after each phase), it took 14.45 ms: loads,
+// ballots and compaction 2.42, the distance sweep 6.98 (27 warp steps a
+// row, 86% of the tests finding nothing), the pair arithmetic over the ~134
+// partners a row finds 4.41, the credits 0.65.  There the cull keeps 38%
+// of the r^2 tests (k1.tested / k1.unculled; 8 candidates a box, 2 x 2 x 2
+// bins a cell): the sweep takes 3.44 ms (~12 steps a row) for 1.54 of box
+// tests (two of 32 lanes a row and piece) and 0.33 of boxes, the sort what
+// the compaction did, 12.9 ms in all (30x the bound).  On the liquid of the
+// benchmark's window (800 steps in) the boxes of 8 are looser and it keeps
+// 45%: 14.95 -> 13.97 ms (35x -> 32x the bound).  Boxes of 16 candidates
+// cost fewer tests and more sweep steps (13.2 ms at the lattice-like state);
+// a row's unrolled loops spill ~140 bytes at the 80-register cap, still
+// faster than 128 registers at two blocks an SM (17.6 ms).
+//
+// cnt (null: nothing counted): each block adds, once, the r^2 tests a sweep
+// over every occupied candidate would run (rows x candidates), those run
+// (the candidates of the chunks that passed) and the unordered pairs found
+// in reach (a self-block pair once).
 //
 // TSM: the table in shared memory, else read from global memory through
 // the cache (a Chebyshev table past TABLE_SMEM_MAX); a template parameter,
 // so that each form's loads are compiled for their memory.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED, bool TSM>
-__global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairParams p,
-                                                             RowPlan pl) {
+__global__ void __launch_bounds__(ROW_THREADS, PIECE_BLOCKS)
+    k1_rows_pieces(RowArgs a, PairParams p, RowPlan pl, unsigned long long* cnt) {
   extern __shared__ float4 smem[];
   constexpr int NC = VCRED ? 4 : 3;
   const int k = a.k, cap = a.cap, NB = 13 * k;
   const int row = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
   const int c = row_cell(a, row);
   float* f_cell = a.f + (long)c * cap * 3;
   float* eb_cell = a.eb + (long)row * k;
@@ -721,6 +856,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
   }
 
   const int wpc = cell_words(k), n_words = 14 * wpc, PW = 32 * pl.pww, RT = pl.rt;
+  const int MC = max_chunks(pl.pww);
   const int self_end = 32 * wpc;  // candidate indices below it are the own cell's slots
   const PieceLayout lay = piece_layout(k, NC, TYPED, LOOK, p.G, p.degp, pl);
   float4* tab = smem;
@@ -731,11 +867,15 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
   float4* cand = reinterpret_cast<float4*>(obal + 4 * lay.obal4);  // x, y, z, index (as bits)
   float* ctype = reinterpret_cast<float*>(cand + lay.cand4);
   float* acc = ctype + 4 * lay.ctype4;  // [warp][component][PW]
-  unsigned* bal = reinterpret_cast<unsigned*>(acc + 4 * lay.acc4);
-  short* qof = reinterpret_cast<short*>(bal + 4 * lay.bal4);
+  short* qof = reinterpret_cast<short*>(acc + 4 * lay.acc4);
   short* near = qof + 8 * lay.qof4 + warp * PW;
+  int* scan = reinterpret_cast<int*>(qof + 8 * (lay.qof4 + lay.near4));
+  float4* box = reinterpret_cast<float4*>(scan + 4 * lay.scan4);  // centre, half-widths
+  int* plist = reinterpret_cast<int*>(box + lay.box4) + warp * MC;
+  unsigned long long* wcnt = reinterpret_cast<unsigned long long*>(box + lay.box4 + lay.plist4);
   if (TSM) load_table(tab, a.t1, a.t2, p, LOOK);
   const Lut lut = TSM ? smem_lut(tab, p) : global_lut(a.t1, a.t2);
+  unsigned n_unculled = 0, n_tested = 0, n_reach = 0;  // this warp's counts (cnt)
 
   // the rows' sums overwrite these at the end of their tile
   for (int i = tid; i < cap * 3; i += ROW_THREADS) f_cell[i] = 0.0f;
@@ -762,7 +902,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
       for (int v = 0; v < w; ++v) before += __popc(obal[v]);
       const unsigned b = obal[w];
       if ((b >> lane) & 1u) {
-        const int rk = before + __popc(b & ((1u << lane) - 1u)) - rt0;
+        const int rk = before + __popc(b & below) - rt0;
         if (rk >= 0 && rk < nr) {
           const int sl = 32 * w + lane;
           const long slot = (long)c * cap + sl;
@@ -773,39 +913,115 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
       }
     }
     for (int i = tid; i < nr; i += ROW_THREADS) racc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    __syncthreads();
 
     for (int w0 = 0; w0 < n_words; w0 += pl.pww) {
       const int nw = min(pl.pww, n_words - w0);
-      // the piece's ballots
-      for (int s = warp; s < nw; s += ROW_WARPS) {
-        const int w = w0 + s, o = w / wpc, sl = 32 * (w - o * wpc) + lane;
-        bool live = false;
-        if (sl < k)
-          live = (o == 0 ? a.mc[(long)row * cap + sl]
-                         : a.mcand[(long)half_cell(a, c, o) * cap + sl]) > 0.5f;
-        const unsigned b = __ballot_sync(0xffffffffu, live);
-        if (lane == 0) bal[s] = b;
+      // sort, 1: the piece's occupied slots into registers, each keyed by
+      // its bin; the counts of each (word, bin) at the word's place in the
+      // (cell, bin, word) order: cell o's words sa .. sb - 1 of the piece
+      // take entries NKEY sa .. NKEY sb - 1, bin-major
+      const float reach = sqrtf(p.r2_far);
+      const int split = 4 * bin_split(k, p.L[0], a.nx, reach) +
+                        2 * bin_split(k, p.L[1], a.ny, reach) + bin_split(k, p.L[2], a.nz, reach);
+      const int ix = c / (a.ny * a.nz), iy = (c / a.nz) % a.ny, iz = c % a.nz;
+      float4 got[PIECE_ROUNDS];
+      int kr[PIECE_ROUNDS];  // bin << 8 | rank among the word's lanes of its bin; -1 empty
+#pragma unroll
+      for (int i = 0; i < PIECE_ROUNDS; ++i) {
+        const int s = warp + i * ROW_WARPS;
+        kr[i] = -1;
+        if (s < nw) {
+          const int w = w0 + s, o = w / wpc, sl = 32 * (w - o * wpc) + lane;
+          int ci = ix, cj = iy, cl = iz;  // the words' cell: c's neighbour at HALF_OFF[o - 1]
+          if (o > 0) {
+            ci = wrap(ix + HALF_OFF[o - 1][0], a.nx);
+            cj = wrap(iy + HALF_OFF[o - 1][1], a.ny);
+            cl = wrap(iz + HALF_OFF[o - 1][2], a.nz);
+          }
+          bool live = false;
+          int key = 0;
+          if (sl < k) {
+            const long slot = ((long)(ci * a.ny + cj) * a.nz + cl) * cap + sl;
+            live = (o == 0 ? a.mc[(long)row * cap + sl] : a.mcand[slot]) > 0.5f;
+            if (live) {
+              got[i] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
+                                   TYPED ? a.ts[slot] : 0.0f);
+              key = bin_key(got[i], ci, cj, cl, split, a, p);
+            }
+          }
+          int n_key = 0;
+#pragma unroll
+          for (int v = 0; v < NKEY; ++v) {
+            const unsigned m = __ballot_sync(0xffffffffu, live && key == v);
+            if (lane == v) n_key = __popc(m);
+            if (live && key == v) kr[i] = (v << 8) | __popc(m & below);
+          }
+          const int sa = max(o * wpc, w0) - w0, sb = min((o + 1) * wpc, w0 + nw) - w0;
+          if (lane < NKEY) scan[NKEY * sa + lane * (sb - sa) + s - sa] = n_key;
+        }
       }
       __syncthreads();
-      // compact: candidate j goes to the count of occupied slots before it
-      for (int s = warp; s < nw; s += ROW_WARPS) {
-        int before = 0;
-        for (int v = 0; v < s; ++v) before += __popc(bal[v]);
-        const unsigned b = bal[s];
-        int q = -1;
-        if ((b >> lane) & 1u) {
-          const int w = w0 + s, o = w / wpc, sl = 32 * (w - o * wpc) + lane;
-          const long slot = (long)half_cell(a, c, o) * cap + sl;
-          q = before + __popc(b & ((1u << lane) - 1u));
-          cand[q] = make_float4(a.xs[3 * slot], a.xs[3 * slot + 1], a.xs[3 * slot + 2],
-                                __int_as_float(32 * w + lane));
-          if (TYPED) ctype[q] = a.ts[slot];
+      // sort, 2 (one warp): the offsets, an exclusive scan in that order,
+      // its total (the piece's candidates) at NKEY nw; then each cell's
+      // chunks, a lane a cell, and their count at NKEY pww + 1
+      const int E = NKEY * nw;
+      if (warp == 0) {
+        const int per = (E + 31) / 32, i0 = min(E, lane * per), i1 = min(E, i0 + per);
+        int sum = 0;
+        for (int i = i0; i < i1; ++i) sum += scan[i];
+        int run = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, run, o);
+          if (lane >= o) run += t;
         }
-        qof[32 * s + lane] = (short)q;
+        if (lane == 31) scan[E] = run;
+        run -= sum;
+        for (int i = i0; i < i1; ++i) {
+          const int v = scan[i];
+          scan[i] = run;
+          run += v;
+        }
+        __syncwarp();
+        const int oc0 = w0 / wpc, ncp = (w0 + nw - 1) / wpc - oc0 + 1;  // the piece's cells
+        int start = 0, n_c = 0;
+        if (lane < ncp) {
+          const int o = oc0 + lane;
+          const int sa = max(o * wpc, w0) - w0, sb = min((o + 1) * wpc, w0 + nw) - w0;
+          start = scan[NKEY * sa];
+          n_c = scan[NKEY * sb] - start;
+        }
+        const int n_ch = (n_c + CHUNK - 1) / CHUNK;
+        int base = n_ch;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, base, o);
+          if (lane >= o) base += t;
+        }
+        if (lane == 31) scan[NKEY * pl.pww + 1] = base;
+        base -= n_ch;
+        for (int j = 0; j < n_ch; ++j)
+          reinterpret_cast<int*>(box + 2 * (base + j))[3] =
+              ((start + CHUNK * j) << CHUNK_BITS) | min(CHUNK, n_c - CHUNK * j);
       }
-      int n_live = 0;
-      for (int v = 0; v < nw; ++v) n_live += __popc(bal[v]);
+      __syncthreads();
+      // sort, 3: each candidate to its place
+      const int n_live = scan[E], n_chunks = scan[NKEY * pl.pww + 1];
+#pragma unroll
+      for (int i = 0; i < PIECE_ROUNDS; ++i) {
+        const int s = warp + i * ROW_WARPS;
+        if (s < nw) {
+          int q = -1;
+          if (kr[i] >= 0) {
+            const int w = w0 + s, o = w / wpc;
+            const int sa = max(o * wpc, w0) - w0, sb = min((o + 1) * wpc, w0 + nw) - w0;
+            q = scan[NKEY * sa + (kr[i] >> 8) * (sb - sa) + s - sa] + (kr[i] & 255);
+            cand[q] = make_float4(got[i].x, got[i].y, got[i].z, __int_as_float(32 * w + lane));
+            if (TYPED) ctype[q] = got[i].w;
+          }
+          qof[32 * s + lane] = (short)q;
+        }
+      }
       float* wacc = acc + warp * NC * PW;
       if (warp < nr) {
         for (int q = lane; q < n_live; q += 32) {
@@ -814,23 +1030,85 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
         }
       }
       __syncthreads();
+      // the chunks' boxes, CHUNK lanes a chunk: each member's minimum image
+      // from the first member, their range over the chunk's lanes
+      for (int j0 = warp * STEP; j0 < n_chunks; j0 += ROW_WARPS * STEP) {
+        const int j = j0 + lane / CHUNK, i = lane % CHUNK;
+        int e = 0;
+        if (j < n_chunks) e = __float_as_int(box[2 * j].w);
+        const bool mine = i < (e & CHUNK_MASK);
+        const float4 b = cand[mine ? (e >> CHUNK_BITS) + i : 0];
+        const int first = lane & ~(CHUNK - 1);
+        const float4 b0 = make_float4(__shfl_sync(0xffffffffu, b.x, first),
+                                      __shfl_sync(0xffffffffu, b.y, first),
+                                      __shfl_sync(0xffffffffu, b.z, first), 0.0f);
+        float d[3];
+        pair_r2(p, b, b0, d[0], d[1], d[2]);
+        float lo[3], hi[3];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) lo[x] = hi[x] = mine ? d[x] : 0.0f;
+#pragma unroll
+        for (int o = 1; o < CHUNK; o <<= 1) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x) {
+            lo[x] = fminf(lo[x], __shfl_xor_sync(0xffffffffu, lo[x], o));
+            hi[x] = fmaxf(hi[x], __shfl_xor_sync(0xffffffffu, hi[x], o));
+          }
+        }
+        if (i == 0 && j < n_chunks) {
+          const float cx = b0.x + 0.5f * (lo[0] + hi[0]), cy = b0.y + 0.5f * (lo[1] + hi[1]),
+                      cz = b0.z + 0.5f * (lo[2] + hi[2]);
+          constexpr float SLACK = 1.0f / 4096.0f;
+          box[2 * j] = make_float4(cx, cy, cz, __int_as_float(e));
+          box[2 * j + 1] = make_float4(0.5f * (hi[0] - lo[0]) + (p.L[0] + fabsf(cx)) * SLACK,
+                                       0.5f * (hi[1] - lo[1]) + (p.L[1] + fabsf(cy)) * SLACK,
+                                       0.5f * (hi[2] - lo[2]) + (p.L[2] + fabsf(cz)) * SLACK,
+                                       0.0f);
+        }
+      }
+      __syncthreads();
 
       for (int r = warp; r < nr; r += ROW_WARPS) {
         const float4 ra = rows[r];
         const int rs = __float_as_int(ra.w);
-        int n_near = 0;  // the row's partners in reach, in candidate order
-        for (int base = 0; base < n_live; base += 32) {
-          const int q = base + lane;
-          bool in = false;
-          if (q < n_live) {
-            const float4 b = cand[q];
-            float dx, dy, dz;
-            in = __float_as_int(b.w) != rs && pair_r2(p, ra, b, dx, dy, dz) <= p.r2_far;
-          }
-          const unsigned m = __ballot_sync(0xffffffffu, in);
-          if (in) near[n_near + __popc(m & ((1u << lane) - 1u))] = (short)q;
-          n_near += __popc(m);
+        // the chunks whose box the row reaches, in chunk order, 64 at a
+        // time (two independent tests a lane)
+        int n_pass = 0;
+        for (int j0 = 0; j0 < n_chunks; j0 += 64) {
+          int ea, eb;
+          const bool ia = box_reach(p, box, ra, j0 + lane, n_chunks, ea);
+          const bool ib = box_reach(p, box, ra, j0 + 32 + lane, n_chunks, eb);
+          const unsigned ma = __ballot_sync(0xffffffffu, ia);
+          if (ia) plist[n_pass + __popc(ma & below)] = ea;
+          n_pass += __popc(ma);
+          const unsigned mb = __ballot_sync(0xffffffffu, ib);
+          if (ib) plist[n_pass + __popc(mb & below)] = eb;
+          n_pass += __popc(mb);
         }
+        __syncwarp();
+        // the row's partners in reach, in candidate order: STEP chunks a
+        // sweep step, CHUNK lanes a chunk, two steps at a time
+        int n_near = 0;
+        for (int t0 = 0; t0 < n_pass; t0 += 2 * STEP) {
+          int ja, jb;
+          const int qa = chunk_slot(plist, t0 + lane / CHUNK, lane % CHUNK, n_pass);
+          const int qb = chunk_slot(plist, t0 + STEP + lane / CHUNK, lane % CHUNK, n_pass);
+          const bool ia = near_test(p, cand, ra, rs, qa, ja);
+          const bool ib = near_test(p, cand, ra, rs, qb, jb);
+          const unsigned ma = __ballot_sync(0xffffffffu, ia);
+          if (ia) near[n_near + __popc(ma & below)] = (short)qa;
+          n_near += __popc(ma);
+          const unsigned mb = __ballot_sync(0xffffffffu, ib);
+          if (ib) near[n_near + __popc(mb & below)] = (short)qb;
+          n_near += __popc(mb);
+          if (cnt != nullptr) {
+            n_tested += __popc(__ballot_sync(0xffffffffu, qa >= 0)) +
+                        __popc(__ballot_sync(0xffffffffu, qb >= 0));
+            n_reach += __popc(__ballot_sync(0xffffffffu, ia && (ja >= self_end || ja > rs))) +
+                       __popc(__ballot_sync(0xffffffffu, ib && (jb >= self_end || jb > rs)));
+          }
+        }
+        n_unculled += n_live;
         __syncwarp();
         float rx = 0.0f, ry = 0.0f, rz = 0.0f, re = 0.0f;
         for (int t = lane; t < n_near; t += 32) {
@@ -853,7 +1131,7 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
             re += VCRED ? val : 0.5f * val;
           }
         }
-        // the next row rewrites the list, and another lane may credit a partner
+        // the next row rewrites the lists, and another lane may credit a partner
         __syncwarp();
         const float tot = warp_sum4(rx, ry, rz, re, lane);
         if ((lane & 7) == 0) reinterpret_cast<float*>(racc + r)[lane >> 3] += tot;
@@ -898,6 +1176,19 @@ __global__ void __launch_bounds__(ROW_THREADS) k1_rows_pieces(RowArgs a, PairPar
       eb_cell[sl] = ENERGY ? sum.w : 0.0f;
     }
     __syncthreads();  // the next tile rewrites the rows
+  }
+  if (cnt != nullptr) {  // the block's counts, warps in order
+    if (lane == 0) {
+      wcnt[3 * warp] = n_unculled;
+      wcnt[3 * warp + 1] = n_tested;
+      wcnt[3 * warp + 2] = n_reach;
+    }
+    __syncthreads();
+    if (tid < 3) {
+      unsigned long long s = 0;
+      for (int w = 0; w < ROW_WARPS; ++w) s += wcnt[3 * w + tid];
+      atomicAdd(cnt + tid, s);
+    }
   }
 }
 
@@ -1182,15 +1473,16 @@ PairParams make_params(int rows, int degp, const float* geom, const float* box,
 
 // The shared memory of a row-pass plan, in bytes, or -1 when the plan is
 // no valid one: the small form needs k <= SMALL_K and the table in shared
-// memory; the pieces form a piece of 1 to 14 cell_words(k) words and a row
-// tile of 1 to k rows; either must fit SMEM_MAX.
+// memory; the pieces form a piece of 1 to 14 cell_words(k) words, at most
+// PIECE_WORDS, and a row tile of 1 to k rows; either must fit SMEM_MAX.
 int row_bytes(int k, int nc, bool typed, int look, int rows, int degp, const RowPlan& pl) {
   long bytes;
   if (pl.small) {
     if (k > SMALL_K || !pl.tsm) return -1;
     bytes = 16L * row_layout(k, nc, typed, look, rows, degp).total4();
   } else {
-    if (pl.pww < 1 || pl.pww > 14 * cell_words(k) || pl.rt < 1 || pl.rt > k ||
+    if (pl.pww < 1 || pl.pww > 14 * cell_words(k) || pl.pww > PIECE_WORDS || pl.rt < 1 ||
+        pl.rt > k ||
         (look == HERMITE && !pl.tsm))
       return -1;
     bytes = 16L * piece_layout(k, nc, typed, look, rows, degp, pl).total4();
@@ -1207,10 +1499,11 @@ cudaError_t smem_limit(Kern kern, int bytes) {
 
 // The row pass by the plan's form, one block per row (the row box's R
 // cells, then the pad cells up to n_rows), then (credits) the second pass:
-// k1_credits over the Cg cells of f, or k7_credits with the value.
+// k1_credits over the Cg cells of f, or k7_credits with the value.  cnt:
+// the pieces form's counts of its cull (k1_rows_pieces), or null.
 template <bool ENERGY, int LOOK, bool TYPED, bool VCRED>
 cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const PairParams& p,
-                       const RowPlan& pl, cudaStream_t st) {
+                       const RowPlan& pl, unsigned long long* cnt, cudaStream_t st) {
   const int bytes = row_bytes(a.k, VCRED ? 4 : 3, TYPED, LOOK, p.G, p.degp, pl);
   if (bytes < 0) return cudaErrorInvalidValue;
   if (pl.small) {
@@ -1226,7 +1519,7 @@ cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const
     }
     cudaError_t e = smem_limit(kern, bytes);
     if (e != cudaSuccess) return e;
-    kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p, pl);
+    kern<<<n_rows, ROW_THREADS, bytes, st>>>(a, p, pl, cnt);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !credits) return e;
@@ -1244,19 +1537,21 @@ cudaError_t row_launch(const RowArgs& a, int Cg, int n_rows, bool credits, const
 
 template <int LOOK, bool TYPED>
 cudaError_t k1_energy(const RowArgs& a, int Cg, int n_rows, int energy, bool credits,
-                      const PairParams& p, const RowPlan& pl, cudaStream_t st) {
-  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, st)
-                : row_launch<false, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, st);
+                      const PairParams& p, const RowPlan& pl, unsigned long long* cnt,
+                      cudaStream_t st) {
+  return energy ? row_launch<true, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, cnt, st)
+                : row_launch<false, LOOK, TYPED, false>(a, Cg, n_rows, credits, p, pl, cnt, st);
 }
 
 cudaError_t k1_dispatch(const RowArgs& a, int Cg, int n_rows, int look, int energy, bool credits,
-                        const PairParams& p, const RowPlan& pl, cudaStream_t st) {
+                        const PairParams& p, const RowPlan& pl, unsigned long long* cnt,
+                        cudaStream_t st) {
   const bool typed = a.ts != nullptr;
   if (look == CHEB)
-    return typed ? k1_energy<CHEB, true>(a, Cg, n_rows, energy, credits, p, pl, st)
-                 : k1_energy<CHEB, false>(a, Cg, n_rows, energy, credits, p, pl, st);
-  return typed ? k1_energy<HERMITE, true>(a, Cg, n_rows, energy, credits, p, pl, st)
-               : k1_energy<HERMITE, false>(a, Cg, n_rows, energy, credits, p, pl, st);
+    return typed ? k1_energy<CHEB, true>(a, Cg, n_rows, energy, credits, p, pl, cnt, st)
+                 : k1_energy<CHEB, false>(a, Cg, n_rows, energy, credits, p, pl, cnt, st);
+  return typed ? k1_energy<HERMITE, true>(a, Cg, n_rows, energy, credits, p, pl, cnt, st)
+               : k1_energy<HERMITE, false>(a, Cg, n_rows, energy, credits, p, pl, cnt, st);
 }
 
 // K2's tiles: n_low of the N low slots, and as many of the O tail rows as
@@ -1316,14 +1611,16 @@ const char* edm_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // box = {Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz} (all f32); ts: the (Cg, cap) slot
 // types and tpair = {ti, tj} for the typed CV, or null for none; plan =
 // {small, piece words, row tile, table in shared memory}
-// (ops/cellforce.py:row_plan), checked by row_bytes
+// (ops/cellforce.py:row_plan), checked by row_bytes; cnt: null, or three
+// int64 to which the pieces form adds the r^2 tests an unculled sweep would
+// run, those it ran and the unordered pairs in reach (k1_rows_pieces)
 int cell_force_newton_launch(const float* xs, const float* mc, const float* mcand, float* f,
                              float* eb, float* cred, int C, int Cg, int cap, int k, int nx,
                              int ny, int nz, int credits, int ox, int oy, int oz, int rx, int ry,
                              int rz, int n_rows, const float* ts, const float* tpair, int small,
                              int pww, int rt, int tsm, int look, const float* t1, const float* t2,
                              int rows, int degp, const float* geom, const float* box,
-                             const float* lj, int energy, void* stream) {
+                             const float* lj, int energy, void* cnt, void* stream) {
   if (!table_ok(look, rows, degp) || k < 1 || k > cap || Cg < C)
     return (int)cudaErrorInvalidValue;
   const int o[3] = {ox, oy, oz}, r[3] = {rx, ry, rz}, n[3] = {nx, ny, nz};
@@ -1335,18 +1632,18 @@ int cell_force_newton_launch(const float* xs, const float* mc, const float* mcan
             f, eb, cred, C, cap, k, nx, ny, nz, mcand, ox, oy, oz, rx, ry, rz};
   return (int)k1_dispatch(a, Cg, n_rows, look, energy, credits != 0,
                           make_params(rows, degp, geom, box, lj), RowPlan{small, pww, rt, tsm},
-                          (cudaStream_t)stream);
+                          (unsigned long long*)cnt, (cudaStream_t)stream);
 }
 
 // K7: the row pass at full cap with the value credited too, then the second
 // pass; Chebyshev only (look must be 1), energy always.  f (Cg, cap, 3),
 // eb (Cg, cap) and the scratch cred (Cg, 13, cap, 4) are written whole;
-// plan as for K1 (at k = cap, four components).
+// plan and cnt as for K1 (at k = cap, four components).
 int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb, float* cred,
                            int C, int Cg, int cap, int nx, int ny, int nz, int small, int pww,
                            int rt, int tsm, int look, const float* t1, const float* t2, int rows,
                            int degp, const float* geom, const float* box, const float* lj,
-                           void* stream) {
+                           void* cnt, void* stream) {
   if (look != CHEB || !table_ok(look, rows, degp) || cap < 1 || Cg < C)
     return (int)cudaErrorInvalidValue;
   RowArgs a{xs, mc, nullptr, t1, t2, 0.0f, 0.0f, f, eb, cred, C, cap, cap, nx, ny, nz,
@@ -1354,7 +1651,7 @@ int cell_force_full_launch(const float* xs, const float* mc, float* f, float* eb
   return (int)row_launch<true, CHEB, false, true>(a, Cg, Cg, true,
                                                   make_params(rows, degp, geom, box, lj),
                                                   RowPlan{small, pww, rt, tsm},
-                                                  (cudaStream_t)stream);
+                                                  (unsigned long long*)cnt, (cudaStream_t)stream);
 }
 
 // K2.  xo (5, O): x, y, z, mask, own; xp (4, N): x, y, z, mask; fo (4, O) and

@@ -27,7 +27,12 @@ reach of the cutoffs), in two forms that ``row_plan`` picks between: up to
 k = 64 (``SMALL_K``) ``k1_rows`` takes a cell's whole row at once; past it,
 or with a Chebyshev table too large for shared memory, ``k1_rows_pieces``
 takes the candidates in pieces of ballot words and the rows in tiles, so
-any k and any table fit a block's shared memory.  K1's credit pass
+any k and any table fit a block's shared memory, and culls each row's
+distance sweep: a piece's candidates are sorted by cell and sub-cell bin
+(``cull_bins``) and cut into chunks of ``CHUNK``, and a row tests r^2 only
+against the chunks whose bounding box it reaches (``piece_chunks``,
+``chunk_box`` and ``box_reaches`` state it plainly); with tracing on it
+counts the tests (``CULL_COUNTERS``).  K1's credit pass
 (``k1_credits``) runs over the force planes, K7's (``k7_credits``) adds the
 value too.  K2 (``k2_plan``) tiles the tail rows by 128.  Together they
 write every element of their outputs, so the wrappers allocate with
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 
 from ..models.cells import neighbor_cells
+from ..utils import trace
 from .chebyshev import ChebTable
 from .kernel_args import check, f32, library, raise_on
 
@@ -463,15 +469,24 @@ def overflow_force_ref(xo, xp, table, *, box, lj, energy: bool):
 # small form (k1_rows) takes, a block's shared memory on the H100 (227 KB),
 # the largest lookup table kept in shared memory (a larger one is read from
 # global memory), the pieces form's shared-memory budget (three blocks an
-# SM), its most rows a tile, and K2's partners and tail rows a tile
+# SM), its most rows a tile, its most ballot words a piece, its candidates a
+# cull box (chunk) and its most sub-cell bins a cell, and K2's partners and
+# tail rows a tile
 ROW_WARPS = 8
 SMALL_K = 64
 SMEM_MAX = 232448
 TABLE_SMEM_MAX = 48 * 1024
 PIECE_BUDGET = 72 * 1024
 ROW_TILE = 256
+PIECE_WORDS = 3 * ROW_WARPS
+CHUNK = 8
+NKEY = 8
 K2_TILE = 128
 HERMITE, CHEB = 0, 1  # the lookup ids
+# the pieces form's counts of its cull, when tracing is on: the r^2 tests a
+# sweep over every occupied candidate would run (rows x candidates), the
+# tests run, and the unordered pairs found within r2_far
+CULL_COUNTERS = ("k1.unculled", "k1.tested", "k1.in_reach")
 
 
 def _ceil(a: int, b: int) -> int:
@@ -508,11 +523,18 @@ def _small_bytes(k, nc, typed, tb) -> int:
     return tb + 16 * n4
 
 
+def max_chunks(pww: int) -> int:
+    """The most chunks a piece of ``pww`` ballot words holds: its 32 pww
+    candidates in chunks of CHUNK, and one part-filled chunk more for each
+    of its cells (at most pww, at most 14)."""
+    return 32 * pww // CHUNK + min(pww, 14)
+
+
 def _piece_bytes(k, nc, typed, tb, pww, rt, tsm) -> int:
-    PW = 32 * pww
+    PW, MC = 32 * pww, max_chunks(pww)
     n4 = (2 * rt + (_ceil(rt, 4) if typed else 0) + _ceil(cell_words(k), 4) + PW
-          + (PW // 4 if typed else 0) + ROW_WARPS * nc * PW // 4 + _ceil(pww, 4) + PW // 8
-          + ROW_WARPS * PW // 8)
+          + (PW // 4 if typed else 0) + ROW_WARPS * nc * PW // 4 + PW // 8 + ROW_WARPS * PW // 8
+          + _ceil(NKEY * pww + 2, 4) + 2 * MC + _ceil(ROW_WARPS * MC, 4) + ROW_WARPS * 3 * 8 // 16)
     return (tb if tsm else 0) + 16 * n4
 
 
@@ -522,10 +544,10 @@ def row_plan(k: int, nc: int, typed: bool, look: int, rows: int, degp: int) -> R
     components (3; K7: 4), typed or not, and the table (``look`` HERMITE or
     CHEB, its rows or panels, degp = degree + 1): the small form when k <=
     SMALL_K and the table fits TABLE_SMEM_MAX; else the pieces form, a row
-    tile of up to ROW_TILE rows and the most ballot words a piece that keep
-    its shared memory within PIECE_BUDGET, with the table in shared memory
-    if it fits beside one word (a Hermite table always does), else read
-    from global memory."""
+    tile of up to ROW_TILE rows and the most ballot words a piece (at most
+    PIECE_WORDS) that keep its shared memory within PIECE_BUDGET, with the
+    table in shared memory if it fits beside one word (a Hermite table
+    always does), else read from global memory."""
     tb = table_bytes(look, rows, degp)
     tsm = tb <= TABLE_SMEM_MAX
     if k <= SMALL_K and tsm:
@@ -533,7 +555,7 @@ def row_plan(k: int, nc: int, typed: bool, look: int, rows: int, degp: int) -> R
     rt = min(k, ROW_TILE)
     # a Hermite table (at most 16 KB) stays in shared memory
     for t in ((True, False) if tsm and look == CHEB else (tsm,)):
-        for pww in range(14 * cell_words(k), 0, -1):
+        for pww in range(min(14 * cell_words(k), PIECE_WORDS), 0, -1):
             b = _piece_bytes(k, nc, typed, tb, pww, rt, t)
             if b <= PIECE_BUDGET:
                 return RowPlan(False, pww, rt, t, b)
@@ -554,6 +576,95 @@ def piece_candidates(k: int, plan: RowPlan) -> list:
         o, sl = w // wpc, 32 * (w % wpc) + np.tile(np.arange(32), len(w) // 32)
         out.append(np.stack([o, sl], 1)[sl < k])
     return out
+
+
+def cull_bins(k: int, edge, reach: float) -> tuple:
+    """The pieces form's sub-cell bins along each axis
+    (``csrc/cellforce.cu:bin_split``): before a piece's candidates are cut
+    into chunks, each cell's are sorted by bin, so that a chunk covers a
+    part of its cell.  2 bins (the two sides of the cell's centre) along an
+    axis where a cell fills more than one chunk (k > CHUNK) and its edge
+    along the axis is at least half the reach (the distance of a pair that
+    can contribute); else 1.  ``edge``: the lattice's box over its cells per
+    axis, as the launch knows it."""
+    return tuple(2 if k > CHUNK and 2.0 * e >= reach else 1 for e in edge)
+
+
+def bin_keys(xs, k: int, box, ncells, r2_far: float) -> np.ndarray:
+    """Each slot's sub-cell bin (0 .. NKEY - 1) as the kernel keys it
+    (``bin_key``), on the slot lattice ``xs`` (C, cap, 3): on each axis that
+    ``cull_bins`` splits, the side of its cell's centre, (i + 1/2) L / n,
+    the position lies on by the minimum image (an atom that drifted out of
+    its cell keeps the side it left by); x the high bit.  (C, cap)."""
+    xs = np.asarray(xs, np.float32)
+    C = int(np.prod(ncells))
+    L = np.asarray(box, np.float32)
+    edge = L / np.asarray(ncells, np.float32)
+    bins = cull_bins(k, edge, np.sqrt(np.float32(r2_far)))
+    coords = np.stack(np.unravel_index(np.arange(C), tuple(ncells)), 1)
+    key = np.zeros(xs.shape[:2], np.int64)
+    for d in range(3):
+        centre = (coords[:, d].astype(np.float32) + np.float32(0.5)) * edge[d]
+        e = xs[:C, :, d] - centre[:, None]
+        e = e - np.rint(e * np.float32(1.0 / box[d])) * L[d]
+        key[:C] = 2 * key[:C] + ((e > 0) & (bins[d] == 2))
+    return key
+
+
+def piece_chunks(k: int, plan: RowPlan, occ, keys) -> list:
+    """The pieces form's counting sort and chunks (``k1_rows_pieces``),
+    plainly.  For each piece of ``piece_candidates(k, plan)``: its occupied
+    candidates (``occ`` (14, k) bool, cell offset o by slot) in the
+    kernel's order — by cell, then by sub-cell bin (``keys`` (14, k)), then
+    by slot — as indices into the piece's candidate list, and its chunks,
+    each cell's part of that order cut into (start, stop) ranges of at most
+    CHUNK.  A list of (order, chunks) a piece."""
+    occ, keys = np.asarray(occ, bool), np.asarray(keys)
+    out = []
+    for cand in piece_candidates(k, plan):
+        o, sl = cand[:, 0], cand[:, 1]
+        live = np.flatnonzero(occ[o, sl])
+        order = live[np.lexsort((sl[live], keys[o[live], sl[live]], o[live]))]
+        _, first = np.unique(o[order], return_index=True)
+        ends = list(first[1:]) + [len(order)]
+        chunks = [(s, min(s + CHUNK, b)) for a, b in zip(first, ends) for s in range(a, b, CHUNK)]
+        out.append((order, chunks))
+    return out
+
+
+def _mimage32(d, L: float):
+    """pair_r2's minimum image of float32 ``d`` along an axis of box length
+    ``L``, op for op (no contraction; the reciprocal rounded once, as the
+    launch rounds it)."""
+    return d - np.floor(d * np.float32(1.0 / L) + np.float32(0.5)) * np.float32(L)
+
+
+def chunk_box(x, box) -> tuple:
+    """A chunk's box as the kernel takes it from its members ``x`` (m, 3)
+    float32: each member's minimum image from the first, their range, the
+    centre and the half-widths widened by 2^-12 of the box and the centre's
+    magnitude.  Returns (centre (3,), half (3,))."""
+    x = np.asarray(x, np.float32)
+    d = np.stack([_mimage32(x[:, c] - x[0, c], box[c]) for c in range(3)], 1)
+    lo, hi = np.minimum(d.min(0), 0), np.maximum(d.max(0), 0)
+    half = np.float32(0.5)
+    centre = x[0] + half * (lo + hi)
+    slack = (np.float32(box) + np.abs(centre)) * np.float32(1.0 / 4096.0)
+    return centre.astype(np.float32), (half * (hi - lo) + slack).astype(np.float32)
+
+
+def box_reaches(a, centre, half, box, r2_far: float) -> np.ndarray:
+    """Whether rows ``a`` (..., 3) reach a chunk's box: the squared
+    distance from each row to the box by the minimum image, against r2_far
+    (the kernel's test, ``cull_dist``, in float64).  A chunk that fails
+    holds no candidate within r2_far of the row."""
+    a = np.asarray(a, np.float64)
+    g2 = 0.0
+    for c in range(3):
+        d = a[..., c] - np.float64(centre[c])
+        d = np.abs(d - np.rint(d / box[c]) * box[c])
+        g2 = g2 + np.maximum(d - np.float64(half[c]), 0.0) ** 2
+    return g2 <= np.float32(r2_far)
 
 
 class K2Plan(NamedTuple):
@@ -629,6 +740,21 @@ def _plan_args(plan: RowPlan):
     return int(plan.small), plan.piece_words, plan.row_tile, int(plan.table_smem)
 
 
+def _cull_counts(plan: RowPlan, device):
+    """The pieces form's counts of its cull (three int64 on ``device``)
+    when tracing is on, else None."""
+    if plan.small or not trace.enabled():
+        return None
+    return torch.zeros(3, dtype=torch.int64, device=device)
+
+
+def _report_cull(counts) -> None:
+    """Adds the launch's counts into the device counters CULL_COUNTERS."""
+    if counts is not None:
+        for name, n in zip(CULL_COUNTERS, counts):
+            trace.count_device(name, n)
+
+
 def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box, lj, energy,
                    ts, type_pair, mc_cand=None, row_box=None):
     """Checks and launches K1 (``credits``: applied in the kernel) or K6
@@ -651,13 +777,16 @@ def _newton_launch(credits: bool, xs, mc, f, eb, cred, table, *, k, ncells, box,
         types = (ts.data_ptr(), f32(type_pair))
     look = _table_args(table, xs.device)
     plan = row_plan(k, 3, ts is not None, look[0], look[3], look[4])
+    counts = _cull_counts(plan, xs.device)
     code = lib.cell_force_newton_launch(
         xs.data_ptr(), mc.data_ptr(), mc_cand.data_ptr(), f.data_ptr(), eb.data_ptr(),
         cred.data_ptr(), C, Cg, cap, k, *ncells, int(credits), *origin, *rdims, mc.shape[0],
         *types, *_plan_args(plan), *_pair_args(look, box, lj), int(energy),
+        None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_newton" if credits else "cell_force_newton_planar")
+    _report_cull(counts)
 
 
 def _device_of(t, what):
@@ -752,12 +881,15 @@ def cell_force_full(xs, mc, sid, table: ChebTable, *, ncells, box, lj):
     look = _table_args(table, xs.device)
     plan = row_plan(cap, 4, False, look[0], look[3], look[4])
     args = _pair_args(look, box, lj)
+    counts = _cull_counts(plan, xs.device)
     code = lib.cell_force_full_launch(
         xs.data_ptr(), mc.data_ptr(), f.data_ptr(), eb.data_ptr(), cred.data_ptr(),
         C, Cg, cap, *ncells, *_plan_args(plan), *args,
+        None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     raise_on(lib, code, "cell_force_full")
+    _report_cull(counts)
     cell_force_full.launches += 1
     return f, eb
 

@@ -60,8 +60,12 @@ collections, half and typed, bitwise through the kernels and the plain
 versions.
 Past the kernels' old shape limits (their launch plans in
 ``ops/cellforce``): K1 at k = 72 to 512 on ``chip_smoke.cap_lattice``
-(caps 96, 256 and 512: the row in pieces, at 512 the rows in tiles too),
-typed K1, K6 and K7 at cap 96, K2 with 136, 384 and 1,024 tail rows (row
+(caps 96, 256 and 512: the row in pieces, its sweep culled by the chunks'
+boxes, at 512 the rows in tiles too), typed K1, K6 and K7 at cap 96, each
+also on the lattice's atoms drifted by a stride's travel (some past their
+cells' faces, some by a box length across the periodic boundary), the
+cull's counters against the plain count of pairs in reach (none dropped,
+fewer tests than rows x candidates), K2 with 136, 384 and 1,024 tail rows (row
 tiles), Chebyshev tables of degree 80, of 16 panels and of 1,024 panels
 (read from global memory), and K4/K5 hills whose reach spans the grid.
 Tolerances as in the CPU parity tests: forces within 2e-5 * max(1, max|f|), energies 1e-5
@@ -90,8 +94,9 @@ from edm_tpu_torch.ops import deposit_kernels as DK
 from edm_tpu_torch.ops.chebyshev import f32_error_bound, fit_gauss_grid
 from edm_tpu_torch.ops.prng import PRNGKey
 from edm_tpu_torch.utils.config import parse_edm_text
+from edm_tpu_torch.utils import trace
 from test_torch_k2k4 import BOX, overflow_case
-from test_torch_rowpass import CASES, slot_state
+from test_torch_rowpass import CASES, drift, reach2, slot_state, stencil_pair_counts
 
 KCAP, OCAP = 24, 128
 LJ = LJParams(epsilon=1.0, sigma=0.3, rcut=0.75)
@@ -1765,15 +1770,29 @@ def cap_states(cuda_state):
 CAP_LJ = LJParams(epsilon=1.0, sigma=1.0, rcut=2.5)  # the dense liquid's
 
 
+def _cap_state(cap_states, cap, drifted):
+    """``cap_states[cap]``, or with its atoms ``drift``-ed: each moved by up
+    to a 10-step stride's travel, some past their cell's faces, a tenth by
+    a box length across the periodic boundary, the slots unchanged (the
+    state between two rebuilds)."""
+    spec, st = cap_states[cap]
+    if drifted:
+        st = dataclasses.replace(st, xs=drift(st.xs, st.mc, spec.box, seed=cap))
+    return spec, st
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cap, k", [(96, 72), (96, 96), (256, 128), (256, 256), (512, 512)])
 @pytest.mark.parametrize("kind", ["hermite", "cheb"])
 @pytest.mark.parametrize("energy", [False, True])
-def test_row_pass_k1_large_cap(cuda_state, cap_states, poisoned_empty, cap, k, kind, energy):
-    """K1 past k = 64 (the pieces form; at 512 the rows tiled too) on
-    poisoned outputs: the plain version's forces and per-row energies,
-    zeros past k, one launch, a bitwise repeat."""
-    spec, st = cap_states[cap]
+@pytest.mark.parametrize("drifted", [False, True])
+def test_row_pass_k1_large_cap(cuda_state, cap_states, poisoned_empty, cap, k, kind, energy,
+                               drifted):
+    """K1 past k = 64 (the pieces form, its sweep culled by the chunks'
+    boxes; at 512 the rows tiled too) on poisoned outputs, on the lattice
+    and on its drifted atoms: the plain version's forces and per-row
+    energies, zeros past k, one launch, a bitwise repeat."""
+    spec, st = _cap_state(cap_states, cap, drifted)
     tab = _table(cuda_state[4], kind)
     lid, _, _, rows, degp, _ = CF._table_args(tab, st.xs.device)
     plan = CF.row_plan(k, 3, False, lid, rows, degp)
@@ -1796,11 +1815,14 @@ def test_row_pass_k1_large_cap(cuda_state, cap_states, poisoned_empty, cap, k, k
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["hermite", "cheb"])
 @pytest.mark.parametrize("energy", [False, True])
-def test_row_pass_typed_k6_k7_large_cap(cuda_state, cap_states, poisoned_empty, kind, energy):
-    """At cap 96 (the pieces form): typed K1, K6 (typed and not) and, with
-    the Chebyshev table, K7, each against its plain version on poisoned
-    outputs, with a bitwise repeat."""
-    spec, st = cap_states[96]
+@pytest.mark.parametrize("drifted", [False, True])
+def test_row_pass_typed_k6_k7_large_cap(cuda_state, cap_states, poisoned_empty, kind, energy,
+                                        drifted):
+    """At cap 96 (the pieces form), on the lattice and on its drifted
+    atoms: typed K1, K6 (typed and not) and, with the Chebyshev table, K7,
+    each against its plain version on poisoned outputs, with a bitwise
+    repeat."""
+    spec, st = _cap_state(cap_states, 96, drifted)
     tab = _table(cuda_state[4], kind)
     geo = dict(ncells=spec.ncells, box=spec.box, lj=CAP_LJ)
     kw = dict(geo, energy=energy, ts=st.ts, type_pair=(1, 2))
@@ -1832,6 +1854,34 @@ def test_row_pass_typed_k6_k7_large_cap(cuda_state, cap_states, poisoned_empty, 
         assert_forces(out[1].cpu(), eb_ref.cpu(), "K7 cap=96 eb rows")
         assert_energy(out[1].sum().cpu(), eb_ref.sum().cpu(), "K7 cap=96 energy")
         assert _same(out, CF.cell_force_full(st.xs, st.mc, st.sid, tab, **geo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap, k", [(96, 96), (256, 256)])
+@pytest.mark.parametrize("drifted", [False, True])
+def test_row_pass_cull_counts(cuda_state, cap_states, cap, k, drifted):
+    """With tracing on, the pieces form's counters of one K1 launch:
+    ``k1.unculled`` is rows x occupied candidates and ``k1.in_reach`` the
+    plain count of unordered half-stencil pairs within r2_far (the cull
+    drops no pair), and the cull runs fewer r^2 tests than that; with
+    tracing off nothing is counted and the forces are bitwise the same."""
+    spec, st = _cap_state(cap_states, cap, drifted)
+    tab = _table(cuda_state[4], "hermite")
+    kw = dict(k=k, ncells=spec.ncells, box=spec.box, lj=CAP_LJ, energy=False)
+    off = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+    trace.enable()
+    try:
+        trace.reset()
+        on = CF.cell_force_newton(st.xs, st.mc, tab, **kw)
+        got = trace.report()["counters"]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert _same(off, on)
+    unculled, in_reach = stencil_pair_counts(st.xs.cpu(), st.mc.cpu(), k, spec.ncells, spec.box,
+                                             reach2(tab, CAP_LJ))
+    assert got["k1.unculled"] == unculled and got["k1.in_reach"] == in_reach, got
+    assert in_reach <= got["k1.tested"] < unculled, got
 
 
 @pytest.mark.gpu

@@ -19,7 +19,11 @@ and a bias grid carrying 80 hills.
   - ``ops.cellforce.row_plan`` and ``k2_plan`` at every cap 8 ... 1,024 in
     steps of 8 and every tail 8 ... 2,048: each fits a block's 227 KB, and
     the pieces and tiles the kernels map from them (``piece_candidates``,
-    ``k2_blocks``) take every candidate, tail row and partner once.
+    ``k2_blocks``) take every candidate, tail row and partner once; the
+    pieces form's sort and chunks (``piece_chunks``, on a random occupancy
+    and random sub-cell bins) take each occupied candidate slot once, in
+    chunks of at most ``CHUNK`` inside one cell, no more than
+    ``max_chunks`` a piece.
 
 Each interpret-mode kernel is an XLA compile of ~9 s here, so the cases
 share them: K1 at k = 72 is checked inside the step, the 16-panel table
@@ -279,24 +283,33 @@ def test_plans_fit_and_cover():
     """Every row-pass plan (K1, K6: 3 credit components; K7: 4; typed or
     not; the Hermite table of 201 rows, the 16 x 16 Chebyshev table and
     one past ``TABLE_SMEM_MAX``) at caps 8 ... 1,024 in steps of 8 fits
-    227 KB, its pieces take each of the 14 cells' first k slots once and
-    its row tiles each row once; every K2 plan for tails 8 ... 2,048 fits
-    and its blocks take each (tail row, partner) once."""
+    227 KB, its pieces take each of the 14 cells' first k slots once, and
+    in the pieces form, sorted by sub-cell bin and cut into chunks, each
+    occupied slot once, in chunks of at most CHUNK within one cell, at most
+    ``max_chunks`` a piece; its row tiles take each row once; every K2 plan
+    for tails 8 ... 2,048 fits and its blocks take each (tail row, partner)
+    once."""
     tables = [(CF.HERMITE, 201, 0), (CF.CHEB, 16, 17), (CF.CHEB, 1024, 8)]
+    rng = np.random.default_rng(0)
     for k in range(8, 1025, 8):
+        occ = rng.random((14, k)) < rng.uniform(0.3, 1.0)
+        keys = rng.integers(0, CF.NKEY, (14, k))
         for nc, typed in ((3, False), (3, True), (4, False)):
             for look in tables:
                 plan = CF.row_plan(k, nc, typed, *look)
                 assert plan.smem <= CF.SMEM_MAX, (k, nc, typed, look, plan)
                 assert plan.small == (k <= CF.SMALL_K and look[1] < 1024), (k, look, plan)
                 assert plan.table_smem == (look[1] < 1024)
-                got = np.concatenate(CF.piece_candidates(k, plan))
+                pieces = CF.piece_candidates(k, plan)
+                got = np.concatenate(pieces)
                 want = np.stack(np.meshgrid(np.arange(14), np.arange(k), indexing="ij"),
                                 -1).reshape(-1, 2)
                 np.testing.assert_array_equal(got, want)
                 if not plan.small:
                     tiles = [min(k, t + plan.row_tile) - t for t in range(0, k, plan.row_tile)]
                     assert sum(tiles) == k and plan.row_tile == min(k, CF.ROW_TILE)
+                    assert plan.piece_words <= CF.PIECE_WORDS
+                    _check_piece_chunks(k, plan, pieces, occ, keys)
     N = 3 * 128 + 5  # a ragged last tile of partners
     for O in range(8, 2049, 8):
         for look in tables:
@@ -310,6 +323,25 @@ def test_plans_fit_and_cover():
                 got = sorted(p for _, yy, t, p, r in blocks if yy == y and t == tail)
                 assert _partition(got, n) and all(r == rows for _, yy, _, _, r in blocks
                                                   if yy == y), (O, y, tail)
+
+
+def _check_piece_chunks(k, plan, pieces, occ, keys):
+    """The pieces form's sort and chunks take each occupied slot once: by
+    cell, bin and slot within a piece, chunks of 1 to CHUNK candidates that
+    tile the piece and never span two cells, at most ``max_chunks``."""
+    seen = []
+    for cand, (order, chunks) in zip(pieces, CF.piece_chunks(k, plan, occ, keys)):
+        o, sl = cand[order, 0], cand[order, 1]
+        assert occ[o, sl].all() and len(order) == int(occ[cand[:, 0], cand[:, 1]].sum())
+        assert (np.diff((o * CF.NKEY + keys[o, sl]) * k + sl) > 0).all()  # by cell, bin, slot
+        assert len(chunks) <= CF.max_chunks(plan.piece_words), (k, plan)
+        if len(order):
+            a, b = np.asarray(chunks).T
+            assert a[0] == 0 and b[-1] == len(order) and (a[1:] == b[:-1]).all(), (k, plan)
+            assert ((b - a >= 1) & (b - a <= CF.CHUNK) & (o[a] == o[b - 1])).all(), (k, plan)
+        seen.append(o * k + sl)
+    hits = np.bincount(np.concatenate(seen), minlength=14 * k)
+    np.testing.assert_array_equal(hits, occ.reshape(-1))
 
 
 def _partition(ranges, n) -> bool:

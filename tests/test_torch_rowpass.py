@@ -10,7 +10,15 @@ versions:
     force credits subtracted and the value credits added in HALF_OFFSETS
     order, the self block's value taken whole (float64, to 1e-12 of max|.|);
   - the reach test: a pair beyond the larger of the LJ cutoff and the
-    table's upper edge contributes exact zeros, so the row pass may skip it.
+    table's upper edge contributes exact zeros, so the row pass may skip it;
+  - the pieces form's cull (``k1_rows_pieces``, stated plainly by
+    ``cull_bins``, ``bin_keys``, ``piece_chunks``, ``chunk_box`` and
+    ``box_reaches``): the bins a cell from k and the cell edge over the
+    reach, and, on random positions at in.lj's geometry (cells of 4.097,
+    reach 4.0, k = 96) and on a 3^3 lattice of large cells (k = 256), each
+    drifted by up to two strides' travel, some past their cell's faces and
+    some moved by a box length across the periodic boundary, no pair within
+    r2_far has its candidate in a chunk whose box the row fails.
 
 The kernel itself is held to the plain versions on the card
 (``test_torch_gpu.py``), on the slot states made here.
@@ -199,3 +207,139 @@ def test_pairs_beyond_reach_are_exact_zeros(kind, dtype, rcut):
     inside = d * (0.97 * torch.sqrt(r2_far) / d.norm(dim=1, keepdim=True))
     f_in, v_in = CF._pair_terms(inside[:, 0], inside[:, 1], inside[:, 2], ok, tab, lj, True)
     assert bool(f_in.any()) or bool(v_in.any())
+
+
+def drift(xs, mc, box, seed, step=0.05, wrap_share=0.1):
+    """``xs`` with each occupied slot moved by up to ``step`` per axis (0.05:
+    a 10-step stride's travel at dt 0.002 and 2.5 per axis, about 2.8
+    sigma of the thermal speed at kT 0.8) and a ``wrap_share`` of them moved
+    by a box length along one axis (unwrapped coordinates across the
+    periodic boundary); the slots stay where the rebin put them, so atoms
+    leave their cells."""
+    rng = np.random.default_rng(seed)
+    pick = rng.random(xs.shape[:2]) < wrap_share
+    axis = rng.integers(0, 3, xs.shape[:2])
+    sign = rng.choice([-1.0, 1.0], xs.shape[:2])
+    move = rng.uniform(-step, step, xs.shape)
+    for d in range(3):
+        move[..., d] += np.where(pick & (axis == d), sign * box[d], 0.0)
+    move = torch.tensor(move, dtype=xs.dtype, device=xs.device)
+    return torch.where((mc > 0.5)[..., None], xs + move, xs)
+
+
+def pair_r2_f32(a, b, box):
+    """``pair_r2`` of csrc/cellforce.cu in float32, op for op: rows ``a``
+    (m, 3) against ``b`` (n, 3), the box's reciprocal rounded once as the
+    launch rounds it.  (m, n)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    r2 = None
+    for d in range(3):
+        x = CF._mimage32(a[:, None, d] - b[None, :, d], box[d])
+        r2 = x * x if r2 is None else r2 + x * x
+    return r2
+
+
+def stencil_pair_counts(xs, mc, k, ncells, box, r2_far):
+    """What the pieces form's counters must read for one launch over the
+    whole lattice: (rows x occupied candidates of the 14 cells, summed over
+    the cells; the unordered pairs of the half stencil within r2_far, a
+    self-block pair once), in ``pair_r2``'s float32 arithmetic."""
+    nbr = CF.half_neighbors(tuple(ncells), torch.device("cpu")).numpy()
+    x, m = xs.double().numpy(), (mc > 0.5).numpy()
+    unculled = in_reach = 0
+    for c in range(int(np.prod(ncells))):
+        rows = x[c, :k][m[c, :k]]
+        cands = np.concatenate([x[o, :k][m[o, :k]] for o in [c] + list(nbr[c])])
+        unculled += len(rows) * len(cands)
+        inside = pair_r2_f32(rows, cands, box) <= np.float32(r2_far)
+        in_reach += int(np.triu(inside[:, :len(rows)], 1).sum() + inside[:, len(rows):].sum())
+    return unculled, in_reach
+
+
+def cull_geometry(name, seed=3):
+    """(xs (C, k, 3) float32 slot positions, mc, k, ncells, box, r2_far):
+    ``in.lj`` - the in.lj liquid's density 0.8442 on 4^3 cells of its edge
+    4.097 with the reach of its bias (4.0), k = 96; ``lattice 3x3x3`` - 3^3
+    cells of edge 3.1 holding 128 to 255 atoms each, cell 0 full, reach
+    3.0, k = 256.  Positions uniform, slotted by cell, then ``drift``-ed by
+    up to two strides' travel."""
+    rng = np.random.default_rng(seed)
+    if name == "in.lj":
+        n_side, edge, k, reach = 4, 4.097, 96, 4.0
+        L = n_side * edge
+        counts = rng.poisson(0.8442 * edge ** 3, n_side ** 3).clip(0, k)
+    else:
+        n_side, edge, k, reach = 3, 3.1, 256, 3.0
+        L = n_side * edge
+        counts = rng.integers(k // 2, k, n_side ** 3)
+        counts[0] = k
+    ncells, box = (n_side,) * 3, (L, L, L)
+    C = n_side ** 3
+    lo = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"), -1).reshape(-1, 3) * edge
+    xs = np.zeros((C, k, 3))
+    mc = np.zeros((C, k))
+    for c in range(C):
+        slots = np.sort(rng.choice(k, counts[c], replace=False))  # holes between the atoms
+        xs[c, slots] = lo[c] + rng.uniform(0, edge, (counts[c], 3))
+        mc[c, slots] = 1.0
+    xs, mc = torch.tensor(xs, dtype=torch.float32), torch.tensor(mc, dtype=torch.float32)
+    xs = drift(xs, mc, box, seed + 1, step=0.1)  # two strides' travel
+    return xs, mc, k, ncells, box, float(np.float32(reach * reach * (1.0 + 1e-5)))
+
+
+def test_cull_bins_from_k_and_the_edge_over_the_reach():
+    """Two bins along an axis where a cell fills more than one chunk and
+    its edge is at least half the reach; one elsewhere; the keys take the
+    side of the cell's centre on each split axis, x the high bit, by the
+    minimum image (an atom out of its cell, or a box length away, keeps its
+    side)."""
+    assert CF.cull_bins(96, (4.097,) * 3, 4.0) == (2, 2, 2)
+    assert CF.cull_bins(CF.CHUNK, (4.097,) * 3, 4.0) == (1, 1, 1)
+    assert CF.cull_bins(CF.CHUNK + 1, (1.9, 2.0, 2.1), 4.0) == (1, 2, 2)
+    edge, r2 = 4.0, 16.0 * (1 + 1e-5)
+    xs = np.zeros((27, 6, 3), np.float32)
+    # cell 0 at (0, 0, 0) and cell 26 at (2, 2, 2) (upper corner (12, 12, 12))
+    xs[0] = [[0.5, 0.5, 0.5], [2.5, 0.5, 0.5], [0.5, 2.5, 3.9], [-0.3, 4.2, 0.5],
+             [12.5, 0.5, 2.1], [0.5, -11.9, 0.5]]
+    xs[26] = [[8.5, 11.5, 8.5], [12.2, 8.1, 7.9], [-3.5, 8.5, 8.5], [0, 0, 0], [0, 0, 0],
+              [0, 0, 0]]
+    keys = CF.bin_keys(xs, 96, (3 * edge,) * 3, (3, 3, 3), r2)
+    assert keys[0].tolist() == [0, 4, 3, 2, 1, 0]
+    assert keys[26, :3].tolist() == [2, 4, 0]
+    assert not CF.bin_keys(xs, CF.CHUNK, (3 * edge,) * 3, (3, 3, 3), r2).any()
+
+
+@pytest.mark.parametrize("name", ["in.lj", "lattice 3x3x3"])
+def test_cull_keeps_every_pair_in_reach(name):
+    """For every row cell: the piece plan at k (K1, Hermite table), each
+    piece's candidates sorted and cut into chunks as the kernel does, each
+    chunk's box from its members; every candidate within r2_far of a row
+    (``pair_r2``'s float32 arithmetic) lies in a chunk whose box the row
+    reaches; and the cull drops a fair share of the other tests (at in.lj's
+    geometry about the share the sub-cell boxes were sized for)."""
+    xs, mc, k, ncells, box, r2_far = cull_geometry(name)
+    plan = CF.row_plan(k, 3, False, CF.HERMITE, 201, 0)
+    assert not plan.small
+    nbr = CF.half_neighbors(tuple(ncells), torch.device("cpu")).numpy()
+    x, m = xs.numpy(), (mc > 0.5).numpy()
+    keys = CF.bin_keys(x, k, box, ncells, r2_far)
+    tests = kept = in_reach = 0
+    for c in range(int(np.prod(ncells))):
+        cells = [c] + list(nbr[c])
+        occ, key, pos = m[cells, :k], keys[cells, :k], x[cells, :k]
+        rows = pos[0][occ[0]]
+        for piece, (order, chunks) in zip(CF.piece_candidates(k, plan),
+                                          CF.piece_chunks(k, plan, occ, key)):
+            cpos = pos[piece[order, 0], piece[order, 1]]
+            inside = pair_r2_f32(rows, cpos, box) <= np.float32(r2_far)
+            passes = np.zeros_like(inside)
+            for a, b in chunks:
+                centre, half = CF.chunk_box(cpos[a:b], box)
+                passes[:, a:b] = CF.box_reaches(rows, centre, half, box, r2_far)[:, None]
+            assert not (inside & ~passes).any(), (name, c)
+            tests += inside.size
+            kept += int(passes.sum())
+            in_reach += int(inside.sum())
+    assert in_reach > 0
+    cull = 1 - kept / tests
+    assert cull > (0.5 if name == "in.lj" else 0.3), cull
