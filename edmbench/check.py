@@ -29,7 +29,10 @@ over atoms, grid points or the checked steps:
   cap;
 - ``state_mismatch``: the Threefry key, the step counter, atoms the slot
   table holds other than once, the deferred-hill count, and the
-  truncation and overflow flags.
+  truncation and overflow flags;
+- ``rank_mismatch`` (sharded hosts only): the ranks whose final
+  positions, velocities, bias grid values, bias added or Threefry key
+  differ bitwise from rank 0's, whose state every rank replicates.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from . import reference as R
 HERE = os.path.dirname(os.path.abspath(__file__))
 F32_EPS = 2.0 ** -23
 NUMBERS = ("force_gap", "position_gap", "velocity_gap", "energy_gap", "grid_gap",
-           "cum_bias_gap", "calls_gap", "table_mismatch", "state_mismatch")
+           "cum_bias_gap", "calls_gap", "table_mismatch", "state_mismatch", "rank_mismatch")
 
 
 def limits(config: str) -> dict:
@@ -150,9 +153,22 @@ def judge(cfg: dict, geom: dict, steps, control_dtype=None) -> dict:
             cand = candidate(geom, s0, s1)
         else:
             cand = control_candidate(R.predict(cfg, geom, s0, s1, phase, dtype=control_dtype))
-        for k, v in gaps(phase, s0, pred, cand).items():
-            worst[k] = v if v != v else max(worst.get(k, 0.0), v)  # a NaN stays
+        _fold(worst, gaps(phase, s0, pred, cand))
         del pred, cand
+    return worst
+
+
+def _fold(worst: dict, values: dict):
+    for k, v in values.items():
+        worst[k] = v if v != v else max(worst.get(k, 0.0), v)  # a NaN stays
+
+
+def worst_of(parts) -> dict:
+    """Each number's worst over ``parts`` (the ranks' shares of the kept
+    steps, each from ``judge``); a NaN stays."""
+    worst = {}
+    for p in parts:
+        _fold(worst, p)
     return worst
 
 

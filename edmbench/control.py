@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The readings that each limit of ``limits/<configuration>.json`` is set from, on the
-card at a cell's own size: for each seed, a short window of the cell, the
-checked cycle judged against the reference (the program's gaps: the lower
-readings) and the control judged the same way (the reference computed in
-bfloat16, the precision below the configuration's float32, in the
-program's place: the upper readings).  One process for all the seeds.
+card at a cell's own size: for each seed, a short window of the cell (a
+sharded cell in its ranks, launched anew a seed), the checked cycle judged
+against the reference (the program's gaps: the lower readings) and the
+control judged the same way (the reference computed in bfloat16, the
+precision below the configuration's float32, in the program's place: the
+upper readings).  One process for all the seeds.
 
     python3 edmbench/control.py --workload inlj.4m --seconds 2 --seeds 11 12 13
 
@@ -38,9 +39,10 @@ def main(argv=None) -> int:
         return 2
     bench = run.load(os.path.join(run.ROOT, "BENCHMARK.json"))
     _, cfg, mix = run.cell_of(bench, args.workload)
+    runner = run.run_ranks if int(mix.get("ranks", 1)) > 1 else run.run_cell
     for seed in args.seeds:
-        res = run.run_cell(args.workload, cfg, mix, seed, args.seconds, False,
-                           control_dtype=None if args.no_control else torch.bfloat16)
+        res = runner(args.workload, cfg, mix, seed, args.seconds, False,
+                     control_dtype=None if args.no_control else torch.bfloat16)
         line = dict(seed=seed, program={k: r["value"] for k, r in res["checks"][2].items()},
                     cycles=res["cycles"], missed_pairs=res["missed_pairs"],
                     reference_s=res["reference_s"])

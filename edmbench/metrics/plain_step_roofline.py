@@ -1,7 +1,9 @@
 """The least time a plain step's work needs (``work.py``: the pairs within
 reach, each input byte read once and each output byte written once) over
 the device time of the operations launched inside plain-step spans, per
-plain step, % (layer: the kernels)."""
+plain step, % (layer: the kernels).  A sharded host's step runs on
+``record["ranks"]`` cards, so its least time is the whole system's over
+the ranks, against rank 0's device time."""
 
 
 def read(record):
@@ -9,4 +11,5 @@ def read(record):
     if not tr or not w or not tr["span_count"].get("plain"):
         return None
     dev_s = tr["span_device_ns"].get("plain", 0) / tr["span_count"]["plain"] / 1e9
-    return 100.0 * w["least_s"] / dev_s if dev_s > 0 else None
+    least_s = w["least_s"] / record.get("ranks", 1)
+    return 100.0 * least_s / dev_s if dev_s > 0 else None

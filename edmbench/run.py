@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The benchmark of ``edm_tpu_torch`` on one card.
+"""The benchmark of ``edm_tpu_torch`` on one card or several.
 
     python3 edmbench/run.py --workload inlj.4m --seed 7 --seconds 10 --trace 0
 
@@ -14,9 +14,18 @@ prints the cell's end-to-end metrics, ``--trace 1`` its per-layer ones
 judges one stride cycle of the window against the plain reference
 (``check.py``) and prints one JSON line last on standard output.
 
+A mix with ``ranks`` above 1 runs a sharded host (``host`` ``slab`` or
+``brick``) in that many ranks of ``parallel.launch``, a card each over
+NCCL: the library is built here first, every rank builds the same
+replicated state and warms up, rank 0 fixes the window's cycle count from
+the warm-up's pace and broadcasts it, and every rank runs that many
+cycles.  Rank 0's window gives the metrics and its profile the per-layer
+ones; the kept steps are rank 0's, judged a step a rank.
+
 Exits non-zero with no result without enough CUDA cards, without the
 port, or when JAX or the JAX package is loaded once the window has
-closed.  Build and kernel caches stay inside the checkout."""
+closed, here or in a rank.  Build and kernel caches stay inside the
+checkout."""
 
 import time
 
@@ -26,6 +35,7 @@ import argparse  # noqa: E402
 import gc  # noqa: E402
 import importlib  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
@@ -70,14 +80,22 @@ def set_cache_env():
 
 
 def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
-             device: str = "cuda", fault=None, control_dtype=None) -> dict:
+             device: str = "cuda", fault=None, control_dtype=None, mesh=None,
+             t_start: float = None) -> dict:
     """Set up, warm up, run the window, judge the checked cycle.  Returns
     {"setup_s", "window_s", "cycles", "cycle_ms", "memory_peak_bytes",
     "record", "checks", "reference_s", "missed_pairs"}.  ``fault(phase, state_in, (state_out, y))
     -> (state_out, y)``, for the harness's own tests, breaks every step of
     the window underneath; ``control_dtype`` also judges the control (the
     reference in that precision in the program's place) under
-    ``"control"`` (``control.py``)."""
+    ``"control"`` (``control.py``).
+
+    With ``mesh`` (this rank's, in ``rank_main``) the window runs the
+    cycle count that rank 0 broadcasts, and the result has the judged
+    numbers of this rank's share of the kept steps under ``"values"``
+    instead of ``"checks"``, and ``"rank_differs"``: 1 where the final
+    state differs bitwise from rank 0's.  ``setup_s`` counts from
+    ``t_start`` (default: this module's import)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -86,21 +104,28 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
 
     from edmbench import check, system as S, trace as T, work
 
-    on_card = device == "cuda"
+    on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    sysm = S.build(cfg, mix, seed, device)
+    sysm = S.build(cfg, mix, seed, device, mesh)
     rng = np.random.default_rng(abs(int(seed)))
     plain_pos = int(rng.integers(1, S.CYCLE - 1))
-    check_cycle = int(rng.integers(0, max(1, int(2 * seconds))))
+    if mesh is None:
+        check_cycle = int(rng.integers(0, max(1, int(2 * seconds))))
     keep = {0: "hill", plain_pos: "plain", S.CYCLE - 1: "rebuild"}
 
     state = sysm.state
     seg_raw = pattern_segment(sysm.pattern(), S.CYCLE)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    for _ in range(int(mix["warmup_cycles"])):
-        state, _ = seg_raw(state)
-    sync()
+    n_cycles = None  # one card: cycles until ``seconds`` have passed
+    if mesh is None:
+        for _ in range(int(mix["warmup_cycles"])):
+            state, _ = seg_raw(state)
+        sync()
+    else:
+        state, n_cycles = warm_up_ranks(seg_raw, state, int(mix["warmup_cycles"]), seconds,
+                                        mesh, sync)
+        check_cycle = int(rng.integers(0, n_cycles))
 
     taken, spans = {}, {p: [] for p in S.PHASES}
     pos, capture = [0], [False]
@@ -134,7 +159,7 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
     window_span = record_function(T.WINDOW) if trace else None
     sync()
     t0 = time.perf_counter()
-    setup_s = t0 - T0
+    setup_s = t0 - (T0 if t_start is None else t_start)
     if window_span is not None:
         window_span.__enter__()
     marks = []
@@ -158,7 +183,10 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
             state, _ = seg_raw(state)
         mark()
         cycles += 1
-        if cycles > check_cycle and time.perf_counter() - t0 >= seconds:
+        if n_cycles is None:
+            if cycles > check_cycle and time.perf_counter() - t0 >= seconds:
+                break
+        elif cycles == n_cycles:
             break
     sync()
     t1 = time.perf_counter()
@@ -181,9 +209,14 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
                   host_syncs=c1["host_syncs"] - counters0["host_syncs"],
                   tail_fallbacks=(c1["tail_fallbacks"] - counters0["tail_fallbacks"]
                                   if "tail_fallbacks" in c1 else None),
-                  spans=spans)
+                  spans=spans, ranks=1 if mesh is None else mesh.size)
     geom = S.geometry(sysm)
     steps = [(phase, S.snapshot(a), S.snapshot(b)) for _, (phase, a, b) in sorted(taken.items())]
+    mine = steps
+    if mesh is not None:
+        out["rank_differs"] = differs_from_rank0(S.replicated(state), mesh)
+        share_rank0(steps, mesh)
+        mine = steps[mesh.rank::mesh.size]
     del state, sysm, seg_raw, seg_wrap, taken, marks
     if trace:
         record["trace"] = T.reduce(prof) if on_card else None
@@ -192,18 +225,161 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
         x = work.positions_of(plain, geom["n_atoms"])
         record["work"] = work.plain_step(cfg, x, geom["box"])
         record["work"]["least_s"] = work.least_seconds(record["work"])
+    del steps
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    values = check.judge(cfg, geom, steps)
+    values = check.judge(cfg, geom, mine)
     out["reference_s"] = time.perf_counter() - t_ref
     out["missed_pairs"] = values.pop("missed_pairs")
-    out["checks"] = check.verdict(values, check.limits(cfg["name"]))
+    if mesh is None:
+        out["checks"] = check.verdict(values, check.limits(cfg["name"]))
+    else:
+        out["values"] = values
     if control_dtype is not None:
-        out["control"] = check.judge(cfg, geom, steps, control_dtype)
+        out["control"] = check.judge(cfg, geom, mine, control_dtype)
         out["control"].pop("missed_pairs")
     out["record"] = record
+    if mesh is not None:
+        wait_for_ranks(mesh)
+    return out
+
+
+def warm_up_ranks(seg, state, warmup: int, seconds: float, mesh, sync):
+    """``warmup`` stride cycles on every rank; rank 0 times the later half
+    and fixes the window's cycle count (enough for ``seconds`` at that
+    pace), broadcast once: every rank runs the same count, or a psum would
+    wait for ever.  Returns (state, cycle count)."""
+    import torch
+    import torch.distributed as dist
+
+    half = warmup // 2
+    for i in range(warmup):
+        if i == half:
+            sync()
+            t = time.perf_counter()
+        state, _ = seg(state)
+    sync()
+    pace = (time.perf_counter() - t) / (warmup - half)
+    n = torch.tensor([max(1, math.ceil(seconds / pace))], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(n, src=0, group=mesh.group)
+    return state, int(n.item())  # the read waits for every rank to reach the broadcast
+
+
+def _bits(t):
+    """``t`` flat and contiguous, as integers of its width (a bitwise view)."""
+    import torch
+
+    width = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    return t.contiguous().reshape(-1).view(width[t.element_size()])
+
+
+def differs_from_rank0(leaves, mesh) -> int:
+    """1 where any of this rank's ``leaves`` differs bitwise from rank 0's
+    (each broadcast from rank 0 once the window has closed), else 0."""
+    import torch
+    import torch.distributed as dist
+
+    differ = False
+    for t in leaves:
+        mine = _bits(t)
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0, group=mesh.group)
+        differ |= not torch.equal(mine, theirs)
+    return int(differ)
+
+
+def share_rank0(steps, mesh):
+    """Overwrite every rank's snapshots of the kept steps with rank 0's
+    (broadcast leaf by leaf), so that each rank can judge its share of
+    rank 0's steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    for _, s0, s1 in steps:
+        for snap in (s0, s1):
+            for k, v in snap.items():
+                if isinstance(v, np.ndarray):
+                    t = torch.as_tensor(v.astype(np.int64), device=mesh.device)
+                    dist.broadcast(t, src=0, group=mesh.group)
+                    snap[k] = t.cpu().numpy().astype(v.dtype)
+                elif torch.is_tensor(v):  # received in place: the states are done with
+                    t = v.to(mesh.device).contiguous()
+                    dist.broadcast(_bits(t), src=0, group=mesh.group)
+                    snap[k] = t.to(v.device)
+
+
+def wait_for_ranks(mesh):
+    """One small collective that every rank enters once its share is
+    judged, so that the ranks leave their process group together."""
+    import torch
+    import torch.distributed as dist
+
+    one = torch.ones(1, device=mesh.device)
+    dist.all_reduce(one, group=mesh.group)
+    one.item()
+
+
+def rank_main(cell, cfg, mix, seed, seconds, trace, fault, fault_ranks, control_dtype,
+              t_start):
+    """A rank of ``run_ranks``: this rank's mesh of the mix's host, then
+    ``run_cell`` on it (traced on rank 0 only; ``fault`` on the ranks in
+    ``fault_ranks``).  Adds the modules of JAX or the JAX package loaded
+    here and the card's name."""
+    import torch
+
+    from edmbench import system as S
+
+    mesh = S.make_mesh(mix)
+    res = run_cell(cell, cfg, mix, seed, seconds, trace and mesh.rank == 0, device=mesh.device,
+                   fault=fault if mesh.rank in fault_ranks else None,
+                   control_dtype=control_dtype, mesh=mesh, t_start=t_start)
+    res["forbidden"] = loaded_forbidden()
+    res["kind"] = (torch.cuda.get_device_name(mesh.device) if mesh.device.type == "cuda"
+                   else "cpu")
+    return res
+
+
+def run_ranks(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
+              device: str = "cuda", fault=None, fault_ranks=None, control_dtype=None,
+              backend=None) -> dict:
+    """``run_cell`` of a sharded host in ``mix["ranks"]`` ranks
+    (``parallel.launch``; NCCL with a card a rank, or ``backend``), the
+    library built here first.  Returns rank 0's result with the largest
+    peak memory of the ranks, the checks over every rank's share of the
+    kept steps plus ``rank_mismatch`` (the ranks whose final state differs
+    bitwise from rank 0's), ``rank_cycles``, ``forbidden`` (what any rank
+    loaded of JAX) and ``kind`` (rank 0's card).  ``fault`` breaks the
+    window's steps on the ranks in ``fault_ranks`` (default: all)."""
+    import tempfile
+
+    from edm_tpu_torch.parallel import launch
+
+    from edmbench import check
+
+    n = int(mix["ranks"])
+    if device == "cuda":
+        from edm_tpu_torch import _build
+
+        _build.load_library()  # once, before the ranks start: they load it and never build
+    fault_ranks = tuple(range(n) if fault_ranks is None else fault_ranks)
+    with tempfile.TemporaryDirectory() as d:
+        parts = launch(rank_main, n, cell, cfg, mix, seed, seconds, trace, fault, fault_ranks,
+                       control_dtype, T0, backend=backend, device=device,
+                       init_file=os.path.join(d, "store"), timeout=300.0)
+    values = check.worst_of(p.pop("values") for p in parts)
+    values["rank_mismatch"] = float(sum(p.pop("rank_differs") for p in parts))
+    out = dict(parts[0])
+    out.update(memory_peak_bytes=max(p["memory_peak_bytes"] for p in parts),
+               missed_pairs=sum(p["missed_pairs"] for p in parts),
+               reference_s=max(p["reference_s"] for p in parts),
+               rank_cycles=[p["cycles"] for p in parts],
+               forbidden=sorted({m for p in parts for m in p["forbidden"]}),
+               checks=check.verdict(values, check.limits(cfg["name"])))
+    if control_dtype is not None:
+        out["control"] = check.worst_of(p["control"] for p in parts)
     return out
 
 
@@ -229,9 +405,19 @@ def main(argv=None) -> int:
         print(f"edmbench: {args.workload} needs {wl['chips']} CUDA card(s), found {n}",
               file=sys.stderr)
         return 2
-    res = run_cell(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
+    ranks = int(mix.get("ranks", 1))
+    if ranks > wl["chips"]:
+        print(f"edmbench: {args.workload}'s mix has {ranks} ranks for {wl['chips']} card(s)",
+              file=sys.stderr)
+        return 2
+    if ranks > 1:
+        res = run_ranks(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
+        kind = res["kind"]
+    else:
+        res = run_cell(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
+        kind = torch.cuda.get_device_name(0)
     correct, failed, rows = res["checks"]
-    device = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=wl["chips"],
+    device = dict(platform="gpu", kind=kind, count=wl["chips"],
                   memory_peak_bytes=int(res["memory_peak_bytes"]))
     result = dict(correct=correct, attempted=len(rows), failed=len(failed))
     if not args.trace:
@@ -252,13 +438,16 @@ def main(argv=None) -> int:
         result["breakdown"] = dict(device_ops=tr["device_ops"], idle_gaps=tr["idle_gaps"])
     result["device"] = device
     bad = loaded_forbidden()
-    if bad:
-        print(f"edmbench: forbidden modules loaded in the benchmark's process: {bad}",
-              file=sys.stderr)
+    if bad or res.get("forbidden"):
+        print(f"edmbench: forbidden modules loaded in the benchmark's process: {bad}, in its "
+              f"ranks: {res.get('forbidden', [])}", file=sys.stderr)
         return 3
     cms = sorted(res["cycle_ms"])
     print(f"edmbench: cycle ms median {percentile(cms, 50)!r}, max {cms[-1]!r}, over twice "
           f"the median {sum(c > 2 * percentile(cms, 50) for c in cms)}", file=sys.stderr)
+    if ranks > 1:
+        print(f"edmbench: {ranks} ranks, cycles run by each {res['rank_cycles']}",
+              file=sys.stderr)
     print(f"edmbench: window {res['window_s']:.3f} s, {res['cycles']} cycles, reference "
           f"check {res['reference_s']:.3f} s, pairs within reach the slot table did not list "
           f"{res['missed_pairs']}", file=sys.stderr)

@@ -1,6 +1,11 @@
 """The system under test: ``edm_tpu_torch``'s cell host, built through the
 port's public entry points from a configuration (``configs/<name>.json``),
-a traffic mix (``mixes/<name>.json``) and the seed.
+a traffic mix (``mixes/<name>.json``) and the seed.  The mix's ``host``
+picks the host: ``single`` (``make_cell_step`` on one card), ``slab``
+(``parallel.make_slab_cell_step`` over ``parallel.make_mesh()``) or
+``brick`` (``parallel.make_brick_cell_step`` over
+``parallel.make_brick_mesh(*mix["mesh"])``); a sharded host is built in
+each rank of a ``parallel.launch``, on the rank's replica of the state.
 
 Only this module and the readers of the port's counters touch the port;
 the reference (``reference.py``) never imports it.  The port is imported
@@ -9,6 +14,7 @@ inside the functions, so that importing this module loads nothing."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -55,10 +61,26 @@ class System:
         return sum(s.host_syncs for s in self.steps)
 
 
-def build(cfg: dict, mix: dict, seed: int, device) -> System:
+def make_mesh(mix: dict):
+    """This rank's mesh of the mix's sharded host (inside a
+    ``parallel.launch``), or None for the single-card host."""
+    from edm_tpu_torch import parallel
+
+    host = mix.get("host", "single")
+    if host == "single":
+        return None
+    if host == "slab":
+        return parallel.make_mesh()
+    if host == "brick":
+        return parallel.make_brick_mesh(*mix["mesh"])
+    raise ValueError(f"unknown host {host!r}: single, slab or brick")
+
+
+def build(cfg: dict, mix: dict, seed: int, device, mesh=None) -> System:
     """Positions from the lattice, the Threefry key from ``seed``, the bias
     and target grids from the configuration; the three static phase steps
-    of the stride cycle."""
+    of the stride cycle, of the mix's host (``mesh``: this rank's, from
+    ``make_mesh``)."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
     from edm_tpu_torch.models import pair_edm
@@ -69,8 +91,16 @@ def build(cfg: dict, mix: dict, seed: int, device) -> System:
     from edm_tpu_torch.ops.prng import PRNGKey
     from edm_tpu_torch.utils.config import parse_edm_text
 
-    if mix.get("host", "single") != "single":
-        raise ValueError(f"host {mix['host']!r}: this harness drives the single-card host")
+    host = mix.get("host", "single")
+    if (mesh is None) != (host == "single"):
+        raise ValueError(f"host {host!r} wants {'a' if mesh is None else 'no'} mesh (make_mesh)")
+    if mesh is None:
+        make = make_cell_step
+    else:
+        from edm_tpu_torch import parallel
+
+        sharded = parallel.make_slab_cell_step if host == "slab" else parallel.make_brick_cell_step
+        make = functools.partial(sharded, mesh=mesh)
     b, c, h = cfg["bias"], cfg["cells"], cfg["host"]
     bh = float(b["box_high"])
     tspec = GridSpec.create([0.0], [bh], [b["bias_spacing"]], [False])
@@ -92,12 +122,12 @@ def build(cfg: dict, mix: dict, seed: int, device) -> System:
     lp = LangevinParams(dt=lg["dt"], friction=lg["friction"], kT=lg["kT"], mass=lg["mass"])
     ljp = LJParams(epsilon=lj["epsilon"], sigma=lj["sigma"], rcut=lj["rcut"])
     mover_cap = max(256, -(-n // 32))
-    steps = [make_cell_step(params, lp, ljp, spec, hill_stride=h["hill_stride"],
-                            rebuild_stride=h["rebuild_stride"], energy_stride=h["energy_stride"],
-                            hill_capacity=h["hill_capacity"], row_cap=h["row_cap"],
-                            m_per_row=h["m_per_row"], cell_chunk=h["cell_chunk"],
-                            mover_cap=mover_cap, use_pallas=True, static_do_hills=hs,
-                            static_do_energy=es, static_do_rebuild=rs, **caps)
+    steps = [make(params, lp, ljp, spec, hill_stride=h["hill_stride"],
+                  rebuild_stride=h["rebuild_stride"], energy_stride=h["energy_stride"],
+                  hill_capacity=h["hill_capacity"], row_cap=h["row_cap"],
+                  m_per_row=h["m_per_row"], cell_chunk=h["cell_chunk"],
+                  mover_cap=mover_cap, use_pallas=True, static_do_hills=hs,
+                  static_do_energy=es, static_do_rebuild=rs, **caps)
              for hs, es, rs in ((True, True, False), (False, False, False), (False, False, True))]
     return System(spec=spec, state=state, steps=steps, box=list(spec.box), n_atoms=n,
                   mover_cap=mover_cap)
@@ -130,6 +160,16 @@ def snapshot(state) -> dict:
         out.update(tail_count=state.tail_count, tail_fallbacks=state.tail_fallbacks,
                    kernel_cap=state.kernel_cap, overflow_cap=int(state.ovl.shape[0]))
     return out
+
+
+def replicated(state) -> list:
+    """The leaves of a sharded host's state that every rank must hold
+    bitwise alike: positions, velocities, the bias grid's values, the bias
+    added and the Threefry key."""
+    bias = state.core.bias
+    key = torch.as_tensor(np.asarray(state.core.key, np.uint32).astype(np.int64),
+                          device=state.xs.device)
+    return [state.xs, state.vs, bias.bias.grid.values, bias.cum_bias, key]
 
 
 def counters(system: System) -> dict:

@@ -24,13 +24,39 @@ def test_published_sizes(name, mix, atoms, cells, cap, box):
 
 
 def test_slab_size_arithmetic():
-    """in.lj at x = 12, y = z = 3, the four-card weak-scaling size listed
-    for a later cell: 3,456,000 atoms on 99 x 24 x 24 cells."""
+    """in.lj at x = 20, y = z = 5, the four-card cell ``inlj.16m.slab4``:
+    16,000,000 atoms on 165 x 41 x 41 cells of the automatic cap 96 (each
+    card's x-columns hold ``inlj.4m``'s liquid)."""
+    from edm_tpu_torch.models.cells import CellSpec
+
     cfg = config("inlj")
-    x, box = lattice.positions(cfg, {"replicate": [12, 3, 3]}, "cpu")
-    assert x.shape[0] == 3456000
-    assert tuple(int(b // cfg["cells"]["cutoff"]) for b in box) == (99, 24, 24)
-    assert abs(box[0] - 403.10) < 0.01
+    x, box = lattice.positions(cfg, {"replicate": [20, 5, 5]}, "cpu")
+    assert x.shape[0] == 16000000
+    assert abs(box[0] - 671.84) < 0.01 and all(abs(b - 167.96) < 0.01 for b in box[1:])
+    spec = CellSpec.create(box, cutoff=cfg["cells"]["cutoff"], n_atoms=x.shape[0],
+                           cap=cfg["cells"]["cap"])
+    assert tuple(spec.ncells) == (165, 41, 41)
+    assert spec.cap == 96
+
+
+def test_mixes_name_their_hosts():
+    """Every cell's mix names a host the harness builds, and a sharded one
+    as many ranks as the cell has cards (a brick its mesh of them)."""
+    import json
+    import math
+    import os
+
+    from edmbench.tests.conftest import ROOT
+
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for wl in bench["workloads"]:
+        with open(os.path.join(ROOT, "edmbench", "mixes", wl["traffic"] + ".json")) as f:
+            mix = json.load(f)
+        assert mix["host"] in ("single", "slab", "brick"), wl["name"]
+        assert mix["ranks"] == (1 if mix["host"] == "single" else wl["chips"]), wl["name"]
+        if mix["host"] == "brick":
+            assert math.prod(mix["mesh"]) == mix["ranks"], wl["name"]
 
 
 def test_seed_changes_no_work():

@@ -15,11 +15,13 @@ RECORD = dict(
     spans={"hill": [0.005] * 100, "plain": [0.002] * 800, "rebuild": [0.004] * 100},
     trace=dict(window_ns=10_000_000_000, busy_ns=2_500_000_000,
                span_device_ns={"hill": 400_000_000, "plain": 1_600_000_000},
+               span_nccl_ns={"plain": 800_000_000},
                span_count={"hill": 100, "plain": 800, "rebuild": 100}),
     work=dict(least_s=1e-4),
 )
 WANT = {"plain_step_host_ms": 2.0, "host_syncs_per_cycle": 3.0, "fallback_period_share": 2.0,
-        "hill_step_device_ms": 4.0, "plain_step_roofline": 5.0, "device_idle_pct": 75.0}
+        "hill_step_device_ms": 4.0, "plain_step_roofline": 5.0, "device_idle_pct": 75.0,
+        "psum_device_ms": 1.0}
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
@@ -39,13 +41,27 @@ def test_readers_return_none_without_data():
     empty = dict(cycles=10, steps=100, window_s=1.0, host_syncs=30, tail_fallbacks=None,
                  spans={"hill": [], "plain": [], "rebuild": []}, trace=None, work=None)
     for name in ("fallback_period_share", "hill_step_device_ms", "plain_step_roofline",
-                 "device_idle_pct", "plain_step_host_ms"):
+                 "device_idle_pct", "plain_step_host_ms", "psum_device_ms"):
         assert importlib.import_module(f"edmbench.metrics.{name}").read(empty) is None
+    one_card = dict(RECORD, trace=dict(RECORD["trace"], span_nccl_ns={}))
+    assert importlib.import_module("edmbench.metrics.psum_device_ms").read(one_card) is None
+
+
+def test_roofline_over_ranks():
+    """On four ranks a plain step's least time is the whole system's over
+    four, against rank 0's device time."""
+    from edmbench.metrics import plain_step_roofline
+    assert plain_step_roofline.read(dict(RECORD, ranks=1)) == pytest.approx(5.0)
+    assert plain_step_roofline.read(dict(RECORD, ranks=4)) == pytest.approx(1.25)
 
 
 class Ev:
-    def __init__(self, name, dev, start, dur, cid=0, lcid=0):
+    def __init__(self, name, dev, start, dur, cid=0, lcid=0, annotation=False):
         self._n, self._d, self._s, self._u, self._c, self._l = name, dev, start, dur, cid, lcid
+        self._a = annotation
+
+    def is_user_annotation(self):
+        return self._a
 
     def name(self):
         return self._n
@@ -90,9 +106,35 @@ def test_trace_reduce():
     assert r["span_count"] == {"hill": 1, "plain": 1}
     assert dict(r["device_ops"]) == {"k1_rows": 1e-7, "elementwise_kernel": 1e-7,
                                      "k2_tail": 5e-8}
+    assert r["span_nccl_ns"] == {}
     gaps = r["idle_gaps"]
     assert gaps[0] == ["plain", pytest.approx(650e-9)]  # 250..900: the host in a plain span
     assert [g for _, g in gaps] == sorted([g for _, g in gaps], reverse=True)
+
+
+def test_trace_reduce_nccl():
+    """NCCL's kernels count in their span's device time and, apart, in
+    ``span_nccl_ns``; the rest does not, nor NCCL's annotation of the
+    collective on the device's timeline."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    ev = [
+        Ev(T.WINDOW, cpu, 0, 1000),
+        Ev("edmbench.hill", cpu, 0, 300), Ev("edmbench.plain", cpu, 400, 200),
+        Ev("cudaLaunchKernel", cpu, 10, 5, cid=1), Ev("cudaLaunchKernelExC", cpu, 20, 5, cid=2),
+        Ev("cudaLaunchKernel", cpu, 450, 5, cid=3), Ev("cuLaunchKernelEx", cpu, 460, 5, cid=4),
+        Ev("void k1_rows<96>(float*)", cuda, 100, 100, cid=1),
+        Ev("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", cuda, 200, 40,
+           cid=2),
+        Ev("k1_rows_pieces", cuda, 500, 100, cid=3),
+        Ev("ncclKernel_AllGather_RING_LL_Sum_int8_t(ncclDevComm*)", cuda, 600, 70, cid=4),
+        Ev("nccl:all_gather", cuda, 590, 90, cid=5, annotation=True),  # a range, no operation
+    ]
+    r = T.reduce(Prof(ev))
+    assert r["span_device_ns"] == {"hill": 140, "plain": 170}
+    assert r["span_nccl_ns"] == {"hill": 40, "plain": 70}
+    assert dict(r["device_ops"])["ncclDevKernel_AllGather_RING_LL"] == 4e-8
+    assert "nccl:all_gather" not in dict(r["device_ops"])
+    assert r["busy_ns"] == 100 + 40 + 100 + 70
 
 
 def test_work_counts_pairs_once():

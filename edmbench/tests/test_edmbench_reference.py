@@ -21,7 +21,7 @@ def test_reference_matches_port(name, kT):
     res = run.run_cell(name, cfg, mix, SEED, 0.5, False, device="cpu")
     correct, failed, rows = res["checks"]
     assert correct, rows
-    assert set(rows) == set(check.NUMBERS)
+    assert set(rows) == set(check.NUMBERS) - {"rank_mismatch"}  # a sharded host's alone
 
 
 def test_reference_over_cycles_kT0():

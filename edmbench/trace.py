@@ -6,9 +6,9 @@ CUDA correlation id.
 ``reduce`` turns one profile of the measured window into the numbers the
 per-layer readers (``metrics/<name>.py``) and the result's ``breakdown``
 take: the device's busy time as the union of its activity intervals, the
-device time launched inside each phase's spans, the device operations
-that took most time, and the longest idle gaps labelled by the span the
-host was in."""
+device time launched inside each phase's spans (and the part of it in
+NCCL's kernels), the device operations that took most time, and the
+longest idle gaps labelled by the span the host was in."""
 
 from __future__ import annotations
 
@@ -35,15 +35,20 @@ def _events(prof):
 
 
 def reduce(prof) -> dict:
-    """{"window_ns", "busy_ns", "span_device_ns": {phase: ns}, "span_count":
-    {phase: n}, "device_ops": [[name, s]], "idle_gaps": [[label, s]],
-    "device_events": n}.  Phases are the span names after ``SPAN``."""
+    """{"window_ns", "busy_ns", "span_device_ns": {phase: ns},
+    "span_nccl_ns": {phase: ns}, "span_count": {phase: n}, "device_ops":
+    [[name, s]], "idle_gaps": [[label, s]], "device_events": n}.  Phases
+    are the span names after ``SPAN``; ``span_nccl_ns`` holds the device
+    time of the operations whose kernel name starts with ``nccl``."""
     from torch.autograd import DeviceType
 
     spans, window, runtime, device = [], None, {}, []
     for e in _events(prof):
         if e.device_type() == DeviceType.CUDA:
-            if e.name().startswith(SPAN):  # a span's own range on the device's timeline
+            # a span's own range on the device's timeline (ours, or one that
+            # a library annotates, as NCCL's "nccl:all_gather"), not an
+            # operation
+            if e.name().startswith(SPAN) or e.is_user_annotation():
                 continue
             device.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.correlation_id(),
                            e.linked_correlation_id(), e.name()))
@@ -67,7 +72,7 @@ def reduce(prof) -> dict:
             return spans[i][2]
         return "harness"
 
-    span_dev, span_count, by_name, ivals = {}, {}, {}, []
+    span_dev, span_nccl, span_count, by_name, ivals = {}, {}, {}, {}, []
     for _, _, ph in spans:
         span_count[ph] = span_count.get(ph, 0) + 1
     for s, t, cid, lcid, name in device:
@@ -80,6 +85,8 @@ def reduce(prof) -> dict:
         launch = runtime.get(cid, runtime.get(lcid))
         ph = span_at(launch) if launch is not None else "unmatched"
         span_dev[ph] = span_dev.get(ph, 0) + (t - s)
+        if k.startswith("nccl"):
+            span_nccl[ph] = span_nccl.get(ph, 0) + (t - s)
     ivals.sort()
     busy, gaps, end = 0, [], w0
     for s, t in ivals:
@@ -92,7 +99,8 @@ def reduce(prof) -> dict:
         gaps.append((w1 - end, (w1 + end) // 2))
     gaps.sort(reverse=True)
     return dict(
-        window_ns=w1 - w0, busy_ns=busy, span_device_ns=span_dev, span_count=span_count,
+        window_ns=w1 - w0, busy_ns=busy, span_device_ns=span_dev, span_nccl_ns=span_nccl,
+        span_count=span_count,
         device_events=len(ivals),
         device_ops=[[k, v / 1e9] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
         idle_gaps=[[span_at(at), g / 1e9] for g, at in gaps[:TOP]],
