@@ -9,8 +9,9 @@ upper readings).  One process for all the seeds.
 
     python3 edmbench/control.py --workload inlj.4m --seconds 2 --seeds 11 12 13
 
-Prints one JSON line a seed: {"seed", "program": {...}, "control":
-{...}}.  The benchmark's runs do not run this."""
+Prints one JSON line a seed: {"seed", "program": {...}, "cycles", the
+kind's notes, "reference_s", "control": {...}}.  The benchmark's runs do
+not run this."""
 
 import argparse
 import gc
@@ -44,8 +45,7 @@ def main(argv=None) -> int:
         res = runner(args.workload, cfg, mix, seed, args.seconds, False,
                      control_dtype=None if args.no_control else torch.bfloat16)
         line = dict(seed=seed, program={k: r["value"] for k, r in res["checks"][2].items()},
-                    cycles=res["cycles"], missed_pairs=res["missed_pairs"],
-                    reference_s=res["reference_s"])
+                    cycles=res["cycles"], **res["notes"], reference_s=res["reference_s"])
         if "control" in res:
             line["control"] = res["control"]
         print(json.dumps(line), flush=True)

@@ -1,14 +1,14 @@
-"""The system under test: ``edm_tpu_torch``'s cell host, built through the
-port's public entry points from a configuration (``configs/<name>.json``),
-a traffic mix (``mixes/<name>.json``) and the seed.  The mix's ``host``
-picks the host: ``single`` (``make_cell_step`` on one card), ``slab``
+"""The pair kind's system under test: ``edm_tpu_torch``'s pair-distance
+cell host, built through the port's public entry points from a
+configuration (``configs/<name>.json``), a traffic mix
+(``mixes/<name>.json``) and the seed.  The mix's ``host`` picks the host: ``single`` (``make_cell_step`` on one card), ``slab``
 (``parallel.make_slab_cell_step`` over ``parallel.make_mesh()``) or
 ``brick`` (``parallel.make_brick_cell_step`` over
 ``parallel.make_brick_mesh(*mix["mesh"])``); a sharded host is built in
 each rank of a ``parallel.launch``, on the rank's replica of the state.
 
-Only this module and the readers of the port's counters touch the port;
-the reference (``reference.py``) never imports it.  The port is imported
+Only this module touches the port's models; the reference
+(``reference.py``) never imports the port.  The port is imported
 inside the functions, so that importing this module loads nothing."""
 
 from __future__ import annotations
@@ -19,10 +19,9 @@ import functools
 import numpy as np
 import torch
 
-from . import lattice
+from ... import lattice
 
-PHASES = ("hill", "plain", "rebuild")  # the stride cycle: 1 + 8 + 1 steps
-CYCLE = 10
+PATTERN = [("hill", 1), ("plain", 8), ("rebuild", 1)]  # the stride cycle
 
 
 def edm_text(bias: dict) -> str:
@@ -48,17 +47,13 @@ def target_values(bias: dict, n_points: int, lo: float, dx: float) -> np.ndarray
 class System:
     spec: object  # the port's CellSpec
     state: object  # the port's CellPairState
-    steps: list  # the hill, plain and rebuild phase steps
+    steps: dict  # {phase: step} of PATTERN's phases
     box: list
     n_atoms: int
     mover_cap: int
 
-    def pattern(self, steps=None):
-        s = self.steps if steps is None else steps
-        return [(s[0], 1), (s[1], CYCLE - 2), (s[2], 1)]
-
     def host_syncs(self) -> int:
-        return sum(s.host_syncs for s in self.steps)
+        return sum(s.host_syncs for s in self.steps.values())
 
 
 def make_mesh(mix: dict):
@@ -78,9 +73,9 @@ def make_mesh(mix: dict):
 
 def build(cfg: dict, mix: dict, seed: int, device, mesh=None) -> System:
     """Positions from the lattice, the Threefry key from ``seed``, the bias
-    and target grids from the configuration; the three static phase steps
-    of the stride cycle, of the mix's host (``mesh``: this rank's, from
-    ``make_mesh``)."""
+    and target grids from the configuration; the static step of each phase
+    of the stride cycle (``PATTERN``), of the mix's host (``mesh``: this
+    rank's, from ``make_mesh``)."""
     from edm_tpu_torch import bias as B
     from edm_tpu_torch.grid import Grid, GridSpec
     from edm_tpu_torch.models import pair_edm
@@ -122,13 +117,15 @@ def build(cfg: dict, mix: dict, seed: int, device, mesh=None) -> System:
     lp = LangevinParams(dt=lg["dt"], friction=lg["friction"], kT=lg["kT"], mass=lg["mass"])
     ljp = LJParams(epsilon=lj["epsilon"], sigma=lj["sigma"], rcut=lj["rcut"])
     mover_cap = max(256, -(-n // 32))
-    steps = [make(params, lp, ljp, spec, hill_stride=h["hill_stride"],
-                  rebuild_stride=h["rebuild_stride"], energy_stride=h["energy_stride"],
-                  hill_capacity=h["hill_capacity"], row_cap=h["row_cap"],
-                  m_per_row=h["m_per_row"], cell_chunk=h["cell_chunk"],
-                  mover_cap=mover_cap, use_pallas=True, static_do_hills=hs,
-                  static_do_energy=es, static_do_rebuild=rs, **caps)
-             for hs, es, rs in ((True, True, False), (False, False, False), (False, False, True))]
+    flags = dict(hill=(True, True, False), plain=(False, False, False),
+                 rebuild=(False, False, True))  # static hills, energy, rebuild
+    steps = {phase: make(params, lp, ljp, spec, hill_stride=h["hill_stride"],
+                         rebuild_stride=h["rebuild_stride"], energy_stride=h["energy_stride"],
+                         hill_capacity=h["hill_capacity"], row_cap=h["row_cap"],
+                         m_per_row=h["m_per_row"], cell_chunk=h["cell_chunk"],
+                         mover_cap=mover_cap, use_pallas=True, static_do_hills=hs,
+                         static_do_energy=es, static_do_rebuild=rs, **caps)
+             for phase, (hs, es, rs) in flags.items()}
     return System(spec=spec, state=state, steps=steps, box=list(spec.box), n_atoms=n,
                   mover_cap=mover_cap)
 
@@ -180,16 +177,4 @@ def counters(system: System) -> dict:
     if st.tail_fallbacks is not None:
         out["tail_fallbacks"] = int(st.tail_fallbacks)
     return out
-
-
-def wrap_steps(steps, call):
-    """The phase steps, each called through ``call(phase, step, state)``
-    (the benchmark's spans and its capture of the checked cycle); the
-    wrappers keep each step's ``check_phase``."""
-    def wrapped(phase, step):
-        def fn(state, _=None):
-            return call(phase, step, state)
-        fn.check_phase = step.check_phase
-        return fn
-    return [wrapped(p, s) for p, s in zip(PHASES, steps)]
 

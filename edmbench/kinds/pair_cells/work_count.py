@@ -1,5 +1,6 @@
-"""The yardstick's work counts and the card's peaks: the least time a
-plain step's work needs on an H100, whatever implements it.
+"""The pair kind's work count: the operations and bytes a plain step
+needs, whatever implements it (``edmbench/peaks.py`` turns them into the
+least time on an H100).
 
 A plain step needs, for each unordered pair of atoms within the reach of
 its interactions (the larger of the LJ cutoff and the CV's box_high), the
@@ -17,10 +18,6 @@ import torch
 
 from . import reference as R
 
-# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): float32
-# outside the tensor cores, and HBM3
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 # operations per pair within reach (r^2, r, LJ, the force and its row and
 # credit sums) and per lookup of the exact Hermite table
 PAIR_FLOPS, HERMITE_FLOPS = 48, 16
@@ -54,13 +51,12 @@ def plain_step(cfg: dict, x, box) -> dict:
     return dict(flops=float(flops), bytes=float(nbytes), pairs=near, cv_pairs=cv)
 
 
-def least_seconds(work: dict) -> float:
-    """The larger of the operations over the float32 peak and the bytes
-    over the memory rate."""
-    return max(work["flops"] / PEAK_F32, work["bytes"] / PEAK_BYTES)
-
-
 def positions_of(snap: dict, n: int) -> torch.Tensor:
     """A snapshot's positions in atom order."""
     x, _ = R.atoms_of(snap["aid"], snap["xs"].reshape(-1, 3), n)
     return x
+
+
+def work(cfg: dict, snap: dict, geom: dict) -> dict:
+    """The plain step's work at the positions of its snapshot ``snap``."""
+    return plain_step(cfg, positions_of(snap, geom["n_atoms"]), geom["box"])

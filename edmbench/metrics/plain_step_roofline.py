@@ -1,6 +1,6 @@
-"""The least time a plain step's work needs (``work.py``: the pairs within
-reach, each input byte read once and each output byte written once) over
-the device time of the operations launched inside plain-step spans, per
+"""The least time a plain step's work needs (the kind's ``work``, each
+input byte read once and each output byte written once, over the peaks of
+``peaks.py``) over the device time of the operations launched inside plain-step spans, per
 plain step, % (layer: the kernels).  A sharded host's step runs on
 ``record["ranks"]`` cards, so its least time is the whole system's over
 the ranks, against rank 0's device time."""

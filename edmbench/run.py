@@ -5,17 +5,19 @@
 
 From the root of a checkout: reads ``BENCHMARK.json``, builds the cell's
 configuration (``edmbench/configs/<config>.json``) at its mix's size
-(``edmbench/mixes/<traffic>.json``) through the port's entry points,
-warms up whole stride cycles, then drives ``pattern_segment(pattern, 10)``
-once a cycle for ``--seconds``, a CUDA event after each.  ``--trace 0``
-prints the cell's end-to-end metrics, ``--trace 1`` its per-layer ones
-(``edmbench/metrics/<name>.py``, from the same window under
-``torch.profiler`` with a span around each phase step).  Either run then
-judges one stride cycle of the window against the plain reference
-(``check.py``) and prints one JSON line last on standard output.
+(``edmbench/mixes/<traffic>.json``) through the configuration's kind
+(``edmbench/kinds/<kind>``: the system it runs, its stride cycle, its
+checks and its work count), warms up whole stride cycles, then drives
+``pattern_segment`` over one stride cycle at a time for ``--seconds``, a
+CUDA event after each.  ``--trace 0`` prints the cell's end-to-end
+metrics, ``--trace 1`` its per-layer ones (``edmbench/metrics/<name>.py``,
+from the same window under ``torch.profiler`` with a span around each
+phase step).  Either run then judges one stride cycle of the window
+against the kind's plain reference (``check.py``) and prints one JSON line
+last on standard output.
 
-A mix with ``ranks`` above 1 runs a sharded host (``host`` ``slab`` or
-``brick``) in that many ranks of ``parallel.launch``, a card each over
+A mix with ``ranks`` above 1 runs a sharded host (the kind's
+``make_mesh``) in that many ranks of ``parallel.launch``, a card each over
 NCCL: the library is built here first, every rank builds the same
 replicated state and warms up, rank 0 fixes the window's cycle count from
 the warm-up's pace and broadcasts it, and every rank runs that many
@@ -79,43 +81,85 @@ def set_cache_env():
     os.environ["USE_JAX"] = "0"
 
 
+def checked_steps(pattern, seed: int, n_cycles: int) -> tuple:
+    """The steps that the check judges, drawn from the seed: ({position in
+    the stride cycle: phase}, one step of each phase of ``pattern``, the
+    position of a phase of more than one step drawn in the pattern's
+    order; the cycle of the window's first ``n_cycles`` they are kept
+    from)."""
+    import numpy as np
+
+    rng = np.random.default_rng(abs(int(seed)))
+    keep, pos = {}, 0
+    for phase, n in pattern:
+        keep[pos if n == 1 else int(rng.integers(pos, pos + n))] = phase
+        pos += n
+    return keep, int(rng.integers(0, n_cycles))
+
+
+def wrap_steps(steps: dict, call) -> dict:
+    """The phase steps, each called through ``call(phase, step, state)``
+    (the benchmark's spans and its capture of the checked cycle); the
+    wrappers keep each step's ``check_phase``."""
+    def wrapped(phase, step):
+        def fn(state, _=None):
+            return call(phase, step, state)
+        if hasattr(step, "check_phase"):
+            fn.check_phase = step.check_phase
+        return fn
+    return {p: wrapped(p, s) for p, s in steps.items()}
+
+
 def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda", fault=None, control_dtype=None, mesh=None,
              t_start: float = None) -> dict:
-    """Set up, warm up, run the window, judge the checked cycle.  Returns
+    """Set up, warm up, run the window, judge the checked cycle, all
+    through the configuration's kind (``edmbench/kinds``).  Returns
     {"setup_s", "window_s", "cycles", "cycle_ms", "memory_peak_bytes",
-    "record", "checks", "reference_s", "missed_pairs"}.  ``fault(phase, state_in, (state_out, y))
-    -> (state_out, y)``, for the harness's own tests, breaks every step of
-    the window underneath; ``control_dtype`` also judges the control (the
-    reference in that precision in the program's place) under
-    ``"control"`` (``control.py``).
+    "record", "checks", "reference_s", "notes"}.
+    ``fault(phase, state_in, (state_out, y)) -> (state_out, y)``, for the
+    harness's own tests, breaks every step of the window underneath;
+    ``control_dtype`` also judges the control (the reference in that
+    precision in the program's place) under ``"control"``
+    (``control.py``).
 
     With ``mesh`` (this rank's, in ``rank_main``) the window runs the
     cycle count that rank 0 broadcasts, and the result has the judged
     numbers of this rank's share of the kept steps under ``"values"``
     instead of ``"checks"``, and ``"rank_differs"``: 1 where the final
     state differs bitwise from rank 0's.  ``setup_s`` counts from
-    ``t_start`` (default: this module's import)."""
-    import numpy as np
+    ``t_start`` (default: this module's import).
+
+    A configuration with ``"port_trace": true`` also turns the port's own
+    spans and counters on in a traced run (``edm_tpu_torch.utils.trace``):
+    on before the warm-up, reset after it, and their report under
+    ``record["port"]`` once the profiler has closed."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from edm_tpu_torch.models.driver import pattern_segment
+    from edm_tpu_torch.utils import trace as port_trace
 
-    from edmbench import check, system as S, trace as T, work
+    from edmbench import check, kinds, peaks, trace as T
 
+    K = kinds.load(cfg)
+    lim = check.limits(cfg["name"])
+    if set(lim) != set(K.NUMBERS):
+        raise ValueError(f"limits/{cfg['name']}.json holds {sorted(lim)}, its kind's NUMBERS "
+                         f"{sorted(K.NUMBERS)}")
+    cycle = sum(n for _, n in K.PATTERN)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    sysm = S.build(cfg, mix, seed, device, mesh)
-    rng = np.random.default_rng(abs(int(seed)))
-    plain_pos = int(rng.integers(1, S.CYCLE - 1))
+    sysm = K.build(cfg, mix, seed, device, mesh)
+    port = trace and bool(cfg.get("port_trace"))
+    if port:
+        port_trace.enable()
     if mesh is None:
-        check_cycle = int(rng.integers(0, max(1, int(2 * seconds))))
-    keep = {0: "hill", plain_pos: "plain", S.CYCLE - 1: "rebuild"}
+        keep, check_cycle = checked_steps(K.PATTERN, seed, max(1, int(2 * seconds)))
 
     state = sysm.state
-    seg_raw = pattern_segment(sysm.pattern(), S.CYCLE)
+    seg_raw = pattern_segment([(sysm.steps[p], n) for p, n in K.PATTERN], cycle)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     n_cycles = None  # one card: cycles until ``seconds`` have passed
     if mesh is None:
@@ -125,9 +169,11 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
     else:
         state, n_cycles = warm_up_ranks(seg_raw, state, int(mix["warmup_cycles"]), seconds,
                                         mesh, sync)
-        check_cycle = int(rng.integers(0, n_cycles))
+        keep, check_cycle = checked_steps(K.PATTERN, seed, n_cycles)
+    if port:
+        port_trace.reset()
 
-    taken, spans = {}, {p: [] for p in S.PHASES}
+    taken, spans = {}, {p: [] for p, _ in K.PATTERN}
     pos, capture = [0], [False]
 
     def call(phase, step, st):
@@ -146,9 +192,10 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
             taken[p] = (keep[p], st, out[0])
         return out
 
-    seg_wrap = pattern_segment(sysm.pattern(S.wrap_steps(sysm.steps, call)), S.CYCLE)
+    wrapped = wrap_steps(sysm.steps, call)
+    seg_wrap = pattern_segment([(wrapped[p], n) for p, n in K.PATTERN], cycle)
     sysm.state = state
-    counters0 = S.counters(sysm)
+    counters0 = K.counters(sysm)
     gc.collect()
     gc.freeze()  # set-up's objects stay out of the window's full collections
     prof = None
@@ -201,45 +248,47 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace: 
     else:
         cycle_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
         peak = 0
+    if port:
+        record_port = port_trace.report()
+        port_trace.enable(False)
     sysm.state = state
-    c1 = S.counters(sysm)
+    c1 = K.counters(sysm)
     out = dict(setup_s=setup_s, window_s=t1 - t0, cycles=cycles, cycle_ms=cycle_ms,
                memory_peak_bytes=peak)
-    record = dict(cycles=cycles, steps=cycles * S.CYCLE, window_s=t1 - t0,
-                  host_syncs=c1["host_syncs"] - counters0["host_syncs"],
-                  tail_fallbacks=(c1["tail_fallbacks"] - counters0["tail_fallbacks"]
-                                  if "tail_fallbacks" in c1 else None),
-                  spans=spans, ranks=1 if mesh is None else mesh.size)
-    geom = S.geometry(sysm)
-    steps = [(phase, S.snapshot(a), S.snapshot(b)) for _, (phase, a, b) in sorted(taken.items())]
+    record = dict(cycles=cycles, steps=cycles * cycle, window_s=t1 - t0, spans=spans,
+                  ranks=1 if mesh is None else mesh.size)
+    record.update({k: v - counters0.get(k, 0) for k, v in c1.items()})
+    if port:
+        record["port"] = record_port
+    geom = K.geometry(sysm)
+    steps = [(phase, K.snapshot(a), K.snapshot(b)) for _, (phase, a, b) in sorted(taken.items())]
     mine = steps
     if mesh is not None:
-        out["rank_differs"] = differs_from_rank0(S.replicated(state), mesh)
+        out["rank_differs"] = differs_from_rank0(K.replicated(state), mesh)
         share_rank0(steps, mesh)
         mine = steps[mesh.rank::mesh.size]
-    del state, sysm, seg_raw, seg_wrap, taken, marks
+    del state, sysm, seg_raw, seg_wrap, wrapped, taken, marks
     if trace:
         record["trace"] = T.reduce(prof) if on_card else None
         del prof
-        plain = next(s1 for phase, _, s1 in steps if phase == "plain")
-        x = work.positions_of(plain, geom["n_atoms"])
-        record["work"] = work.plain_step(cfg, x, geom["box"])
-        record["work"]["least_s"] = work.least_seconds(record["work"])
+        plain = next((s1 for phase, _, s1 in steps if phase == "plain"), None)
+        w = None if plain is None else K.work(cfg, plain, geom)
+        if w is not None:
+            w["least_s"] = peaks.least_seconds(w)
+        record["work"] = w
     del steps
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    values = check.judge(cfg, geom, mine)
+    values, out["notes"] = K.judge(cfg, geom, mine)
     out["reference_s"] = time.perf_counter() - t_ref
-    out["missed_pairs"] = values.pop("missed_pairs")
     if mesh is None:
-        out["checks"] = check.verdict(values, check.limits(cfg["name"]))
+        out["checks"] = check.verdict(values, lim)
     else:
         out["values"] = values
     if control_dtype is not None:
-        out["control"] = check.judge(cfg, geom, mine, control_dtype)
-        out["control"].pop("missed_pairs")
+        out["control"] = K.judge(cfg, geom, mine, control_dtype)[0]
     out["record"] = record
     if mesh is not None:
         wait_for_ranks(mesh)
@@ -330,14 +379,14 @@ def rank_main(cell, cfg, mix, seed, seconds, trace, fault, fault_ranks, control_
     here and the card's name."""
     import torch
 
-    from edmbench import system as S
+    from edmbench import kinds
 
-    mesh = S.make_mesh(mix)
+    mesh = kinds.load(cfg).make_mesh(mix)
     res = run_cell(cell, cfg, mix, seed, seconds, trace and mesh.rank == 0, device=mesh.device,
                    fault=fault if mesh.rank in fault_ranks else None,
                    control_dtype=control_dtype, mesh=mesh, t_start=t_start)
     res["forbidden"] = loaded_forbidden()
-    res["kind"] = (torch.cuda.get_device_name(mesh.device) if mesh.device.type == "cuda"
+    res["card"] = (torch.cuda.get_device_name(mesh.device) if mesh.device.type == "cuda"
                    else "cpu")
     return res
 
@@ -350,8 +399,9 @@ def run_ranks(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace:
     library built here first.  Returns rank 0's result with the largest
     peak memory of the ranks, the checks over every rank's share of the
     kept steps plus ``rank_mismatch`` (the ranks whose final state differs
-    bitwise from rank 0's), ``rank_cycles``, ``forbidden`` (what any rank
-    loaded of JAX) and ``kind`` (rank 0's card).  ``fault`` breaks the
+    bitwise from rank 0's), the notes summed over the ranks,
+    ``rank_cycles``, ``forbidden`` (what any rank loaded of JAX) and
+    ``card`` (rank 0's card's name).  ``fault`` breaks the
     window's steps on the ranks in ``fault_ranks`` (default: all)."""
     import tempfile
 
@@ -373,7 +423,7 @@ def run_ranks(cell: str, cfg: dict, mix: dict, seed: int, seconds: float, trace:
     values["rank_mismatch"] = float(sum(p.pop("rank_differs") for p in parts))
     out = dict(parts[0])
     out.update(memory_peak_bytes=max(p["memory_peak_bytes"] for p in parts),
-               missed_pairs=sum(p["missed_pairs"] for p in parts),
+               notes={k: sum(p["notes"][k] for p in parts) for k in parts[0]["notes"]},
                reference_s=max(p["reference_s"] for p in parts),
                rank_cycles=[p["cycles"] for p in parts],
                forbidden=sorted({m for p in parts for m in p["forbidden"]}),
@@ -412,16 +462,16 @@ def main(argv=None) -> int:
         return 2
     if ranks > 1:
         res = run_ranks(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
-        kind = res["kind"]
+        card = res["card"]
     else:
         res = run_cell(args.workload, cfg, mix, args.seed, args.seconds, bool(args.trace))
-        kind = torch.cuda.get_device_name(0)
+        card = torch.cuda.get_device_name(0)
     correct, failed, rows = res["checks"]
-    device = dict(platform="gpu", kind=kind, count=wl["chips"],
+    device = dict(platform="gpu", kind=card, count=wl["chips"],
                   memory_peak_bytes=int(res["memory_peak_bytes"]))
     result = dict(correct=correct, attempted=len(rows), failed=len(failed))
     if not args.trace:
-        e2e = dict(steps_per_s=res["cycles"] * 10 / res["window_s"],
+        e2e = dict(steps_per_s=res["record"]["steps"] / res["window_s"],
                    cycle_p95_ms=percentile(res["cycle_ms"], 95), setup_s=res["setup_s"])
         result["metrics"] = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                              for m in metrics_for(bench, "end_to_end", args.workload)}
@@ -449,8 +499,9 @@ def main(argv=None) -> int:
         print(f"edmbench: {ranks} ranks, cycles run by each {res['rank_cycles']}",
               file=sys.stderr)
     print(f"edmbench: window {res['window_s']:.3f} s, {res['cycles']} cycles, reference "
-          f"check {res['reference_s']:.3f} s, pairs within reach the slot table did not list "
-          f"{res['missed_pairs']}", file=sys.stderr)
+          f"check {res['reference_s']:.3f} s", file=sys.stderr)
+    for k, v in res["notes"].items():
+        print(f"note {k}: {v!r}", file=sys.stderr)
     result["checks"] = {k: [r["value"], r["limit"]] for k, r in rows.items()}
     for k, r in rows.items():
         print(f"check {k}: {r['value']!r} (limit {r['limit']!r})", file=sys.stderr)

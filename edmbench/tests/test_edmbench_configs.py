@@ -3,7 +3,8 @@
 import pytest
 import torch
 
-from edmbench import lattice, system as S
+from edmbench import lattice
+from edmbench.kinds import pair_cells as S
 from edmbench.tests.conftest import config
 
 

@@ -10,7 +10,9 @@ import sys
 from edmbench.tests.conftest import ROOT
 
 BENCH = os.path.join(ROOT, "edmbench")
-REFERENCE_SIDE = ("reference.py", "check.py", "work.py", "trace.py", "lattice.py")
+REFERENCE_SIDE = ("kinds/pair_cells/reference.py", "kinds/pair_cells/check.py",
+                  "kinds/pair_cells/work_count.py", "check.py", "peaks.py", "trace.py",
+                  "lattice.py")
 
 
 def imported(path):
@@ -62,8 +64,9 @@ def test_run_loads_no_jax():
 
 
 def test_reference_loads_no_port():
-    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import edmbench.reference, "
-            "edmbench.check, edmbench.work, edmbench.trace; "
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+            "import edmbench.kinds.pair_cells.reference, edmbench.kinds.pair_cells.check, "
+            "edmbench.kinds.pair_cells.work_count, edmbench.check, edmbench.trace; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300)

@@ -7,7 +7,8 @@ import os
 import pytest
 from torch.autograd import DeviceType
 
-from edmbench import trace as T, work
+from edmbench import trace as T
+from edmbench.kinds.pair_cells import work_count as work
 from edmbench.tests.conftest import ROOT
 
 RECORD = dict(
@@ -98,6 +99,7 @@ def test_trace_reduce():
         Ev("at::native::elementwise_kernel<x>", cuda, 150, 100, cid=2),  # overlaps: union 150
         Ev("k2_tail", cuda, 900, 50, cid=3),  # launched outside every span
         Ev("edmbench.plain", cuda, 0, 1000),  # a span's range on the device timeline
+        Ev("aten::add", cpu, 480, 3, cid=1),  # a host op's id of another count, equal to 1
     ]
     r = T.reduce(Prof(ev))
     assert r["window_ns"] == 1000
@@ -107,9 +109,49 @@ def test_trace_reduce():
     assert dict(r["device_ops"]) == {"k1_rows": 1e-7, "elementwise_kernel": 1e-7,
                                      "k2_tail": 5e-8}
     assert r["span_nccl_ns"] == {}
+    assert r["device_ns_by_op"] == {"k1_rows": 100, "elementwise_kernel": 100, "k2_tail": 50}
+    assert r["span_port_ns"] == {} and r["span_port_count"] == {}
     gaps = r["idle_gaps"]
     assert gaps[0] == ["plain", pytest.approx(650e-9)]  # 250..900: the host in a plain span
     assert [g for _, g in gaps] == sorted([g for _, g in gaps], reverse=True)
+
+
+def test_trace_reduce_port_spans():
+    """With the port's tracing on: twelve operations, each launched inside
+    nested ``edm.`` spans; every operation's time is kept and the ten
+    largest are ``device_ops``; each launch's time goes to its innermost
+    port span, whatever host op shares its correlation id; the port's
+    ranges, on the host and on the device's timeline, leave the busy time,
+    the phases' device time and the operations as they are without
+    them."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    base = [Ev(T.WINDOW, cpu, 0, 10_000), Ev("edmbench.plain", cpu, 0, 9_000)]
+    for i in range(12):  # kernel i: launched at 100 + 700 i, runs 10 (i + 1) ns
+        base += [Ev("cudaLaunchKernel", cpu, 100 + 700 * i, 5, cid=i + 1),
+                 Ev(f"kernel_{i:02d}", cuda, 200 + 700 * i, 10 * (i + 1), cid=i + 1)]
+    port = [
+        Ev("edm.step.plain", cpu, 50, 8_000),  # every launch
+        Ev("edm.force", cpu, 90, 2_000),  # kernels 0-2
+        Ev("edm.force.k1", cpu, 90, 800),  # kernels 0-1: same start as its parent
+        Ev("edm.force.k1", cpu, 1_500, 10),  # kernel 2 is launched at 1,500
+        Ev("edm.baoab", cpu, 3_500, 200),  # kernel 5 (launched at 3,600)
+        Ev("edm.force", cuda, 200, 2_000, annotation=True),  # ranges on the device
+        Ev("edm.baoab", cuda, 3_700, 200),
+        Ev("aten::mul", cpu, 3_550, 2, cid=1),  # host ops whose ids equal the launches'
+        Ev("aten::mul", cpu, 9_500, 2, cid=6),
+    ]
+    plain = T.reduce(Prof(base))
+    r = T.reduce(Prof(base + port))
+    ns = {f"kernel_{i:02d}": 10 * (i + 1) for i in range(12)}
+    assert r["device_ns_by_op"] == ns
+    assert dict(r["device_ops"]) == {k: v / 1e9 for k, v in ns.items() if v > 20}
+    for k in ("busy_ns", "span_device_ns", "span_count", "device_ops", "device_ns_by_op",
+              "device_events", "idle_gaps"):
+        assert r[k] == plain[k], k
+    assert r["span_port_ns"] == {"edm.force.k1": 10 + 20 + 30, "edm.baoab": 60,
+                                 "edm.step.plain": sum(ns.values()) - 120}
+    assert r["span_port_count"] == {"edm.step.plain": 1, "edm.force": 1, "edm.force.k1": 2,
+                                    "edm.baoab": 1}
 
 
 def test_trace_reduce_nccl():

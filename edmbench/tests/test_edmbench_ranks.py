@@ -11,7 +11,7 @@ from edmbench.tests.conftest import tiny
 from edmbench.tests.test_edmbench_reference import SEED, altered
 
 ONE_CARD = {"setup_s", "window_s", "cycles", "cycle_ms", "memory_peak_bytes", "record",
-            "checks", "reference_s", "missed_pairs"}
+            "checks", "reference_s", "notes"}
 
 
 def sharded(name, host, ranks):

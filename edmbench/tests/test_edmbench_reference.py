@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from edmbench import check, run
+from edmbench.kinds import pair_cells
 from edmbench.tests.conftest import tiny
 
 SEED = 2**31 + 17
@@ -21,7 +22,7 @@ def test_reference_matches_port(name, kT):
     res = run.run_cell(name, cfg, mix, SEED, 0.5, False, device="cpu")
     correct, failed, rows = res["checks"]
     assert correct, rows
-    assert set(rows) == set(check.NUMBERS) - {"rank_mismatch"}  # a sharded host's alone
+    assert set(rows) == set(pair_cells.NUMBERS) - {"rank_mismatch"}  # a sharded host's alone
 
 
 def test_reference_over_cycles_kT0():
@@ -100,7 +101,7 @@ def test_target_bin_edge_allowance():
     """A hill on a target bin's edge may read either bin in float32: the
     grid and the bias added from the other bin lie within the allowance,
     and a hill off the edges gets none."""
-    from edmbench import reference as R
+    from edmbench.kinds.pair_cells import reference as R
     from edmbench.tests.conftest import config
     b = config("pairbench")["bias"]
     bias = R.Bias(b, torch.float64, "cpu")
